@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Smoke run of multiverso_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--json-out PATH]
+
+Drives the port's main path through the entry points a user calls and
+holds every kernel of that path against its plain PyTorch version:
+
+0. card     — name and power limit as nvidia-smi gives them; TF32 off;
+1. build    — nvcc builds ``multiverso_tpu_torch/csrc/rows.cu`` (sm_90a);
+2. kernels  — each row kernel against its plain version on the card, at
+              the slice's shapes and the edge cases of
+              tests/test_torch_rows.py (bitwise outside the trash row; the
+              error word 0, and set by a deliberate out-of-range id);
+              device times from CUDA events (median of 30 launches queued
+              back to back behind a spin kernel, after warm-up, ids
+              rotating through more rows than the 50 MB L2 holds) beside
+              the byte bound, the plain version and one PyTorch library
+              call, plus the host-inclusive time of one call;
+3. PS       — the reference's test_matrix_perf shape: MV_Init on the card,
+              a 1,000,000 x 50 MatrixTable with the add updater and one
+              with momentum, 5 rounds of AddRows + GetRows of 10,000
+              random rows (1%) with integer-valued deltas, every GetRows
+              held to a host numpy oracle (add exact, momentum rtol 1e-6);
+4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
+              skip-gram NEG, -device_plane 1, 3 blocks of a Zipf corpus
+              made from --seed; loss finite and under 0.69*(1+K); and the
+              same app on a small topic corpus on the card against the CPU
+              (embeddings rtol 1e-3, atol 1e-4);
+5. summary  — a ``{"kernels": [...]}`` line, the card line, and last
+              ``{"ok": true, "device": {...}}``.
+
+Launch counters are zeroed just before phase 3 and read after phase 4:
+each kernel of the path must have launched there. Any failure raises and
+the script exits non-zero without the ``ok`` line. Without a CUDA device,
+or away from the repository, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+PS_ROWS, PS_COLS, PS_IDS, PS_ROUNDS = 1_000_000, 50, 10_000, 5
+WE_VOCAB, WE_DIM, WE_NEG, WE_WINDOW = 100_000, 128, 5, 5
+WE_BLOCK_BYTES, WE_BLOCKS, WE_SENT_LEN = 2_000_000, 3, 20
+TIMED_RUNS, WARMUP_RUNS, ID_SETS = 30, 5, 40
+SPIN_CYCLES = 100_000_000       # ~50 ms at H100 clocks: holds the stream
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+# -- phase 2: kernels against their plain versions --------------------------
+
+def median_ms(torch, fn, n_sets: int) -> float:
+    """Median DEVICE time of ``fn(i)`` over TIMED_RUNS runs after
+    WARMUP_RUNS, ``i`` rotating through ``n_sets`` input sets. A spin
+    kernel holds the stream while the host enqueues every run between its
+    own pair of CUDA events, so the runs execute back to back and each
+    pair times the device work alone, not the host's Python between
+    launches. Raises if the spin ended before the host finished enqueuing
+    (the pairs would then include idle time)."""
+    for i in range(WARMUP_RUNS):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TIMED_RUNS)]
+    held = torch.cuda.Event(enable_timing=True)
+    spin_start = torch.cuda.Event(enable_timing=True)
+    spin_start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    held.record()
+    t0 = time.perf_counter()
+    for i, (start, end) in enumerate(events):
+        start.record()
+        fn((i + WARMUP_RUNS) % n_sets)
+        end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if enqueue_ms >= spin_start.elapsed_time(held):
+        raise AssertionError(f"spin of {spin_start.elapsed_time(held):.2f} "
+                             f"ms ended before the {enqueue_ms:.2f} ms "
+                             f"enqueue: raise SPIN_CYCLES")
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def call_ms(torch, fn, n_sets: int) -> float:
+    """Median host-inclusive time of one call (event before the Python
+    call, event after it, stream idle in between): what a caller that
+    waits on each launch pays, wrapper overhead included."""
+    times = []
+    for i in range(TIMED_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(i % n_sets)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def edge_cases(torch, cr, dev) -> None:
+    """tests/test_torch_rows.py's cases on the card: kernel == plain
+    bitwise outside the trash row, for cols 128 (float4 lanes), 50
+    (scalar lanes) and 52 (the PS table's padded width)."""
+    rows, n = 200, 100
+    trash = rows - 1
+    rng = np.random.default_rng(7)
+    cases = {
+        "random": rng.permutation(trash)[:n],
+        "consecutive": np.concatenate([np.arange(17, 81), rng.permutation(
+            np.setdiff1d(np.arange(trash), np.arange(17, 81)))[:n - 64]]),
+        "pad_only": np.full(n, trash),
+        "trash_dups": rng.permutation(np.concatenate(
+            [rng.permutation(trash)[:n - 20], np.full(20, trash)])),
+    }
+    for cols in (128, 50, 52):
+        data = torch.from_numpy(rng.standard_normal((rows, cols)).astype(
+            np.float32)).to(dev)
+        src = torch.from_numpy(rng.standard_normal((n, cols)).astype(
+            np.float32)).to(dev)
+        for name, ids_np in cases.items():
+            ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+            live = torch.from_numpy(ids_np != trash).to(dev)
+            if not torch.equal(cr.gather_rows(data, ids),
+                               cr.gather_rows_plain(data, ids)):
+                raise AssertionError(f"gather {name} cols={cols}")
+            a, b = data.clone(), data.clone()
+            cr.scatter_set_rows(a, ids, src)
+            cr.scatter_set_rows_plain(b, ids, src)
+            if not torch.equal(a[:trash], b[:trash]):
+                raise AssertionError(f"scatter {name} cols={cols}")
+            for sign in (1, -1):
+                a, b = data.clone(), data.clone()
+                _, ra = cr.update_rows(a, ids, src, sign, want_rows=True)
+                _, rb = cr.update_rows_plain(b, ids, src, sign)
+                if not (torch.equal(a[:trash], b[:trash])
+                        and torch.equal(ra[live], rb[live])):
+                    raise AssertionError(f"update{sign:+d} {name} "
+                                         f"cols={cols}")
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set by in-range ids")
+    bad = torch.tensor([3, rows, -1], dtype=torch.int32, device=dev)
+    out = cr.gather_rows(data, bad)
+    cr.update_rows(data, bad, torch.ones((3, data.shape[1]), device=dev), 1)
+    if cr.read_error(dev) == 0:
+        raise AssertionError("out-of-range ids did not set the error word")
+    if out[1:].abs().sum().item() != 0:
+        raise AssertionError("an out-of-range gather lane was not zeroed")
+    cr.reset_error(dev)
+    log("[kernels] edge cases: kernel == plain (bitwise outside the trash "
+        "row) for random/consecutive/pad-only/trash-dup ids, n=100, cols "
+        "128/50/52; error word 0 on valid ids, set by out-of-range ids")
+
+
+def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
+                 seed: int) -> dict:
+    """Kernel vs plain vs library at one shape, ids cycling through
+    ID_SETS random unique sets (more rows than L2 holds)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn(rows + 1, cols, generator=g).to(dev)   # + trash row
+    ids = [torch.randperm(rows, generator=g)[:n].to(torch.int32).to(dev)
+           for _ in range(ID_SETS)]
+    ids64 = [i.long() for i in ids]
+    src = [torch.randn(n, cols, generator=g).to(dev) for _ in range(ID_SETS)]
+    res = {}
+
+    def entry(name, kernel, plain, library, err, nbytes):
+        res[name] = {
+            "ms": median_ms(torch, kernel, ID_SETS),
+            "call_ms": call_ms(torch, kernel, ID_SETS),
+            "plain_ms": median_ms(torch, plain, ID_SETS),
+            "library_ms": median_ms(torch, library, ID_SETS),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err, "shape": [rows + 1, cols, n]}
+
+    # gather
+    err = max(float((cr.gather_rows(data, ids[i])
+                     - cr.gather_rows_plain(data, ids[i])).abs().max())
+              for i in range(3))
+    entry("gather_rows", lambda i: cr.gather_rows(data, ids[i]),
+          lambda i: cr.gather_rows_plain(data, ids[i]),
+          lambda i: torch.index_select(data, 0, ids64[i]), err,
+          2 * n * cols * 4 + 4 * n)
+    # scatter-set
+    a, b = data.clone(), data.clone()
+    cr.scatter_set_rows(a, ids[0], src[0])
+    cr.scatter_set_rows_plain(b, ids[0], src[0])
+    err = float((a - b).abs().max())
+    entry("scatter_set_rows", lambda i: cr.scatter_set_rows(a, ids[i], src[i]),
+          lambda i: cr.scatter_set_rows_plain(b, ids[i], src[i]),
+          lambda i: b.index_copy_(0, ids64[i], src[i]), err,
+          2 * n * cols * 4 + 4 * n)
+    # fused update, add (+1), the engine's Add path
+    a, b = data.clone(), data.clone()
+    cr.update_rows(a, ids[0], src[0], 1)
+    cr.update_rows_plain(b, ids[0], src[0], 1)
+    err = float((a - b).abs().max())
+    entry("update_rows", lambda i: cr.update_rows(a, ids[i], src[i], 1),
+          lambda i: cr.update_rows_plain(b, ids[i], src[i], 1),
+          lambda i: b.index_add_(0, ids64[i], src[i]), err,
+          3 * n * cols * 4 + 4 * n)
+    # the other update variants, reported beside: sgd (-1) and Add+Get
+    a, b = data.clone(), data.clone()
+    res["update_rows_sgd_ms"] = median_ms(
+        torch, lambda i: cr.update_rows(a, ids[i], src[i], -1), ID_SETS)
+    res["update_rows_sgd_library_ms"] = median_ms(
+        torch, lambda i: b.index_add_(0, ids64[i], src[i], alpha=-1),
+        ID_SETS)
+    res["update_gather_rows_ms"] = median_ms(
+        torch, lambda i: cr.update_rows(a, ids[i], src[i], 1,
+                                        want_rows=True), ID_SETS)
+    res["update_gather_rows_bound_ms"] = (
+        (4 * n * cols * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3)
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set during timing")
+    return res
+
+
+# -- phase 3: the PS row protocol ------------------------------------------
+
+def ps_phase(torch, mv, cr, dev, seed: int) -> dict:
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    rng = np.random.default_rng(seed)
+    mv.MV_Init([])
+    try:
+        add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                  num_cols=PS_COLS))
+        mom = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
+        if add.server().state["data"].device != dev:
+            raise AssertionError("the PS tables are not on the card")
+        m = np.float32(0.5)
+        mopt = AddOption(momentum=float(m))
+        oracle_add = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        oracle_mom = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        smooth = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        add_ms, mom_ms = [], []
+        for r in range(PS_ROUNDS):
+            ids = rng.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+            deltas = rng.integers(-3, 4, (PS_IDS, PS_COLS)).astype(
+                np.float32)
+            t0 = time.perf_counter()
+            add.AddRows(ids, deltas)
+            got_add = add.GetRows(ids)
+            add_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mom.AddRows(ids, deltas, mopt)
+            got_mom = mom.GetRows(ids)
+            mom_ms.append((time.perf_counter() - t0) * 1e3)
+            oracle_add[ids] += deltas
+            smooth[ids] = m * smooth[ids] + (np.float32(1) - m) * deltas
+            oracle_mom[ids] -= smooth[ids]
+            np.testing.assert_array_equal(got_add, oracle_add[ids])
+            np.testing.assert_allclose(got_mom, oracle_mom[ids], rtol=1e-6,
+                                       atol=1e-6)
+        np.testing.assert_array_equal(add.Get(), oracle_add)
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the PS path")
+    finally:
+        mv.MV_ShutDown()
+    return {"add_round_ms": add_ms, "momentum_round_ms": mom_ms,
+            "add_round_median_ms": float(np.median(add_ms)),
+            "momentum_round_median_ms": float(np.median(mom_ms))}
+
+
+# -- phase 4: WordEmbedding ----------------------------------------------------
+
+def write_zipf_corpus(workdir: str, seed: int) -> tuple:
+    """A 100,000-word vocabulary with Zipf counts and a corpus of
+    Zipf-drawn tokens, exactly WE_BLOCKS blocks long."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, WE_VOCAB + 1, dtype=np.float64)
+    p = 1.0 / ranks
+    p /= p.sum()
+    n_words = WE_BLOCKS * WE_BLOCK_BYTES // 8      # the loader's 8 B/word
+    tokens = rng.choice(WE_VOCAB, n_words, p=p)
+    counts = np.bincount(tokens, minlength=WE_VOCAB) + 1
+    vocab = os.path.join(workdir, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.writelines(f"w{i} {c}\n" for i, c in enumerate(counts))
+    corpus = os.path.join(workdir, "corpus.txt")
+    with open(corpus, "w") as f:
+        for s in range(0, n_words, WE_SENT_LEN):
+            f.write(" ".join(f"w{t}" for t in tokens[s: s + WE_SENT_LEN])
+                    + "\n")
+    return vocab, corpus, n_words
+
+
+def we_options(workdir: str, seed: int, vocab: str, corpus: str):
+    """The WE phase's CLI options: bench.py's WordEmbedding width."""
+    from multiverso_tpu_torch.models.wordembedding.option import Option
+    return Option.parse_args([
+        "-train_file", corpus, "-read_vocab", vocab,
+        "-output", os.path.join(workdir, "vec.txt"),
+        "-size", str(WE_DIM), "-window", str(WE_WINDOW),
+        "-negative", str(WE_NEG), "-pair_batch", "4096", "-min_count", "1",
+        "-use_adagrad", "0", "-device_plane", "1", "-is_pipeline", "0",
+        "-data_block_size", str(WE_BLOCK_BYTES), "-epoch", "1",
+        "-seed", str(seed), "-platform", "cuda"])
+
+
+def we_phase(torch, mv, cr, seed: int, workdir: str) -> dict:
+    from multiverso_tpu_torch.models.wordembedding.distributed import \
+        DistributedWordEmbedding
+    vocab, corpus, n_words = write_zipf_corpus(workdir, seed)
+    opt = we_options(workdir, seed, vocab, corpus)
+    before = dict(cr.LAUNCHES)
+    we = DistributedWordEmbedding(opt)
+    try:
+        we.prepare()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = we.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        emb = we.comm.input_table.server().raw()
+    finally:
+        we.close()          # MV_ShutDown of the world prepare() started
+    launches = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
+    blocks = [{"words": w, "pairs": p, "loss_per_pair": lo / max(p, 1)}
+              for w, p, lo in we.block_log]
+    limit = 0.69 * (1 + WE_NEG)
+    if len(blocks) != WE_BLOCKS:
+        raise AssertionError(f"expected {WE_BLOCKS} blocks, got {blocks}")
+    for b in blocks:
+        if not (math.isfinite(b["loss_per_pair"])
+                and b["loss_per_pair"] < limit):
+            raise AssertionError(f"block loss out of bounds: {b}")
+    if not (math.isfinite(loss) and loss < limit):
+        raise AssertionError(f"average loss {loss} not below {limit}")
+    if emb.shape != (WE_VOCAB, WE_DIM) or not np.isfinite(emb).all():
+        raise AssertionError("input embeddings not finite / misshapen")
+    for k in ("gather_rows", "update_rows"):
+        if launches[k] == 0:
+            raise AssertionError(f"WE phase never launched {k}")
+    return {"words": n_words, "train_s": secs,
+            "words_per_s": n_words / secs, "avg_loss_per_pair": loss,
+            "loader_wait_s": we.loader_wait_s,
+            "blocks": blocks, "launches": launches}
+
+
+def we_small_reference(torch, workdir: str) -> float:
+    """The topic corpus of tests/test_wordembedding.py through the port's
+    device plane on the card and on the CPU: the saved embeddings must
+    agree (the CPU run uses the kernels' plain versions)."""
+    from multiverso_tpu_torch.models.wordembedding.distributed import \
+        DistributedWordEmbedding
+    from multiverso_tpu_torch.models.wordembedding.option import Option
+    rng = np.random.default_rng(0)
+    corpus = os.path.join(workdir, "topics.txt")
+    with open(corpus, "w") as f:
+        for _ in range(300):
+            topic = rng.integers(4)
+            f.write(" ".join(f"w{topic * 5 + rng.integers(5)}"
+                             for _ in range(12)) + "\n")
+    vecs = {}
+    for platform in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"topics_{platform}.txt")
+        opt = Option(train_file=corpus, output_file=out, embedding_size=16,
+                     window_size=2, negative_num=3, min_count=1, epoch=2,
+                     data_block_size=4000, pair_batch_size=256,
+                     init_learning_rate=0.05, device_plane=True,
+                     is_pipeline=False, platform=platform)
+        we = DistributedWordEmbedding(opt)
+        try:
+            we.run()
+        finally:
+            we.close()
+        lines = open(out).read().splitlines()[1:]
+        vecs[platform] = np.array([[float(x) for x in l.split()[1:]]
+                                   for l in lines])
+    np.testing.assert_allclose(vecs["cuda"], vecs["cpu"], rtol=1e-3,
+                               atol=1e-4)
+    return float(np.abs(vecs["cuda"] - vecs["cpu"]).max())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json-out", default="",
+                    help="also write every measurement to this JSON file")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+
+    # phase 0: the card
+    card = card_line()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; TF32 off for matmul and cuDNN")
+    dev = torch.device("cuda", 0)
+    results = {"card": card, "seed": args.seed}
+
+    # phase 1: build
+    t0 = time.perf_counter()
+    lib = cr.build()
+    results["build_s"] = time.perf_counter() - t0
+    log(f"[build] {lib} in {results['build_s']:.2f} s")
+    if cr.last_build_log:
+        log(cr.last_build_log.strip())
+
+    # phase 2: kernels against their plain versions
+    edge_cases(torch, cr, dev)
+    ps_k = time_kernels(torch, cr, dev, PS_ROWS, PS_COLS + 2, PS_IDS,
+                        args.seed)
+    we_k = time_kernels(torch, cr, dev, WE_VOCAB, WE_DIM, 40_000,
+                        args.seed + 1)
+    results["kernels_ps_shape"] = ps_k
+    results["kernels_we_shape"] = we_k
+    for label, res in (("PS 1000001x52, 10000 ids", ps_k),
+                       ("WE 100001x128, 40000 ids", we_k)):
+        for k in ("gather_rows", "scatter_set_rows", "update_rows"):
+            r = res[k]
+            log(f"[kernels] {label} {k}: {r['ms']:.4f} ms (bound "
+                f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+                f"{r['library_ms']:.4f}; one call with its host overhead "
+                f"{r['call_ms']:.4f}), max_abs_err {r['max_abs_err']}")
+        log(f"[kernels] {label} update sgd {res['update_rows_sgd_ms']:.4f} "
+            f"ms (library {res['update_rows_sgd_library_ms']:.4f}); Add+Get "
+            f"{res['update_gather_rows_ms']:.4f} ms (bound "
+            f"{res['update_gather_rows_bound_ms']:.4f})")
+
+    # phases 3 + 4: the main path, counted from zero
+    cr.reset_launches()
+    ps = ps_phase(torch, mv, cr, dev, args.seed)
+    ps_launches = dict(cr.LAUNCHES)
+    for k in cr.LAUNCHES:
+        if ps_launches[k] == 0:
+            raise AssertionError(f"PS phase never launched {k}")
+    results["ps"] = dict(ps, launches=ps_launches)
+    log(f"[ps] 1,000,000 x 50, {PS_ROUNDS} rounds of {PS_IDS} ids: add "
+        f"round median {ps['add_round_median_ms']:.3f} ms "
+        f"{[round(x, 3) for x in ps['add_round_ms']]}, momentum round "
+        f"median {ps['momentum_round_median_ms']:.3f} ms; GetRows == "
+        f"oracle (add exact, momentum rtol 1e-6), whole Get == oracle; "
+        f"launches {ps_launches}")
+    with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
+        we = we_phase(torch, mv, cr, args.seed, workdir)
+        launches = dict(cr.LAUNCHES)
+        results["we"] = we
+        log(f"[we] {WE_VOCAB} x {WE_DIM}, {we['words']} words in "
+            f"{we['train_s']:.3f} s = {we['words_per_s']:.0f} words/s "
+            f"({we['loader_wait_s']:.3f} s of it waiting on the block "
+            f"loader); "
+            f"loss per pair by block "
+            f"{[round(b['loss_per_pair'], 4) for b in we['blocks']]}; "
+            f"launches {we['launches']}")
+        results["we_small_max_abs_diff"] = we_small_reference(torch, workdir)
+        log(f"[we] topic corpus, card vs CPU embeddings: max abs diff "
+            f"{results['we_small_max_abs_diff']:.3g} (rtol 1e-3, atol 1e-4)")
+    results["main_path_launches"] = launches
+
+    # phase 5: summary
+    sources = {"gather_rows": "_make_gather_kernel / pallas_gather_rows",
+               "scatter_set_rows": "pallas_scatter_set_rows",
+               "update_rows": "pallas_update_rows"}
+    replaces = {"gather_rows": "multiverso_tpu/ops/pallas_rows.py:170",
+                "scatter_set_rows": "multiverso_tpu/ops/pallas_rows.py:244",
+                "update_rows": "multiverso_tpu/ops/pallas_rows.py:362"}
+    kernels = []
+    for k in ("gather_rows", "scatter_set_rows", "update_rows"):
+        r = ps_k[k]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/rows.cu",
+            "replaces": replaces[k], "pallas": sources[k],
+            "launches": launches[k], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    results["kernels"] = kernels
+    if args.json_out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
+                    exist_ok=True)
+        with open(args.json_out, "w") as f:
+            json.dump(results, f, indent=1)
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

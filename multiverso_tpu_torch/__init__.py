@@ -1,0 +1,36 @@
+"""multiverso_tpu_torch — the parameter server on PyTorch and CUDA.
+
+The port of ``multiverso_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
+H100. It mirrors the JAX package's layout and names, so each module's
+counterpart is found at the same path, and it imports nothing of JAX or
+of ``multiverso_tpu``: what it needs from the JAX package's jax-free
+modules it keeps as its own copy.
+
+This slice runs the MatrixTable row protocol (``MV_Init`` ->
+``MV_CreateTable(MatrixTableOption)`` -> worker ``GetRows``/``AddRows`` ->
+the async engine actor -> the table's row programs -> the updater) and
+WordEmbedding's device-plane training on one GPU. Its three row kernels
+(gather, scatter-set, fused update) are hand-written CUDA for ``sm_90a``
+(``csrc/rows.cu``), built with nvcc at first use.
+"""
+
+from multiverso_tpu_torch.api import (  # noqa: F401
+    MV_Barrier,
+    MV_CreateTable,
+    MV_Init,
+    MV_MultiAdd,
+    MV_MultiAddAsync,
+    MV_MultiGet,
+    MV_MultiGetAsync,
+    MV_NumServers,
+    MV_NumWorkers,
+    MV_Rank,
+    MV_ServerId,
+    MV_SetFlag,
+    MV_ShutDown,
+    MV_Size,
+    MV_WorkerContext,
+    MV_WorkerId,
+)
+
+__version__ = "0.1.0"

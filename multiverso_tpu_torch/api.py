@@ -1,0 +1,99 @@
+"""Public ``MV_*`` API of the port.
+
+Counterpart of ``multiverso_tpu/api.py`` (reference multiverso.h:9-64):
+init/shutdown/barrier, rank and size, worker/server ids, table creation,
+programmatic flags, batched verbs and worker contexts. The rest of the JAX
+surface (aggregate, net bind, checkpoints, serving, profiler, telemetry,
+elastic, policy) is later work (``ROADMAP.md``).
+
+Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
+asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
+with neither and no CUDA device it raises.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from multiverso_tpu_torch.utils.configure import (ResetFlagsToDefaults,
+                                                  SetCMDFlag)
+from multiverso_tpu_torch.zoo import Zoo
+
+
+def MV_Init(argv: Optional[List[str]] = None, devices=None) -> List[str]:
+    """Bring up the runtime; returns the argv entries no flag claimed."""
+    return Zoo.Get().Start(argv, devices=devices)
+
+
+def MV_ShutDown() -> None:
+    """Drain and stop the world; flags return to their defaults so one
+    process can run successive worlds. Idempotent."""
+    Zoo._reset()
+    ResetFlagsToDefaults()
+
+
+def MV_Barrier() -> None:
+    Zoo.Get().Barrier()
+
+
+def MV_Rank() -> int:
+    return Zoo.Get().rank
+
+
+def MV_Size() -> int:
+    return Zoo.Get().size
+
+
+def MV_NumWorkers() -> int:
+    return Zoo.Get().num_workers
+
+
+def MV_NumServers() -> int:
+    return Zoo.Get().num_servers
+
+
+def MV_WorkerId() -> int:
+    return Zoo.Get().current_worker_id()
+
+
+def MV_ServerId() -> int:
+    return 0 if Zoo.Get().node.is_server() else -1
+
+
+def MV_CreateTable(option):
+    """Create a table (reference multiverso.h:34-41)."""
+    from multiverso_tpu_torch.tables.base import CreateTable
+    return CreateTable(option)
+
+
+def MV_SetFlag(name: str, value) -> None:
+    SetCMDFlag(name, value)
+
+
+def MV_MultiAddAsync(ops, option=None, track: bool = True):
+    """Batched cross-table Add: ``ops`` is a list of ``(table, payload)``
+    pairs; the batch rides ONE engine mailbox message. Returns a
+    ``MultiCall``."""
+    from multiverso_tpu_torch.tables.base import submit_multi
+    return submit_multi([(t, "A", p) for t, p in ops], option=option,
+                        track=track)
+
+
+def MV_MultiAdd(ops, option=None, track: bool = True) -> None:
+    MV_MultiAddAsync(ops, option=option, track=track).Wait()
+
+
+def MV_MultiGetAsync(ops, option=None):
+    """Batched cross-table Get; ``Wait()`` yields the results in
+    submission order."""
+    from multiverso_tpu_torch.tables.base import submit_multi
+    return submit_multi([(t, "G", p) for t, p in ops], option=option)
+
+
+def MV_MultiGet(ops, option=None) -> list:
+    return MV_MultiGetAsync(ops, option=option).Wait()
+
+
+def MV_WorkerContext(worker_id: int):
+    """Bind the calling thread to a worker id for the ``with`` block."""
+    return Zoo.Get().worker_context(worker_id)

@@ -1,0 +1,95 @@
+"""Vocabulary dictionary (the port's copy of
+``multiverso_tpu/models/wordembedding/dictionary.py``).
+
+Behavioral equivalent of reference
+Applications/WordEmbedding/src/dictionary.h/.cpp: word <-> id mapping with
+counts, min_count pruning, optional stop-word filtering, and vocab-file
+load/save in word2vec ``word count`` format (the format produced by the
+reference preprocess/word_count.cpp utility).
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Dict, Iterable, List, Optional, Set, Tuple
+
+
+class WordInfo:
+    __slots__ = ("word", "freq")
+
+    def __init__(self, word: str, freq: int = 0):
+        self.word = word
+        self.freq = freq
+
+
+class Dictionary:
+    def __init__(self, stopwords: Optional[Set[str]] = None):
+        self._word_idx: Dict[str, int] = {}
+        self._infos: List[WordInfo] = []
+        self._stopwords = stopwords or set()
+
+    # -- construction -------------------------------------------------------
+
+    def Insert(self, word: str, count: int = 1) -> None:
+        if word in self._stopwords:
+            return
+        idx = self._word_idx.get(word)
+        if idx is None:
+            self._word_idx[word] = len(self._infos)
+            self._infos.append(WordInfo(word, count))
+        else:
+            self._infos[idx].freq += count
+
+    def build_from_corpus(self, path: str) -> None:
+        counter = collections.Counter()
+        with open(path, encoding="utf-8", errors="replace") as f:
+            for line in f:
+                counter.update(line.split())
+        for word, count in counter.most_common():
+            self.Insert(word, count)
+
+    def RemoveWordsLessThan(self, min_count: int) -> None:
+        """min_count pruning (reference dictionary.cpp); ids are recompacted
+        in descending-frequency order like word2vec."""
+        kept = [w for w in self._infos if w.freq >= min_count]
+        kept.sort(key=lambda w: -w.freq)
+        self._infos = kept
+        self._word_idx = {w.word: i for i, w in enumerate(kept)}
+
+    # -- persistence (word2vec "word count" lines) --------------------------
+
+    def save_vocab(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            for info in self._infos:
+                f.write(f"{info.word} {info.freq}\n")
+
+    @classmethod
+    def load_vocab(cls, path: str,
+                   stopwords: Optional[Set[str]] = None) -> "Dictionary":
+        d = cls(stopwords)
+        with open(path, encoding="utf-8", errors="replace") as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 2:
+                    d.Insert(parts[0], int(parts[1]))
+        return d
+
+    # -- queries ------------------------------------------------------------
+
+    def GetWordIdx(self, word: str) -> int:
+        return self._word_idx.get(word, -1)
+
+    def GetWordInfo(self, idx: int) -> WordInfo:
+        return self._infos[idx]
+
+    def Size(self) -> int:
+        return len(self._infos)
+
+    def WordCount(self) -> int:
+        return sum(w.freq for w in self._infos)
+
+    def counts(self) -> List[int]:
+        return [w.freq for w in self._infos]
+
+    def words(self) -> List[str]:
+        return [w.word for w in self._infos]

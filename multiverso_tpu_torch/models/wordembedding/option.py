@@ -1,0 +1,103 @@
+"""WordEmbedding CLI options (the port's copy of
+``multiverso_tpu/models/wordembedding/option.py``).
+
+Same knobs and defaults as the reference Option struct
+(reference Applications/WordEmbedding/src/util.h:20-44, util.cpp ParseArgs;
+word2vec-style ``-name value`` argument pairs, cf. example/run.bat):
+``-size`` embedding dim, ``-train_file``, ``-read_vocab``, ``-output``,
+``-binary``, ``-cbow`` 0/1, ``-hs`` 0/1, ``-negative`` count, ``-sample``
+subsample threshold, ``-window``, ``-min_count``, ``-epoch``, ``-lr``
+initial rate, ``-use_adagrad`` 0/1, ``-is_pipeline`` 0/1,
+``-data_block_size`` bytes of text per block, ``-threads``,
+``-stopwords`` + ``-sw_file``, ``-total_words``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+
+@dataclass
+class Option:
+    train_file: str = ""
+    read_vocab_file: str = ""
+    output_file: str = "vectors.txt"
+    sw_file: str = ""
+    hs: bool = False
+    output_binary: bool = False
+    cbow: bool = False            # default skip-gram (reference Option())
+    stopwords: bool = False
+    use_adagrad: bool = False
+    is_pipeline: bool = True
+    sample: float = 0.0           # subsample threshold (0 = off)
+    data_block_size: int = 1 << 20  # bytes of raw text per DataBlock
+    embedding_size: int = 100
+    thread_cnt: int = 1
+    window_size: int = 5
+    negative_num: int = 5
+    min_count: int = 5
+    epoch: int = 1
+    total_words: int = 0
+    init_learning_rate: float = 0.025
+    pair_batch_size: int = 1024   # minibatch of training pairs
+    seed: int = 1
+    # fetch/train/push a block's rows entirely on the device (communicator
+    # device plane): no host round-trip of the row data per block
+    device_plane: bool = False
+    # generate the training pairs on the device too: not ported yet (the
+    # JAX package draws them with jax.random); the driver raises for it
+    device_pairs: bool = False
+    # the torch device the world runs on: "cuda" (default) or "cpu"; the
+    # driver's MV_Init passes it as -mv_device (the device rule: cuda
+    # without a card raises, it never falls back to the CPU)
+    platform: str = "cuda"
+
+    _FLAGS = {
+        "size": ("embedding_size", int),
+        "train_file": ("train_file", str),
+        "read_vocab": ("read_vocab_file", str),
+        "output": ("output_file", str),
+        "binary": ("output_binary", lambda v: bool(int(v))),
+        "cbow": ("cbow", lambda v: bool(int(v))),
+        "hs": ("hs", lambda v: bool(int(v))),
+        "negative": ("negative_num", int),
+        "sample": ("sample", float),
+        "window": ("window_size", int),
+        "min_count": ("min_count", int),
+        "epoch": ("epoch", int),
+        "lr": ("init_learning_rate", float),
+        "alpha": ("init_learning_rate", float),
+        "use_adagrad": ("use_adagrad", lambda v: bool(int(v))),
+        "is_pipeline": ("is_pipeline", lambda v: bool(int(v))),
+        "data_block_size": ("data_block_size", int),
+        "threads": ("thread_cnt", int),
+        "stopwords": ("stopwords", lambda v: bool(int(v))),
+        "sw_file": ("sw_file", str),
+        "total_words": ("total_words", int),
+        "pair_batch": ("pair_batch_size", int),
+        "seed": ("seed", int),
+        "device_plane": ("device_plane", lambda v: bool(int(v))),
+        "device_pairs": ("device_pairs", lambda v: bool(int(v))),
+        "platform": ("platform", str),
+    }
+
+    @classmethod
+    def parse_args(cls, argv: List[str]) -> "Option":
+        opt = cls()
+        i = 0
+        while i < len(argv):
+            arg = argv[i]
+            if arg.startswith("-") and i + 1 < len(argv):
+                key = arg.lstrip("-")
+                if key in cls._FLAGS:
+                    attr, cast = cls._FLAGS[key]
+                    setattr(opt, attr, cast(argv[i + 1]))
+                    i += 2
+                    continue
+            i += 1
+        return opt
+
+    def print_args(self) -> None:
+        from multiverso_tpu_torch.utils.log import Log
+        Log.Info("[wordembedding] %s", self)

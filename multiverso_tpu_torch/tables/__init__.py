@@ -1,0 +1,18 @@
+"""Table layer (reference L5): typed parameter stores."""
+
+from multiverso_tpu_torch.tables.base import (  # noqa: F401
+    CreateTable,
+    ServerTable,
+    TableOption,
+    WorkerTable,
+)
+from multiverso_tpu_torch.tables.kv_table import (  # noqa: F401
+    KVServerTable,
+    KVTableOption,
+    KVWorkerTable,
+)
+from multiverso_tpu_torch.tables.matrix_table import (  # noqa: F401
+    MatrixServerTable,
+    MatrixTableOption,
+    MatrixWorkerTable,
+)

@@ -1,0 +1,468 @@
+"""MatrixTable — 2-D dense matrix, row Get/Add on one device.
+
+Counterpart of ``multiverso_tpu/tables/matrix_table.py`` (reference
+matrix_table.h/.cpp): whole-table or row-set ``Get``/``Add``, the updater
+applied per touched row, optional row initialization, ``Store``/``Load``.
+
+Storage layout, as in the JAX package: each server shard holds
+``block_rows`` logical rows plus one TRASH row at its tail (this slice has
+one shard, so the trash row is row ``num_rows``). Pad lanes (id -1) and,
+later, foreign lanes map to the trash row before any kernel sees them
+(``_local_lanes``); its content is don't-care and never read back.
+
+Column padding is the port's own: storage columns round up to a multiple
+of 4 floats (``COL_ALIGN``), so every row starts on a 16-byte boundary and
+the row kernels move whole ``float4``s (a 1,000,000 x 50 table stores 52
+columns: 4% more bytes than logical). The JAX package pads to the TPU's
+128-lane tile instead. Pad columns hold zeros forever: every updater is
+identity on a zero delta.
+
+Row verbs send exact-size batches: PyTorch runs eagerly, so the JAX
+package's power-of-two batch buckets (which bound XLA's compiled shapes)
+would only move pad lanes.
+
+The row path (``_update_rows``): the add and sgd updaters (``fusable``,
+aux-free) run the whole server-side Add as ONE fused read-modify-write
+kernel; every other updater gathers the rows and their aux rows, applies
+``updater.update``, and scatters rows and row-shaped aux back with the
+scatter kernel. Duplicate ids inside one Add are pre-combined on the host
+(``_combine_duplicate_rows``): scatter order on duplicates is undefined,
+on the card as on the TPU.
+
+The store is updated IN PLACE (the JAX package donates its buffers
+instead). So every Get returns a fresh buffer — a gather output or, for
+the whole table, a copy — and never a view of live storage, and the device
+plane (``device_fetch_rows``/``device_apply_rows``) bypasses the engine:
+the caller owns the table while using it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multiverso_tpu_torch import ops
+from multiverso_tpu_torch.parallel.mesh import ceil_block_rows
+from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
+                                              WorkerTable)
+from multiverso_tpu_torch.updaters.base import (AddOption, CreateUpdater,
+                                                GetOption, Updater)
+from multiverso_tpu_torch.utils.log import CHECK
+
+#: storage columns round up to this many floats (16-byte rows)
+COL_ALIGN = 4
+
+
+def padded_cols(num_cols: int) -> int:
+    """Storage column count for ``num_cols`` logical float32 columns."""
+    return -(-num_cols // COL_ALIGN) * COL_ALIGN
+
+
+def _combine_duplicate_rows(ids: np.ndarray, deltas: np.ndarray,
+                            num_cols: int, dtype):
+    """Host pre-combine of duplicate row ids by SUM (the JAX package's
+    function, same summation order: singletons assign, duplicates
+    ``np.add.at`` in submission order)."""
+    ids = np.asarray(ids, np.int32).ravel()
+    deltas = np.asarray(deltas, dtype).reshape(len(ids), num_cols)
+    uniq, inverse = np.unique(ids, return_inverse=True)
+    if len(uniq) == len(ids):
+        return ids, deltas
+    combined = np.zeros((len(uniq), num_cols), dtype)
+    counts = np.bincount(inverse, minlength=len(uniq))
+    dup_pos = counts[inverse] > 1
+    combined[inverse[~dup_pos]] = deltas[~dup_pos]
+    np.add.at(combined, inverse[dup_pos], deltas[dup_pos])
+    return uniq.astype(np.int32), combined
+
+
+@dataclass
+class MatrixTableOption(TableOption):
+    num_rows: int = 0
+    num_cols: int = 0
+    updater_type: Optional[str] = None
+    initializer: Optional[Callable[[Tuple[int, int]], np.ndarray]] = None
+
+    def make_server(self, zoo):
+        return MatrixServerTable(self.num_rows, self.num_cols, self.dtype, zoo,
+                                 self.updater_type, self.initializer)
+
+    def make_worker(self, zoo):
+        return MatrixWorkerTable(self.num_rows, self.num_cols, self.dtype)
+
+
+class MatrixServerTable(ServerTable):
+    def __init__(self, num_rows: int, num_cols: int, dtype, zoo,
+                 updater_type: Optional[str] = None,
+                 initializer: Optional[Callable] = None):
+        CHECK(num_rows > 0 and num_cols > 0, "matrix dims must be positive")
+        self.dtype = np.dtype(dtype)
+        CHECK(self.dtype == np.float32,
+              f"matrix tables hold float32 in this port (the row kernels' "
+              f"type); got {self.dtype}")
+        self.num_rows = num_rows
+        self.num_cols = num_cols
+        self._zoo = zoo
+        self._ctx = zoo.device_ctx
+        self.device = self._ctx.device
+        self.num_servers = self._ctx.num_servers
+        self.block_rows = ceil_block_rows(num_rows, self.num_servers)
+        self.shard_rows = self.block_rows + 1
+        self.padded_rows = self.num_servers * self.shard_rows
+        self.store_cols = padded_cols(num_cols)
+        self.updater = CreateUpdater(updater_type)
+        shape = (self.padded_rows, self.store_cols)
+        if initializer is not None:
+            init = np.asarray(initializer((num_rows, num_cols)), self.dtype)
+            data = self._ctx.place(self._to_storage(init))
+        else:
+            data = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        aux = self.updater.init_aux(shape, torch.float32, zoo.num_workers,
+                                    device=self.device)
+        self.state = {"data": data, "aux": aux}
+        # fused path: the aux-free elementwise updaters (add, sgd) run the
+        # server-side Add as ONE read-modify-write kernel with their sign
+        self._fuse = self.updater.fusable and not aux
+        if self._fuse:
+            CHECK(self.updater.combine_scale in (1.0, -1.0),
+                  "a fusable updater's combine_scale must be +1 or -1")
+            self._sign = int(self.updater.combine_scale)
+        # merged engine Adds are sound for exactly the LINEAR aux-free
+        # updaters: a window's batches apply as one duplicate-summed Add
+        self._merge_adds = (self._fuse
+                            and self.updater.combine_scale is not None)
+        self._has_access = type(self.updater).access is not Updater.access
+
+    # -- storage layout (shard blocks + trash rows, padded cols) -------------
+
+    def _to_storage(self, full: np.ndarray) -> np.ndarray:
+        """(num_rows, num_cols) logical -> (padded_rows, store_cols)."""
+        out = np.zeros((self.num_servers, self.shard_rows, self.store_cols),
+                       full.dtype)
+        padded = np.zeros((self.num_servers * self.block_rows, self.num_cols),
+                          full.dtype)
+        padded[: self.num_rows] = full
+        out[:, : self.block_rows, : self.num_cols] = padded.reshape(
+            self.num_servers, self.block_rows, self.num_cols)
+        return out.reshape(self.padded_rows, self.store_cols)
+
+    def _from_storage(self, storage: np.ndarray) -> np.ndarray:
+        """(padded_rows, store_cols) storage -> (num_rows, num_cols)."""
+        blocks = storage.reshape(self.num_servers, self.shard_rows,
+                                 self.store_cols)[:, : self.block_rows,
+                                                  : self.num_cols]
+        return blocks.reshape(-1, self.num_cols)[: self.num_rows]
+
+    def aux_to_logical(self, leaf: torch.Tensor) -> np.ndarray:
+        """(padded_rows, cols) or (workers, padded_rows, cols) storage ->
+        logical row layout."""
+        host = self._ctx.fetch(leaf)
+        if host.ndim == 2:
+            return self._from_storage(host)
+        return np.stack([self._from_storage(h) for h in host])
+
+    def aux_from_logical(self, arr: np.ndarray) -> np.ndarray:
+        if arr.ndim == 2:
+            return self._to_storage(arr)
+        return np.stack([self._to_storage(a) for a in arr])
+
+    # -- lanes, ids and deltas -------------------------------------------------
+
+    def _local_lanes(self, ids: np.ndarray):
+        """Map global row ids to this shard's rows: lanes owned elsewhere
+        and -1 pad lanes go to the trash row. Returns (mine, safe int32)."""
+        ids = np.asarray(ids, np.int64)
+        shard_of = np.where(ids >= 0, ids // self.block_rows, -1)
+        mine = shard_of == 0
+        safe = np.where(mine, ids, self.block_rows)
+        return mine, safe.astype(np.int32)
+
+    def _lanes_tensor(self, ids: np.ndarray):
+        mine, safe = self._local_lanes(ids)
+        return mine, torch.from_numpy(safe).to(self.device)
+
+    def _device_deltas(self, deltas, n: int) -> torch.Tensor:
+        """(n, num_cols) host or device deltas -> contiguous float32
+        (n, store_cols) on the table's device, pad columns zero."""
+        d = torch.as_tensor(deltas, dtype=torch.float32).reshape(
+            n, self.num_cols).to(self.device)
+        if self.store_cols != self.num_cols:
+            d = torch.nn.functional.pad(d, (0, self.store_cols - self.num_cols))
+        return d.contiguous()
+
+    def _check_ids(self, ids: np.ndarray) -> None:
+        CHECK(ids.size > 0, "empty row id set")
+        CHECK(int(ids.min()) >= 0 and int(ids.max()) < self.num_rows,
+              "row id out of range")
+
+    # -- row programs ----------------------------------------------------------
+
+    def _gather_aux(self, ids_t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, leaf in self.state["aux"].items():
+            if leaf.dim() == 2:          # shared state, shaped like data
+                out[name] = ops.gather_rows(leaf, ids_t)
+            else:                        # per-worker state
+                out[name] = leaf.index_select(1, ids_t.long())
+        return out
+
+    def _scatter_aux(self, new_aux: Dict[str, torch.Tensor],
+                     ids_t: torch.Tensor) -> None:
+        for name, leaf in self.state["aux"].items():
+            new = new_aux[name].contiguous()
+            if leaf.dim() == 2:
+                # row-shaped aux (momentum smooth) rides the scatter kernel
+                ops.scatter_set_rows(leaf, ids_t, new)
+            else:
+                leaf.index_copy_(1, ids_t.long(), new)
+
+    def _update_rows(self, ids: np.ndarray, deltas, opt) -> None:
+        """Apply ``deltas`` to rows ``ids`` (pad lanes -1 allowed; live
+        ids unique) through the updater, in place."""
+        _, ids_t = self._lanes_tensor(ids)
+        d = self._device_deltas(deltas, len(ids))
+        data = self.state["data"]
+        if self._fuse:
+            ops.update_rows(data, ids_t, d, self._sign)
+            return
+        rows = ops.gather_rows(data, ids_t)
+        new_rows, new_aux = self.updater.update(rows, self._gather_aux(ids_t),
+                                                d, opt)
+        # trash lanes computed garbage from the trash row; it goes straight
+        # back to the trash row, never to live data
+        ops.scatter_set_rows(data, ids_t, new_rows.contiguous())
+        self._scatter_aux(new_aux, ids_t)
+
+    def _update_gather_rows(self, ids: np.ndarray, deltas, opt) -> torch.Tensor:
+        """The Add+Get round: update rows ``ids`` and return their
+        post-update logical rows (non-mine lanes zero), reading each row
+        once."""
+        mine, ids_t = self._lanes_tensor(ids)
+        d = self._device_deltas(deltas, len(ids))
+        data = self.state["data"]
+        if self._fuse:
+            _, rows = ops.update_gather_rows(data, ids_t, d, self._sign)
+        else:
+            rows_in = ops.gather_rows(data, ids_t)
+            rows, new_aux = self.updater.update(
+                rows_in, self._gather_aux(ids_t), d, opt)
+            rows = rows.contiguous()
+            ops.scatter_set_rows(data, ids_t, rows)
+            self._scatter_aux(new_aux, ids_t)
+        return self._finish_rows(rows, mine, ids_t)
+
+    def _gather_rows(self, ids: np.ndarray) -> torch.Tensor:
+        """Logical rows for ``ids`` as a fresh device tensor (pad and
+        foreign lanes read 0)."""
+        mine, ids_t = self._lanes_tensor(ids)
+        return self._finish_rows(ops.gather_rows(self.state["data"], ids_t),
+                                 mine, ids_t)
+
+    def _finish_rows(self, rows: torch.Tensor, mine: np.ndarray,
+                     ids_t: torch.Tensor) -> torch.Tensor:
+        if self._has_access:
+            rows = self.updater.access(rows, self._gather_aux(ids_t), None)
+        if self.store_cols != self.num_cols:
+            rows = rows[:, : self.num_cols].contiguous()
+        if not mine.all():
+            rows = rows * torch.from_numpy(mine).to(self.device)[:, None]
+        return rows
+
+    # -- server verbs ------------------------------------------------------------
+
+    def ProcessAddRun(self, payloads) -> bool:
+        """Engine add-coalescing: a window's row-set Adds apply as ONE
+        dispatch — concatenate the batches, find the unique ids and the
+        inverse map on the host, sum each id's deltas on the device
+        (``index_add_``, the JAX package's ``segment_sum``) and run one
+        fused update over the unique rows. Sound exactly for LINEAR
+        updaters (combine_scale set, AddOption scalars ignored). Declines
+        whole-table Adds and anything failing validation, so the per-
+        message path reports precise errors."""
+        if not self._merge_adds:
+            return False
+        ids_list, deltas_list = [], []
+        for p in payloads:
+            row_ids = p.get("row_ids")
+            if row_ids is None:
+                return False
+            ids = np.asarray(row_ids, np.int32).ravel()
+            if (ids.size == 0 or int(ids.min()) < 0
+                    or int(ids.max()) >= self.num_rows):
+                return False
+            values = np.asarray(p.get("values"), self.dtype)
+            if values.size != ids.size * self.num_cols:
+                return False
+            ids_list.append(ids)
+            deltas_list.append(values.reshape(len(ids), self.num_cols))
+        uniq, inv = np.unique(np.concatenate(ids_list), return_inverse=True)
+        flat = self._device_deltas(np.concatenate(deltas_list), len(inv))
+        combined = torch.zeros((len(uniq), self.store_cols),
+                               dtype=torch.float32, device=self.device)
+        combined.index_add_(0, torch.from_numpy(inv.astype(np.int64)).to(
+            self.device), flat)
+        _, ids_t = self._lanes_tensor(uniq.astype(np.int32))
+        ops.update_rows(self.state["data"], ids_t, combined, self._sign)
+        return True
+
+    def ProcessAdd(self, values: Optional[np.ndarray] = None,
+                   option: Optional[AddOption] = None,
+                   row_ids: Optional[np.ndarray] = None) -> None:
+        opt = (option or AddOption()).as_tensors()
+        if row_ids is None:
+            values = np.asarray(values, self.dtype).reshape(self.num_rows,
+                                                            self.num_cols)
+            delta = self._ctx.place(self._to_storage(values))
+            new_data, new_aux = self.updater.update(
+                self.state["data"], self.state["aux"], delta, opt)
+            self.state = {"data": new_data.contiguous(), "aux": new_aux}
+            return
+        ids = np.asarray(row_ids, np.int32).ravel()
+        deltas = np.asarray(values, self.dtype).reshape(len(ids),
+                                                        self.num_cols)
+        self._check_ids(ids)
+        ids, deltas = _combine_duplicate_rows(ids, deltas, self.num_cols,
+                                              self.dtype)
+        self._update_rows(ids, deltas, opt)
+
+    def ProcessGet(self, option: Optional[GetOption] = None,
+                   row_ids: Optional[np.ndarray] = None):
+        return self.ProcessGetAsync(option, row_ids)()
+
+    def ProcessGetAsync(self, option: Optional[GetOption] = None,
+                        row_ids=None):
+        """Dispatch the gather now, fetch in finalize: a window's Gets
+        queue their device work back to back and the engine pays the
+        device->host waits after. The whole-table read snapshots the
+        storage first, because a later Add of the same window updates
+        it in place."""
+        if row_ids is None:
+            data = self.updater.access(self.state["data"], self.state["aux"],
+                                       None).clone()
+            return lambda: self._from_storage(self._ctx.fetch(data))
+        ids = np.asarray(row_ids, np.int32).ravel()
+        self._check_ids(ids)
+        rows = self._gather_rows(ids)
+        return lambda: self._ctx.fetch(rows)
+
+    # -- device plane (public) ---------------------------------------------------
+    # For callers that keep the rows on the device (the WordEmbedding
+    # communicator's -device_plane path): host-plane validation, no host
+    # round trip of the row data. These bypass the engine — the caller
+    # owns the table while using them.
+
+    def device_fetch_rows(self, row_ids) -> torch.Tensor:
+        """Rows for ``row_ids`` as a fresh device tensor (n, num_cols)."""
+        ids = np.asarray(row_ids, np.int32).ravel()
+        self._check_ids(ids)
+        return self._gather_rows(ids)
+
+    def device_apply_rows(self, row_ids, deltas,
+                          option: Optional[AddOption] = None) -> None:
+        """Apply a (device or host) delta batch to ``row_ids`` in place,
+        with ProcessAdd's validation and duplicate pre-combine."""
+        ids = np.asarray(row_ids, np.int32).ravel()
+        self._check_ids(ids)
+        if len(np.unique(ids)) != len(ids):
+            # duplicates pre-combine on the host (a device->host hop;
+            # callers should dedupe — block row sets are unique)
+            host = deltas.detach().cpu().numpy() if isinstance(
+                deltas, torch.Tensor) else deltas
+            ids, deltas = _combine_duplicate_rows(ids, host, self.num_cols,
+                                                  self.dtype)
+        self._update_rows(ids, deltas, (option or AddOption()).as_tensors())
+
+    def device_update_gather_rows(self, row_ids, deltas,
+                                  option: Optional[AddOption] = None
+                                  ) -> torch.Tensor:
+        """The fused PS round on the device plane: apply ``deltas`` to the
+        UNIQUE rows ``row_ids`` and return their post-update rows."""
+        ids = np.asarray(row_ids, np.int32).ravel()
+        self._check_ids(ids)
+        CHECK(len(np.unique(ids)) == len(ids),
+              "device_update_gather_rows takes unique row ids")
+        return self._update_gather_rows(
+            ids, deltas, (option or AddOption()).as_tensors())
+
+    def raw(self) -> np.ndarray:
+        """Logical-view snapshot (host numpy)."""
+        return self._from_storage(self._ctx.fetch(self.state["data"]))
+
+    # -- checkpoint (reference matrix_table.cpp:457-465) ---------------------
+
+    def Store(self, stream) -> None:
+        stream.WriteInt(self.num_rows)
+        stream.WriteInt(self.num_cols)
+        stream.Write(self.raw().tobytes())
+
+    def Load(self, stream) -> None:
+        rows, cols = stream.ReadInt(), stream.ReadInt()
+        CHECK(rows == self.num_rows and cols == self.num_cols,
+              "checkpoint shape mismatch")
+        raw = stream.Read(rows * cols * self.dtype.itemsize)
+        values = np.frombuffer(raw, self.dtype).reshape(rows, cols)
+        self.state["data"] = self._ctx.place(self._to_storage(values))
+
+
+class MatrixWorkerTable(WorkerTable):
+    """Worker half (reference matrix_table.h:26-77)."""
+
+    def __init__(self, num_rows: int, num_cols: int, dtype=np.float32):
+        super().__init__()
+        self.num_rows = num_rows
+        self.num_cols = num_cols
+        self.dtype = np.dtype(dtype)
+
+    def Get(self, option: Optional[GetOption] = None) -> np.ndarray:
+        """Whole-table get (reference matrix_table.h:30-36)."""
+        return self.Wait(self.GetAsync({"row_ids": None}, option))
+
+    def GetRows(self, row_ids, option: Optional[GetOption] = None
+                ) -> np.ndarray:
+        """Row-set get; rows come back in the requested order."""
+        ids = np.asarray(row_ids, np.int32)
+        return self.Wait(self.GetAsync({"row_ids": ids}, option))
+
+    def Add(self, delta: np.ndarray, option: Optional[AddOption] = None) -> None:
+        self.Wait(self.AddAsync(
+            {"row_ids": None, "values": np.asarray(delta, self.dtype)}, option))
+
+    def AddRows(self, row_ids, deltas: np.ndarray,
+                option: Optional[AddOption] = None) -> None:
+        self.Wait(self.AddAsync(
+            {"row_ids": np.asarray(row_ids, np.int32),
+             "values": np.asarray(deltas, self.dtype)}, option))
+
+    def GetAsyncHandle(self, row_ids=None, option=None) -> int:
+        ids = None if row_ids is None else np.asarray(row_ids, np.int32)
+        return self.GetAsync({"row_ids": ids}, option)
+
+    def AddAsyncHandle(self, deltas, row_ids=None, option=None) -> int:
+        ids = None if row_ids is None else np.asarray(row_ids, np.int32)
+        return self.AddAsync(
+            {"row_ids": ids, "values": np.asarray(deltas, self.dtype)}, option)
+
+    def AddFireForget(self, deltas, row_ids=None, option=None) -> None:
+        """Untracked async push (no Waiter/result bookkeeping)."""
+        ids = None if row_ids is None else np.asarray(row_ids, np.int32)
+        self.AddAsync({"row_ids": ids, "values": np.asarray(deltas, self.dtype)},
+                      option, track=False)
+
+    def server(self) -> MatrixServerTable:
+        """The co-located server half (device-plane access)."""
+        return self._zoo.server_tables[self.table_id]
+
+    def Partition(self, row_ids, num_servers: Optional[int] = None
+                  ) -> Dict[int, list]:
+        """Bucket row ids by owning server (reference
+        matrix_table.cpp:235-296), using the ceil-block ownership."""
+        if num_servers is None:
+            num_servers = self._zoo.num_servers
+        ids = np.asarray(row_ids, np.int64).ravel()
+        block = ceil_block_rows(self.num_rows, num_servers)
+        owners = np.minimum(ids // block, num_servers - 1)
+        return {int(s): [int(r) for r in ids[owners == s]]
+                for s in np.unique(owners)}

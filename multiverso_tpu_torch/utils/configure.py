@@ -1,0 +1,122 @@
+"""Typed flag/config registry (the port's own copy).
+
+Counterpart of ``multiverso_tpu/utils/configure.py``, trimmed to what the
+port calls: typed static registries keyed by string (the port defines
+string and int flags), ``MV_DEFINE_<type>(name, default, help)``
+registration, ``ParseCMDFlags`` stripping ``-key=value`` entries from argv
+(trying the string, then the int registry, reference configure.cpp:24-41)
+and programmatic ``SetCMDFlag``.
+
+The registry is this package's own, so a flag of the port can never clash
+with a flag of the same name in the JAX package when both load in one
+process.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List
+
+_lock = threading.RLock()
+
+
+class _FlagRegister:
+    """One typed registry (reference configure.h:40-57 FlagRegister<T>)."""
+
+    def __init__(self, caster):
+        self.flags: Dict[str, object] = {}
+        self.defaults: Dict[str, object] = {}
+        self._caster = caster
+
+    def register(self, name: str, default) -> None:
+        with _lock:
+            # re-registration keeps the existing value (tests re-import)
+            self.flags.setdefault(name, default)
+            self.defaults[name] = default
+
+    def reset_to_defaults(self) -> None:
+        with _lock:
+            self.flags.update(self.defaults)
+
+    def try_set(self, name: str, raw) -> bool:
+        with _lock:
+            if name not in self.flags:
+                return False
+            self.flags[name] = self._caster(raw)
+        return True
+
+    def get(self, name: str):
+        with _lock:
+            return self.flags[name]
+
+    def has(self, name: str) -> bool:
+        with _lock:
+            return name in self.flags
+
+
+def _cast_int(raw) -> int:
+    if isinstance(raw, bool):
+        raise ValueError("bool is not int")
+    return int(raw)
+
+
+_string_flags = _FlagRegister(str)
+_int_flags = _FlagRegister(_cast_int)
+
+# lookup order matches reference ParseCMDFlags: string before int
+_REGISTRIES = (_string_flags, _int_flags)
+
+
+def MV_DEFINE_string(name: str, default: str, help_text: str = "") -> None:
+    """Define a string flag; ``help_text`` documents it at the call site."""
+    _string_flags.register(name, default)
+
+
+def MV_DEFINE_int(name: str, default: int, help_text: str = "") -> None:
+    """Define an int flag; ``help_text`` documents it at the call site."""
+    _int_flags.register(name, default)
+
+
+def GetFlag(name: str):
+    """Read a flag from whichever registry holds it."""
+    for reg in _REGISTRIES:
+        if reg.has(name):
+            return reg.get(name)
+    raise KeyError(f"flag {name!r} was never defined")
+
+
+def SetCMDFlag(name: str, value) -> None:
+    """Programmatic flag set (reference MV_SetFlag)."""
+    for reg in _REGISTRIES:
+        if reg.has(name):
+            reg.try_set(name, value)
+            return
+    raise KeyError(f"flag {name!r} was never defined")
+
+
+def ParseCMDFlags(argv: List[str] | None) -> List[str]:
+    """Strip ``-key=value`` entries claimed by a registry; return the
+    leftover argv (reference src/util/configure.cpp:9-55)."""
+    remaining: List[str] = []
+    for arg in argv or []:
+        if arg.startswith("-") and "=" in arg:
+            key, _, val = arg.lstrip("-").partition("=")
+            consumed = False
+            for reg in _REGISTRIES:
+                try:
+                    if reg.try_set(key, val):
+                        consumed = True
+                        break
+                except ValueError:
+                    continue   # registered here but unparseable: fall through
+            if consumed:
+                continue
+        remaining.append(arg)
+    return remaining
+
+
+def ResetFlagsToDefaults() -> None:
+    """Restore every flag to its registered default (MV_ShutDown calls
+    this so one process can run successive worlds)."""
+    for reg in _REGISTRIES:
+        reg.reset_to_defaults()

@@ -1,0 +1,178 @@
+"""Zoo — the runtime singleton: device context, roles, engine lifecycle,
+table registries.
+
+Counterpart of ``multiverso_tpu/zoo.py`` (reference zoo.h + zoo.cpp):
+``Start`` parses flags, resolves the device, starts the async server
+engine; ``Stop`` drains and shuts down; the Zoo owns the worker/server
+table registries and the in-process worker barrier.
+
+This slice is one process on one device with one server shard. The planes
+the JAX ``Start`` brings up after the engine (reporter, ops, ledger,
+watchdog, elastic, replica, policy) and multi-process bring-up are later
+work (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, List, Optional
+
+from multiverso_tpu_torch.message import Message, MsgType
+from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
+# imported for their flag registrations, which must precede Start()'s
+# ParseCMDFlags
+import multiverso_tpu_torch.updaters.base  # noqa: F401
+from multiverso_tpu_torch.parallel.mesh import DeviceContext
+from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_int,
+                                                  MV_DEFINE_string,
+                                                  ParseCMDFlags)
+from multiverso_tpu_torch.utils.log import CHECK, Log
+from multiverso_tpu_torch.utils.waiter import Waiter
+
+MV_DEFINE_string("ps_role", "default", "none / worker / server / default")
+MV_DEFINE_int("num_workers", 1, "number of in-process worker streams")
+
+_thread_local = threading.local()
+
+
+class Zoo:
+    _instance: Optional["Zoo"] = None
+    _instance_lock = threading.Lock()
+
+    def __init__(self):
+        self.started = False
+        self.device_ctx: Optional[DeviceContext] = None
+        self.node = Node()
+        self.num_workers = 1
+        self.server_engine = None
+        self.worker_tables: List[Any] = []
+        self.server_tables: List[Any] = []
+        self._barrier: Optional[threading.Barrier] = None
+
+    @classmethod
+    def Get(cls) -> "Zoo":
+        with cls._instance_lock:
+            if cls._instance is None:
+                cls._instance = Zoo()
+            return cls._instance
+
+    # -- lifecycle (reference zoo.cpp:41-113) --------------------------------
+
+    def Start(self, argv: Optional[List[str]] = None,
+              devices=None) -> List[str]:
+        CHECK(not self.started, "Zoo already started")
+        rest = ParseCMDFlags(argv or [])
+        # the device rule first: a world with no usable device never starts
+        self.device_ctx = DeviceContext.create(devices)
+        role = ROLE_NAMES.get(str(GetFlag("ps_role")).lower(), Role.ALL)
+        self.num_workers = max(1, int(GetFlag("num_workers")))
+        self.node = Node(rank=0, role=role,
+                         worker_id=0 if role & Role.WORKER else -1,
+                         server_id=0 if role & Role.SERVER else -1)
+        self._barrier = threading.Barrier(self.num_workers)
+        from multiverso_tpu_torch.sync.server import Server
+        self.server_engine = Server.GetServer(self.num_workers)
+        self.server_engine.Start()
+        self.started = True
+        Log.Debug("Zoo started on %s: %d worker(s)", self.device_ctx.device,
+                  self.num_workers)
+        return rest
+
+    def Stop(self) -> None:
+        if not self.started:
+            return
+        if self.server_engine is not None:
+            try:
+                self.FinishTrain()
+            except RuntimeError as exc:
+                # a dead engine must not abandon the rest of the shutdown
+                Log.Error("Zoo.Stop: engine drain failed (%r) — continuing "
+                          "shutdown", exc)
+            self.server_engine.Stop()
+            self.server_engine = None
+        self.worker_tables.clear()
+        self.server_tables.clear()
+        self.started = False
+
+    def FinishTrain(self) -> None:
+        """Send Server_Finish_Train for every worker (reference
+        zoo.cpp:152-162) and wait for the engine to drain to it."""
+        waiters = []
+        for wid in range(self.num_workers):
+            w = Waiter(1)
+            self.server_engine.Receive(Message(
+                msg_type=MsgType.Server_Finish_Train, src=wid, waiter=w))
+            waiters.append(w)
+        for w in waiters:
+            w.Wait()
+
+    # -- identity (reference zoo.h:40-66) ------------------------------------
+
+    @property
+    def rank(self) -> int:
+        return self.node.rank
+
+    @property
+    def size(self) -> int:
+        return 1
+
+    @property
+    def num_servers(self) -> int:
+        return 1 if self.device_ctx is None else self.device_ctx.num_servers
+
+    def current_worker_id(self) -> int:
+        return getattr(_thread_local, "worker_id", 0)
+
+    def worker_context(self, worker_id: int):
+        """Bind the calling thread to a worker id for a ``with`` block
+        (thread workers stand in for the reference's MPI rank workers)."""
+        zoo = self
+
+        class _Ctx:
+            def __enter__(self):
+                self._prev = getattr(_thread_local, "worker_id", None)
+                CHECK(0 <= worker_id < zoo.num_workers,
+                      f"worker_id {worker_id} out of range")
+                _thread_local.worker_id = worker_id
+                return zoo
+
+            def __exit__(self, *exc):
+                if self._prev is None:
+                    del _thread_local.worker_id
+                else:
+                    _thread_local.worker_id = self._prev
+
+        return _Ctx()
+
+    # -- table registries (reference zoo.h:68-73) ---------------------------
+
+    def RegisterServerTable(self, server_table) -> int:
+        CHECK(self.server_engine is not None, "Zoo not started")
+        table_id = self.server_engine.RegisterTable(server_table)
+        self.server_tables.append(server_table)
+        return table_id
+
+    def RegisterWorkerTable(self, worker_table) -> int:
+        self.worker_tables.append(worker_table)
+        return len(self.worker_tables) - 1
+
+    def SendToServer(self, msg: Message) -> None:
+        CHECK(self.server_engine is not None, "no server engine")
+        self.server_engine.Receive(msg)
+
+    def SendToServerMulti(self, members) -> None:
+        """Ship a batched verb submission in ONE engine mailbox hop."""
+        CHECK(self.server_engine is not None, "no server engine")
+        self.server_engine.receive_multi(members)
+
+    def Barrier(self) -> None:
+        """Worker barrier across the in-process worker threads."""
+        CHECK(self._barrier is not None, "Zoo not started")
+        self._barrier.wait()
+
+    @classmethod
+    def _reset(cls) -> None:
+        with cls._instance_lock:
+            if cls._instance is not None and cls._instance.started:
+                cls._instance.Stop()
+            cls._instance = None

@@ -1,0 +1,163 @@
+#!/usr/bin/env python3
+"""Where the time goes: the port's two main paths under torch.profiler.
+
+    python3 profile_port.py [--seed N] [--out DIR]
+
+On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
+
+* PS: 5 rounds of AddRows + GetRows of 10,000 random rows on a
+  1,000,000 x 50 add-updater MatrixTable through the engine (host clock),
+  then the same rounds' server-side work (ProcessAdd + ProcessGet) on
+  the calling thread under the profiler;
+* WE: ``train()`` of the WordEmbedding phase of chip_smoke.py (100,000 x
+  128, 3 blocks, -device_plane 1),
+
+and prints, per path, the wall seconds, the device-busy seconds (the sum
+of the self device time of every op: kernels and copies on the one
+stream), the device-idle share, and the ops with the most device and the
+most host time, and for WE the seconds the trainer waited on the block
+loader. The PS Chrome trace and a JSON summary land in DIR (default
+chiprun_out/profile).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+
+def summarize(torch, prof, wall_s: float, top: int = 6) -> dict:
+    """Device-busy seconds = the summed spans of the device-side events
+    (kernels, copies, memsets: one stream, so they never overlap); the
+    top lists name device-side events and host-side ops."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    busy_us = sum(e.time_range.elapsed_us() for e in events
+                  if e.device_type == DeviceType.CUDA)
+    dev_tot, host_tot = {}, {}
+    for e in events:
+        tot = dev_tot if e.device_type == DeviceType.CUDA else host_tot
+        n, us = tot.get(e.name, (0, 0.0))
+        tot[e.name] = (n + 1, us + (e.time_range.elapsed_us()
+                                    if tot is dev_tot
+                                    else e.self_cpu_time_total))
+
+    def head(tot):
+        return [(k[:90], n, us / 1e3) for k, (n, us) in
+                sorted(tot.items(), key=lambda kv: -kv[1][1])[:top]]
+
+    return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+            "top_device_ms": head(dev_tot), "top_host_ms": head(host_tot)}
+
+
+def profile_ps(torch, seed: int, out: str) -> dict:
+    """Engine rounds by the host clock, then the same rounds' server-side
+    work (ProcessAdd + ProcessGet) called on this thread under the
+    profiler: the difference is the worker + mailbox + engine share."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from chip_smoke import PS_COLS, PS_IDS, PS_ROWS
+    rng = np.random.default_rng(seed)
+    mv.MV_Init([])
+    try:
+        t = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                num_cols=PS_COLS))
+        srv = t.server()
+        batches = [(rng.choice(PS_ROWS, PS_IDS, replace=False).astype(
+            np.int32), rng.integers(-3, 4, (PS_IDS, PS_COLS)).astype(
+                np.float32)) for _ in range(8)]
+        for ids, d in batches[:3]:               # warm-up
+            t.AddRows(ids, d)
+            t.GetRows(ids)
+        t0 = time.perf_counter()
+        for ids, d in batches[3:]:
+            t.AddRows(ids, d)
+            t.GetRows(ids)
+        round_ms = (time.perf_counter() - t0) / 5 * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for ids, d in batches[3:]:
+                srv.ProcessAdd(values=d, row_ids=ids)
+                srv.ProcessGet(row_ids=ids)
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(os.path.join(out, "ps_trace.json"))
+    finally:
+        mv.MV_ShutDown()
+    res = summarize(torch, prof, wall)
+    res["round_ms"] = round_ms
+    res["server_ms_per_round"] = wall / 5 * 1e3
+    return res
+
+
+def profile_we(torch, seed: int, out: str) -> dict:
+    from chip_smoke import write_zipf_corpus, we_options
+    from multiverso_tpu_torch.models.wordembedding.distributed import \
+        DistributedWordEmbedding
+    with tempfile.TemporaryDirectory(prefix="mvt_prof_") as workdir:
+        vocab, corpus, _ = write_zipf_corpus(workdir, seed)
+        opt = we_options(workdir, seed, vocab, corpus)
+        we = DistributedWordEmbedding(opt)
+        try:
+            we.prepare()
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                we.train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            we.close()
+    res = summarize(torch, prof, wall)
+    res["loader_wait_s"] = we.loader_wait_s
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out/profile")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 2
+    os.makedirs(args.out, exist_ok=True)
+    from chip_smoke import card_line
+    card = card_line()
+    print(card, flush=True)
+    res = {"card": card, "ps": profile_ps(torch, args.seed, args.out),
+           "we": profile_we(torch, args.seed, args.out)}
+    for path in ("ps", "we"):
+        r = res[path]
+        if path == "ps":
+            print(f"[ps] engine round {r['round_ms']:.3f} ms, of which "
+                  f"server work {r['server_ms_per_round']:.3f} ms",
+                  flush=True)
+        else:
+            print(f"[we] trainer waited {r['loader_wait_s']:.3f} s on the "
+                  f"block loader", flush=True)
+        print(f"[{path}] wall {r['wall_s']:.4f} s, device busy "
+              f"{r['device_busy_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f}", flush=True)
+        for label in ("top_device_ms", "top_host_ms"):
+            for key, count, ms in r[label]:
+                print(f"[{path}]   {label} {key} x{count}: {ms:.3f} ms",
+                      flush=True)
+    with open(os.path.join(args.out, "profile.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,101 @@
+"""The port's hand-written CUDA row kernels against their plain versions,
+on the card. Marked ``cuda``: without a CUDA device every test skips (the
+kernels have no CPU mode). Run on a machine with the card:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+
+Kernel and plain version must agree bitwise (outside the trash row, which
+duplicate lanes may race on), and the device error word must flag exactly
+the out-of-range ids.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the row kernels have no CPU mode")
+    from multiverso_tpu_torch.ops import cuda_rows
+    cuda_rows.build()
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, rows, cols, n, seed, trash_lanes=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(rows - 1)[:n - trash_lanes]
+    ids = rng.permutation(np.concatenate([ids, np.full(trash_lanes,
+                                                       rows - 1)]))
+    data = rng.standard_normal((rows, cols)).astype(np.float32)
+    src = rng.standard_normal((n, cols)).astype(np.float32)
+    return (torch.from_numpy(data).to(dev),
+            torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.from_numpy(src).to(dev))
+
+
+SHAPES = [(200, 50, 100, 0), (200, 128, 64, 0), (200, 52, 100, 20),
+          (100_001, 128, 40_000, 0), (1_000_001, 52, 10_000, 5)]
+
+
+def test_kernels_match_plain(dev):
+    for shape in SHAPES:
+        try:
+            _check_shape(dev, *shape)
+        except AssertionError as exc:
+            raise AssertionError(f"rows,cols,n,trash={shape}: {exc}") \
+                from exc
+
+
+def _check_shape(dev, rows, cols, n, trash):
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    data, ids, src = _inputs(dev, rows, cols, n, seed=rows + cols,
+                             trash_lanes=trash)
+    cr.reset_error(dev)
+    assert torch.equal(cr.gather_rows(data, ids),
+                       cr.gather_rows_plain(data, ids))
+    a, b = data.clone(), data.clone()
+    cr.scatter_set_rows(a, ids, src)
+    cr.scatter_set_rows_plain(b, ids, src)
+    assert torch.equal(a[:-1], b[:-1])
+    live = ids != rows - 1
+    for sign in (1, -1):
+        a, b = data.clone(), data.clone()
+        _, ra = cr.update_rows(a, ids, src, sign, want_rows=True)
+        _, rb = cr.update_rows_plain(b, ids, src, sign)
+        assert torch.equal(a[:-1], b[:-1])
+        assert torch.equal(ra[live], rb[live])
+    torch.cuda.synchronize()
+    assert cr.read_error(dev) == 0
+
+
+def test_out_of_range_ids_set_the_error_word(dev):
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    data, _, _ = _inputs(dev, 64, 8, 4, seed=1)
+    before = data.clone()
+    cr.reset_error(dev)
+    bad = torch.tensor([1, 64, -1], dtype=torch.int32, device=dev)
+    out = cr.gather_rows(data, bad)
+    assert cr.read_error(dev) == 1
+    assert torch.equal(out[0], data[1]) and out[1:].abs().sum() == 0
+    cr.reset_error(dev)
+    cr.update_rows(data, bad, torch.ones((3, 8), device=dev), 1)
+    assert cr.read_error(dev) == 1
+    assert torch.equal(data[2:], before[2:]) and torch.equal(data[0],
+                                                             before[0])
+    cr.reset_error(dev)
+
+
+def test_launches_count_only_real_launches(dev):
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    data, ids, src = _inputs(dev, 64, 8, 16, seed=2)
+    cr.reset_launches()
+    cr.gather_rows(data, ids[:0])               # n == 0: nothing launched
+    cr.gather_rows(data, ids)
+    cr.scatter_set_rows(data, ids, src)
+    cr.update_rows(data, ids, src, -1)
+    assert cr.LAUNCHES == {"gather_rows": 1, "scatter_set_rows": 1,
+                           "update_rows": 1}
