@@ -9,14 +9,21 @@ holds every kernel of that path against its plain PyTorch version:
 0. card     — name and power limit as nvidia-smi gives them; TF32 off;
 1. build    — nvcc builds ``multiverso_tpu_torch/csrc/rows.cu`` (sm_90a);
 2. kernels  — each row kernel against its plain version on the card, at
-              the slice's shapes and the edge cases of
-              tests/test_torch_rows.py (bitwise outside the trash row; the
-              error word 0, and set by a deliberate out-of-range id);
+              the slice's shapes and edge cases (tests/test_torch_rows.py's
+              id patterns; the ring's geometry: n = 1, n below the SM
+              count, n not a multiple of the tile, 1,000,000 ids of a
+              1,000,001 x 52 table, cols 4/52/128/300/1024 and rows wider
+              than a stage, all lanes on the trash row, out-of-range ids
+              mid-tile, subnormal values, a misaligned table view on the
+              per-warp branch): bitwise outside the trash row; the error
+              word 0, and set by out-of-range ids whose lanes read zero;
               device times from CUDA events (median of 30 launches queued
               back to back behind a spin kernel, after warm-up, ids
               rotating through more rows than the 50 MB L2 holds) beside
               the byte bound, the plain version and one PyTorch library
-              call, plus the host-inclusive time of one call;
+              call, plus the host-inclusive time of one call; and the ring
+              against the per-warp branch in turns (ring, per-warp,
+              per-warp, ring);
 3. PS       — the reference's test_matrix_perf shape: MV_Init on the card,
               a 1,000,000 x 50 MatrixTable with the add updater and one
               with momentum, 5 rounds of AddRows + GetRows of 10,000
@@ -31,7 +38,8 @@ holds every kernel of that path against its plain PyTorch version:
               ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before phase 3 and read after phase 4:
-each kernel of the path must have launched there. Any failure raises and
+each kernel of the path must have launched there, and every gather and
+update launch must have taken the ring branch. Any failure raises and
 the script exits non-zero without the ``ok`` line. Without a CUDA device,
 or away from the repository, it exits non-zero at once.
 """
@@ -122,14 +130,78 @@ def call_ms(torch, fn, n_sets: int) -> float:
     return float(np.median(times))
 
 
+def _clone_in_place(torch, t):
+    """A copy of ``t`` as far off 16-byte alignment as ``t`` is."""
+    off = (t.data_ptr() % 16) // t.element_size()
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    return flat[off:].view(t.shape).copy_(t)
+
+
+def _check_rows(torch, cr, dev, data, ids_np, src, name, ring=True):
+    """One case: the gather and the update (both signs, with and without
+    the post-update rows) against their plain versions on the card,
+    bitwise outside the trash row (the last row). Ids outside the table
+    must set the error word, read zero in every gathered or out_rows lane,
+    and leave the table as the plain update of the valid lanes leaves it.
+    ``ring`` says which branch each launch must take."""
+    rows = data.shape[0]
+    trash = rows - 1
+    bad_np = (ids_np < 0) | (ids_np >= rows)
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    good = torch.from_numpy(~bad_np).to(dev)
+    live = torch.from_numpy(~bad_np & (ids_np != trash)).to(dev)
+    ids_ok = ids[good]
+    torch.cuda.synchronize()
+    cr.reset_error(dev)
+    before = dict(cr.RING_LAUNCHES)
+    got = cr.gather_rows(data, ids)
+    want = torch.zeros_like(got)
+    want[good] = cr.gather_rows_plain(data, ids_ok)
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather {name}")
+    for sign in (1, -1):
+        for want_rows in (False, True):
+            a, b = _clone_in_place(torch, data), data.clone()
+            res = cr.update_rows(a, ids, src, sign, want_rows=want_rows)
+            _, rb = cr.update_rows_plain(b, ids_ok, src[good], sign)
+            if not torch.equal(a[:trash], b[:trash]):
+                raise AssertionError(f"update{sign:+d} want_rows={want_rows}"
+                                     f" {name}: table")
+            if want_rows:
+                ra = res[1]
+                full = torch.zeros_like(ra)
+                full[good] = rb
+                if not (torch.equal(ra[live], full[live])
+                        and torch.equal(ra[~good], full[~good])):
+                    raise AssertionError(f"update{sign:+d} {name}: rows")
+    torch.cuda.synchronize()
+    err = cr.read_error(dev)
+    if err != int(bad_np.any()):
+        raise AssertionError(f"{name}: error word {err}, bad ids "
+                             f"{int(bad_np.sum())}")
+    cr.reset_error(dev)
+    took = {k: cr.RING_LAUNCHES[k] - before[k] for k in before}
+    if took != ({"gather_rows": 1, "update_rows": 4} if ring else
+                {"gather_rows": 0, "update_rows": 0}):
+        raise AssertionError(f"{name}: ring launches {took}, ring={ring}")
+
+
 def edge_cases(torch, cr, dev) -> None:
-    """tests/test_torch_rows.py's cases on the card: kernel == plain
-    bitwise outside the trash row, for cols 128 (float4 lanes), 50
-    (scalar lanes) and 52 (the PS table's padded width)."""
+    """tests/test_torch_rows.py's cases and the ring's geometry on the
+    card: kernel == plain bitwise outside the trash row."""
+    rng = np.random.default_rng(7)
+
+    def table(rows, cols, scale=1.0):
+        return torch.from_numpy((rng.standard_normal((rows, cols))
+                                 * scale).astype(np.float32)).to(dev)
+
+    def unique(rows, n):
+        return rng.permutation(rows - 1)[:n]
+
+    # the first slice's cases: id patterns at cols 128 / 50 / 52
     rows, n = 200, 100
     trash = rows - 1
-    rng = np.random.default_rng(7)
-    cases = {
+    patterns = {
         "random": rng.permutation(trash)[:n],
         "consecutive": np.concatenate([np.arange(17, 81), rng.permutation(
             np.setdiff1d(np.arange(trash), np.arange(17, 81)))[:n - 64]]),
@@ -138,43 +210,58 @@ def edge_cases(torch, cr, dev) -> None:
             [rng.permutation(trash)[:n - 20], np.full(20, trash)])),
     }
     for cols in (128, 50, 52):
-        data = torch.from_numpy(rng.standard_normal((rows, cols)).astype(
-            np.float32)).to(dev)
-        src = torch.from_numpy(rng.standard_normal((n, cols)).astype(
-            np.float32)).to(dev)
-        for name, ids_np in cases.items():
-            ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
-            live = torch.from_numpy(ids_np != trash).to(dev)
-            if not torch.equal(cr.gather_rows(data, ids),
-                               cr.gather_rows_plain(data, ids)):
-                raise AssertionError(f"gather {name} cols={cols}")
+        data, src = table(rows, cols), table(n, cols)
+        for name, ids_np in patterns.items():
+            _check_rows(torch, cr, dev, data, ids_np, src,
+                        f"{name} cols={cols}", ring=cols % 4 == 0)
             a, b = data.clone(), data.clone()
+            ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
             cr.scatter_set_rows(a, ids, src)
             cr.scatter_set_rows_plain(b, ids, src)
             if not torch.equal(a[:trash], b[:trash]):
                 raise AssertionError(f"scatter {name} cols={cols}")
-            for sign in (1, -1):
-                a, b = data.clone(), data.clone()
-                _, ra = cr.update_rows(a, ids, src, sign, want_rows=True)
-                _, rb = cr.update_rows_plain(b, ids, src, sign)
-                if not (torch.equal(a[:trash], b[:trash])
-                        and torch.equal(ra[live], rb[live])):
-                    raise AssertionError(f"update{sign:+d} {name} "
-                                         f"cols={cols}")
-    torch.cuda.synchronize()
-    if cr.read_error(dev) != 0:
-        raise AssertionError("error word set by in-range ids")
-    bad = torch.tensor([3, rows, -1], dtype=torch.int32, device=dev)
-    out = cr.gather_rows(data, bad)
-    cr.update_rows(data, bad, torch.ones((3, data.shape[1]), device=dev), 1)
-    if cr.read_error(dev) == 0:
-        raise AssertionError("out-of-range ids did not set the error word")
-    if out[1:].abs().sum().item() != 0:
-        raise AssertionError("an out-of-range gather lane was not zeroed")
-    cr.reset_error(dev)
-    log("[kernels] edge cases: kernel == plain (bitwise outside the trash "
-        "row) for random/consecutive/pad-only/trash-dup ids, n=100, cols "
-        "128/50/52; error word 0 on valid ids, set by out-of-range ids")
+    # the ring's geometry: (name, table rows, cols, ids)
+    cases = [("n=1", 200, 52, unique(200, 1)),
+             ("n=7 (below the SM count)", 200, 52, unique(200, 7)),
+             ("n=1001 (not a multiple of the tile)", 5000, 52,
+              unique(5000, 1001))]
+    for cols in (4, 52, 128, 300):
+        cases.append((f"cols={cols}, n=5000", 20_001, cols,
+                      unique(20_001, 5000)))
+    cases.append(("cols=1024 (a bulk copy per row)", 5_001, 1_024,
+                  unique(5_001, 1_000)))
+    cases += [("cols=128, n=20000 (a deep ring)", 100_001, 128,
+               unique(100_001, 20_000)),
+              ("cols=16384 (rows wider than a stage)", 301, 16_384,
+               unique(301, 100)),
+              ("cols=16388, n=300 (a ragged last segment)", 301, 16_388,
+               unique(301, 300)),
+              ("all lanes on the trash row", 2001, 52, np.full(1001, 2000))]
+    mid = unique(5000, 1001)
+    mid[500], mid[700] = 5000, -1
+    cases.append(("out-of-range ids mid-tile", 5000, 52, mid))
+    for name, rows, cols, ids_np in cases:
+        _check_rows(torch, cr, dev, table(rows, cols), ids_np,
+                    table(len(ids_np), cols), name)
+    # subnormal rows and deltas: no flush to zero on either side
+    _check_rows(torch, cr, dev, table(2001, 52, 1e-39), unique(2001, 1000),
+                table(1000, 52, 1e-39), "subnormal values")
+    # many more tiles than the grid holds: 1,000,000 ids of 1,000,001 x 52
+    big = table(1_000_001, 52)
+    _check_rows(torch, cr, dev, big, rng.permutation(1_000_000),
+                table(1_000_000, 52), "n=1,000,000 of 1,000,001 x 52")
+    del big
+    # a table view 4 bytes off 16-byte alignment: the per-warp branch
+    flat = table(1, 200 * 52 + 1).reshape(-1)
+    _check_rows(torch, cr, dev, flat[1:].view(200, 52), unique(200, 100),
+                table(100, 52), "misaligned view", ring=False)
+    log(f"[kernels] edge cases: kernel == plain (bitwise outside the trash "
+        f"row) for gather and update +/-1 with and without post-update "
+        f"rows; first-slice id patterns at cols 128/50/52 (+ scatter-set); "
+        f"{'; '.join(c[0] for c in cases)}; subnormal values; n=1,000,000 "
+        f"of 1,000,001 x 52; a misaligned view on the per-warp branch. "
+        f"Error word 0 on valid ids, set by out-of-range ids, whose lanes "
+        f"read zero")
 
 
 def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
@@ -236,6 +323,32 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
                                         want_rows=True), ID_SETS)
     res["update_gather_rows_bound_ms"] = (
         (4 * n * cols * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3)
+    # the planner's ring against the per-warp branch (the first slice's
+    # kernels), the ring moving every row by its own bulk copy, and the
+    # ring moving rows by 16-byte copies (for the update: without its bulk
+    # reduce), at the same shape, in turns (each once forward, once back);
+    # and an empty launch timed the same way (the floor)
+    out = torch.empty((n, cols), device=dev)
+    variants = {
+        "gather_rows": lambda ring, rb: lambda i: cr._launch_gather(
+            data, ids[i], out, allow_ring=ring, row_bulk=rb),
+        "update_rows": lambda ring, rb: lambda i: cr._launch_update(
+            a, ids[i], src[i], None, 1, allow_ring=ring, row_bulk=rb),
+        "update_rows_sgd": lambda ring, rb: lambda i: cr._launch_update(
+            a, ids[i], src[i], None, -1, allow_ring=ring, row_bulk=rb),
+        "update_gather_rows": lambda ring, rb: lambda i: cr._launch_update(
+            a, ids[i], src[i], out, 1, allow_ring=ring, row_bulk=rb)}
+    choices = {"ring_ms": (True, None), "per_warp_ms": (False, None),
+               "ring_bulk_rows_ms": (True, True),
+               "ring_copy16_rows_ms": (True, False)}
+    order = list(choices) + list(choices)[::-1]
+    res["turns"] = {}
+    for name, make in variants.items():
+        turns = res["turns"][name] = {k: [] for k in choices}
+        for k in order:
+            turns[k].append(median_ms(torch, make(*choices[k]), ID_SETS))
+    res["empty_launch_ms"] = median_ms(
+        torch, lambda i: torch.cuda._sleep(0), ID_SETS)
     torch.cuda.synchronize()
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set during timing")
@@ -460,6 +573,17 @@ def main() -> int:
             f"ms (library {res['update_rows_sgd_library_ms']:.4f}); Add+Get "
             f"{res['update_gather_rows_ms']:.4f} ms (bound "
             f"{res['update_gather_rows_bound_ms']:.4f})")
+        for k, t in res["turns"].items():
+            log(f"[kernels] {label} {k} in turns: ring "
+                f"{t['ring_ms'][0]:.7f} / {t['ring_ms'][1]:.7f} ms, per-warp "
+                f"branch {t['per_warp_ms'][0]:.7f} / "
+                f"{t['per_warp_ms'][1]:.7f} ms, ring with a bulk copy per "
+                f"row {t['ring_bulk_rows_ms'][0]:.7f} / "
+                f"{t['ring_bulk_rows_ms'][1]:.7f} ms, ring with 16-byte "
+                f"copies {t['ring_copy16_rows_ms'][0]:.7f} / "
+                f"{t['ring_copy16_rows_ms'][1]:.7f} ms")
+        log(f"[kernels] {label} an empty launch timed the same way: "
+            f"{res['empty_launch_ms']:.7f} ms")
 
     # phases 3 + 4: the main path, counted from zero
     cr.reset_launches()
@@ -478,6 +602,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
         we = we_phase(torch, mv, cr, args.seed, workdir)
         launches = dict(cr.LAUNCHES)
+        ring = dict(cr.RING_LAUNCHES)
         results["we"] = we
         log(f"[we] {WE_VOCAB} x {WE_DIM}, {we['words']} words in "
             f"{we['train_s']:.3f} s = {we['words_per_s']:.0f} words/s "
@@ -490,6 +615,13 @@ def main() -> int:
         log(f"[we] topic corpus, card vs CPU embeddings: max abs diff "
             f"{results['we_small_max_abs_diff']:.3g} (rtol 1e-3, atol 1e-4)")
     results["main_path_launches"] = launches
+    results["main_path_ring_launches"] = ring
+    for k in ring:
+        if ring[k] != launches[k]:
+            raise AssertionError(f"{k}: {launches[k] - ring[k]} of "
+                                 f"{launches[k]} main-path launches missed "
+                                 f"the ring")
+    log(f"[main path] launches {launches}, of them on the ring {ring}")
 
     # phase 5: summary
     sources = {"gather_rows": "_make_gather_kernel / pallas_gather_rows",
@@ -508,7 +640,10 @@ def main() -> int:
             "launches": launches[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "ring_launches": ring.get(k, 0),
+            "we_ms": we_k[k]["ms"], "we_bound_ms": we_k[k]["bound_ms"],
+            "we_shape": we_k[k]["shape"]})
     results["kernels"] = kernels
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

@@ -21,6 +21,14 @@ rows, int32 ids, both contiguous, on one device, ``rows`` shaped
 caller's bug: the kernel skips the lane and sets the device's error word
 (``read_error``), the plain versions raise from ``index_select``.
 
+Launch geometry: ``plan_rows`` computes it on the host, from the batch,
+the row width and the card's SM count (a plain function the CPU tests
+reach), and the C entry takes it as an ``MvtRowPlan``. The gather and the
+fused update take the ring branch of ``rows.cu`` (async copies through a
+shared-memory ring of mbarrier-tracked stages, the contiguous tiles as
+bulk copies) when ``cols % 4 == 0`` and every pointer is 16-byte aligned,
+and its per-warp branch otherwise.
+
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a plain-C
 shared library at first use, under ``build/torch_kernels/<source hash>/``
 at the root of the checkout (``build/`` is git-ignored), so a fresh
@@ -36,6 +44,8 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
+from functools import lru_cache
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -45,6 +55,8 @@ import torch
 #: else (chip_smoke.py zeroes them before driving the main path)
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "scatter_set_rows": 0,
                             "update_rows": 0}
+#: of those, the launches that took the ring branch (bulk copies)
+RING_LAUNCHES: Dict[str, int] = {"gather_rows": 0, "update_rows": 0}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rows.cu"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -60,8 +72,146 @@ last_build_log: Optional[str] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, RING_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+# -- launch geometry (mirrors csrc/rows.cu) ---------------------------------
+
+THREADS = 256                   # threads per block, both branches
+MAX_TILE = THREADS              # ids per tile: one store per thread
+MAX_STAGES = 4
+STAGE_BYTES = 32 * 1024         # shared memory of one stage, all buffers
+BARRIER_BYTES = 64
+SMEM_BLOCK_MAX = 232_448        # Hopper: 227 KB of dynamic smem per block
+SMEM_SM = 233_472               # 228 KB per SM ...
+SMEM_RESERVED = 1_024           # ... less 1 KB the runtime keeps per block
+#: a row segment at least this wide moves by one bulk copy; a narrower one
+#: by 16-byte cp.async (measured faster for the update at 208 and 512 B)
+ROW_BULK_BYTES = 4_096
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class RowPlan:
+    """Launch geometry of one row-kernel call. The ring walks
+    ``units`` = tiles of ``tile`` ids x column segments of ``seg_cols``
+    (the last tile and segment may be short); unit ``u`` runs on block
+    ``u % grid``. A stage holds ``buffers`` tiles (1 gather; 2 update: rows
+    and deltas) and is one barrier phase, so its bytes bound the phase's
+    transaction count."""
+    n: int
+    cols: int
+    buffers: int
+    tile: int
+    row_bulk: bool
+    reduce: bool
+    seg_cols: int
+    stages: int
+    grid: int
+    smem_bytes: int
+    warp_grid: int
+
+    @property
+    def segments(self) -> int:
+        return _cdiv(self.cols, self.seg_cols)
+
+    @property
+    def tiles(self) -> int:
+        return _cdiv(self.n, self.tile)
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.segments
+
+    @property
+    def stage_bytes(self) -> int:
+        return self.tile * self.seg_cols * 4 * self.buffers
+
+
+def _header_bytes(stages: int, tile: int) -> int:
+    return _cdiv(BARRIER_BYTES + 4 * stages * tile, 128) * 128
+
+
+def plan_rows(n: int, cols: int, sms: int, buffers: int) -> RowPlan:
+    """The launch geometry for ``n`` ids of ``cols`` float32 columns on a
+    card of ``sms`` SMs; ``buffers`` is 1 for the gather, 2 for the fused
+    update. A row wider than a stage is cut into column segments. A small
+    batch is spread over two blocks on every SM first (T = n / (2 sms)
+    ids per tile, one stage, one wave); a larger one fills 32 KB stages
+    and deepens the ring to at most four stages, two blocks per SM where
+    shared memory allows. An update of one wave (``reduce``) adds by bulk
+    reduce when it has no post-update rows to return."""
+    if n < 1 or cols < 1 or sms < 1 or buffers not in (1, 2):
+        raise ValueError(f"no plan for n={n} cols={cols} sms={sms} "
+                         f"buffers={buffers}")
+    if 4 * cols * buffers <= STAGE_BYTES:
+        seg_cols = cols
+    else:
+        seg_cols = STAGE_BYTES // (4 * buffers) // 4 * 4
+    tile = max(1, min(MAX_TILE, STAGE_BYTES // (4 * seg_cols * buffers),
+                      _cdiv(n, 2 * sms)))
+    stage = tile * seg_cols * 4 * buffers
+    units = _cdiv(n, tile) * _cdiv(cols, seg_cols)
+    for per_sm in (2, 1):
+        budget = min(SMEM_BLOCK_MAX, SMEM_SM // per_sm - SMEM_RESERVED)
+        grid = min(units, sms * per_sm)
+        stages = min(MAX_STAGES, _cdiv(units, grid))
+        while stages > 1 and _header_bytes(stages, tile) + stages * stage \
+                > budget:
+            stages -= 1
+        smem = _header_bytes(stages, tile) + stages * stage
+        if smem <= budget:
+            break
+    return RowPlan(n=n, cols=cols, buffers=buffers, tile=tile,
+                   row_bulk=4 * seg_cols >= ROW_BULK_BYTES,
+                   reduce=buffers == 2 and units <= grid,
+                   seg_cols=seg_cols, stages=stages, grid=grid,
+                   smem_bytes=smem,
+                   warp_grid=min(_cdiv(n, THREADS // 32), sms * 32))
+
+
+class _CPlan(ctypes.Structure):
+    """``MvtRowPlan`` of csrc/rows.cu."""
+    _fields_ = [(name, ctypes.c_longlong) for name in
+                ("tile", "row_bulk", "reduce", "seg_cols", "stages", "grid",
+                 "smem_bytes", "warp_grid", "bulk")]
+
+
+@lru_cache(maxsize=4096)
+def _c_plan(n: int, cols: int, sms: int, buffers: int, bulk: bool,
+            row_bulk: Optional[bool] = None) -> _CPlan:
+    # a table of 0 columns takes the per-warp branch, which reads warp_grid
+    p = plan_rows(n, max(cols, 1), sms, buffers)
+    if row_bulk is None:
+        return _CPlan(p.tile, p.row_bulk, p.reduce, p.seg_cols, p.stages,
+                      p.grid, p.smem_bytes, p.warp_grid, int(bulk))
+    return _CPlan(p.tile, row_bulk, False, p.seg_cols, p.stages, p.grid,
+                  p.smem_bytes, p.warp_grid, int(bulk))
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    count = _sm_counts.get(index)
+    if count is None:
+        count = torch.cuda.get_device_properties(index).multi_processor_count
+        _sm_counts[index] = count
+    return count
+
+
+def takes_ring(cols: int, *tensors: torch.Tensor) -> bool:
+    """Whether the gather / update take the ring branch for these
+    tensors: bulk copies need 16-byte-aligned rows and addresses."""
+    return cols > 0 and cols % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _nvcc() -> str:
@@ -102,9 +252,12 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.mvt_gather_rows.argtypes = [p, p, p, ll, ll, ll, p, p]
-            lib.mvt_scatter_set_rows.argtypes = [p, p, p, ll, ll, ll, p, p]
-            lib.mvt_update_rows.argtypes = [p, p, p, p, ll, ll, ll, i, p, p]
+            plan = ctypes.POINTER(_CPlan)
+            lib.mvt_gather_rows.argtypes = [p, p, p, ll, ll, ll, p, plan, p]
+            lib.mvt_scatter_set_rows.argtypes = [p, p, p, ll, ll, ll, p, plan,
+                                                 p]
+            lib.mvt_update_rows.argtypes = [p, p, p, p, ll, ll, ll, i, p, plan,
+                                            p]
             for fn in (lib.mvt_gather_rows, lib.mvt_scatter_set_rows,
                        lib.mvt_update_rows):
                 fn.restype = i
@@ -184,24 +337,59 @@ def update_rows_plain(data: torch.Tensor, ids: torch.Tensor,
 
 
 # -- kernel wrappers ---------------------------------------------------------
+#
+# ``_launch_*`` launch one kernel and count it. chip_smoke.py times the
+# other choices beside the planner's at the same shape: ``allow_ring=False``
+# keeps the gather and the update on the per-warp branch, ``row_bulk``
+# forces rows to move by bulk copies (True) or 16-byte copies (False), and
+# the update to read and write its rows instead of the bulk reduce.
+
+def _launch_gather(data: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
+                   allow_ring: bool = True,
+                   row_bulk: Optional[bool] = None) -> None:
+    n, cols = ids.shape[0], data.shape[1]
+    lib = _load()
+    ring = allow_ring and takes_ring(cols, data, out)
+    plan = _c_plan(n, cols, _sms(data.device), 1, ring, row_bulk)
+    with torch.cuda.device(data.device):
+        rc = lib.mvt_gather_rows(
+            data.data_ptr(), ids.data_ptr(), out.data_ptr(), n, cols,
+            data.shape[0], error_word(data.device).data_ptr(),
+            ctypes.byref(plan), _stream(data.device))
+    _raise_on(rc, "gather_rows")
+    LAUNCHES["gather_rows"] += 1
+    RING_LAUNCHES["gather_rows"] += ring
+
+
+def _launch_update(data: torch.Tensor, ids: torch.Tensor,
+                   deltas: torch.Tensor, out: Optional[torch.Tensor],
+                   sign: int, allow_ring: bool = True,
+                   row_bulk: Optional[bool] = None) -> None:
+    n, cols = ids.shape[0], data.shape[1]
+    lib = _load()
+    ring = allow_ring and takes_ring(
+        cols, data, deltas, *([out] if out is not None else []))
+    plan = _c_plan(n, cols, _sms(data.device), 2, ring, row_bulk)
+    with torch.cuda.device(data.device):
+        rc = lib.mvt_update_rows(
+            data.data_ptr(), ids.data_ptr(), deltas.data_ptr(),
+            out.data_ptr() if out is not None else None, n, cols,
+            data.shape[0], sign, error_word(data.device).data_ptr(),
+            ctypes.byref(plan), _stream(data.device))
+    _raise_on(rc, "update_rows")
+    LAUNCHES["update_rows"] += 1
+    RING_LAUNCHES["update_rows"] += ring
+
 
 def gather_rows(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """out[i] = data[ids[i]] as a fresh (n, cols) tensor."""
     _check(data, ids)
     if data.device.type == "cpu":
         return gather_rows_plain(data, ids)
-    n, cols = ids.shape[0], data.shape[1]
-    out = torch.empty((n, cols), dtype=data.dtype, device=data.device)
-    if n == 0:
-        return out
-    lib = _load()
-    with torch.cuda.device(data.device):
-        rc = lib.mvt_gather_rows(
-            data.data_ptr(), ids.data_ptr(), out.data_ptr(), n, cols,
-            data.shape[0], error_word(data.device).data_ptr(),
-            _stream(data.device))
-    _raise_on(rc, "gather_rows")
-    LAUNCHES["gather_rows"] += 1
+    out = torch.empty((ids.shape[0], data.shape[1]), dtype=data.dtype,
+                      device=data.device)
+    if ids.shape[0] > 0:
+        _launch_gather(data, ids, out)
     return out
 
 
@@ -211,15 +399,16 @@ def scatter_set_rows(data: torch.Tensor, ids: torch.Tensor,
     _check(data, ids, rows)
     if data.device.type == "cpu":
         return scatter_set_rows_plain(data, ids, rows)
-    n = ids.shape[0]
+    n, cols = ids.shape[0], data.shape[1]
     if n == 0:
         return data
     lib = _load()
+    plan = _c_plan(n, cols, _sms(data.device), 1, False)
     with torch.cuda.device(data.device):
         rc = lib.mvt_scatter_set_rows(
-            data.data_ptr(), ids.data_ptr(), rows.data_ptr(), n,
-            data.shape[1], data.shape[0],
-            error_word(data.device).data_ptr(), _stream(data.device))
+            data.data_ptr(), ids.data_ptr(), rows.data_ptr(), n, cols,
+            data.shape[0], error_word(data.device).data_ptr(),
+            ctypes.byref(plan), _stream(data.device))
     _raise_on(rc, "scatter_set_rows")
     LAUNCHES["scatter_set_rows"] += 1
     return data
@@ -236,17 +425,8 @@ def update_rows(data: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
     if data.device.type == "cpu":
         data, new = update_rows_plain(data, ids, deltas, sign)
         return (data, new) if want_rows else data
-    n, cols = ids.shape[0], data.shape[1]
-    out = (torch.empty((n, cols), dtype=data.dtype, device=data.device)
-           if want_rows else None)
-    if n > 0:
-        lib = _load()
-        with torch.cuda.device(data.device):
-            rc = lib.mvt_update_rows(
-                data.data_ptr(), ids.data_ptr(), deltas.data_ptr(),
-                out.data_ptr() if out is not None else None, n, cols,
-                data.shape[0], sign, error_word(data.device).data_ptr(),
-                _stream(data.device))
-        _raise_on(rc, "update_rows")
-        LAUNCHES["update_rows"] += 1
+    out = (torch.empty((ids.shape[0], data.shape[1]), dtype=data.dtype,
+                       device=data.device) if want_rows else None)
+    if ids.shape[0] > 0:
+        _launch_update(data, ids, deltas, out, sign)
     return (data, out) if want_rows else data

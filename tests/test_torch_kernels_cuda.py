@@ -37,8 +37,20 @@ def _inputs(dev, rows, cols, n, seed, trash_lanes=0):
             torch.from_numpy(src).to(dev))
 
 
+# (table rows, cols, ids, lanes on the trash row): the first slice's
+# shapes, then the ring's geometry: n = 1, n below the SM count, n not a
+# multiple of the tile, cols 4 / 300, rows that move by one bulk copy
+# each (cols 1,024), a deep ring, rows wider than a stage
+# (and a ragged last column segment), all lanes on the trash row, and many
+# more tiles than the grid holds.
 SHAPES = [(200, 50, 100, 0), (200, 128, 64, 0), (200, 52, 100, 20),
-          (100_001, 128, 40_000, 0), (1_000_001, 52, 10_000, 5)]
+          (100_001, 128, 40_000, 0), (1_000_001, 52, 10_000, 5),
+          (200, 52, 1, 0), (200, 52, 7, 0), (5_000, 52, 1_001, 0),
+          (20_001, 4, 5_000, 0), (20_001, 300, 5_000, 3),
+          (5_001, 1_024, 1_000, 0),
+          (100_001, 128, 20_000, 0), (301, 16_384, 100, 0),
+          (301, 16_388, 300, 0), (2_001, 52, 1_001, 1_001),
+          (1_000_001, 52, 1_000_000, 0)]
 
 
 def test_kernels_match_plain(dev):
@@ -86,6 +98,24 @@ def test_out_of_range_ids_set_the_error_word(dev):
     assert cr.read_error(dev) == 1
     assert torch.equal(data[2:], before[2:]) and torch.equal(data[0],
                                                              before[0])
+    # out-of-range ids in the middle of a ring tile: no hang, lanes zero
+    data, ids, src = _inputs(dev, 5_000, 52, 1_001, seed=3)
+    ids[500], ids[700] = 5_000, -1
+    good = torch.ones(1_001, dtype=torch.bool, device=dev)
+    good[500] = good[700] = False
+    cr.reset_error(dev)
+    out = cr.gather_rows(data, ids)
+    assert cr.read_error(dev) == 1
+    assert torch.equal(out[good], cr.gather_rows_plain(data, ids[good]))
+    assert out[~good].abs().sum() == 0
+    for sign in (1, -1):
+        a, b = data.clone(), data.clone()
+        cr.reset_error(dev)
+        _, ra = cr.update_rows(a, ids, src, sign, want_rows=True)
+        assert cr.read_error(dev) == 1
+        _, rb = cr.update_rows_plain(b, ids[good], src[good], sign)
+        assert torch.equal(a, b) and torch.equal(ra[good], rb)
+        assert ra[~good].abs().sum() == 0
     cr.reset_error(dev)
 
 
@@ -99,3 +129,15 @@ def test_launches_count_only_real_launches(dev):
     cr.update_rows(data, ids, src, -1)
     assert cr.LAUNCHES == {"gather_rows": 1, "scatter_set_rows": 1,
                            "update_rows": 1}
+    assert cr.RING_LAUNCHES == {"gather_rows": 1, "update_rows": 1}
+    # a table view 4 bytes off 16-byte alignment takes the per-warp branch
+    flat = torch.zeros(64 * 8 + 1, device=dev)
+    view = flat[1:].view(64, 8)
+    view.copy_(data)
+    assert torch.equal(cr.gather_rows(view, ids),
+                       cr.gather_rows_plain(data, ids))
+    cr.update_rows(view, ids, src, 1)
+    cr.update_rows_plain(data, ids, src, 1)
+    assert torch.equal(view, data)
+    assert cr.LAUNCHES["gather_rows"] == 2 and cr.LAUNCHES["update_rows"] == 2
+    assert cr.RING_LAUNCHES == {"gather_rows": 1, "update_rows": 1}
