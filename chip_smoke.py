@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of multiverso_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--json-out PATH]
+    python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
 
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
@@ -10,20 +10,23 @@ holds every kernel of that path against its plain PyTorch version:
 1. build    — nvcc builds ``multiverso_tpu_torch/csrc/rows.cu`` (sm_90a);
 2. kernels  — each row kernel against its plain version on the card, at
               the slice's shapes and edge cases (tests/test_torch_rows.py's
-              id patterns; the ring's geometry: n = 1, n below the SM
-              count, n not a multiple of the tile, 1,000,000 ids of a
-              1,000,001 x 52 table, cols 4/52/128/300/1024 and rows wider
-              than a stage, all lanes on the trash row, out-of-range ids
-              mid-tile, subnormal values, a misaligned table view on the
-              per-warp branch): bitwise outside the trash row; the error
-              word 0, and set by out-of-range ids whose lanes read zero;
-              device times from CUDA events (median of 30 launches queued
-              back to back behind a spin kernel, after warm-up, ids
-              rotating through more rows than the 50 MB L2 holds) beside
-              the byte bound, the plain version and one PyTorch library
-              call, plus the host-inclusive time of one call; and the ring
-              against the per-warp branch in turns (ring, per-warp,
-              per-warp, ring);
+              id patterns; the row groups' geometry: n = 1, n below the SM
+              count, n not a multiple of a block's rows, 1,000,000 ids of a
+              1,000,001 x 52 table, cols 4/52/128/300/1024 and rows of
+              16,384 and 16,388 floats, all lanes on the trash row,
+              out-of-range ids mid-batch, subnormal values, a misaligned
+              table view moving floats): bitwise outside the trash row;
+              the error word 0, and set by out-of-range ids whose lanes
+              read zero; device times from CUDA events (median of 30
+              launches queued back to back behind a spin kernel, after
+              warm-up, ids rotating through more rows than the 50 MB L2
+              holds) beside the byte bound, the plain version, one PyTorch
+              library call and an empty launch timed the same way, plus
+              the host-inclusive time of one call; with ``--baseline DIR``
+              (another checkout of the repository, e.g. an earlier commit
+              unpacked with ``git archive``) also that checkout's gather
+              and update, built from its own sources, in turns with this
+              one's on the same inputs (baseline, this, this, baseline);
 3. PS       — the reference's test_matrix_perf shape: MV_Init on the card,
               a 1,000,000 x 50 MatrixTable with the add updater and one
               with momentum, 5 rounds of AddRows + GetRows of 10,000
@@ -38,8 +41,7 @@ holds every kernel of that path against its plain PyTorch version:
               ``{"ok": true, "device": {...}}``.
 
 Launch counters are zeroed just before phase 3 and read after phase 4:
-each kernel of the path must have launched there, and every gather and
-update launch must have taken the ring branch. Any failure raises and
+each kernel of the path must have launched there. Any failure raises and
 the script exits non-zero without the ``ok`` line. Without a CUDA device,
 or away from the repository, it exits non-zero at once.
 """
@@ -137,13 +139,12 @@ def _clone_in_place(torch, t):
     return flat[off:].view(t.shape).copy_(t)
 
 
-def _check_rows(torch, cr, dev, data, ids_np, src, name, ring=True):
+def _check_rows(torch, cr, dev, data, ids_np, src, name):
     """One case: the gather and the update (both signs, with and without
     the post-update rows) against their plain versions on the card,
     bitwise outside the trash row (the last row). Ids outside the table
     must set the error word, read zero in every gathered or out_rows lane,
-    and leave the table as the plain update of the valid lanes leaves it.
-    ``ring`` says which branch each launch must take."""
+    and leave the table as the plain update of the valid lanes leaves it."""
     rows = data.shape[0]
     trash = rows - 1
     bad_np = (ids_np < 0) | (ids_np >= rows)
@@ -153,7 +154,6 @@ def _check_rows(torch, cr, dev, data, ids_np, src, name, ring=True):
     ids_ok = ids[good]
     torch.cuda.synchronize()
     cr.reset_error(dev)
-    before = dict(cr.RING_LAUNCHES)
     got = cr.gather_rows(data, ids)
     want = torch.zeros_like(got)
     want[good] = cr.gather_rows_plain(data, ids_ok)
@@ -180,15 +180,11 @@ def _check_rows(torch, cr, dev, data, ids_np, src, name, ring=True):
         raise AssertionError(f"{name}: error word {err}, bad ids "
                              f"{int(bad_np.sum())}")
     cr.reset_error(dev)
-    took = {k: cr.RING_LAUNCHES[k] - before[k] for k in before}
-    if took != ({"gather_rows": 1, "update_rows": 4} if ring else
-                {"gather_rows": 0, "update_rows": 0}):
-        raise AssertionError(f"{name}: ring launches {took}, ring={ring}")
 
 
 def edge_cases(torch, cr, dev) -> None:
-    """tests/test_torch_rows.py's cases and the ring's geometry on the
-    card: kernel == plain bitwise outside the trash row."""
+    """tests/test_torch_rows.py's cases and the row groups' geometry on
+    the card: kernel == plain bitwise outside the trash row."""
     rng = np.random.default_rng(7)
 
     def table(rows, cols, scale=1.0):
@@ -213,33 +209,31 @@ def edge_cases(torch, cr, dev) -> None:
         data, src = table(rows, cols), table(n, cols)
         for name, ids_np in patterns.items():
             _check_rows(torch, cr, dev, data, ids_np, src,
-                        f"{name} cols={cols}", ring=cols % 4 == 0)
+                        f"{name} cols={cols}")
             a, b = data.clone(), data.clone()
             ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
             cr.scatter_set_rows(a, ids, src)
             cr.scatter_set_rows_plain(b, ids, src)
             if not torch.equal(a[:trash], b[:trash]):
                 raise AssertionError(f"scatter {name} cols={cols}")
-    # the ring's geometry: (name, table rows, cols, ids)
+    # the row groups' geometry: (name, table rows, cols, ids)
     cases = [("n=1", 200, 52, unique(200, 1)),
              ("n=7 (below the SM count)", 200, 52, unique(200, 7)),
-             ("n=1001 (not a multiple of the tile)", 5000, 52,
+             ("n=1001 (not a multiple of a block's rows)", 5000, 52,
               unique(5000, 1001))]
     for cols in (4, 52, 128, 300):
         cases.append((f"cols={cols}, n=5000", 20_001, cols,
                       unique(20_001, 5000)))
-    cases.append(("cols=1024 (a bulk copy per row)", 5_001, 1_024,
+    cases.append(("cols=1024 (a warp looping over a row)", 5_001, 1_024,
                   unique(5_001, 1_000)))
-    cases += [("cols=128, n=20000 (a deep ring)", 100_001, 128,
+    cases += [("cols=128, n=20000 (several grid strides)", 100_001, 128,
                unique(100_001, 20_000)),
-              ("cols=16384 (rows wider than a stage)", 301, 16_384,
-               unique(301, 100)),
-              ("cols=16388, n=300 (a ragged last segment)", 301, 16_388,
-               unique(301, 300)),
+              ("cols=16384", 301, 16_384, unique(301, 100)),
+              ("cols=16388, n=300", 301, 16_388, unique(301, 300)),
               ("all lanes on the trash row", 2001, 52, np.full(1001, 2000))]
     mid = unique(5000, 1001)
     mid[500], mid[700] = 5000, -1
-    cases.append(("out-of-range ids mid-tile", 5000, 52, mid))
+    cases.append(("out-of-range ids mid-batch", 5000, 52, mid))
     for name, rows, cols, ids_np in cases:
         _check_rows(torch, cr, dev, table(rows, cols), ids_np,
                     table(len(ids_np), cols), name)
@@ -251,15 +245,15 @@ def edge_cases(torch, cr, dev) -> None:
     _check_rows(torch, cr, dev, big, rng.permutation(1_000_000),
                 table(1_000_000, 52), "n=1,000,000 of 1,000,001 x 52")
     del big
-    # a table view 4 bytes off 16-byte alignment: the per-warp branch
+    # a table view 4 bytes off 16-byte alignment: rows move as floats
     flat = table(1, 200 * 52 + 1).reshape(-1)
     _check_rows(torch, cr, dev, flat[1:].view(200, 52), unique(200, 100),
-                table(100, 52), "misaligned view", ring=False)
+                table(100, 52), "misaligned view")
     log(f"[kernels] edge cases: kernel == plain (bitwise outside the trash "
         f"row) for gather and update +/-1 with and without post-update "
         f"rows; first-slice id patterns at cols 128/50/52 (+ scatter-set); "
         f"{'; '.join(c[0] for c in cases)}; subnormal values; n=1,000,000 "
-        f"of 1,000,001 x 52; a misaligned view on the per-warp branch. "
+        f"of 1,000,001 x 52; a misaligned view moving floats. "
         f"Error word 0 on valid ids, set by out-of-range ids, whose lanes "
         f"read zero")
 
@@ -323,35 +317,70 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
                                         want_rows=True), ID_SETS)
     res["update_gather_rows_bound_ms"] = (
         (4 * n * cols * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3)
-    # the planner's ring against the per-warp branch (the first slice's
-    # kernels), the ring moving every row by its own bulk copy, and the
-    # ring moving rows by 16-byte copies (for the update: without its bulk
-    # reduce), at the same shape, in turns (each once forward, once back);
-    # and an empty launch timed the same way (the floor)
-    out = torch.empty((n, cols), device=dev)
-    variants = {
-        "gather_rows": lambda ring, rb: lambda i: cr._launch_gather(
-            data, ids[i], out, allow_ring=ring, row_bulk=rb),
-        "update_rows": lambda ring, rb: lambda i: cr._launch_update(
-            a, ids[i], src[i], None, 1, allow_ring=ring, row_bulk=rb),
-        "update_rows_sgd": lambda ring, rb: lambda i: cr._launch_update(
-            a, ids[i], src[i], None, -1, allow_ring=ring, row_bulk=rb),
-        "update_gather_rows": lambda ring, rb: lambda i: cr._launch_update(
-            a, ids[i], src[i], out, 1, allow_ring=ring, row_bulk=rb)}
-    choices = {"ring_ms": (True, None), "per_warp_ms": (False, None),
-               "ring_bulk_rows_ms": (True, True),
-               "ring_copy16_rows_ms": (True, False)}
-    order = list(choices) + list(choices)[::-1]
-    res["turns"] = {}
-    for name, make in variants.items():
-        turns = res["turns"][name] = {k: [] for k in choices}
-        for k in order:
-            turns[k].append(median_ms(torch, make(*choices[k]), ID_SETS))
+    # an empty launch timed the same way: the floor of any kernel here
     res["empty_launch_ms"] = median_ms(
         torch, lambda i: torch.cuda._sleep(0), ID_SETS)
     torch.cuda.synchronize()
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set during timing")
+    return res
+
+
+def load_baseline(root: str):
+    """``multiverso_tpu_torch/ops/cuda_rows.py`` of another checkout, as a
+    module of its own, with its kernels built from that checkout's
+    sources (into that checkout's ``build/``)."""
+    import importlib.util
+    path = os.path.join(os.path.abspath(root), "multiverso_tpu_torch", "ops",
+                        "cuda_rows.py")
+    spec = importlib.util.spec_from_file_location("baseline_cuda_rows", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod
+
+
+def compare_baseline(torch, cr, base, dev, rows: int, cols: int, n: int,
+                     seed: int) -> dict:
+    """The baseline checkout's gather, update (+1, -1) and Add+Get against
+    this checkout's, through the public wrappers on the same inputs, each
+    timed as ``median_ms`` in turns: baseline, this, this, baseline.
+    Results must agree bitwise."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn(rows + 1, cols, generator=g).to(dev)
+    ids = [torch.randperm(rows, generator=g)[:n].to(torch.int32).to(dev)
+           for _ in range(ID_SETS)]
+    src = [torch.randn(n, cols, generator=g).to(dev) for _ in range(ID_SETS)]
+    if not torch.equal(base.gather_rows(data, ids[0]),
+                       cr.gather_rows(data, ids[0])):
+        raise AssertionError("baseline and this gather disagree")
+    for sign in (1, -1):
+        a, b = data.clone(), data.clone()
+        _, ra = base.update_rows(a, ids[0], src[0], sign, want_rows=True)
+        _, rb = cr.update_rows(b, ids[0], src[0], sign, want_rows=True)
+        if not (torch.equal(a, b) and torch.equal(ra, rb)):
+            raise AssertionError(f"baseline and this update{sign:+d} "
+                                 f"disagree")
+    tables = {"baseline": data.clone(), "this": data.clone()}
+    mods = {"baseline": base, "this": cr}
+
+    def calls(who):
+        m, t = mods[who], tables[who]
+        return {
+            "gather_rows": lambda i: m.gather_rows(data, ids[i]),
+            "update_rows": lambda i: m.update_rows(t, ids[i], src[i], 1),
+            "update_rows_sgd": lambda i: m.update_rows(t, ids[i], src[i], -1),
+            "update_gather_rows": lambda i: m.update_rows(
+                t, ids[i], src[i], 1, want_rows=True)}
+
+    fns = {who: calls(who) for who in mods}
+    res = {k: {"baseline": [], "this": []} for k in fns["this"]}
+    for k in res:
+        for who in ("baseline", "this", "this", "baseline"):
+            res[k][who].append(median_ms(torch, fns[who][k], ID_SETS))
+    torch.cuda.synchronize()
+    if base.read_error(dev) != 0 or cr.read_error(dev) != 0:
+        raise AssertionError("error word set during the baseline turns")
     return res
 
 
@@ -520,6 +549,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default="",
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--baseline", default="",
+                    help="another checkout of the repository whose gather "
+                         "and update to time in turns with this one's")
     args = ap.parse_args()
 
     import torch
@@ -573,17 +605,23 @@ def main() -> int:
             f"ms (library {res['update_rows_sgd_library_ms']:.4f}); Add+Get "
             f"{res['update_gather_rows_ms']:.4f} ms (bound "
             f"{res['update_gather_rows_bound_ms']:.4f})")
-        for k, t in res["turns"].items():
-            log(f"[kernels] {label} {k} in turns: ring "
-                f"{t['ring_ms'][0]:.7f} / {t['ring_ms'][1]:.7f} ms, per-warp "
-                f"branch {t['per_warp_ms'][0]:.7f} / "
-                f"{t['per_warp_ms'][1]:.7f} ms, ring with a bulk copy per "
-                f"row {t['ring_bulk_rows_ms'][0]:.7f} / "
-                f"{t['ring_bulk_rows_ms'][1]:.7f} ms, ring with 16-byte "
-                f"copies {t['ring_copy16_rows_ms'][0]:.7f} / "
-                f"{t['ring_copy16_rows_ms'][1]:.7f} ms")
         log(f"[kernels] {label} an empty launch timed the same way: "
             f"{res['empty_launch_ms']:.7f} ms")
+    if args.baseline:
+        base = load_baseline(args.baseline)
+        log(f"[baseline] {args.baseline}: kernels built from its sources")
+        results["baseline"] = {}
+        for label, key, shape, seed in (
+                ("PS 1000001x52, 10000 ids", "ps",
+                 (PS_ROWS, PS_COLS + 2, PS_IDS), args.seed),
+                ("WE 100001x128, 40000 ids", "we",
+                 (WE_VOCAB, WE_DIM, 40_000), args.seed + 1)):
+            turns = compare_baseline(torch, cr, base, dev, *shape, seed)
+            results["baseline"][key] = turns
+            for k, t in turns.items():
+                log(f"[baseline] {label} {k} in turns: baseline "
+                    f"{t['baseline'][0]:.7f} / {t['baseline'][1]:.7f} ms, "
+                    f"this {t['this'][0]:.7f} / {t['this'][1]:.7f} ms")
 
     # phases 3 + 4: the main path, counted from zero
     cr.reset_launches()
@@ -602,7 +640,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
         we = we_phase(torch, mv, cr, args.seed, workdir)
         launches = dict(cr.LAUNCHES)
-        ring = dict(cr.RING_LAUNCHES)
         results["we"] = we
         log(f"[we] {WE_VOCAB} x {WE_DIM}, {we['words']} words in "
             f"{we['train_s']:.3f} s = {we['words_per_s']:.0f} words/s "
@@ -615,13 +652,7 @@ def main() -> int:
         log(f"[we] topic corpus, card vs CPU embeddings: max abs diff "
             f"{results['we_small_max_abs_diff']:.3g} (rtol 1e-3, atol 1e-4)")
     results["main_path_launches"] = launches
-    results["main_path_ring_launches"] = ring
-    for k in ring:
-        if ring[k] != launches[k]:
-            raise AssertionError(f"{k}: {launches[k] - ring[k]} of "
-                                 f"{launches[k]} main-path launches missed "
-                                 f"the ring")
-    log(f"[main path] launches {launches}, of them on the ring {ring}")
+    log(f"[main path] launches {launches}")
 
     # phase 5: summary
     sources = {"gather_rows": "_make_gather_kernel / pallas_gather_rows",
@@ -641,7 +672,6 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "ring_launches": ring.get(k, 0),
             "we_ms": we_k[k]["ms"], "we_bound_ms": we_k[k]["bound_ms"],
             "we_shape": we_k[k]["shape"]})
     results["kernels"] = kernels

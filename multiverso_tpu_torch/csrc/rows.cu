@@ -3,9 +3,9 @@
 // Three kernels replace the three Pallas TPU kernels of
 // multiverso_tpu/ops/pallas_rows.py:
 //
-//   rows_ring_kernel<kGather>   <- pallas_gather_rows       (:170)
-//   scatter_set_rows_kernel     <- pallas_scatter_set_rows  (:244)
-//   rows_ring_kernel<kAdd|kSub> <- pallas_update_rows       (:362)
+//   rows_group_kernel<kGather>   <- pallas_gather_rows       (:170)
+//   scatter_set_rows_kernel      <- pallas_scatter_set_rows  (:244)
+//   rows_group_kernel<kAdd|kSub> <- pallas_update_rows       (:362)
 //
 // Shared contract (the caller, multiverso_tpu_torch/tables/matrix_table.py,
 // enforces it): ids are int32; every id lies in [0, rows) of the table;
@@ -22,57 +22,37 @@
 //   scatter-set 2*n*C*4 + 4*n bytes        (read the rows, write the table)
 //   update      3*n*C*4 + 4*n bytes        (read row + delta, write row)
 //               + n*C*4 with out_rows      (write the post-update rows)
-// divided by 3.35e12 B/s. Each row is a random 16-byte-aligned segment, so
-// the card approaches that bound only with many rows in flight; and at the
-// PS shape (10,000 ids x 52 cols, 4.2 MB, bound 1.25 us) no kernel comes
-// near it: an empty launch timed the same way takes ~4.9 us (PERF.md).
+// divided by 3.35e12 B/s. Each row is a random 16-byte-aligned segment.
+// At the PS shape (10,000 ids x 52 cols, 4.2 MB, bound 1.25 us) no kernel
+// comes near the bound: an empty launch timed the same way takes ~4.9 us,
+// and the rest is the chain id load -> row load -> store. At the WE shape
+// (40,000 ids x 128 cols) the kernels are bound by bytes (PERF.md).
 //
-// Design of the gather and the fused update (the ring). The grid is
-// persistent: one or two blocks per SM, from the SM count the wrapper
-// reads, each walking "units" of T ids x one column segment. A block keeps
-// a ring of 1-4 stages in dynamic shared memory, one mbarrier per stage.
-// To fill a stage every thread loads the id of its row (the ids of all
-// the stages it fills at once, so their latencies overlap); the rows then
-// stream into the stage as 16-byte cp.async copies, each warp on its own
-// rows, a bad id's row as zeros (src-size 0), each thread's copies
-// signalling the stage's barrier (cp.async.mbarrier.arrive); the update's
-// delta tile arrives by ONE contiguous cp.async.bulk, its bytes armed on
-// the same barrier (mbarrier.arrive.expect_tx). Once the barrier
-// completes, the gather's stage leaves by ONE contiguous bulk store to
-// `out`; the update combines row (+|-) delta in float4 and writes each new
-// row from registers to the table (and to out_rows). While a stage
-// drains, the other stages' copies are in flight; a stage is refilled
-// only once cp.async.bulk.wait_group.read shows the store of its previous
-// use has read it, and writes by threads are fenced
-// (fence.proxy.async) before a bulk store reads them. Rows of 4 KB or
-// more move instead by one cp.async.bulk per row, in and out. Narrower
-// rows do not: at the main path's widths a bulk copy per row made the
-// gather no faster and the update 10-15% slower than 16-byte copies
-// (PERF.md). An update without out_rows whose batch fits one wave (one
-// unit per block) adds by cp.reduce.async.bulk ... add.f32 instead: the
-// table rows never enter the SM, which saves the row read at the PS
-// shape. Sgd negates the delta tile in shared memory first; row + (-d) is
-// row - d bit for bit, and the reduce keeps subnormals (chip_smoke.py
-// holds it to the plain version). The planner picks it for one-wave
-// batches only, where it was measured faster. A row wider than a stage is
-// cut into column segments (one unit each). The launch geometry (T,
-// stages, segments, shared-memory bytes, grid, bulk rows, the reduce)
-// comes from plan_rows() in ops/cuda_rows.py: a small batch is spread
-// over two blocks on every SM before the ring deepens, so the PS shape is
-// one stage of 38 rows per block, one wave.
-//
-// The copies need 16-byte-aligned rows and addresses, so the ring applies
-// when C % 4 == 0 and every pointer is 16-byte aligned. The tables pad
-// their storage columns to 4 floats (store_cols), so the main path always
-// takes it. Otherwise the same entry takes its second branch, the per-warp
-// kernels (one warp per row, lanes on neighbouring float4s or floats),
-// which the scatter-set also uses. Ids are widened to int64 before they
+// Design of the gather and the fused update (row groups). A row is moved
+// by a group of `lanes` neighbouring threads, lanes the smallest power of
+// two that covers the row's 16-byte units (floats when the layout is not
+// 16-byte aligned), at most a warp; wider rows loop. So a 52-float row (13
+// float4s) takes 16 lanes and two rows share a warp, where one warp per
+// row would leave 19 of its 32 lanes idle and need twice the warps. The
+// grid is sized from the card's SM count: at most kBlocksPerSm resident
+// blocks per SM (a full SM), each group walking rows grid-stride, so the
+// PS shape runs as one wave and a larger batch keeps every SM full without
+// a tail of queued blocks. Rows go straight from registers to their
+// destination: nothing is reused, so nothing is staged in shared memory.
+// Two earlier designs were measured slower at both shapes of the main
+// path: one warp per row, and a ring of mbarrier-tracked shared-memory
+// stages filled by bulk and 16-byte async copies; PERF.md keeps the
+// numbers.
+// The launch geometry (lanes, grid, whether units are float4s) comes from
+// plan_rows() in ops/cuda_rows.py. Ids are widened to int64 before they
 // form an offset, so tables past 2^31 floats address right.
+//
+// The scatter-set keeps one warp per row for now.
 //
 // Plain C interface, loaded with ctypes by ops/cuda_rows.py. Every entry
 // launches on the given stream, never synchronises, and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a plan that does not
-// match its shape) so a refused launch is reported at the call.
+// match its tensors) so a refused launch is reported at the call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,419 +60,73 @@
 extern "C" {
 // Launch geometry, computed by plan_rows() in ops/cuda_rows.py.
 struct MvtRowPlan {
-  long long tile;        // ids per tile (<= kThreads)
-  long long row_bulk;    // rows move by one bulk copy each (else copy16s)
-  long long reduce;      // an update without out_rows adds by bulk reduce
-  long long seg_cols;    // columns per segment, a multiple of 4
-  long long stages;      // ring stages (1..kMaxStages)
-  long long grid;        // blocks of the ring kernel
-  long long smem_bytes;  // dynamic shared memory of the ring kernel
-  long long warp_grid;   // blocks of the per-warp kernels
-  long long bulk;        // 1: take the ring; 0: the per-warp branch
+  long long lanes;      // threads per row: a power of two, 1..32
+  long long grid;       // blocks of the row-group kernel
+  long long warp_grid;  // blocks of the scatter-set's per-warp kernel
+  long long vec;        // 1: rows move as float4s (C % 4 == 0, aligned)
 };
 }
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxStages = 4;
-constexpr int kBarrierBytes = 64;          // room for 8 mbarriers
-constexpr int kMaxSmemBytes = 232448;      // 227 KB, Hopper's per-block max
+constexpr int kBlocksPerSm = 8;   // 2,048 threads: a full Hopper SM
 
 enum Op { kGather = 0, kAdd = 1, kSub = 2 };
-
-// Bytes before the first stage: the barriers, then each stage's ids.
-__host__ __device__ inline long long header_bytes(long long stages,
-                                                  long long tile) {
-  return (kBarrierBytes + stages * tile * 4 + 127) / 128 * 128;
-}
-
-// -- PTX wrappers -------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed. A phase that has
-// not completed after ~10 s of clocks means bytes were counted that no copy
-// delivers: trap, so the launch fails loudly instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > (1LL << 34)) __trap();
-}
-
-// global -> shared, completion counted on the barrier in bytes
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// 16 bytes global -> shared through the load/store unit; src_bytes 0
-// writes zeros and reads nothing
-__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
-                                       uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// One arrival on the barrier once this thread's earlier copy16s have landed.
-__device__ __forceinline__ void copy16_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// global[i] += shared[i] for `bytes` of float32, in L2, tracked by this
-// thread's bulk groups
-__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
-                                                uint32_t bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
-      "%2;\n" ::"l"(dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-}
-
-// shared -> global, tracked by this thread's bulk groups
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's newest bulk groups still read
-// shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// Order this thread's generic shared-memory writes before later async-proxy
-// accesses (the bulk stores and copies).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 template <int OP>
 __device__ __forceinline__ float combine(float row, float delta) {
   return OP == kAdd ? row + delta : row - delta;
 }
 
-// -- the ring: gather and fused update ---------------------------------------
-
-// Where a unit lies: ids [r0, r0 + cnt) of the batch, columns [c0, c0 + w).
-// Unit numbers are 32-bit (the host checks units < 2^31) and the column
-// segment count is 1 on the main path, so finding a unit costs no 64-bit
-// division: those are emulated in tens of instructions each, and a chain
-// of them sat on every unit's critical path.
-struct Unit {
-  long long r0, c0;
-  int cnt, w;
-};
-
-__device__ __forceinline__ Unit unit_at(unsigned u, unsigned nseg,
-                                        long long n, long long cols, int tile,
-                                        int seg_cols) {
-  Unit x;
-  const unsigned t = nseg == 1 ? u : u / nseg;
-  x.r0 = static_cast<long long>(t) * tile;
-  x.c0 = static_cast<long long>(u - t * nseg) * seg_cols;
-  x.cnt = static_cast<int>(min(static_cast<long long>(tile), n - x.r0));
-  x.w = static_cast<int>(min(static_cast<long long>(seg_cols), cols - x.c0));
-  return x;
+template <int OP>
+__device__ __forceinline__ float4 combine(float4 row, float4 delta) {
+  return make_float4(combine<OP>(row.x, delta.x), combine<OP>(row.y, delta.y),
+                     combine<OP>(row.z, delta.z), combine<OP>(row.w, delta.w));
 }
 
+// -- row groups: gather and fused update ----------------------------------
+
+// Units of V (float4 or float), w units a row; 1 << shift threads a row.
 // OP kGather: out[i] = data[ids[i]].
 // OP kAdd / kSub: data[ids[i]] = data[ids[i]] (+|-) src[i]; out[i] = the
 // new row when out is not null.
-template <int OP>
-__global__ void __launch_bounds__(kThreads)
-    rows_ring_kernel(float* __restrict__ data, const int* __restrict__ ids,
-                     const float* __restrict__ src, float* __restrict__ out,
-                     long long n, long long cols, long long rows,
-                     int* __restrict__ err, int tile, int seg_cols,
-                     int stages, unsigned units, unsigned nseg,
-                     bool row_bulk, bool reduce) {
-  constexpr bool kUpdate = OP != kGather;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  int* sids = reinterpret_cast<int*>(smem + kBarrierBytes);
-  float* stage0 = reinterpret_cast<float*>(smem + header_bytes(stages, tile));
-  const int buf_floats = tile * seg_cols;
-  const int stage_floats = buf_floats * (kUpdate ? 2 : 1);
-  const bool whole_rows = nseg == 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // this thread's row of every tile: warp w owns rows w, w + 8, w + 16, ...
-  const int my_row = warp + kWarps * lane;
-
-  // This block's k-th unit is blockIdx.x + k * gridDim.x.
-  const unsigned first = blockIdx.x, step = gridDim.x;
-  const unsigned count = first < units ? (units - first + step - 1) / step : 0;
-
-  // Fill stages s0, s0 + 1, ... (free) with the block's units k0 .. k1 - 1,
-  // k1 - k0 <= kMaxStages, in two calls. load_ids: each thread loads the
-  // id of its row of every unit at once, so the id latencies overlap (-1
-  // for an id outside [0, rows)). issue: per unit, sid[r] gets the ids;
-  // lane 0 of each warp arms the stage's barrier with the bulk bytes its
-  // warp is about to issue (rows with row_bulk, deltas); a bad id issues no
-  // copy and is not counted. Without row_bulk, warp w copies its rows 16
-  // bytes a lane (each id from the lane that loaded it), bad rows as
-  // zeros, and every thread adds one arrival for when its copies land.
-  auto load_ids = [&](unsigned k0, unsigned k1, int (&idv)[kMaxStages]) {
-    bool bad = false;
-#pragma unroll
-    for (int j = 0; j < kMaxStages; ++j) {
-      idv[j] = -1;
-      if (k0 + j < k1) {
-        const Unit x =
-            unit_at(first + (k0 + j) * step, nseg, n, cols, tile, seg_cols);
-        if (my_row < x.cnt) {
-          const long long id = static_cast<long long>(ids[x.r0 + my_row]);
-          if (id >= 0 && id < rows)
-            idv[j] = static_cast<int>(id);
-          else
-            bad = true;
-        }
-      }
+template <int OP, typename V>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    rows_group_kernel(V* __restrict__ data, const int* __restrict__ ids,
+                      const V* __restrict__ src, V* __restrict__ out,
+                      long long n, int w, long long rows,
+                      int* __restrict__ err, int shift) {
+  const int lanes = 1 << shift;
+  const int sub = threadIdx.x & (lanes - 1);
+  const long long per_block = kThreads >> shift;
+  const long long step = static_cast<long long>(gridDim.x) * per_block;
+  bool bad = false;
+  for (long long i = blockIdx.x * per_block + (threadIdx.x >> shift); i < n;
+       i += step) {
+    const long long id = static_cast<long long>(ids[i]);
+    if (id < 0 || id >= rows) {
+      bad = true;
+      if (out != nullptr)
+        for (int c = sub; c < w; c += lanes) out[i * w + c] = V{};
+      continue;
     }
-    if (bad) atomicOr(err, 1);
-  };
-  auto issue = [&](unsigned k0, unsigned k1, int s0,
-                   const int (&idv)[kMaxStages]) {
-#pragma unroll
-    for (int j = 0; j < kMaxStages; ++j) {
-      if (k0 + j < k1) {
-        const int s = s0 + j;
-        const Unit x =
-            unit_at(first + (k0 + j) * step, nseg, n, cols, tile, seg_cols);
-        float* rowbuf = stage0 + s * stage_floats;
-        float* dbuf = rowbuf + buf_floats;
-        const uint32_t bar = smem_addr(bars + s);
-        const uint32_t bytes = static_cast<uint32_t>(x.w) * 4u;
-        const bool row = my_row < x.cnt;
-        const int id = idv[j];
-        if (row) sids[s * tile + my_row] = id;
-        uint32_t tx = row_bulk && !reduce && row && id >= 0 ? bytes : 0u;
-        if (kUpdate)
-          tx += whole_rows ? (tid == 0 ? static_cast<uint32_t>(x.cnt) * bytes
-                                       : 0u)
-                           : (row ? bytes : 0u);
-        tx = __reduce_add_sync(0xffffffffu, tx);
-        if (lane == 0) mbar_arrive_expect_tx(bar, tx);
-        __syncwarp();
-        if (kUpdate) {
-          if (whole_rows) {
-            if (tid == 0)
-              bulk_load(smem_addr(dbuf), src + x.r0 * cols,
-                        static_cast<uint32_t>(x.cnt) * bytes, bar);
-          } else if (row) {
-            bulk_load(smem_addr(dbuf + my_row * x.w),
-                      src + (x.r0 + my_row) * cols + x.c0, bytes, bar);
-          }
-        }
-        if (reduce) {
-          // the table rows never enter the SM
-        } else if (row_bulk) {
-          if (row && id >= 0)
-            bulk_load(smem_addr(rowbuf + my_row * x.w),
-                      data + static_cast<long long>(id) * cols + x.c0, bytes,
-                      bar);
-        } else {
-          const int w4 = x.w >> 2;
-          for (int i = 0; warp + kWarps * i < x.cnt; ++i) {
-            const int r = warp + kWarps * i;
-            const int rid = __shfl_sync(0xffffffffu, id, i);
-            const float* from =
-                data + static_cast<long long>(rid < 0 ? 0 : rid) * cols + x.c0;
-            const uint32_t to = smem_addr(rowbuf + r * x.w);
-            for (int c = lane; c < w4; c += 32)
-              copy16(to + 16u * c, from + 4 * c, rid < 0 ? 0u : 16u);
-          }
-          copy16_arrive(bar);
-        }
-      }
-    }
-  };
-
-  // The first stages' ids load while thread 0 sets up the barriers: a
-  // phase takes one arrival per warp, and without row_bulk one more per
-  // thread from cp.async.mbarrier.arrive.
-  {
-    const unsigned k1 = count < static_cast<unsigned>(stages) ? count : stages;
-    int idv[kMaxStages];
-    load_ids(0, k1, idv);
-    if (tid == 0) {
-      for (int s = 0; s < stages; ++s)
-        mbar_init(smem_addr(bars + s),
-                  row_bulk || reduce ? kWarps : kWarps + kThreads);
-      mbar_init_fence();
-    }
-    __syncthreads();
-    issue(0, k1, 0, idv);
-  }
-
-  // unit k sits in stage s = k % stages, in phase k / stages of its barrier
-  int s = 0, prev = stages - 1;
-  uint32_t parity = 0;
-  for (unsigned k = 0; k < count; ++k) {
-    const Unit x = unit_at(first + k * step, nseg, n, cols, tile, seg_cols);
-    float* rowbuf = stage0 + s * stage_floats;
-    const int* sid = sids + s * tile;
-    mbar_wait(smem_addr(bars + s), parity);
-
-    const int w4 = x.w >> 2;
-    float4* r4 = reinterpret_cast<float4*>(rowbuf);
-    if (!kUpdate) {
-      // bulk rows of bad ids received no copy: zero them
-      if (row_bulk)
-        for (int r = warp; r < x.cnt; r += kWarps)
-          if (sid[r] < 0)
-            for (int c = lane; c < w4; c += 32)
-              r4[r * w4 + c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else if (reduce) {
-      // sgd adds the negated delta: row + (-d) is row - d, bit for bit
-      if (OP == kSub) {
-        float* d = rowbuf + buf_floats;
-        for (int e = tid; e < x.cnt * x.w; e += kThreads) d[e] = -d[e];
-      }
-    } else {
-      // combine; without row_bulk the new rows go straight from registers
-      // back to the table and to out
-      const float4* d4 = reinterpret_cast<const float4*>(rowbuf + buf_floats);
-      const unsigned total = static_cast<unsigned>(x.cnt) * w4;
-      for (unsigned e = tid; e < total; e += kThreads) {
-        const unsigned r = e / w4;
-        const int id = sid[r];
-        if (id >= 0) {
-          float4 a = r4[e];
-          const float4 b = d4[e];
-          a.x = combine<OP>(a.x, b.x);
-          a.y = combine<OP>(a.y, b.y);
-          a.z = combine<OP>(a.z, b.z);
-          a.w = combine<OP>(a.w, b.w);
-          if (row_bulk) {
-            r4[e] = a;
-          } else {
-            reinterpret_cast<float4*>(data + static_cast<long long>(id) * cols +
-                                      x.c0)[e - r * w4] = a;
-            if (out != nullptr)
-              reinterpret_cast<float4*>(out + (x.r0 + r) * cols + x.c0)
-                  [e - r * w4] = a;
-          }
-        } else if (out != nullptr) {
-          if (row_bulk)
-            r4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-          else
-            reinterpret_cast<float4*>(out + (x.r0 + r) * cols + x.c0)
-                [e - r * w4] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-    }
-    // bulk stores read what the threads wrote: fence the proxies first
-    const bool stores = !kUpdate || row_bulk || reduce;
-    if (stores) {
-      fence_async_shared();
-      __syncthreads();
-    }
-
-    const uint32_t bytes = static_cast<uint32_t>(x.w) * 4u;
-    if (kUpdate && (row_bulk || reduce)) {
-      for (int r = tid; r < x.cnt; r += kThreads) {
-        const int id = sid[r];
-        if (id < 0) continue;
-        float* row = data + static_cast<long long>(id) * cols + x.c0;
-        if (reduce)
-          bulk_reduce_add(row, smem_addr(rowbuf + buf_floats + r * x.w), bytes);
-        else
-          bulk_store(row, smem_addr(rowbuf + r * x.w), bytes);
-      }
-    }
-    if (out != nullptr && stores) {
-      if (whole_rows) {
-        if (tid == kThreads - 1)
-          bulk_store(out + x.r0 * cols, smem_addr(rowbuf),
-                     static_cast<uint32_t>(x.cnt) * bytes);
+    V* row = data + id * w;
+    for (int c = sub; c < w; c += lanes) {
+      V v;
+      if (OP == kGather) {
+        v = __ldg(row + c);
       } else {
-        for (int r = tid; r < x.cnt; r += kThreads)
-          bulk_store(out + (x.r0 + r) * cols + x.c0,
-                     smem_addr(rowbuf + r * x.w), bytes);
+        v = combine<OP>(row[c], __ldg(src + i * w + c));
+        row[c] = v;
       }
-    }
-    bulk_commit();
-
-    // Refill a stage once the stores of its last use have read it. With
-    // one stage that is this unit's stage; with more, the previous unit's,
-    // whose stores had this unit's wait to finish.
-    if (stages == 1) {
-      if (k + 1 < count) {
-        bulk_wait_read<0>();
-        __syncthreads();
-        int idv[kMaxStages];
-        load_ids(k + 1, k + 2, idv);
-        issue(k + 1, k + 2, 0, idv);
-      }
-    } else if (k >= 1 && k - 1 + stages < count) {
-      bulk_wait_read<1>();
-      __syncthreads();
-      int idv[kMaxStages];
-      load_ids(k - 1 + stages, k + stages, idv);
-      issue(k - 1 + stages, k + stages, prev, idv);
-    }
-    prev = s;
-    if (++s == stages) {
-      s = 0;
-      parity ^= 1u;
+      if (out != nullptr) out[i * w + c] = v;
     }
   }
-  bulk_wait_read<0>();
+  if (bad && sub == 0) atomicOr(err, 1);
 }
 
-// -- the per-warp branch: unaligned layouts, and the scatter-set ------------
+// -- the scatter-set: one warp per row ---------------------------------------
 
 __device__ __forceinline__ long long warp_index() {
   return (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -500,39 +134,6 @@ __device__ __forceinline__ long long warp_index() {
 
 __device__ __forceinline__ long long warp_count() {
   return (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-}
-
-__device__ __forceinline__ void flag_bad_id(int lane, int* err) {
-  if (lane == 0) atomicOr(err, 1);
-}
-
-// out[i] = data[ids[i]]
-template <bool VEC>
-__global__ void gather_rows_kernel(const float* __restrict__ data,
-                                   const int* __restrict__ ids,
-                                   float* __restrict__ out, long long n,
-                                   long long cols, long long rows,
-                                   int* __restrict__ err) {
-  const int lane = threadIdx.x & 31;
-  const long long step = warp_count();
-  for (long long i = warp_index(); i < n; i += step) {
-    const long long id = static_cast<long long>(ids[i]);
-    float* dst = out + i * cols;
-    if (id < 0 || id >= rows) {
-      flag_bad_id(lane, err);
-      for (long long c = lane; c < cols; c += 32) dst[c] = 0.0f;
-      continue;
-    }
-    const float* src = data + id * cols;
-    if (VEC) {
-      const float4* s4 = reinterpret_cast<const float4*>(src);
-      float4* d4 = reinterpret_cast<float4*>(dst);
-      const long long c4 = cols >> 2;
-      for (long long c = lane; c < c4; c += 32) d4[c] = __ldg(s4 + c);
-    } else {
-      for (long long c = lane; c < cols; c += 32) dst[c] = __ldg(src + c);
-    }
-  }
 }
 
 // data[ids[i]] = src[i]
@@ -548,7 +149,7 @@ __global__ void scatter_set_rows_kernel(float* __restrict__ data,
   for (long long i = warp_index(); i < n; i += step) {
     const long long id = static_cast<long long>(ids[i]);
     if (id < 0 || id >= rows) {
-      flag_bad_id(lane, err);
+      if (lane == 0) atomicOr(err, 1);
       continue;
     }
     const float* s = src + i * cols;
@@ -564,115 +165,42 @@ __global__ void scatter_set_rows_kernel(float* __restrict__ data,
   }
 }
 
-// data[ids[i]] = data[ids[i]] (+|-) deltas[i]; out_rows[i] = the new row
-// when out_rows is not null.
-template <int OP, bool VEC>
-__global__ void update_rows_kernel(float* __restrict__ data,
-                                   const int* __restrict__ ids,
-                                   const float* __restrict__ deltas,
-                                   float* __restrict__ out_rows, long long n,
-                                   long long cols, long long rows,
-                                   int* __restrict__ err) {
-  const int lane = threadIdx.x & 31;
-  const long long step = warp_count();
-  for (long long i = warp_index(); i < n; i += step) {
-    const long long id = static_cast<long long>(ids[i]);
-    float* out = out_rows ? out_rows + i * cols : nullptr;
-    if (id < 0 || id >= rows) {
-      flag_bad_id(lane, err);
-      if (out)
-        for (long long c = lane; c < cols; c += 32) out[c] = 0.0f;
-      continue;
-    }
-    float* row = data + id * cols;
-    const float* d = deltas + i * cols;
-    if (VEC) {
-      float4* r4 = reinterpret_cast<float4*>(row);
-      const float4* d4 = reinterpret_cast<const float4*>(d);
-      float4* o4 = reinterpret_cast<float4*>(out);
-      const long long c4 = cols >> 2;
-      for (long long c = lane; c < c4; c += 32) {
-        float4 r = r4[c];
-        const float4 v = __ldg(d4 + c);
-        r.x = combine<OP>(r.x, v.x);
-        r.y = combine<OP>(r.y, v.y);
-        r.z = combine<OP>(r.z, v.z);
-        r.w = combine<OP>(r.w, v.w);
-        r4[c] = r;
-        if (o4) o4[c] = r;
-      }
-    } else {
-      for (long long c = lane; c < cols; c += 32) {
-        const float r = combine<OP>(row[c], __ldg(d + c));
-        row[c] = r;
-        if (out) out[c] = r;
-      }
-    }
-  }
-}
-
 // -- host side -----------------------------------------------------------------
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// The ring's preconditions, and a plan that matches its shape (the
-// planner and this file compute the shared-memory layout alike).
-inline long long ring_segments(const MvtRowPlan* p, long long cols) {
-  return (cols + p->seg_cols - 1) / p->seg_cols;
+// The plan matches its tensors: lanes a power of two up to a warp, a grid,
+// float4 units only where every pointer and row is 16-byte aligned.
+inline bool plan_ok(const MvtRowPlan* p, long long cols, bool aligned) {
+  const long long l = p->lanes;
+  return l >= 1 && l <= 32 && (l & (l - 1)) == 0 && p->grid >= 1 &&
+         p->grid < (1LL << 31) && cols < (1LL << 31) &&
+         (!p->vec || (cols % 4 == 0 && aligned));
 }
 
-inline long long ring_units(const MvtRowPlan* p, long long n, long long cols) {
-  return (n + p->tile - 1) / p->tile * ring_segments(p, cols);
-}
-
-inline bool ring_ok(const MvtRowPlan* p, long long n, long long cols,
-                    int buffers) {
-  if (cols <= 0 || cols % 4 != 0 || p->seg_cols <= 0 || p->seg_cols % 4 != 0 ||
-      p->tile < 1 || p->tile > kThreads || p->stages < 1 ||
-      p->stages > kMaxStages || p->grid < 1)
-    return false;
-  const long long seg = p->seg_cols < cols ? p->seg_cols : cols;
-  const long long smem = header_bytes(p->stages, p->tile) +
-                         p->stages * p->tile * seg * 4 * buffers;
-  return smem == p->smem_bytes && smem <= kMaxSmemBytes &&
-         ring_units(p, n, cols) < (1LL << 31);
-}
-
-// Raise the kernel's dynamic shared-memory limit, once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, bool* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 64 && done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxSmemBytes);
-  if (e == cudaSuccess && dev < 64) done[dev] = true;
-  return e;
+inline int shift_of(long long lanes) {
+  int s = 0;
+  while ((1LL << s) < lanes) ++s;
+  return s;
 }
 
 template <int OP>
-int launch_ring(float* data, const int* ids, const float* src, float* out,
-                long long n, long long cols, long long rows, int* err,
-                const MvtRowPlan* p, cudaStream_t stream) {
-  static bool done[64] = {};
-  cudaError_t e = allow_smem(rows_ring_kernel<OP>, done);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rows_ring_kernel<OP><<<static_cast<unsigned>(p->grid), kThreads,
-                         static_cast<size_t>(p->smem_bytes), stream>>>(
-      data, ids, src, out, n, cols, rows, err, static_cast<int>(p->tile),
-      static_cast<int>(p->seg_cols < cols ? p->seg_cols : cols),
-      static_cast<int>(p->stages),
-      static_cast<unsigned>(ring_units(p, n, cols)),
-      static_cast<unsigned>(ring_segments(p, cols)), p->row_bulk != 0,
-      OP != kGather && out == nullptr && p->reduce != 0);
+int launch_group(float* data, const int* ids, const float* src, float* out,
+                 long long n, long long cols, long long rows, int* err,
+                 const MvtRowPlan* p, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(p->grid));
+  const int shift = shift_of(p->lanes);
+  if (p->vec)
+    rows_group_kernel<OP, float4><<<grid, kThreads, 0, stream>>>(
+        reinterpret_cast<float4*>(data), ids,
+        reinterpret_cast<const float4*>(src), reinterpret_cast<float4*>(out),
+        n, static_cast<int>(cols / 4), rows, err, shift);
+  else
+    rows_group_kernel<OP, float><<<grid, kThreads, 0, stream>>>(
+        data, ids, src, out, n, static_cast<int>(cols), rows, err, shift);
   return static_cast<int>(cudaGetLastError());
-}
-
-inline dim3 warp_grid(const MvtRowPlan* p) {
-  return dim3(static_cast<unsigned>(p->warp_grid < 1 ? 1 : p->warp_grid));
 }
 
 }  // namespace
@@ -683,20 +211,10 @@ int mvt_gather_rows(const float* data, const int* ids, float* out,
                     long long n, long long cols, long long rows, int* err,
                     const MvtRowPlan* plan, cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (plan->bulk) {
-    if (!ring_ok(plan, n, cols, 1) || !aligned16(data) || !aligned16(out))
-      return static_cast<int>(cudaErrorInvalidValue);
-    return launch_ring<kGather>(const_cast<float*>(data), ids, nullptr, out,
-                                n, cols, rows, err, plan, stream);
-  }
-  const bool vec = cols % 4 == 0 && aligned16(data) && aligned16(out);
-  if (vec)
-    gather_rows_kernel<true><<<warp_grid(plan), kThreads, 0, stream>>>(
-        data, ids, out, n, cols, rows, err);
-  else
-    gather_rows_kernel<false><<<warp_grid(plan), kThreads, 0, stream>>>(
-        data, ids, out, n, cols, rows, err);
-  return static_cast<int>(cudaGetLastError());
+  if (!plan_ok(plan, cols, aligned16(data) && aligned16(out)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_group<kGather>(const_cast<float*>(data), ids, nullptr, out, n,
+                               cols, rows, err, plan, stream);
 }
 
 int mvt_scatter_set_rows(float* data, const int* ids, const float* src,
@@ -705,11 +223,13 @@ int mvt_scatter_set_rows(float* data, const int* ids, const float* src,
                          cudaStream_t stream) {
   if (n <= 0) return 0;
   const bool vec = cols % 4 == 0 && aligned16(data) && aligned16(src);
+  const dim3 grid(static_cast<unsigned>(plan->warp_grid < 1 ? 1
+                                                            : plan->warp_grid));
   if (vec)
-    scatter_set_rows_kernel<true><<<warp_grid(plan), kThreads, 0, stream>>>(
+    scatter_set_rows_kernel<true><<<grid, kThreads, 0, stream>>>(
         data, ids, src, n, cols, rows, err);
   else
-    scatter_set_rows_kernel<false><<<warp_grid(plan), kThreads, 0, stream>>>(
+    scatter_set_rows_kernel<false><<<grid, kThreads, 0, stream>>>(
         data, ids, src, n, cols, rows, err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -719,34 +239,14 @@ int mvt_update_rows(float* data, const int* ids, const float* deltas,
                     long long rows, int sign, int* err,
                     const MvtRowPlan* plan, cudaStream_t stream) {
   if (n <= 0) return 0;
-  if (plan->bulk) {
-    if (!ring_ok(plan, n, cols, 2) || !aligned16(data) || !aligned16(deltas) ||
-        (out_rows != nullptr && !aligned16(out_rows)))
-      return static_cast<int>(cudaErrorInvalidValue);
-    return sign > 0 ? launch_ring<kAdd>(data, ids, deltas, out_rows, n, cols,
-                                        rows, err, plan, stream)
-                    : launch_ring<kSub>(data, ids, deltas, out_rows, n, cols,
-                                        rows, err, plan, stream);
-  }
-  const bool vec = cols % 4 == 0 && aligned16(data) && aligned16(deltas) &&
-                   (out_rows == nullptr || aligned16(out_rows));
-  const dim3 grid = warp_grid(plan);
-  if (sign > 0) {
-    if (vec)
-      update_rows_kernel<kAdd, true><<<grid, kThreads, 0, stream>>>(
-          data, ids, deltas, out_rows, n, cols, rows, err);
-    else
-      update_rows_kernel<kAdd, false><<<grid, kThreads, 0, stream>>>(
-          data, ids, deltas, out_rows, n, cols, rows, err);
-  } else {
-    if (vec)
-      update_rows_kernel<kSub, true><<<grid, kThreads, 0, stream>>>(
-          data, ids, deltas, out_rows, n, cols, rows, err);
-    else
-      update_rows_kernel<kSub, false><<<grid, kThreads, 0, stream>>>(
-          data, ids, deltas, out_rows, n, cols, rows, err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool aligned = aligned16(data) && aligned16(deltas) &&
+                       (out_rows == nullptr || aligned16(out_rows));
+  if (!plan_ok(plan, cols, aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return sign > 0 ? launch_group<kAdd>(data, ids, deltas, out_rows, n, cols,
+                                       rows, err, plan, stream)
+                  : launch_group<kSub>(data, ids, deltas, out_rows, n, cols,
+                                       rows, err, plan, stream);
 }
 
 }  // extern "C"

@@ -22,12 +22,12 @@ caller's bug: the kernel skips the lane and sets the device's error word
 (``read_error``), the plain versions raise from ``index_select``.
 
 Launch geometry: ``plan_rows`` computes it on the host, from the batch,
-the row width and the card's SM count (a plain function the CPU tests
-reach), and the C entry takes it as an ``MvtRowPlan``. The gather and the
-fused update take the ring branch of ``rows.cu`` (async copies through a
-shared-memory ring of mbarrier-tracked stages, the contiguous tiles as
-bulk copies) when ``cols % 4 == 0`` and every pointer is 16-byte aligned,
-and its per-warp branch otherwise.
+the row width, the layout and the card's SM count (a plain function the
+CPU tests reach), and the C entry takes it as an ``MvtRowPlan``. The
+gather and the fused update move each row with a group of threads sized
+to the row; rows move as float4s when ``cols % 4 == 0`` and every pointer
+is 16-byte aligned (the tables pad their columns for this), else as
+floats.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a plain-C
 shared library at first use, under ``build/torch_kernels/<source hash>/``
@@ -55,8 +55,6 @@ import torch
 #: else (chip_smoke.py zeroes them before driving the main path)
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "scatter_set_rows": 0,
                             "update_rows": 0}
-#: of those, the launches that took the ring branch (bulk copies)
-RING_LAUNCHES: Dict[str, int] = {"gather_rows": 0, "update_rows": 0}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rows.cu"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -72,24 +70,15 @@ last_build_log: Optional[str] = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, RING_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 # -- launch geometry (mirrors csrc/rows.cu) ---------------------------------
 
-THREADS = 256                   # threads per block, both branches
-MAX_TILE = THREADS              # ids per tile: one store per thread
-MAX_STAGES = 4
-STAGE_BYTES = 32 * 1024         # shared memory of one stage, all buffers
-BARRIER_BYTES = 64
-SMEM_BLOCK_MAX = 232_448        # Hopper: 227 KB of dynamic smem per block
-SMEM_SM = 233_472               # 228 KB per SM ...
-SMEM_RESERVED = 1_024           # ... less 1 KB the runtime keeps per block
-#: a row segment at least this wide moves by one bulk copy; a narrower one
-#: by 16-byte cp.async (measured faster for the update at 208 and 512 B)
-ROW_BULK_BYTES = 4_096
+THREADS = 256                   # threads per block, every kernel
+BLOCKS_PER_SM = 8               # __launch_bounds__(THREADS, 8): a full SM
+WARP = 32
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -98,100 +87,57 @@ def _cdiv(a: int, b: int) -> int:
 
 @dataclass(frozen=True)
 class RowPlan:
-    """Launch geometry of one row-kernel call. The ring walks
-    ``units`` = tiles of ``tile`` ids x column segments of ``seg_cols``
-    (the last tile and segment may be short); unit ``u`` runs on block
-    ``u % grid``. A stage holds ``buffers`` tiles (1 gather; 2 update: rows
-    and deltas) and is one barrier phase, so its bytes bound the phase's
-    transaction count."""
+    """Launch geometry of one row-kernel call. The gather and the update
+    move each row with a group of ``lanes`` neighbouring threads (units of
+    float4 when ``vec``, else floats; a wider row loops); block ``b``'s
+    group ``g`` takes rows ``b * rows_per_block + g``, then every
+    ``grid * rows_per_block``-th row after it. The scatter-set moves a row
+    per warp over ``warp_grid`` blocks."""
     n: int
     cols: int
-    buffers: int
-    tile: int
-    row_bulk: bool
-    reduce: bool
-    seg_cols: int
-    stages: int
+    vec: bool
+    lanes: int
     grid: int
-    smem_bytes: int
     warp_grid: int
 
     @property
-    def segments(self) -> int:
-        return _cdiv(self.cols, self.seg_cols)
-
-    @property
-    def tiles(self) -> int:
-        return _cdiv(self.n, self.tile)
-
-    @property
     def units(self) -> int:
-        return self.tiles * self.segments
+        """16-byte (``vec``) or 4-byte units of one row."""
+        return self.cols // 4 if self.vec else self.cols
 
     @property
-    def stage_bytes(self) -> int:
-        return self.tile * self.seg_cols * 4 * self.buffers
+    def rows_per_block(self) -> int:
+        return THREADS // self.lanes
 
 
-def _header_bytes(stages: int, tile: int) -> int:
-    return _cdiv(BARRIER_BYTES + 4 * stages * tile, 128) * 128
-
-
-def plan_rows(n: int, cols: int, sms: int, buffers: int) -> RowPlan:
+def plan_rows(n: int, cols: int, sms: int, vec: bool) -> RowPlan:
     """The launch geometry for ``n`` ids of ``cols`` float32 columns on a
-    card of ``sms`` SMs; ``buffers`` is 1 for the gather, 2 for the fused
-    update. A row wider than a stage is cut into column segments. A small
-    batch is spread over two blocks on every SM first (T = n / (2 sms)
-    ids per tile, one stage, one wave); a larger one fills 32 KB stages
-    and deepens the ring to at most four stages, two blocks per SM where
-    shared memory allows. An update of one wave (``reduce``) adds by bulk
-    reduce when it has no post-update rows to return."""
-    if n < 1 or cols < 1 or sms < 1 or buffers not in (1, 2):
+    card of ``sms`` SMs; ``vec`` when rows move as float4s (``cols % 4 ==
+    0`` and every pointer 16-byte aligned). ``lanes`` is the smallest power
+    of two covering a row's units, at most a warp, so narrow rows share a
+    warp; the grid is one block per ``rows_per_block`` rows, capped at the
+    blocks the card keeps resident, so a batch runs in one wave."""
+    if n < 1 or cols < 1 or sms < 1 or (vec and cols % 4):
         raise ValueError(f"no plan for n={n} cols={cols} sms={sms} "
-                         f"buffers={buffers}")
-    if 4 * cols * buffers <= STAGE_BYTES:
-        seg_cols = cols
-    else:
-        seg_cols = STAGE_BYTES // (4 * buffers) // 4 * 4
-    tile = max(1, min(MAX_TILE, STAGE_BYTES // (4 * seg_cols * buffers),
-                      _cdiv(n, 2 * sms)))
-    stage = tile * seg_cols * 4 * buffers
-    units = _cdiv(n, tile) * _cdiv(cols, seg_cols)
-    for per_sm in (2, 1):
-        budget = min(SMEM_BLOCK_MAX, SMEM_SM // per_sm - SMEM_RESERVED)
-        grid = min(units, sms * per_sm)
-        stages = min(MAX_STAGES, _cdiv(units, grid))
-        while stages > 1 and _header_bytes(stages, tile) + stages * stage \
-                > budget:
-            stages -= 1
-        smem = _header_bytes(stages, tile) + stages * stage
-        if smem <= budget:
-            break
-    return RowPlan(n=n, cols=cols, buffers=buffers, tile=tile,
-                   row_bulk=4 * seg_cols >= ROW_BULK_BYTES,
-                   reduce=buffers == 2 and units <= grid,
-                   seg_cols=seg_cols, stages=stages, grid=grid,
-                   smem_bytes=smem,
-                   warp_grid=min(_cdiv(n, THREADS // 32), sms * 32))
+                         f"vec={vec}")
+    units = cols // 4 if vec else cols
+    lanes = min(WARP, 1 << (units - 1).bit_length())
+    return RowPlan(n=n, cols=cols, vec=vec, lanes=lanes,
+                   grid=min(_cdiv(n, THREADS // lanes), sms * BLOCKS_PER_SM),
+                   warp_grid=min(_cdiv(n, THREADS // WARP), sms * WARP))
 
 
 class _CPlan(ctypes.Structure):
     """``MvtRowPlan`` of csrc/rows.cu."""
     _fields_ = [(name, ctypes.c_longlong) for name in
-                ("tile", "row_bulk", "reduce", "seg_cols", "stages", "grid",
-                 "smem_bytes", "warp_grid", "bulk")]
+                ("lanes", "grid", "warp_grid", "vec")]
 
 
 @lru_cache(maxsize=4096)
-def _c_plan(n: int, cols: int, sms: int, buffers: int, bulk: bool,
-            row_bulk: Optional[bool] = None) -> _CPlan:
-    # a table of 0 columns takes the per-warp branch, which reads warp_grid
-    p = plan_rows(n, max(cols, 1), sms, buffers)
-    if row_bulk is None:
-        return _CPlan(p.tile, p.row_bulk, p.reduce, p.seg_cols, p.stages,
-                      p.grid, p.smem_bytes, p.warp_grid, int(bulk))
-    return _CPlan(p.tile, row_bulk, False, p.seg_cols, p.stages, p.grid,
-                  p.smem_bytes, p.warp_grid, int(bulk))
+def _c_plan(n: int, cols: int, sms: int, vec: bool) -> _CPlan:
+    # a table of 0 columns moves nothing; its launch still flags bad ids
+    p = plan_rows(n, max(cols, 1), sms, vec)
+    return _CPlan(p.lanes, p.grid, p.warp_grid, int(p.vec))
 
 
 _sm_counts: Dict[int, int] = {}
@@ -207,9 +153,8 @@ def _sms(device: torch.device) -> int:
     return count
 
 
-def takes_ring(cols: int, *tensors: torch.Tensor) -> bool:
-    """Whether the gather / update take the ring branch for these
-    tensors: bulk copies need 16-byte-aligned rows and addresses."""
+def _vec(cols: int, *tensors: torch.Tensor) -> bool:
+    """Whether rows move as float4s: 16-byte rows and addresses."""
     return cols > 0 and cols % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -337,20 +282,18 @@ def update_rows_plain(data: torch.Tensor, ids: torch.Tensor,
 
 
 # -- kernel wrappers ---------------------------------------------------------
-#
-# ``_launch_*`` launch one kernel and count it. chip_smoke.py times the
-# other choices beside the planner's at the same shape: ``allow_ring=False``
-# keeps the gather and the update on the per-warp branch, ``row_bulk``
-# forces rows to move by bulk copies (True) or 16-byte copies (False), and
-# the update to read and write its rows instead of the bulk reduce.
 
-def _launch_gather(data: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
-                   allow_ring: bool = True,
-                   row_bulk: Optional[bool] = None) -> None:
+def gather_rows(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """out[i] = data[ids[i]] as a fresh (n, cols) tensor."""
+    _check(data, ids)
+    if data.device.type == "cpu":
+        return gather_rows_plain(data, ids)
     n, cols = ids.shape[0], data.shape[1]
+    out = torch.empty((n, cols), dtype=data.dtype, device=data.device)
+    if n == 0:
+        return out
     lib = _load()
-    ring = allow_ring and takes_ring(cols, data, out)
-    plan = _c_plan(n, cols, _sms(data.device), 1, ring, row_bulk)
+    plan = _c_plan(n, cols, _sms(data.device), _vec(cols, data, out))
     with torch.cuda.device(data.device):
         rc = lib.mvt_gather_rows(
             data.data_ptr(), ids.data_ptr(), out.data_ptr(), n, cols,
@@ -358,38 +301,6 @@ def _launch_gather(data: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
             ctypes.byref(plan), _stream(data.device))
     _raise_on(rc, "gather_rows")
     LAUNCHES["gather_rows"] += 1
-    RING_LAUNCHES["gather_rows"] += ring
-
-
-def _launch_update(data: torch.Tensor, ids: torch.Tensor,
-                   deltas: torch.Tensor, out: Optional[torch.Tensor],
-                   sign: int, allow_ring: bool = True,
-                   row_bulk: Optional[bool] = None) -> None:
-    n, cols = ids.shape[0], data.shape[1]
-    lib = _load()
-    ring = allow_ring and takes_ring(
-        cols, data, deltas, *([out] if out is not None else []))
-    plan = _c_plan(n, cols, _sms(data.device), 2, ring, row_bulk)
-    with torch.cuda.device(data.device):
-        rc = lib.mvt_update_rows(
-            data.data_ptr(), ids.data_ptr(), deltas.data_ptr(),
-            out.data_ptr() if out is not None else None, n, cols,
-            data.shape[0], sign, error_word(data.device).data_ptr(),
-            ctypes.byref(plan), _stream(data.device))
-    _raise_on(rc, "update_rows")
-    LAUNCHES["update_rows"] += 1
-    RING_LAUNCHES["update_rows"] += ring
-
-
-def gather_rows(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """out[i] = data[ids[i]] as a fresh (n, cols) tensor."""
-    _check(data, ids)
-    if data.device.type == "cpu":
-        return gather_rows_plain(data, ids)
-    out = torch.empty((ids.shape[0], data.shape[1]), dtype=data.dtype,
-                      device=data.device)
-    if ids.shape[0] > 0:
-        _launch_gather(data, ids, out)
     return out
 
 
@@ -403,7 +314,7 @@ def scatter_set_rows(data: torch.Tensor, ids: torch.Tensor,
     if n == 0:
         return data
     lib = _load()
-    plan = _c_plan(n, cols, _sms(data.device), 1, False)
+    plan = _c_plan(n, cols, _sms(data.device), _vec(cols, data, rows))
     with torch.cuda.device(data.device):
         rc = lib.mvt_scatter_set_rows(
             data.data_ptr(), ids.data_ptr(), rows.data_ptr(), n, cols,
@@ -425,8 +336,19 @@ def update_rows(data: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
     if data.device.type == "cpu":
         data, new = update_rows_plain(data, ids, deltas, sign)
         return (data, new) if want_rows else data
-    out = (torch.empty((ids.shape[0], data.shape[1]), dtype=data.dtype,
-                       device=data.device) if want_rows else None)
-    if ids.shape[0] > 0:
-        _launch_update(data, ids, deltas, out, sign)
+    n, cols = ids.shape[0], data.shape[1]
+    out = (torch.empty((n, cols), dtype=data.dtype, device=data.device)
+           if want_rows else None)
+    if n > 0:
+        lib = _load()
+        vec = _vec(cols, data, deltas, *([out] if want_rows else []))
+        plan = _c_plan(n, cols, _sms(data.device), vec)
+        with torch.cuda.device(data.device):
+            rc = lib.mvt_update_rows(
+                data.data_ptr(), ids.data_ptr(), deltas.data_ptr(),
+                out.data_ptr() if out is not None else None, n, cols,
+                data.shape[0], sign, error_word(data.device).data_ptr(),
+                ctypes.byref(plan), _stream(data.device))
+        _raise_on(rc, "update_rows")
+        LAUNCHES["update_rows"] += 1
     return (data, out) if want_rows else data

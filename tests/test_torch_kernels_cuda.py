@@ -38,11 +38,11 @@ def _inputs(dev, rows, cols, n, seed, trash_lanes=0):
 
 
 # (table rows, cols, ids, lanes on the trash row): the first slice's
-# shapes, then the ring's geometry: n = 1, n below the SM count, n not a
-# multiple of the tile, cols 4 / 300, rows that move by one bulk copy
-# each (cols 1,024), a deep ring, rows wider than a stage
-# (and a ragged last column segment), all lanes on the trash row, and many
-# more tiles than the grid holds.
+# shapes, then the row groups' geometry: n = 1, n below the SM count, n
+# not a multiple of a block's rows, cols 4 (a lane a row) and 300 (a warp
+# looping over a row), cols 1,024, a batch of several grid strides, rows
+# of 16,384 and 16,388 floats, all lanes on the trash row, and many more
+# rows than the grid holds at once.
 SHAPES = [(200, 50, 100, 0), (200, 128, 64, 0), (200, 52, 100, 20),
           (100_001, 128, 40_000, 0), (1_000_001, 52, 10_000, 5),
           (200, 52, 1, 0), (200, 52, 7, 0), (5_000, 52, 1_001, 0),
@@ -98,7 +98,7 @@ def test_out_of_range_ids_set_the_error_word(dev):
     assert cr.read_error(dev) == 1
     assert torch.equal(data[2:], before[2:]) and torch.equal(data[0],
                                                              before[0])
-    # out-of-range ids in the middle of a ring tile: no hang, lanes zero
+    # out-of-range ids in the middle of a batch: lanes read zero
     data, ids, src = _inputs(dev, 5_000, 52, 1_001, seed=3)
     ids[500], ids[700] = 5_000, -1
     good = torch.ones(1_001, dtype=torch.bool, device=dev)
@@ -129,8 +129,7 @@ def test_launches_count_only_real_launches(dev):
     cr.update_rows(data, ids, src, -1)
     assert cr.LAUNCHES == {"gather_rows": 1, "scatter_set_rows": 1,
                            "update_rows": 1}
-    assert cr.RING_LAUNCHES == {"gather_rows": 1, "update_rows": 1}
-    # a table view 4 bytes off 16-byte alignment takes the per-warp branch
+    # a table view 4 bytes off 16-byte alignment: rows move as floats
     flat = torch.zeros(64 * 8 + 1, device=dev)
     view = flat[1:].view(64, 8)
     view.copy_(data)
@@ -140,4 +139,3 @@ def test_launches_count_only_real_launches(dev):
     cr.update_rows_plain(data, ids, src, 1)
     assert torch.equal(view, data)
     assert cr.LAUNCHES["gather_rows"] == 2 and cr.LAUNCHES["update_rows"] == 2
-    assert cr.RING_LAUNCHES == {"gather_rows": 1, "update_rows": 1}

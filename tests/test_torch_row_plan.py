@@ -1,11 +1,11 @@
-"""The launch planner of the ring row kernels (``cuda_rows.plan_rows``), on
-the CPU. csrc/rows.cu walks the plan's units (tiles of ids x column
-segments) over a persistent grid, moves rows with bulk async copies and
-counts their bytes on one mbarrier per stage; these tests hold the plan to
-what that needs: every id in exactly one tile, every bulk copy a positive
-multiple of 16 bytes, each barrier phase under the 2^20 transaction-count
-limit, shared memory within Hopper's 232,448 bytes a block, and the PS
-shape spread over every SM in one wave.
+"""The launch planner of the row-group kernels (``cuda_rows.plan_rows``), on
+the CPU. csrc/rows.cu moves each row of the gather and the fused update
+with a group of ``lanes`` threads and walks the rows grid-stride: block
+``b``'s tile at step ``k`` is the ``rows_per_block`` rows from
+``(k * grid + b) * rows_per_block``. These tests hold the plan to what
+that needs: every id in exactly one tile and every unit of a row on
+exactly one lane, a geometry the card launches, and the PS shape spread
+over every SM in one wave.
 """
 
 import numpy as np
@@ -16,92 +16,68 @@ from multiverso_tpu_torch.ops import cuda_rows as cr
 SMS = (132, 114)            # H100 SXM, H100 PCIe
 NS = (1, 2, 7, 31, 113, 132, 133, 1_000, 1_001, 10_000, 40_000, 123_457,
       1_000_000)
-COLS = (4, 8, 52, 128, 300, 1_024, 4_096, 8_192, 8_196, 16_384, 16_388,
-        65_536)
+COLS = (1, 3, 4, 8, 50, 52, 128, 300, 1_024, 16_384, 16_388, 65_536)
 
 
 def _plans():
     for sms in SMS:
         for n in NS:
             for cols in COLS:
-                for buffers in (1, 2):
-                    yield sms, cr.plan_rows(n, cols, sms, buffers)
-
-
-def _bulk_sizes(p):
-    """Byte sizes of the bulk copies rows.cu issues for plan ``p``: a row
-    segment (a full and the last one) where rows move by bulk copies or
-    are cut into segments, else the contiguous tile of the output or the
-    deltas (a full and the last one)."""
-    if p.row_bulk or p.segments > 1:
-        return {4 * p.seg_cols, 4 * (p.cols - (p.segments - 1) * p.seg_cols)}
-    last_tile = p.n - (p.tiles - 1) * p.tile
-    return {4 * p.cols * min(p.tile, p.n), 4 * p.cols * last_tile}
-
-
-def _covered_once(starts, lengths, size):
-    """Whether the intervals [start, start + length) cover 0..size-1 once."""
-    diff = np.zeros(size + 1, dtype=np.int64)
-    np.add.at(diff, starts, 1)
-    np.add.at(diff, starts + lengths, -1)
-    return bool((np.cumsum(diff)[:size] == 1).all()) and (lengths > 0).all()
+                for vec in (False, True) if cols % 4 == 0 else (False,):
+                    yield sms, cr.plan_rows(n, cols, sms, vec)
 
 
 def test_every_id_lies_in_exactly_one_tile():
     for sms, p in _plans():
-        # the kernel's unit_at(): tile t holds ids [t*T, min(n, (t+1)*T)),
-        # segment s columns [s*seg, min(cols, (s+1)*seg))
-        r0 = np.arange(p.tiles, dtype=np.int64) * p.tile
-        c0 = np.arange(p.segments, dtype=np.int64) * p.seg_cols
-        assert _covered_once(r0, np.minimum(p.tile, p.n - r0), p.n), p
-        assert _covered_once(c0, np.minimum(p.seg_cols, p.cols - c0),
-                             p.cols), p
-        # unit u runs on block u % grid, as the block's k-th unit; the
-        # blocks' counts (the kernel's `count`) add up to every unit
-        blocks = np.arange(p.grid, dtype=np.int64)
-        counts = np.where(blocks < p.units,
-                          (p.units - blocks + p.grid - 1) // p.grid, 0)
-        assert counts.sum() == p.units and counts.min() >= 1, p
-        assert counts.max() - counts.min() <= 1, p
+        # the kernel's loop: row i = b * rpb + g + k * grid * rpb for block
+        # b, group g, step k while i < n
+        rpb, stride = p.rows_per_block, p.grid * p.rows_per_block
+        b, g, k = np.meshgrid(np.arange(p.grid), np.arange(rpb),
+                              np.arange(-(-p.n // stride)), indexing="ij")
+        rows = (b * rpb + g + k * stride).ravel()
+        rows = rows[rows < p.n]
+        assert rows.size == p.n and np.unique(rows).size == p.n, p
+        # lane l of a group moves units l, l + lanes, ... of its row
+        units = np.zeros(p.units, dtype=np.int64)
+        for lane in range(p.lanes):
+            np.add.at(units, np.arange(lane, p.units, p.lanes), 1)
+        assert (units == 1).all(), p
 
 
-def test_bulk_copies_barrier_phases_and_shared_memory_fit_the_card():
+def test_launch_geometry_fits_the_card():
     for sms, p in _plans():
-        assert p.seg_cols % 4 == 0 and 1 <= p.tile <= cr.MAX_TILE, p
-        assert all(b > 0 and b % 16 == 0 for b in _bulk_sizes(p)), p
-        # one stage is one barrier phase: rows (+ deltas) of a full tile
-        assert p.stage_bytes < 2 ** 20, p
-        assert 1 <= p.stages <= cr.MAX_STAGES, p
-        assert p.smem_bytes == cr._header_bytes(p.stages, p.tile) \
-            + p.stages * p.stage_bytes, p
-        assert p.smem_bytes <= 232_448, p
-        blocks_per_sm = -(-p.grid // sms)
-        assert blocks_per_sm in (1, 2), p
-        assert blocks_per_sm * (p.smem_bytes + cr.SMEM_RESERVED) \
-            <= cr.SMEM_SM, p
+        assert p.units == (p.cols // 4 if p.vec else p.cols), p
+        # a power of two up to a warp, covering the row where it can, and
+        # never more than twice the lanes the row needs
+        assert p.lanes in (1, 2, 4, 8, 16, 32), p
+        assert p.lanes >= min(p.units, 32) and (
+            p.lanes == 1 or p.lanes < 2 * p.units), p
+        assert p.rows_per_block * p.lanes == cr.THREADS, p
+        assert 1 <= p.grid <= cr.BLOCKS_PER_SM * sms, p
+        assert p.grid * p.rows_per_block >= min(
+            p.n, cr.BLOCKS_PER_SM * sms * p.rows_per_block), p
         assert 1 <= p.warp_grid <= 32 * sms, p
-    for bad in ((0, 52, 132, 1), (10, 0, 132, 1), (10, 52, 0, 1),
-                (10, 52, 132, 3)):
+    for bad in ((0, 52, 132, True), (10, 0, 132, False), (10, 52, 0, True),
+                (10, 50, 132, True)):
         with pytest.raises(ValueError):
             cr.plan_rows(*bad)
 
 
-def test_small_batches_spread_over_every_sm_before_the_ring_deepens():
-    for buffers in (1, 2):
-        # the PS shape: 10,000 ids x 52 cols, one stage in each of two
-        # blocks per SM, one wave
-        p = cr.plan_rows(10_000, 52, 132, buffers)
-        assert (p.tile, p.units, p.grid, p.stages) == (38, 264, 264, 1), p
-        # a one-wave update adds by bulk reduce; a gather never does
-        assert p.reduce == (buffers == 2) and not p.row_bulk, p
-        # fewer ids than SMs: one id per block
-        p = cr.plan_rows(7, 52, 132, buffers)
-        assert (p.tile, p.grid, p.stages) == (1, 7, 1), p
-        # the WE shape: 40,000 ids x 128 cols, two blocks per SM, at least
-        # 64 KB of stages in flight per SM while one stage drains
-        p = cr.plan_rows(40_000, 128, 132, buffers)
-        assert p.grid == 264 and p.stages >= 2 and not p.reduce, p
-        assert 2 * (p.stages - 1) * p.stage_bytes >= 64 * 1024, p
-        # rows wider than a stage: column segments of whole 16-byte units
-        p = cr.plan_rows(100, 16_384, 132, buffers)
-        assert p.segments == 2 * buffers and p.tile == 1 and p.row_bulk, p
+def test_batches_spread_over_every_sm_in_one_wave():
+    # the PS shape: 10,000 ids x 52 cols (13 float4s): two rows a warp,
+    # 625 blocks, every SM busy, all resident at once
+    p = cr.plan_rows(10_000, 52, 132, True)
+    assert (p.lanes, p.rows_per_block, p.grid) == (16, 16, 625), p
+    assert 132 * 4 <= p.grid <= 132 * cr.BLOCKS_PER_SM, p
+    # the WE shape: 40,000 ids x 128 cols: a warp a row, every SM full
+    p = cr.plan_rows(40_000, 128, 132, True)
+    assert (p.lanes, p.grid) == (32, 132 * cr.BLOCKS_PER_SM), p
+    # fewer ids than SMs: one block, a row per group
+    p = cr.plan_rows(7, 52, 132, True)
+    assert (p.lanes, p.grid) == (16, 1), p
+    # an unaligned layout moves floats: 52 floats take a warp
+    p = cr.plan_rows(10_000, 52, 132, False)
+    assert (p.lanes, p.grid) == (32, 132 * cr.BLOCKS_PER_SM), p
+    # a narrow row: 4 floats are one float4, 256 rows a block
+    p = cr.plan_rows(10_000, 4, 132, True)
+    assert (p.lanes, p.rows_per_block, p.grid) == (1, 256, 40), p
