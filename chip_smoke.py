@@ -16,17 +16,23 @@ holds every kernel of that path against its plain PyTorch version:
               16,384 and 16,388 floats, all lanes on the trash row,
               out-of-range ids mid-batch, subnormal values, a misaligned
               table view moving floats): bitwise outside the trash row;
-              the error word 0, and set by out-of-range ids whose lanes
-              read zero; device times from CUDA events (median of 30
-              launches queued back to back behind a spin kernel, after
-              warm-up, ids rotating through more rows than the 50 MB L2
-              holds) beside the byte bound, the plain version, one PyTorch
-              library call and an empty launch timed the same way, plus
-              the host-inclusive time of one call; with ``--baseline DIR``
+              the error word 0, and set by out-of-range ids, whose lanes
+              read zero or leave the table as the valid lanes alone do;
+              device times of launches queued back to back behind a spin
+              kernel, after warm-up, ids rotating through more rows than
+              the 50 MB L2 holds, by two methods: ``ms`` (per-pair: the
+              median of 30 launches, each between its own pair of CUDA
+              events) and ``stream_ms`` (one event pair around a run of
+              30 launches, divided by 30; the median of 5 runs); beside
+              the byte bound, the plain version, one PyTorch library call
+              and an empty launch timed both ways, plus the
+              host-inclusive time of one call; with ``--baseline DIR``
               (another checkout of the repository, e.g. an earlier commit
-              unpacked with ``git archive``) also that checkout's gather
-              and update, built from its own sources, in turns with this
-              one's on the same inputs (baseline, this, this, baseline);
+              unpacked with ``git archive``) also that checkout's gather,
+              scatter-set and update, built from its own sources, checked
+              bitwise against this one's and timed both ways in turns
+              with this one's on the same inputs (baseline, this, this,
+              baseline);
 3. PS       — the reference's test_matrix_perf shape: MV_Init on the card,
               a 1,000,000 x 50 MatrixTable with the add updater and one
               with momentum, 5 rounds of AddRows + GetRows of 10,000
@@ -63,7 +69,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PS_ROWS, PS_COLS, PS_IDS, PS_ROUNDS = 1_000_000, 50, 10_000, 5
 WE_VOCAB, WE_DIM, WE_NEG, WE_WINDOW = 100_000, 128, 5, 5
 WE_BLOCK_BYTES, WE_BLOCKS, WE_SENT_LEN = 2_000_000, 3, 20
-TIMED_RUNS, WARMUP_RUNS, ID_SETS = 30, 5, 40
+TIMED_RUNS, WARMUP_RUNS, ID_SETS, STREAM_RUNS = 30, 5, 40, 5
 SPIN_CYCLES = 100_000_000       # ~50 ms at H100 clocks: holds the stream
 
 
@@ -82,25 +88,45 @@ def card_line() -> str:
 
 # -- phase 2: kernels against their plain versions --------------------------
 
-def median_ms(torch, fn, n_sets: int) -> float:
-    """Median DEVICE time of ``fn(i)`` over TIMED_RUNS runs after
-    WARMUP_RUNS, ``i`` rotating through ``n_sets`` input sets. A spin
-    kernel holds the stream while the host enqueues every run between its
-    own pair of CUDA events, so the runs execute back to back and each
-    pair times the device work alone, not the host's Python between
-    launches. Raises if the spin ended before the host finished enqueuing
-    (the pairs would then include idle time)."""
-    for i in range(WARMUP_RUNS):
-        fn(i % n_sets)
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True))
-              for _ in range(TIMED_RUNS)]
-    held = torch.cuda.Event(enable_timing=True)
-    spin_start = torch.cuda.Event(enable_timing=True)
+def _event(torch):
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _spin(torch):
+    """Queue a spin kernel that holds the stream while the host enqueues
+    the runs behind it; returns the events before and after it."""
+    spin_start, held = _event(torch), _event(torch)
     spin_start.record()
     torch.cuda._sleep(SPIN_CYCLES)
     held.record()
+    return spin_start, held
+
+
+def _check_spin(spin_start, held, enqueue_ms: float) -> None:
+    """After a synchronise: raise if the spin ended before the host
+    finished enqueuing (the timed runs would then include idle time)."""
+    if enqueue_ms >= spin_start.elapsed_time(held):
+        raise AssertionError(f"spin of {spin_start.elapsed_time(held):.2f} "
+                             f"ms ended before the {enqueue_ms:.2f} ms "
+                             f"enqueue: raise SPIN_CYCLES")
+
+
+def _warm_up(torch, fn, n_sets: int) -> None:
+    for i in range(WARMUP_RUNS):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+
+
+def median_ms(torch, fn, n_sets: int) -> float:
+    """Per-pair DEVICE time of ``fn(i)``: the median over TIMED_RUNS runs
+    after WARMUP_RUNS, ``i`` rotating through ``n_sets`` input sets. A spin
+    kernel holds the stream while the host enqueues every run between its
+    own pair of CUDA events, so the runs execute back to back and each
+    pair times the device work, not the host's Python between launches;
+    each pair also holds the two event records around its launch."""
+    _warm_up(torch, fn, n_sets)
+    events = [(_event(torch), _event(torch)) for _ in range(TIMED_RUNS)]
+    spin_start, held = _spin(torch)
     t0 = time.perf_counter()
     for i, (start, end) in enumerate(events):
         start.record()
@@ -108,11 +134,31 @@ def median_ms(torch, fn, n_sets: int) -> float:
         end.record()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    if enqueue_ms >= spin_start.elapsed_time(held):
-        raise AssertionError(f"spin of {spin_start.elapsed_time(held):.2f} "
-                             f"ms ended before the {enqueue_ms:.2f} ms "
-                             f"enqueue: raise SPIN_CYCLES")
+    _check_spin(spin_start, held, enqueue_ms)
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def stream_ms(torch, fn, n_sets: int) -> float:
+    """Stream DEVICE time of ``fn(i)``: one pair of CUDA events around
+    TIMED_RUNS runs queued back to back behind a spin kernel, divided by
+    TIMED_RUNS, with no event between the launches; the median of
+    STREAM_RUNS such runs, ``i`` rotating through ``n_sets`` input sets
+    across all of them."""
+    _warm_up(torch, fn, n_sets)
+    per_launch, k = [], WARMUP_RUNS
+    for _ in range(STREAM_RUNS):
+        spin_start, start = _spin(torch)
+        end = _event(torch)
+        t0 = time.perf_counter()
+        for _ in range(TIMED_RUNS):
+            fn(k % n_sets)
+            k += 1
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        _check_spin(spin_start, start, enqueue_ms)
+        per_launch.append(start.elapsed_time(end) / TIMED_RUNS)
+    return float(np.median(per_launch))
 
 
 def call_ms(torch, fn, n_sets: int) -> float:
@@ -121,8 +167,7 @@ def call_ms(torch, fn, n_sets: int) -> float:
     waits on each launch pays, wrapper overhead included."""
     times = []
     for i in range(TIMED_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        start, end = _event(torch), _event(torch)
         torch.cuda.synchronize()
         start.record()
         fn(i % n_sets)
@@ -140,11 +185,12 @@ def _clone_in_place(torch, t):
 
 
 def _check_rows(torch, cr, dev, data, ids_np, src, name):
-    """One case: the gather and the update (both signs, with and without
-    the post-update rows) against their plain versions on the card,
-    bitwise outside the trash row (the last row). Ids outside the table
-    must set the error word, read zero in every gathered or out_rows lane,
-    and leave the table as the plain update of the valid lanes leaves it."""
+    """One case: the gather, the scatter-set and the update (both signs,
+    with and without the post-update rows) against their plain versions on
+    the card, bitwise outside the trash row (the last row). Ids outside
+    the table must set the error word, read zero in every gathered or
+    out_rows lane, and leave the table as the plain scatter-set or update
+    of the valid lanes leaves it."""
     rows = data.shape[0]
     trash = rows - 1
     bad_np = (ids_np < 0) | (ids_np >= rows)
@@ -159,6 +205,11 @@ def _check_rows(torch, cr, dev, data, ids_np, src, name):
     want[good] = cr.gather_rows_plain(data, ids_ok)
     if not torch.equal(got, want):
         raise AssertionError(f"gather {name}")
+    a, b = _clone_in_place(torch, data), data.clone()
+    cr.scatter_set_rows(a, ids, src)
+    cr.scatter_set_rows_plain(b, ids_ok, src[good])
+    if not torch.equal(a[:trash], b[:trash]):
+        raise AssertionError(f"scatter-set {name}")
     for sign in (1, -1):
         for want_rows in (False, True):
             a, b = _clone_in_place(torch, data), data.clone()
@@ -210,12 +261,6 @@ def edge_cases(torch, cr, dev) -> None:
         for name, ids_np in patterns.items():
             _check_rows(torch, cr, dev, data, ids_np, src,
                         f"{name} cols={cols}")
-            a, b = data.clone(), data.clone()
-            ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
-            cr.scatter_set_rows(a, ids, src)
-            cr.scatter_set_rows_plain(b, ids, src)
-            if not torch.equal(a[:trash], b[:trash]):
-                raise AssertionError(f"scatter {name} cols={cols}")
     # the row groups' geometry: (name, table rows, cols, ids)
     cases = [("n=1", 200, 52, unique(200, 1)),
              ("n=7 (below the SM count)", 200, 52, unique(200, 7)),
@@ -250,12 +295,12 @@ def edge_cases(torch, cr, dev) -> None:
     _check_rows(torch, cr, dev, flat[1:].view(200, 52), unique(200, 100),
                 table(100, 52), "misaligned view")
     log(f"[kernels] edge cases: kernel == plain (bitwise outside the trash "
-        f"row) for gather and update +/-1 with and without post-update "
-        f"rows; first-slice id patterns at cols 128/50/52 (+ scatter-set); "
+        f"row) for gather, scatter-set and update +/-1 with and without "
+        f"post-update rows; first-slice id patterns at cols 128/50/52; "
         f"{'; '.join(c[0] for c in cases)}; subnormal values; n=1,000,000 "
         f"of 1,000,001 x 52; a misaligned view moving floats. "
         f"Error word 0 on valid ids, set by out-of-range ids, whose lanes "
-        f"read zero")
+        f"read zero and write nothing")
 
 
 def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
@@ -273,6 +318,7 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
     def entry(name, kernel, plain, library, err, nbytes):
         res[name] = {
             "ms": median_ms(torch, kernel, ID_SETS),
+            "stream_ms": stream_ms(torch, kernel, ID_SETS),
             "call_ms": call_ms(torch, kernel, ID_SETS),
             "plain_ms": median_ms(torch, plain, ID_SETS),
             "library_ms": median_ms(torch, library, ID_SETS),
@@ -307,19 +353,20 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
           3 * n * cols * 4 + 4 * n)
     # the other update variants, reported beside: sgd (-1) and Add+Get
     a, b = data.clone(), data.clone()
-    res["update_rows_sgd_ms"] = median_ms(
-        torch, lambda i: cr.update_rows(a, ids[i], src[i], -1), ID_SETS)
+    variants = {
+        "update_rows_sgd": lambda i: cr.update_rows(a, ids[i], src[i], -1),
+        "update_gather_rows": lambda i: cr.update_rows(
+            a, ids[i], src[i], 1, want_rows=True),
+        # an empty launch timed both ways: the floor of either method
+        "empty_launch": lambda i: torch.cuda._sleep(0)}
+    for name, fn in variants.items():
+        res[f"{name}_ms"] = median_ms(torch, fn, ID_SETS)
+        res[f"{name}_stream_ms"] = stream_ms(torch, fn, ID_SETS)
     res["update_rows_sgd_library_ms"] = median_ms(
         torch, lambda i: b.index_add_(0, ids64[i], src[i], alpha=-1),
         ID_SETS)
-    res["update_gather_rows_ms"] = median_ms(
-        torch, lambda i: cr.update_rows(a, ids[i], src[i], 1,
-                                        want_rows=True), ID_SETS)
     res["update_gather_rows_bound_ms"] = (
         (4 * n * cols * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3)
-    # an empty launch timed the same way: the floor of any kernel here
-    res["empty_launch_ms"] = median_ms(
-        torch, lambda i: torch.cuda._sleep(0), ID_SETS)
     torch.cuda.synchronize()
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set during timing")
@@ -335,6 +382,8 @@ def load_baseline(root: str):
                         "cuda_rows.py")
     spec = importlib.util.spec_from_file_location("baseline_cuda_rows", path)
     mod = importlib.util.module_from_spec(spec)
+    # registered before it runs: its dataclasses look their module up
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     mod.build()
     return mod
@@ -342,10 +391,11 @@ def load_baseline(root: str):
 
 def compare_baseline(torch, cr, base, dev, rows: int, cols: int, n: int,
                      seed: int) -> dict:
-    """The baseline checkout's gather, update (+1, -1) and Add+Get against
-    this checkout's, through the public wrappers on the same inputs, each
-    timed as ``median_ms`` in turns: baseline, this, this, baseline.
-    Results must agree bitwise."""
+    """The baseline checkout's gather, scatter-set, update (+1, -1) and
+    Add+Get against this checkout's, through the public wrappers on the
+    same inputs, each timed per pair (``median_ms``) and by stream
+    (``stream_ms``) in turns: baseline, this, this, baseline. Results must
+    agree bitwise."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     data = torch.randn(rows + 1, cols, generator=g).to(dev)
     ids = [torch.randperm(rows, generator=g)[:n].to(torch.int32).to(dev)
@@ -354,6 +404,11 @@ def compare_baseline(torch, cr, base, dev, rows: int, cols: int, n: int,
     if not torch.equal(base.gather_rows(data, ids[0]),
                        cr.gather_rows(data, ids[0])):
         raise AssertionError("baseline and this gather disagree")
+    a, b = data.clone(), data.clone()
+    base.scatter_set_rows(a, ids[0], src[0])
+    cr.scatter_set_rows(b, ids[0], src[0])
+    if not torch.equal(a, b):
+        raise AssertionError("baseline and this scatter-set disagree")
     for sign in (1, -1):
         a, b = data.clone(), data.clone()
         _, ra = base.update_rows(a, ids[0], src[0], sign, want_rows=True)
@@ -368,16 +423,21 @@ def compare_baseline(torch, cr, base, dev, rows: int, cols: int, n: int,
         m, t = mods[who], tables[who]
         return {
             "gather_rows": lambda i: m.gather_rows(data, ids[i]),
+            "scatter_set_rows": lambda i: m.scatter_set_rows(t, ids[i],
+                                                             src[i]),
             "update_rows": lambda i: m.update_rows(t, ids[i], src[i], 1),
             "update_rows_sgd": lambda i: m.update_rows(t, ids[i], src[i], -1),
             "update_gather_rows": lambda i: m.update_rows(
                 t, ids[i], src[i], 1, want_rows=True)}
 
     fns = {who: calls(who) for who in mods}
-    res = {k: {"baseline": [], "this": []} for k in fns["this"]}
+    res = {k: {m: {"baseline": [], "this": []} for m in ("ms", "stream_ms")}
+           for k in fns["this"]}
     for k in res:
         for who in ("baseline", "this", "this", "baseline"):
-            res[k][who].append(median_ms(torch, fns[who][k], ID_SETS))
+            res[k]["ms"][who].append(median_ms(torch, fns[who][k], ID_SETS))
+            res[k]["stream_ms"][who].append(
+                stream_ms(torch, fns[who][k], ID_SETS))
     torch.cuda.synchronize()
     if base.read_error(dev) != 0 or cr.read_error(dev) != 0:
         raise AssertionError("error word set during the baseline turns")
@@ -550,8 +610,9 @@ def main() -> int:
     ap.add_argument("--json-out", default="",
                     help="also write every measurement to this JSON file")
     ap.add_argument("--baseline", default="",
-                    help="another checkout of the repository whose gather "
-                         "and update to time in turns with this one's")
+                    help="another checkout of the repository whose gather, "
+                         "scatter-set and update to check against this "
+                         "one's and time in turns with them")
     args = ap.parse_args()
 
     import torch
@@ -597,16 +658,21 @@ def main() -> int:
                        ("WE 100001x128, 40000 ids", we_k)):
         for k in ("gather_rows", "scatter_set_rows", "update_rows"):
             r = res[k]
-            log(f"[kernels] {label} {k}: {r['ms']:.4f} ms (bound "
-                f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, library "
-                f"{r['library_ms']:.4f}; one call with its host overhead "
+            log(f"[kernels] {label} {k}: per-pair {r['ms']:.7f} ms, stream "
+                f"{r['stream_ms']:.7f} ms (bound {r['bound_ms']:.7f}, plain "
+                f"{r['plain_ms']:.7f}, library {r['library_ms']:.7f}, all "
+                f"per-pair; one call with its host overhead "
                 f"{r['call_ms']:.4f}), max_abs_err {r['max_abs_err']}")
-        log(f"[kernels] {label} update sgd {res['update_rows_sgd_ms']:.4f} "
-            f"ms (library {res['update_rows_sgd_library_ms']:.4f}); Add+Get "
-            f"{res['update_gather_rows_ms']:.4f} ms (bound "
-            f"{res['update_gather_rows_bound_ms']:.4f})")
-        log(f"[kernels] {label} an empty launch timed the same way: "
-            f"{res['empty_launch_ms']:.7f} ms")
+        log(f"[kernels] {label} update sgd per-pair "
+            f"{res['update_rows_sgd_ms']:.7f} ms, stream "
+            f"{res['update_rows_sgd_stream_ms']:.7f} ms (library per-pair "
+            f"{res['update_rows_sgd_library_ms']:.7f}); Add+Get per-pair "
+            f"{res['update_gather_rows_ms']:.7f} ms, stream "
+            f"{res['update_gather_rows_stream_ms']:.7f} ms (bound "
+            f"{res['update_gather_rows_bound_ms']:.7f})")
+        log(f"[kernels] {label} an empty launch: per-pair "
+            f"{res['empty_launch_ms']:.7f} ms, stream "
+            f"{res['empty_launch_stream_ms']:.7f} ms")
     if args.baseline:
         base = load_baseline(args.baseline)
         log(f"[baseline] {args.baseline}: kernels built from its sources")
@@ -618,10 +684,12 @@ def main() -> int:
                  (WE_VOCAB, WE_DIM, 40_000), args.seed + 1)):
             turns = compare_baseline(torch, cr, base, dev, *shape, seed)
             results["baseline"][key] = turns
-            for k, t in turns.items():
-                log(f"[baseline] {label} {k} in turns: baseline "
-                    f"{t['baseline'][0]:.7f} / {t['baseline'][1]:.7f} ms, "
-                    f"this {t['this'][0]:.7f} / {t['this'][1]:.7f} ms")
+            for k, by in turns.items():
+                for method, t in by.items():
+                    log(f"[baseline] {label} {k} {method} in turns: "
+                        f"baseline {t['baseline'][0]:.7f} / "
+                        f"{t['baseline'][1]:.7f} ms, this "
+                        f"{t['this'][0]:.7f} / {t['this'][1]:.7f} ms")
 
     # phases 3 + 4: the main path, counted from zero
     cr.reset_launches()
@@ -669,10 +737,12 @@ def main() -> int:
             "source": "multiverso_tpu_torch/csrc/rows.cu",
             "replaces": replaces[k], "pallas": sources[k],
             "launches": launches[k], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "stream_ms": r["stream_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "we_ms": we_k[k]["ms"], "we_bound_ms": we_k[k]["bound_ms"],
+            "we_ms": we_k[k]["ms"], "we_stream_ms": we_k[k]["stream_ms"],
+            "we_bound_ms": we_k[k]["bound_ms"],
             "we_shape": we_k[k]["shape"]})
     results["kernels"] = kernels
     if args.json_out:

@@ -1,17 +1,18 @@
 // Row kernels of the parameter-server hot path, written for Hopper (sm_90a).
 //
-// Three kernels replace the three Pallas TPU kernels of
-// multiverso_tpu/ops/pallas_rows.py:
+// One kernel template, rows_group_kernel<OP, unit>, replaces the three
+// Pallas TPU kernels of multiverso_tpu/ops/pallas_rows.py:
 //
 //   rows_group_kernel<kGather>   <- pallas_gather_rows       (:170)
-//   scatter_set_rows_kernel      <- pallas_scatter_set_rows  (:244)
+//   rows_group_kernel<kSet>      <- pallas_scatter_set_rows  (:244)
 //   rows_group_kernel<kAdd|kSub> <- pallas_update_rows       (:362)
 //
 // Shared contract (the caller, multiverso_tpu_torch/tables/matrix_table.py,
 // enforces it): ids are int32; every id lies in [0, rows) of the table;
 // pad lanes are mapped to the table's trash row before the call; duplicate
-// ids occur only on the trash row, whose content is don't-care. An id
-// outside [0, rows) is never dereferenced: its lane is skipped (a gathered
+// ids occur only on the trash row, whose content is don't-care (concurrent
+// writes there are benign). An id outside [0, rows) is never dereferenced:
+// its lane is skipped (nothing is written to the table for it; a gathered
 // lane, and an out_rows lane of the update, is zero-filled) and the
 // device-side error word gets bit 0 set. The hot path never reads the word
 // back; tests and chip_smoke.py do, after a synchronise.
@@ -24,30 +25,35 @@
 //               + n*C*4 with out_rows      (write the post-update rows)
 // divided by 3.35e12 B/s. Each row is a random 16-byte-aligned segment.
 // At the PS shape (10,000 ids x 52 cols, 4.2 MB, bound 1.25 us) no kernel
-// comes near the bound: an empty launch timed the same way takes ~4.9 us,
-// and the rest is the chain id load -> row load -> store. At the WE shape
-// (40,000 ids x 128 cols) the kernels are bound by bytes (PERF.md).
+// comes near the bound. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, PERF.md) an empty launch takes ~4.9 us when each launch
+// sits between its own pair of CUDA events (the per-pair time every
+// kernel time there is compared with) and less when one event pair spans
+// a run of launches (stream time, PERF.md); the rest is the chain id load
+// -> row load -> store. At the WE shape (40,000 ids x 128 cols) the
+// kernels are bound by bytes.
 //
-// Design of the gather and the fused update (row groups). A row is moved
-// by a group of `lanes` neighbouring threads, lanes the smallest power of
-// two that covers the row's 16-byte units (floats when the layout is not
-// 16-byte aligned), at most a warp; wider rows loop. So a 52-float row (13
-// float4s) takes 16 lanes and two rows share a warp, where one warp per
-// row would leave 19 of its 32 lanes idle and need twice the warps. The
+// Design (row groups). A row is moved by a group of `lanes` neighbouring
+// threads, lanes the smallest power of two that covers the row's 16-byte
+// units (floats when the layout is not 16-byte aligned), at most a warp;
+// wider rows loop. So a 52-float row (13 float4s) takes 16 lanes and two
+// rows share a warp, where one warp per row would leave 19 of its 32
+// lanes idle and need twice the warps (1.2 waves at the PS shape). The
 // grid is sized from the card's SM count: at most kBlocksPerSm resident
 // blocks per SM (a full SM), each group walking rows grid-stride, so the
 // PS shape runs as one wave and a larger batch keeps every SM full without
 // a tail of queued blocks. Rows go straight from registers to their
 // destination: nothing is reused, so nothing is staged in shared memory.
-// Two earlier designs were measured slower at both shapes of the main
-// path: one warp per row, and a ring of mbarrier-tracked shared-memory
-// stages filled by bulk and 16-byte async copies; PERF.md keeps the
-// numbers.
+// The scatter-set is the gather with its sides swapped: the contiguous
+// source row is read through the read-only path and stored to the table
+// row. Two earlier designs were measured slower at both shapes of the
+// main path: one warp per row, and a ring of mbarrier-tracked
+// shared-memory stages filled by bulk and 16-byte async copies; PERF.md
+// keeps the numbers.
 // The launch geometry (lanes, grid, whether units are float4s) comes from
-// plan_rows() in ops/cuda_rows.py. Ids are widened to int64 before they
-// form an offset, so tables past 2^31 floats address right.
-//
-// The scatter-set keeps one warp per row for now.
+// plan_rows() in ops/cuda_rows.py, the same for all three ops. Ids are
+// widened to int64 before they form an offset, so tables past 2^31 floats
+// address right.
 //
 // Plain C interface, loaded with ctypes by ops/cuda_rows.py. Every entry
 // launches on the given stream, never synchronises, and returns
@@ -62,7 +68,6 @@ extern "C" {
 struct MvtRowPlan {
   long long lanes;      // threads per row: a power of two, 1..32
   long long grid;       // blocks of the row-group kernel
-  long long warp_grid;  // blocks of the scatter-set's per-warp kernel
   long long vec;        // 1: rows move as float4s (C % 4 == 0, aligned)
 };
 }
@@ -72,7 +77,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;   // 2,048 threads: a full Hopper SM
 
-enum Op { kGather = 0, kAdd = 1, kSub = 2 };
+enum Op { kGather = 0, kAdd = 1, kSub = 2, kSet = 3 };
 
 template <int OP>
 __device__ __forceinline__ float combine(float row, float delta) {
@@ -85,10 +90,11 @@ __device__ __forceinline__ float4 combine(float4 row, float4 delta) {
                      combine<OP>(row.z, delta.z), combine<OP>(row.w, delta.w));
 }
 
-// -- row groups: gather and fused update ----------------------------------
+// -- row groups: gather, scatter-set and fused update -----------------------
 
 // Units of V (float4 or float), w units a row; 1 << shift threads a row.
 // OP kGather: out[i] = data[ids[i]].
+// OP kSet: data[ids[i]] = src[i].
 // OP kAdd / kSub: data[ids[i]] = data[ids[i]] (+|-) src[i]; out[i] = the
 // new row when out is not null.
 template <int OP, typename V>
@@ -116,6 +122,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       V v;
       if (OP == kGather) {
         v = __ldg(row + c);
+      } else if (OP == kSet) {
+        v = __ldg(src + i * w + c);
+        row[c] = v;
       } else {
         v = combine<OP>(row[c], __ldg(src + i * w + c));
         row[c] = v;
@@ -124,45 +133,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     }
   }
   if (bad && sub == 0) atomicOr(err, 1);
-}
-
-// -- the scatter-set: one warp per row ---------------------------------------
-
-__device__ __forceinline__ long long warp_index() {
-  return (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-}
-
-__device__ __forceinline__ long long warp_count() {
-  return (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-}
-
-// data[ids[i]] = src[i]
-template <bool VEC>
-__global__ void scatter_set_rows_kernel(float* __restrict__ data,
-                                        const int* __restrict__ ids,
-                                        const float* __restrict__ src,
-                                        long long n, long long cols,
-                                        long long rows,
-                                        int* __restrict__ err) {
-  const int lane = threadIdx.x & 31;
-  const long long step = warp_count();
-  for (long long i = warp_index(); i < n; i += step) {
-    const long long id = static_cast<long long>(ids[i]);
-    if (id < 0 || id >= rows) {
-      if (lane == 0) atomicOr(err, 1);
-      continue;
-    }
-    const float* s = src + i * cols;
-    float* dst = data + id * cols;
-    if (VEC) {
-      const float4* s4 = reinterpret_cast<const float4*>(s);
-      float4* d4 = reinterpret_cast<float4*>(dst);
-      const long long c4 = cols >> 2;
-      for (long long c = lane; c < c4; c += 32) d4[c] = __ldg(s4 + c);
-    } else {
-      for (long long c = lane; c < cols; c += 32) dst[c] = __ldg(s + c);
-    }
-  }
 }
 
 // -- host side -----------------------------------------------------------------
@@ -222,16 +192,10 @@ int mvt_scatter_set_rows(float* data, const int* ids, const float* src,
                          int* err, const MvtRowPlan* plan,
                          cudaStream_t stream) {
   if (n <= 0) return 0;
-  const bool vec = cols % 4 == 0 && aligned16(data) && aligned16(src);
-  const dim3 grid(static_cast<unsigned>(plan->warp_grid < 1 ? 1
-                                                            : plan->warp_grid));
-  if (vec)
-    scatter_set_rows_kernel<true><<<grid, kThreads, 0, stream>>>(
-        data, ids, src, n, cols, rows, err);
-  else
-    scatter_set_rows_kernel<false><<<grid, kThreads, 0, stream>>>(
-        data, ids, src, n, cols, rows, err);
-  return static_cast<int>(cudaGetLastError());
+  if (!plan_ok(plan, cols, aligned16(data) && aligned16(src)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_group<kSet>(data, ids, src, nullptr, n, cols, rows, err, plan,
+                            stream);
 }
 
 int mvt_update_rows(float* data, const int* ids, const float* deltas,

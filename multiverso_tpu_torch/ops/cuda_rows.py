@@ -21,13 +21,13 @@ rows, int32 ids, both contiguous, on one device, ``rows`` shaped
 caller's bug: the kernel skips the lane and sets the device's error word
 (``read_error``), the plain versions raise from ``index_select``.
 
-Launch geometry: ``plan_rows`` computes it on the host, from the batch,
-the row width, the layout and the card's SM count (a plain function the
-CPU tests reach), and the C entry takes it as an ``MvtRowPlan``. The
-gather and the fused update move each row with a group of threads sized
-to the row; rows move as float4s when ``cols % 4 == 0`` and every pointer
-is 16-byte aligned (the tables pad their columns for this), else as
-floats.
+Launch geometry: ``launch_plan`` computes it on the host, from the batch,
+the row width, the layout and the card's SM count (plain functions the
+CPU tests reach), the same for all three kernels, and the C entry takes
+it as an ``MvtRowPlan``. All three move each row with a group of threads
+sized to the row; rows move as float4s when ``cols % 4 == 0`` and every
+pointer is 16-byte aligned (the tables pad their columns for this), else
+as floats.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a plain-C
 shared library at first use, under ``build/torch_kernels/<source hash>/``
@@ -87,18 +87,16 @@ def _cdiv(a: int, b: int) -> int:
 
 @dataclass(frozen=True)
 class RowPlan:
-    """Launch geometry of one row-kernel call. The gather and the update
-    move each row with a group of ``lanes`` neighbouring threads (units of
-    float4 when ``vec``, else floats; a wider row loops); block ``b``'s
-    group ``g`` takes rows ``b * rows_per_block + g``, then every
-    ``grid * rows_per_block``-th row after it. The scatter-set moves a row
-    per warp over ``warp_grid`` blocks."""
+    """Launch geometry of one row-kernel call. Each row moves with a group
+    of ``lanes`` neighbouring threads (units of float4 when ``vec``, else
+    floats; a wider row loops); block ``b``'s group ``g`` takes rows
+    ``b * rows_per_block + g``, then every ``grid * rows_per_block``-th row
+    after it."""
     n: int
     cols: int
     vec: bool
     lanes: int
     grid: int
-    warp_grid: int
 
     @property
     def units(self) -> int:
@@ -110,6 +108,7 @@ class RowPlan:
         return THREADS // self.lanes
 
 
+@lru_cache(maxsize=4096)
 def plan_rows(n: int, cols: int, sms: int, vec: bool) -> RowPlan:
     """The launch geometry for ``n`` ids of ``cols`` float32 columns on a
     card of ``sms`` SMs; ``vec`` when rows move as float4s (``cols % 4 ==
@@ -123,21 +122,18 @@ def plan_rows(n: int, cols: int, sms: int, vec: bool) -> RowPlan:
     units = cols // 4 if vec else cols
     lanes = min(WARP, 1 << (units - 1).bit_length())
     return RowPlan(n=n, cols=cols, vec=vec, lanes=lanes,
-                   grid=min(_cdiv(n, THREADS // lanes), sms * BLOCKS_PER_SM),
-                   warp_grid=min(_cdiv(n, THREADS // WARP), sms * WARP))
+                   grid=min(_cdiv(n, THREADS // lanes), sms * BLOCKS_PER_SM))
 
 
 class _CPlan(ctypes.Structure):
     """``MvtRowPlan`` of csrc/rows.cu."""
     _fields_ = [(name, ctypes.c_longlong) for name in
-                ("lanes", "grid", "warp_grid", "vec")]
+                ("lanes", "grid", "vec")]
 
 
 @lru_cache(maxsize=4096)
-def _c_plan(n: int, cols: int, sms: int, vec: bool) -> _CPlan:
-    # a table of 0 columns moves nothing; its launch still flags bad ids
-    p = plan_rows(n, max(cols, 1), sms, vec)
-    return _CPlan(p.lanes, p.grid, p.warp_grid, int(p.vec))
+def _c_plan(p: RowPlan) -> _CPlan:
+    return _CPlan(p.lanes, p.grid, int(p.vec))
 
 
 _sm_counts: Dict[int, int] = {}
@@ -157,6 +153,18 @@ def _vec(cols: int, *tensors: torch.Tensor) -> bool:
     """Whether rows move as float4s: 16-byte rows and addresses."""
     return cols > 0 and cols % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def launch_plan(data: torch.Tensor, n: int, *rows: torch.Tensor,
+                sms: Optional[int] = None) -> RowPlan:
+    """The geometry every wrapper launches with: ``n`` ids of ``data``'s
+    columns, float4 units when ``data`` and the call's other row tensors
+    (``rows``: source rows, deltas, outputs) are 16-byte aligned, on
+    ``sms`` SMs (default: the table's card)."""
+    cols = data.shape[1]
+    # a table of 0 columns moves nothing; its launch still flags bad ids
+    return plan_rows(n, max(cols, 1), sms or _sms(data.device),
+                     _vec(cols, data, *rows))
 
 
 def _nvcc() -> str:
@@ -293,7 +301,7 @@ def gather_rows(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = _load()
-    plan = _c_plan(n, cols, _sms(data.device), _vec(cols, data, out))
+    plan = _c_plan(launch_plan(data, n, out))
     with torch.cuda.device(data.device):
         rc = lib.mvt_gather_rows(
             data.data_ptr(), ids.data_ptr(), out.data_ptr(), n, cols,
@@ -314,7 +322,7 @@ def scatter_set_rows(data: torch.Tensor, ids: torch.Tensor,
     if n == 0:
         return data
     lib = _load()
-    plan = _c_plan(n, cols, _sms(data.device), _vec(cols, data, rows))
+    plan = _c_plan(launch_plan(data, n, rows))
     with torch.cuda.device(data.device):
         rc = lib.mvt_scatter_set_rows(
             data.data_ptr(), ids.data_ptr(), rows.data_ptr(), n, cols,
@@ -341,8 +349,8 @@ def update_rows(data: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
            if want_rows else None)
     if n > 0:
         lib = _load()
-        vec = _vec(cols, data, deltas, *([out] if want_rows else []))
-        plan = _c_plan(n, cols, _sms(data.device), vec)
+        plan = _c_plan(launch_plan(data, n, deltas,
+                                   *([out] if want_rows else [])))
         with torch.cuda.device(data.device):
             rc = lib.mvt_update_rows(
                 data.data_ptr(), ids.data_ptr(), deltas.data_ptr(),

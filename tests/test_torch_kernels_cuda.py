@@ -98,6 +98,12 @@ def test_out_of_range_ids_set_the_error_word(dev):
     assert cr.read_error(dev) == 1
     assert torch.equal(data[2:], before[2:]) and torch.equal(data[0],
                                                              before[0])
+    cr.reset_error(dev)
+    a = before.clone()
+    cr.scatter_set_rows(a, bad, torch.ones((3, 8), device=dev))
+    assert cr.read_error(dev) == 1
+    assert torch.equal(a[1], torch.ones(8, device=dev))
+    assert torch.equal(a[0], before[0]) and torch.equal(a[2:], before[2:])
     # out-of-range ids in the middle of a batch: lanes read zero
     data, ids, src = _inputs(dev, 5_000, 52, 1_001, seed=3)
     ids[500], ids[700] = 5_000, -1
@@ -116,6 +122,13 @@ def test_out_of_range_ids_set_the_error_word(dev):
         _, rb = cr.update_rows_plain(b, ids[good], src[good], sign)
         assert torch.equal(a, b) and torch.equal(ra[good], rb)
         assert ra[~good].abs().sum() == 0
+    # the scatter-set writes the valid lanes and leaves every other row
+    a, b = data.clone(), data.clone()
+    cr.reset_error(dev)
+    cr.scatter_set_rows(a, ids, src)
+    assert cr.read_error(dev) == 1
+    cr.scatter_set_rows_plain(b, ids[good], src[good])
+    assert torch.equal(a, b)
     cr.reset_error(dev)
 
 
@@ -138,4 +151,8 @@ def test_launches_count_only_real_launches(dev):
     cr.update_rows(view, ids, src, 1)
     cr.update_rows_plain(data, ids, src, 1)
     assert torch.equal(view, data)
-    assert cr.LAUNCHES["gather_rows"] == 2 and cr.LAUNCHES["update_rows"] == 2
+    cr.scatter_set_rows(view, ids, src * 3)
+    cr.scatter_set_rows_plain(data, ids, src * 3)
+    assert torch.equal(view, data)
+    assert cr.LAUNCHES == {"gather_rows": 2, "scatter_set_rows": 2,
+                           "update_rows": 2}
