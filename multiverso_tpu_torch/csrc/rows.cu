@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         v = __ldg(row + c);
       } else if (OP == kSet) {
         v = __ldg(src + i * w + c);
-        row[c] = v;
+        __stcs(row + c, v);   // streaming store: evict-first
       } else {
         v = combine<OP>(row[c], __ldg(src + i * w + c));
         row[c] = v;
