@@ -26,12 +26,13 @@
 // divided by 3.35e12 B/s. Each row is a random 16-byte-aligned segment.
 // At the PS shape (10,000 ids x 52 cols, 4.2 MB, bound 1.25 us) no kernel
 // comes near the bound. On an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py, PERF.md) an empty launch takes ~4.9 us when each launch
-// sits between its own pair of CUDA events (the per-pair time every
-// kernel time there is compared with) and less when one event pair spans
-// a run of launches (stream time, PERF.md); the rest is the chain id load
-// -> row load -> store. At the WE shape (40,000 ids x 128 cols) the
-// kernels are bound by bytes.
+// (chip_smoke.py, PERF.md) an empty launch takes 4.8 us timed per-pair
+// (each launch between its own pair of CUDA events) and 1.8 us timed by
+// stream (one event pair around 30 launches); by stream the PS gather
+// takes 4.4 us, the scatter-set 5.4 us and the update 6.4 us, the rest
+// being the chain id load -> row load -> store. At the WE shape (40,000
+// ids x 128 cols) the kernels are bound by bytes: 75-87% of the bound by
+// stream.
 //
 // Design (row groups). A row is moved by a group of `lanes` neighbouring
 // threads, lanes the smallest power of two that covers the row's 16-byte
@@ -46,7 +47,8 @@
 // destination: nothing is reused, so nothing is staged in shared memory.
 // The scatter-set is the gather with its sides swapped: the contiguous
 // source row is read through the read-only path and stored to the table
-// row. Two earlier designs were measured slower at both shapes of the
+// row with a plain store (a streaming, evict-first store measured level
+// at the PS shape, so it was not kept). Two earlier designs were measured slower at both shapes of the
 // main path: one warp per row, and a ring of mbarrier-tracked
 // shared-memory stages filled by bulk and 16-byte async copies; PERF.md
 // keeps the numbers.
@@ -124,7 +126,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         v = __ldg(row + c);
       } else if (OP == kSet) {
         v = __ldg(src + i * w + c);
-        __stcs(row + c, v);   // streaming store: evict-first
+        row[c] = v;
       } else {
         v = combine<OP>(row[c], __ldg(src + i * w + c));
         row[c] = v;
