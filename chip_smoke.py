@@ -373,10 +373,9 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
     return res
 
 
-def load_baseline(root: str):
+def import_rows_module(root: str):
     """``multiverso_tpu_torch/ops/cuda_rows.py`` of another checkout, as a
-    module of its own, with its kernels built from that checkout's
-    sources (into that checkout's ``build/``)."""
+    module of its own (its own launch counts, error words and library)."""
     import importlib.util
     path = os.path.join(os.path.abspath(root), "multiverso_tpu_torch", "ops",
                         "cuda_rows.py")
@@ -385,7 +384,6 @@ def load_baseline(root: str):
     # registered before it runs: its dataclasses look their module up
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    mod.build()
     return mod
 
 
@@ -674,7 +672,8 @@ def main() -> int:
             f"{res['empty_launch_ms']:.7f} ms, stream "
             f"{res['empty_launch_stream_ms']:.7f} ms")
     if args.baseline:
-        base = load_baseline(args.baseline)
+        base = import_rows_module(args.baseline)
+        base.build()        # from that checkout's sources, into its build/
         log(f"[baseline] {args.baseline}: kernels built from its sources")
         results["baseline"] = {}
         for label, key, shape, seed in (

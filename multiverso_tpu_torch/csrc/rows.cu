@@ -48,10 +48,10 @@
 // The scatter-set is the gather with its sides swapped: the contiguous
 // source row is read through the read-only path and stored to the table
 // row with a plain store (a streaming, evict-first store measured level
-// at the PS shape, so it was not kept). Two earlier designs were measured slower at both shapes of the
-// main path: one warp per row, and a ring of mbarrier-tracked
-// shared-memory stages filled by bulk and 16-byte async copies; PERF.md
-// keeps the numbers.
+// at the PS shape). Two earlier designs were measured slower at both
+// shapes of the main path: one warp per row, and a ring of
+// mbarrier-tracked shared-memory stages filled by bulk and 16-byte async
+// copies; PERF.md keeps the numbers.
 // The launch geometry (lanes, grid, whether units are float4s) comes from
 // plan_rows() in ops/cuda_rows.py, the same for all three ops. Ids are
 // widened to int64 before they form an offset, so tables past 2^31 floats

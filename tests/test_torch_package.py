@@ -135,9 +135,25 @@ def test_no_silent_cpu_fallback_without_a_card(tmp_path):
     _check_build_needs_nvcc()
 
 
+def _check_baseline_import():
+    """``chip_smoke.py --baseline`` imports another checkout's
+    ``cuda_rows.py`` (here this one's) as a module of its own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from multiverso_tpu_torch.ops import cuda_rows
+    base = smoke.import_rows_module(str(ROOT))
+    assert base is not cuda_rows and base.LAUNCHES is not cuda_rows.LAUNCHES
+    assert base.plan_rows(10_000, 52, 132, True).grid == 625
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     """chip_smoke.py exits non-zero without its ok line: away from the
-    repository always, and in it when there is no card."""
+    repository always, and in it when there is no card. Its --baseline
+    loader imports another checkout's kernels module."""
+    _check_baseline_import()
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     places = [tmp_path] + ([] if torch.cuda.is_available() else [ROOT])
     env = dict(os.environ)
