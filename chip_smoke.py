@@ -37,19 +37,32 @@ holds every kernel of that path against its plain PyTorch version:
               a 1,000,000 x 50 MatrixTable with the add updater and one
               with momentum, 5 rounds of AddRows + GetRows of 10,000
               random rows (1%) with integer-valued deltas, every GetRows
-              held to a host numpy oracle (add exact, momentum rtol 1e-6);
+              held to a host numpy oracle (add exact, momentum rtol 1e-6),
+              on the default engine (the ShardedServer on a host of 8 or
+              more cores) and again on ``-mv_engine_shards=1``: the final
+              tables bitwise equal; then 4 worker threads on an add and an
+              sgd table, each worker on rows of its own, every GetRows and
+              both final tables equal to the oracle; BSP (``-sync=true``,
+              4 workers): every worker's i-th GetRows equal to the oracle
+              after all workers' i-th Adds, and a bounded shutdown;
+              model-average (``-ma=true``, 4 workers): no engine,
+              MV_CreateTable raises, each worker's MV_Aggregate of a
+              1,000,000 x 50 float32 array returns the exact sum;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
-              skip-gram NEG, -device_plane 1, 3 blocks of a Zipf corpus
-              made from --seed; loss finite and under 0.69*(1+K); and the
-              same app on a small topic corpus on the card against the CPU
-              (embeddings rtol 1e-3, atol 1e-4);
+              skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
+              on ``-device_plane 1 -is_pipeline 0`` and on the host plane
+              with the JAX package's defaults (``-device_plane 0
+              -is_pipeline 1``, the default engine); loss finite and under
+              0.69*(1+K); and the device plane on a small topic corpus on
+              the card against the CPU (embeddings rtol 1e-3, atol 1e-4);
 5. summary  — a ``{"kernels": [...]}`` line, the card line, and last
               ``{"ok": true, "device": {...}}``.
 
-Launch counters are zeroed just before phase 3 and read after phase 4:
-each kernel of the path must have launched there. Any failure raises and
-the script exits non-zero without the ``ok`` line. Without a CUDA device,
-or away from the repository, it exits non-zero at once.
+Each main path of phases 3 and 4 runs with the launch counters zeroed just
+before it and read just after: each kernel that path runs must have
+launched there, and the ``kernels`` line sums the paths. Any failure
+raises and the script exits non-zero without the ``ok`` line. Without a
+CUDA device, or away from the repository, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -71,6 +85,8 @@ WE_VOCAB, WE_DIM, WE_NEG, WE_WINDOW = 100_000, 128, 5, 5
 WE_BLOCK_BYTES, WE_BLOCKS, WE_SENT_LEN = 2_000_000, 3, 20
 TIMED_RUNS, WARMUP_RUNS, ID_SETS, STREAM_RUNS = 30, 5, 40, 5
 SPIN_CYCLES = 100_000_000       # ~50 ms at H100 clocks: holds the stream
+PS_WORKERS = 4                  # worker threads of the threaded PS, BSP, MA
+JOIN_S = 300                    # a worker thread or shutdown past this hung
 
 
 def log(msg: str) -> None:
@@ -442,13 +458,58 @@ def compare_baseline(torch, cr, base, dev, rows: int, cols: int, n: int,
     return res
 
 
-# -- phase 3: the PS row protocol ------------------------------------------
+# -- phase 3: the PS row protocol on each engine mode -------------------------
 
-def ps_phase(torch, mv, cr, dev, seed: int) -> dict:
+def run_threads(fn, n: int) -> None:
+    """``fn(w)`` on ``n`` threads; re-raises the first failure here."""
+    errors = []
+
+    def guarded(w):
+        try:
+            fn(w)
+        except BaseException as exc:        # re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=guarded, args=(w,)) for w in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(JOIN_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a worker thread hung past {JOIN_S} s")
+    if errors:
+        raise errors[0]
+
+
+def shut_down(mv, what: str) -> float:
+    """MV_ShutDown, bounded: a world that does not come down (a BSP drain
+    that never completes) fails the phase. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    done = threading.Thread(target=mv.MV_ShutDown, daemon=True)
+    done.start()
+    done.join(JOIN_S)
+    if done.is_alive():
+        raise AssertionError(f"{what}: MV_ShutDown hung past {JOIN_S} s")
+    return time.perf_counter() - t0
+
+
+def engine_info() -> dict:
+    """The running world's engine: class, resolved shard cap, live slots."""
+    from multiverso_tpu_torch.sync.server import engine_shard_cap
+    from multiverso_tpu_torch.zoo import Zoo
+    eng = Zoo.Get().server_engine
+    return {"engine": type(eng).__name__, "shard_cap": engine_shard_cap(),
+            "live_slots": [s["slot"] for s in eng.shard_states()],
+            "cores": os.cpu_count()}
+
+
+def ps_phase(torch, mv, cr, dev, seed: int, argv=()) -> tuple:
+    """The PS script on the engine ``argv`` selects (default: the JAX
+    package's default engine). Returns (stats, final tables)."""
     from multiverso_tpu_torch.tables import MatrixTableOption
     from multiverso_tpu_torch.updaters.base import AddOption
     rng = np.random.default_rng(seed)
-    mv.MV_Init([])
+    mv.MV_Init(list(argv))
     try:
         add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
                                                   num_cols=PS_COLS))
@@ -456,6 +517,7 @@ def ps_phase(torch, mv, cr, dev, seed: int) -> dict:
             num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
         if add.server().state["data"].device != dev:
             raise AssertionError("the PS tables are not on the card")
+        info = engine_info()
         m = np.float32(0.5)
         mopt = AddOption(momentum=float(m))
         oracle_add = np.zeros((PS_ROWS, PS_COLS), np.float32)
@@ -480,15 +542,165 @@ def ps_phase(torch, mv, cr, dev, seed: int) -> dict:
             np.testing.assert_array_equal(got_add, oracle_add[ids])
             np.testing.assert_allclose(got_mom, oracle_mom[ids], rtol=1e-6,
                                        atol=1e-6)
-        np.testing.assert_array_equal(add.Get(), oracle_add)
+        final = {"add": add.Get(), "momentum": mom.Get()}
+        np.testing.assert_array_equal(final["add"], oracle_add)
         torch.cuda.synchronize()
         if cr.read_error(dev) != 0:
             raise AssertionError("error word set on the PS path")
     finally:
         mv.MV_ShutDown()
-    return {"add_round_ms": add_ms, "momentum_round_ms": mom_ms,
-            "add_round_median_ms": float(np.median(add_ms)),
-            "momentum_round_median_ms": float(np.median(mom_ms))}
+    return dict(info, add_round_ms=add_ms, momentum_round_ms=mom_ms,
+                add_round_median_ms=float(np.median(add_ms)),
+                momentum_round_median_ms=float(np.median(mom_ms))), final
+
+
+def ps_threads_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """PS_WORKERS worker threads on the default engine, an add table and
+    an sgd table (two shards): worker w owns rows w, w + PS_WORKERS, ...,
+    so each tracked GetRows must equal that worker's own oracle exactly,
+    and after the join each whole table the combined oracle."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.zoo import Zoo
+    mv.MV_Init([f"-num_workers={PS_WORKERS}"])
+    try:
+        add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                  num_cols=PS_COLS))
+        sgd = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="sgd"))
+        info = engine_info()
+        own = [np.zeros((-(-PS_ROWS // PS_WORKERS), PS_COLS), np.float32)
+               for _ in range(PS_WORKERS)]
+        round_ms = [[] for _ in range(PS_WORKERS)]
+
+        def worker(w):
+            rng = np.random.default_rng([seed, w])
+            rows = np.arange(w, PS_ROWS, PS_WORKERS)
+            with Zoo.Get().worker_context(w):
+                for _ in range(PS_ROUNDS):
+                    ids = rng.choice(rows, PS_IDS, replace=False).astype(
+                        np.int32)
+                    deltas = rng.integers(-3, 4, (PS_IDS, PS_COLS)).astype(
+                        np.float32)
+                    t0 = time.perf_counter()
+                    add.AddRows(ids, deltas)
+                    got_add = add.GetRows(ids)
+                    sgd.AddRows(ids, deltas)
+                    got_sgd = sgd.GetRows(ids)
+                    round_ms[w].append((time.perf_counter() - t0) * 1e3)
+                    own[w][ids // PS_WORKERS] += deltas
+                    np.testing.assert_array_equal(got_add,
+                                                  own[w][ids // PS_WORKERS])
+                    np.testing.assert_array_equal(got_sgd,
+                                                  -own[w][ids // PS_WORKERS])
+
+        run_threads(worker, PS_WORKERS)
+        oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        for w in range(PS_WORKERS):
+            oracle[w::PS_WORKERS] = own[w][:len(range(w, PS_ROWS,
+                                                      PS_WORKERS))]
+        np.testing.assert_array_equal(add.Get(), oracle)
+        np.testing.assert_array_equal(sgd.Get(), -oracle)
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the threaded PS path")
+    finally:
+        mv.MV_ShutDown()
+    flat = [x for ms in round_ms for x in ms]
+    return dict(info, round_ms=round_ms,
+                round_median_ms=float(np.median(flat)))
+
+
+def bsp_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """-sync=true: PS_WORKERS threads, PS_ROUNDS rounds of AddRows then
+    GetRows of PS_IDS random ids each; every worker's i-th GetRows must
+    equal the oracle after ALL workers' i-th Adds, at that worker's ids."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.zoo import Zoo
+    scripts = []
+    for w in range(PS_WORKERS):
+        rng = np.random.default_rng([seed, 100 + w])
+        scripts.append([(rng.choice(PS_ROWS, PS_IDS, replace=False).astype(
+            np.int32), rng.integers(-3, 4, (PS_IDS, PS_COLS)).astype(
+                np.float32)) for _ in range(PS_ROUNDS)])
+    got = [[] for _ in range(PS_WORKERS)]
+    round_ms = [[] for _ in range(PS_WORKERS)]
+    mv.MV_Init(["-sync=true", f"-num_workers={PS_WORKERS}"])
+    try:
+        info = engine_info()
+        if info["engine"] != "SyncServer":
+            raise AssertionError(f"-sync=true built {info['engine']}")
+        table = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                    num_cols=PS_COLS))
+
+        def worker(w):
+            with Zoo.Get().worker_context(w):
+                for ids, deltas in scripts[w]:
+                    t0 = time.perf_counter()
+                    table.AddRows(ids, deltas)
+                    got[w].append(table.GetRows(ids))
+                    round_ms[w].append((time.perf_counter() - t0) * 1e3)
+
+        run_threads(worker, PS_WORKERS)
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the BSP path")
+    finally:
+        shutdown_s = shut_down(mv, "BSP world")
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    for i in range(PS_ROUNDS):
+        for w in range(PS_WORKERS):
+            ids, deltas = scripts[w][i]
+            oracle[ids] += deltas
+        for w in range(PS_WORKERS):
+            np.testing.assert_array_equal(got[w][i], oracle[scripts[w][i][0]],
+                                          err_msg=f"worker {w} GetRows {i}")
+    flat = [x for ms in round_ms for x in ms]
+    return dict(info, round_ms=round_ms, shutdown_s=shutdown_s,
+                round_median_ms=float(np.median(flat)))
+
+
+def ma_phase(mv, seed: int) -> dict:
+    """-ma=true: no engine, MV_CreateTable raises, and PS_WORKERS threads
+    each MV_Aggregate a PS_ROWS x PS_COLS float32 array and receive the
+    exact sum (float64 accumulation, cast back)."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.utils.log import FatalError
+    from multiverso_tpu_torch.zoo import Zoo
+    arrays = [np.random.default_rng([seed, 200 + w]).standard_normal(
+        (PS_ROWS, PS_COLS), dtype=np.float32) for w in range(PS_WORKERS)]
+    acc = arrays[0].astype(np.float64)
+    for a in arrays[1:]:
+        acc += a
+    want = acc.astype(np.float32)
+    del acc
+    secs = [0.0] * PS_WORKERS
+    mv.MV_Init(["-ma=true", f"-num_workers={PS_WORKERS}"])
+    try:
+        if Zoo.Get().server_engine is not None:
+            raise AssertionError("-ma=true started an engine")
+        try:
+            mv.MV_CreateTable(MatrixTableOption(num_rows=8, num_cols=2))
+        except FatalError:
+            pass
+        else:
+            raise AssertionError("MV_CreateTable did not raise in -ma mode")
+
+        def worker(w):
+            with Zoo.Get().worker_context(w):
+                t0 = time.perf_counter()
+                mv.MV_Aggregate(arrays[w])
+                secs[w] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        run_threads(worker, PS_WORKERS)
+        wall = time.perf_counter() - t0
+    finally:
+        mv.MV_ShutDown()
+    for w in range(PS_WORKERS):
+        np.testing.assert_array_equal(arrays[w], want,
+                                      err_msg=f"worker {w}'s aggregate")
+    return {"aggregate_s": secs, "wall_s": wall,
+            "bytes_per_worker": int(arrays[0].nbytes)}
 
 
 # -- phase 4: WordEmbedding ----------------------------------------------------
@@ -514,28 +726,33 @@ def write_zipf_corpus(workdir: str, seed: int) -> tuple:
     return vocab, corpus, n_words
 
 
-def we_options(workdir: str, seed: int, vocab: str, corpus: str):
-    """The WE phase's CLI options: bench.py's WordEmbedding width."""
+def we_options(workdir: str, seed: int, vocab: str, corpus: str,
+               device_plane: bool = True):
+    """The WE phase's CLI options: bench.py's WordEmbedding width, on the
+    device plane (``-is_pipeline 0``) or on the host plane with the JAX
+    package's defaults (``-device_plane 0 -is_pipeline 1``)."""
     from multiverso_tpu_torch.models.wordembedding.option import Option
     return Option.parse_args([
         "-train_file", corpus, "-read_vocab", vocab,
         "-output", os.path.join(workdir, "vec.txt"),
         "-size", str(WE_DIM), "-window", str(WE_WINDOW),
         "-negative", str(WE_NEG), "-pair_batch", "4096", "-min_count", "1",
-        "-use_adagrad", "0", "-device_plane", "1", "-is_pipeline", "0",
+        "-use_adagrad", "0", "-device_plane", str(int(device_plane)),
+        "-is_pipeline", str(int(not device_plane)),
         "-data_block_size", str(WE_BLOCK_BYTES), "-epoch", "1",
         "-seed", str(seed), "-platform", "cuda"])
 
 
-def we_phase(torch, mv, cr, seed: int, workdir: str) -> dict:
+def we_phase(torch, seed: int, workdir: str, corpus_files: tuple,
+             device_plane: bool = True) -> dict:
     from multiverso_tpu_torch.models.wordembedding.distributed import \
         DistributedWordEmbedding
-    vocab, corpus, n_words = write_zipf_corpus(workdir, seed)
-    opt = we_options(workdir, seed, vocab, corpus)
-    before = dict(cr.LAUNCHES)
+    vocab, corpus, n_words = corpus_files
+    opt = we_options(workdir, seed, vocab, corpus, device_plane)
     we = DistributedWordEmbedding(opt)
     try:
         we.prepare()
+        info = engine_info()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = we.train()
@@ -544,7 +761,6 @@ def we_phase(torch, mv, cr, seed: int, workdir: str) -> dict:
         emb = we.comm.input_table.server().raw()
     finally:
         we.close()          # MV_ShutDown of the world prepare() started
-    launches = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
     blocks = [{"words": w, "pairs": p, "loss_per_pair": lo / max(p, 1)}
               for w, p, lo in we.block_log]
     limit = 0.69 * (1 + WE_NEG)
@@ -558,13 +774,9 @@ def we_phase(torch, mv, cr, seed: int, workdir: str) -> dict:
         raise AssertionError(f"average loss {loss} not below {limit}")
     if emb.shape != (WE_VOCAB, WE_DIM) or not np.isfinite(emb).all():
         raise AssertionError("input embeddings not finite / misshapen")
-    for k in ("gather_rows", "update_rows"):
-        if launches[k] == 0:
-            raise AssertionError(f"WE phase never launched {k}")
-    return {"words": n_words, "train_s": secs,
-            "words_per_s": n_words / secs, "avg_loss_per_pair": loss,
-            "loader_wait_s": we.loader_wait_s,
-            "blocks": blocks, "launches": launches}
+    return dict(info, words=n_words, train_s=secs,
+                words_per_s=n_words / secs, avg_loss_per_pair=loss,
+                loader_wait_s=we.loader_wait_s, blocks=blocks)
 
 
 def we_small_reference(torch, workdir: str) -> float:
@@ -690,36 +902,90 @@ def main() -> int:
                         f"{t['baseline'][1]:.7f} ms, this "
                         f"{t['this'][0]:.7f} / {t['this'][1]:.7f} ms")
 
-    # phases 3 + 4: the main path, counted from zero
-    cr.reset_launches()
-    ps = ps_phase(torch, mv, cr, dev, args.seed)
-    ps_launches = dict(cr.LAUNCHES)
-    for k in cr.LAUNCHES:
-        if ps_launches[k] == 0:
-            raise AssertionError(f"PS phase never launched {k}")
-    results["ps"] = dict(ps, launches=ps_launches)
-    log(f"[ps] 1,000,000 x 50, {PS_ROUNDS} rounds of {PS_IDS} ids: add "
-        f"round median {ps['add_round_median_ms']:.3f} ms "
-        f"{[round(x, 3) for x in ps['add_round_ms']]}, momentum round "
-        f"median {ps['momentum_round_median_ms']:.3f} ms; GetRows == "
-        f"oracle (add exact, momentum rtol 1e-6), whole Get == oracle; "
-        f"launches {ps_launches}")
+    # phases 3 + 4: the main paths, each counted from zero
+    paths = {}
+
+    def drive(name, fn, needs):
+        """Run one main path with the launch counts zeroed just before it
+        and read just after; each kernel in ``needs`` must have launched."""
+        cr.reset_launches()
+        out = fn()
+        paths[name] = dict(cr.LAUNCHES)
+        for k in needs:
+            if paths[name][k] == 0:
+                raise AssertionError(f"{name} never launched {k}")
+        log(f"[main path] {name}: launches {paths[name]}")
+        return out
+
+    every = tuple(cr.LAUNCHES)
+    rows_and_update = ("gather_rows", "update_rows")
+    ps, ps_final = drive("ps", lambda: ps_phase(torch, mv, cr, dev,
+                                                args.seed), every)
+    if (os.cpu_count() or 0) >= 8 and ps["engine"] != "ShardedServer":
+        raise AssertionError(f"{os.cpu_count()} cores: the default engine "
+                             f"must be the ShardedServer, got {ps['engine']}")
+    one, one_final = drive("ps_one_engine", lambda: ps_phase(
+        torch, mv, cr, dev, args.seed, ["-mv_engine_shards=1"]), every)
+    if one["engine"] != "Server":
+        raise AssertionError(f"-mv_engine_shards=1 built {one['engine']}")
+    for k in ("add", "momentum"):
+        if not np.array_equal(ps_final[k], one_final[k]):
+            raise AssertionError(f"{k} table: the {ps['engine']} and the "
+                                 f"single engine disagree")
+    del ps_final, one_final
+    results["ps"], results["ps_one_engine"] = ps, one
+    for label, r in (("default engine", ps), ("one engine", one)):
+        log(f"[ps] {label}: {r['engine']}, shard cap {r['shard_cap']} "
+            f"({r['cores']} cores), live slots {r['live_slots']}; "
+            f"1,000,000 x 50, {PS_ROUNDS} rounds of {PS_IDS} ids: add "
+            f"round median {r['add_round_median_ms']:.3f} ms "
+            f"{[round(x, 3) for x in r['add_round_ms']]}, momentum round "
+            f"median {r['momentum_round_median_ms']:.3f} ms; GetRows == "
+            f"oracle (add exact, momentum rtol 1e-6), whole Get == oracle")
+    log("[ps] final add and momentum tables bitwise equal on both engines")
+    thr = drive("ps_threads", lambda: ps_threads_phase(
+        torch, mv, cr, dev, args.seed), rows_and_update)
+    results["ps_threads"] = thr
+    log(f"[ps] {PS_WORKERS} worker threads, add + sgd tables on "
+        f"{thr['engine']} live slots {thr['live_slots']}: round (AddRows + "
+        f"GetRows on both) median {thr['round_median_ms']:.3f} ms; every "
+        f"GetRows == the worker's oracle, both tables == oracle after join")
+    bsp = drive("bsp", lambda: bsp_phase(torch, mv, cr, dev, args.seed),
+                rows_and_update)
+    results["bsp"] = bsp
+    log(f"[bsp] -sync=true, {PS_WORKERS} workers, 1,000,000 x 50, "
+        f"{PS_ROUNDS} rounds of AddRows + GetRows of {PS_IDS} ids: round "
+        f"median {bsp['round_median_ms']:.3f} ms; every worker's i-th "
+        f"GetRows == the oracle after all i-th Adds; shutdown "
+        f"{bsp['shutdown_s']:.3f} s")
+    ma = drive("ma", lambda: ma_phase(mv, args.seed), ())
+    results["ma"] = ma
+    log(f"[ma] -ma=true, {PS_WORKERS} workers each MV_Aggregate "
+        f"{ma['bytes_per_worker']} bytes of float32: per-worker "
+        f"{[round(x, 4) for x in ma['aggregate_s']]} s, wall "
+        f"{ma['wall_s']:.4f} s; every worker holds the exact sum; "
+        f"MV_CreateTable raised")
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
-        we = we_phase(torch, mv, cr, args.seed, workdir)
-        launches = dict(cr.LAUNCHES)
-        results["we"] = we
-        log(f"[we] {WE_VOCAB} x {WE_DIM}, {we['words']} words in "
-            f"{we['train_s']:.3f} s = {we['words_per_s']:.0f} words/s "
-            f"({we['loader_wait_s']:.3f} s of it waiting on the block "
-            f"loader); "
-            f"loss per pair by block "
-            f"{[round(b['loss_per_pair'], 4) for b in we['blocks']]}; "
-            f"launches {we['launches']}")
+        corpus = write_zipf_corpus(workdir, args.seed)
+        for name, device_plane in (("we", True), ("we_host", False)):
+            we = drive(name, lambda: we_phase(torch, args.seed, workdir,
+                                              corpus, device_plane),
+                       rows_and_update)
+            results[name] = we
+            plane = ("-device_plane 1 -is_pipeline 0" if device_plane else
+                     "-device_plane 0 -is_pipeline 1")
+            log(f"[{name}] {WE_VOCAB} x {WE_DIM}, {plane}, {we['engine']} "
+                f"live slots {we['live_slots']}: {we['words']} words in "
+                f"{we['train_s']:.3f} s = {we['words_per_s']:.0f} words/s "
+                f"({we['loader_wait_s']:.3f} s of it waiting on the block "
+                f"loader); loss per pair by block "
+                f"{[round(b['loss_per_pair'], 4) for b in we['blocks']]}")
         results["we_small_max_abs_diff"] = we_small_reference(torch, workdir)
         log(f"[we] topic corpus, card vs CPU embeddings: max abs diff "
             f"{results['we_small_max_abs_diff']:.3g} (rtol 1e-3, atol 1e-4)")
-    results["main_path_launches"] = launches
-    log(f"[main path] launches {launches}")
+    launches = {k: sum(p[k] for p in paths.values()) for k in cr.LAUNCHES}
+    results["main_path_launches"] = {"paths": paths, "total": launches}
+    log(f"[main path] launches, all paths {launches}")
 
     # phase 5: summary
     sources = {"gather_rows": "_make_gather_kernel / pallas_gather_rows",

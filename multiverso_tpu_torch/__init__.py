@@ -6,15 +6,18 @@ counterpart is found at the same path, and it imports nothing of JAX or
 of ``multiverso_tpu``: what it needs from the JAX package's jax-free
 modules it keeps as its own copy.
 
-This slice runs the MatrixTable row protocol (``MV_Init`` ->
+The port runs the MatrixTable row protocol (``MV_Init`` ->
 ``MV_CreateTable(MatrixTableOption)`` -> worker ``GetRows``/``AddRows`` ->
-the async engine actor -> the table's row programs -> the updater) and
-WordEmbedding's device-plane training on one GPU. Its three row kernels
+the engine -> the table's row programs -> the updater) on the JAX
+package's engine modes (async, sharded async, BSP ``-sync``, and
+model-average ``-ma`` with ``MV_Aggregate``) and WordEmbedding training on
+the host plane and the device plane, on one GPU. Its three row kernels
 (gather, scatter-set, fused update) are hand-written CUDA for ``sm_90a``
 (``csrc/rows.cu``), built with nvcc at first use.
 """
 
 from multiverso_tpu_torch.api import (  # noqa: F401
+    MV_Aggregate,
     MV_Barrier,
     MV_CreateTable,
     MV_Init,

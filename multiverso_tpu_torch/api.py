@@ -2,9 +2,9 @@
 
 Counterpart of ``multiverso_tpu/api.py`` (reference multiverso.h:9-64):
 init/shutdown/barrier, rank and size, worker/server ids, table creation,
-programmatic flags, batched verbs and worker contexts. The rest of the JAX
-surface (aggregate, net bind, checkpoints, serving, profiler, telemetry,
-elastic, policy) is later work (``ROADMAP.md``).
+model-average aggregation, programmatic flags, batched verbs and worker
+contexts. The rest of the JAX surface (net bind, checkpoints, serving,
+profiler, telemetry, elastic, policy) is later work (``ROADMAP.md``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -14,6 +14,8 @@ with neither and no CUDA device it raises.
 from __future__ import annotations
 
 from typing import List, Optional
+
+import numpy as np
 
 from multiverso_tpu_torch.utils.configure import (ResetFlagsToDefaults,
                                                   SetCMDFlag)
@@ -64,6 +66,12 @@ def MV_CreateTable(option):
     """Create a table (reference multiverso.h:34-41)."""
     from multiverso_tpu_torch.tables.base import CreateTable
     return CreateTable(option)
+
+
+def MV_Aggregate(data: np.ndarray) -> np.ndarray:
+    """Elementwise-sum allreduce across workers, in place (reference
+    multiverso.h:45, src/multiverso.cpp:53-56)."""
+    return Zoo.Get().Aggregate(data)
 
 
 def MV_SetFlag(name: str, value) -> None:

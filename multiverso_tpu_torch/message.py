@@ -27,6 +27,12 @@ class MsgType(enum.IntEnum):
     # Request_Get/Request_Add messages that enter the engine window in
     # list order through ONE mailbox hop (sync/server.py _expand_multi)
     Request_MultiVerb = 5
+    # engine drain ping: replies once every message queued before it has
+    # applied (Zoo.DrainServer); never touches the BSP clocks
+    Request_Barrier = 33
+    # payload["fn"] runs on the engine thread at the message's stream
+    # position: the consistent-cut mechanism (Zoo.CallOnEngine)
+    Request_StoreLoad = 35
     Default = 0
 
 

@@ -52,7 +52,8 @@ from typing import Dict, Optional
 import torch
 
 #: launches per wrapper, counted where the kernel is launched and nowhere
-#: else (chip_smoke.py zeroes them before driving the main path)
+#: else (chip_smoke.py zeroes them before driving the main path); engine
+#: shards launch from several threads, so counts change under _state_lock
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "scatter_set_rows": 0,
                             "update_rows": 0}
 
@@ -63,6 +64,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+#: guards the launch counts and the creation of the error words
+_state_lock = threading.Lock()
 _err_words: Dict[torch.device, torch.Tensor] = {}
 #: compiler output of the last build (register and spill report); None
 #: when the library came from an earlier build
@@ -70,8 +73,14 @@ last_build_log: Optional[str] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _state_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _state_lock:
+        LAUNCHES[name] += 1
 
 
 # -- launch geometry (mirrors csrc/rows.cu) ---------------------------------
@@ -219,12 +228,17 @@ def _load() -> ctypes.CDLL:
 
 
 def error_word(device) -> torch.Tensor:
-    """The device's int32 error word the kernels set on a bad id."""
+    """The device's int32 error word the kernels set on a bad id: one per
+    device, whichever thread launches first (an error written into a
+    second word would be lost)."""
     device = torch.device(device)
     word = _err_words.get(device)
     if word is None:
-        word = torch.zeros(1, dtype=torch.int32, device=device)
-        _err_words[device] = word
+        with _state_lock:
+            word = _err_words.get(device)
+            if word is None:
+                word = torch.zeros(1, dtype=torch.int32, device=device)
+                _err_words[device] = word
     return word
 
 
@@ -308,7 +322,7 @@ def gather_rows(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             data.shape[0], error_word(data.device).data_ptr(),
             ctypes.byref(plan), _stream(data.device))
     _raise_on(rc, "gather_rows")
-    LAUNCHES["gather_rows"] += 1
+    _count("gather_rows")
     return out
 
 
@@ -329,7 +343,7 @@ def scatter_set_rows(data: torch.Tensor, ids: torch.Tensor,
             data.shape[0], error_word(data.device).data_ptr(),
             ctypes.byref(plan), _stream(data.device))
     _raise_on(rc, "scatter_set_rows")
-    LAUNCHES["scatter_set_rows"] += 1
+    _count("scatter_set_rows")
     return data
 
 
@@ -358,5 +372,5 @@ def update_rows(data: torch.Tensor, ids: torch.Tensor, deltas: torch.Tensor,
                 data.shape[0], sign, error_word(data.device).data_ptr(),
                 ctypes.byref(plan), _stream(data.device))
         _raise_on(rc, "update_rows")
-        LAUNCHES["update_rows"] += 1
+        _count("update_rows")
     return (data, out) if want_rows else data

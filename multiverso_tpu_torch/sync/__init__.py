@@ -1,3 +1,3 @@
-"""Consistency modes: the async server engine (reference L4)."""
+"""Consistency modes: the server engines (reference L4)."""
 
 from multiverso_tpu_torch.sync.server import Server  # noqa: F401

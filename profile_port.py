@@ -9,6 +9,12 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   1,000,000 x 50 add-updater MatrixTable through the engine (host clock),
   then the same rounds' server-side work (ProcessAdd + ProcessGet) on
   the calling thread under the profiler;
+* PS threads: THREAD_ROUNDS rounds from 4 worker threads on an add and
+  an sgd table, each worker on rows of its own, through the default
+  engine (the ShardedServer: the two tables on two shard threads sharing
+  the card's one stream) and through ``-mv_engine_shards=1`` (one engine
+  thread), in turns (THREAD_TURNS: default, one, one, default, twice),
+  with the pairs of turns each engine won;
 * WE: ``train()`` of the WordEmbedding phase of chip_smoke.py (100,000 x
   128, 3 blocks, -device_plane 1),
 
@@ -98,6 +104,66 @@ def profile_ps(torch, seed: int, out: str) -> dict:
     return res
 
 
+#: the threaded PS profile's engines in turns, and its rounds per worker
+THREAD_TURNS = ("default", "one", "one", "default") * 2
+THREAD_ROUNDS = 20
+ENGINE_ARGV = {"default": [], "one": ["-mv_engine_shards=1"]}
+
+
+def profile_ps_threads(torch, seed: int, argv) -> dict:
+    """THREAD_ROUNDS rounds (AddRows + GetRows on both tables) from
+    PS_WORKERS threads under the profiler, on the engine ``argv``
+    selects."""
+    import threading
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.zoo import Zoo
+    from chip_smoke import (PS_COLS, PS_IDS, PS_ROWS, PS_WORKERS,
+                            engine_info, run_threads)
+    mv.MV_Init([f"-num_workers={PS_WORKERS}"] + list(argv))
+    try:
+        tables = [mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type=u))
+            for u in (None, "sgd")]
+        info = engine_info()
+        batches = []
+        for w in range(PS_WORKERS):
+            rng = np.random.default_rng([seed, w])
+            rows = np.arange(w, PS_ROWS, PS_WORKERS)
+            batches.append([(rng.choice(rows, PS_IDS, replace=False).astype(
+                np.int32), rng.integers(-3, 4, (PS_IDS, PS_COLS)).astype(
+                    np.float32)) for _ in range(THREAD_ROUNDS + 3)])
+        round_ms = []
+        lock = threading.Lock()
+
+        def rounds(w, first, last, timed):
+            with Zoo.Get().worker_context(w):
+                for ids, d in batches[w][first:last]:
+                    t0 = time.perf_counter()
+                    for t in tables:
+                        t.AddRows(ids, d)
+                        t.GetRows(ids)
+                    if timed:
+                        with lock:
+                            round_ms.append((time.perf_counter() - t0) * 1e3)
+
+        run_threads(lambda w: rounds(w, 0, 3, False), PS_WORKERS)  # warm-up
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run_threads(lambda w: rounds(w, 3, 3 + THREAD_ROUNDS, True),
+                        PS_WORKERS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mv.MV_ShutDown()
+    res = summarize(torch, prof, wall)
+    res.update(info, round_median_ms=float(np.median(round_ms)),
+               rounds_per_s=PS_WORKERS * THREAD_ROUNDS / wall)
+    return res
+
+
 def profile_we(torch, seed: int, out: str) -> dict:
     from chip_smoke import write_zipf_corpus, we_options
     from multiverso_tpu_torch.models.wordembedding.distributed import \
@@ -136,8 +202,29 @@ def main() -> int:
     from chip_smoke import card_line
     card = card_line()
     print(card, flush=True)
+    turns = [dict(profile_ps_threads(torch, args.seed, ENGINE_ARGV[name]),
+                  turn=name) for name in THREAD_TURNS]
     res = {"card": card, "ps": profile_ps(torch, args.seed, args.out),
+           "ps_threads_turns": turns,
            "we": profile_we(torch, args.seed, args.out)}
+    for i, r in enumerate(turns):
+        print(f"[ps_threads] turn {i + 1} {r['turn']}: {r['engine']} live "
+              f"slots {r['live_slots']}, worker round median "
+              f"{r['round_median_ms']:.3f} ms, {r['rounds_per_s']:.1f} worker "
+              f"rounds/s, device busy {r['device_busy_s']:.4f} of "
+              f"{r['wall_s']:.4f} s (idle share "
+              f"{r['device_idle_share']:.3f}); host "
+              + ", ".join(f"{k} x{n} {ms:.3f} ms" for k, n, ms in
+                          r["top_host_ms"] if k.startswith(
+                              ("cudaMemcpyAsync", "cudaStreamSynchronize"))),
+              flush=True)
+    by = {name: [r["rounds_per_s"] for r in turns if r["turn"] == name]
+          for name in ENGINE_ARGV}
+    won = sum(d > o for d, o in zip(by["default"], by["one"]))
+    print(f"[ps_threads] worker rounds/s median: default "
+          f"{np.median(by['default']):.1f}, one engine "
+          f"{np.median(by['one']):.1f}; the default engine won {won} of "
+          f"{len(by['one'])} pairs", flush=True)
     for path in ("ps", "we"):
         r = res[path]
         if path == "ps":

@@ -6,8 +6,11 @@ kernels have no CPU mode). Run on a machine with the card:
 
 Kernel and plain version must agree bitwise (outside the trash row, which
 duplicate lanes may race on), and the device error word must flag exactly
-the out-of-range ids.
+the out-of-range ids. Engine shards launch from several threads at once:
+every launch must be counted and one error word serve the device.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -156,3 +159,51 @@ def test_launches_count_only_real_launches(dev):
     assert torch.equal(view, data)
     assert cr.LAUNCHES == {"gather_rows": 2, "scatter_set_rows": 2,
                            "update_rows": 2}
+    _check_concurrent_launches(dev, cr)
+
+
+def _check_concurrent_launches(dev, cr, threads=4, per=50):
+    """``threads`` threads launch gathers and updates at once from a
+    device with no error word yet: every launch counted, one error word
+    created, the error one thread sets seen through it, and each table as
+    the same launches on the plain versions leave it."""
+    cr._err_words.pop(dev, None)
+    cr.reset_launches()
+    inputs = [_inputs(dev, 5_000, 52, 1_000, seed=10 + k)
+              for k in range(threads)]
+    want = [data.clone() for data, _, _ in inputs]
+    bad = torch.tensor([3, 5_000], dtype=torch.int32, device=dev)
+    start = threading.Barrier(threads)
+    errors = []
+
+    def hammer(k):
+        try:
+            data, ids, src = inputs[k]
+            start.wait(30)
+            for i in range(per):
+                cr.gather_rows(data, ids)
+                cr.update_rows(data, ids, src, 1 if i % 2 else -1)
+            if k == threads - 1:
+                cr.gather_rows(data, bad)
+        except BaseException as exc:        # re-raised by the test
+            errors.append(exc)
+
+    workers = [threading.Thread(target=hammer, args=(k,))
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(120)
+    assert not any(w.is_alive() for w in workers)
+    assert not errors, errors
+    assert cr.LAUNCHES == {"gather_rows": threads * per + 1,
+                           "scatter_set_rows": 0,
+                           "update_rows": threads * per}
+    assert list(cr._err_words) == [dev]
+    torch.cuda.synchronize()
+    assert cr.read_error(dev) == 1
+    cr.reset_error(dev)
+    for (data, ids, src), ref in zip(inputs, want):
+        for i in range(per):
+            cr.update_rows_plain(ref, ids, src, 1 if i % 2 else -1)
+        assert torch.equal(data, ref)

@@ -5,11 +5,12 @@
     same stacked batches: rtol 1e-5, atol 1e-6, because ``index_add_`` and
     einsum sum in another order than XLA;
 (b) the whole app in both packages on the topic corpus of
-    ``tests/test_wordembedding.py`` with ``-device_plane 1 -is_pipeline 0``,
-    skip-gram NEG, plain SGD: the pair pipeline is numpy-seeded and
-    identical in both, so the saved embeddings must match to rtol 1e-3,
-    atol 1e-4 (the tolerance of the JAX package's own device-vs-host
-    plane test);
+    ``tests/test_wordembedding.py`` with ``-is_pipeline 0``, skip-gram NEG,
+    plain SGD, on ``-device_plane 1`` and on the host plane with
+    ``-mv_engine_shards=4`` (its three tables on three engine shards): the
+    pair pipeline is numpy-seeded and identical in both, so the saved
+    embeddings must match to rtol 1e-3, atol 1e-4 (the tolerance of the
+    JAX package's own device-vs-host plane test);
 (c) the port alone separates the corpus topics, on both planes.
 """
 
@@ -129,22 +130,60 @@ def _run_port(tmp_path, **kw):
     return opt, loss
 
 
+def _in_world(mv, zoo_cls, argv, run):
+    """``run()`` in a world started with ``argv`` (the app joins a started
+    world and leaves it up), whose engine must be sharded over the app's
+    three tables; none started when ``argv`` is empty."""
+    if not argv:
+        return run()
+    mv.MV_Init(argv)
+    try:
+        out = run()
+        eng = zoo_cls.Get().server_engine
+        assert type(eng).__name__ == "ShardedServer"
+        assert len(eng.shard_states()) == 3
+        return out
+    finally:
+        mv.MV_ShutDown()
+
+
 def test_device_plane_app_matches_jax(tmp_path):
+    cases = {"device plane": ([], [], dict(device_plane=True)),
+             "host plane, 4 engine shards": (
+                 ["-mv_engine_shards=4", "-mv_write_combine=0"],
+                 ["-mv_engine_shards=4", "-mv_device=cpu"],
+                 dict(device_plane=False))}
+    for name, (jargv, targv, kw) in cases.items():
+        path = tmp_path / name.replace(" ", "_").replace(",", "")
+        try:
+            _check_app_matches_jax(path, jargv, targv, kw)
+        except AssertionError as exc:
+            raise AssertionError(f"{name}: {exc}") from exc
+
+
+def _check_app_matches_jax(tmp_path, jargv, targv, kw):
+    import multiverso_tpu as jmv
+    import multiverso_tpu_torch as tmv
     from multiverso_tpu.models.wordembedding.distributed import \
         DistributedWordEmbedding as JWordEmbedding
     from multiverso_tpu.models.wordembedding.option import Option as JOption
+    from multiverso_tpu.zoo import Zoo as JZoo
+    from multiverso_tpu_torch.zoo import Zoo as TZoo
 
-    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax").mkdir(parents=True)
     (tmp_path / "port").mkdir()
-    jopt = _options(JOption, tmp_path / "jax", device_plane=True,
-                    is_pipeline=False)
-    jwe = JWordEmbedding(jopt)
-    try:
-        jloss = jwe.run()
-    finally:
-        jwe.close()
-    topt, tloss = _run_port(tmp_path / "port", device_plane=True,
-                            is_pipeline=False)
+    jopt = _options(JOption, tmp_path / "jax", is_pipeline=False, **kw)
+
+    def run_jax():
+        jwe = JWordEmbedding(jopt)
+        try:
+            return jwe.run()
+        finally:
+            jwe.close()
+
+    jloss = _in_world(jmv, JZoo, jargv, run_jax)
+    topt, tloss = _in_world(tmv, TZoo, targv, lambda: _run_port(
+        tmp_path / "port", is_pipeline=False, **kw))
     jv, tv = _vectors(jopt.output_file), _vectors(topt.output_file)
     assert jv.keys() == tv.keys()
     for w in jv:
