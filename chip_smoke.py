@@ -55,10 +55,24 @@ holds every kernel of that path against its plain PyTorch version:
               -is_pipeline 1``, the default engine); loss finite and under
               0.69*(1+K); and the device plane on a small topic corpus on
               the card against the CPU (embeddings rtol 1e-3, atol 1e-4);
-5. summary  — a ``{"kernels": [...]}`` line, the card line, and last
+5. LR       — the LogisticRegression app through ``LogReg`` on the card, on
+              data made from --seed: bench.py's dense softmax (784 x 10,
+              6,000 samples, bf16 compute, 9 epochs on the device plane
+              and 3 on the host plane: final loss under 0.1); sparse
+              sigmoid on the MatrixTable at the RCV1 width (47,236 x 1,
+              rows of 4 stored floats, 30 nonzeros a sample, 6,000
+              samples, 6 epochs on the device plane: the loss falls every
+              epoch); sparse softmax at 10 outputs (rows of 12 floats, 2
+              epochs); bench.py's FTRL (1,000 features, 6 epochs on the
+              device plane: final loss under 0.1); and a short sparse
+              sigmoid run on the card against the same run on the CPU
+              (final weights rtol 1e-4, atol 1e-5). Phase 2 holds the row
+              kernels to their plain versions, and times them, at both
+              sparse geometries with the first window's row set;
+6. summary  — a ``{"kernels": [...]}`` line, the card line, and last
               ``{"ok": true, "device": {...}}``.
 
-Each main path of phases 3 and 4 runs with the launch counters zeroed just
+Each main path of phases 3 to 5 runs with the launch counters zeroed just
 before it and read just after: each kernel that path runs must have
 launched there, and the ``kernels`` line sums the paths. Any failure
 raises and the script exits non-zero without the ``ok`` line. Without a
@@ -87,6 +101,13 @@ TIMED_RUNS, WARMUP_RUNS, ID_SETS, STREAM_RUNS = 30, 5, 40, 5
 SPIN_CYCLES = 100_000_000       # ~50 ms at H100 clocks: holds the stream
 PS_WORKERS = 4                  # worker threads of the threaded PS, BSP, MA
 JOIN_S = 300                    # a worker thread or shutdown past this hung
+# LogisticRegression: bench.py's app configurations (bench.py:446-553) and
+# the RCV1 width (bench.py:44)
+LR_DENSE_IN, LR_DENSE_OUT, LR_SAMPLES = 784, 10, 6_000
+LR_SPARSE_IN, LR_SOFTMAX_OUT, LR_FTRL_IN, LR_NNZ = 47_236, 10, 1_000, 30
+LR_MINIBATCH, LR_SPARSE_SYNC = 20, 50    # the app's default minibatch
+LR_EPOCHS = {"lr_dense": 9, "lr_dense_host": 3, "lr_sparse": 6,
+             "lr_softmax": 2, "lr_ftrl": 6}
 
 
 def log(msg: str) -> None:
@@ -369,6 +390,11 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
           3 * n * cols * 4 + 4 * n)
     # the other update variants, reported beside: sgd (-1) and Add+Get
     a, b = data.clone(), data.clone()
+    cr.update_rows(a, ids[0], src[0], -1)
+    cr.update_rows_plain(b, ids[0], src[0], -1)
+    res["update_rows_sgd_max_abs_err"] = float((a - b).abs().max())
+    res["update_rows_sgd_plain_ms"] = median_ms(
+        torch, lambda i: cr.update_rows_plain(b, ids[i], src[i], -1), ID_SETS)
     variants = {
         "update_rows_sgd": lambda i: cr.update_rows(a, ids[i], src[i], -1),
         "update_gather_rows": lambda i: cr.update_rows(
@@ -814,6 +840,214 @@ def we_small_reference(torch, workdir: str) -> float:
     return float(np.abs(vecs["cuda"] - vecs["cpu"]).max())
 
 
+# -- phase 5: LogisticRegression -----------------------------------------------
+
+def lr_dense_file(path: str, seed: int) -> str:
+    """bench.py's LR app data (bench.py:462-470): 10 Gaussian class centres
+    in 784 features, 6,000 samples at noise 0.35, 4 decimals."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((LR_DENSE_OUT, LR_DENSE_IN)).astype(
+        np.float32)
+    y = rng.integers(0, LR_DENSE_OUT, LR_SAMPLES)
+    X = (centers[y] + rng.standard_normal((LR_SAMPLES, LR_DENSE_IN)) * 0.35
+         ).astype(np.float32)
+    np.savetxt(path, np.column_stack([y, X]),
+               fmt=["%d"] + ["%.4f"] * LR_DENSE_IN)
+    return path
+
+
+def lr_sparse_samples(seed: int, features: int, outputs: int,
+                      samples: int = LR_SAMPLES) -> tuple:
+    """bench.py:517-524's generator at any width: LR_NNZ distinct features
+    a sample with N(0, 1) values, labelled by a random true model (its
+    sign for one output, its argmax for several). Returns (keys, values,
+    labels)."""
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal((features, outputs))
+    keys = np.stack([rng.choice(features, LR_NNZ, replace=False)
+                     for _ in range(samples)])
+    values = rng.standard_normal((samples, LR_NNZ)).astype(np.float32)
+    scores = np.einsum("sk,sko->so", values, w_true[keys])
+    labels = (scores[:, 0] > 0 if outputs == 1
+              else np.argmax(scores, axis=1)).astype(np.int64)
+    return keys, values, labels
+
+
+def write_lr_sparse(path: str, samples: tuple) -> str:
+    keys, values, labels = samples
+    with open(path, "w") as f:
+        for k, v, lab in zip(keys, values, labels):
+            f.write(f"{lab} " + " ".join(f"{a}:{b:.4f}" for a, b in zip(k, v))
+                    + "\n")
+    return path
+
+
+def first_window_rows(samples: tuple) -> np.ndarray:
+    """The row set of a sparse run's first window (LR_SPARSE_SYNC
+    minibatches): the ids its row gather and update get."""
+    keys = samples[0][: LR_SPARSE_SYNC * LR_MINIBATCH]
+    return np.unique(keys).astype(np.int32)
+
+
+def lr_config(train_file: str, input_size: int, output_size: int,
+              epochs: int, **kw):
+    """An app configuration as bench.py builds one: PS, device plane, no
+    pipeline, no output files, on the card."""
+    from multiverso_tpu_torch.models.logreg.configure import Configure
+    cfg = Configure()
+    cfg.train_file = train_file
+    cfg.test_file = cfg.output_file = cfg.output_model_file = ""
+    cfg.input_size, cfg.output_size = input_size, output_size
+    cfg.train_epoch = epochs
+    cfg.minibatch_size = LR_MINIBATCH
+    cfg.use_ps, cfg.device_plane, cfg.pipeline = True, True, False
+    cfg.show_time_per_sample = 10 ** 9
+    cfg.platform = "cuda"
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def lr_run(torch, cfg, dev=None) -> tuple:
+    """One ``LogReg`` training run; returns (stats, final weights). With
+    ``dev`` the PS tables must live on it."""
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    t0 = time.perf_counter()
+    app = LogReg(cfg)
+    try:
+        if dev is not None:
+            tables = ([app.model.z_table, app.model.n_table]
+                      if app.model.ftrl else [app.model.table])
+            for t in tables:
+                srv = t.server()
+                held = (srv.device_values() if app.model.ftrl
+                        else srv.state["data"])
+                if held.device != dev:
+                    raise AssertionError("the LR tables are not on the card")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        app.Train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        W = app.model.weights()
+    finally:
+        app.close()
+    wall_s = time.perf_counter() - t0
+    losses = [loss for _, loss, _ in app.epoch_log]
+    samples = sum(n for n, _, _ in app.epoch_log)
+    if (W.shape != (cfg.input_size, cfg.output_size)
+            or not np.isfinite(W).all()
+            or not all(math.isfinite(x) for x in losses)
+            or len(losses) != cfg.train_epoch):
+        raise AssertionError(f"LR weights {W.shape} / epoch losses {losses} "
+                             f"not finite or misshapen")
+    return {"samples": samples, "train_s": train_s, "wall_s": wall_s,
+            "samples_per_s": samples / train_s, "epoch_loss": losses,
+            "epoch_s": [s for _, _, s in app.epoch_log]}, W
+
+
+def check_lr(name: str, r: dict) -> None:
+    """The run's check: final loss under 0.1 (bench.py:496, :552) for the
+    dense and FTRL runs, the loss falling every epoch for the sparse
+    ones."""
+    losses = r["epoch_loss"]
+    if name in ("lr_dense", "lr_dense_host", "lr_ftrl"):
+        if not losses[-1] < 0.1:
+            raise AssertionError(f"{name}: final loss {losses[-1]} not < 0.1")
+    elif not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{name}: the loss did not fall every epoch "
+                             f"{losses}")
+
+
+def lr_card_vs_cpu(torch, workdir: str, seed: int) -> float:
+    """A short sparse sigmoid run (1,000 features, 400 samples, 1 epoch,
+    windows of 5 minibatches) on the card and on the CPU, where the row
+    kernels' plain versions run: the final weights must agree."""
+    path = write_lr_sparse(os.path.join(workdir, "lr_small.data"),
+                           lr_sparse_samples(seed + 7, 1_000, 1, 400))
+    W = {}
+    for platform in ("cuda", "cpu"):
+        cfg = lr_config(path, 1_000, 1, 1, sparse=True,
+                        objective_type="sigmoid", updater_type="sgd",
+                        regular_type="L2", sync_frequency=5,
+                        platform=platform)
+        W[platform] = lr_run(torch, cfg)[1]
+    np.testing.assert_allclose(W["cuda"], W["cpu"], rtol=1e-4, atol=1e-5)
+    return float(np.abs(W["cuda"] - W["cpu"]).max())
+
+
+def lr_samples(seed: int) -> dict:
+    """The sparse LR runs' samples (phase 2 times the kernels on their
+    first windows' row sets)."""
+    return {"lr_sparse": lr_sparse_samples(seed + 2, LR_SPARSE_IN, 1),
+            "lr_softmax": lr_sparse_samples(seed + 3, LR_SPARSE_IN,
+                                            LR_SOFTMAX_OUT),
+            "lr_ftrl": lr_sparse_samples(seed + 6, LR_FTRL_IN, 1)}
+
+
+def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
+    """The LR runs, name -> (description, the row kernels its path must
+    launch, configuration); writes their data files into ``workdir``."""
+    path = lambda name: os.path.join(workdir, f"{name}.data")  # noqa: E731
+    dense = lr_dense_file(path("lr_dense"), seed)
+    dense_kw = dict(objective_type="softmax", regular_type="L2",
+                    updater_type="sgd", learning_rate_coef=7e6,
+                    regular_coef=0.0007, sync_frequency=100,
+                    compute_type="bfloat16")
+    sparse_kw = dict(sparse=True, regular_type="L2", updater_type="sgd",
+                     sync_frequency=LR_SPARSE_SYNC)
+    rows_and_update = ("gather_rows", "update_rows")
+    return {
+        "lr_dense": ("dense softmax 784 x 10, bf16, device plane", (),
+                     lr_config(dense, LR_DENSE_IN, LR_DENSE_OUT,
+                               LR_EPOCHS["lr_dense"], **dense_kw)),
+        "lr_dense_host": ("dense softmax 784 x 10, bf16, host plane", (),
+                          lr_config(dense, LR_DENSE_IN, LR_DENSE_OUT,
+                                    LR_EPOCHS["lr_dense_host"],
+                                    device_plane=False, **dense_kw)),
+        "lr_sparse": (f"sparse sigmoid {LR_SPARSE_IN} x 1 (rows of 4), "
+                      f"device plane", rows_and_update,
+                      lr_config(write_lr_sparse(path("lr_sparse"),
+                                                lr_data["lr_sparse"]),
+                                LR_SPARSE_IN, 1, LR_EPOCHS["lr_sparse"],
+                                objective_type="sigmoid", **sparse_kw)),
+        "lr_softmax": (f"sparse softmax {LR_SPARSE_IN} x {LR_SOFTMAX_OUT} "
+                       f"(rows of 12), device plane", rows_and_update,
+                       lr_config(write_lr_sparse(path("lr_softmax"),
+                                                 lr_data["lr_softmax"]),
+                                 LR_SPARSE_IN, LR_SOFTMAX_OUT,
+                                 LR_EPOCHS["lr_softmax"],
+                                 objective_type="softmax", **sparse_kw)),
+        "lr_ftrl": (f"FTRL {LR_FTRL_IN} x 1, device plane", (),
+                    lr_config(write_lr_sparse(path("lr_ftrl"),
+                                              lr_data["lr_ftrl"]),
+                              LR_FTRL_IN, 1, LR_EPOCHS["lr_ftrl"],
+                              objective_type="ftrl", alpha=2.0, beta=1.0,
+                              lambda1=0.01, lambda2=0.01,
+                              sync_frequency=LR_SPARSE_SYNC)),
+    }
+
+
+def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
+             results: dict) -> None:
+    """Each LR run as a main path of its own (``drive``), then the card
+    against the CPU."""
+    runs = lr_runs(workdir, seed, lr_data)
+    for name, (what, needs, cfg) in runs.items():
+        r = drive(name, lambda: lr_run(torch, cfg, dev)[0], needs)
+        check_lr(name, r)
+        results[name] = r
+        log(f"[lr] {what}: {r['samples']} samples ({cfg.train_epoch} epochs "
+            f"of {LR_SAMPLES}) in {r['train_s']:.3f} s = "
+            f"{r['samples_per_s']:.0f} samples/s, wall {r['wall_s']:.3f} s; "
+            f"loss per epoch {[round(x, 5) for x in r['epoch_loss']]}")
+    results["lr_card_vs_cpu_max_abs_diff"] = lr_card_vs_cpu(torch, workdir,
+                                                            seed)
+    log(f"[lr] sparse sigmoid 1,000 x 1, 400 samples, card vs CPU weights: "
+        f"max abs diff {results['lr_card_vs_cpu_max_abs_diff']:.3g} "
+        f"(rtol 1e-4, atol 1e-5)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -864,8 +1098,32 @@ def main() -> int:
                         args.seed + 1)
     results["kernels_ps_shape"] = ps_k
     results["kernels_we_shape"] = we_k
+    # the LR sparse paths' geometries: the 47,236-row MatrixTable stored
+    # as rows of 4 floats (one output) and of 12 (10 outputs), the first
+    # window's row set as the ids
+    lr_data = lr_samples(args.seed)
+    lr_k = {}
+    rng = np.random.default_rng(args.seed + 4)
+    for name, cols in (("lr_sparse", 4), ("lr_softmax", 12)):
+        ids_np = first_window_rows(lr_data[name])
+        table, src = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for shape in ((LR_SPARSE_IN + 1, cols),
+                                               (len(ids_np), cols)))
+        _check_rows(torch, cr, dev, table, ids_np, src,
+                    f"{name} {LR_SPARSE_IN + 1} x {cols}, n={len(ids_np)}")
+        lr_k[name] = time_kernels(torch, cr, dev, LR_SPARSE_IN, cols,
+                                  len(ids_np), args.seed + 5)
+    log(f"[kernels] LR sparse geometries: kernel == plain (bitwise outside "
+        f"the trash row) at {LR_SPARSE_IN + 1} x 4 and x 12 on the first "
+        f"windows' row sets ({lr_k['lr_sparse']['gather_rows']['shape'][2]} "
+        f"and {lr_k['lr_softmax']['gather_rows']['shape'][2]} ids)")
+    results["kernels_lr_shapes"] = lr_k
     for label, res in (("PS 1000001x52, 10000 ids", ps_k),
-                       ("WE 100001x128, 40000 ids", we_k)):
+                       ("WE 100001x128, 40000 ids", we_k),
+                       *((f"LR {name} {r['gather_rows']['shape'][0]}x"
+                          f"{r['gather_rows']['shape'][1]}, "
+                          f"{r['gather_rows']['shape'][2]} ids", r)
+                         for name, r in lr_k.items())):
         for k in ("gather_rows", "scatter_set_rows", "update_rows"):
             r = res[k]
             log(f"[kernels] {label} {k}: per-pair {r['ms']:.7f} ms, stream "
@@ -875,8 +1133,10 @@ def main() -> int:
                 f"{r['call_ms']:.4f}), max_abs_err {r['max_abs_err']}")
         log(f"[kernels] {label} update sgd per-pair "
             f"{res['update_rows_sgd_ms']:.7f} ms, stream "
-            f"{res['update_rows_sgd_stream_ms']:.7f} ms (library per-pair "
-            f"{res['update_rows_sgd_library_ms']:.7f}); Add+Get per-pair "
+            f"{res['update_rows_sgd_stream_ms']:.7f} ms (plain per-pair "
+            f"{res['update_rows_sgd_plain_ms']:.7f}, library per-pair "
+            f"{res['update_rows_sgd_library_ms']:.7f}), max_abs_err "
+            f"{res['update_rows_sgd_max_abs_err']}; Add+Get per-pair "
             f"{res['update_gather_rows_ms']:.7f} ms, stream "
             f"{res['update_gather_rows_stream_ms']:.7f} ms (bound "
             f"{res['update_gather_rows_bound_ms']:.7f})")
@@ -983,6 +1243,7 @@ def main() -> int:
         results["we_small_max_abs_diff"] = we_small_reference(torch, workdir)
         log(f"[we] topic corpus, card vs CPU embeddings: max abs diff "
             f"{results['we_small_max_abs_diff']:.3g} (rtol 1e-3, atol 1e-4)")
+        lr_phase(torch, dev, args.seed, workdir, lr_data, drive, results)
     launches = {k: sum(p[k] for p in paths.values()) for k in cr.LAUNCHES}
     results["main_path_launches"] = {"paths": paths, "total": launches}
     log(f"[main path] launches, all paths {launches}")
@@ -997,18 +1258,38 @@ def main() -> int:
     kernels = []
     for k in ("gather_rows", "scatter_set_rows", "update_rows"):
         r = ps_k[k]
-        kernels.append({
+        entry = {
             "name": k, "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/rows.cu",
             "replaces": replaces[k], "pallas": sources[k],
-            "launches": launches[k], "max_abs_err": r["max_abs_err"],
+            "launches": launches[k],
+            "max_abs_err": max(
+                err for s in (ps_k, we_k, *lr_k.values())
+                for err in (s[k]["max_abs_err"],
+                            s["update_rows_sgd_max_abs_err"]
+                            if k == "update_rows" else 0.0)),
             "ms": r["ms"], "stream_ms": r["stream_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "library_ms": r["library_ms"], "shape": r["shape"],
             "we_ms": we_k[k]["ms"], "we_stream_ms": we_k[k]["stream_ms"],
             "we_bound_ms": we_k[k]["bound_ms"],
-            "we_shape": we_k[k]["shape"]})
+            "we_shape": we_k[k]["shape"]}
+        for name, s in lr_k.items():
+            # the LR paths' update is the sgd sign
+            sgd = k == "update_rows"
+            entry[name] = {
+                "ms": s["update_rows_sgd_ms"] if sgd else s[k]["ms"],
+                "stream_ms": (s["update_rows_sgd_stream_ms"] if sgd
+                              else s[k]["stream_ms"]),
+                "plain_ms": (s["update_rows_sgd_plain_ms"] if sgd
+                             else s[k]["plain_ms"]),
+                "library_ms": (s["update_rows_sgd_library_ms"] if sgd
+                               else s[k]["library_ms"]),
+                "max_abs_err": (s["update_rows_sgd_max_abs_err"] if sgd
+                                else s[k]["max_abs_err"]),
+                "bound_ms": s[k]["bound_ms"], "shape": s[k]["shape"]}
+        kernels.append(entry)
     results["kernels"] = kernels
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),

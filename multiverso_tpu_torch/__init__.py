@@ -10,8 +10,10 @@ The port runs the MatrixTable row protocol (``MV_Init`` ->
 ``MV_CreateTable(MatrixTableOption)`` -> worker ``GetRows``/``AddRows`` ->
 the engine -> the table's row programs -> the updater) on the JAX
 package's engine modes (async, sharded async, BSP ``-sync``, and
-model-average ``-ma`` with ``MV_Aggregate``) and WordEmbedding training on
-the host plane and the device plane, on one GPU. Its three row kernels
+model-average ``-ma`` with ``MV_Aggregate``), the Array, KV and
+SparseMatrix tables (``tables``), and the WordEmbedding and
+LogisticRegression apps on the host plane and the device plane, on one
+GPU. Its three row kernels
 (gather, scatter-set, fused update) are hand-written CUDA for ``sm_90a``
 (``csrc/rows.cu``), built with nvcc at first use.
 """

@@ -6,10 +6,17 @@ import time
 
 
 class Timer:
-    """Starts on construction; ``elapse`` is seconds since then."""
+    """Starts on construction; ``elapse`` is seconds since the last
+    Start."""
 
     def __init__(self):
         self._start = time.perf_counter()
 
+    def Start(self) -> None:
+        self._start = time.perf_counter()
+
     def elapse(self) -> float:
         return time.perf_counter() - self._start
+
+    def elapse_ms(self) -> float:
+        return self.elapse() * 1e3

@@ -17,18 +17,23 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   with the pairs of turns each engine won;
 * WE: ``train()`` of the WordEmbedding phase of chip_smoke.py (100,000 x
   128, 3 blocks, -device_plane 1),
+* LR: ``Train()`` of each LogisticRegression run of chip_smoke.py (dense
+  softmax on both planes, sparse sigmoid and softmax, FTRL), after one
+  unprofiled warm-up run of the sparse sigmoid configuration,
 
 and prints, per path, the wall seconds, the device-busy seconds (the sum
 of the self device time of every op: kernels and copies on the one
 stream), the device-idle share, and the ops with the most device and the
-most host time, and for WE the seconds the trainer waited on the block
-loader. The PS Chrome trace and a JSON summary land in DIR (default
+most host time, for WE the seconds the trainer waited on the block
+loader, and for LR the seconds of the first epoch (which parses the text)
+and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -189,6 +194,34 @@ def profile_we(torch, seed: int, out: str) -> dict:
     return res
 
 
+def profile_lr(torch, seed: int) -> dict:
+    from chip_smoke import lr_runs, lr_samples
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="mvt_prof_lr_") as workdir:
+        runs = lr_runs(workdir, seed, lr_samples(seed))
+        for i, name in enumerate(["lr_sparse"] + list(runs)):
+            app = LogReg(runs[name][2])
+            try:
+                torch.cuda.synchronize()
+                with (torch.profiler.profile(activities=acts) if i
+                      else contextlib.nullcontext()) as prof:
+                    t0 = time.perf_counter()
+                    app.Train()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                app.close()
+            if i:                                   # not the warm-up
+                secs = [s for _, _, s in app.epoch_log]
+                res[name] = dict(summarize(torch, prof, wall),
+                                 first_epoch_s=secs[0],
+                                 later_epochs_s=sum(secs[1:]))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -206,7 +239,8 @@ def main() -> int:
                   turn=name) for name in THREAD_TURNS]
     res = {"card": card, "ps": profile_ps(torch, args.seed, args.out),
            "ps_threads_turns": turns,
-           "we": profile_we(torch, args.seed, args.out)}
+           "we": profile_we(torch, args.seed, args.out),
+           "lr": profile_lr(torch, args.seed)}
     for i, r in enumerate(turns):
         print(f"[ps_threads] turn {i + 1} {r['turn']}: {r['engine']} live "
               f"slots {r['live_slots']}, worker round median "
@@ -240,6 +274,16 @@ def main() -> int:
         for label in ("top_device_ms", "top_host_ms"):
             for key, count, ms in r[label]:
                 print(f"[{path}]   {label} {key} x{count}: {ms:.3f} ms",
+                      flush=True)
+    for name, r in res["lr"].items():
+        print(f"[{name}] wall {r['wall_s']:.4f} s (first epoch "
+              f"{r['first_epoch_s']:.4f} s, later epochs "
+              f"{r['later_epochs_s']:.4f} s), device busy "
+              f"{r['device_busy_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f}", flush=True)
+        for label in ("top_device_ms", "top_host_ms"):
+            for key, count, ms in r[label]:
+                print(f"[{name}]   {label} {key} x{count}: {ms:.3f} ms",
                       flush=True)
     with open(os.path.join(args.out, "profile.json"), "w") as f:
         json.dump(res, f, indent=1)

@@ -6,7 +6,9 @@ kernels have no CPU mode). Run on a machine with the card:
 
 Kernel and plain version must agree bitwise (outside the trash row, which
 duplicate lanes may race on), and the device error word must flag exactly
-the out-of-range ids. Engine shards launch from several threads at once:
+the out-of-range ids. A sparse LogisticRegression device window, which
+runs the gather and the sgd-sign update at rows of 4 floats, must train
+the same weights on the card as on the CPU. Engine shards launch from several threads at once:
 every launch must be counted and one error word serve the device.
 """
 
@@ -56,13 +58,52 @@ SHAPES = [(200, 50, 100, 0), (200, 128, 64, 0), (200, 52, 100, 20),
           (1_000_001, 52, 1_000_000, 0)]
 
 
-def test_kernels_match_plain(dev):
+def test_kernels_match_plain(dev, tmp_path):
     for shape in SHAPES:
         try:
             _check_shape(dev, *shape)
         except AssertionError as exc:
             raise AssertionError(f"rows,cols,n,trash={shape}: {exc}") \
                 from exc
+    _check_lr_window(dev, tmp_path)
+
+
+def _check_lr_window(dev, tmp_path):
+    """One sparse LR device-plane window (the gather and the sgd-sign
+    update at rows of 4 floats) on the card against the same window on
+    the CPU, where the plain versions run: weights rtol 1e-5, atol 1e-6
+    (the window's gradient sums its lanes with atomics on the card)."""
+    from multiverso_tpu_torch.models.logreg.configure import Configure
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    rng = np.random.default_rng(4)
+    data = tmp_path / "lr_sparse.data"
+    with open(data, "w") as f:
+        for _ in range(100):
+            keys = rng.choice(300, 12, replace=False)
+            vals = rng.standard_normal(12)
+            f.write(f"{int(vals.sum() > 0)} " + " ".join(
+                f"{k}:{v:.4f}" for k, v in zip(keys, vals)) + "\n")
+    W = {}
+    for platform in ("cuda", "cpu"):
+        cfg = Configure(input_size=300, output_size=1, sparse=True,
+                        objective_type="sigmoid", updater_type="sgd",
+                        regular_type="L2", train_file=str(data),
+                        output_model_file="", output_file="", use_ps=True,
+                        device_plane=True, sync_frequency=5,
+                        platform=platform)
+        cr.reset_launches()
+        app = LogReg(cfg)
+        try:
+            app.Train()
+            W[platform] = app.model.weights()
+        finally:
+            app.close()
+        if platform == "cuda":
+            # one window: one gather, one update (weights() adds a Get)
+            assert cr.LAUNCHES["update_rows"] == 1
+            assert cr.LAUNCHES["gather_rows"] >= 1
+    np.testing.assert_allclose(W["cuda"], W["cpu"], rtol=1e-5, atol=1e-6)
 
 
 def _check_shape(dev, rows, cols, n, trash):

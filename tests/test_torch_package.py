@@ -5,9 +5,9 @@ no silent CPU fallback.
   interpreter leaves ``jax`` and ``multiverso_tpu``/``multiverso_tpu.*``
   out of ``sys.modules``;
 * no source line of the package (or ``chip_smoke.py``) imports them;
-* without a CUDA device, ``MV_Init`` with no CPU request raises, a kernel
-  wrapper handed a non-CPU tensor raises instead of running its plain
-  version, and ``chip_smoke.py`` exits non-zero without its ``ok`` line —
+* without a CUDA device, ``MV_Init`` with no CPU request raises, so do the
+  WordEmbedding and LogisticRegression apps, a kernel wrapper handed a
+  non-CPU tensor raises instead of running its plain version, and ``chip_smoke.py`` exits non-zero without its ``ok`` line —
   also from a directory holding nothing of the repository.
 """
 
@@ -47,7 +47,15 @@ bad = sorted(m for m in sys.modules
              or m == "multiverso_tpu" or m.startswith("multiverso_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 25, names
+assert len(names) >= 49, names
+# the slice of the Array, KV and SparseMatrix tables and the LR app
+new = {"tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
+       "models.logreg.configure", "models.logreg.data",
+       "models.logreg.updater", "models.logreg.objective",
+       "models.logreg.model", "models.logreg.device_plane",
+       "models.logreg.logreg", "models.logreg.main"}
+missing = {m for m in new if pkg.__name__ + "." + m not in names}
+assert not missing, missing
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=_child_env(), capture_output=True, text=True,
@@ -99,6 +107,31 @@ def _check_we_cli_raises(tmp_path):
     assert not Zoo.Get().started
 
 
+def _check_logreg_raises(tmp_path):
+    """The LR app in local mode (no world) and in PS mode, without the CPU
+    asked for, raises; a PS run leaves no world behind."""
+    from multiverso_tpu_torch.models.logreg.configure import Configure
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    from multiverso_tpu_torch.utils.log import FatalError
+    from multiverso_tpu_torch.zoo import Zoo
+    data = tmp_path / "lr.data"
+    data.write_text("1 0.5 -0.25\n0 -1.0 0.75\n" * 10)
+    for use_ps in (False, True):
+        cfg = Configure(input_size=2, output_size=1, train_file=str(data),
+                        output_model_file="", output_file="",
+                        objective_type="sigmoid", use_ps=use_ps)
+        with pytest.raises(FatalError, match="no CUDA device"):
+            LogReg(cfg).Train()
+        assert not Zoo.Get().started
+    cfg.platform = "cpu"
+    app = LogReg(cfg)
+    try:
+        app.Train()
+    finally:
+        app.close()
+    assert app.model.device == torch.device("cpu")
+
+
 def _check_wrappers_raise():
     from multiverso_tpu_torch.ops import cuda_rows
     data = torch.empty((8, 4), device="meta")
@@ -125,12 +158,14 @@ def _check_build_needs_nvcc():
 
 def test_no_silent_cpu_fallback_without_a_card(tmp_path):
     """Without a CUDA device: MV_Init with no CPU request raises, the
-    WordEmbedding CLI (default -platform cuda) raises, a kernel wrapper
+    WordEmbedding CLI (default -platform cuda) and the LogisticRegression
+    app (default platform cuda, local and PS) raise, a kernel wrapper
     handed a non-CPU tensor raises, and the kernel build needs nvcc."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the port runs on it")
     _check_mv_init_raises()
     _check_we_cli_raises(tmp_path)
+    _check_logreg_raises(tmp_path)
     _check_wrappers_raise()
     _check_build_needs_nvcc()
 
