@@ -7,7 +7,10 @@ Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
 
 0. card     — name and power limit as nvidia-smi gives them; TF32 off;
-1. build    — nvcc builds ``multiverso_tpu_torch/csrc/rows.cu`` (sm_90a);
+1. build    — nvcc builds ``multiverso_tpu_torch/csrc/rows.cu`` (sm_90a)
+              while g++ builds the repo's C++ library from ``native/src``
+              into ``build/native_torch/`` (``native.py``); the run fails
+              if either does not build;
 2. kernels  — each row kernel against its plain version on the card, at
               the slice's shapes and edge cases (tests/test_torch_rows.py's
               id patterns; the row groups' geometry: n = 1, n below the SM
@@ -52,9 +55,26 @@ holds every kernel of that path against its plain PyTorch version:
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
               with the JAX package's defaults (``-device_plane 0
-              -is_pipeline 1``, the default engine); loss finite and under
-              0.69*(1+K); and the device plane on a small topic corpus on
-              the card against the CPU (embeddings rtol 1e-3, atol 1e-4);
+              -is_pipeline 1``, the default engine), and with
+              ``-device_pairs 1`` (pairs made on the card, plain SGD: no
+              row kernel); loss finite and under 0.69*(1+K) on every
+              block. ``-device_pairs 1 -use_adagrad 1`` at the word2vec
+              scale, 1,000,000 words x 128 (four 512 MB tables) on 3
+              blocks of a Zipf corpus over that vocabulary: the
+              touched-rows AdaGrad step on every batch, six row gathers
+              and four row scatter-sets a batch; then the gather and the
+              scatter-set at that step's shape (the output-lane ids of
+              the run's first batches and their dedup'd sets) against
+              their plain versions, bitwise, and timed as in phase 2. CBOW
+              NEG, skip-gram HS and CBOW HS with ``-device_pairs 1``, one
+              block each at 100,000 x 128, each under its untrained loss
+              (0.69*(1+K); HS: 0.69 times the corpus's mean Huffman path).
+              Every WE run tokenizes through the native tokenizer. On the
+              card against the CPU: the device plane on a small topic
+              corpus (embeddings rtol 1e-3, atol 1e-4), and that corpus's
+              token blocks through ``DevicePairsTrainer.train_block`` on
+              the touched-rows step with the same injected draws (all four
+              tables rtol 1e-3, atol 1e-4);
 5. LR       — the LogisticRegression app through ``LogReg`` on the card, on
               data made from --seed: bench.py's dense softmax (784 x 10,
               6,000 samples, bf16 compute, 9 epochs on the device plane
@@ -66,15 +86,19 @@ holds every kernel of that path against its plain PyTorch version:
               epochs); bench.py's FTRL (1,000 features, 6 epochs on the
               device plane: final loss under 0.1); and a short sparse
               sigmoid run on the card against the same run on the CPU
-              (final weights rtol 1e-4, atol 1e-5). Phase 2 holds the row
+              (final weights rtol 1e-4, atol 1e-5). The sparse and FTRL
+              runs must parse their text through the native libsvm
+              reader, and FTRL's KV tables must use the native slot
+              index. Phase 2 holds the row
               kernels to their plain versions, and times them, at both
               sparse geometries with the first window's row set;
 6. summary  — a ``{"kernels": [...]}`` line, the card line, and last
               ``{"ok": true, "device": {...}}``.
 
-Each main path of phases 3 to 5 runs with the launch counters zeroed just
-before it and read just after: each kernel that path runs must have
-launched there, and the ``kernels`` line sums the paths. Any failure
+Each main path of phases 3 to 5 runs with the launch counters (and the
+native library's call counters) zeroed just before it and read just
+after: each kernel that path runs must have launched there, and the
+``kernels`` line sums the paths. Any failure
 raises and the script exits non-zero without the ``ok`` line. Without a
 CUDA device, or away from the repository, it exits non-zero at once.
 """
@@ -97,6 +121,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PS_ROWS, PS_COLS, PS_IDS, PS_ROUNDS = 1_000_000, 50, 10_000, 5
 WE_VOCAB, WE_DIM, WE_NEG, WE_WINDOW = 100_000, 128, 5, 5
 WE_BLOCK_BYTES, WE_BLOCKS, WE_SENT_LEN = 2_000_000, 3, 20
+# [we_pairs_adagrad]: the word2vec scale the touched-rows AdaGrad step is
+# for (multiverso_tpu/models/wordembedding/device_pairs.py:99-104), at the
+# AdaGrad rate of tests/test_wordembedding.py's runs
+WE_BIG_VOCAB, WE_ADAGRAD_LR = 1_000_000, 0.1
 TIMED_RUNS, WARMUP_RUNS, ID_SETS, STREAM_RUNS = 30, 5, 40, 5
 SPIN_CYCLES = 100_000_000       # ~50 ms at H100 clocks: holds the stream
 PS_WORKERS = 4                  # worker threads of the threaded PS, BSP, MA
@@ -412,6 +440,116 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
     torch.cuda.synchronize()
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set during timing")
+    return res
+
+
+class FirstBatches:
+    """While installed, records the output-lane storage ids of the first
+    ``n`` batches the touched-rows AdaGrad step trains (the ids its first
+    row gather reads; their dedup'd set is what its output-table
+    scatter-set writes)."""
+
+    def __init__(self, dp, n: int):
+        self.dp, self.n, self.outputs = dp, n, []
+
+    def __enter__(self):
+        self.step = self.dp.sparse_adagrad_step
+
+        def recording(state, inputs, imask, outputs, *rest):
+            if len(self.outputs) < self.n:
+                self.outputs.append(outputs.reshape(-1).clone())
+            return self.step(state, inputs, imask, outputs, *rest)
+
+        self.dp.sparse_adagrad_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.dp.sparse_adagrad_step = self.step
+
+
+def time_touched_rows(torch, cr, dev, table_rows: int, cols: int,
+                      outputs: list, seed: int) -> dict:
+    """The row gather and scatter-set at the touched-rows AdaGrad step's
+    shape: a (table_rows, cols) storage table (the last row the trash
+    row), the gather on each recorded batch's output-lane ids (duplicates
+    included), the scatter-set on their dedup'd set (pad lanes on the
+    trash row). Bitwise against the plain versions (the scatter-set
+    outside the trash row), timed both ways beside the plain version,
+    ``index_select`` / ``index_copy_`` and the byte bound of this data:
+    the gather reads each distinct row once and writes every lane's row;
+    the scatter-set reads one source row and writes one table row for
+    each distinct id (the trash row once: its content is free, so its
+    lanes need one source row between them); both read every lane's id."""
+    from multiverso_tpu_torch import ops
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn(table_rows, cols, generator=g).to(dev)
+    trash = table_rows - 1
+    gather_ids = [o.to(dev).contiguous() for o in outputs]
+    set_ids = []
+    for ids in gather_ids:
+        u, _ = ops.dedup_rows(ids, torch.zeros((ids.shape[0], 1),
+                                               device=dev))
+        set_ids.append(torch.where(u < 0, trash, u).contiguous())
+    n = gather_ids[0].shape[0]
+    src = [torch.randn(n, cols, generator=g).to(dev) for _ in set_ids]
+    g64 = [i.long() for i in gather_ids]
+    s64 = [i.long() for i in set_ids]
+    sets = len(gather_ids)
+    err_g = 0.0
+    for i, ids in enumerate(gather_ids):
+        got, want = cr.gather_rows(data, ids), cr.gather_rows_plain(data, ids)
+        if not torch.equal(got, want):
+            raise AssertionError(f"touched-rows gather, batch {i}")
+        err_g = max(err_g, float((got - want).abs().max()))
+    a, b = data.clone(), data.clone()
+    err_s = 0.0
+    for i, sid in enumerate(set_ids):
+        cr.scatter_set_rows(a, sid, src[i])
+        cr.scatter_set_rows_plain(b, sid, src[i])
+        if not torch.equal(a[:trash], b[:trash]):
+            raise AssertionError(f"touched-rows scatter-set, batch {i}")
+        err_s = max(err_s, float((a[:trash] - b[:trash]).abs().max()))
+    uniq_g = [int(torch.unique(i).numel()) for i in gather_ids]
+    uniq_s = [int(torch.unique(i).numel()) for i in set_ids]
+    res = {"gather_rows": {
+        "ms": median_ms(torch, lambda i: cr.gather_rows(
+            data, gather_ids[i]), sets),
+        "stream_ms": stream_ms(torch, lambda i: cr.gather_rows(
+            data, gather_ids[i]), sets),
+        "plain_ms": median_ms(torch, lambda i: cr.gather_rows_plain(
+            data, gather_ids[i]), sets),
+        "library_ms": median_ms(torch, lambda i: torch.index_select(
+            data, 0, g64[i]), sets),
+        "bound_ms": float(np.mean([(u * cols * 4 + n * cols * 4 + 4 * n)
+                                   for u in uniq_g])) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err_g, "shape": [table_rows, cols, n],
+        "distinct_rows": float(np.mean(uniq_g))}}
+    res["scatter_set_rows"] = {
+        "ms": median_ms(torch, lambda i: cr.scatter_set_rows(
+            a, set_ids[i], src[i]), sets),
+        "stream_ms": stream_ms(torch, lambda i: cr.scatter_set_rows(
+            a, set_ids[i], src[i]), sets),
+        "plain_ms": median_ms(torch, lambda i: cr.scatter_set_rows_plain(
+            b, set_ids[i], src[i]), sets),
+        "library_ms": median_ms(torch, lambda i: b.index_copy_(
+            0, s64[i], src[i]), sets),
+        "bound_ms": float(np.mean([(2 * u * cols * 4 + 4 * n)
+                                   for u in uniq_s])) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err_s, "shape": [table_rows, cols, n],
+        "distinct_rows": float(np.mean(uniq_s))}
+    # beside it, the same scatter-set without the pad lanes (dedup_rows
+    # leaves them at the tail, all on the one trash row): what the lanes
+    # that all write one row cost
+    live = [sid[: int((sid != trash).sum())] for sid in set_ids]
+    res["scatter_set_rows"].update(
+        live_lanes=float(np.mean([x.shape[0] for x in live])),
+        live_ms=median_ms(torch, lambda i: cr.scatter_set_rows(
+            a, live[i], src[i][: live[i].shape[0]]), sets),
+        live_stream_ms=stream_ms(torch, lambda i: cr.scatter_set_rows(
+            a, live[i], src[i][: live[i].shape[0]]), sets))
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set at the touched-rows shape")
     return res
 
 
@@ -731,20 +869,23 @@ def ma_phase(mv, seed: int) -> dict:
 
 # -- phase 4: WordEmbedding ----------------------------------------------------
 
-def write_zipf_corpus(workdir: str, seed: int) -> tuple:
-    """A 100,000-word vocabulary with Zipf counts and a corpus of
-    Zipf-drawn tokens, exactly WE_BLOCKS blocks long."""
-    rng = np.random.default_rng(seed)
-    ranks = np.arange(1, WE_VOCAB + 1, dtype=np.float64)
+def write_zipf_corpus(workdir: str, seed: int, vocab_size: int = WE_VOCAB,
+                      blocks: int = WE_BLOCKS, tag: str = "") -> tuple:
+    """A vocabulary of ``vocab_size`` words with Zipf counts and a corpus
+    of Zipf-drawn tokens, exactly ``blocks`` blocks long; ``tag`` names
+    the files of a corpus other than the ``we`` runs' one (and draws it
+    from its own stream)."""
+    rng = np.random.default_rng([seed, vocab_size, blocks] if tag else seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
     p = 1.0 / ranks
     p /= p.sum()
-    n_words = WE_BLOCKS * WE_BLOCK_BYTES // 8      # the loader's 8 B/word
-    tokens = rng.choice(WE_VOCAB, n_words, p=p)
-    counts = np.bincount(tokens, minlength=WE_VOCAB) + 1
-    vocab = os.path.join(workdir, "vocab.txt")
+    n_words = blocks * WE_BLOCK_BYTES // 8      # the loader's 8 B/word
+    tokens = rng.choice(vocab_size, n_words, p=p)
+    counts = np.bincount(tokens, minlength=vocab_size) + 1
+    vocab = os.path.join(workdir, f"vocab{tag}.txt")
     with open(vocab, "w") as f:
         f.writelines(f"w{i} {c}\n" for i, c in enumerate(counts))
-    corpus = os.path.join(workdir, "corpus.txt")
+    corpus = os.path.join(workdir, f"corpus{tag}.txt")
     with open(corpus, "w") as f:
         for s in range(0, n_words, WE_SENT_LEN):
             f.write(" ".join(f"w{t}" for t in tokens[s: s + WE_SENT_LEN])
@@ -753,10 +894,11 @@ def write_zipf_corpus(workdir: str, seed: int) -> tuple:
 
 
 def we_options(workdir: str, seed: int, vocab: str, corpus: str,
-               device_plane: bool = True):
-    """The WE phase's CLI options: bench.py's WordEmbedding width, on the
+               device_plane: bool = True, extra=()):
+    """The WE runs' CLI options: bench.py's WordEmbedding width, on the
     device plane (``-is_pipeline 0``) or on the host plane with the JAX
-    package's defaults (``-device_plane 0 -is_pipeline 1``)."""
+    package's defaults (``-device_plane 0 -is_pipeline 1``); ``extra``
+    flags come last (``-device_pairs 1`` and the mode)."""
     from multiverso_tpu_torch.models.wordembedding.option import Option
     return Option.parse_args([
         "-train_file", corpus, "-read_vocab", vocab,
@@ -766,15 +908,39 @@ def we_options(workdir: str, seed: int, vocab: str, corpus: str,
         "-use_adagrad", "0", "-device_plane", str(int(device_plane)),
         "-is_pipeline", str(int(not device_plane)),
         "-data_block_size", str(WE_BLOCK_BYTES), "-epoch", "1",
-        "-seed", str(seed), "-platform", "cuda"])
+        "-seed", str(seed), "-platform", "cuda", *extra])
+
+
+def hs_chance_loss(vocab: str, corpus: str) -> float:
+    """0.69 times the mean Huffman path length over a corpus's tokens: the
+    loss per pair of an untrained hierarchical softmax (its output rows
+    start at zero), as 0.69 * (1 + K) is negative sampling's."""
+    from multiverso_tpu_torch.models.wordembedding.dictionary import \
+        Dictionary
+    from multiverso_tpu_torch.models.wordembedding.huffman import \
+        HuffmanEncoder
+    d = Dictionary.load_vocab(vocab)
+    d.RemoveWordsLessThan(1)
+    enc = HuffmanEncoder()
+    enc.BuildFromTermFrequency(d.counts())
+    lengths = np.array([len(enc.GetLabelInfo(w).codes)
+                        for w in range(d.Size())], np.float64)
+    with open(corpus) as f:
+        ids = np.array([d.GetWordIdx(t) for t in f.read().split()])
+    return 0.69 * float(lengths[ids].mean())
 
 
 def we_phase(torch, seed: int, workdir: str, corpus_files: tuple,
-             device_plane: bool = True) -> dict:
+             device_plane: bool = True, extra=(), vocab_size: int = WE_VOCAB,
+             blocks: int = WE_BLOCKS, limit: float = 0.69 * (1 + WE_NEG)
+             ) -> dict:
+    """One WE run through ``DistributedWordEmbedding``: prepare, then a
+    timed ``train()``; every block's loss per pair finite and below
+    ``limit``, the input embeddings finite."""
     from multiverso_tpu_torch.models.wordembedding.distributed import \
         DistributedWordEmbedding
     vocab, corpus, n_words = corpus_files
-    opt = we_options(workdir, seed, vocab, corpus, device_plane)
+    opt = we_options(workdir, seed, vocab, corpus, device_plane, extra)
     we = DistributedWordEmbedding(opt)
     try:
         we.prepare()
@@ -787,22 +953,94 @@ def we_phase(torch, seed: int, workdir: str, corpus_files: tuple,
         emb = we.comm.input_table.server().raw()
     finally:
         we.close()          # MV_ShutDown of the world prepare() started
-    blocks = [{"words": w, "pairs": p, "loss_per_pair": lo / max(p, 1)}
-              for w, p, lo in we.block_log]
-    limit = 0.69 * (1 + WE_NEG)
-    if len(blocks) != WE_BLOCKS:
-        raise AssertionError(f"expected {WE_BLOCKS} blocks, got {blocks}")
-    for b in blocks:
+    blocks_log = [{"words": w, "pairs": p, "loss_per_pair": lo / max(p, 1)}
+                  for w, p, lo in we.block_log]
+    if len(blocks_log) != blocks:
+        raise AssertionError(f"expected {blocks} blocks, got {blocks_log}")
+    for b in blocks_log:
         if not (math.isfinite(b["loss_per_pair"])
                 and b["loss_per_pair"] < limit):
-            raise AssertionError(f"block loss out of bounds: {b}")
+            raise AssertionError(f"block loss out of bounds (< {limit}): "
+                                 f"{b}")
     if not (math.isfinite(loss) and loss < limit):
         raise AssertionError(f"average loss {loss} not below {limit}")
-    if emb.shape != (WE_VOCAB, WE_DIM) or not np.isfinite(emb).all():
+    if emb.shape != (vocab_size, WE_DIM) or not np.isfinite(emb).all():
         raise AssertionError("input embeddings not finite / misshapen")
-    return dict(info, words=n_words, train_s=secs,
-                words_per_s=n_words / secs, avg_loss_per_pair=loss,
-                loader_wait_s=we.loader_wait_s, blocks=blocks)
+    out = dict(info, words=n_words, train_s=secs,
+               words_per_s=n_words / secs, avg_loss_per_pair=loss,
+               loader_wait_s=we.loader_wait_s, blocks=blocks_log,
+               limit=limit)
+    if we.dp_trainer is not None:
+        out.update(batches=we.dp_trainer.batches,
+                   sparse_batches=we.dp_trainer.sparse_batches)
+    return out
+
+
+def we_run_table(workdir: str, seed: int, corpus: tuple) -> dict:
+    """The WE runs, name -> (description, the row kernels its path must
+    launch, ``we_phase`` arguments); writes the corpora they read besides
+    ``corpus``. The ``-device_pairs 1`` runs keep the ``we`` run's
+    loader (``-is_pipeline 0``: a queue of one block), so the two differ
+    in where the pairs are made only."""
+    pairs = ("-device_pairs", "1")
+    big = write_zipf_corpus(workdir, seed, WE_BIG_VOCAB, WE_BLOCKS, "_big")
+    one = write_zipf_corpus(workdir, seed, WE_VOCAB, 1, "_one")
+    adagrad = ("-use_adagrad", "1", "-lr", str(WE_ADAGRAD_LR))
+    rows_and_update = ("gather_rows", "update_rows")
+    runs = {
+        "we": (f"{WE_VOCAB} x {WE_DIM}, -device_plane 1 -is_pipeline 0",
+               rows_and_update, dict(corpus_files=corpus)),
+        "we_host": (f"{WE_VOCAB} x {WE_DIM}, -device_plane 0 -is_pipeline 1",
+                    rows_and_update,
+                    dict(corpus_files=corpus, device_plane=False)),
+        "we_pairs": (f"{WE_VOCAB} x {WE_DIM}, skip-gram NEG, plain SGD, "
+                     f"-device_pairs 1", (),
+                     dict(corpus_files=corpus, extra=pairs)),
+        "we_pairs_adagrad": (
+            f"{WE_BIG_VOCAB} x {WE_DIM} (four tables), skip-gram NEG, "
+            f"-use_adagrad 1 -lr {WE_ADAGRAD_LR}, -device_pairs 1",
+            ("gather_rows", "scatter_set_rows"),
+            dict(corpus_files=big, vocab_size=WE_BIG_VOCAB,
+                 extra=pairs + adagrad)),
+    }
+    # the modes as tests/test_wordembedding.py runs them: AdaGrad at its
+    # rate (a 4,096-pair batch sums a frequent word's gradients, which
+    # plain SGD does not survive in CBOW); a 100,000 x 128 table is below
+    # _SPARSE_BYTES, so the dense AdaGrad step: no row kernel
+    hs_limit = hs_chance_loss(one[0], one[1])
+    for name, what, flags, limit in (
+            ("we_pairs_cbow", "CBOW NEG", ("-cbow", "1"),
+             0.69 * (1 + WE_NEG)),
+            ("we_pairs_hs", "skip-gram HS", ("-hs", "1", "-negative", "0"),
+             hs_limit),
+            ("we_pairs_cbow_hs", "CBOW HS",
+             ("-cbow", "1", "-hs", "1", "-negative", "0"), hs_limit)):
+        runs[name] = (f"{WE_VOCAB} x {WE_DIM}, {what}, -use_adagrad 1 -lr "
+                      f"{WE_ADAGRAD_LR} (the dense step), -device_pairs 1, "
+                      f"one block", (),
+                      dict(corpus_files=one, blocks=1, limit=limit,
+                           extra=pairs + adagrad + flags))
+    return runs
+
+
+def check_we_pairs(name: str, we: dict, launches: dict) -> None:
+    """The ``-device_pairs 1`` runs' own checks: the dense steps launch no
+    row kernel (they are tensor code, as in the JAX package); the
+    touched-rows step ran on every batch of ``[we_pairs_adagrad]``, with
+    six row gathers and four row scatter-sets a batch."""
+    if "batches" not in we:
+        return
+    if name == "we_pairs_adagrad":
+        n = we["batches"]
+        want = {"gather_rows": 6 * n, "scatter_set_rows": 4 * n,
+                "update_rows": 0}
+        if not (n > 0 and we["sparse_batches"] == n and launches == want):
+            raise AssertionError(f"{name}: {n} batches, "
+                                 f"{we['sparse_batches']} touched-rows, "
+                                 f"launches {launches}, want {want}")
+    elif we["sparse_batches"] or any(launches.values()):
+        raise AssertionError(f"{name}: the dense step launched row kernels "
+                             f"{launches}")
 
 
 def we_small_reference(torch, workdir: str) -> float:
@@ -838,6 +1076,85 @@ def we_small_reference(torch, workdir: str) -> float:
     np.testing.assert_allclose(vecs["cuda"], vecs["cpu"], rtol=1e-3,
                                atol=1e-4)
     return float(np.abs(vecs["cuda"] - vecs["cpu"]).max())
+
+
+def we_pairs_card_vs_cpu(torch, cr, workdir: str) -> float:
+    """The topic corpus (written by ``we_small_reference``) through
+    ``DevicePairsTrainer.train_block`` with ``-use_adagrad 1`` and the
+    touched-rows step forced (``_SPARSE_BYTES`` at 0), on the card and on
+    the CPU, from the same initial tables, with the same window and
+    negative draws (numpy, a fixed seed): all four tables must agree
+    (rtol 1e-3, atol 1e-4), and the card run must launch the row gather
+    and scatter-set."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.wordembedding import device_pairs as dp
+    from multiverso_tpu_torch.models.wordembedding.communicator import \
+        Communicator
+    from multiverso_tpu_torch.models.wordembedding.data import (
+        PairGenerator, sentences_from_file)
+    from multiverso_tpu_torch.models.wordembedding.dictionary import \
+        Dictionary
+    from multiverso_tpu_torch.models.wordembedding.option import Option
+    from multiverso_tpu_torch.models.wordembedding.sampler import Sampler
+    from multiverso_tpu_torch.parallel.mesh import next_bucket
+    corpus = os.path.join(workdir, "topics.txt")
+    opt = Option(train_file=corpus, embedding_size=16, window_size=2,
+                 negative_num=3, min_count=1, pair_batch_size=256,
+                 use_adagrad=True, device_pairs=True, init_learning_rate=0.1)
+    d = Dictionary()
+    d.build_from_corpus(corpus)
+    d.RemoveWordsLessThan(1)
+    counts = d.counts()
+    gen = PairGenerator(opt, d, Sampler(counts, seed=opt.seed), None)
+    sents = [s for s, _ in sentences_from_file(corpus, d)]
+    blocks = [gen.make_token_block(sents[i: i + 100], 0)
+              for i in range(0, len(sents), 100)]
+    rng = np.random.default_rng(17)
+    W, K = opt.window_size, opt.negative_num
+    draws = []
+    tables = []
+    old = dp._SPARSE_BYTES
+    dp._SPARSE_BYTES = 0
+    try:
+        for platform in ("cuda", "cpu"):
+            mv.MV_Init([f"-mv_device={platform}"])
+            try:
+                comm = Communicator(opt, d.Size())
+                trainer = dp.DevicePairsTrainer(opt, comm, counts)
+                if not trainer.sparse():
+                    raise AssertionError("the touched-rows step is not on")
+                if not draws:
+                    for blk in blocks:
+                        t_pad = next_bucket(len(blk.tokens), 1024)
+                        draws.append((rng.integers(1, W + 1, t_pad),
+                                      rng.integers(0, trainer.slots.shape[0],
+                                                   (2 * W * t_pad, K))))
+                before = dict(cr.LAUNCHES)
+                for blk, (b, neg) in zip(blocks, draws):
+                    loss, pairs = trainer.train_block(
+                        blk.tokens, blk.token_sent, opt.init_learning_rate,
+                        b=b, draws=neg)
+                    if not (math.isfinite(float(loss)) and int(pairs) > 0):
+                        raise AssertionError(f"{platform}: block loss "
+                                             f"{float(loss)}, pairs "
+                                             f"{int(pairs)}")
+                tables.append([t.server().raw() for t in (
+                    comm.input_table, comm.output_table, comm.ie_g2_table,
+                    comm.eo_g2_table)])
+                if platform == "cuda" and any(
+                        cr.LAUNCHES[k] == before[k]
+                        for k in ("gather_rows", "scatter_set_rows")):
+                    raise AssertionError("the card run launched no row "
+                                         "gather or scatter-set")
+            finally:
+                mv.MV_ShutDown()
+    finally:
+        dp._SPARSE_BYTES = old
+    for name, a, b in zip(("ie", "eo", "ie_g2", "eo_g2"), *tables):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
+    return max(float(np.abs(a - b).max())
+               for a, b in zip(*tables))
 
 
 # -- phase 5: LogisticRegression -----------------------------------------------
@@ -987,7 +1304,9 @@ def lr_samples(seed: int) -> dict:
 
 def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
     """The LR runs, name -> (description, the row kernels its path must
-    launch, configuration); writes their data files into ``workdir``."""
+    launch, configuration, the native pieces its path must call); writes
+    their data files into ``workdir``. Sparse text is parsed by the native
+    reader; dense text by numpy, as in the JAX package."""
     path = lambda name: os.path.join(workdir, f"{name}.data")  # noqa: E731
     dense = lr_dense_file(path("lr_dense"), seed)
     dense_kw = dict(objective_type="softmax", regular_type="L2",
@@ -1000,31 +1319,34 @@ def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
     return {
         "lr_dense": ("dense softmax 784 x 10, bf16, device plane", (),
                      lr_config(dense, LR_DENSE_IN, LR_DENSE_OUT,
-                               LR_EPOCHS["lr_dense"], **dense_kw)),
+                               LR_EPOCHS["lr_dense"], **dense_kw), ()),
         "lr_dense_host": ("dense softmax 784 x 10, bf16, host plane", (),
                           lr_config(dense, LR_DENSE_IN, LR_DENSE_OUT,
                                     LR_EPOCHS["lr_dense_host"],
-                                    device_plane=False, **dense_kw)),
+                                    device_plane=False, **dense_kw), ()),
         "lr_sparse": (f"sparse sigmoid {LR_SPARSE_IN} x 1 (rows of 4), "
                       f"device plane", rows_and_update,
                       lr_config(write_lr_sparse(path("lr_sparse"),
                                                 lr_data["lr_sparse"]),
                                 LR_SPARSE_IN, 1, LR_EPOCHS["lr_sparse"],
-                                objective_type="sigmoid", **sparse_kw)),
+                                objective_type="sigmoid", **sparse_kw),
+                      ("parse_libsvm",)),
         "lr_softmax": (f"sparse softmax {LR_SPARSE_IN} x {LR_SOFTMAX_OUT} "
                        f"(rows of 12), device plane", rows_and_update,
                        lr_config(write_lr_sparse(path("lr_softmax"),
                                                  lr_data["lr_softmax"]),
                                  LR_SPARSE_IN, LR_SOFTMAX_OUT,
                                  LR_EPOCHS["lr_softmax"],
-                                 objective_type="softmax", **sparse_kw)),
+                                 objective_type="softmax", **sparse_kw),
+                       ("parse_libsvm",)),
         "lr_ftrl": (f"FTRL {LR_FTRL_IN} x 1, device plane", (),
                     lr_config(write_lr_sparse(path("lr_ftrl"),
                                               lr_data["lr_ftrl"]),
                               LR_FTRL_IN, 1, LR_EPOCHS["lr_ftrl"],
                               objective_type="ftrl", alpha=2.0, beta=1.0,
                               lambda1=0.01, lambda2=0.01,
-                              sync_frequency=LR_SPARSE_SYNC)),
+                              sync_frequency=LR_SPARSE_SYNC),
+                    ("parse_libsvm", "kv_index")),
     }
 
 
@@ -1033,14 +1355,17 @@ def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
     """Each LR run as a main path of its own (``drive``), then the card
     against the CPU."""
     runs = lr_runs(workdir, seed, lr_data)
-    for name, (what, needs, cfg) in runs.items():
-        r = drive(name, lambda: lr_run(torch, cfg, dev)[0], needs)
+    for name, (what, needs, cfg, native_needs) in runs.items():
+        r = drive(name, lambda: lr_run(torch, cfg, dev)[0], needs,
+                  native_needs)
         check_lr(name, r)
         results[name] = r
         log(f"[lr] {what}: {r['samples']} samples ({cfg.train_epoch} epochs "
             f"of {LR_SAMPLES}) in {r['train_s']:.3f} s = "
-            f"{r['samples_per_s']:.0f} samples/s, wall {r['wall_s']:.3f} s; "
-            f"loss per epoch {[round(x, 5) for x in r['epoch_loss']]}")
+            f"{r['samples_per_s']:.0f} samples/s (the first epoch, which "
+            f"parses the text, {r['epoch_s'][0]:.4f} s), wall "
+            f"{r['wall_s']:.3f} s; loss per epoch "
+            f"{[round(x, 5) for x in r['epoch_loss']]}")
     results["lr_card_vs_cpu_max_abs_diff"] = lr_card_vs_cpu(torch, workdir,
                                                             seed)
     log(f"[lr] sparse sigmoid 1,000 x 1, 400 samples, card vs CPU weights: "
@@ -1066,6 +1391,9 @@ def main() -> int:
         return 2
     try:
         import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch import native
+        from multiverso_tpu_torch.models.wordembedding import \
+            device_pairs as dp
         from multiverso_tpu_torch.ops import cuda_rows as cr
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})",
@@ -1082,13 +1410,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     results = {"card": card, "seed": args.seed}
 
-    # phase 1: build
+    # phase 1: build the row kernels (nvcc) and, meanwhile, the native
+    # library (g++, one process per source); the run needs both
     t0 = time.perf_counter()
+    native_built = {}
+    native_thread = threading.Thread(target=lambda: native_built.update(
+        path=native.build(), s=time.perf_counter() - t0))
+    native_thread.start()
     lib = cr.build()
     results["build_s"] = time.perf_counter() - t0
+    native_thread.join()
     log(f"[build] {lib} in {results['build_s']:.2f} s")
     if cr.last_build_log:
         log(cr.last_build_log.strip())
+    if native_built["path"] is None or native.lib() is None:
+        raise AssertionError(f"the native library did not build: "
+                             f"{native.last_build_error}")
+    results["native_build_s"] = native_built["s"]
+    log(f"[build] native library {native_built['path']} in "
+        f"{native_built['s']:.2f} s (from native/src, outside native/)")
 
     # phase 2: kernels against their plain versions
     edge_cases(torch, cr, dev)
@@ -1163,18 +1503,27 @@ def main() -> int:
                         f"{t['this'][0]:.7f} / {t['this'][1]:.7f} ms")
 
     # phases 3 + 4: the main paths, each counted from zero
-    paths = {}
+    paths, native_uses = {}, {}
 
-    def drive(name, fn, needs):
-        """Run one main path with the launch counts zeroed just before it
-        and read just after; each kernel in ``needs`` must have launched."""
+    def drive(name, fn, needs, native_needs=()):
+        """Run one main path with the launch counts and the native call
+        counts zeroed just before it and read just after; each kernel in
+        ``needs`` must have launched, each native piece in
+        ``native_needs`` must have been called."""
         cr.reset_launches()
+        native.reset_uses()
         out = fn()
         paths[name] = dict(cr.LAUNCHES)
+        native_uses[name] = dict(native.USES)
         for k in needs:
             if paths[name][k] == 0:
                 raise AssertionError(f"{name} never launched {k}")
-        log(f"[main path] {name}: launches {paths[name]}")
+        for k in native_needs:
+            if native_uses[name][k] == 0:
+                raise AssertionError(f"{name} never called the native {k}")
+        log(f"[main path] {name}: launches {paths[name]} (kernels this path "
+            f"must launch: {', '.join(needs) or 'none'}), native calls "
+            f"{native_uses[name]}")
         return out
 
     every = tuple(cr.LAUNCHES)
@@ -1227,25 +1576,58 @@ def main() -> int:
         f"MV_CreateTable raised")
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
         corpus = write_zipf_corpus(workdir, args.seed)
-        for name, device_plane in (("we", True), ("we_host", False)):
-            we = drive(name, lambda: we_phase(torch, args.seed, workdir,
-                                              corpus, device_plane),
-                       rows_and_update)
+        we_runs = we_run_table(workdir, args.seed, corpus)
+        for name, (what, needs, kw) in we_runs.items():
+            if name == "we_pairs_adagrad":
+                with FirstBatches(dp, ID_SETS) as first:
+                    we = drive(name, lambda: we_phase(torch, args.seed,
+                                                      workdir, **kw),
+                               needs, ("tokenize",))
+            else:
+                we = drive(name, lambda: we_phase(torch, args.seed, workdir,
+                                                  **kw),
+                           needs, ("tokenize",))
+            check_we_pairs(name, we, paths[name])
             results[name] = we
-            plane = ("-device_plane 1 -is_pipeline 0" if device_plane else
-                     "-device_plane 0 -is_pipeline 1")
-            log(f"[{name}] {WE_VOCAB} x {WE_DIM}, {plane}, {we['engine']} "
-                f"live slots {we['live_slots']}: {we['words']} words in "
+            log(f"[{name}] {what}, {we['engine']} live slots "
+                f"{we['live_slots']}: {we['words']} words in "
                 f"{we['train_s']:.3f} s = {we['words_per_s']:.0f} words/s "
                 f"({we['loader_wait_s']:.3f} s of it waiting on the block "
-                f"loader); loss per pair by block "
-                f"{[round(b['loss_per_pair'], 4) for b in we['blocks']]}")
+                f"loader); pairs by block "
+                f"{[b['pairs'] for b in we['blocks']]}, loss per pair by "
+                f"block {[round(b['loss_per_pair'], 4) for b in we['blocks']]}"
+                f" (bound {we['limit']:.4f})"
+                + (f"; {we['batches']} batch steps, {we['sparse_batches']} "
+                   f"on the touched-rows step" if "batches" in we else ""))
+        touched = time_touched_rows(torch, cr, dev, WE_BIG_VOCAB + 1, WE_DIM,
+                                    first.outputs, args.seed + 8)
+        results["kernels_touched_rows"] = touched
+        for k, r in touched.items():
+            log(f"[kernels] WE touched-rows AdaGrad {WE_BIG_VOCAB + 1}x"
+                f"{WE_DIM}, {r['shape'][2]} ids ({r['distinct_rows']:.1f} "
+                f"distinct rows, mean of the first {len(first.outputs)} "
+                f"batches of [we_pairs_adagrad]) {k}: kernel == plain "
+                f"bitwise; per-pair {r['ms']:.7f} ms, stream "
+                f"{r['stream_ms']:.7f} ms (bound {r['bound_ms']:.7f}, plain "
+                f"{r['plain_ms']:.7f}, library {r['library_ms']:.7f}, all "
+                f"per-pair), max_abs_err {r['max_abs_err']}"
+                + (f"; its {r['live_lanes']:.1f} lanes off the trash row "
+                   f"alone: per-pair {r['live_ms']:.7f} ms, stream "
+                   f"{r['live_stream_ms']:.7f} ms" if "live_ms" in r else ""))
+        del first
         results["we_small_max_abs_diff"] = we_small_reference(torch, workdir)
         log(f"[we] topic corpus, card vs CPU embeddings: max abs diff "
             f"{results['we_small_max_abs_diff']:.3g} (rtol 1e-3, atol 1e-4)")
+        results["we_pairs_max_abs_diff"] = we_pairs_card_vs_cpu(torch, cr,
+                                                                workdir)
+        log(f"[we_pairs] topic corpus, -device_pairs 1 -use_adagrad 1 on the "
+            f"touched-rows step, the same draws, card vs CPU tables: max abs "
+            f"diff {results['we_pairs_max_abs_diff']:.3g} (rtol 1e-3, atol "
+            f"1e-4)")
         lr_phase(torch, dev, args.seed, workdir, lr_data, drive, results)
     launches = {k: sum(p[k] for p in paths.values()) for k in cr.LAUNCHES}
-    results["main_path_launches"] = {"paths": paths, "total": launches}
+    results["main_path_launches"] = {"paths": paths, "total": launches,
+                                     "native_calls": native_uses}
     log(f"[main path] launches, all paths {launches}")
 
     # phase 5: summary
@@ -1264,10 +1646,11 @@ def main() -> int:
             "replaces": replaces[k], "pallas": sources[k],
             "launches": launches[k],
             "max_abs_err": max(
-                err for s in (ps_k, we_k, *lr_k.values())
-                for err in (s[k]["max_abs_err"],
-                            s["update_rows_sgd_max_abs_err"]
-                            if k == "update_rows" else 0.0)),
+                [err for s in (ps_k, we_k, *lr_k.values())
+                 for err in (s[k]["max_abs_err"],
+                             s["update_rows_sgd_max_abs_err"]
+                             if k == "update_rows" else 0.0)]
+                + ([touched[k]["max_abs_err"]] if k in touched else [])),
             "ms": r["ms"], "stream_ms": r["stream_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -1289,6 +1672,12 @@ def main() -> int:
                 "max_abs_err": (s["update_rows_sgd_max_abs_err"] if sgd
                                 else s[k]["max_abs_err"]),
                 "bound_ms": s[k]["bound_ms"], "shape": s[k]["shape"]}
+        if k in touched:
+            # the touched-rows AdaGrad step of [we_pairs_adagrad]
+            entry["we_pairs_adagrad"] = {
+                key: touched[k][key] for key in (
+                    "ms", "stream_ms", "plain_ms", "library_ms",
+                    "max_abs_err", "bound_ms", "shape", "distinct_rows")}
         kernels.append(entry)
     results["kernels"] = kernels
     if args.json_out:

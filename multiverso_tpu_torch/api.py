@@ -27,9 +27,12 @@ def MV_Init(argv: Optional[List[str]] = None, devices=None) -> List[str]:
     return Zoo.Get().Start(argv, devices=devices)
 
 
-def MV_ShutDown() -> None:
+def MV_ShutDown(finalize_net: bool = True) -> None:
     """Drain and stop the world; flags return to their defaults so one
-    process can run successive worlds. Idempotent."""
+    process can run successive worlds. Idempotent. ``finalize_net`` is the
+    JAX package's signature (reference multiverso.h:13; False mirrors the
+    reference unit tests' ``MV_ShutDown(false)``): the port runs one
+    process with no network to finalize, so it changes nothing."""
     Zoo._reset()
     ResetFlagsToDefaults()
 

@@ -8,9 +8,9 @@ training step is one batched product, not a per-sample loop. The reader
 thread groups ``sync_frequency`` minibatches into a *window* and attaches
 the window's unique key set, which is what the PS pulls fetch.
 
-The JAX package's native chunk parser for sparse text is not ported: the
-port parses sparse text with ``parse_line``, as the JAX package does where
-its native library is absent.
+Sparse text is parsed in newline-aligned chunks by the repo's C++ reader
+(``native.parse_libsvm``, through the port's own loader) when the library
+builds, else line by line with ``parse_line``, as in the JAX package.
 
 Text formats (reference configure.h:56-70):
   default: ``label v1 v2 ...`` (dense) or ``label k:v k:v ...`` (sparse)
@@ -27,6 +27,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from multiverso_tpu_torch import native
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
@@ -116,6 +117,32 @@ def _newline_chunks(path: str) -> Iterator[bytes]:
             tail = block[cut + 1:]
 
 
+def _iter_samples_native(path: str, config) -> Optional[Iterator]:
+    """Fast path: newline-aligned chunks through the C++ libsvm reader
+    (native/src/reader.cc); sparse text only. None when the library is
+    unavailable."""
+    if native.lib() is None:
+        return None
+    weighted = config.reader_type == "weight"
+
+    def gen():
+        for text in _newline_chunks(path):
+            parsed = native.parse_libsvm(text, weighted=weighted)
+            if parsed is None:
+                raise RuntimeError("native parser unavailable mid-file")
+            labels, weights, offsets, keys, values = parsed
+            if keys.size:
+                CHECK(0 <= keys.min() and keys.max() < config.input_size,
+                      f"sparse feature id out of range "
+                      f"[0, {config.input_size})")
+            for i in range(len(labels)):
+                lo, hi = offsets[i], offsets[i + 1]
+                yield (int(labels[i]), float(weights[i]),
+                       keys[lo:hi], values[lo:hi])
+
+    return gen()
+
+
 def _iter_samples_dense_fast(path: str, config) -> Iterator:
     """Vectorized dense-text parse: whole newline-aligned chunks through
     np.loadtxt's C tokenizer instead of a Python loop per line — ~3x the
@@ -163,6 +190,11 @@ def iter_samples(files: str, config) -> Iterator[Tuple[int, float, np.ndarray, n
         if not config.sparse and config.reader_type == "default":
             yield from _iter_samples_dense_fast(path, config)
             continue
+        if config.sparse:
+            fast = _iter_samples_native(path, config)
+            if fast is not None:
+                yield from fast
+                continue
         weighted = config.reader_type == "weight"
         with open(path) as f:
             for line in f:

@@ -7,9 +7,9 @@ rows, train all its pairs, push the deltas; with ``-is_pipeline 1`` the
 host plane prefetches the NEXT block's rows while the current one trains),
 words/s logging, and word2vec-format embedding export.
 
-This slice is one process: the host plane and ``-device_plane 1``.
-``-device_pairs 1`` (pair generation on the device) is not ported yet and
-raises.
+One process: the host plane, ``-device_plane 1``, and ``-device_pairs 1``
+(only the token stream is uploaded; the pairs are derived and trained on
+the device, ``device_pairs.py``).
 
 CLI: ``python -m multiverso_tpu_torch.models.wordembedding.distributed
 -train_file corpus.txt [-size 100 ...] [-platform cuda|cpu]``.
@@ -25,12 +25,15 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import api as mv
+from multiverso_tpu_torch import native
 from multiverso_tpu_torch.models.wordembedding.communicator import \
     Communicator
 from multiverso_tpu_torch.models.wordembedding.data import (BlockQueue,
                                                             DataBlock,
                                                             PairGenerator,
                                                             start_loader)
+from multiverso_tpu_torch.models.wordembedding.device_pairs import \
+    DevicePairsTrainer
 from multiverso_tpu_torch.models.wordembedding.dictionary import Dictionary
 from multiverso_tpu_torch.models.wordembedding.huffman import HuffmanEncoder
 from multiverso_tpu_torch.models.wordembedding.model import (decayed_lr,
@@ -50,16 +53,16 @@ _BLOCK_DTYPES = {"inputs": torch.int64, "input_mask": torch.float32,
 
 class DistributedWordEmbedding:
     def __init__(self, option: Option):
-        if option.device_pairs:
-            raise NotImplementedError(
-                "-device_pairs 1 is not ported yet (the JAX package derives "
-                "the pairs with jax.random); run -device_plane 1 or the "
-                "host plane")
         self.opt = option
         self.dictionary: Optional[Dictionary] = None
         self.huffman: Optional[HuffmanEncoder] = None
         self.sampler: Optional[Sampler] = None
         self.comm: Optional[Communicator] = None
+        #: the -device_pairs trainer (None on the other planes)
+        self.dp_trainer: Optional[DevicePairsTrainer] = None
+        #: the native tokenizer of the dictionary, built once in prepare
+        #: (None without the native library: the loader's Python path)
+        self.tokenizer: Optional[native.VocabTokenizer] = None
         self._world = WorldOwner()
         self.total_loss = 0.0
         self.total_pairs = 0
@@ -86,6 +89,8 @@ class DistributedWordEmbedding:
             raise ValueError("empty vocabulary after min_count pruning")
         if opt.total_words <= 0:
             opt.total_words = self.dictionary.WordCount()
+        self.tokenizer = native.VocabTokenizer.create(
+            self.dictionary.words())
         counts = self.dictionary.counts()
         self.sampler = Sampler(counts, seed=opt.seed)
         if opt.hs:
@@ -94,6 +99,9 @@ class DistributedWordEmbedding:
         self._world.init_if_needed([f"-mv_device={opt.platform}"])
         with self._world.guard("wordembedding.prepare"):
             self.comm = Communicator(opt, self.dictionary.Size())
+            if opt.device_pairs:
+                self.dp_trainer = DevicePairsTrainer(opt, self.comm, counts,
+                                                     huffman=self.huffman)
 
     # -- training -------------------------------------------------------------
 
@@ -106,7 +114,7 @@ class DistributedWordEmbedding:
                                   self.huffman)
         queue = BlockQueue(capacity=3 if opt.is_pipeline else 1)
         loader = start_loader(opt, self.dictionary, generator, queue,
-                              opt.epoch)
+                              opt.epoch, self.tokenizer)
         step = make_train_step(opt.use_adagrad)
         timer = Timer()
         words_done = 0
@@ -125,7 +133,8 @@ class DistributedWordEmbedding:
         def harvest(force: bool = False) -> None:
             while pending and (force or len(pending) >= 2):
                 loss, pairs, words = pending.popleft()
-                loss = float(loss)
+                # -device_pairs blocks report both as device scalars
+                loss, pairs = float(loss), int(pairs)
                 self.total_loss += loss
                 self.total_pairs += pairs
                 self.block_log.append((words, pairs, loss))
@@ -174,6 +183,11 @@ class DistributedWordEmbedding:
     def _train_block(self, block: DataBlock, step) -> tuple:
         """One block through the train step loop. Returns (loss, pairs);
         the loss is a device scalar (harvested lazily)."""
+        if self.opt.device_pairs and block.tokens is not None:
+            # pairs made and trained on the device: the token stream is
+            # the upload, and the trainer reports the pair count
+            return self.dp_trainer.train_block(
+                block.tokens, block.token_sent, self._current_lr())
         if not block.pair_count:
             return 0.0, 0
         pre = getattr(block, "_prefetched", None)

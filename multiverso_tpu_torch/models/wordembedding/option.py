@@ -45,8 +45,8 @@ class Option:
     # fetch/train/push a block's rows entirely on the device (communicator
     # device plane): no host round-trip of the row data per block
     device_plane: bool = False
-    # generate the training pairs on the device too: not ported yet (the
-    # JAX package draws them with jax.random); the driver raises for it
+    # generate the training pairs on the device too (device_pairs.py):
+    # only the token stream is uploaded
     device_pairs: bool = False
     # the torch device the world runs on: "cuda" (default) or "cpu"; the
     # driver's MV_Init passes it as -mv_device (the device rule: cuda

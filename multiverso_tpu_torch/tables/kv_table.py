@@ -12,8 +12,9 @@ key, sorted key/slot arrays for bulk ``searchsorted`` lookups, and a small
 New keys take slots in first-sight order, and the table grows (capacity
 doubling past the key count) once the key count reaches the capacity, so
 the last slot, ``capacity - 1``, is always free to serve as the trash slot
-of padded slot vectors. The JAX package's native index (``KvIndex``) is not
-ported: it assigns the same slots.
+of padded slot vectors. When the repo's C++ library loads (``native.py``),
+the index is its ``KvIndex`` instead, created at first use, as in the JAX
+package: it assigns the same first-sight slots.
 
 64-bit values stay on the host (control-plane counters, like the JAX
 package's host-backed branch, e.g. the WordEmbedding word count); other
@@ -37,6 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from multiverso_tpu_torch import native
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
@@ -72,6 +74,8 @@ class KVServerTable(ServerTable):
         self._sorted_keys = np.empty(0, np.int64)
         self._sorted_slots = np.empty(0, np.int32)
         self._pending: Dict[int, int] = {}
+        self._nat_index: Optional[native.KvIndex] = None
+        self._nat_index_tried = False
         self._values = torch.zeros(self.capacity, dtype=self._tdtype,
                                    device=self._device)
 
@@ -105,10 +109,28 @@ class KVServerTable(ServerTable):
                     slots[i] = s
         return slots
 
+    def _nat(self) -> Optional[native.KvIndex]:
+        """The native index, created at the first use of the index (not at
+        table construction: creating it may build the library). Never
+        mixed with the numpy index: taken only while that one is empty."""
+        if not self._nat_index_tried:
+            self._nat_index_tried = True
+            if not self._index:
+                self._nat_index = native.KvIndex.create(self.capacity)
+        return self._nat_index
+
     def _slots_for(self, keys: np.ndarray, create: bool) -> np.ndarray:
         """Key -> slot (-1 = absent); ``create`` gives new keys slots in
         first-sight order and grows the table once the key count reaches
         the capacity."""
+        nat = self._nat()
+        if nat is not None:
+            if not create:
+                return nat.lookup(keys)
+            slots = nat.insert(keys)
+            if len(nat) >= self.capacity:
+                self._grow(len(nat))
+            return slots
         slots = self._bulk_lookup(keys)
         if create:
             miss = slots < 0
@@ -258,13 +280,20 @@ class KVServerTable(ServerTable):
 
     @property
     def size(self) -> int:
+        if self._nat_index is not None:
+            return len(self._nat_index)
         return len(self._index)
 
     # -- checkpoint (improvement over reference kv_table.h:106-112) ----------
 
     def Store(self, stream) -> None:
-        # the index holds keys in slot order: slot i is the i-th key
-        keys = np.fromiter(self._index.keys(), np.int64, len(self._index))
+        # keys in slot order: slot i is the i-th key (the dict holds them
+        # in insertion order, the native index sorts its items by slot)
+        if self._nat() is not None:
+            keys = self._nat_index.items()[0]
+        else:
+            keys = np.fromiter(self._index.keys(), np.int64,
+                               len(self._index))
         vals = self._values[: len(keys)].cpu().numpy().astype(self.dtype)
         stream.WriteInt(len(keys))
         stream.Write(keys.tobytes())
@@ -284,8 +313,11 @@ class KVServerTable(ServerTable):
         CHECK(keys.size == vals.size, "kv load size mismatch")
         CHECK(len(np.unique(keys)) == keys.size, "kv load: duplicate keys")
         n = keys.size
-        self._index = {int(k): i for i, k in enumerate(keys)}
-        self._rebuild_lookup()
+        if self._nat() is not None:
+            self._nat_index.set_items(keys, np.arange(n, dtype=np.int32))
+        else:
+            self._index = {int(k): i for i, k in enumerate(keys)}
+            self._rebuild_lookup()
         if n >= self.capacity:
             self.capacity = max(n + 1, _MIN_BUCKET)
         host = np.zeros(self.capacity, self.dtype)

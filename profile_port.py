@@ -15,11 +15,16 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   the card's one stream) and through ``-mv_engine_shards=1`` (one engine
   thread), in turns (THREAD_TURNS: default, one, one, default, twice),
   with the pairs of turns each engine won;
-* WE: ``train()`` of the WordEmbedding phase of chip_smoke.py (100,000 x
-  128, 3 blocks, -device_plane 1),
+* WE: ``train()`` of three WordEmbedding runs of chip_smoke.py: ``we``
+  (100,000 x 128, 3 blocks, -device_plane 1), ``we_pairs`` (the same with
+  -device_pairs 1: pairs made on the card) and ``we_pairs_adagrad``
+  (1,000,000 x 128, -device_pairs 1 -use_adagrad 1: the touched-rows
+  step on the row gather and scatter-set),
 * LR: ``Train()`` of each LogisticRegression run of chip_smoke.py (dense
   softmax on both planes, sparse sigmoid and softmax, FTRL), after one
-  unprofiled warm-up run of the sparse sigmoid configuration,
+  unprofiled warm-up run of the sparse sigmoid configuration; then,
+  without the profiler, the first epoch of each sparse-text run with the
+  native libsvm reader and with the Python line parser in turns,
 
 and prints, per path, the wall seconds, the device-busy seconds (the sum
 of the self device time of every op: kernels and copies on the one
@@ -169,28 +174,41 @@ def profile_ps_threads(torch, seed: int, argv) -> dict:
     return res
 
 
-def profile_we(torch, seed: int, out: str) -> dict:
-    from chip_smoke import write_zipf_corpus, we_options
+#: the WordEmbedding runs of chip_smoke.py that are profiled
+WE_RUNS = ("we", "we_pairs", "we_pairs_adagrad")
+
+
+def profile_we(torch, seed: int) -> dict:
+    from chip_smoke import we_options, we_run_table, write_zipf_corpus
     from multiverso_tpu_torch.models.wordembedding.distributed import \
         DistributedWordEmbedding
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    res = {}
     with tempfile.TemporaryDirectory(prefix="mvt_prof_") as workdir:
-        vocab, corpus, _ = write_zipf_corpus(workdir, seed)
-        opt = we_options(workdir, seed, vocab, corpus)
-        we = DistributedWordEmbedding(opt)
-        try:
-            we.prepare()
-            torch.cuda.synchronize()
-            acts = [torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                we.train()
+        runs = we_run_table(workdir, seed, write_zipf_corpus(workdir, seed))
+        for name in WE_RUNS:
+            kw = runs[name][2]
+            vocab, corpus, words = kw["corpus_files"]
+            opt = we_options(workdir, seed, vocab, corpus,
+                             kw.get("device_plane", True),
+                             kw.get("extra", ()))
+            we = DistributedWordEmbedding(opt)
+            try:
+                we.prepare()
                 torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        finally:
-            we.close()
-    res = summarize(torch, prof, wall)
-    res["loader_wait_s"] = we.loader_wait_s
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    we.train()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                we.close()
+            res[name] = dict(summarize(torch, prof, wall),
+                             loader_wait_s=we.loader_wait_s,
+                             words_per_s=words / wall)
+            if we.dp_trainer is not None:
+                res[name]["batches"] = we.dp_trainer.batches
     return res
 
 
@@ -222,6 +240,42 @@ def profile_lr(torch, seed: int) -> dict:
     return res
 
 
+#: the sparse-text LR runs whose first epoch is timed with each parser,
+#: and the parsers' turns
+PARSE_RUNS = ("lr_sparse", "lr_softmax", "lr_ftrl")
+PARSE_TURNS = ("native", "python", "python", "native") * 2
+
+
+def parse_turns(torch, seed: int) -> dict:
+    """The first epoch (the text parse, window staging, the first upload)
+    of each sparse-text LR run with the native library (the libsvm reader;
+    for FTRL also the KV slot index) and without it (``native.lib``
+    hidden: the Python line parser and the numpy index), in turns, no
+    profiler: name -> "native" | "python" -> the first epoch's seconds per
+    turn."""
+    from chip_smoke import lr_runs, lr_samples
+    from multiverso_tpu_torch import native
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    res = {name: {"native": [], "python": []} for name in PARSE_RUNS}
+    lib = native.lib
+    lib()                               # built and loaded before the turns
+    with tempfile.TemporaryDirectory(prefix="mvt_prof_parse_") as workdir:
+        runs = lr_runs(workdir, seed, lr_samples(seed))
+        for turn in PARSE_TURNS:
+            for name in PARSE_RUNS:
+                native.lib = lib if turn == "native" else (lambda: None)
+                try:
+                    app = LogReg(runs[name][2])
+                    try:
+                        app.Train()
+                    finally:
+                        app.close()
+                finally:
+                    native.lib = lib
+                res[name][turn].append(app.epoch_log[0][2])
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -239,8 +293,9 @@ def main() -> int:
                   turn=name) for name in THREAD_TURNS]
     res = {"card": card, "ps": profile_ps(torch, args.seed, args.out),
            "ps_threads_turns": turns,
-           "we": profile_we(torch, args.seed, args.out),
-           "lr": profile_lr(torch, args.seed)}
+           "we": profile_we(torch, args.seed),
+           "lr": profile_lr(torch, args.seed),
+           "parse_turns": parse_turns(torch, args.seed)}
     for i, r in enumerate(turns):
         print(f"[ps_threads] turn {i + 1} {r['turn']}: {r['engine']} live "
               f"slots {r['live_slots']}, worker round median "
@@ -259,15 +314,17 @@ def main() -> int:
           f"{np.median(by['default']):.1f}, one engine "
           f"{np.median(by['one']):.1f}; the default engine won {won} of "
           f"{len(by['one'])} pairs", flush=True)
-    for path in ("ps", "we"):
-        r = res[path]
+    for path, r in [("ps", res["ps"]), *res["we"].items()]:
         if path == "ps":
             print(f"[ps] engine round {r['round_ms']:.3f} ms, of which "
                   f"server work {r['server_ms_per_round']:.3f} ms",
                   flush=True)
         else:
-            print(f"[we] trainer waited {r['loader_wait_s']:.3f} s on the "
-                  f"block loader", flush=True)
+            print(f"[{path}] trainer waited {r['loader_wait_s']:.3f} s on "
+                  f"the block loader; {r['words_per_s']:.0f} words/s under "
+                  f"the profiler"
+                  + (f"; {r['batches']} batch steps" if "batches" in r
+                     else ""), flush=True)
         print(f"[{path}] wall {r['wall_s']:.4f} s, device busy "
               f"{r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f}", flush=True)
@@ -277,7 +334,8 @@ def main() -> int:
                       flush=True)
     for name, r in res["lr"].items():
         print(f"[{name}] wall {r['wall_s']:.4f} s (first epoch "
-              f"{r['first_epoch_s']:.4f} s, later epochs "
+              f"{r['first_epoch_s']:.4f} s = "
+              f"{r['first_epoch_s'] / r['wall_s']:.3f} of it, later epochs "
               f"{r['later_epochs_s']:.4f} s), device busy "
               f"{r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f}", flush=True)
@@ -285,6 +343,13 @@ def main() -> int:
             for key, count, ms in r[label]:
                 print(f"[{name}]   {label} {key} x{count}: {ms:.3f} ms",
                       flush=True)
+    for name, by in res["parse_turns"].items():
+        print(f"[{name}] first epoch in turns "
+              f"({', '.join(PARSE_TURNS)}): native reader "
+              f"{[round(x, 4) for x in by['native']]} s (median "
+              f"{np.median(by['native']):.4f}), Python parser "
+              f"{[round(x, 4) for x in by['python']]} s (median "
+              f"{np.median(by['python']):.4f})", flush=True)
     with open(os.path.join(args.out, "profile.json"), "w") as f:
         json.dump(res, f, indent=1)
     return 0

@@ -391,6 +391,7 @@ def test_model_average_and_flags_match_jax():
     _check_engine_selection()
     _check_aggregate()
     _check_flags_parse()
+    _check_shutdown_signature()
     _check_device_rule_in_every_mode()
 
 
@@ -483,6 +484,28 @@ def _check_flags_parse():
     finally:
         ResetFlagsToDefaults()
     assert GetFlag("sync") is False and GetFlag("mv_engine_shards") == 0
+
+
+def _check_shutdown_signature():
+    """MV_ShutDown takes the JAX package's ``finalize_net`` flag, by
+    position and by name, in both packages; either way the next world
+    starts from the flags' defaults."""
+    import multiverso_tpu as jmv
+    import multiverso_tpu_torch as tmv
+    from multiverso_tpu.utils.configure import GetFlag as JGetFlag
+    from multiverso_tpu_torch.utils.configure import GetFlag as TGetFlag
+    for mv, get_flag, extra in ((jmv, JGetFlag, []),
+                                (tmv, TGetFlag, ["-mv_device=cpu"])):
+        for shut in (lambda: mv.MV_ShutDown(False),
+                     lambda: mv.MV_ShutDown(finalize_net=True)):
+            mv.MV_Init(["-sync=true", f"-num_workers={W}"] + extra)
+            try:
+                assert get_flag("sync") is True
+            finally:
+                shut()
+            assert get_flag("sync") is False
+            assert get_flag("num_workers") == 1
+        shut()                          # idempotent
 
 
 def _check_device_rule_in_every_mode():

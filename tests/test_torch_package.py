@@ -47,13 +47,15 @@ bad = sorted(m for m in sys.modules
              or m == "multiverso_tpu" or m.startswith("multiverso_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 49, names
-# the slice of the Array, KV and SparseMatrix tables and the LR app
+assert len(names) >= 51, names
+# the slices of the Array, KV and SparseMatrix tables and the LR app, and
+# of -device_pairs and the native library bridge
 new = {"tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
        "models.logreg.configure", "models.logreg.data",
        "models.logreg.updater", "models.logreg.objective",
        "models.logreg.model", "models.logreg.device_plane",
-       "models.logreg.logreg", "models.logreg.main"}
+       "models.logreg.logreg", "models.logreg.main",
+       "models.wordembedding.device_pairs", "native"}
 missing = {m for m in new if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 """

@@ -15,7 +15,6 @@
 """
 
 import numpy as np
-import pytest
 import torch
 
 from multiverso_tpu_torch.models.wordembedding.distributed import \
@@ -192,15 +191,31 @@ def _check_app_matches_jax(tmp_path, jargv, targv, kw):
 
 
 def test_port_app_alone(tmp_path):
-    """(c) topic separation on both planes; -device_pairs is refused, not
-    rerouted; convert.load_wordembedding_state loads a Communicator."""
+    """(c) topic separation on both planes; -device_pairs 1 is not
+    rerouted to the host pair path: its blocks carry only the token
+    stream and the DevicePairsTrainer trains them;
+    convert.load_wordembedding_state loads a Communicator."""
     for plane in ("device", "host"):
         (tmp_path / plane).mkdir()
         _check_topics(tmp_path / plane, plane)
-    with pytest.raises(NotImplementedError, match="device_pairs"):
-        DistributedWordEmbedding(_options(Option, tmp_path, platform="cpu",
-                                          device_pairs=True))
+    _check_device_pairs_route(tmp_path)
     _check_load_state(tmp_path)
+
+
+def _check_device_pairs_route(tmp_path):
+    from multiverso_tpu_torch.models.wordembedding.data import PairGenerator
+    we = DistributedWordEmbedding(_options(Option, tmp_path, platform="cpu",
+                                           device_pairs=True, epoch=1))
+    try:
+        we.prepare()
+        gen = PairGenerator(we.opt, we.dictionary, we.sampler, we.huffman)
+        block = gen.make_block([np.arange(10, dtype=np.int32)], 10)
+        assert block.stacked is None and block.pair_count == 0
+        np.testing.assert_array_equal(block.tokens, np.arange(10))
+        we.train()
+        assert we.dp_trainer.batches > 0 and we.total_pairs > 0
+    finally:
+        we.close()
 
 
 def _check_topics(tmp_path, plane):
