@@ -51,6 +51,17 @@ holds every kernel of that path against its plain PyTorch version:
               model-average (``-ma=true``, 4 workers): no engine,
               MV_CreateTable raises, each worker's MV_Aggregate of a
               1,000,000 x 50 float32 array returns the exact sum;
+              checkpoint (``[ckpt]``): the momentum table at that shape
+              and a 47,236 x 1 sgd table (the sparse sigmoid LR table)
+              take 5 rounds, ``MV_SaveCheckpoint``, 3 more rounds; a new
+              world on the card loads the file and takes the same 3
+              rounds: data and aux bitwise equal on the card, and the file
+              loaded in a world on the CPU equal to the card's load; save
+              and load seconds and MB/s; compressed pushes
+              (``[ps_compress]``): the add table at that shape with
+              ``compress="sparse"`` beside an uncompressed twin, deltas
+              80% zeros, rounds in turns: bitwise equal, with the round
+              times and the wire ratio;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -86,7 +97,13 @@ holds every kernel of that path against its plain PyTorch version:
               epochs); bench.py's FTRL (1,000 features, 6 epochs on the
               device plane: final loss under 0.1); and a short sparse
               sigmoid run on the card against the same run on the CPU
-              (final weights rtol 1e-4, atol 1e-5). The sparse and FTRL
+              (final weights rtol 1e-4, atol 1e-5). On the host plane,
+              where the worker pushes its row deltas over the table's
+              wire: the sparse sigmoid run uncompressed and with
+              ``compress="sparse"`` (weights and every epoch's loss
+              bitwise equal), and the sparse softmax run with
+              ``compress="1bit"`` (the loss falls every epoch; its
+              wire_stats). The sparse and FTRL
               runs must parse their text through the native libsvm
               reader, and FTRL's KV tables must use the native slot
               index. Phase 2 holds the row
@@ -135,7 +152,14 @@ LR_DENSE_IN, LR_DENSE_OUT, LR_SAMPLES = 784, 10, 6_000
 LR_SPARSE_IN, LR_SOFTMAX_OUT, LR_FTRL_IN, LR_NNZ = 47_236, 10, 1_000, 30
 LR_MINIBATCH, LR_SPARSE_SYNC = 20, 50    # the app's default minibatch
 LR_EPOCHS = {"lr_dense": 9, "lr_dense_host": 3, "lr_sparse": 6,
-             "lr_softmax": 2, "lr_ftrl": 6}
+             "lr_softmax": 2, "lr_ftrl": 6, "lr_sparse_host": 6,
+             "lr_sparse_compress": 6, "lr_softmax_1bit": 2}
+# [ckpt]: rounds run after the save, and again after the load; the LR
+# table's keys a round (about a window's distinct keys at the RCV1 width)
+CKPT_ROUNDS, CKPT_LR_KEYS = 3, 20_000
+# [ps_compress]: the share of each delta's entries that are zero
+# (tests/test_tables.py:853-872, where the sparse filter's rule engages)
+COMPRESS_ZEROS = 0.8
 
 
 def log(msg: str) -> None:
@@ -867,6 +891,170 @@ def ma_phase(mv, seed: int) -> dict:
             "bytes_per_worker": int(arrays[0].nbytes)}
 
 
+def ckpt_tables(mv):
+    """[ckpt]'s tables: the PS shape with the momentum updater (storage
+    1,000,001 x 52 and a ['smooth'] aux leaf of the same size) and a
+    sparse sigmoid LR table at the RCV1 width, as the app creates it."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    return (mv.MV_CreateTable(MatrixTableOption(
+                num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum")),
+            mv.MV_CreateTable(MatrixTableOption(
+                num_rows=LR_SPARSE_IN, num_cols=1, updater_type="sgd")))
+
+
+def ckpt_batches(seed: int, n: int) -> list:
+    """[ckpt]'s first ``n`` rounds: the momentum table's ids and integer
+    deltas, the LR table's sorted keys and small float deltas."""
+    rng = np.random.default_rng([seed, 300])
+    return [(rng.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32),
+             rng.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32),
+             np.sort(rng.choice(LR_SPARSE_IN, CKPT_LR_KEYS,
+                                replace=False)).astype(np.int32),
+             (rng.standard_normal((CKPT_LR_KEYS, 1)) * 0.01).astype(
+                 np.float32))
+            for _ in range(n)]
+
+
+def compress_batch(rng) -> tuple:
+    """[ps_compress]'s round: PS_IDS random rows, deltas COMPRESS_ZEROS
+    zeros."""
+    ids = rng.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+    deltas = rng.standard_normal((PS_IDS, PS_COLS)).astype(np.float32)
+    deltas[rng.random(deltas.shape) < COMPRESS_ZEROS] = 0.0
+    return ids, deltas
+
+
+def ckpt_rounds(tables, batches) -> None:
+    """Blocking AddRows + GetRows on both tables, a round a batch: no
+    engine window merges Adds (its ``index_add_`` sums in an undefined
+    order on the card)."""
+    from multiverso_tpu_torch.updaters.base import AddOption
+    mopt = AddOption(momentum=0.5)
+    mom, lr = tables
+    for ids, deltas, lr_ids, lr_deltas in batches:
+        mom.AddRows(ids, deltas, mopt)
+        mom.GetRows(ids)
+        lr.AddRows(lr_ids, lr_deltas)
+        lr.GetRows(lr_ids)
+
+
+def table_states(tables, host: bool) -> list:
+    """Each table's data and aux leaves: clones of the device storage, or
+    (``host``) the logical host arrays a checkpoint holds."""
+    out = []
+    for t in tables:
+        srv = t.server()
+        aux = [leaf for _, leaf in sorted(srv.state["aux"].items())]
+        if host:
+            out.append([srv.raw()] + [srv.aux_to_logical(a) for a in aux])
+        else:
+            out.append([srv.state["data"].clone()] + [a.clone() for a in aux])
+    return out
+
+
+def ckpt_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
+    """PS_ROUNDS rounds, MV_SaveCheckpoint, CKPT_ROUNDS more rounds: state
+    A. A new world on the card creates the same tables, loads the file and
+    runs the same CKPT_ROUNDS rounds: state B, which must equal A bitwise,
+    data and aux, on the card. A world on the CPU loads the same file: its
+    values must equal the card's right after its load."""
+    batches = ckpt_batches(seed, PS_ROUNDS + CKPT_ROUNDS)
+    path = os.path.join(workdir, "ckpt.mvt")
+    mv.MV_Init([])
+    try:
+        tables = ckpt_tables(mv)
+        if tables[0].server().state["data"].device != dev:
+            raise AssertionError("the checkpoint's tables are not on the card")
+        ckpt_rounds(tables, batches[:PS_ROUNDS])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = mv.MV_SaveCheckpoint(path)
+        save_s = time.perf_counter() - t0
+        ckpt_rounds(tables, batches[PS_ROUNDS:])
+        state_a = table_states(tables, host=False)
+    finally:
+        mv.MV_ShutDown()
+    mv.MV_Init([])
+    try:
+        tables = ckpt_tables(mv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mv.MV_LoadCheckpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = table_states(tables, host=True)
+        ckpt_rounds(tables, batches[PS_ROUNDS:])
+        state_b = table_states(tables, host=False)
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the checkpoint path")
+    finally:
+        mv.MV_ShutDown()
+    for name, a, b in zip(("momentum", "lr"), state_a, state_b):
+        if len(a) != len(b) or not all(torch.equal(x, y)
+                                       for x, y in zip(a, b)):
+            raise AssertionError(f"[ckpt] {name} table: the resumed run "
+                                 f"differs from the uninterrupted one")
+    del state_a, state_b
+    mv.MV_Init(["-mv_device=cpu"])
+    try:
+        tables = ckpt_tables(mv)
+        mv.MV_LoadCheckpoint(path)
+        on_cpu = table_states(tables, host=True)
+    finally:
+        mv.MV_ShutDown()
+    for name, a, b in zip(("momentum", "lr"), loaded, on_cpu):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"[ckpt] {name} table: loaded on the CPU "
+                                 f"it differs from the card's")
+    nbytes = os.path.getsize(path)
+    return {"tables": n, "file_bytes": nbytes, "save_s": save_s,
+            "load_s": load_s, "save_mb_s": nbytes / save_s / 1e6,
+            "load_mb_s": nbytes / load_s / 1e6,
+            "leaves": [len(x) for x in loaded]}
+
+
+def ps_compress_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """The PS shape with the add updater, compress="sparse" beside an
+    uncompressed twin: PS_ROUNDS rounds of AddRows + GetRows of PS_IDS
+    random rows whose deltas are COMPRESS_ZEROS zeros, the twins in turns;
+    every GetRows and the final tables equal bitwise."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    rng = np.random.default_rng([seed, 400])
+    mv.MV_Init([])
+    try:
+        twins = {c: mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, compress=c))
+            for c in (None, "sparse")}
+        round_ms = {None: [], "sparse": []}
+        for r in range(PS_ROUNDS):
+            ids, deltas = compress_batch(rng)
+            got = {}
+            for c in ((None, "sparse") if r % 2 == 0 else ("sparse", None)):
+                t0 = time.perf_counter()
+                twins[c].AddRows(ids, deltas)
+                got[c] = twins[c].GetRows(ids)
+                round_ms[c].append((time.perf_counter() - t0) * 1e3)
+            np.testing.assert_array_equal(got["sparse"], got[None])
+        np.testing.assert_array_equal(twins["sparse"].Get(),
+                                      twins[None].Get())
+        wire = dict(twins["sparse"].server().wire_stats)
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the compressed PS path")
+    finally:
+        mv.MV_ShutDown()
+    if not 0 < wire["payload_bytes"] < wire["dense_bytes"]:
+        raise AssertionError(f"[ps_compress] the sparse filter did not "
+                             f"engage: {wire}")
+    return {"round_ms": round_ms["sparse"],
+            "plain_round_ms": round_ms[None],
+            "round_median_ms": float(np.median(round_ms["sparse"])),
+            "plain_round_median_ms": float(np.median(round_ms[None])),
+            "wire_stats": wire,
+            "wire_ratio": wire["payload_bytes"] / wire["dense_bytes"]}
+
+
 # -- phase 4: WordEmbedding ----------------------------------------------------
 
 def write_zipf_corpus(workdir: str, seed: int, vocab_size: int = WE_VOCAB,
@@ -1247,6 +1435,8 @@ def lr_run(torch, cfg, dev=None) -> tuple:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t1
         W = app.model.weights()
+        wire = (dict(app.model.table.server().wire_stats)
+                if cfg.sparse and not app.model.ftrl else {})
     finally:
         app.close()
     wall_s = time.perf_counter() - t0
@@ -1260,7 +1450,8 @@ def lr_run(torch, cfg, dev=None) -> tuple:
                              f"not finite or misshapen")
     return {"samples": samples, "train_s": train_s, "wall_s": wall_s,
             "samples_per_s": samples / train_s, "epoch_loss": losses,
-            "epoch_s": [s for _, _, s in app.epoch_log]}, W
+            "epoch_s": [s for _, _, s in app.epoch_log],
+            "wire_stats": wire}, W
 
 
 def check_lr(name: str, r: dict) -> None:
@@ -1316,6 +1507,17 @@ def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
     sparse_kw = dict(sparse=True, regular_type="L2", updater_type="sgd",
                      sync_frequency=LR_SPARSE_SYNC)
     rows_and_update = ("gather_rows", "update_rows")
+    sparse_file = write_lr_sparse(path("lr_sparse"), lr_data["lr_sparse"])
+    softmax_file = write_lr_sparse(path("lr_softmax"), lr_data["lr_softmax"])
+
+    def host(name, what, file, outputs, objective, **kw):
+        """A sparse run on the host plane, where the worker pushes its
+        row deltas through the table's (compressed) wire."""
+        return (what, rows_and_update,
+                lr_config(file, LR_SPARSE_IN, outputs, LR_EPOCHS[name],
+                          objective_type=objective, device_plane=False,
+                          **sparse_kw, **kw), ("parse_libsvm",))
+
     return {
         "lr_dense": ("dense softmax 784 x 10, bf16, device plane", (),
                      lr_config(dense, LR_DENSE_IN, LR_DENSE_OUT,
@@ -1326,15 +1528,13 @@ def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
                                     device_plane=False, **dense_kw), ()),
         "lr_sparse": (f"sparse sigmoid {LR_SPARSE_IN} x 1 (rows of 4), "
                       f"device plane", rows_and_update,
-                      lr_config(write_lr_sparse(path("lr_sparse"),
-                                                lr_data["lr_sparse"]),
+                      lr_config(sparse_file,
                                 LR_SPARSE_IN, 1, LR_EPOCHS["lr_sparse"],
                                 objective_type="sigmoid", **sparse_kw),
                       ("parse_libsvm",)),
         "lr_softmax": (f"sparse softmax {LR_SPARSE_IN} x {LR_SOFTMAX_OUT} "
                        f"(rows of 12), device plane", rows_and_update,
-                       lr_config(write_lr_sparse(path("lr_softmax"),
-                                                 lr_data["lr_softmax"]),
+                       lr_config(softmax_file,
                                  LR_SPARSE_IN, LR_SOFTMAX_OUT,
                                  LR_EPOCHS["lr_softmax"],
                                  objective_type="softmax", **sparse_kw),
@@ -1347,6 +1547,20 @@ def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
                               lambda1=0.01, lambda2=0.01,
                               sync_frequency=LR_SPARSE_SYNC),
                     ("parse_libsvm", "kv_index")),
+        # [lr_sparse]'s run on the host plane, uncompressed and with
+        # compress="sparse" (equal bitwise), and [lr_softmax]'s with
+        # compress="1bit"; the device plane pushes nothing over the wire
+        "lr_sparse_host": host(
+            "lr_sparse_host", f"sparse sigmoid {LR_SPARSE_IN} x 1, host "
+            f"plane", sparse_file, 1, "sigmoid"),
+        "lr_sparse_compress": host(
+            "lr_sparse_compress", f"sparse sigmoid {LR_SPARSE_IN} x 1, host "
+            f"plane, compress=sparse", sparse_file, 1, "sigmoid",
+            compress="sparse"),
+        "lr_softmax_1bit": host(
+            "lr_softmax_1bit", f"sparse softmax {LR_SPARSE_IN} x "
+            f"{LR_SOFTMAX_OUT}, host plane, compress=1bit", softmax_file,
+            LR_SOFTMAX_OUT, "softmax", compress="1bit"),
     }
 
 
@@ -1355,9 +1569,10 @@ def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
     """Each LR run as a main path of its own (``drive``), then the card
     against the CPU."""
     runs = lr_runs(workdir, seed, lr_data)
+    weights = {}
     for name, (what, needs, cfg, native_needs) in runs.items():
-        r = drive(name, lambda: lr_run(torch, cfg, dev)[0], needs,
-                  native_needs)
+        r, weights[name] = drive(name, lambda: lr_run(torch, cfg, dev),
+                                 needs, native_needs)
         check_lr(name, r)
         results[name] = r
         log(f"[lr] {what}: {r['samples']} samples ({cfg.train_epoch} epochs "
@@ -1365,7 +1580,19 @@ def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
             f"{r['samples_per_s']:.0f} samples/s (the first epoch, which "
             f"parses the text, {r['epoch_s'][0]:.4f} s), wall "
             f"{r['wall_s']:.3f} s; loss per epoch "
-            f"{[round(x, 5) for x in r['epoch_loss']]}")
+            f"{[round(x, 5) for x in r['epoch_loss']]}"
+            + (f"; wire_stats {r['wire_stats']}" if cfg.compress else ""))
+    # compress="sparse" is exact: the run equals the uncompressed one
+    a, b = results["lr_sparse_compress"], results["lr_sparse_host"]
+    if not (np.array_equal(weights["lr_sparse_compress"],
+                           weights["lr_sparse_host"])
+            and a["epoch_loss"] == b["epoch_loss"]):
+        raise AssertionError("lr_sparse_compress: weights or epoch losses "
+                             "differ from the uncompressed run")
+    log("[lr_sparse_compress] final weights and every epoch's loss bitwise "
+        "equal to lr_sparse_host's (uncompressed)")
+    if not results["lr_softmax_1bit"]["wire_stats"].get("payload_bytes"):
+        raise AssertionError("lr_softmax_1bit pushed no compressed payload")
     results["lr_card_vs_cpu_max_abs_diff"] = lr_card_vs_cpu(torch, workdir,
                                                             seed)
     log(f"[lr] sparse sigmoid 1,000 x 1, 400 samples, card vs CPU weights: "
@@ -1575,6 +1802,28 @@ def main() -> int:
         f"{ma['wall_s']:.4f} s; every worker holds the exact sum; "
         f"MV_CreateTable raised")
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
+        ck = drive("ckpt", lambda: ckpt_phase(torch, mv, cr, dev, args.seed,
+                                              workdir), every)
+        results["ckpt"] = ck
+        log(f"[ckpt] 1,000,000 x 50 momentum + {LR_SPARSE_IN} x 1 sgd, "
+            f"{PS_ROUNDS} rounds, save, {CKPT_ROUNDS} rounds: the resumed "
+            f"run in a new world bitwise equal to the uninterrupted one "
+            f"(data and aux, on the card), the file loaded on the CPU equal "
+            f"to the card's; {ck['tables']} tables, aux leaves "
+            f"{ck['leaves']}, {ck['file_bytes']} bytes: save "
+            f"{ck['save_s']:.3f} s ({ck['save_mb_s']:.1f} MB/s), load "
+            f"{ck['load_s']:.3f} s ({ck['load_mb_s']:.1f} MB/s)")
+        pc = drive("ps_compress", lambda: ps_compress_phase(
+            torch, mv, cr, dev, args.seed), rows_and_update)
+        results["ps_compress"] = pc
+        log(f"[ps_compress] 1,000,000 x 50 add, {PS_ROUNDS} rounds of "
+            f"{PS_IDS} ids, deltas {COMPRESS_ZEROS:.0%} zeros, in turns: "
+            f"compress=sparse round median {pc['round_median_ms']:.3f} ms "
+            f"{[round(x, 3) for x in pc['round_ms']]}, uncompressed "
+            f"{pc['plain_round_median_ms']:.3f} ms "
+            f"{[round(x, 3) for x in pc['plain_round_ms']]}; every GetRows "
+            f"and the final tables bitwise equal; wire_stats "
+            f"{pc['wire_stats']} (payload / dense {pc['wire_ratio']:.4f})")
         corpus = write_zipf_corpus(workdir, args.seed)
         we_runs = we_run_table(workdir, args.seed, corpus)
         for name, (what, needs, kw) in we_runs.items():

@@ -12,10 +12,11 @@ the engine -> the table's row programs -> the updater) on the JAX
 package's engine modes (async, sharded async, BSP ``-sync``, and
 model-average ``-ma`` with ``MV_Aggregate``), the Array, KV and
 SparseMatrix tables (``tables``), and the WordEmbedding and
-LogisticRegression apps on the host plane and the device plane, on one
-GPU. Its three row kernels
-(gather, scatter-set, fused update) are hand-written CUDA for ``sm_90a``
-(``csrc/rows.cu``), built with nvcc at first use.
+LogisticRegression apps on the host plane and the device plane, with
+checkpoint/resume of every table (``MV_SaveCheckpoint``) and compressed
+row pushes (``compress="sparse"|"1bit"``), on one GPU. Its three row
+kernels (gather, scatter-set, fused update) are hand-written CUDA for
+``sm_90a`` (``csrc/rows.cu``), built with nvcc at first use.
 """
 
 from multiverso_tpu_torch.api import (  # noqa: F401
@@ -23,6 +24,7 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_Barrier,
     MV_CreateTable,
     MV_Init,
+    MV_LoadCheckpoint,
     MV_MultiAdd,
     MV_MultiAddAsync,
     MV_MultiGet,
@@ -30,6 +32,7 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_NumServers,
     MV_NumWorkers,
     MV_Rank,
+    MV_SaveCheckpoint,
     MV_ServerId,
     MV_SetFlag,
     MV_ShutDown,

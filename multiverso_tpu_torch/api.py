@@ -2,9 +2,10 @@
 
 Counterpart of ``multiverso_tpu/api.py`` (reference multiverso.h:9-64):
 init/shutdown/barrier, rank and size, worker/server ids, table creation,
-model-average aggregation, programmatic flags, batched verbs and worker
-contexts. The rest of the JAX surface (net bind, checkpoints, serving,
-profiler, telemetry, elastic, policy) is later work (``ROADMAP.md``).
+model-average aggregation, programmatic flags, batched verbs, worker
+contexts, and checkpoint/resume of every table. The rest of the JAX
+surface (net bind, serving, profiler, telemetry, elastic, policy) is later
+work (``ROADMAP.md``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -79,6 +80,20 @@ def MV_Aggregate(data: np.ndarray) -> np.ndarray:
 
 def MV_SetFlag(name: str, value) -> None:
     SetCMDFlag(name, value)
+
+
+def MV_SaveCheckpoint(uri: str) -> int:
+    """Store every registered server table and its updater aux state to
+    ``uri`` (reference table_interface.h:61-70, driven for all tables;
+    see ``checkpoint.py``). Returns the number of tables written."""
+    from multiverso_tpu_torch.checkpoint import save_checkpoint
+    return save_checkpoint(uri)
+
+
+def MV_LoadCheckpoint(uri: str) -> int:
+    """Restore every registered server table from ``uri``."""
+    from multiverso_tpu_torch.checkpoint import load_checkpoint
+    return load_checkpoint(uri)
 
 
 def MV_MultiAddAsync(ops, option=None, track: bool = True):

@@ -61,8 +61,8 @@ class Configure:
     # to bf16 rounding.
     compute_type: str = "float32"    # float32 / bfloat16
     # extension 2: wire compression of the sparse PS table's row pushes
-    # ("sparse" / "1bit" in the JAX package; not ported yet: the port
-    # raises for either). "" = off.
+    # ("sparse": exact (index, value) pairs; "1bit": sign bits + per-row
+    # error feedback; tables/base.py TableOption.compress). "" = off.
     compress: str = ""
     # extension 3: train whole windows on the device, on the PS tables'
     # device storage directly (models/logreg/device_plane.py). Requires

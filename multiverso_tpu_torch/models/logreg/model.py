@@ -19,7 +19,10 @@ Applications/LogisticRegression/src/model/model.cpp and ps_model.cpp):
 * ``device_plane=true``: whole windows train on the device against the
   tables' storage (``device_plane.py``).
 
-Compressed pushes (``compress=sparse|1bit``) are not ported yet.
+``compress=sparse|1bit`` compresses the sparse PS table's row pushes on
+the host plane (the MatrixTable's compressed wire); the device plane
+applies its window deltas on the device and sends nothing, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -182,10 +185,6 @@ class PSModel(Model):
     """Parameter-server model (reference model/ps_model.cpp)."""
 
     def __init__(self, config):
-        if config.compress:
-            raise NotImplementedError(
-                f"compress={config.compress!r}: compressed row pushes are not "
-                f"ported yet (ROADMAP.md §1)")
         super().__init__(config)
         # server-side rule is sgd (data -= delta); the client pre-scales
         # (reference ps_model.cpp:24 forces updater_type=sgd)
@@ -195,7 +194,7 @@ class PSModel(Model):
         elif config.sparse:
             self.table = mv_api.MV_CreateTable(MatrixTableOption(
                 num_rows=config.input_size, num_cols=config.output_size,
-                updater_type="sgd"))
+                updater_type="sgd", compress=config.compress or None))
         else:
             self.table = mv_api.MV_CreateTable(ArrayTableOption(
                 size=config.input_size * config.output_size,

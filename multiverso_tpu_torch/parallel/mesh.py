@@ -58,7 +58,8 @@ def next_bucket(n: int, min_bucket: int = 8) -> int:
     256, then quarter-octave steps. The port pads nothing to buckets for a
     compiler's sake (PyTorch runs eagerly); WordEmbedding's block builder
     still rounds its batch count with it, so both packages cut a block
-    into the same batches."""
+    into the same batches, and the compressed row wire pads its payload
+    to it, so both packages send the same bytes."""
     b = min_bucket
     while b < n:
         b <<= 1

@@ -37,6 +37,15 @@ class TableOption:
     """Base table creation record (reference CreateTableOption structs)."""
 
     dtype: Any = np.float32
+    #: opt-in compression of row Adds on their way to the device: "sparse"
+    #: (exact: (index, value) pairs when more than half the payload is
+    #: zero, the dense payload otherwise) or "1bit" (lossy: sign bits and
+    #: two means a row, with per-row error feedback). The payload crosses
+    #: to the device compressed and is rebuilt there. None = off. A table
+    #: type without a compressed wire leaves ``_supports_compress`` False
+    #: and ``CreateTable`` refuses the option.
+    compress: Any = None
+    _supports_compress = False
 
 
 class ServerTable:
@@ -218,6 +227,9 @@ def CreateTable(option: TableOption):
     """Instantiate the server + worker halves and wire them to the engine
     (reference table_factory.h:16-27)."""
     from multiverso_tpu_torch.zoo import Zoo
+    CHECK(option.compress is None or option._supports_compress,
+          f"table type {type(option).__name__} has no compressed wire "
+          f"(compress={option.compress!r})")
     zoo = Zoo.Get()
     CHECK(zoo.started, "MV_CreateTable needs a started world (MV_Init)")
     server_table = option.make_server(zoo)

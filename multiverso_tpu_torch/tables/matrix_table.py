@@ -29,6 +29,16 @@ scatter kernel. Duplicate ids inside one Add are pre-combined on the host
 (``_combine_duplicate_rows``): scatter order on duplicates is undefined,
 on the card as on the TPU.
 
+Compressed row Adds (``compress="sparse"|"1bit"``, the JAX package's
+wire): the worker half compresses a row batch on the host
+(``_compressed_payload``: the sparse filter's (index, value) pairs, or
+the 1-bit sign bits and two means a row with per-row error feedback);
+the payload crosses to the device compressed, in the JAX package's
+bucket-padded layout, and ``_consume_compressed_on_device`` rebuilds the
+dense rows there with tensor code (a scatter into zeros, or a
+shift-and-mask unpack and a select) before the normal row update. The
+JAX rebuild is XLA, not Pallas, so no kernel of its own.
+
 The store is updated IN PLACE (the JAX package donates its buffers
 instead). So every Get returns a fresh buffer — a gather output or, for
 the whole table, a copy — and never a view of live storage, and the device
@@ -38,6 +48,7 @@ the caller owns the table while using it.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -45,12 +56,14 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import ops
-from multiverso_tpu_torch.parallel.mesh import ceil_block_rows
+from multiverso_tpu_torch.parallel.mesh import ceil_block_rows, next_bucket
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
 from multiverso_tpu_torch.updaters.base import (AddOption, CreateUpdater,
                                                 GetOption, Updater)
 from multiverso_tpu_torch.utils.log import CHECK
+from multiverso_tpu_torch.utils.quantization import (RowOneBitsFilter,
+                                                     SparseFilter)
 
 #: storage columns round up to this many floats (16-byte rows)
 COL_ALIGN = 4
@@ -83,22 +96,32 @@ def _combine_duplicate_rows(ids: np.ndarray, deltas: np.ndarray,
 class MatrixTableOption(TableOption):
     num_rows: int = 0
     num_cols: int = 0
+    _supports_compress = True
     updater_type: Optional[str] = None
     initializer: Optional[Callable[[Tuple[int, int]], np.ndarray]] = None
 
     def make_server(self, zoo):
         return MatrixServerTable(self.num_rows, self.num_cols, self.dtype, zoo,
-                                 self.updater_type, self.initializer)
+                                 self.updater_type, self.initializer,
+                                 compress=self.compress)
 
     def make_worker(self, zoo):
-        return MatrixWorkerTable(self.num_rows, self.num_cols, self.dtype)
+        return MatrixWorkerTable(self.num_rows, self.num_cols, self.dtype,
+                                 compress=self.compress)
 
 
 class MatrixServerTable(ServerTable):
     def __init__(self, num_rows: int, num_cols: int, dtype, zoo,
                  updater_type: Optional[str] = None,
-                 initializer: Optional[Callable] = None):
+                 initializer: Optional[Callable] = None,
+                 compress: Optional[str] = None):
         CHECK(num_rows > 0 and num_cols > 0, "matrix dims must be positive")
+        CHECK(compress in (None, "sparse", "1bit"),
+              f"unknown compress mode {compress!r}")
+        self.compress = compress
+        #: compressed Adds' wire accounting: the bytes their rows would
+        #: have moved dense, and the bytes that crossed to the device
+        self.wire_stats = {"dense_bytes": 0, "payload_bytes": 0}
         self.dtype = np.dtype(dtype)
         CHECK(self.dtype == np.float32,
               f"matrix tables hold float32 in this port (the row kernels' "
@@ -287,7 +310,7 @@ class MatrixServerTable(ServerTable):
         ids_list, deltas_list = [], []
         for p in payloads:
             row_ids = p.get("row_ids")
-            if row_ids is None:
+            if row_ids is None or p.get("compressed") is not None:
                 return False
             ids = np.asarray(row_ids, np.int32).ravel()
             if (ids.size == 0 or int(ids.min()) < 0
@@ -308,10 +331,62 @@ class MatrixServerTable(ServerTable):
         ops.update_rows(self.state["data"], ids_t, combined, self._sign)
         return True
 
+    def _consume_compressed_on_device(self, comp: dict, opt) -> None:
+        """Rebuild ONE compressed payload's rows on the device and apply
+        them through the normal row update. The payload crosses in the
+        JAX package's layout: sparse (index, value) pairs padded to a
+        bucket with an out-of-range index, or sign bits for the
+        bucket-padded lanes and two means a row (pad lanes zero). Pad
+        entries land in a sink slot or in pad lanes, never in live rows."""
+        ids = np.asarray(comp["row_ids"], np.int32).ravel()
+        self._check_ids(ids)
+        CHECK(len(np.unique(ids)) == len(ids),
+              "a compressed payload's row ids must be unique")
+        n, cols = len(ids), self.num_cols
+        bucket = next_bucket(n)
+        if comp["kind"] == "sparse":
+            idx = np.asarray(comp["idx"], np.int32)
+            nb = next_bucket(max(len(idx), 1))
+            idx_p = np.full(nb, bucket * cols, np.int32)
+            idx_p[: len(idx)] = idx
+            val_p = np.zeros(nb, self.dtype)
+            val_p[: len(idx)] = comp["val"]
+            wire = (idx_p, val_p)
+            idx_t, val_t = (torch.from_numpy(a).to(self.device) for a in wire)
+            # a scatter into zeros; every index past the n live rows
+            # (the pad index included) goes to the sink slot n * cols
+            flat = torch.zeros(n * cols + 1, dtype=torch.float32,
+                               device=self.device)
+            flat.scatter_(0, idx_t.long().clamp_(0, n * cols), val_t)
+            deltas = flat[: n * cols].view(n, cols)
+        else:
+            packed = np.asarray(comp["packed"], np.uint8)
+            CHECK(packed.size * 8 >= bucket * cols,
+                  "1bit payload shorter than the padded lane count")
+            pos = np.zeros(bucket, np.float32)
+            pos[:n] = comp["pos"]
+            neg = np.zeros(bucket, np.float32)
+            neg[:n] = comp["neg"]
+            wire = (packed, pos, neg)
+            packed_t, pos_t, neg_t = (torch.from_numpy(a).to(self.device)
+                                      for a in wire)
+            shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
+                                  device=self.device)
+            bits = (packed_t[:, None] >> shifts) & 1
+            lanes = bits.reshape(-1)[: n * cols].view(n, cols).bool()
+            deltas = torch.where(lanes, pos_t[:n, None], neg_t[:n, None])
+        self._update_rows(ids, deltas, opt)
+        self.wire_stats["dense_bytes"] += n * cols * self.dtype.itemsize
+        self.wire_stats["payload_bytes"] += sum(a.nbytes for a in wire)
+
     def ProcessAdd(self, values: Optional[np.ndarray] = None,
                    option: Optional[AddOption] = None,
-                   row_ids: Optional[np.ndarray] = None) -> None:
+                   row_ids: Optional[np.ndarray] = None,
+                   compressed: Optional[dict] = None) -> None:
         opt = (option or AddOption()).as_tensors()
+        if compressed is not None:
+            self._consume_compressed_on_device(compressed, opt)
+            return
         if row_ids is None:
             values = np.asarray(values, self.dtype).reshape(self.num_rows,
                                                             self.num_cols)
@@ -410,11 +485,46 @@ class MatrixServerTable(ServerTable):
 class MatrixWorkerTable(WorkerTable):
     """Worker half (reference matrix_table.h:26-77)."""
 
-    def __init__(self, num_rows: int, num_cols: int, dtype=np.float32):
+    def __init__(self, num_rows: int, num_cols: int, dtype=np.float32,
+                 compress: Optional[str] = None):
         super().__init__()
         self.num_rows = num_rows
         self.num_cols = num_cols
         self.dtype = np.dtype(dtype)
+        self._compress = compress
+        if compress == "1bit":
+            # one residual per table, shared by the worker threads
+            self._onebit = RowOneBitsFilter(num_rows, num_cols)
+            self._onebit_lock = threading.Lock()
+
+    def _compressed_payload(self, ids: np.ndarray,
+                            deltas) -> Optional[dict]:
+        """A row batch compressed for the wire, or None when the dense
+        payload goes instead (compression off, the sparse filter's dense
+        fallback, or invalid ids: the server then raises at the caller's
+        Wait and the 1-bit residual is left alone). Duplicate ids combine
+        first: compression and the residual are per unique row."""
+        if self._compress is None:
+            return None
+        ids = np.asarray(ids, np.int32).ravel()
+        if (ids.size == 0 or int(ids.min()) < 0
+                or int(ids.max()) >= self.num_rows):
+            return None
+        deltas = np.asarray(deltas, self.dtype).reshape(len(ids),
+                                                        self.num_cols)
+        ids, deltas = _combine_duplicate_rows(ids, deltas, self.num_cols,
+                                              self.dtype)
+        if self._compress == "sparse":
+            is_sparse, idx, val = SparseFilter().compress(deltas)
+            if not is_sparse:
+                return None
+            return {"kind": "sparse", "row_ids": ids, "idx": idx,
+                    "val": val.astype(self.dtype)}
+        with self._onebit_lock:
+            packed, pos, neg = self._onebit.compress(
+                ids, deltas, next_bucket(len(ids)))
+        return {"kind": "1bit", "row_ids": ids, "packed": packed,
+                "pos": pos, "neg": neg}
 
     def Get(self, option: Optional[GetOption] = None) -> np.ndarray:
         """Whole-table get (reference matrix_table.h:30-36)."""
@@ -430,11 +540,18 @@ class MatrixWorkerTable(WorkerTable):
         self.Wait(self.AddAsync(
             {"row_ids": None, "values": np.asarray(delta, self.dtype)}, option))
 
+    def _row_payload(self, ids, deltas) -> dict:
+        """An Add's payload: compressed when the table compresses and the
+        batch qualifies, dense otherwise (and for whole-table Adds)."""
+        comp = None if ids is None else self._compressed_payload(ids, deltas)
+        if comp is not None:
+            return {"compressed": comp}
+        return {"row_ids": ids, "values": np.asarray(deltas, self.dtype)}
+
     def AddRows(self, row_ids, deltas: np.ndarray,
                 option: Optional[AddOption] = None) -> None:
         self.Wait(self.AddAsync(
-            {"row_ids": np.asarray(row_ids, np.int32),
-             "values": np.asarray(deltas, self.dtype)}, option))
+            self._row_payload(np.asarray(row_ids, np.int32), deltas), option))
 
     def GetAsyncHandle(self, row_ids=None, option=None) -> int:
         ids = None if row_ids is None else np.asarray(row_ids, np.int32)
@@ -442,14 +559,12 @@ class MatrixWorkerTable(WorkerTable):
 
     def AddAsyncHandle(self, deltas, row_ids=None, option=None) -> int:
         ids = None if row_ids is None else np.asarray(row_ids, np.int32)
-        return self.AddAsync(
-            {"row_ids": ids, "values": np.asarray(deltas, self.dtype)}, option)
+        return self.AddAsync(self._row_payload(ids, deltas), option)
 
     def AddFireForget(self, deltas, row_ids=None, option=None) -> None:
         """Untracked async push (no Waiter/result bookkeeping)."""
         ids = None if row_ids is None else np.asarray(row_ids, np.int32)
-        self.AddAsync({"row_ids": ids, "values": np.asarray(deltas, self.dtype)},
-                      option, track=False)
+        self.AddAsync(self._row_payload(ids, deltas), option, track=False)
 
     def server(self) -> MatrixServerTable:
         """The co-located server half (device-plane access)."""

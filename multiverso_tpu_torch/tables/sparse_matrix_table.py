@@ -12,7 +12,9 @@ changed (UpdateGetState, sparse_matrix_table.cpp:226-259); ``worker_id ==
 The bits are host state (a numpy bool matrix): deciding which rows to ship
 is host logic; the row data moves through the parent's gather kernel. The
 bits change only AFTER an Add applied, so a rejected Add leaves them alone,
-and a Get validates its ids before it touches them.
+and a Get validates its ids before it touches them. ``compress`` is the
+parent's compressed row wire; a compressed Add marks its rows stale like
+any other.
 """
 
 from __future__ import annotations
@@ -33,18 +35,19 @@ class SparseMatrixTableOption(MatrixTableOption):
     def make_server(self, zoo):
         return SparseMatrixServerTable(self.num_rows, self.num_cols,
                                        self.dtype, zoo, self.updater_type,
-                                       self.initializer)
+                                       self.initializer,
+                                       compress=self.compress)
 
     def make_worker(self, zoo):
         return SparseMatrixWorkerTable(self.num_rows, self.num_cols,
-                                       self.dtype)
+                                       self.dtype, compress=self.compress)
 
 
 class SparseMatrixServerTable(MatrixServerTable):
     def __init__(self, num_rows, num_cols, dtype, zoo, updater_type=None,
-                 initializer=None):
+                 initializer=None, compress=None):
         super().__init__(num_rows, num_cols, dtype, zoo, updater_type,
-                         initializer)
+                         initializer, compress=compress)
         self._num_workers = zoo.num_workers
         # all fresh at start (reference ctor, sparse_matrix_table.cpp:184-196)
         self.up_to_date = np.ones((zoo.num_workers, num_rows), dtype=bool)
@@ -95,9 +98,11 @@ class SparseMatrixServerTable(MatrixServerTable):
 
     def ProcessAdd(self, values: Optional[np.ndarray] = None,
                    option: Optional[AddOption] = None,
-                   row_ids: Optional[np.ndarray] = None) -> None:
-        super().ProcessAdd(values, option, row_ids)
-        self._note_add(option, row_ids)
+                   row_ids: Optional[np.ndarray] = None,
+                   compressed: Optional[dict] = None) -> None:
+        super().ProcessAdd(values, option, row_ids, compressed)
+        self._note_add(option, row_ids if compressed is None
+                       else compressed["row_ids"])
 
     def ProcessAddRun(self, payloads) -> bool:
         """The parent's merged window Add, then every payload's freshness

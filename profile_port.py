@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes: the port's two main paths under torch.profiler.
 
-    python3 profile_port.py [--seed N] [--out DIR]
+    python3 profile_port.py [--seed N] [--out DIR] [--paths a,b,...]
 
 On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
 
@@ -24,7 +24,18 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   softmax on both planes, sparse sigmoid and softmax, FTRL), after one
   unprofiled warm-up run of the sparse sigmoid configuration; then,
   without the profiler, the first epoch of each sparse-text run with the
-  native libsvm reader and with the Python line parser in turns,
+  native libsvm reader and with the Python line parser in turns;
+* ckpt: chip_smoke.py's [ckpt] tables (1,000,000 x 50 momentum, 47,236 x
+  1 sgd) after its rounds: ``MV_SaveCheckpoint`` (the serialization on
+  the engine thread) and, in a new world, ``MV_LoadCheckpoint`` under
+  the profiler; then the same serialization and load on this thread
+  under cProfile, for the Python functions the host time goes to;
+* ps_compress: chip_smoke.py's [ps_compress] rounds on the
+  ``compress="sparse"`` table and its uncompressed twin by the host
+  clock, in turns (PS_TURNS: compressed, plain, plain, compressed), then
+  the compressed rounds' worker-side compression and server-side work
+  (ProcessAdd of the compressed payload + ProcessGet) on this thread
+  under the profiler,
 
 and prints, per path, the wall seconds, the device-busy seconds (the sum
 of the self device time of every op: kernels and copies on the one
@@ -32,7 +43,8 @@ stream), the device-idle share, and the ops with the most device and the
 most host time, for WE the seconds the trainer waited on the block
 loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
-chiprun_out/profile).
+chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
+parse, ckpt, ps_compress (default: all).
 """
 
 from __future__ import annotations
@@ -110,6 +122,117 @@ def profile_ps(torch, seed: int, out: str) -> dict:
         mv.MV_ShutDown()
     res = summarize(torch, prof, wall)
     res["round_ms"] = round_ms
+    res["server_ms_per_round"] = wall / 5 * 1e3
+    return res
+
+
+def top_functions(prof, top: int = 8) -> list:
+    """A cProfile run's functions with the most own time: (name, calls,
+    seconds)."""
+    import pstats
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [(f"{os.path.basename(file)}:{line}({name})"[:90], calls, tt)
+            for (file, line, name), (_, calls, tt, _, _) in rows]
+
+
+def profile_ckpt(torch, seed: int) -> dict:
+    """chip_smoke.py's [ckpt] save and load at the PS shape: the device
+    view under torch.profiler, then the host view of the same work on
+    this thread under cProfile."""
+    import cProfile
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import checkpoint
+    from multiverso_tpu_torch.zoo import Zoo
+    from chip_smoke import (PS_ROUNDS, ckpt_batches, ckpt_rounds,
+                            ckpt_tables)
+    batches = ckpt_batches(seed, PS_ROUNDS)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="mvt_prof_ckpt_") as workdir:
+        path = os.path.join(workdir, "ckpt.mvt")
+        for what in ("save", "load"):
+            mv.MV_Init([])
+            try:
+                tables = ckpt_tables(mv)
+                if what == "save":
+                    ckpt_rounds(tables, batches)
+                torch.cuda.synchronize()
+                call = (mv.MV_SaveCheckpoint if what == "save"
+                        else mv.MV_LoadCheckpoint)
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    call(path)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                res[what] = summarize(torch, prof, wall)
+                host = cProfile.Profile()
+                t0 = time.perf_counter()
+                host.enable()
+                if what == "save":
+                    checkpoint._serialize_to_bytes(path,
+                                                   Zoo.Get().server_tables)
+                else:
+                    checkpoint.load_checkpoint(path)
+                host.disable()
+                res[what]["host_s"] = time.perf_counter() - t0
+                res[what]["top_host_functions"] = top_functions(host)
+            finally:
+                mv.MV_ShutDown()
+        res["file_bytes"] = os.path.getsize(path)
+    return res
+
+
+#: [ps_compress]'s tables in turns
+PS_TURNS = ("sparse", None, None, "sparse")
+
+
+def profile_ps_compress(torch, seed: int) -> dict:
+    """[ps_compress]'s rounds by the host clock on both twins in turns,
+    then the compressed rounds' two halves on this thread: the worker's
+    compression (host) and the server's ProcessAdd + ProcessGet under the
+    profiler."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from chip_smoke import PS_COLS, PS_ROWS, compress_batch
+    rng = np.random.default_rng([seed, 400])
+    batches = [compress_batch(rng) for _ in range(8)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    mv.MV_Init([])
+    try:
+        twins = {c: mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, compress=c))
+            for c in (None, "sparse")}
+        for t in twins.values():                 # warm-up
+            for ids, d in batches[:3]:
+                t.AddRows(ids, d)
+                t.GetRows(ids)
+        turns = []
+        for c in PS_TURNS:
+            t0 = time.perf_counter()
+            for ids, d in batches[3:]:
+                twins[c].AddRows(ids, d)
+                twins[c].GetRows(ids)
+            turns.append(((time.perf_counter() - t0) / 5 * 1e3,
+                          c or "plain"))
+        t, srv = twins["sparse"], twins["sparse"].server()
+        t0 = time.perf_counter()
+        comps = [t._compressed_payload(ids, d) for ids, d in batches[3:]]
+        compress_ms = (time.perf_counter() - t0) / 5 * 1e3
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for comp in comps:
+                srv.ProcessAdd(compressed=comp)
+                srv.ProcessGet(row_ids=comp["row_ids"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mv.MV_ShutDown()
+    res = summarize(torch, prof, wall)
+    res["turns_ms"] = turns
+    res["compress_ms_per_round"] = compress_ms
     res["server_ms_per_round"] = wall / 5 * 1e3
     return res
 
@@ -280,7 +403,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="the paths to profile, comma-separated")
     args = ap.parse_args()
+    paths = args.paths.split(",")
+    unknown = set(paths) - set(PATHS)
+    if unknown:
+        ap.error(f"unknown paths {sorted(unknown)}")
     import torch
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -289,13 +418,39 @@ def main() -> int:
     from chip_smoke import card_line
     card = card_line()
     print(card, flush=True)
-    turns = [dict(profile_ps_threads(torch, args.seed, ENGINE_ARGV[name]),
-                  turn=name) for name in THREAD_TURNS]
-    res = {"card": card, "ps": profile_ps(torch, args.seed, args.out),
-           "ps_threads_turns": turns,
-           "we": profile_we(torch, args.seed),
-           "lr": profile_lr(torch, args.seed),
-           "parse_turns": parse_turns(torch, args.seed)}
+    runs = {"ps": lambda: profile_ps(torch, args.seed, args.out),
+            "ps_threads": lambda: [
+                dict(profile_ps_threads(torch, args.seed, ENGINE_ARGV[name]),
+                     turn=name) for name in THREAD_TURNS],
+            "we": lambda: profile_we(torch, args.seed),
+            "lr": lambda: profile_lr(torch, args.seed),
+            "parse": lambda: parse_turns(torch, args.seed),
+            "ckpt": lambda: profile_ckpt(torch, args.seed),
+            "ps_compress": lambda: profile_ps_compress(torch, args.seed)}
+    res = {"card": card}
+    for name in PATHS:
+        if name in paths:
+            res[name] = runs[name]()
+    report(res)
+    with open(os.path.join(args.out, "profile.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+#: every path main() can profile, in its order
+PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress")
+
+
+def print_tops(path: str, r: dict) -> None:
+    for label in ("top_device_ms", "top_host_ms"):
+        for key, count, ms in r[label]:
+            print(f"[{path}]   {label} {key} x{count}: {ms:.3f} ms",
+                  flush=True)
+
+
+def report(res: dict) -> None:
+    """Print each profiled path's lines."""
+    turns = res.get("ps_threads", [])
     for i, r in enumerate(turns):
         print(f"[ps_threads] turn {i + 1} {r['turn']}: {r['engine']} live "
               f"slots {r['live_slots']}, worker round median "
@@ -307,14 +462,16 @@ def main() -> int:
                           r["top_host_ms"] if k.startswith(
                               ("cudaMemcpyAsync", "cudaStreamSynchronize"))),
               flush=True)
-    by = {name: [r["rounds_per_s"] for r in turns if r["turn"] == name]
-          for name in ENGINE_ARGV}
-    won = sum(d > o for d, o in zip(by["default"], by["one"]))
-    print(f"[ps_threads] worker rounds/s median: default "
-          f"{np.median(by['default']):.1f}, one engine "
-          f"{np.median(by['one']):.1f}; the default engine won {won} of "
-          f"{len(by['one'])} pairs", flush=True)
-    for path, r in [("ps", res["ps"]), *res["we"].items()]:
+    if turns:
+        by = {name: [r["rounds_per_s"] for r in turns if r["turn"] == name]
+              for name in ENGINE_ARGV}
+        won = sum(d > o for d, o in zip(by["default"], by["one"]))
+        print(f"[ps_threads] worker rounds/s median: default "
+              f"{np.median(by['default']):.1f}, one engine "
+              f"{np.median(by['one']):.1f}; the default engine won {won} of "
+              f"{len(by['one'])} pairs", flush=True)
+    for path, r in ([("ps", res["ps"])] if "ps" in res else []) + list(
+            res.get("we", {}).items()):
         if path == "ps":
             print(f"[ps] engine round {r['round_ms']:.3f} ms, of which "
                   f"server work {r['server_ms_per_round']:.3f} ms",
@@ -328,31 +485,43 @@ def main() -> int:
         print(f"[{path}] wall {r['wall_s']:.4f} s, device busy "
               f"{r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f}", flush=True)
-        for label in ("top_device_ms", "top_host_ms"):
-            for key, count, ms in r[label]:
-                print(f"[{path}]   {label} {key} x{count}: {ms:.3f} ms",
-                      flush=True)
-    for name, r in res["lr"].items():
+        print_tops(path, r)
+    for name, r in res.get("lr", {}).items():
         print(f"[{name}] wall {r['wall_s']:.4f} s (first epoch "
               f"{r['first_epoch_s']:.4f} s = "
               f"{r['first_epoch_s'] / r['wall_s']:.3f} of it, later epochs "
               f"{r['later_epochs_s']:.4f} s), device busy "
               f"{r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f}", flush=True)
-        for label in ("top_device_ms", "top_host_ms"):
-            for key, count, ms in r[label]:
-                print(f"[{name}]   {label} {key} x{count}: {ms:.3f} ms",
-                      flush=True)
-    for name, by in res["parse_turns"].items():
+        print_tops(name, r)
+    for name, by in res.get("parse", {}).items():
         print(f"[{name}] first epoch in turns "
               f"({', '.join(PARSE_TURNS)}): native reader "
               f"{[round(x, 4) for x in by['native']]} s (median "
               f"{np.median(by['native']):.4f}), Python parser "
               f"{[round(x, 4) for x in by['python']]} s (median "
               f"{np.median(by['python']):.4f})", flush=True)
-    with open(os.path.join(args.out, "profile.json"), "w") as f:
-        json.dump(res, f, indent=1)
-    return 0
+    if "ckpt" in res:
+        for what in ("save", "load"):
+            r = res["ckpt"][what]
+            print(f"[ckpt] {what} of {res['ckpt']['file_bytes']} bytes: wall "
+                  f"{r['wall_s']:.4f} s, device busy {r['device_busy_s']:.4f}"
+                  f" s, idle share {r['device_idle_share']:.3f}; the same "
+                  f"work on this thread {r['host_s']:.4f} s", flush=True)
+            print_tops(f"ckpt {what}", r)
+            for key, calls, secs in r["top_host_functions"]:
+                print(f"[ckpt {what}]   host function {key} x{calls}: "
+                      f"{secs:.4f} s", flush=True)
+    if "ps_compress" in res:
+        r = res["ps_compress"]
+        print(f"[ps_compress] engine rounds in turns: "
+              + ", ".join(f"{c} {ms:.3f} ms" for ms, c in r["turns_ms"])
+              + f"; the compressed round's halves: worker compression "
+              f"{r['compress_ms_per_round']:.3f} ms, server work "
+              f"{r['server_ms_per_round']:.3f} ms (wall {r['wall_s']:.4f} s,"
+              f" device busy {r['device_busy_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f})", flush=True)
+        print_tops("ps_compress", r)
 
 
 if __name__ == "__main__":

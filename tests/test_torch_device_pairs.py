@@ -23,6 +23,7 @@
 import numpy as np
 import pytest
 import torch
+from tests._jax_native_from_port import jax_native_from_port  # noqa: F401
 
 torch.set_num_threads(1)
 

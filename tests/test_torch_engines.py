@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests._jax_native_from_port import jax_native_from_port  # noqa: F401
 from tests.test_sharded import _multi_table_workload
 
 torch.set_num_threads(1)

@@ -15,12 +15,14 @@
     1e-6; the device plane here sums a window in one batched product);
 (c) the port alone: its device plane against its host plane (sparse,
     FTRL), the CLI on a reference-style config file with ``-platform
-    cpu``, Store/Load and the PS warm start, and the refused options.
+    cpu``, Store/Load and the PS warm start, ``compress=1bit`` training an
+    epoch, and the refused option.
 """
 
 import numpy as np
 import pytest
 import torch
+from tests._jax_native_from_port import jax_native_from_port  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -352,11 +354,20 @@ def _check_refusals(data):
     from multiverso_tpu_torch.models.logreg.logreg import LogReg
     from multiverso_tpu_torch.models.logreg.configure import Configure
     from multiverso_tpu_torch.zoo import Zoo
+    # compress= builds the compressed table and trains (it was refused
+    # before the compressed wire was ported)
     cfg = _config(Configure, data, "sparse.data", sparse=True, use_ps=True,
-                  platform="cpu", compress="1bit")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LogReg(cfg)
-    assert not Zoo.Get().started        # the failed init closed its world
+                  platform="cpu", compress="1bit", train_epoch=1)
+    app = LogReg(cfg)
+    try:
+        assert app.model.table.server().compress == "1bit"
+        app.Train()
+        assert app.model.table.server().wire_stats["payload_bytes"] > 0
+    finally:
+        app.close()
+    assert len(app.epoch_log) == 1 and np.isfinite(app.epoch_log[0][1])
+    assert not Zoo.Get().started
     cfg = _config(Configure, data, "dense.data", compute_type="float16")
     with pytest.raises(ValueError, match="compute_type"):
         LogReg(cfg)
+    assert not Zoo.Get().started        # the failed init closed its world

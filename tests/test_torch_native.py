@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from multiverso_tpu_torch import native as tnative
+from tests._jax_native_from_port import jax_native_from_port  # noqa: F401
 
 torch.set_num_threads(1)
 

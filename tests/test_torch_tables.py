@@ -24,6 +24,7 @@ import io
 import numpy as np
 import pytest
 import torch
+from tests._jax_native_from_port import jax_native_from_port  # noqa: F401
 
 torch.set_num_threads(1)
 

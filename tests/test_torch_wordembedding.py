@@ -20,6 +20,7 @@ import torch
 from multiverso_tpu_torch.models.wordembedding.distributed import \
     DistributedWordEmbedding
 from multiverso_tpu_torch.models.wordembedding.option import Option
+from tests._jax_native_from_port import jax_native_from_port  # noqa: F401
 
 torch.set_num_threads(1)
 
