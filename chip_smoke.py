@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
 
+(``--rank-child R --port P`` runs one rank of ``[ps_2proc]``; the script
+starts both ranks itself.)
+
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
 
@@ -35,7 +38,8 @@ holds every kernel of that path against its plain PyTorch version:
               scatter-set and update, built from its own sources, checked
               bitwise against this one's and timed both ways in turns
               with this one's on the same inputs (baseline, this, this,
-              baseline);
+              baseline); and at [ps_2proc]'s merged Add (both ranks' ids
+              of a round, ~19,900 on the 1,000,001 x 52 storage);
 3. PS       — the reference's test_matrix_perf shape: MV_Init on the card,
               a 1,000,000 x 50 MatrixTable with the add updater and one
               with momentum, 5 rounds of AddRows + GetRows of 10,000
@@ -61,7 +65,29 @@ holds every kernel of that path against its plain PyTorch version:
               (``[ps_compress]``): the add table at that shape with
               ``compress="sparse"`` beside an uncompressed twin, deltas
               80% zeros, rounds in turns: bitwise equal, with the round
-              times and the wire ratio;
+              times and the wire ratio; two processes (``[ps_2proc]``):
+              after the build, two ranks of this script on ``cuda:0``
+              over ``torch.distributed`` (gloo), each keeping a replica
+              of the tables, the add and momentum tables at the PS shape,
+              5 rounds of AddRows + GetRows of each rank's 10,000 ids
+              (overlapping across the ranks) through the windowed
+              engine: every GetRows equal to the oracle of both ranks'
+              Adds, the final tables bitwise equal across the ranks;
+              then BSP (each rank's i-th GetRows against the oracle after
+              both ranks' i-th Adds) and, with 2 worker threads a rank,
+              MV_Aggregate of a 1,000,000 x 50 float32 array from each of
+              the four workers (the exact sum); per rank the round
+              medians, the exchange's seconds and share of the rounds,
+              and the launches, each rank launching all three kernels;
+              a rank that fails or hangs fails the run; and
+              ``[ps_2proc burst]``: 200 fire-and-forget AddRows of 2,000
+              ids a rank on the add table at the PS shape, on the
+              default pipelined engine and on ``-mv_pipeline=0``
+              ("serial") in turns (pipelined, serial, serial,
+              pipelined): the final table equal to the oracle of both
+              ranks' Adds and bitwise equal across the ranks, with the
+              burst's seconds, windows, and the engine's exchange and
+              apply seconds;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -126,6 +152,7 @@ import argparse
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -146,6 +173,12 @@ TIMED_RUNS, WARMUP_RUNS, ID_SETS, STREAM_RUNS = 30, 5, 40, 5
 SPIN_CYCLES = 100_000_000       # ~50 ms at H100 clocks: holds the stream
 PS_WORKERS = 4                  # worker threads of the threaded PS, BSP, MA
 JOIN_S = 300                    # a worker thread or shutdown past this hung
+RANK_CHILD_S = 600              # a [ps_2proc] rank past this hung
+# [ps_2proc burst]: fire-and-forget AddRows a rank (after BURST_WARM
+# untimed ones) of BURST_IDS ids each, ~20 windows of the engine's 4 MB
+# budget; the default pipelined engine and -mv_pipeline=0 in turns
+BURST_VERBS, BURST_WARM, BURST_IDS = 200, 10, 2_000
+BURST_TURNS = ("pipeline", "serial", "serial", "pipeline")
 # LogisticRegression: bench.py's app configurations (bench.py:446-553) and
 # the RCV1 width (bench.py:44)
 LR_DENSE_IN, LR_DENSE_OUT, LR_SAMPLES = 784, 10, 6_000
@@ -891,6 +924,270 @@ def ma_phase(mv, seed: int) -> dict:
             "bytes_per_worker": int(arrays[0].nbytes)}
 
 
+def ps2_batch(seed: int, r: int, rank: int, n: int = PS_IDS) -> tuple:
+    """[ps_2proc] round r's (ids, integer deltas) of ``rank``: ``n`` ids
+    unique within a rank, overlapping across the ranks; every rank can
+    make its peer's batch too, for the oracle."""
+    g = np.random.default_rng([seed, 600 + r, rank])
+    return (g.choice(PS_ROWS, n, replace=False).astype(np.int32),
+            g.integers(-3, 4, (n, PS_COLS)).astype(np.float32))
+
+
+def ps2_burst_turn(torch, mv, base: list, turn: str, batches: list,
+                   oracle: np.ndarray, rank: int) -> dict:
+    """One turn of [ps_2proc burst] on ``turn``'s engine: BURST_WARM
+    untimed fire-and-forget AddRows and a blocking GetRows, a barrier,
+    then the timed rest of this rank's burst, ended by a blocking GetRows
+    (it waits for every Add queued before it); the final table must equal
+    ``oracle`` (both ranks' Adds)."""
+    import hashlib
+
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.zoo import Zoo
+    mv.MV_Init(base + [f"-mv_pipeline={int(turn == 'pipeline')}"])
+    try:
+        table = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                    num_cols=PS_COLS))
+        eng = Zoo.Get().server_engine
+        mine = batches[rank]
+        for ids, deltas in mine[:BURST_WARM]:
+            table.AddFireForget(deltas, row_ids=ids)
+        table.GetRows(mine[0][0][:1])
+        mv.MV_Barrier()
+        x0, a0 = eng.xw_busy_s, eng.apply_busy_s
+        e0, v0 = eng.mh_window_exchanges, eng.mh_window_verbs
+        t0 = time.perf_counter()
+        for ids, deltas in mine[BURST_WARM:]:
+            table.AddFireForget(deltas, row_ids=ids)
+        table.GetRows(mine[-1][0][:1])
+        wall = time.perf_counter() - t0
+        res = {"turn": turn, "wall_s": wall,
+               "exchange_s": eng.xw_busy_s - x0,
+               "apply_s": eng.apply_busy_s - a0,
+               "exchanges": eng.mh_window_exchanges - e0,
+               "verbs": eng.mh_window_verbs - v0}
+        final = table.Get()
+        torch.cuda.synchronize()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    np.testing.assert_array_equal(final, oracle,
+                                  err_msg=f"[ps_2proc burst] {turn}")
+    res["digest"] = hashlib.sha256(final.tobytes()).hexdigest()
+    return res
+
+
+def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
+    """One rank of [ps_2proc] (``--rank-child``), on ``cuda:0`` beside its
+    peer, over gloo. The PS shape on an add and a momentum table, 5 rounds
+    of AddRows + GetRows of each rank's 10,000 ids, every GetRows held to
+    the oracle of BOTH ranks' Adds; the final tables' digest; then, on the
+    same process group, [ps_2proc burst] on both engines in turns, BSP (each rank's i-th GetRows against the oracle
+    after both ranks' i-th Adds) and, in a model-average world of 2
+    worker threads a rank, MV_Aggregate of a 1,000,000 x 50 float32 array
+    from each of the four workers (the exact sum). Writes its measurements and its launch counts
+    to ``out``."""
+    import hashlib
+
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.tables import MatrixTableOption
+        from multiverso_tpu_torch.updaters.base import AddOption
+        from multiverso_tpu_torch.zoo import Zoo
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2"]
+    res = {"rank": rank}
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    mv.MV_Init(base)
+    res["init_s"] = time.perf_counter() - t0
+    add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                              num_cols=PS_COLS))
+    mom = mv.MV_CreateTable(MatrixTableOption(
+        num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
+    if add.server().state["data"].device != dev:
+        raise AssertionError("the PS tables are not on cuda:0")
+    eng = Zoo.Get().server_engine
+    res["engine"] = type(eng).__name__
+    m = np.float32(0.5)
+    mopt = AddOption(momentum=float(m))
+    oracle_add = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    oracle_mom = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    smooth = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    add_ms, mom_ms = [], []
+    for r in range(PS_ROUNDS):
+        batches = [ps2_batch(seed, r, k) for k in range(2)]
+        ids, deltas = batches[rank]
+        t0 = time.perf_counter()
+        add.AddRows(ids, deltas)
+        got_add = add.GetRows(ids)
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        mom.AddRows(ids, deltas, mopt)
+        got_mom = mom.GetRows(ids)
+        mom_ms.append((time.perf_counter() - t0) * 1e3)
+        delta = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        for k_ids, k_deltas in batches:
+            delta[k_ids] += k_deltas
+        touched = np.union1d(batches[0][0], batches[1][0])
+        oracle_add[touched] += delta[touched]
+        smooth[touched] = (m * smooth[touched]
+                           + (np.float32(1) - m) * delta[touched])
+        oracle_mom[touched] -= smooth[touched]
+        np.testing.assert_array_equal(got_add, oracle_add[ids])
+        np.testing.assert_allclose(got_mom, oracle_mom[ids], rtol=1e-6,
+                                   atol=1e-6)
+    res.update(add_round_ms=add_ms, momentum_round_ms=mom_ms,
+               round_s=(sum(add_ms) + sum(mom_ms)) / 1e3,
+               window_exchanges=eng.mh_window_exchanges,
+               window_verbs=eng.mh_window_verbs,
+               exchange_s=eng.xw_busy_s, engine_apply_s=eng.apply_busy_s)
+    final_add, final_mom = add.Get(), mom.Get()
+    np.testing.assert_array_equal(final_add, oracle_add)
+    np.testing.assert_allclose(final_mom, oracle_mom, rtol=1e-6, atol=1e-6)
+    res["digest"] = hashlib.sha256(final_add.tobytes()
+                                   + final_mom.tobytes()).hexdigest()
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set on the 2-process PS path")
+    res["ps_launches"] = dict(cr.LAUNCHES)
+    del oracle_mom, smooth, final_add, final_mom
+    mv.MV_ShutDown(finalize_net=False)      # the process group stays up
+
+    # [ps_2proc burst]: both ranks' bursts (each rank knows its peer's
+    # for the oracle), then the engines in turns on the same bursts
+    batches = [[ps2_batch(seed, 1000 + v, k, BURST_IDS)
+                for v in range(BURST_VERBS)] for k in range(2)]
+    oracle_add[:] = 0
+    for k in range(2):
+        for ids, deltas in batches[k]:
+            oracle_add[ids] += deltas
+    res["burst"] = [ps2_burst_turn(torch, mv, base, turn, batches,
+                                   oracle_add, rank)
+                    for turn in BURST_TURNS]
+    del batches, oracle_add
+
+    # BSP across the two processes, one worker a rank: a process's
+    # verb sequence must not depend on how its threads interleave (the
+    # SPMD collective contract), and the BSP engine applies in arrival
+    # order
+    mv.MV_Init(base + ["-sync=true"])
+    table = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                num_cols=PS_COLS))
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    bsp_ms = []
+    for i in range(PS_ROUNDS):
+        ids, deltas = ps2_batch(seed, 100 + i, rank)
+        t0 = time.perf_counter()
+        table.AddRows(ids, deltas)
+        got = table.GetRows(ids)
+        bsp_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in range(2):
+            k_ids, k_deltas = ps2_batch(seed, 100 + i, k)
+            oracle[k_ids] += k_deltas
+        np.testing.assert_array_equal(got, oracle[ids],
+                                      err_msg=f"BSP GetRows {i}")
+    res["bsp_round_ms"] = bsp_ms
+    del oracle
+    mv.MV_ShutDown(finalize_net=False)
+
+    # MV_Aggregate of the four workers' arrays across the processes
+    arrays = [np.random.default_rng([seed, 700 + g]).standard_normal(
+        (PS_ROWS, PS_COLS), dtype=np.float32) for g in range(4)]
+    acc = arrays[0].astype(np.float64)
+    for a in arrays[1:]:
+        acc += a
+    want = acc.astype(np.float32)
+    del acc
+    mine = [arrays[2 * rank + w] for w in range(2)]
+    agg_s = [0.0, 0.0]
+
+    def agg_worker(w):
+        with Zoo.Get().worker_context(w):
+            t0 = time.perf_counter()
+            mv.MV_Aggregate(mine[w])
+            agg_s[w] = time.perf_counter() - t0
+
+    mv.MV_Init(base + ["-ma=true", "-num_workers=2"])
+    run_threads(agg_worker, 2)
+    for w in range(2):
+        np.testing.assert_array_equal(mine[w], want,
+                                      err_msg=f"worker {w}'s aggregate")
+    res["aggregate_s"] = agg_s
+    torch.cuda.synchronize()
+    res["launches"] = dict(cr.LAUNCHES)
+    mv.MV_ShutDown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print(f"[ps_2proc rank {rank}] ok", flush=True)
+    return 0
+
+
+def ps_2proc_phase(seed: int, workdir: str) -> dict:
+    """[ps_2proc]: two ranks of this script (``--rank-child``) on the one
+    card over gloo, started after the build so they load the built
+    kernels; a rank that fails or hangs past RANK_CHILD_S fails the run
+    (both are killed). Returns each rank's measurements and the launches
+    summed over the ranks; each rank must launch all three kernels, and
+    the ranks' final tables must be bitwise equal."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    outs = [os.path.join(workdir, f"ps_2proc_rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(workdir, f"ps_2proc_rank{r}.log"), "w+")
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
+         "--port", str(port), "--seed", str(seed), "--json-out", outs[r]],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + RANK_CHILD_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[ps_2proc] rank {r} hung past "
+                                     f"{RANK_CHILD_S} s") from None
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                logs[r].seek(0)
+                raise AssertionError(f"[ps_2proc] rank {r} failed "
+                                     f"(exit {p.returncode}):\n"
+                                     f"{logs[r].read()[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = []
+    for out in outs:
+        with open(out) as f:
+            ranks.append(json.load(f))
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("[ps_2proc] the ranks' final tables differ")
+    for t0, t1 in zip(ranks[0]["burst"], ranks[1]["burst"]):
+        if t0["digest"] != t1["digest"]:
+            raise AssertionError(f"[ps_2proc burst] the ranks' final tables "
+                                 f"differ on the {t0['turn']} turn")
+    for r in ranks:
+        for k in ("gather_rows", "scatter_set_rows", "update_rows"):
+            if r["ps_launches"][k] == 0:
+                raise AssertionError(f"[ps_2proc] rank {r['rank']} never "
+                                     f"launched {k}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return {"ranks": ranks, "launches": launches}
+
+
 def ckpt_tables(mv):
     """[ckpt]'s tables: the PS shape with the momentum updater (storage
     1,000,001 x 52 and a ['smooth'] aux leaf of the same size) and a
@@ -1609,6 +1906,11 @@ def main() -> int:
                     help="another checkout of the repository whose gather, "
                          "scatter-set and update to check against this "
                          "one's and time in turns with them")
+    ap.add_argument("--rank-child", type=int, default=-1,
+                    help="run one rank of [ps_2proc] (the script starts "
+                         "both itself)")
+    ap.add_argument("--port", type=int, default=0,
+                    help="[ps_2proc] rank 0's rendezvous port")
     args = ap.parse_args()
 
     import torch
@@ -1616,6 +1918,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
+    if args.rank_child >= 0:
+        return ps_2proc_rank(args.rank_child, args.port, args.seed,
+                             args.json_out)
     try:
         import multiverso_tpu_torch as mv
         from multiverso_tpu_torch import native
@@ -1664,6 +1969,12 @@ def main() -> int:
     we_k = time_kernels(torch, cr, dev, WE_VOCAB, WE_DIM, 40_000,
                         args.seed + 1)
     results["kernels_ps_shape"] = ps_k
+    # [ps_2proc]'s merged Add: both ranks' ids of a round on each replica
+    n2 = len(np.union1d(ps2_batch(args.seed, 0, 0)[0],
+                        ps2_batch(args.seed, 0, 1)[0]))
+    ps2_k = time_kernels(torch, cr, dev, PS_ROWS, PS_COLS + 2, n2,
+                         args.seed + 9)
+    results["kernels_ps_2proc_shape"] = ps2_k
     results["kernels_we_shape"] = we_k
     # the LR sparse paths' geometries: the 47,236-row MatrixTable stored
     # as rows of 4 floats (one output) and of 12 (10 outputs), the first
@@ -1686,6 +1997,7 @@ def main() -> int:
         f"and {lr_k['lr_softmax']['gather_rows']['shape'][2]} ids)")
     results["kernels_lr_shapes"] = lr_k
     for label, res in (("PS 1000001x52, 10000 ids", ps_k),
+                       (f"PS 2-process merge 1000001x52, {n2} ids", ps2_k),
                        ("WE 100001x128, 40000 ids", we_k),
                        *((f"LR {name} {r['gather_rows']['shape'][0]}x"
                           f"{r['gather_rows']['shape'][1]}, "
@@ -1802,6 +2114,55 @@ def main() -> int:
         f"{ma['wall_s']:.4f} s; every worker holds the exact sum; "
         f"MV_CreateTable raised")
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
+        # [ps_2proc]: the two ranks count their own launches from zero
+        two = ps_2proc_phase(args.seed, workdir)
+        paths["ps_2proc"] = two["launches"]
+        results["ps_2proc"] = two
+        log(f"[main path] ps_2proc: launches {two['launches']} (both ranks; "
+            f"each rank must launch gather_rows, scatter_set_rows, "
+            f"update_rows)")
+        for r in two["ranks"]:
+            share = r["exchange_s"] / r["round_s"]
+            log(f"[ps_2proc] rank {r['rank']} of 2 on cuda:0 over gloo, "
+                f"{r['engine']}: 1,000,000 x 50, {PS_ROUNDS} rounds of "
+                f"{PS_IDS} ids of its own: add round median "
+                f"{np.median(r['add_round_ms']):.3f} ms "
+                f"{[round(x, 3) for x in r['add_round_ms']]}, momentum "
+                f"round median {np.median(r['momentum_round_ms']):.3f} ms "
+                f"{[round(x, 3) for x in r['momentum_round_ms']]}; in the "
+                f"window exchanges' all-gathers {r['exchange_s']:.4f} s of "
+                f"the rounds' {r['round_s']:.4f} s (share {share:.3f}), "
+                f"{r['window_exchanges']} window "
+                f"exchanges for {r['window_verbs']} verbs, apply "
+                f"{r['engine_apply_s']:.4f} s; BSP round median "
+                f"{np.median(r['bsp_round_ms']):.3f} ms; MV_Aggregate "
+                f"{[round(x, 4) for x in r['aggregate_s']]} s; launches on "
+                f"the PS rounds {r['ps_launches']}, on the whole rank "
+                f"{r['launches']}")
+        for r in two["ranks"]:
+            turns = r["burst"]
+            for t in turns:
+                log(f"[ps_2proc burst] rank {r['rank']} {t['turn']}: "
+                    f"{t['verbs']} fire-and-forget AddRows of {BURST_IDS} "
+                    f"ids (both ranks) in {t['exchanges']} windows, "
+                    f"{t['wall_s']:.4f} s; the engine's exchange "
+                    f"{t['exchange_s']:.4f} s + apply {t['apply_s']:.4f} s "
+                    f"= {(t['exchange_s'] + t['apply_s']) / t['wall_s']:.3f}"
+                    f" of the burst")
+            med = {k: float(np.median([t["wall_s"] for t in turns
+                                       if t["turn"] == k]))
+                   for k in ("pipeline", "serial")}
+            r["burst_median_s"] = med
+            log(f"[ps_2proc burst] rank {r['rank']} median: pipelined "
+                f"{med['pipeline']:.4f} s, serial {med['serial']:.4f} s "
+                f"(pipelined / serial {med['pipeline'] / med['serial']:.3f})")
+        log("[ps_2proc burst] final tables == the oracle of both ranks' "
+            "Adds on every turn, bitwise equal across the ranks")
+        log("[ps_2proc] every GetRows == the oracle of both ranks' Adds "
+            "(add exact, momentum rtol 1e-6); final tables bitwise equal "
+            "across the ranks; BSP i-th GetRows == the oracle after both "
+            "ranks' i-th Adds; MV_Aggregate (2 ranks x 2 threads) == the "
+            "exact sum")
         ck = drive("ckpt", lambda: ckpt_phase(torch, mv, cr, dev, args.seed,
                                               workdir), every)
         results["ckpt"] = ck
@@ -1895,7 +2256,7 @@ def main() -> int:
             "replaces": replaces[k], "pallas": sources[k],
             "launches": launches[k],
             "max_abs_err": max(
-                [err for s in (ps_k, we_k, *lr_k.values())
+                [err for s in (ps_k, ps2_k, we_k, *lr_k.values())
                  for err in (s[k]["max_abs_err"],
                              s["update_rows_sgd_max_abs_err"]
                              if k == "update_rows" else 0.0)]
@@ -1921,6 +2282,9 @@ def main() -> int:
                 "max_abs_err": (s["update_rows_sgd_max_abs_err"] if sgd
                                 else s[k]["max_abs_err"]),
                 "bound_ms": s[k]["bound_ms"], "shape": s[k]["shape"]}
+        entry["ps_2proc"] = {key: ps2_k[k][key] for key in (
+            "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
+            "bound_ms", "shape")}
         if k in touched:
             # the touched-rows AdaGrad step of [we_pairs_adagrad]
             entry["we_pairs_adagrad"] = {

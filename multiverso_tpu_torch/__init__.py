@@ -14,7 +14,9 @@ model-average ``-ma`` with ``MV_Aggregate``), the Array, KV and
 SparseMatrix tables (``tables``), and the WordEmbedding and
 LogisticRegression apps on the host plane and the device plane, with
 checkpoint/resume of every table (``MV_SaveCheckpoint``) and compressed
-row pushes (``compress="sparse"|"1bit"``), on one GPU. Its three row
+row pushes (``compress="sparse"|"1bit"``), on one GPU, and in worlds of
+several processes over ``torch.distributed`` (gloo), each process keeping a
+replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
 ``sm_90a`` (``csrc/rows.cu``), built with nvcc at first use.
 """
@@ -29,6 +31,9 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_MultiAddAsync,
     MV_MultiGet,
     MV_MultiGetAsync,
+    MV_NetBind,
+    MV_NetConnect,
+    MV_NetFinalize,
     MV_NumServers,
     MV_NumWorkers,
     MV_Rank,

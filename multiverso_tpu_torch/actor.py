@@ -82,7 +82,8 @@ class Actor:
 
     def _dispatch(self, msg: Message) -> None:
         """Route one message through its handler; a failure replies to
-        the caller's Wait() instead of killing the loop."""
+        the caller's Wait() instead of killing the loop, unless it carries
+        ``mv_fatal``: then the loop dies and every queued waiter fails."""
         handler = self._handlers.get(msg.msg_type)
         if handler is None:
             Log.Error("actor %s: unhandled message type %s", self.name,
@@ -91,6 +92,10 @@ class Actor:
         try:
             handler(msg)
         except Exception as exc:
+            if getattr(exc, "mv_fatal", False):
+                # the handler left the actor unsound (a multi-process
+                # window stream desynced): the loop dies and poisons
+                raise
             Log.Error("actor %s: handler for %s raised: %r", self.name,
                       msg.msg_type, exc)
             msg.reply(exc)

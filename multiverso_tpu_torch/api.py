@@ -3,9 +3,10 @@
 Counterpart of ``multiverso_tpu/api.py`` (reference multiverso.h:9-64):
 init/shutdown/barrier, rank and size, worker/server ids, table creation,
 model-average aggregation, programmatic flags, batched verbs, worker
-contexts, and checkpoint/resume of every table. The rest of the JAX
-surface (net bind, serving, profiler, telemetry, elastic, policy) is later
-work (``ROADMAP.md``).
+contexts, checkpoint/resume of every table, and the launcher-free net
+wiring of a multi-process world (``MV_NetBind``/``MV_NetConnect``/
+``MV_NetFinalize``). The rest of the JAX surface (serving, profiler,
+telemetry, elastic, policy) is later work (``ROADMAP.md``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -18,6 +19,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.utils.configure import (ResetFlagsToDefaults,
                                                   SetCMDFlag)
 from multiverso_tpu_torch.zoo import Zoo
@@ -30,12 +32,17 @@ def MV_Init(argv: Optional[List[str]] = None, devices=None) -> List[str]:
 
 def MV_ShutDown(finalize_net: bool = True) -> None:
     """Drain and stop the world; flags return to their defaults so one
-    process can run successive worlds. Idempotent. ``finalize_net`` is the
-    JAX package's signature (reference multiverso.h:13; False mirrors the
-    reference unit tests' ``MV_ShutDown(false)``): the port runs one
-    process with no network to finalize, so it changes nothing."""
+    process can run successive worlds. Idempotent. ``finalize_net``
+    (reference multiverso.h:13): True also tears down the multi-process
+    world this runtime brought up (``MV_NetFinalize``); False keeps it up
+    for the next ``MV_Init`` in this process, as the reference unit tests'
+    ``MV_ShutDown(false)`` keeps MPI."""
     Zoo._reset()
     ResetFlagsToDefaults()
+    if finalize_net:
+        multihost.net_finalize()
+    else:
+        multihost.net_reset()
 
 
 def MV_Barrier() -> None:
@@ -76,6 +83,27 @@ def MV_Aggregate(data: np.ndarray) -> np.ndarray:
     """Elementwise-sum allreduce across workers, in place (reference
     multiverso.h:45, src/multiverso.cpp:53-56)."""
     return Zoo.Get().Aggregate(data)
+
+
+def MV_NetBind(rank: int, endpoint: str) -> int:
+    """Declare this process's rank and endpoint for a launcher-free world
+    (reference MV_NetBind, multiverso.h:55, zmq_net.h:64-81). Call before
+    MV_Init; rank 0's endpoint is the address the world rendezvouses on.
+    0 on success, -1 on error."""
+    return multihost.net_bind(rank, endpoint)
+
+
+def MV_NetConnect(ranks, endpoints) -> int:
+    """Declare the whole world as parallel (ranks, endpoints) lists
+    (reference MV_NetConnect, multiverso.h:56, zmq_net.h:83-110); the next
+    MV_Init brings it up. 0 on success, -1 on error."""
+    return multihost.net_connect(ranks, endpoints)
+
+
+def MV_NetFinalize() -> None:
+    """Forget the net declarations and tear down the multi-process world
+    this runtime brought up (reference MV_NetFinalize, multiverso.h:65)."""
+    multihost.net_finalize()
 
 
 def MV_SetFlag(name: str, value) -> None:

@@ -22,9 +22,12 @@ payload consumed, each leaf known with its shape and dtype; a failed
 check raises ``FatalError``. Restored leaves go onto the live leaf's
 device.
 
-One process: the JAX package's multi-process barrier and its rank-0 rule
-(only rank 0 writes the file) are the hooks ``_barrier`` and
-``_writes_file``, no-ops here.
+Multi-process worlds (the JAX package's rule): every process calls the
+verb at the same stream position; only rank 0 writes the file, and a
+barrier makes the file complete before any rank goes on. The replicas are
+equal, so rank 0 serializes its own and the other ranks serialize nothing;
+a load reads the file on every rank (``uri`` must name storage every rank
+sees).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.message import MsgType
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.utils.io import Stream, StreamFactory
 from multiverso_tpu_torch.utils.log import CHECK, Log
 
@@ -42,13 +46,13 @@ _MAGIC = "MVTCKPT1"
 
 
 def _barrier(name: str) -> None:
-    """The processes' alignment barrier: one process has nothing to
-    align."""
+    """The processes' alignment barrier (a no-op in one process)."""
+    multihost.host_barrier(name)
 
 
 def _writes_file() -> bool:
     """Whether this process streams the checkpoint to storage (rank 0)."""
-    return True
+    return multihost.process_index() == 0
 
 
 def _keystr(name: str) -> str:
@@ -166,10 +170,14 @@ def _write_all(stream: Stream, tables) -> None:
 
 def _serialize_to_bytes(uri: str, tables) -> bytes:
     """Every table serialized in memory: what the engine thread runs at
-    the cut, so storage I/O never holds up the verb stream."""
+    the cut, so storage I/O never holds up the verb stream. Ranks other
+    than 0 write nothing and serialize nothing (their replicas equal rank
+    0's)."""
+    if not _writes_file():
+        return b""
     buf = _io.BytesIO()
     _write_all(Stream(buf, uri), tables)
-    return buf.getvalue() if _writes_file() else b""
+    return buf.getvalue()
 
 
 def save_checkpoint(uri: str, zoo=None) -> int:

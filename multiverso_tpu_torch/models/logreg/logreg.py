@@ -44,6 +44,7 @@ class LogReg:
         # model/table construction after MV_Init must not strand a
         # started world
         with self._world.guard("logreg.init"):
+            self._world.require_single_process("LogisticRegression")
             self.model = Model.Get(config)
             # per-worker output files in PS mode (reference
             # ps_model.cpp:43-46 appends -<worker_id>); the caller's

@@ -98,6 +98,7 @@ class DistributedWordEmbedding:
             self.huffman.BuildFromTermFrequency(counts)
         self._world.init_if_needed([f"-mv_device={opt.platform}"])
         with self._world.guard("wordembedding.prepare"):
+            self._world.require_single_process("WordEmbedding")
             self.comm = Communicator(opt, self.dictionary.Size())
             if opt.device_pairs:
                 self.dp_trainer = DevicePairsTrainer(opt, self.comm, counts,

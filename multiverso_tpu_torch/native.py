@@ -1,6 +1,6 @@
 """The port's loader for the repo's C++ runtime library (ctypes).
 
-Counterpart of ``multiverso_tpu/native/__init__.py``, trimmed to the three
+Counterpart of ``multiverso_tpu/native/__init__.py``, trimmed to the four
 pieces the port's hot host paths call:
 
 * ``parse_libsvm`` — the libsvm text parser of LogisticRegression's sparse
@@ -8,7 +8,9 @@ pieces the port's hot host paths call:
 * ``VocabTokenizer`` — WordEmbedding's tokenize + vocabulary lookup
   (``models/wordembedding/data.py`` ``sentences_from_file``);
 * ``KvIndex`` — the KV table's int64 key -> int32 slot index
-  (``tables/kv_table.py``).
+  (``tables/kv_table.py``);
+* ``crc32c`` — the hardware CRC32C that seals every frame the
+  multi-process window exchange moves (``parallel/seal.py``).
 
 Build: the library is compiled from the repo's own sources, with the
 recipe read from ``native/Makefile`` (its ``SRCS``, ``CXXFLAGS`` and the
@@ -51,7 +53,8 @@ MAKEFILE = NATIVE_DIR / "Makefile"
 LIB_NAME = "libmultiverso_tpu.so"
 
 #: calls into the library per piece (chip_smoke.py reads them per path)
-USES: Dict[str, int] = {"parse_libsvm": 0, "tokenize": 0, "kv_index": 0}
+USES: Dict[str, int] = {"parse_libsvm": 0, "tokenize": 0, "kv_index": 0,
+                        "crc32c": 0}
 
 _lock = threading.Lock()
 _uses_lock = threading.Lock()
@@ -212,6 +215,18 @@ def _configure_signatures(h: ctypes.CDLL) -> None:
     h.MV_KvIndexInsert.argtypes = [ctypes.c_void_p, i64p, i64, i32p]
     h.MV_KvIndexItems.argtypes = [ctypes.c_void_p, i64p, i32p]
     h.MV_KvIndexSetItems.argtypes = [ctypes.c_void_p, i64p, i32p, i64]
+    h.MV_Crc32c.restype = ctypes.c_uint32
+    h.MV_Crc32c.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint32]
+
+
+def crc32c(data, value: int = 0) -> int:
+    """CRC32C of ``data`` (bytes or any contiguous buffer) chained from
+    ``value``, the ``zlib.crc32`` call shape; the library must be loaded
+    (``lib()`` not None)."""
+    h = lib()
+    _use("crc32c")
+    arr = np.frombuffer(data, np.uint8)
+    return int(h.MV_Crc32c(arr.ctypes.data, arr.size, value & 0xFFFFFFFF))
 
 
 def parse_libsvm(text: bytes, weighted: bool = False

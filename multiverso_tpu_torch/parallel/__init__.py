@@ -1,1 +1,2 @@
-"""Device context and partition math (reference L2 replacement)."""
+"""Device context and partition math; the multi-process world
+(``multihost``) and its window codec (``flat``, ``wire``, ``seal``)."""

@@ -9,6 +9,8 @@ is copied unchanged so that both packages agree on row ownership.
 
 Device rule: a world runs on ``cuda:0`` unless the caller asks for the CPU,
 through ``-mv_device=cpu`` or ``MV_Init(argv, devices=[torch.device("cpu")])``.
+In a multi-process world rank r runs on ``cuda:(r % device_count)`` unless
+``-mv_device`` names a card.
 With neither and no CUDA device present, creating the context raises: the
 port never carries on silently on the CPU.
 """
@@ -88,7 +90,11 @@ def resolve_device(devices: Optional[Sequence] = None) -> torch.device:
               "GPU unless the CPU is asked for: pass -mv_device=cpu or "
               "devices=[torch.device('cpu')]")
         if dev.index is None:
-            dev = torch.device("cuda", 0)
+            # one card per rank when there are enough, else ranks share
+            # (two gloo ranks on one card are fine; NCCL would refuse)
+            from multiverso_tpu_torch.parallel import multihost
+            dev = torch.device("cuda", multihost.world_rank()
+                               % torch.cuda.device_count())
     else:
         CHECK(dev.type == "cpu", f"unsupported device {dev}")
     return dev

@@ -41,6 +41,33 @@ Counterpart of the JAX package's ``sync/server.py`` in a single process
 ``Server.GetServer`` picks one by ``-sync`` and ``-mv_engine_shards``
 (``engine_shard_cap``), as the JAX package does.
 
+Multi-process worlds (``parallel/multihost.py``): every process runs the
+same verb sequence (the SPMD collective contract), and the async engine
+runs the JAX package's WINDOWED protocol. Each drained window of verbs is
+packed (``_mh_pack_window``, a byte budget), encoded with the flat codec
+(``parallel/wire.py``: a SEQ stamp and a CRC seal) and exchanged in one
+standing-cap all-gather (``multihost.capped_exchange``); the ranks agree on
+the common verb prefix (a divergent verb stream fails a CHECK on every
+rank), and every rank applies every rank's payloads of that prefix to its
+own replica through the tables' parts verbs: a table's Adds of the window
+as one cross-rank merged run at its first Add's position, its Gets grouped
+before and after that run. A non-verb window head (a drain ping, a
+checkpoint cut, FinishTrain) is preceded by a head-marker exchange, so a
+rank at a barrier while a peer exchanges verbs fails loudly instead of
+deadlocking. An exchange thread (``_ExchangeStage``) owns the
+collective stream and the actor thread applies: by default
+(``-mv_pipeline``) window N applies while window N+1 is exchanged, since
+every port table's apply is local (``mh_apply_is_local``); barrier heads
+fence the pipeline. ``-mv_pipeline=0`` bounds the stage at one window, so
+each exchange waits until the previous window applied (no overlap). Any
+escape from the window stream (a divergence CHECK, a peer
+lost past the process group's timeout, a corrupted frame past its
+retries) replies the error to every waiter the stream holds and poisons
+the engine. The BSP ``SyncServer`` exchanges each verb it applies as a
+one-verb window: every rank's engine makes the same defer and drain
+decisions, so the i-th applied verbs pair up. Multi-process worlds run
+one engine stream (gloo is one ordered collective stream).
+
 CUDA streams. Every engine thread issues its device work on its current
 CUDA stream, which on a thread that never set one is the device's default
 stream. So all shards share ONE stream and the card runs their work in the
@@ -52,10 +79,12 @@ device has not finished), which also waits on the work other shards
 queued ahead of it (kernels and copies). A stream per shard would need events at every cut, at every
 routing move and against the app thread's direct device-plane calls.
 
-Not ported (ROADMAP.md): the multi-process windows and exchange stage,
-the apply pool, the failsafe admission gate (dedup window, chaos) and
-deadlines, worker-side write combining and the Get cache, and the
-telemetry hooks of the JAX engine.
+Not ported (ROADMAP.md): the apply pool, the device window transport
+(``-window_transport`` resolves to ``host``; ``device`` fails a CHECK),
+compressed windows, the shared-memory and TCP wires' per-shard channels,
+the failsafe admission gate (dedup window, chaos) and deadlines,
+worker-side write combining and the Get cache, and the telemetry hooks of
+the JAX engine.
 """
 
 from __future__ import annotations
@@ -63,18 +92,30 @@ from __future__ import annotations
 import collections
 import os
 import threading
+import time
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
 
 from multiverso_tpu_torch.actor import Actor, ActorDied, actor_names
 from multiverso_tpu_torch.message import Message, MsgType, copy_result
+from multiverso_tpu_torch.parallel import multihost, wire
+from multiverso_tpu_torch.parallel.seal import WireCorruption
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
-                                                  MV_DEFINE_int)
+                                                  MV_DEFINE_int,
+                                                  MV_DEFINE_string)
 from multiverso_tpu_torch.utils.log import CHECK, Log
+from multiverso_tpu_torch.utils.mt_queue import MtQueue
 
 MV_DEFINE_bool("sync", False, "sync or async")
+MV_DEFINE_bool("mv_pipeline", True,
+               "pipelined windowed engine (multi-process worlds): apply "
+               "window N while window N+1 is exchanged (false = each "
+               "exchange waits until the previous window applied)")
+MV_DEFINE_string("window_transport", "auto",
+                 "windowed-engine Add-value transport: auto / host resolve "
+                 "to the host exchange; device is not ported yet")
 MV_DEFINE_int("mv_engine_shards", 0,
               "engine shards: per-table-group engine actors, each "
               "owning its own window stream, exchange stage and SEQ "
@@ -91,6 +132,14 @@ MV_DEFINE_int("mv_engine_shards", 0,
               "epoch relay is single-channel).")
 
 _INF = float("inf")
+
+#: exchanged but not yet applied windows before the exchange stage waits,
+#: under -mv_pipeline (without it: 1, no overlap)
+PIPELINE_DEPTH = 2
+
+#: apply-stage poll while an exchange is in flight: the actor keeps
+#: draining its mailbox (feeding the NEXT window) between polls
+_PL_POLL_S = 0.002
 
 
 def _fail_multi_members(env: Message) -> None:
@@ -152,6 +201,146 @@ class VectorClock:
         return f"global {self._global} local: {local}"
 
 
+class _StageKilled(Exception):
+    """The apply stage killed the exchange stage after a fatal engine
+    error; the actor has already failed every waiter."""
+
+
+class _ExchangeStage:
+    """The exchange stage of the pipelined windowed engine (the JAX
+    package's ``_ExchangeStage``, sync/server.py:355-626).
+
+    One daemon thread owns the collective stream: every window exchange
+    and head-marker exchange runs here, in stream order, so the collective
+    sequence each rank issues does not depend on how the apply stage is
+    scheduled. Items flow actor -> ``_in`` -> this thread ->
+    ``out`` -> actor:
+
+    * ``("verbs", [msgs])`` — admitted Get/Add messages join the pending
+      deque; the thread packs a window from it, exchanges it, agrees on
+      the cross-rank prefix and emits ``("window", mine, windows, prefix,
+      descs0, t0)``; verbs past the prefix lead the next exchange;
+    * ``("barrier", msg)`` — a non-verb head: every pending verb goes
+      first, then the head-marker exchange, then ``("barrier", msg)``;
+    * ``("stop", None)`` — exit.
+
+    After a barrier, or a window whose apply is not local, the thread
+    FENCES: no further collective until the actor reports that item
+    applied (the decision comes from exchanged bytes, so every rank
+    fences at the same items). ``PIPELINE_DEPTH`` (1 under
+    ``-mv_pipeline=0``) bounds the exchanged-but-unapplied items. Any
+    escape parks the stage (``dead``) and emits ``("error", exc)``.
+    """
+
+    def __init__(self, srv: "Server"):
+        self._srv = srv
+        self._in: MtQueue = MtQueue()
+        self.out: MtQueue = MtQueue()
+        self._pending: Deque[Message] = collections.deque()
+        self._emitted = 0
+        self._applied = 0
+        self._fence_at = 0
+        self._cv = threading.Condition()
+        self._killed = False
+        self._depth = PIPELINE_DEPTH if GetFlag("mv_pipeline") else 1
+        self.dead: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._main,
+                                        name="mvt-engine-exchange",
+                                        daemon=True)
+        self._thread.start()
+
+    def feed(self, m: Message) -> None:
+        CHECK(m.msg_type is not MsgType.Request_MultiVerb,
+              "unexpanded multi-verb envelope fed to the exchange stage "
+              "(engine bug)")
+        if m.msg_type in (MsgType.Request_Add, MsgType.Request_Get):
+            self._in.Push(("verbs", [m]))
+        else:
+            self._in.Push(("barrier", m))
+
+    def note_applied(self) -> None:
+        """The actor finished one emitted item: lifts the depth bound and
+        any fence waiting on it."""
+        with self._cv:
+            self._applied += 1
+            self._cv.notify_all()
+
+    def stop(self) -> None:
+        self._in.Push(("stop", None))
+        self._in.Exit()
+
+    def poison(self) -> None:
+        """After a fatal engine error: issue no further collective and
+        never block on a fence the dead actor will not lift."""
+        self._killed = True
+        with self._cv:
+            self._cv.notify_all()
+        self._in.Exit()
+
+    def _gate(self) -> None:
+        """Before any new collective: the fence and the depth bound."""
+        target = max(self._fence_at, self._emitted - self._depth + 1)
+        with self._cv:
+            self._cv.wait_for(lambda: self._applied >= target
+                              or self._killed)
+        if self._killed:
+            raise _StageKilled()
+
+    def _main(self) -> None:
+        try:
+            self._loop()
+        except _StageKilled as exc:
+            self.dead = self.dead or exc
+        except BaseException as exc:       # delivered to the apply stage
+            self.dead = exc
+            self.out.Push(("error", exc))
+
+    def _loop(self) -> None:
+        items: Deque = collections.deque()
+        while not self._killed:
+            while True:
+                ok, it = self._in.TryPop()
+                if not ok:
+                    break
+                items.append(it)
+            if not items and not self._pending:
+                ok, it = self._in.Pop()
+                if not ok:
+                    return
+                items.append(it)
+                continue
+            # input order is admission order: only LEADING verb items may
+            # join pending ahead of a queued barrier
+            while items and items[0][0] == "verbs":
+                self._pending.extend(items.popleft()[1])
+            if self._pending:
+                self._exchange_one()
+                continue
+            kind, payload = items.popleft()
+            if kind == "stop":
+                return
+            self._gate()
+            self._srv._mh_check_barrier_head(payload)
+            self._emitted += 1
+            self._fence_at = self._emitted
+            self.out.Push(("barrier", payload))
+
+    def _exchange_one(self) -> None:
+        srv = self._srv
+        self._gate()
+        t0 = time.perf_counter()
+        local, used = srv._mh_pack_window(list(self._pending))
+        windows = srv._mh_exchange_decode(local)
+        prefix, descs0 = srv._mh_agree(windows)
+        for _ in range(prefix):
+            self._pending.popleft()
+        self._emitted += 1
+        if not srv._mh_window_is_local(descs0):
+            self._fence_at = self._emitted
+        self.out.Push(("window", used[:prefix], windows, prefix, descs0,
+                       t0))
+
+
 class Server(Actor):
     """Async server engine (reference server.cpp:23-58)."""
 
@@ -169,6 +358,23 @@ class Server(Actor):
         self.slot = 0
         #: window Add runs applied as one merged dispatch
         self.add_runs_merged = 0
+        # -- the multi-process window stream (module docstring) --
+        #: standing exchange capacities per window-head key; they evolve
+        #: from exchanged data only, identically on every rank
+        self._mh_caps: Dict = {}
+        #: window-exchange sequence stamp, advanced on every successful
+        #: exchange in lockstep on every rank
+        self._mh_seq = 0
+        self._ex_stage: Optional[_ExchangeStage] = None
+        #: verbs applied through windows, window exchanges, and Add runs
+        #: merged across positions and ranks
+        self.mh_window_verbs = 0
+        self.mh_window_exchanges = 0
+        self.mh_add_run_merged = 0
+        #: seconds inside the window exchanges' collectives and inside
+        #: window applies
+        self.xw_busy_s = 0.0
+        self.apply_busy_s = 0.0
         self.RegisterHandler(MsgType.Request_Get, self._get_entry)
         self.RegisterHandler(MsgType.Request_Add, self._add_entry)
         self.RegisterHandler(MsgType.Request_MultiVerb, self._get_entry)
@@ -223,12 +429,297 @@ class Server(Actor):
             if not ok:
                 break
             batch.append(nxt)
-        self._local_window(self._expand_multi(batch))
+        batch = self._expand_multi(batch)
+        if multihost.world_size() > 1:
+            self._mh_windows(batch)
+            return
+        self._local_window(batch)
 
     def _add_entry(self, msg: Message) -> None:
         """Request_Add enters the same window as Gets; SyncServer re-binds
         this to its strict clocked path."""
         self._get_entry(msg)
+
+    def Stop(self) -> None:
+        if self._ex_stage is not None:
+            self._ex_stage.stop()
+        super().Stop()
+
+    # -- the multi-process windowed protocol (module docstring) -------------
+
+    #: byte budget of one exchange's packed payloads: verbs past it lead
+    #: the next exchange
+    MH_WINDOW_BYTES = 4 << 20
+    #: re-exchanges after a frame fails its seal: every rank sees the same
+    #: round corrupted and re-enters together; an asymmetric corruption
+    #: desyncs the SEQ stamps and fails loudly
+    MH_WIRE_RETRIES = 2
+
+    def _mh_windows(self, batch) -> None:
+        """Process drained messages through collective windows until none
+        remains. Any escape aborts the stream mid-window, which leaves
+        this rank's collective position unsound: every message the stream
+        holds gets the error, and the engine poisons."""
+        pending: Deque[Message] = collections.deque(batch)
+        try:
+            self._mh_pipelined(pending)
+        except Exception as exc:
+            if self._ex_stage is not None:
+                self._ex_stage.poison()
+            Log.Error("engine: multi-process window stream aborted: %r",
+                      exc)
+            for m in pending:
+                m.reply(exc)
+            exc.mv_fatal = True
+            raise
+
+    def _mh_pipelined(self, fed: Deque[Message]) -> None:
+        """The apply stage: feed admitted messages to the exchange stage in
+        admission order, keep draining the mailbox while exchanges are in
+        flight (the next window forms meanwhile), and apply completed
+        windows in emission (= SEQ) order. ``fed`` holds every message the
+        pipeline owns, oldest first."""
+        stage = self._ex_stage
+        if stage is None or stage.dead is not None:
+            stage = self._ex_stage = _ExchangeStage(self)
+        for m in fed:
+            stage.feed(m)
+        while fed:
+            for _ in range(64):
+                ok, m = self.mailbox.TryPop()
+                if not ok:
+                    break
+                for mm in self._expand_multi([m]):
+                    fed.append(mm)
+                    stage.feed(mm)
+            ok, item = stage.out.TryPop()
+            if not ok:
+                ok, item = stage.out.Pop(timeout=_PL_POLL_S)
+            if not ok:
+                continue
+            if item[0] == "error":
+                raise item[1]
+            try:
+                if item[0] == "barrier":
+                    CHECK(fed.popleft() is item[1],
+                          "pipeline completion order desync (engine bug)")
+                    self._dispatch(item[1])
+                else:
+                    _, mine, windows, prefix, descs0, t0 = item
+                    self._mh_apply_window(mine, windows, prefix, descs0)
+                    for m in mine:
+                        CHECK(fed.popleft() is m,
+                              "pipeline completion order desync (engine "
+                              "bug)")
+            finally:
+                # always lift the fence, even before a fatal raise: the
+                # stage must not hang waiting for it
+                stage.note_applied()
+
+    def _mh_collective_window(self, msg: Message) -> None:
+        """A one-verb window on the actor thread (the BSP engine): pack,
+        exchange, agree, apply."""
+        local, used = self._mh_pack_window([msg])
+        windows = self._mh_exchange_decode(local)
+        prefix, descs0 = self._mh_agree(windows)
+        self._mh_apply_window(used[:prefix], windows, prefix, descs0)
+
+    def _mh_check_barrier_head(self, head: Message) -> None:
+        """Exchange a head-kind marker for a non-verb window head: a rank at
+        a barrier while a peer exchanges verbs (or another barrier) fails
+        the CHECK on every rank instead of stranding the verb rank in an
+        unmatched collective."""
+        blobs = multihost.capped_exchange(
+            wire.encode_head_barrier(int(head.msg_type)), self._mh_caps,
+            "HEAD_B")
+        kinds = [wire.decode_head_kind(b) for b in blobs]
+        CHECK(all(k == kinds[0] for k in kinds),
+              f"multi-process window heads diverge: {kinds} — every "
+              f"process must reach the same barrier/verb at the same "
+              f"stream position (the SPMD collective contract)")
+
+    def _mh_pack_window(self, verbs):
+        """``(local, used)``: the packed ``(kind, table, payload)`` records
+        under the byte budget and the messages they came from (>= 1)."""
+        local, used, packed = [], [], 0
+        for i, m in enumerate(verbs):
+            nbytes = wire.payload_nbytes(m.payload)
+            if packed + nbytes > self.MH_WINDOW_BYTES and i > 0:
+                break
+            packed += nbytes
+            local.append(("A" if m.msg_type is MsgType.Request_Add else "G",
+                          m.table_id, m.payload))
+            used.append(m)
+        return local, used
+
+    def _mh_exchange_decode(self, local) -> list:
+        """Encode, exchange and decode one window; every rank's verb list
+        in rank order (this rank's own records verbatim). A frame failing
+        its seal re-runs the whole collective exchange."""
+        my_rank = multihost.world_rank()
+        last_exc = None
+        for attempt in range(1 + self.MH_WIRE_RETRIES):
+            blob = wire.encode_window(local, seq=self._mh_seq)
+            t0 = time.perf_counter()
+            blobs = multihost.capped_exchange(
+                blob, self._mh_caps, (local[0][0], local[0][1]))
+            self.xw_busy_s += time.perf_counter() - t0
+            try:
+                windows = []
+                for i, b in enumerate(blobs):
+                    if i == my_rank:
+                        windows.append(local)
+                        continue
+                    head_kind, head_mt = wire.decode_head_kind(b)
+                    CHECK(head_kind == "window",
+                          f"multi-process window heads diverge: rank {i} "
+                          f"is at a non-verb barrier (msg_type {head_mt}) "
+                          f"while rank {my_rank} exchanges verbs — every "
+                          f"process must reach the same stream position "
+                          f"(the SPMD collective contract)")
+                    peer_seq, decoded = wire.decode_window_seq(b)
+                    CHECK(peer_seq == (self._mh_seq & 0xFFFFFFFF),
+                          f"window exchange desynchronized: rank {i} is at "
+                          f"exchange {peer_seq}, rank {my_rank} at "
+                          f"{self._mh_seq}; the stream cannot be trusted")
+                    windows.append(decoded)
+            except WireCorruption as exc:
+                last_exc = exc
+                Log.Error("window exchange frame corrupt (attempt %d/%d): "
+                          "%r — re-exchanging", attempt + 1,
+                          1 + self.MH_WIRE_RETRIES, exc)
+                continue
+            self._mh_seq += 1
+            self.mh_window_exchanges += 1
+            return windows
+        raise last_exc
+
+    @staticmethod
+    def _mh_agree(windows):
+        """``(prefix, descs0)``: the common verb prefix of every rank's
+        window and its ``(kind, table)`` records; a divergence CHECK-fails
+        identically on every rank."""
+        prefix = min(len(w) for w in windows)
+        descs = [[(k, t) for k, t, _ in w[:prefix]] for w in windows]
+        CHECK(all(d == descs[0] for d in descs),
+              f"multi-process verb streams diverge inside a window: "
+              f"{descs} — every process must issue the same table-verb "
+              f"sequence (the SPMD collective contract)")
+        return prefix, descs[0]
+
+    def _mh_window_is_local(self, descs0) -> bool:
+        """Whether the window's apply runs on this process alone on every
+        rank (the tables' rank-agreed ``mh_apply_is_local``): the pipelined
+        engine overlaps only such windows with the next exchange."""
+        for tid in {t for _, t in descs0}:
+            try:
+                if not self.store_[tid].mh_apply_is_local():
+                    return False
+            except IndexError:
+                return False       # a bad table id: its verb fails alone
+        return True
+
+    def _mh_apply_window(self, verbs, windows, prefix, descs0) -> None:
+        """Apply an exchanged window's agreed prefix in op order: a table's
+        Adds as one run at its first Add's position, its Gets grouped
+        before and after that run (no Get observes less than strict order
+        would show it). Replies go to this rank's own messages; failures
+        reply per position, identically on every rank."""
+        t0 = time.perf_counter()
+        my_rank = multihost.world_rank()
+        self.mh_window_verbs += prefix
+        add_pos: Dict[int, list] = {}
+        for i, (kind, tid) in enumerate(descs0):
+            if kind == "A":
+                add_pos.setdefault(tid, []).append(i)
+        parts_at = [[w[i][2] for w in windows] for i in range(prefix)]
+        groups: Dict[tuple, list] = {}
+        ops = []
+        for i, (kind, tid) in enumerate(descs0):
+            if kind == "A":
+                if add_pos[tid][0] == i:
+                    ops.append(("A", tid, add_pos[tid]))
+                continue
+            seg = 0 if tid not in add_pos or i < add_pos[tid][0] else 1
+            if (tid, seg) not in groups:
+                groups[(tid, seg)] = []
+                ops.append(("G", tid, groups[(tid, seg)]))
+            groups[(tid, seg)].append(i)
+        for kind, tid, positions in ops:
+            if kind == "A":
+                self._mh_add_run(tid, positions, parts_at, verbs, my_rank)
+            else:
+                self._mh_get_group(tid, positions, parts_at, verbs, my_rank)
+        self.apply_busy_s += time.perf_counter() - t0
+
+    def _mh_add_run(self, tid: int, positions, parts_at, verbs,
+                    my_rank: int) -> None:
+        """A table's window-worth of collective Adds: merged across
+        positions and ranks when the table accepts, per position
+        otherwise."""
+        try:
+            table = self.store_[tid]
+        except IndexError as exc:
+            for p in positions:
+                verbs[p].reply(exc)
+            return
+        if len(positions) > 1:
+            try:
+                merged = table.ProcessAddRunParts(
+                    [parts_at[p] for p in positions], my_rank)
+            except Exception as exc:
+                Log.Error("table %d merged parts Add failed: %r", tid, exc)
+                for p in positions:
+                    verbs[p].reply(exc)
+                return
+            if merged:
+                self.mh_add_run_merged += 1
+                for p in positions:
+                    verbs[p].reply(None)
+                return
+        for p in positions:
+            try:
+                table.ProcessAddParts(parts_at[p], my_rank)
+            except Exception as exc:
+                Log.Error("table %d parts Add failed: %r", tid, exc)
+                verbs[p].reply(exc)
+                continue
+            verbs[p].reply(None)
+
+    def _mh_get_group(self, tid: int, positions, parts_at, verbs,
+                      my_rank: int) -> None:
+        """A (table, segment)'s collective Gets: one window serve when the
+        table offers it, per position otherwise."""
+        try:
+            table = self.store_[tid]
+        except IndexError as exc:
+            for p in positions:
+                verbs[p].reply(exc)
+            return
+        results = None
+        if len(positions) > 1:
+            try:
+                results = table.ProcessGetWindowParts(
+                    [parts_at[p] for p in positions], my_rank)
+            except Exception as exc:
+                Log.Error("table %d window parts Get failed: %r", tid, exc)
+                for p in positions:
+                    verbs[p].reply(exc)
+                return
+        if results is not None:
+            CHECK(len(results) == len(positions),
+                  "ProcessGetWindowParts result count mismatch")
+            for p, res in zip(positions, results):
+                verbs[p].reply(res)
+            return
+        for p in positions:
+            try:
+                result = table.ProcessGetParts(parts_at[p], my_rank)
+            except Exception as exc:
+                Log.Error("table %d parts Get failed: %r", tid, exc)
+                verbs[p].reply(exc)
+                continue
+            verbs[p].reply(result)
 
     def _local_window(self, batch) -> None:
         """Apply one drained window (module docstring)."""
@@ -373,6 +864,14 @@ class Server(Actor):
         sharded engine): ``-sync`` builds the BSP SyncServer; otherwise a
         resolved shard cap (``engine_shard_cap``) above 1 builds the
         ShardedServer, and 1 the plain Server."""
+        transport = str(GetFlag("window_transport")).lower()
+        CHECK(transport in ("auto", "host", "device"),
+              f"-window_transport must be auto/host/device, got "
+              f"{transport!r}")
+        CHECK(transport != "device",
+              "-window_transport=device is not ported yet: gloo moves no "
+              "CUDA tensor, and the port's windows ride the host exchange "
+              "(-window_transport=auto or host)")
         if GetFlag("sync"):
             Log.Debug("Create a sync server")
             return SyncServer(num_workers)
@@ -387,12 +886,20 @@ class Server(Actor):
 def engine_shard_cap() -> int:
     """Resolved engine shard-slot count for a new engine (see the
     ``-mv_engine_shards`` help text): 1 under BSP (the vector clocks count
-    verbs across all tables), the flag when set, else auto,
+    verbs across all tables) and in multi-process worlds (gloo is one
+    ordered collective stream; per-shard streams need a multi-channel
+    wire, not ported), the flag when set, else auto,
     ``min(8, cores // 4)``; lazy shard spawn bounds the live shards by
     the table count."""
     if GetFlag("sync"):
         return 1
     flag = int(GetFlag("mv_engine_shards"))
+    if multihost.world_size() > 1:
+        if flag > multihost.wire_channels():
+            Log.Error("engine: -mv_engine_shards=%d needs %d independent "
+                      "exchange channels but the gloo wire offers %d — "
+                      "clamped to 1", flag, flag, multihost.wire_channels())
+        return 1
     if flag >= 1:
         return flag
     return max(1, min(8, (os.cpu_count() or 4) // 4))
@@ -715,6 +1222,27 @@ class SyncServer(Server):
         self._add_cache: Deque[Message] = collections.deque()
         self._get_cache: Deque[Message] = collections.deque()
 
+    def _verb(self, msg: Message) -> None:
+        """Apply one verb strictly. Across processes it is a one-verb
+        collective window: every rank's engine makes the same defer and
+        drain decisions from the same verb streams, so the ranks' i-th
+        applied verbs pair up. A failed exchange leaves the stream unsound:
+        every cached waiter gets the error and the engine poisons."""
+        if multihost.world_size() <= 1:
+            if msg.msg_type is MsgType.Request_Add:
+                super().ProcessAdd(msg)
+            else:
+                super().ProcessGet(msg)
+            return
+        try:
+            self._mh_collective_window(msg)
+        except Exception as exc:
+            Log.Error("engine: multi-process BSP stream aborted: %r", exc)
+            for m in (msg, *self._add_cache, *self._get_cache):
+                m.reply(exc)
+            exc.mv_fatal = True
+            raise
+
     def ProcessAdd(self, msg: Message) -> None:
         worker = msg.src
         # 1. Before add: cache a faster worker (server.cpp:141-147)
@@ -724,13 +1252,13 @@ class SyncServer(Server):
             self._num_waited_add[worker] += 1
             return
         # 2. Process add
-        super().ProcessAdd(msg)
+        self._verb(msg)
         # 3. After add: drain cached gets when the add round completes
         if self._add_clocks.Update(worker):
             CHECK(not self._add_cache, "add cache must be empty at round end")
             while self._get_cache:
                 get_msg = self._get_cache.popleft()
-                super().ProcessGet(get_msg)
+                self._verb(get_msg)
                 CHECK(not self._get_clocks.Update(get_msg.src),
                       "drained Get must not complete a round")
 
@@ -762,12 +1290,12 @@ class SyncServer(Server):
             self._get_cache.append(msg)
             return
         # 2. Process get
-        super().ProcessGet(msg)
+        self._verb(msg)
         # 3. After get: drain cached adds when the get round completes
         if self._get_clocks.Update(worker):
             while self._add_cache:
                 add_msg = self._add_cache.popleft()
-                super().ProcessAdd(add_msg)
+                self._verb(add_msg)
                 CHECK(not self._add_clocks.Update(add_msg.src),
                       "drained Add must not complete a round")
                 self._num_waited_add[add_msg.src] -= 1
@@ -780,13 +1308,13 @@ class SyncServer(Server):
             CHECK(not self._add_cache, "add cache must be empty")
             while self._get_cache:
                 get_msg = self._get_cache.popleft()
-                super().ProcessGet(get_msg)
+                self._verb(get_msg)
                 CHECK(not self._get_clocks.Update(get_msg.src), "")
         if self._get_clocks.FinishTrain(worker):
             CHECK(not self._get_cache, "get cache must be empty")
             while self._add_cache:
                 add_msg = self._add_cache.popleft()
-                super().ProcessAdd(add_msg)
+                self._verb(add_msg)
                 CHECK(not self._add_clocks.Update(add_msg.src), "")
                 self._num_waited_add[add_msg.src] -= 1
         msg.reply(None)

@@ -13,10 +13,17 @@ rule on the whole vector, written back in place; a Get fetches a snapshot.
 Per-worker aux leaves (AdaGrad, DC-ASGD) have shape ``(num_workers,
 padded)``.
 
+Multi-process worlds: every process keeps a replica; a collective Add sums
+every rank's whole-vector delta in rank order and applies the sum once
+(``ProcessAddParts``; a window's Adds of a linear aux-free updater sum into
+one apply, ``ProcessAddRunParts``), and a Get reads the local replica.
+
 Device plane (``device_*``): a caller that keeps its work on the device
 takes the ``{"data", "aux"}`` state, applies ``device_update`` and writes
 the result back with ``device_set_state``. The verbs bypass the engine:
-the caller owns the table while using them.
+the caller owns the table while using them. Their multi-process branch is
+not ported: they raise in a world of several processes instead of
+changing one replica.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.mesh import partition_offsets
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
@@ -73,6 +81,10 @@ class ArrayServer(ServerTable):
             "aux": self.updater.init_aux((self.padded,), torch.float32,
                                          zoo.num_workers,
                                          device=self.device)}
+        # linear aux-free updaters: a window's summed deltas apply as one
+        # Add (the matrix table's _merge_adds rule)
+        self._merge_adds = (self.updater.combine_scale is not None
+                            and not self.state["aux"])
 
     def _padded_delta(self, values) -> torch.Tensor:
         values = np.asarray(values, self.dtype).ravel()
@@ -84,8 +96,38 @@ class ArrayServer(ServerTable):
     def ProcessAdd(self, values: np.ndarray,
                    option: Optional[AddOption] = None) -> None:
         delta = self._padded_delta(values)
-        self.state = self.device_update(
-            self.state, delta, (option or AddOption()).as_tensors())
+        self.state = self._updated(self.state, delta,
+                                   (option or AddOption()).as_tensors())
+
+    def ProcessAddParts(self, parts, my_rank: int) -> None:
+        """One collective Add: every rank's delta summed in rank order,
+        applied once."""
+        opts = self._check_parts_options(parts)
+        vals = []
+        for p in parts:
+            v = np.asarray(p["values"], self.dtype).ravel()
+            CHECK(v.size == self.size, "Add size mismatch")
+            vals.append(v)
+        self.ProcessAdd(np.sum(vals, axis=0).astype(self.dtype), opts[my_rank])
+
+    def ProcessAddRunParts(self, positions, my_rank: int) -> bool:
+        """A window's collective Adds (all positions, all ranks) summed into
+        ONE apply: linear aux-free updaters only; declines on any doubt so
+        the per-position path reports precise errors."""
+        if not self._merge_adds:
+            return False
+        vals = []
+        for parts in positions:
+            opts = self._norm_parts_options(parts)
+            if not all(o == opts[0] for o in opts):
+                return False
+            for p in parts:
+                v = p.get("values")
+                if not isinstance(v, np.ndarray) or v.size != self.size:
+                    return False
+                vals.append(np.asarray(v, self.dtype).ravel())
+        self.ProcessAdd(np.sum(vals, axis=0).astype(self.dtype), AddOption())
+        return True
 
     def ProcessGet(self, option: Optional[GetOption] = None) -> np.ndarray:
         return self.ProcessGetAsync(option)()
@@ -106,6 +148,7 @@ class ArrayServer(ServerTable):
         return self.state
 
     def device_set_state(self, state: Dict) -> None:
+        multihost.require_one_process("device_set_state")
         data = state["data"]
         CHECK(tuple(data.shape) == (self.padded,)
               and data.dtype == torch.float32,
@@ -126,6 +169,11 @@ class ArrayServer(ServerTable):
         """One whole-table Add through the table's updater (delta padded
         to ``self.padded``; opt = AddOption.as_tensors()); returns the new
         state and leaves ``state`` alone."""
+        multihost.require_one_process("device_update")
+        return self._updated(state, padded_delta, opt)
+
+    def _updated(self, state: Dict, padded_delta: torch.Tensor,
+                 opt) -> Dict:
         new_data, new_aux = self.updater.update(state["data"], state["aux"],
                                                 padded_delta, opt)
         return {"data": new_data, "aux": new_aux}

@@ -8,7 +8,9 @@ table_interface.h, src/table.cpp):
   in-flight request, and offers ``Wait(GetAsync/AddAsync)``; untracked
   fire-and-forget Adds allocate nothing.
 * ``ServerTable`` declares ``ProcessAdd``/``ProcessGet``, the engine's
-  two-phase Get and merged-Add hooks, and the Store/Load contract.
+  two-phase Get and merged-Add hooks, the multi-process parts verbs
+  (``ProcessAddParts``, ``ProcessGetParts``, ``ProcessAddRunParts``,
+  ``ProcessGetWindowParts``) and the Store/Load contract.
 * ``MultiCall``/``submit_multi`` batch N verbs into ONE engine mailbox
   hop; ``CreateTable`` builds both halves and registers them.
 
@@ -70,6 +72,86 @@ class ServerTable:
         dispatch; True when handled, False to decline. CONTRACT: validate
         everything BEFORE mutating state."""
         return False
+
+    # -- the multi-process window protocol (sync/server.py): the engine
+    # exchanges a window of verbs between the processes and hands every
+    # rank's payloads down, so each process applies identical merged data
+    # to its replica and serves its own Gets from it. The hooks issue no
+    # collective of their own. DETERMINISM CONTRACT: given identical
+    # ``parts``, every rank makes identical mutate-or-raise decisions, or
+    # the replicas diverge. The defaults apply THIS rank's payload alone,
+    # which only a table without replicated state may keep.
+
+    def ProcessAddParts(self, parts, my_rank: int) -> None:
+        """Apply ONE logical collective Add given every rank's payload dict
+        in rank order (``parts[my_rank]`` is this rank's own)."""
+        self.ProcessAdd(**parts[my_rank])
+
+    @staticmethod
+    def _norm_parts_options(parts) -> list:
+        """Every rank's Add option in rank order, ``None`` normalized to
+        the default: a rank that spelled the default as None is not
+        divergent."""
+        return [p.get("option") or AddOption() for p in parts]
+
+    @classmethod
+    def _check_parts_options(cls, parts) -> list:
+        """Normalized options, CHECK-failing when the ranks truly diverge
+        (the SPMD collective contract)."""
+        opts = cls._norm_parts_options(parts)
+        CHECK(all(o == opts[0] for o in opts),
+              f"collective Add options diverge across processes: {opts}")
+        return opts
+
+    def ProcessGetParts(self, parts, my_rank: int):
+        """Serve ONE logical collective Get for THIS rank given every
+        rank's payload dict in rank order; returns this rank's result."""
+        return self.ProcessGet(**parts[my_rank])
+
+    def ProcessAddRunParts(self, positions, my_rank: int) -> bool:
+        """Cross-rank add coalescing: ``positions`` lists, per window
+        position, every rank's payload dict. Apply them all as merged
+        dispatches and return True, or False to decline (the engine then
+        runs ProcessAddParts per position). Validate before mutating."""
+        return False
+
+    def ProcessGetWindowParts(self, positions, my_rank: int):
+        """Serve a window segment's Gets to this table in one shot: a list
+        of this rank's results (an Exception entry fails that position
+        only), or None to decline (ProcessGetParts per position). This
+        default dispatches every position's own Get first
+        (``ProcessGetAsync``; ``ProcessGetParts`` where the table cannot
+        split the phases) and finalizes after, so the device work of the
+        segment queues back to back, as in a single-process window."""
+        pending = []
+        for parts in positions:
+            try:
+                fin = self.ProcessGetAsync(**parts[my_rank])
+                if fin is None:
+                    res = self.ProcessGetParts(parts, my_rank)
+                    fin = lambda res=res: res  # noqa: E731
+                pending.append(fin)
+            except Exception as exc:
+                pending.append(exc)
+        out = []
+        for fin in pending:
+            if isinstance(fin, Exception):
+                out.append(fin)
+                continue
+            try:
+                out.append(fin())
+            except Exception as exc:
+                out.append(exc)
+        return out
+
+    def mh_apply_is_local(self) -> bool:
+        """True when every parts apply and serve of this table runs on
+        this process alone, with no collective: the pipelined engine may
+        then apply window N while window N+1 is exchanged. Every port
+        table applies to its own replica; a table whose apply issues a
+        collective must answer False (rank-agreed), and the engine then
+        fences its windows."""
+        return True
 
     def Store(self, stream) -> None:
         raise NotImplementedError

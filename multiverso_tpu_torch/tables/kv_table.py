@@ -22,6 +22,13 @@ dtypes live on the world's device. The scatter-add and gather are
 ``index_add_``/``index_select`` (the JAX package uses XLA there, not a
 Pallas kernel).
 
+Multi-process worlds: every process keeps a replica. A collective Add
+concatenates every rank's (keys, values) in rank order, so new keys take
+the same slots on every rank however the key sets diverge, and applies
+them with duplicate slots pre-combined on the host (``index_add_``'s CUDA
+atomics sum duplicates in an undefined order; the replicas must stay
+bitwise equal). A Get reads the local replica.
+
 Device plane (``device_*``): a caller that keeps its work on the device
 resolves its keys to a padded slot vector once (``device_slots``), places
 it (``device_place_slots``) and gathers from / scatter-adds into the live
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import native
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
@@ -207,6 +215,50 @@ class KVServerTable(ServerTable):
         self._apply(np.concatenate(keys), np.concatenate(deltas))
         return True
 
+    def _apply_parts(self, parts_list) -> None:
+        """Every payload of ``parts_list`` concatenated in order (window
+        position, then rank), slots assigned in first-sight order, one
+        scatter-add over unique slots."""
+        keys, deltas = [], []
+        for p in parts_list:
+            k = np.asarray(p["keys"], np.int64).ravel()
+            d = np.asarray(p["values"], self.dtype).ravel()
+            CHECK(k.size == d.size, "kv add size mismatch")
+            keys.append(k)
+            deltas.append(d)
+        slots = self._slots_for(np.concatenate(keys), create=True)
+        uniq, inv = np.unique(slots, return_inverse=True)
+        combined = np.zeros(len(uniq), self.dtype)
+        np.add.at(combined, inv, np.concatenate(deltas))
+        self._values.index_add_(
+            0, torch.from_numpy(uniq.astype(np.int64)).to(self._device),
+            torch.from_numpy(combined).to(self._device))
+
+    def ProcessAddParts(self, parts, my_rank: int) -> None:
+        """One collective Add: every rank's (keys, values) in rank order."""
+        self._check_parts_options(parts)
+        self._apply_parts(parts)
+
+    def ProcessAddRunParts(self, positions, my_rank: int) -> bool:
+        """A window's collective KV Adds as ONE scatter-add: the KV Add is
+        plain ``+=``, and position-major, rank-minor concatenation keeps
+        the key first-sight order of per-position applies. Declines on any
+        doubt."""
+        flat = []
+        for parts in positions:
+            opts = self._norm_parts_options(parts)
+            if not all(o == opts[0] for o in opts):
+                return False
+            for p in parts:
+                k, d = p.get("keys"), p.get("values")
+                if (not isinstance(k, np.ndarray)
+                        or not isinstance(d, np.ndarray)
+                        or k.size != d.size):
+                    return False
+                flat.append(p)
+        self._apply_parts(flat)
+        return True
+
     def ProcessGet(self, keys: np.ndarray,
                    option: Optional[GetOption] = None) -> np.ndarray:
         keys = np.asarray(keys, np.int64).ravel()
@@ -226,8 +278,11 @@ class KVServerTable(ServerTable):
     def device_slots(self, keys, create: bool = False, *,
                      bucket: Optional[int] = None) -> np.ndarray:
         """keys -> bucket-padded int32 slot vector (pad and absent lanes
-        -> the trash slot)."""
+        -> the trash slot). Creating slots outside the engine is not
+        ported across processes: the ranks' slot maps would drift."""
         self._check_device_plane()
+        if create:
+            multihost.require_one_process("device_slots(create=True)")
         keys = np.asarray(keys, np.int64).ravel()
         return self._pad_slots(self._slots_for(keys, create=create), bucket)
 
@@ -254,6 +309,7 @@ class KVServerTable(ServerTable):
         return self._values
 
     def device_set_values(self, values: torch.Tensor) -> None:
+        multihost.require_one_process("device_set_values")
         self._check_device_plane()
         CHECK(tuple(values.shape) == (self.capacity,),
               f"values shape {tuple(values.shape)} != capacity "
@@ -276,6 +332,7 @@ class KVServerTable(ServerTable):
                                  ) -> torch.Tensor:
         """values[slots] += deltas IN PLACE (duplicates accumulate; pad
         lanes' deltas must be zero); returns ``values``."""
+        multihost.require_one_process("device_scatter_add_slots")
         return values.index_add_(0, padded_slots, padded_deltas)
 
     @property

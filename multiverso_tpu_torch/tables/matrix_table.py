@@ -39,6 +39,17 @@ dense rows there with tensor code (a scatter into zeros, or a
 shift-and-mask unpack and a select) before the normal row update. The
 JAX rebuild is XLA, not Pallas, so no kernel of its own.
 
+Multi-process worlds: every process keeps a full replica of the table on
+its own device. The engine exchanges each window of verbs between the
+processes and hands every rank's payloads to the parts verbs
+(``ProcessAddParts``, ``ProcessAddRunParts``, ``ProcessGetParts``,
+``ProcessGetWindowParts``): an Add concatenates every rank's rows in rank
+order, pre-combines duplicates on the host (``_combine_duplicate_rows``,
+never ``index_add_``, whose CUDA atomics sum in an undefined order) and
+applies them through the same row path, so the replicas stay bitwise
+equal; a Get reads this rank's rows from its own replica. Compressed row
+pushes across processes are not ported yet and fail a CHECK.
+
 The store is updated IN PLACE (the JAX package donates its buffers
 instead). So every Get returns a fresh buffer — a gather output or, for
 the whole table, a copy — and never a view of live storage, and the device
@@ -56,6 +67,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import ops
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.mesh import ceil_block_rows, next_bucket
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
@@ -388,12 +400,7 @@ class MatrixServerTable(ServerTable):
             self._consume_compressed_on_device(compressed, opt)
             return
         if row_ids is None:
-            values = np.asarray(values, self.dtype).reshape(self.num_rows,
-                                                            self.num_cols)
-            delta = self._ctx.place(self._to_storage(values))
-            new_data, new_aux = self.updater.update(
-                self.state["data"], self.state["aux"], delta, opt)
-            self.state = {"data": new_data.contiguous(), "aux": new_aux}
+            self._update_full(values, opt)
             return
         ids = np.asarray(row_ids, np.int32).ravel()
         deltas = np.asarray(values, self.dtype).reshape(len(ids),
@@ -402,6 +409,105 @@ class MatrixServerTable(ServerTable):
         ids, deltas = _combine_duplicate_rows(ids, deltas, self.num_cols,
                                               self.dtype)
         self._update_rows(ids, deltas, opt)
+
+    def _update_full(self, values, opt) -> None:
+        """A whole-table Add through the updater."""
+        values = np.asarray(values, self.dtype).reshape(self.num_rows,
+                                                        self.num_cols)
+        delta = self._ctx.place(self._to_storage(values))
+        new_data, new_aux = self.updater.update(
+            self.state["data"], self.state["aux"], delta, opt)
+        self.state = {"data": new_data.contiguous(), "aux": new_aux}
+
+    def _note_add_parts(self, option: AddOption, parts) -> None:
+        """Hook after an applied Add: every rank's id set (None = whole
+        table) in rank order. SparseMatrixServerTable keeps its freshness
+        bits here; it fires after the data update, so a rejected Add never
+        reaches it."""
+
+    # -- multi-process parts verbs (tables/base.py contract) -------------------
+
+    def _prep_add_parts(self, parts):
+        """Validate one collective Add's per-rank payloads -> (option, kind,
+        per-rank values or (ids, deltas)); kind is 'whole' or 'rows'."""
+        CHECK(all(p.get("compressed") is None for p in parts),
+              "compressed row pushes across processes are not ported yet "
+              "(ROADMAP.md): create the table without compress= in a "
+              "multi-process world")
+        opts = self._check_parts_options(parts)
+        whole = [p.get("row_ids") is None for p in parts]
+        CHECK(all(whole) or not any(whole),
+              "collective Add mixes whole-table and row payloads across "
+              "processes")
+        if all(whole):
+            return opts[0], "whole", [
+                np.asarray(p["values"], self.dtype).reshape(
+                    self.num_rows, self.num_cols) for p in parts]
+        prepped = []
+        for p in parts:
+            ids = np.asarray(p["row_ids"], np.int32).ravel()
+            self._check_ids(ids)
+            prepped.append((ids, np.asarray(p["values"], self.dtype).reshape(
+                len(ids), self.num_cols)))
+        return opts[0], "rows", prepped
+
+    def ProcessAddParts(self, parts, my_rank: int) -> None:
+        """One collective Add: every rank's rows in rank order, duplicates
+        pre-combined on the host, one row update (whole-table payloads sum
+        in rank order first)."""
+        option, kind, prepped = self._prep_add_parts(parts)
+        opt = option.as_tensors()
+        if kind == "whole":
+            summed = prepped[0].copy()
+            for v in prepped[1:]:
+                summed += v
+            self._update_full(summed, opt)
+            self._note_add_parts(option, [None] * len(parts))
+            return
+        ids, deltas = _combine_duplicate_rows(
+            np.concatenate([i for i, _ in prepped]),
+            np.concatenate([d for _, d in prepped]), self.num_cols,
+            self.dtype)
+        self._update_rows(ids, deltas, opt)
+        self._note_add_parts(option, [i for i, _ in prepped])
+
+    def ProcessAddRunParts(self, positions, my_rank: int) -> bool:
+        """A window's collective row Adds (all positions, all ranks) as ONE
+        row update: linear aux-free updaters only (the ProcessAddRun
+        contract); declines whole-table, compressed and doubtful payloads so
+        the per-position path reports precise errors."""
+        if not self._merge_adds:
+            return False
+        all_ids, all_deltas, noted = [], [], []
+        for parts in positions:
+            opts = self._norm_parts_options(parts)
+            if not all(o == opts[0] for o in opts):
+                return False
+            rank_ids = []
+            for p in parts:
+                row_ids = p.get("row_ids")
+                if row_ids is None or p.get("compressed") is not None:
+                    return False
+                ids = np.asarray(row_ids, np.int32).ravel()
+                if (ids.size == 0 or int(ids.min()) < 0
+                        or int(ids.max()) >= self.num_rows):
+                    return False
+                values = np.asarray(p.get("values"), self.dtype)
+                if values.size != ids.size * self.num_cols:
+                    return False
+                all_ids.append(ids)
+                all_deltas.append(values.reshape(len(ids), self.num_cols))
+                rank_ids.append(ids)
+            noted.append((opts[0], rank_ids))
+        ids, deltas = _combine_duplicate_rows(
+            np.concatenate(all_ids), np.concatenate(all_deltas),
+            self.num_cols, self.dtype)
+        self._update_rows(ids, deltas, AddOption().as_tensors())
+        # bookkeeping per position in window order, as per-position
+        # applies would fire it (the engine serves no Get inside a run)
+        for option, rank_ids in noted:
+            self._note_add_parts(option, rank_ids)
+        return True
 
     def ProcessGet(self, option: Optional[GetOption] = None,
                    row_ids: Optional[np.ndarray] = None):
@@ -427,7 +533,9 @@ class MatrixServerTable(ServerTable):
     # For callers that keep the rows on the device (the WordEmbedding
     # communicator's -device_plane path): host-plane validation, no host
     # round trip of the row data. These bypass the engine — the caller
-    # owns the table while using them.
+    # owns the table while using them. Their multi-process branch (a
+    # collective over every rank's batch) is not ported: the writes raise
+    # in a world of several processes instead of changing one replica.
 
     def device_fetch_rows(self, row_ids) -> torch.Tensor:
         """Rows for ``row_ids`` as a fresh device tensor (n, num_cols)."""
@@ -439,6 +547,7 @@ class MatrixServerTable(ServerTable):
                           option: Optional[AddOption] = None) -> None:
         """Apply a (device or host) delta batch to ``row_ids`` in place,
         with ProcessAdd's validation and duplicate pre-combine."""
+        multihost.require_one_process("device_apply_rows")
         ids = np.asarray(row_ids, np.int32).ravel()
         self._check_ids(ids)
         if len(np.unique(ids)) != len(ids):
@@ -455,6 +564,7 @@ class MatrixServerTable(ServerTable):
                                   ) -> torch.Tensor:
         """The fused PS round on the device plane: apply ``deltas`` to the
         UNIQUE rows ``row_ids`` and return their post-update rows."""
+        multihost.require_one_process("device_update_gather_rows")
         ids = np.asarray(row_ids, np.int32).ravel()
         self._check_ids(ids)
         CHECK(len(np.unique(ids)) == len(ids),

@@ -29,6 +29,15 @@ class WorldOwner:
             api.MV_Init(list(argv))
             self.owns = True
 
+    @staticmethod
+    def require_single_process(app: str) -> None:
+        """The apps' multi-process branches (data-parallel readers, the
+        device planes' block agreements) are not ported yet: in a world of
+        several processes the app raises on every rank instead of running
+        a single-process program in each."""
+        from multiverso_tpu_torch.parallel import multihost
+        multihost.require_one_process(app)
+
     def close(self) -> None:
         if self.owns:
             from multiverso_tpu_torch import api

@@ -8,9 +8,16 @@ model-average mode (``-ma``); ``Stop`` drains and shuts down; the Zoo owns
 the worker/server table registries, the in-process worker barrier and the
 ``MV_Aggregate`` rendezvous.
 
-This slice is one process on one device. The planes the JAX ``Start``
-brings up after the engine (reporter, ops, ledger, watchdog, elastic,
-replica, policy), multi-process bring-up and worker-side write combining
+Multi-process worlds: ``Start`` brings up ``torch.distributed``
+(``parallel/multihost.py``) before it resolves the device, so rank r takes
+its own card (``cuda:(r % device_count)``); rank and size come from the
+world. ``Barrier`` adds the cross-process barrier and ``Aggregate`` the
+cross-process sum. Each process keeps a full replica of every table, and
+the engine applies every rank's verbs of each exchanged window to it
+(``sync/server.py``).
+
+The planes the JAX ``Start`` brings up after the engine (reporter, ops,
+ledger, watchdog, elastic, replica, policy) and worker-side write combining
 are later work (``ROADMAP.md``).
 """
 
@@ -23,6 +30,7 @@ import numpy as np
 
 from multiverso_tpu_torch.message import Message, MsgType
 from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
+from multiverso_tpu_torch.parallel import multihost
 # imported for their flag registrations, which must precede Start()'s
 # ParseCMDFlags
 import multiverso_tpu_torch.updaters.base  # noqa: F401
@@ -58,6 +66,7 @@ class Zoo:
         self._barrier: Optional[threading.Barrier] = None
         self._allreduce: Optional[RendezvousAllreduce] = None
         self._ma_mode = False
+        self._multihost = False
 
     @classmethod
     def Get(cls) -> "Zoo":
@@ -72,23 +81,30 @@ class Zoo:
               devices=None) -> List[str]:
         CHECK(not self.started, "Zoo already started")
         rest = ParseCMDFlags(argv or [])
-        # the device rule first: a world with no usable device never
+        # the world before the device: a rank's card follows its rank
+        self._multihost = multihost.maybe_initialize()
+        # the device rule next: a world with no usable device never
         # starts, in any mode
         self.device_ctx = DeviceContext.create(devices)
         self._ma_mode = bool(GetFlag("ma"))
         role = ROLE_NAMES.get(str(GetFlag("ps_role")).lower(), Role.ALL)
         self.num_workers = max(1, int(GetFlag("num_workers")))
-        self.node = Node(rank=0, role=role,
+        self.node = Node(rank=multihost.process_index(), role=role,
                          worker_id=0 if role & Role.WORKER else -1,
                          server_id=0 if role & Role.SERVER else -1)
         self._barrier = threading.Barrier(self.num_workers)
-        self._allreduce = RendezvousAllreduce(self.num_workers)
+        # MV_Aggregate's cross-process leg: the rendezvous's last thread
+        # sums the thread sum across processes (reference MPI_Allreduce)
+        self._allreduce = RendezvousAllreduce(
+            self.num_workers, cross_reduce=(multihost.host_allreduce_sum
+                                            if self._multihost else None))
         if not self._ma_mode:
             self.server_engine = Server.GetServer(self.num_workers)
             self.server_engine.Start()
         self.started = True
-        Log.Debug("Zoo started on %s: %d worker(s), engine %s",
-                  self.device_ctx.device, self.num_workers,
+        Log.Debug("Zoo started on %s, rank %d of %d: %d worker(s), engine "
+                  "%s", self.device_ctx.device, self.rank, self.size,
+                  self.num_workers,
                   type(self.server_engine).__name__)
         return rest
 
@@ -131,7 +147,7 @@ class Zoo:
 
     @property
     def size(self) -> int:
-        return 1
+        return multihost.world_size() if self._multihost else 1
 
     @property
     def num_servers(self) -> int:
@@ -223,9 +239,21 @@ class Zoo:
         return msg.result
 
     def Barrier(self) -> None:
-        """Worker barrier across the in-process worker threads."""
+        """Worker barrier (reference zoo.cpp:164-177): every in-process
+        worker thread, then, in a multi-process world, every process (one
+        cross-process barrier a rendezvous, issued by one thread of each
+        process; a failure there breaks the thread barrier so the other
+        threads raise too)."""
         CHECK(self._barrier is not None, "Zoo not started")
-        self._barrier.wait()
+        idx = self._barrier.wait()
+        if self._multihost:
+            if idx == 0:
+                try:
+                    multihost.host_barrier("mv_barrier")
+                except BaseException:
+                    self._barrier.abort()
+                    raise
+            self._barrier.wait()     # hold the threads until it ends
 
     def Aggregate(self, data: np.ndarray) -> np.ndarray:
         """In-place elementwise-sum allreduce across the worker threads

@@ -35,7 +35,18 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   clock, in turns (PS_TURNS: compressed, plain, plain, compressed), then
   the compressed rounds' worker-side compression and server-side work
   (ProcessAdd of the compressed payload + ProcessGet) on this thread
-  under the profiler,
+  under the profiler;
+* ps_2proc: chip_smoke.py's [ps_2proc] PS rounds in a world of two ranks
+  of this script (``--rank-child``) on the one card over gloo, the add and
+  momentum tables at the PS shape: after 3 warm-up rounds, 5 rounds, rank
+  0 under the profiler and rank 1 beside it, with the engine's seconds in
+  the window exchange and in the apply,
+* bsp: chip_smoke.py's [bsp] phase (one process, 4 worker threads,
+  ``-sync=true``) BSP_WORLDS times in each of a row of processes by the
+  host clock, no profiler; with ``--baseline DIR`` (another checkout, e.g.
+  the parent commit unpacked with ``git archive``) the processes take
+  turns (BSP_TURNS: baseline, this, this, baseline, twice), each
+  importing its checkout's package under this script's phase,
 
 and prints, per path, the wall seconds, the device-busy seconds (the sum
 of the self device time of every op: kernels and copies on the one
@@ -44,7 +55,7 @@ most host time, for WE the seconds the trainer waited on the block
 loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
-parse, ckpt, ps_compress (default: all).
+parse, ckpt, ps_compress, ps_2proc, bsp (default: all).
 """
 
 from __future__ import annotations
@@ -399,13 +410,156 @@ def parse_turns(torch, seed: int) -> dict:
     return res
 
 
+def ps_2proc_rank(torch, rank: int, port: int, seed: int, out: str) -> int:
+    """One rank of the ps_2proc profile (``--rank-child``): rounds of
+    chip_smoke.py's [ps_2proc] on both tables, the measured ones under the
+    profiler on rank 0."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    from chip_smoke import PS_COLS, PS_ROUNDS, PS_ROWS, ps2_batch
+    mv.MV_Init([f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+                "-dist_size=2"])
+    try:
+        add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                  num_cols=PS_COLS))
+        mom = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
+        mopt = AddOption(momentum=0.5)
+        eng = Zoo.Get().server_engine
+
+        def rounds(first: int, n: int) -> float:
+            t0 = time.perf_counter()
+            for r in range(first, first + n):
+                ids, deltas = ps2_batch(seed, r, rank)
+                add.AddRows(ids, deltas)
+                add.GetRows(ids)
+                mom.AddRows(ids, deltas, mopt)
+                mom.GetRows(ids)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        rounds(0, 3)                                   # warm-up
+        x0, a0 = eng.xw_busy_s, eng.apply_busy_s
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        prof = None
+        # the ranks meet once the profiler runs, so neither's rounds
+        # include the other's profiler start
+        if rank == 0:
+            with torch.profiler.profile(activities=acts) as prof:
+                mv.MV_Barrier()
+                wall = rounds(3, PS_ROUNDS)
+        else:
+            mv.MV_Barrier()
+            wall = rounds(3, PS_ROUNDS)
+        res = summarize(torch, prof, wall) if prof is not None else {
+            "wall_s": wall}
+        res.update(rank=rank, round_ms=wall / PS_ROUNDS * 1e3,
+                   engine_xw_s=eng.xw_busy_s - x0,
+                   engine_apply_s=eng.apply_busy_s - a0)
+    finally:
+        mv.MV_ShutDown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def profile_ps_2proc(seed: int, out: str) -> dict:
+    """Both ranks of the ps_2proc profile; returns rank 0's profile with
+    rank 1's round time."""
+    import socket
+    import subprocess
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    outs = [os.path.join(out, f"ps_2proc_rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
+         "--port", str(port), "--seed", str(seed), "--out", outs[r]])
+        for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            if p.wait(600) != 0:
+                raise AssertionError(f"ps_2proc rank {r} failed "
+                                     f"(exit {p.returncode})")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return dict(ranks[0], rank1_round_ms=ranks[1]["round_ms"])
+
+
+def bsp_child(torch, root: str, seed: int, out: str) -> int:
+    """One process of the bsp turns: ``root``'s package under
+    chip_smoke.py's [bsp] phase (this script's copy), BSP_WORLDS worlds;
+    writes each world's round median."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.abspath(root))
+    spec = importlib.util.spec_from_file_location(
+        "smoke_phases", os.path.join(here, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    if not mv.__file__.startswith(os.path.abspath(root)):
+        raise AssertionError(f"imported {mv.__file__}, not {root}'s package")
+    dev = torch.device("cuda", 0)
+    medians = [smoke.bsp_phase(torch, mv, cr, dev, seed)["round_median_ms"]
+               for _ in range(BSP_WORLDS)]
+    with open(out, "w") as f:
+        json.dump({"root": root, "round_median_ms": medians}, f)
+    return 0
+
+
+def bsp_turns(seed: int, out: str, baseline: str) -> list:
+    """The bsp processes in turns; returns each turn's world medians."""
+    import subprocess
+    roots = {"this": os.path.dirname(os.path.abspath(__file__)),
+             "baseline": baseline}
+    res = []
+    for i, who in enumerate(BSP_TURNS if baseline else ("this",) * 2):
+        path = os.path.join(out, f"bsp_turn{i}.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--bsp-child", roots[who], "--seed", str(seed),
+                        "--out", path], check=True, timeout=600)
+        with open(path) as f:
+            res.append(dict(json.load(f), turn=who))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/profile")
     ap.add_argument("--paths", default=",".join(PATHS),
                     help="the paths to profile, comma-separated")
+    ap.add_argument("--rank-child", type=int, default=-1,
+                    help="run one rank of the ps_2proc profile (the script "
+                         "starts both itself)")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--baseline", default="",
+                    help="bsp: another checkout whose package takes turns "
+                         "with this one's")
+    ap.add_argument("--bsp-child", default="",
+                    help="run one process of the bsp turns on this "
+                         "checkout's package (the script starts them)")
     args = ap.parse_args()
+    if args.rank_child >= 0:
+        import torch
+        return ps_2proc_rank(torch, args.rank_child, args.port, args.seed,
+                             args.out)
+    if args.bsp_child:
+        import torch
+        return bsp_child(torch, args.bsp_child, args.seed, args.out)
     paths = args.paths.split(",")
     unknown = set(paths) - set(PATHS)
     if unknown:
@@ -426,7 +580,9 @@ def main() -> int:
             "lr": lambda: profile_lr(torch, args.seed),
             "parse": lambda: parse_turns(torch, args.seed),
             "ckpt": lambda: profile_ckpt(torch, args.seed),
-            "ps_compress": lambda: profile_ps_compress(torch, args.seed)}
+            "ps_compress": lambda: profile_ps_compress(torch, args.seed),
+            "ps_2proc": lambda: profile_ps_2proc(args.seed, args.out),
+            "bsp": lambda: bsp_turns(args.seed, args.out, args.baseline)}
     res = {"card": card}
     for name in PATHS:
         if name in paths:
@@ -438,7 +594,11 @@ def main() -> int:
 
 
 #: every path main() can profile, in its order
-PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress")
+PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
+         "ps_2proc", "bsp")
+#: bsp: worlds a process, and the processes' order against a baseline
+BSP_WORLDS = 3
+BSP_TURNS = ("baseline", "this", "this", "baseline") * 2
 
 
 def print_tops(path: str, r: dict) -> None:
@@ -522,6 +682,29 @@ def report(res: dict) -> None:
               f" device busy {r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f})", flush=True)
         print_tops("ps_compress", r)
+    if "ps_2proc" in res:
+        r = res["ps_2proc"]
+        print(f"[ps_2proc] two ranks on one card over gloo, add + momentum "
+              f"round (AddRows + GetRows on both tables): rank 0 "
+              f"{r['round_ms']:.3f} ms under the profiler, rank 1 "
+              f"{r['rank1_round_ms']:.3f} ms; rank 0's engine: exchange "
+              f"{r['engine_xw_s']:.4f} s, apply {r['engine_apply_s']:.4f} s "
+              f"of the rounds' {r['wall_s']:.4f} s; device busy "
+              f"{r['device_busy_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f}", flush=True)
+        print_tops("ps_2proc", r)
+    turns = res.get("bsp", [])
+    for i, r in enumerate(turns):
+        print(f"[bsp] turn {i + 1} {r['turn']} ({r['root']}): round medians "
+              f"of its {BSP_WORLDS} worlds "
+              f"{[round(x, 3) for x in r['round_median_ms']]} ms", flush=True)
+    for who in ("this", "baseline"):
+        ms = [x for r in turns if r["turn"] == who
+              for x in r["round_median_ms"]]
+        if ms:
+            print(f"[bsp] {who}: median of its worlds' round medians "
+                  f"{np.median(ms):.3f} ms, range {min(ms):.3f}-"
+                  f"{max(ms):.3f} ms over {len(ms)} worlds", flush=True)
 
 
 if __name__ == "__main__":
