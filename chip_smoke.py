@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
 
-(``--rank-child R --port P`` runs one rank of ``[ps_2proc]``; the script
-starts both ranks itself.)
+(``--rank-child R --child-phase ps|lr|we --port P`` runs one rank of
+``[ps_2proc]``, ``[lr_2proc]`` or ``[we_2proc]``; the script starts both
+ranks itself.)
 
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
@@ -135,6 +136,32 @@ holds every kernel of that path against its plain PyTorch version:
               index. Phase 2 holds the row
               kernels to their plain versions, and times them, at both
               sparse geometries with the first window's row set;
+   apps over two processes — two ranks of this script (``--rank-child
+              R --child-phase lr|we``) on ``cuda:0`` over gloo, each on
+              its own shard through the apps' entry points: ``[lr_2proc]``
+              the dense softmax (784 x 10, float32) and sparse sigmoid
+              (47,236 x 1) on the device plane, 6,000 samples cut 70 : 30
+              (filler windows on the smaller rank), and FTRL (1,000
+              features, halves) on the collective host KV verbs: final
+              weights bitwise equal across the ranks, within rtol 1e-4,
+              atol 1e-5 of the same runs in a two-rank world on the CPU,
+              and phase 5's loss bounds; ``[we_2proc]`` ``-device_pairs 1
+              -use_adagrad 1`` on the topic corpus (touched-rows step
+              forced) and at 1,000,000 x 128 on the big Zipf corpus, both
+              cut 2/3 : 1/3 (filler blocks), every rank running the
+              global blocks, and ``-device_plane 1`` at 100,000 x 128 on
+              halves: every table bitwise equal across the ranks, every
+              block under its untrained loss, the topic run's first
+              global block within rtol 1e-3, atol 1e-4 of the same block
+              on the CPU (same draws); the 1,000,000 x 128 run's first
+              global block with every batch step retaken on the card
+              from the CPU's state within that tolerance, bitwise the
+              same block in one process on the card, and no further
+              from the CPU's block than 3x a one-ulp nudge moves it;
+              per rank samples or words/s, the lockstep rounds' seconds
+              and share, launches; the deterministic segment sums
+              repeated on the card; the kernels timed at the LR merged
+              window and the global touched-rows batch;
 6. summary  — a ``{"kernels": [...]}`` line, the card line, and last
               ``{"ok": true, "device": {...}}``.
 
@@ -149,6 +176,7 @@ CUDA device, or away from the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -187,6 +215,13 @@ LR_MINIBATCH, LR_SPARSE_SYNC = 20, 50    # the app's default minibatch
 LR_EPOCHS = {"lr_dense": 9, "lr_dense_host": 3, "lr_sparse": 6,
              "lr_softmax": 2, "lr_ftrl": 6, "lr_sparse_host": 6,
              "lr_sparse_compress": 6, "lr_softmax_1bit": 2}
+# [lr_2proc]: rank 0's share of the device-plane runs' samples (the other
+# rank runs out of windows first) and each run's epochs; [we_2proc]: a
+# rank's -device_pairs block and rank 0's share of the big corpus
+LR2_SHARE = 0.7
+LR2_EPOCHS = {"lr2_dense": 3, "lr2_sparse": 3, "lr2_ftrl": 6}
+WE2_BLOCK_BYTES, WE2_SHARE = 500_000, 2 / 3
+WE2_RUNS = ("we2_topics", "we2_pairs", "we2_device")
 # [ckpt]: rounds run after the save, and again after the load; the LR
 # table's keys a round (about a window's distinct keys at the RCV1 width)
 CKPT_ROUNDS, CKPT_LR_KEYS = 3, 20_000
@@ -512,10 +547,10 @@ class FirstBatches:
     def __enter__(self):
         self.step = self.dp.sparse_adagrad_step
 
-        def recording(state, inputs, imask, outputs, *rest):
+        def recording(state, inputs, imask, outputs, *rest, **kw):
             if len(self.outputs) < self.n:
                 self.outputs.append(outputs.reshape(-1).clone())
-            return self.step(state, inputs, imask, outputs, *rest)
+            return self.step(state, inputs, imask, outputs, *rest, **kw)
 
         self.dp.sparse_adagrad_step = recording
         return self
@@ -1129,23 +1164,24 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     return 0
 
 
-def ps_2proc_phase(seed: int, workdir: str) -> dict:
-    """[ps_2proc]: two ranks of this script (``--rank-child``) on the one
-    card over gloo, started after the build so they load the built
-    kernels; a rank that fails or hangs past RANK_CHILD_S fails the run
-    (both are killed). Returns each rank's measurements and the launches
-    summed over the ranks; each rank must launch all three kernels, and
-    the ranks' final tables must be bitwise equal."""
+def rank_children(phase: str, seed: int, workdir: str) -> list:
+    """Both ranks of a two-process phase: two processes of this script
+    (``--rank-child R --child-phase PHASE``) on the one card over gloo,
+    started after the build so they load the built kernels; a rank that
+    fails or hangs past RANK_CHILD_S fails the run (both are killed).
+    Returns each rank's JSON results."""
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    outs = [os.path.join(workdir, f"ps_2proc_rank{r}.json") for r in range(2)]
-    logs = [open(os.path.join(workdir, f"ps_2proc_rank{r}.log"), "w+")
+    tag = f"{phase}_2proc"
+    outs = [os.path.join(workdir, f"{tag}_rank{r}.json") for r in range(2)]
+    logs = [open(os.path.join(workdir, f"{tag}_rank{r}.log"), "w+")
             for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
-         "--port", str(port), "--seed", str(seed), "--json-out", outs[r]],
+         "--child-phase", phase, "--port", str(port), "--seed", str(seed),
+         "--workdir", workdir, "--json-out", outs[r]],
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
     deadline = time.monotonic() + RANK_CHILD_S
     try:
@@ -1153,12 +1189,12 @@ def ps_2proc_phase(seed: int, workdir: str) -> dict:
             try:
                 p.wait(max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"[ps_2proc] rank {r} hung past "
+                raise AssertionError(f"[{tag}] rank {r} hung past "
                                      f"{RANK_CHILD_S} s") from None
         for r, p in enumerate(procs):
             if p.returncode != 0:
                 logs[r].seek(0)
-                raise AssertionError(f"[ps_2proc] rank {r} failed "
+                raise AssertionError(f"[{tag}] rank {r} failed "
                                      f"(exit {p.returncode}):\n"
                                      f"{logs[r].read()[-4000:]}")
     finally:
@@ -1172,6 +1208,15 @@ def ps_2proc_phase(seed: int, workdir: str) -> dict:
     for out in outs:
         with open(out) as f:
             ranks.append(json.load(f))
+    return ranks
+
+
+def ps_2proc_phase(seed: int, workdir: str) -> dict:
+    """[ps_2proc]: both ranks (``rank_children``). Returns each rank's
+    measurements and the launches summed over the ranks; each rank must
+    launch all three kernels, and the ranks' final tables must be bitwise
+    equal."""
+    ranks = rank_children("ps", seed, workdir)
     if ranks[0]["digest"] != ranks[1]["digest"]:
         raise AssertionError("[ps_2proc] the ranks' final tables differ")
     for t0, t1 in zip(ranks[0]["burst"], ranks[1]["burst"]):
@@ -1897,6 +1942,737 @@ def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
         f"(rtol 1e-4, atol 1e-5)")
 
 
+# -- two processes: both apps data-parallel ([lr_2proc], [we_2proc]) ---------
+
+def split_lines(path: str, share: float, stem: str) -> list:
+    """The lines of ``path`` cut in two: rank 0 takes the first ``share``
+    of them, rank 1 the rest; -> the two files' paths."""
+    with open(path) as f:
+        lines = f.readlines()
+    cut = int(round(len(lines) * share))
+    ext = os.path.splitext(path)[1]
+    paths = []
+    for r, part in enumerate((lines[:cut], lines[cut:])):
+        out = f"{stem}_{r}{ext}"
+        with open(out, "w") as f:
+            f.writelines(part)
+        paths.append(out)
+    return paths
+
+
+def lr2_data(workdir: str, seed: int) -> None:
+    """[lr_2proc]'s shards: phase 5's dense softmax and sparse sigmoid
+    samples cut LR2_SHARE / the rest (unequal: the rank with fewer windows
+    joins with fillers), FTRL's cut in halves (its host KV verbs need
+    equal streams)."""
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    split_lines(lr_dense_file(path("lr2_dense.data"), seed), LR2_SHARE,
+                path("lr2_dense"))
+    split_lines(write_lr_sparse(path("lr2_sparse.data"), lr_sparse_samples(
+        seed + 2, LR_SPARSE_IN, 1)), LR2_SHARE, path("lr2_sparse"))
+    split_lines(write_lr_sparse(path("lr2_ftrl.data"), lr_sparse_samples(
+        seed + 6, LR_FTRL_IN, 1)), 0.5, path("lr2_ftrl"))
+
+
+def lr2_configs(workdir: str, rank: int, platform: str) -> dict:
+    """[lr_2proc]'s runs on ``rank``'s shards: the dense softmax (in
+    float32, so the card-against-CPU check measures the collective path
+    rather than bf16 rounding) and the sparse sigmoid on the device plane,
+    FTRL (device_plane asked for: a multi-process world rides the
+    collective host KV verbs)."""
+    path = lambda kind: os.path.join(workdir,  # noqa: E731
+                                     f"lr2_{kind}_{rank}.data")
+    sparse_kw = dict(sparse=True, regular_type="L2", updater_type="sgd",
+                     sync_frequency=LR_SPARSE_SYNC)
+    return {
+        "lr2_dense": lr_config(path("dense"), LR_DENSE_IN, LR_DENSE_OUT,
+                               LR2_EPOCHS["lr2_dense"],
+                               objective_type="softmax", regular_type="L2",
+                               updater_type="sgd", learning_rate_coef=7e6,
+                               regular_coef=0.0007, sync_frequency=100,
+                               platform=platform),
+        "lr2_sparse": lr_config(path("sparse"), LR_SPARSE_IN, 1,
+                                LR2_EPOCHS["lr2_sparse"],
+                                objective_type="sigmoid", platform=platform,
+                                **sparse_kw),
+        "lr2_ftrl": lr_config(path("ftrl"), LR_FTRL_IN, 1,
+                              LR2_EPOCHS["lr2_ftrl"], objective_type="ftrl",
+                              alpha=2.0, beta=1.0, lambda1=0.01,
+                              lambda2=0.01, sync_frequency=LR_SPARSE_SYNC,
+                              platform=platform)}
+
+
+def collective_line(run: dict) -> str:
+    """A run's lockstep rounds: the application thread's
+    (multihost.STATS) and the engine's window exchanges, and their share
+    of the run's seconds."""
+    st, secs = run["collective"], run["train_s"]
+    coll = st["agree_s"] + st["write_s"]
+    return (f"the engine's window exchanges {run['engine_xw_s']:.4f} s; "
+            f"agreements {st['agree_n']} in {st['agree_s']:.4f} s, "
+            f"collective writes {st['write_n']}: device->host "
+            f"{st['d2h_s']:.4f} s, all-gathers {st['write_s']:.4f} s, host "
+            f"merge {st['merge_s']:.4f} s, apply {st['apply_s']:.4f} s; "
+            f"agreements + all-gathers {coll:.4f} s = {coll / secs:.3f} of "
+            f"{secs:.4f} s")
+
+
+def lr_2proc_rank(rank: int, port: int, seed: int, out: str,
+                  workdir: str) -> int:
+    """One rank of [lr_2proc]: each LR run on this rank's shard in the
+    two-rank world on ``cuda:0`` (the counts and the lockstep rounds'
+    seconds zeroed before each), then the same runs in a two-rank world on
+    the CPU (the plain versions): the final weights within rtol 1e-4,
+    atol 1e-5 of the card's."""
+    import hashlib
+
+    import torch
+
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    from multiverso_tpu_torch.parallel import multihost as mh
+    from multiverso_tpu_torch.zoo import Zoo
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2"]
+    res = {"rank": rank, "runs": {}}
+    weights = {}
+    mv.MV_Init(base)
+    eng = Zoo.Get().server_engine
+    for name, cfg in lr2_configs(workdir, rank, "cuda").items():
+        cr.reset_launches()
+        mh.reset_stats()
+        x0 = eng.xw_busy_s
+        r, weights[name] = lr_run(torch, cfg, dev)
+        torch.cuda.synchronize()
+        r.update(launches=dict(cr.LAUNCHES), collective=dict(mh.STATS),
+                 engine_xw_s=eng.xw_busy_s - x0,
+                 digest=hashlib.sha256(weights[name].tobytes()).hexdigest())
+        res["runs"][name] = r
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set on the 2-process LR path")
+    mv.MV_ShutDown(finalize_net=False)      # the process group stays up
+    mv.MV_Init(base + ["-mv_device=cpu"])
+    for name, cfg in lr2_configs(workdir, rank, "cpu").items():
+        _, W = lr_run(torch, cfg)
+        np.testing.assert_allclose(weights[name], W, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{name}: card vs CPU")
+        res["runs"][name]["cpu_max_abs_diff"] = float(
+            np.abs(weights[name] - W).max())
+    mv.MV_ShutDown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print(f"[lr_2proc rank {rank}] ok", flush=True)
+    return 0
+
+
+def lr_2proc_phase(seed: int, workdir: str) -> dict:
+    """[lr_2proc]: both ranks; the final weights bitwise equal across the
+    ranks, each run's loss bound (check_lr), and every rank launching
+    the row gather and the fused update on the sparse run. Returns the
+    ranks' results and the launches summed over ranks and runs."""
+    lr2_data(workdir, seed)
+    ranks = rank_children("lr", seed, workdir)
+    for name in ranks[0]["runs"]:
+        runs = [r["runs"][name] for r in ranks]
+        if runs[0]["digest"] != runs[1]["digest"]:
+            raise AssertionError(f"[lr_2proc] {name}: the ranks' final "
+                                 f"weights differ")
+        for r in runs:
+            check_lr(name.replace("lr2_", "lr_"), r)
+    for r in ranks:
+        for k in ("gather_rows", "update_rows"):
+            if r["runs"]["lr2_sparse"]["launches"][k] == 0:
+                raise AssertionError(f"[lr_2proc] rank {r['rank']} never "
+                                     f"launched {k}")
+    launches = {k: sum(run["launches"][k] for r in ranks
+                       for run in r["runs"].values())
+                for k in ("gather_rows", "scatter_set_rows", "update_rows")}
+    return {"ranks": ranks, "launches": launches}
+
+
+def write_topic_corpus(workdir: str) -> tuple:
+    """tests/test_wordembedding.py's topic corpus (300 sentences of 12
+    words, each sentence from one of 4 topics of 5 words), as
+    ``we_small_reference`` writes it, with a vocabulary file."""
+    rng = np.random.default_rng(0)
+    corpus = os.path.join(workdir, "topics.txt")
+    with open(corpus, "w") as f:
+        for _ in range(300):
+            topic = rng.integers(4)
+            f.write(" ".join(f"w{topic * 5 + rng.integers(5)}"
+                             for _ in range(12)) + "\n")
+    vocab = os.path.join(workdir, "topics_vocab.txt")
+    with open(vocab, "w") as f:
+        f.writelines(f"w{i} 100\n" for i in range(20))
+    return vocab, corpus
+
+
+def we2_data(workdir: str, seed: int) -> None:
+    """[we_2proc]'s shards (``we2_data_paths``): the word2vec-scale Zipf
+    corpus (phase 4's ``_big`` one) and the topic corpus, each cut
+    WE2_SHARE / the rest by sentences (unequal: the rank whose shard runs
+    out joins with empty blocks), and the WE corpus cut in halves (the
+    device plane needs equal block streams)."""
+    for (vocab, corpus), stem, share in (
+            (write_zipf_corpus(workdir, seed, WE_BIG_VOCAB, WE_BLOCKS,
+                               "_big")[:2], "we2_big", WE2_SHARE),
+            (write_topic_corpus(workdir), "we2_topics", WE2_SHARE),
+            (write_zipf_corpus(workdir, seed)[:2], "we2_small", 0.5)):
+        split_lines(corpus, share, os.path.join(workdir, stem))
+
+
+def we2_data_paths(workdir: str) -> dict:
+    """Run -> (vocabulary, the two ranks' corpora)."""
+    def shards(stem):
+        return [os.path.join(workdir, f"{stem}_{r}.txt") for r in range(2)]
+    return {"we2_topics": (os.path.join(workdir, "topics_vocab.txt"),
+                           shards("we2_topics")),
+            "we2_pairs": (os.path.join(workdir, "vocab_big.txt"),
+                          shards("we2_big")),
+            "we2_device": (os.path.join(workdir, "vocab.txt"),
+                           shards("we2_small"))}
+
+
+def we2_options(workdir: str, seed: int, rank: int, run: str,
+                platform: str = "cuda"):
+    """[we_2proc]'s runs: ``we2_topics`` (-device_pairs 1 -use_adagrad 1 on
+    the topic corpus at ``we_pairs_card_vs_cpu``'s options, blocks of 500
+    words a rank, the touched-rows step forced by the caller),
+    ``we2_pairs`` (-device_pairs 1 -use_adagrad 1 at 1,000,000 x 128, the
+    touched-rows step, blocks of WE2_BLOCK_BYTES a rank) and
+    ``we2_device`` (-device_plane 1 at 100,000 x 128)."""
+    vocab, corpora = we2_data_paths(workdir)[run]
+    extra = {"we2_topics": (
+                 "-device_pairs", "1", "-use_adagrad", "1", "-lr", "0.1",
+                 "-size", "16", "-window", "2", "-negative", "3",
+                 "-pair_batch", "256", "-data_block_size", "4000"),
+             "we2_pairs": (
+                 "-device_pairs", "1", "-use_adagrad", "1", "-lr",
+                 str(WE_ADAGRAD_LR), "-data_block_size",
+                 str(WE2_BLOCK_BYTES)),
+             "we2_device": ()}[run]
+    return we_options(workdir, seed, vocab, corpora[rank],
+                      extra=extra + ("-platform", platform))
+
+
+def we2_train(torch, opt) -> tuple:
+    """One WE run in the world up: prepare, a timed ``train()``; returns
+    (stats, the app). Every block's loss per pair finite and below the
+    untrained loss 0.69 * (1 + K)."""
+    from multiverso_tpu_torch.models.wordembedding.distributed import \
+        DistributedWordEmbedding
+    we = DistributedWordEmbedding(opt)
+    we.prepare()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = we.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    limit = 0.69 * (1 + opt.negative_num)
+    blocks = [{"words": w, "pairs": p, "loss_per_pair": lo / max(p, 1)}
+              for w, p, lo in we.block_log]
+    for b in blocks:
+        if not (math.isfinite(b["loss_per_pair"])
+                and b["loss_per_pair"] < limit):
+            raise AssertionError(f"block loss out of bounds (< {limit}): "
+                                 f"{b}")
+    words = sum(b["words"] for b in blocks)
+    return {"train_s": secs, "words": words, "words_per_s": words / secs,
+            "avg_loss_per_pair": loss, "blocks": blocks, "limit": limit,
+            "loader_wait_s": we.loader_wait_s}, we
+
+
+def we_tables(we) -> list:
+    c = we.comm
+    return [t for t in (c.input_table, c.output_table, c.ie_g2_table,
+                        c.eo_g2_table) if t is not None]
+
+
+class FirstGlobalBlock:
+    """While installed, the first ``-device_pairs`` block trains with numpy
+    draws made from ``seed`` (the same on every rank) instead of the
+    card's generator, and its global layout, draws and lr are kept; with
+    ``snapshot`` the tables' logical views after it are kept too."""
+
+    def __init__(self, dp, seed: int, snapshot: bool):
+        self.dp, self.seed, self.snapshot, self.rec = dp, seed, snapshot, {}
+
+    def __enter__(self):
+        self.orig = orig = self.dp.DevicePairsTrainer.train_block
+        rec, seed, snapshot = self.rec, self.seed, self.snapshot
+
+        def train_block(trainer, token_ids, token_sent, lr, b=None,
+                        draws=None, agreed=None):
+            if rec:
+                return orig(trainer, token_ids, token_sent, lr,
+                            agreed=agreed)
+            ids, sent = trainer.global_layout(agreed)
+            W, K = trainer.opt.window_size, trainer.opt.negative_num
+            rng = np.random.default_rng([seed, 91])
+            b = rng.integers(1, W + 1, len(ids))
+            draws = rng.integers(0, trainer.slots.shape[0],
+                                 (2 * W * len(ids), K))
+            rec.update(ids=ids, sent=sent, b=b, draws=draws, lr=lr)
+            out = orig(trainer, token_ids, token_sent, lr, b=b, draws=draws,
+                       agreed=agreed)
+            if snapshot:
+                rec["tables"] = [s.raw() for s in trainer._servers()]
+            return out
+
+        self.dp.DevicePairsTrainer.train_block = train_block
+        return self
+
+    def __exit__(self, *exc):
+        self.dp.DevicePairsTrainer.train_block = self.orig
+
+
+class ForcedSteps:
+    """While installed, every touched-rows step a block program takes on
+    the CPU is taken on the card too, with the same batch, three ways:
+    ``forced``, from the CPU's state before the step (after it, the
+    batch's touched rows and the trash row are reset to the CPU's), and
+    two free-running twins from the initial tables, with the sorted
+    segment sums (``free[True]``, the two-rank path) and with
+    ``index_add_``'s (``free[False]``, the one-process path). Keeps the
+    forced steps' largest difference from the CPU's and their elements
+    outside rtol 1e-3, atol 1e-4, and how many batches touched each
+    storage row of the input and output tables."""
+
+    def __init__(self, torch, dp, init: list, dev):
+        self.torch, self.dp, self.dev = torch, dp, dev
+        self.forced = [t.to(dev, copy=True) for t in init]
+        self.free = {det: [t.to(dev, copy=True) for t in init]
+                     for det in (True, False)}
+        self.touches = [torch.zeros(init[k].shape[0], dtype=torch.int32)
+                        for k in (0, 1)]
+        self.steps, self.outside, self.max_diff = 0, 0, 0.0
+        self.worst_steps = []
+
+    def __enter__(self):
+        self.orig = orig = self.dp.sparse_adagrad_step
+        torch, dev, TrainState = self.torch, self.dev, self.dp.TrainState
+
+        def step(state, inputs, imask, outputs, labels, omask, lr, **kw):
+            args = [a.to(dev) for a in (inputs, imask, outputs, labels,
+                                        omask)]
+            for det, tabs in self.free.items():
+                orig(TrainState(*tabs), *args, lr, deterministic=det)
+            orig(TrainState(*self.forced), *args, lr, deterministic=True)
+            state, loss = orig(state, inputs, imask, outputs, labels, omask,
+                               lr, **kw)
+            touched = [torch.unique(a.reshape(-1).long()) for a in (inputs,
+                                                                  outputs)]
+            for k in (0, 1):
+                self.touches[k][touched[k]] += 1
+            outside, diff = 0, 0.0
+            for k, (tab, card) in enumerate(zip(state, self.forced)):
+                rows = touched[k % 2]
+                rows = rows[(rows >= 0) & (rows < tab.shape[0] - 1)]
+                got = card[rows.to(dev)].cpu()
+                want = tab[rows]
+                outside += int((~torch.isclose(got, want, rtol=1e-3,
+                                               atol=1e-4)).sum())
+                if rows.numel():
+                    diff = max(diff, float((got - want).abs().max()))
+                card[rows.to(dev)] = want.to(dev)
+                card[-1] = tab[-1].to(dev)
+            self.steps += 1
+            self.outside += outside
+            self.max_diff = max(self.max_diff, diff)
+            if outside:
+                self.worst_steps.append((self.steps, outside, diff))
+            return state, loss
+
+        self.dp.sparse_adagrad_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.dp.sparse_adagrad_step = self.orig
+
+
+def outside_share(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(elements of ``a`` outside rtol 1e-3, atol 1e-4 of ``b``, the
+    largest difference), ``b`` the reference."""
+    return (int((~np.isclose(a, b, rtol=1e-3, atol=1e-4)).sum()),
+            float(np.abs(a - b).max()))
+
+
+def we2_block_on_cpu(torch, workdir: str, seed: int, run: str,
+                     rec: dict, witness: bool = False, card=None) -> dict:
+    """A recorded first global block of ``run`` in a one-process world on
+    the CPU: the block program on the same global layout, draws and lr,
+    from the same initial tables (the plain versions); -> the largest
+    difference from the card's two-rank tables, the share of elements
+    outside rtol 1e-3, atol 1e-4, and the seconds.
+
+    ``witness`` (the 1,000,000 x 128 run, where the two differ by more;
+    on ``card``, ``cuda:0`` by default) adds what tells rounding from a
+    fault (``ForcedSteps``): every batch
+    step retaken on the card from the CPU's state (``forced_*``: each
+    step alone against the CPU's; ``forced_equal``: after the last step
+    the card's tables are the CPU's bit for bit, so no other row was
+    written), the block in one process on the card with the sorted sums
+    (``sorted_equal``: bitwise the two-rank tables) and with
+    ``index_add_``'s (``atomic_*``), the CPU's own block from the input
+    table nudged one ulp (``nudge_*``), and where the two-rank tables'
+    outside elements lie: the median number of batches that touched
+    their rows against that of every touched row, and the share of them
+    whose CPU AdaGrad sum is under 100 x eps (1e-8)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.wordembedding import device_pairs as dp
+    from multiverso_tpu_torch.models.wordembedding.communicator import \
+        Communicator
+    from multiverso_tpu_torch.models.wordembedding.dictionary import \
+        Dictionary
+    opt = we2_options(workdir, seed, 0, run, "cpu")
+    d = Dictionary.load_vocab(opt.read_vocab_file)
+    d.RemoveWordsLessThan(1)
+    t0 = time.perf_counter()
+    args = [torch.from_numpy(np.asarray(rec[k]))
+            for k in ("ids", "sent", "b", "draws")]
+    out = {}
+    mv.MV_Init(["-mv_device=cpu"])
+    try:
+        comm = Communicator(opt, d.Size())
+        trainer = dp.DevicePairsTrainer(opt, comm, d.counts())
+        servers = trainer._servers()
+        init = [s.state["data"].clone() for s in servers] if witness \
+            else None
+        with (ForcedSteps(torch, dp, init, card or torch.device("cuda", 0))
+              if witness else contextlib.nullcontext()) as forced:
+            loss, pairs = trainer.program(*args, rec["lr"])
+        if not (math.isfinite(float(loss)) and int(pairs) > 0):
+            raise AssertionError("the CPU block trained nothing")
+        got = [s.raw() for s in servers]
+        if witness:
+            V, D = got[0].shape
+            out.update(forced_steps=forced.steps,
+                       forced_outside=forced.outside,
+                       forced_max_abs_diff=forced.max_diff,
+                       forced_worst_steps=forced.worst_steps[:10],
+                       forced_equal=all(
+                           torch.equal(c.cpu(), s.state["data"])
+                           for c, s in zip(forced.forced, servers)))
+            touches = [t[:V].numpy() for t in forced.touches]
+            free = {det: [t[:V, :D].cpu().numpy() for t in tabs]
+                    for det, tabs in forced.free.items()}
+            del forced
+            out["sorted_equal"] = all(np.array_equal(a, b) for a, b in
+                                      zip(free[True], rec["tables"]))
+            n, m = zip(*(outside_share(a, b)
+                         for a, b in zip(free[False], got)))
+            out.update(atomic_outside=sum(n), atomic_max_abs_diff=max(m))
+            del free
+            for s, t in zip(servers, init):
+                s.state["data"] = t
+            ie = servers[0].state["data"]
+            ie.copy_(torch.nextafter(ie, torch.full_like(ie, math.inf)))
+            trainer.program(*args, rec["lr"])
+            n, m = zip(*(outside_share(s.raw(), b)
+                         for s, b in zip(servers, got)))
+            out.update(nudge_outside=sum(n), nudge_max_abs_diff=max(m))
+            rows, small = [], 0
+            for k, (a, b) in enumerate(zip(rec["tables"], got)):
+                r, c = np.nonzero(~np.isclose(a, b, rtol=1e-3, atol=1e-4))
+                rows.append(touches[k % 2][r])
+                small += int((got[2 + k % 2][r, c] < 1e-8).sum())
+            rows = np.concatenate(rows)
+            out.update(
+                outside_row_touches_median=float(np.median(rows))
+                if rows.size else None,
+                touched_row_touches_median=float(np.median(np.concatenate(
+                    [t[t > 0] for t in touches]))),
+                outside_g2_small_share=small / max(rows.size, 1))
+    finally:
+        mv.MV_ShutDown()
+    n, m = zip(*(outside_share(a, b) for a, b in zip(rec["tables"], got)))
+    out.update(max_abs_diff=max(m), outside=sum(n),
+               outside_share=sum(n) / sum(a.size for a in got),
+               elements=sum(a.size for a in got),
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def check_we2_witness(w: dict) -> None:
+    """The 1,000,000 x 128 block's gates (``we2_block_on_cpu``): each
+    batch step on the card within rtol 1e-3, atol 1e-4 of the CPU's step
+    from the same state, and no other row written; the two-rank tables
+    bitwise the one-process sorted-sums block on the card; the two-rank
+    tables' elements outside rtol 1e-3, atol 1e-4 of the CPU's block at
+    most 3x those a one-ulp nudge of the input table moves there on the
+    CPU alone (the block amplifies rounding; the steps do not)."""
+    if w["forced_outside"] or not w["forced_equal"]:
+        raise AssertionError(f"we2_pairs: a batch step on the card differs "
+                             f"from the CPU's step from the same state: "
+                             f"{w}")
+    if not w["sorted_equal"]:
+        raise AssertionError(f"we2_pairs: the two-rank tables differ from "
+                             f"the same block in one process on the card: "
+                             f"{w}")
+    if w["outside"] > 3 * w["nudge_outside"]:
+        raise AssertionError(f"we2_pairs: the block on the card is further "
+                             f"from the CPU's than rounding explains: {w}")
+
+
+def we_2proc_rank(rank: int, port: int, seed: int, out: str,
+                  workdir: str) -> int:
+    """One rank of [we_2proc] on ``cuda:0``, a world a run:
+    ``we2_topics`` (the touched-rows step forced) and ``we2_pairs``, the
+    first global block of each trained with numpy draws (the same on both
+    ranks: ``FirstGlobalBlock``) and, on rank 0, the tables kept after it
+    and, on ``we2_pairs``, its first batches' output lanes; then
+    ``we2_device``. Each run's tables digested (logical views: the trash
+    rows are free). After the world is down, rank 0 trains each recorded
+    block in a one-process world on the CPU (``we2_block_on_cpu``):
+    ``we2_topics``' tables must agree within ``we_pairs_card_vs_cpu``'s
+    rtol 1e-3, atol 1e-4; ``we2_pairs``' difference is measured."""
+    import hashlib
+
+    import torch
+
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.wordembedding import device_pairs as dp
+    from multiverso_tpu_torch.ops import cuda_rows as cr
+    from multiverso_tpu_torch.parallel import multihost as mh
+    from multiverso_tpu_torch.zoo import Zoo
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2"]
+    res = {"rank": rank, "runs": {}}
+    recs = {}
+    sparse_bytes = dp._SPARSE_BYTES
+    for run in WE2_RUNS:
+        mv.MV_Init(base)
+        eng = Zoo.Get().server_engine
+        cr.reset_launches()
+        mh.reset_stats()
+        dp._SPARSE_BYTES = 0 if run == "we2_topics" else sparse_bytes
+        batches = FirstBatches(dp, ID_SETS) if (
+            rank == 0 and run == "we2_pairs") else contextlib.nullcontext()
+        block = (FirstGlobalBlock(dp, seed, rank == 0)
+                 if run != "we2_device" else contextlib.nullcontext())
+        with batches as first, block as rec:
+            r, we = we2_train(torch, we2_options(workdir, seed, rank, run))
+        dp._SPARSE_BYTES = sparse_bytes
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError(f"error word set on {run}")
+        r.update(launches=dict(cr.LAUNCHES), collective=dict(mh.STATS),
+                 engine_xw_s=eng.xw_busy_s,
+                 digests=[hashlib.sha256(t.server().raw().tobytes())
+                          .hexdigest() for t in we_tables(we)])
+        if we.dp_trainer is not None:
+            r.update(batches=we.dp_trainer.batches,
+                     sparse_batches=we.dp_trainer.sparse_batches)
+        if first is not None:
+            np.savez(os.path.join(workdir, "we2_first_batches.npz"),
+                     *[o.cpu().numpy() for o in first.outputs])
+        if rec is not None and rank == 0:
+            recs[run] = rec.rec
+        res["runs"][run] = r
+        del we
+        mv.MV_ShutDown(finalize_net=run == WE2_RUNS[-1])
+    for run, rec in recs.items():
+        dp._SPARSE_BYTES = 0 if run == "we2_topics" else sparse_bytes
+        cpu = we2_block_on_cpu(torch, workdir, seed, run, rec,
+                               witness=run == "we2_pairs")
+        dp._SPARSE_BYTES = sparse_bytes
+        res["runs"][run]["block1_vs_cpu"] = cpu
+        if run == "we2_topics" and cpu["outside"] > 0:
+            raise AssertionError(f"we2_topics: the first global block on "
+                                 f"the card differs from the CPU's beyond "
+                                 f"rtol 1e-3, atol 1e-4: {cpu}")
+        if run == "we2_pairs":
+            check_we2_witness(cpu)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print(f"[we_2proc rank {rank}] ok", flush=True)
+    return 0
+
+
+def we_2proc_phase(seed: int, workdir: str) -> dict:
+    """[we_2proc]: both ranks; every table bitwise equal across the ranks
+    (digests of the logical tables), the runs' launches (the pairs runs:
+    row gather and scatter-set; the device plane: row gather and fused
+    update, on every rank)."""
+    we2_data(workdir, seed)
+    ranks = rank_children("we", seed, workdir)
+    needs = {"we2_topics": ("gather_rows", "scatter_set_rows"),
+             "we2_pairs": ("gather_rows", "scatter_set_rows"),
+             "we2_device": ("gather_rows", "update_rows")}
+    for name, ks in needs.items():
+        if ranks[0]["runs"][name]["digests"] != \
+                ranks[1]["runs"][name]["digests"]:
+            raise AssertionError(f"[we_2proc] {name}: the ranks' tables "
+                                 f"differ")
+        for r in ranks:
+            for k in ks:
+                if r["runs"][name]["launches"][k] == 0:
+                    raise AssertionError(f"[we_2proc] {name}: rank "
+                                         f"{r['rank']} never launched {k}")
+    launches = {k: sum(run["launches"][k] for r in ranks
+                       for run in r["runs"].values())
+                for k in ("gather_rows", "scatter_set_rows", "update_rows")}
+    first = np.load(os.path.join(workdir, "we2_first_batches.npz"))
+    outputs = [first[k] for k in first.files]
+    return {"ranks": ranks, "launches": launches, "first_outputs": outputs}
+
+
+def repeatable_sums(torch, dev, seed: int) -> dict:
+    """The scatter-adds the replicas rely on, run five times on the same
+    inputs on the card (200,000 lanes onto 50 rows of 128: many
+    duplicates a row): the deterministic segment sums of ``ops.rows``
+    must give the same bits every time (and the CPU's ``index_add_``
+    bits); ``index_add_``'s repeatability on the card is reported."""
+    from multiverso_tpu_torch.ops.rows import dedup_rows, scatter_add_rows
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, 50, (200_000,), generator=g)
+    rows = torch.randn(200_000, 128, generator=g)
+    ids_d, rows_d = ids.to(dev), rows.to(dev)
+    runs = {
+        "dedup_rows": [dedup_rows(ids_d.int(), rows_d, True)[1]
+                       for _ in range(5)],
+        "scatter_add_rows": [scatter_add_rows(
+            torch.ones(51, 128, device=dev), ids_d, rows_d, True)
+            for _ in range(5)],
+        "index_add_": [torch.ones(51, 128, device=dev).index_add_(
+            0, ids_d, rows_d) for _ in range(5)]}
+    out = {k: all(torch.equal(v[0], x) for x in v[1:])
+           for k, v in runs.items()}
+    cpu = torch.ones(51, 128).index_add_(0, ids, rows)
+    out["scatter_add_rows_equals_cpu"] = torch.equal(
+        runs["scatter_add_rows"][0][:50].cpu(), cpu[:50])
+    if not (out["dedup_rows"] and out["scatter_add_rows"]
+            and out["scatter_add_rows_equals_cpu"]):
+        raise AssertionError(f"the deterministic segment sums are not "
+                             f"repeatable on the card: {out}")
+    return out
+
+
+def apps_2proc(torch, cr, dev, seed: int, workdir: str, lr_data: dict,
+               paths: dict, results: dict) -> dict:
+    """[lr_2proc] and [we_2proc], each a main path of its own (the ranks
+    count their launches from zero), then the row kernels at the shapes
+    they give them first: the sparse LR run's merged window (both ranks'
+    first windows' rows) and [we_2proc]'s global touched-rows batches.
+    Returns those timings by path."""
+    lr2 = lr_2proc_phase(seed, workdir)
+    paths["lr_2proc"] = lr2["launches"]
+    results["lr_2proc"] = lr2
+    log(f"[main path] lr_2proc: launches {lr2['launches']} (both ranks; "
+        f"each rank's sparse run must launch gather_rows, update_rows)")
+    for r in lr2["ranks"]:
+        for name, run in r["runs"].items():
+            log(f"[lr_2proc] rank {r['rank']} {name}: {run['samples']} "
+                f"samples ({'global' if 'ftrl' not in name else 'own'}) in "
+                f"{run['train_s']:.3f} s = {run['samples_per_s']:.0f} "
+                f"samples/s; loss per epoch "
+                f"{[round(x, 5) for x in run['epoch_loss']]}; "
+                f"{collective_line(run)}; "
+                f"launches {run['launches']}; card vs CPU world weights max "
+                f"abs diff {run['cpu_max_abs_diff']:.3g}")
+    log("[lr_2proc] final weights bitwise equal across the ranks in every "
+        "run; within rtol 1e-4, atol 1e-5 of the two-rank CPU world's")
+    we2 = we_2proc_phase(seed, workdir)
+    paths["we_2proc"] = we2["launches"]
+    results["we_2proc"] = {k: v for k, v in we2.items()
+                           if k != "first_outputs"}
+    log(f"[main path] we_2proc: launches {we2['launches']} (both ranks; "
+        f"the pairs run must launch gather_rows, scatter_set_rows, the "
+        f"device plane gather_rows, update_rows, on each rank)")
+    for name in WE2_RUNS:
+        runs = [r["runs"][name] for r in we2["ranks"]]
+        all_words = sum(run["words"] for run in runs)
+        for r, run in zip(we2["ranks"], runs):
+            log(f"[we_2proc] rank {r['rank']} {name}: its {run['words']} "
+                f"words in {run['train_s']:.3f} s = "
+                f"{run['words_per_s']:.0f} words/s (both ranks' "
+                f"{all_words} words: {all_words / run['train_s']:.0f} "
+                f"words/s); loss per pair by block "
+                f"{[round(b['loss_per_pair'], 4) for b in run['blocks']]} "
+                f"(bound {run['limit']:.4f}); {collective_line(run)}; "
+                f"launches {run['launches']}"
+                + (f"; {run['batches']} batch steps, "
+                   f"{run['sparse_batches']} on the touched-rows step"
+                   if "batches" in run else ""))
+        cpu = runs[0].get("block1_vs_cpu")
+        if cpu:
+            log(f"[we_2proc] {name}: its first global block on the card "
+                f"(rank 0) against the same block on the CPU (plain "
+                f"versions, same draws, {cpu['seconds']:.1f} s): max abs "
+                f"diff {cpu['max_abs_diff']:.3g}, elements outside rtol "
+                f"1e-3, atol 1e-4: {cpu['outside']} of {cpu['elements']}"
+                + (" (must be 0)" if name == "we2_topics" else
+                   " (at most 3x the nudge's, below)"))
+        if cpu and "forced_steps" in cpu:
+            log(f"[we_2proc] {name} witness: {cpu['forced_steps']} batch "
+                f"steps each retaken on the card from the CPU's state: "
+                f"{cpu['forced_outside']} elements outside rtol 1e-3, atol "
+                f"1e-4 (must be 0), max abs diff "
+                f"{cpu['forced_max_abs_diff']:.3g}, tables then equal to "
+                f"the CPU's bitwise {cpu['forced_equal']}; one process on "
+                f"the card, sorted sums: bitwise the two-rank tables "
+                f"{cpu['sorted_equal']}; index_add_ sums: "
+                f"{cpu['atomic_outside']} outside, max abs diff "
+                f"{cpu['atomic_max_abs_diff']:.3g}; the CPU's block from "
+                f"the input table nudged one ulp: {cpu['nudge_outside']} "
+                f"outside, max abs diff {cpu['nudge_max_abs_diff']:.3g}; "
+                f"the outside elements' rows touched by a median "
+                f"{cpu['outside_row_touches_median']} batches (every "
+                f"touched row: {cpu['touched_row_touches_median']}), "
+                f"{cpu['outside_g2_small_share']:.3g} of them with an "
+                f"AdaGrad sum under 1e-8")
+    log("[we_2proc] every table bitwise equal across the ranks on every "
+        "run")
+    rep = repeatable_sums(torch, dev, seed + 13)
+    results["repeatable_sums"] = rep
+    log(f"[we_2proc] five runs of the same scatter-add on the card (200,000 "
+        f"lanes onto 50 rows): the deterministic segment sums repeat "
+        f"bitwise (dedup_rows {rep['dedup_rows']}, scatter_add_rows "
+        f"{rep['scatter_add_rows']}, equal to the CPU's index_add_ "
+        f"{rep['scatter_add_rows_equals_cpu']}); index_add_ repeats: "
+        f"{rep['index_add_']}")
+    samples = lr_data["lr_sparse"]
+    cut = int(round(LR_SAMPLES * LR2_SHARE))
+    window = LR_SPARSE_SYNC * LR_MINIBATCH
+    merged = np.union1d(samples[0][:window], samples[0][cut: cut + window])
+    lr2_k = time_kernels(torch, cr, dev, LR_SPARSE_IN, 4, len(merged),
+                         seed + 11)
+    touched = time_touched_rows(
+        torch, cr, dev, WE_BIG_VOCAB + 1, WE_DIM,
+        [torch.from_numpy(o) for o in we2["first_outputs"]], seed + 12)
+    for label, res in ((f"lr_2proc merged window {LR_SPARSE_IN + 1}x4, "
+                        f"{len(merged)} ids", lr2_k),
+                       (f"we_2proc global touched-rows batch "
+                        f"{WE_BIG_VOCAB + 1}x{WE_DIM}", touched)):
+        for k in ("gather_rows", "scatter_set_rows", "update_rows"):
+            if k in res:
+                r = res[k]
+                log(f"[kernels] {label} {k}: per-pair {r['ms']:.7f} ms, "
+                    f"stream {r['stream_ms']:.7f} ms (bound "
+                    f"{r['bound_ms']:.7f}, plain {r['plain_ms']:.7f}, "
+                    f"library {r['library_ms']:.7f}, all per-pair), "
+                    f"max_abs_err {r['max_abs_err']}"
+                    + (f", {r['distinct_rows']:.1f} distinct rows of "
+                       f"{r['shape'][2]} lanes" if "distinct_rows" in r
+                       else ""))
+    if "update_rows_sgd_ms" in lr2_k:
+        # the LR write is the sgd sign
+        lr2_k["update_rows"] = dict(
+            lr2_k["update_rows"], ms=lr2_k["update_rows_sgd_ms"],
+            stream_ms=lr2_k["update_rows_sgd_stream_ms"],
+            plain_ms=lr2_k["update_rows_sgd_plain_ms"],
+            library_ms=lr2_k["update_rows_sgd_library_ms"],
+            max_abs_err=lr2_k["update_rows_sgd_max_abs_err"])
+        log(f"[kernels] lr_2proc merged window update (sgd sign): per-pair "
+            f"{lr2_k['update_rows']['ms']:.7f} ms, stream "
+            f"{lr2_k['update_rows']['stream_ms']:.7f} ms")
+    results["kernels_lr_2proc_shape"] = lr2_k
+    results["kernels_we_2proc_touched_rows"] = touched
+    return {"lr_2proc": lr2_k, "we_2proc": touched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1907,10 +2683,15 @@ def main() -> int:
                          "scatter-set and update to check against this "
                          "one's and time in turns with them")
     ap.add_argument("--rank-child", type=int, default=-1,
-                    help="run one rank of [ps_2proc] (the script starts "
-                         "both itself)")
+                    help="run one rank of a two-process phase (the script "
+                         "starts both itself)")
+    ap.add_argument("--child-phase", default="ps", choices=("ps", "lr", "we"),
+                    help="the two-process phase of --rank-child: "
+                         "[ps_2proc], [lr_2proc] or [we_2proc]")
     ap.add_argument("--port", type=int, default=0,
-                    help="[ps_2proc] rank 0's rendezvous port")
+                    help="a two-process phase's rank 0 rendezvous port")
+    ap.add_argument("--workdir", default="",
+                    help="a two-process phase's data directory")
     args = ap.parse_args()
 
     import torch
@@ -1919,8 +2700,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.rank_child >= 0:
-        return ps_2proc_rank(args.rank_child, args.port, args.seed,
-                             args.json_out)
+        if args.child_phase == "ps":
+            return ps_2proc_rank(args.rank_child, args.port, args.seed,
+                                 args.json_out)
+        return {"lr": lr_2proc_rank, "we": we_2proc_rank}[args.child_phase](
+            args.rank_child, args.port, args.seed, args.json_out,
+            args.workdir)
     try:
         import multiverso_tpu_torch as mv
         from multiverso_tpu_torch import native
@@ -2235,6 +3020,8 @@ def main() -> int:
             f"diff {results['we_pairs_max_abs_diff']:.3g} (rtol 1e-3, atol "
             f"1e-4)")
         lr_phase(torch, dev, args.seed, workdir, lr_data, drive, results)
+        two_k = apps_2proc(torch, cr, dev, args.seed, workdir, lr_data,
+                           paths, results)
     launches = {k: sum(p[k] for p in paths.values()) for k in cr.LAUNCHES}
     results["main_path_launches"] = {"paths": paths, "total": launches,
                                      "native_calls": native_uses}
@@ -2260,7 +3047,8 @@ def main() -> int:
                  for err in (s[k]["max_abs_err"],
                              s["update_rows_sgd_max_abs_err"]
                              if k == "update_rows" else 0.0)]
-                + ([touched[k]["max_abs_err"]] if k in touched else [])),
+                + ([touched[k]["max_abs_err"]] if k in touched else [])
+                + [s[k]["max_abs_err"] for s in two_k.values() if k in s]),
             "ms": r["ms"], "stream_ms": r["stream_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -2285,6 +3073,11 @@ def main() -> int:
         entry["ps_2proc"] = {key: ps2_k[k][key] for key in (
             "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
             "bound_ms", "shape")}
+        for name, shapes in two_k.items():
+            if k in shapes:
+                entry[name] = {key: shapes[k][key] for key in (
+                    "ms", "stream_ms", "plain_ms", "library_ms",
+                    "max_abs_err", "bound_ms", "shape")}
         if k in touched:
             # the touched-rows AdaGrad step of [we_pairs_adagrad]
             entry["we_pairs_adagrad"] = {

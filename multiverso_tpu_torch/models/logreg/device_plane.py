@@ -1,12 +1,11 @@
 """On-device window training for the LogisticRegression app
 (``device_plane=true``).
 
-Counterpart of ``multiverso_tpu/models/logreg/device_plane.py``,
-single-process. The host plane (model.py) moves the MODEL across the host
-boundary every window: the flat weight vector per sync (dense), the
-window's row block both ways (sparse). The device plane trains a whole
-window against the PS tables' device storage and uploads only the
-window's samples:
+Counterpart of ``multiverso_tpu/models/logreg/device_plane.py``. The host
+plane (model.py) moves the MODEL across the host boundary every window:
+the flat weight vector per sync (dense), the window's row block both ways
+(sparse). The device plane trains a whole window against the PS tables'
+device storage and uploads only the window's samples:
 
 * dense — the ArrayTable's flat output-major vector viewed as W (in, out);
   every batch's gradient at the window-start W in one batched product; the
@@ -36,8 +35,21 @@ Loss scalars stay on the device: ``train_window`` returns a 0-d tensor and
 ``LogReg`` fetches once per epoch. Staged window tensors are cached on the
 Window objects the epoch cache keeps alive, up to a quarter of the card's
 memory (``torch.cuda.mem_get_info``). The caller owns the tables while
-training (the device-plane single-writer contract). Multi-process windows
-are not ported yet.
+training (the device-plane single-writer contract).
+
+Multi-process worlds: windows are COLLECTIVE and lockstep (``LogReg``'s
+``pop_window`` agrees before each one and feeds a finished rank empty
+filler windows). Each rank computes its own window's summed lr-scaled
+delta on its replica, and the write is the tables' collective device
+verb: every rank's delta and window loss meet in one all-gather, summed
+in rank order (dense: ``device_update``) or merged by row id in rank
+order (sparse: ``device_apply_rows``), and the same update applies on
+every replica. The server rule is linear, so this is the JAX package's
+global scan over every rank's batches up to rounding. The window loss
+rides in the write's payload, so it comes back global as a host float.
+A sparse window uses the agreed K (the JAX package's shared lane count)
+and, when it has no keys (a filler), key 0 with zero deltas. FTRL's
+device plane stays single-process (``model.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +60,9 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.models.logreg import objective as obj
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.updaters.base import AddOption
+from multiverso_tpu_torch.utils.log import CHECK
 
 
 class DeviceWindowTrainer:
@@ -113,10 +127,17 @@ class DeviceWindowTrainer:
 
     def train_window(self, window, agreed=None) -> torch.Tensor:
         """One Window on the device; returns the summed window loss as a
-        DEVICE scalar."""
-        if agreed is not None:
-            raise NotImplementedError("multi-process device-plane windows "
-                                      "are not ported yet (ROADMAP.md §1)")
+        DEVICE scalar, or, for a collective window (several processes),
+        the global loss as a host float. ``agreed`` is ``pop_window``'s
+        (shared K, key count)."""
+        if multihost.process_count() > 1:
+            CHECK(agreed is not None,
+                  "multi-process device_plane windows must come through "
+                  "LogReg's collective pop protocol (a direct call would "
+                  "stop pairing the ranks' writes on ragged shards)")
+            CHECK(not self.model.ftrl,
+                  "ftrl device_plane is single-process: a multi-process "
+                  "world rides the collective host KV verbs")
         nb = max(1, self.config.sync_frequency)
         batches = window.batches
         # per-batch decayed lr, ticking ONLY real batches (pad batches get
@@ -130,7 +151,7 @@ class DeviceWindowTrainer:
         if self.model.ftrl:
             return self._train_ftrl(window, nb)
         if self.config.sparse:
-            return self._train_sparse(window, nb, lrs)
+            return self._train_sparse(window, nb, lrs, agreed)
         return self._train_dense(window, nb, lrs)
 
     def _stage_sparse(self, window, nb: int, K: int, keys: np.ndarray):
@@ -182,15 +203,24 @@ class DeviceWindowTrainer:
         delta = torch.sum(self._t(lrs)[:, None, None] * grads, dim=0)
         padded = torch.zeros_like(state["data"])
         padded[: n_in * n_out] = delta.t().reshape(-1)
-        srv.device_set_state(srv.device_update(state, padded, self._opt))
+        # the loss rides the write (summed over the ranks when collective)
+        new, loss = srv.device_update(state, padded, self._opt, ride=loss)
+        srv.device_set_state(new)
         return loss
 
-    def _train_sparse(self, window, nb: int, lrs: np.ndarray):
+    def _train_sparse(self, window, nb: int, lrs: np.ndarray, agreed=None):
         srv = self.table.server()
         keys = window.keys                       # unique, sorted (np.unique)
-        if keys.size == 0:
+        if agreed is not None:
+            # a collective window: the agreed K, and a filler (or keyless)
+            # window still joins the write with key 0 and zero deltas
+            K = agreed[0]
+            if keys.size == 0:
+                keys = np.zeros(1, np.int64)
+        elif keys.size == 0:
             return self._zero_loss()
-        K = max(b.keys.shape[1] for b in window.batches)
+        else:
+            K = max(b.keys.shape[1] for b in window.batches)
         staged = getattr(window, "_staged_sparse", None)
         if staged is None or staged[0] != (nb, K):
             staged = ((nb, K), keys.astype(np.int32)) + self._stage_sparse(
@@ -199,8 +229,7 @@ class DeviceWindowTrainer:
         ids = staged[1]
         W_rows = srv.device_fetch_rows(ids)                   # (R, out)
         delta, loss = self._sparse_delta(W_rows, *staged[2:], self._t(lrs))
-        srv.device_apply_rows(ids, delta)
-        return loss
+        return srv.device_apply_rows(ids, delta, ride=loss)
 
     def _train_ftrl(self, window, nb: int):
         """Gather the window keys' (z, n) from both KVTables, take every

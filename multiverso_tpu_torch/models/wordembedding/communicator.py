@@ -14,8 +14,12 @@ Two planes:
   ``MV_MultiGetAsync`` per block, fire-and-forget delta pushes);
 * device plane — rows are gathered by the gather kernel straight out of
   the tables, trained, and the deltas applied by the fused update kernel,
-  never leaving the device. The caller owns the tables while training
-  (the block loop is sequential).
+  never leaving the device in one process. The caller owns the tables
+  while training (the block loop is sequential). In a multi-process world
+  the fetch reads this rank's replica and the block's deltas of all four
+  tables go out as ONE collective write (``device_apply_rows_many``): one
+  device->host copy, one all-gather, every rank's rows merged in rank
+  order on every replica.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from multiverso_tpu_torch import api as mv
 from multiverso_tpu_torch.models.wordembedding.model import (TrainState,
                                                              init_embedding)
 from multiverso_tpu_torch.tables import KVTableOption, MatrixTableOption
+from multiverso_tpu_torch.tables.matrix_table import device_apply_rows_many
 from multiverso_tpu_torch.zoo import Zoo
 
 WORD_COUNT_KEY = 0
@@ -121,11 +126,13 @@ class Communicator:
     def add_delta_parameter_device(self, state: TrainState, fetched: dict,
                                    input_rows: np.ndarray,
                                    output_rows: np.ndarray) -> None:
-        """Push trained - fetched without leaving the device: the delta is
-        computed on the card and applied by the fused update kernel."""
-        for name, table, ids in self._row_specs(input_rows, output_rows):
-            delta = getattr(state, name) - fetched[name]
-            table.server().device_apply_rows(ids, delta)
+        """Push trained - fetched: the deltas are computed on the card and
+        applied by the fused update kernel, all four tables as one write
+        (collective in a multi-process world)."""
+        device_apply_rows_many([
+            (table.server(), ids, getattr(state, name) - fetched[name])
+            for name, table, ids in self._row_specs(input_rows,
+                                                    output_rows)])
 
     # -- word count (lr decay coordination) -----------------------------------
 

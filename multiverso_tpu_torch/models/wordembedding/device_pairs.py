@@ -33,11 +33,27 @@ which torch cannot reproduce, so the parity tests give both packages the
 same draws.
 
 Subsampling stays on the host (``data.PairGenerator.make_token_block``).
-One process only: the JAX package's multi-process branch is later work.
+
+Multi-process worlds: the JAX program is ONE sequential program over a
+GLOBAL token vector (every rank's padded shard in rank order, sentence ids
+offset by ``rank * sent_span`` so no sentence crosses a rank boundary, one
+key for the whole vector, the lane batches taken in that order, each step
+seeing the state the previous batch left). Splitting it into per-rank
+programs and an exchange of deltas would batch the lanes differently and
+hand AdaGrad a sum of squares where it needs the square of a sum. So every
+rank gathers every rank's token and sentence vectors (a few KB each, in
+the app's ``"we_pop"`` round, or here in ``"we_dp_agreed"``), lays out
+the same global vector (``t_pad = next_bucket(max(1024, T_max))`` a
+rank), draws from the same seeded generator and runs the whole global
+program on its own replica: each rank does the whole global block's work.
+The scatter-adds then take their deterministic path
+(``ops.rows.scatter_add_rows``, ``dedup_rows(deterministic=True)``), so
+the replicas stay bitwise equal on the card. Stats are global.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -47,6 +63,7 @@ from multiverso_tpu_torch import ops
 from multiverso_tpu_torch.models.wordembedding.huffman import HuffmanEncoder
 from multiverso_tpu_torch.models.wordembedding.model import (TrainState,
                                                              make_train_step)
+from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 
 #: above this many bytes of input-table storage, ``-use_adagrad`` trains
@@ -125,7 +142,8 @@ def make_lanes(ids: torch.Tensor, sent: torch.Tensor, b: torch.Tensor,
 
 
 def sparse_adagrad_step(state: TrainState, inputs, imask, outputs, labels,
-                        omask, lr, eps: float = 1e-10):
+                        omask, lr, eps: float = 1e-10,
+                        deterministic: bool = False):
     """The touched-rows AdaGrad batch step over FULL storage tables: the
     math of ``model.make_train_step``'s AdaGrad branch (a row's summed
     batch gradient feeds its g2 before the update), but only the rows the
@@ -133,7 +151,8 @@ def sparse_adagrad_step(state: TrainState, inputs, imask, outputs, labels,
     are int32 storage ids; ``ops.dedup_rows`` sums duplicate ids into one
     lane and turns the others into pad lanes (-1), which go to the trash
     row (the last storage row) so the scatter-set's duplicates lie only
-    there. Updates the tables in place."""
+    there. ``deterministic``: the dedup's segment sum in sorted order
+    (``dedup_rows(deterministic=True)``). Updates the tables in place."""
     ie, eo = state.ie, state.eo
     D = ie.shape[1]
     in_rows = ops.gather_rows(ie, inputs.reshape(-1)).reshape(
@@ -153,7 +172,8 @@ def sparse_adagrad_step(state: TrainState, inputs, imask, outputs, labels,
     zero = torch.zeros((), dtype=ie.dtype, device=ie.device)
 
     def row_update(tab, g2tab, ids, contrib):
-        uids, grads = ops.dedup_rows(ids.reshape(-1), contrib.reshape(-1, D))
+        uids, grads = ops.dedup_rows(ids.reshape(-1), contrib.reshape(-1, D),
+                                     deterministic)
         uids = torch.where(uids < 0, tab.shape[0] - 1, uids)
         g2_rows = ops.gather_rows(g2tab, uids) + grads * grads
         rows = ops.gather_rows(tab, uids) + torch.where(
@@ -276,34 +296,46 @@ class DevicePairsTrainer:
 
     def train_block(self, token_ids: np.ndarray, token_sent: np.ndarray,
                     lr: float, b=None, draws=None, agreed=None):
-        """Train one block of tokens in place on the tables. ``b`` ((t_pad,)
-        ints in [1, window]) and ``draws`` ((P, K) slot indices) replace
-        the block's random draws when given. Returns (loss sum, pair
-        count), left on the device until float() / int() reads them.
-        ``agreed`` is the JAX package's multi-process block agreement: the
-        port runs one process, and raises for it."""
-        if agreed is not None:
-            raise NotImplementedError(
-                "multi-process -device_pairs is not ported yet")
+        """Train one block of tokens in place on the tables. ``b`` ((n,)
+        ints in [1, window], n the padded token count) and ``draws`` ((P,
+        K) slot indices) replace the block's random draws when given.
+        Returns (loss sum, pair count), left on the device until float() /
+        int() reads them.
+
+        Multi-process: COLLECTIVE, one call a global block on every rank
+        (the app's ``pop_block`` feeds a finished rank empty blocks).
+        ``agreed`` is every rank's (token ids, sentence ids) in rank
+        order, from the app's ``"we_pop"`` round; without it this call
+        gathers them. The block is the global one (module docstring), and
+        so are the returned stats."""
         opt = self.opt
-        T = len(token_ids)
-        if T == 0:
-            zero = _BlockStats(torch.zeros(2, dtype=torch.float64))
-            return _Stat(zero, 0), _Stat(zero, 1)
+        nproc = multihost.process_count()
+        if nproc > 1:
+            if agreed is None:
+                agreed = multihost.host_allgather_objects_capped(
+                    (np.asarray(token_ids, np.int32),
+                     np.asarray(token_sent, np.int32)), "we_dp_agreed")
+            ids, sent = self.global_layout(agreed)
+        else:
+            T = len(token_ids)
+            if T == 0:
+                zero = _BlockStats(torch.zeros(2, dtype=torch.float64))
+                return _Stat(zero, 0), _Stat(zero, 1)
+            t_pad = next_bucket(T, min_bucket=1024)
+            ids = np.full(t_pad, -1, np.int32)
+            ids[:T] = token_ids
+            sent = np.full(t_pad, -1, np.int32)
+            sent[:T] = token_sent
         self._block_counter += 1
-        t_pad = next_bucket(T, min_bucket=1024)
-        ids = np.full(t_pad, -1, np.int32)
-        ids[:T] = token_ids
-        sent = np.full(t_pad, -1, np.int32)
-        sent[:T] = token_sent
+        n = len(ids)
         dev = self.device
         W, K = opt.window_size, opt.negative_num
-        P = t_pad if opt.cbow else 2 * W * t_pad
+        P = n if opt.cbow else 2 * W * n
         if b is None or (draws is None and not opt.hs):
             gen = torch.Generator(device=dev)
             gen.manual_seed(block_seed(opt.seed, self._block_counter))
             if b is None:
-                b = torch.randint(1, W + 1, (t_pad,), generator=gen,
+                b = torch.randint(1, W + 1, (n,), generator=gen,
                                   device=dev)
             if draws is None and not opt.hs:
                 draws = torch.randint(0, self.slots.shape[0], (P, K),
@@ -312,14 +344,33 @@ class DevicePairsTrainer:
         if draws is not None:
             draws = _to_device(draws, dev)
         return self.program(torch.from_numpy(ids).to(dev),
-                            torch.from_numpy(sent).to(dev), b, draws, lr)
+                            torch.from_numpy(sent).to(dev), b, draws, lr,
+                            deterministic=nproc > 1)
+
+    @staticmethod
+    def global_layout(parts):
+        """Every rank's (token ids, sentence ids) -> the global (ids, sent)
+        vectors of the JAX package's multi-process block: rank r's tokens
+        at ``r * t_pad``, ``t_pad = next_bucket(max(1024, T_max))``, its
+        sentence ids offset by ``r * sent_span`` (the global count of
+        sentence ids), -1 past each rank's tokens."""
+        # the JAX package's parts_bucket(n, 1): one device a rank
+        t_pad = next_bucket(max(1024, max(len(t) for t, _ in parts)))
+        span = max(max(int(np.max(s, initial=-1)) + 1 for _, s in parts), 1)
+        ids = np.full(len(parts) * t_pad, -1, np.int32)
+        sent = np.full(len(parts) * t_pad, -1, np.int32)
+        for r, (t, s) in enumerate(parts):
+            ids[r * t_pad: r * t_pad + len(t)] = t
+            sent[r * t_pad: r * t_pad + len(t)] = np.asarray(s) + r * span
+        return ids, sent
 
     def program(self, ids: torch.Tensor, sent: torch.Tensor, b: torch.Tensor,
-                draws: Optional[torch.Tensor], lr: float):
+                draws: Optional[torch.Tensor], lr: float,
+                deterministic: bool = False):
         """The block program on device tensors: lanes, then the train step
         over ceil(P / pair_batch) batches (the JAX package rounds the
         batch count up to a bucket; batches of pad lanes change nothing).
-        """
+        ``deterministic``: the steps' scatter-adds in sorted order."""
         opt = self.opt
         lanes = make_lanes(ids, sent, b, draws, self._aux,
                            window=opt.window_size, cbow=opt.cbow, hs=opt.hs)
@@ -348,8 +399,10 @@ class DevicePairsTrainer:
         states = [s.state["data"] for s in servers]
         state = (TrainState(*states) if opt.use_adagrad
                  else TrainState(states[0], states[1], None, None))
-        step = (sparse_adagrad_step if sparse
-                else make_train_step(opt.use_adagrad))
+        step = (functools.partial(sparse_adagrad_step,
+                                  deterministic=deterministic) if sparse
+                else make_train_step(opt.use_adagrad,
+                                     deterministic=deterministic))
         # the lr as a float32 scalar, as the JAX step's traced lr
         lr_t = torch.tensor(lr, dtype=torch.float32)
         losses = []

@@ -7,9 +7,20 @@ rows, train all its pairs, push the deltas; with ``-is_pipeline 1`` the
 host plane prefetches the NEXT block's rows while the current one trains),
 words/s logging, and word2vec-format embedding export.
 
-One process: the host plane, ``-device_plane 1``, and ``-device_pairs 1``
+Three planes: the host plane, ``-device_plane 1``, and ``-device_pairs 1``
 (only the token stream is uploaded; the pairs are derived and trained on
 the device, ``device_pairs.py``).
+
+Multi-process worlds train DATA-PARALLEL: each rank streams its own corpus
+shard through ``run()``. Every block's table verbs are collectives, so
+``pop_block`` agrees before each block, in one tagged all-gather
+(``"we_pop"``), on whether every rank is done; for ``-device_pairs`` the
+same round carries every rank's token and sentence vectors, from which
+each rank builds the global block (``device_pairs.py``), and a rank whose
+shard ran out joins with an empty filler block. The host and device
+planes cannot run an empty block, so unequal block streams fail there
+LOUDLY on every rank (the CHECK reads the gathered flags). Each rank's
+worker 0 saves the embeddings.
 
 CLI: ``python -m multiverso_tpu_torch.models.wordembedding.distributed
 -train_file corpus.txt [-size 100 ...] [-platform cuda|cpu]``.
@@ -41,7 +52,8 @@ from multiverso_tpu_torch.models.wordembedding.model import (decayed_lr,
                                                              train_block)
 from multiverso_tpu_torch.models.wordembedding.option import Option
 from multiverso_tpu_torch.models.wordembedding.sampler import Sampler
-from multiverso_tpu_torch.utils.log import Log
+from multiverso_tpu_torch.parallel import multihost
+from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.timer import Timer
 from multiverso_tpu_torch.utils.world import WorldOwner
 
@@ -98,7 +110,6 @@ class DistributedWordEmbedding:
             self.huffman.BuildFromTermFrequency(counts)
         self._world.init_if_needed([f"-mv_device={opt.platform}"])
         with self._world.guard("wordembedding.prepare"):
-            self._world.require_single_process("WordEmbedding")
             self.comm = Communicator(opt, self.dictionary.Size())
             if opt.device_pairs:
                 self.dp_trainer = DevicePairsTrainer(opt, self.comm, counts,
@@ -124,11 +135,38 @@ class DistributedWordEmbedding:
         self.block_log = []
         self.loader_wait_s = 0.0
         pending = collections.deque()
+        multiproc = multihost.process_count() > 1
 
         def pop_block() -> Optional[DataBlock]:
             t0 = time.perf_counter()
             block = queue.pop()
             self.loader_wait_s += time.perf_counter() - t0
+            if not multiproc:
+                return block
+            pairs = (block is not None and opt.device_pairs
+                     and block.tokens is not None)
+            mine = ((block.tokens, block.token_sent) if pairs
+                    else (np.empty(0, np.int32), np.empty(0, np.int32)))
+            parts = multihost.host_allgather_objects_capped(
+                (block is None,) + mine, "we_pop")
+            if all(p[0] for p in parts):
+                return None
+            if any(p[0] for p in parts):
+                # the gathered flags are the same on every rank, so every
+                # rank fails here together instead of one stranding the
+                # others in its next collective
+                CHECK(opt.device_pairs,
+                      "multi-process WordEmbedding with unequal per-rank "
+                      "block streams needs -device_pairs 1 (empty filler "
+                      "blocks); the host and device planes cannot run an "
+                      "empty block: shard the corpus evenly")
+            if block is None:
+                block = DataBlock(word_count=0,
+                                  tokens=np.empty(0, np.int32),
+                                  token_sent=np.empty(0, np.int32))
+            if opt.device_pairs:
+                # every rank's (tokens, sentence ids), in rank order
+                block._dp_agreed = [p[1:] for p in parts]
             return block
 
         def harvest(force: bool = False) -> None:
@@ -188,7 +226,8 @@ class DistributedWordEmbedding:
             # pairs made and trained on the device: the token stream is
             # the upload, and the trainer reports the pair count
             return self.dp_trainer.train_block(
-                block.tokens, block.token_sent, self._current_lr())
+                block.tokens, block.token_sent, self._current_lr(),
+                agreed=getattr(block, "_dp_agreed", None))
         if not block.pair_count:
             return 0.0, 0
         pre = getattr(block, "_prefetched", None)

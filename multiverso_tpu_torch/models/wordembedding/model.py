@@ -21,6 +21,14 @@ row tensors IN PLACE: the communicator hands it its own copies.
 
 All indices are block-local int64 tensors (positions in the block's
 fetched row sets).
+
+``deterministic`` (``-device_pairs`` in a multi-process world, where every
+rank runs the same program on its own replica): the scatter-adds go
+through ``ops.rows.scatter_add_rows``' deterministic path (segment sums in
+lane order, the CPU's ``index_add_`` rounding), because ``index_add_`` on
+the card adds duplicates in atomic order and two replicas could end a
+last bit apart. It takes the tables' full storage, whose last row is a
+trash row.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.ops.rows import scatter_add_rows
+
 
 class TrainState(NamedTuple):
     ie: torch.Tensor            # (R_in, D) input-embedding rows
@@ -38,7 +48,8 @@ class TrainState(NamedTuple):
     eo_g2: Optional[torch.Tensor]
 
 
-def make_train_step(use_adagrad: bool, eps: float = 1e-10):
+def make_train_step(use_adagrad: bool, eps: float = 1e-10,
+                    deterministic: bool = False):
     """Build the pair-batch step.
 
     signature: step(state, inputs, imask, outputs, labels, omask, lr)
@@ -68,10 +79,12 @@ def make_train_step(use_adagrad: bool, eps: float = 1e-10):
         in_flat = inputs.reshape(-1)
         if use_adagrad:
             # adagrad needs the per-ROW summed gradient
-            eo_grad = torch.zeros_like(eo).index_add_(
-                0, out_flat, eo_contrib.reshape(-1, D))
-            ie_grad = torch.zeros_like(ie).index_add_(
-                0, in_flat, ie_contrib.reshape(-1, D))
+            eo_grad = scatter_add_rows(torch.zeros_like(eo), out_flat,
+                                       eo_contrib.reshape(-1, D),
+                                       deterministic)
+            ie_grad = scatter_add_rows(torch.zeros_like(ie), in_flat,
+                                       ie_contrib.reshape(-1, D),
+                                       deterministic)
             eo_g2 = state.eo_g2 + eo_grad * eo_grad
             ie_g2 = state.ie_g2 + ie_grad * ie_grad
             zero = torch.zeros((), dtype=eo.dtype, device=eo.device)
@@ -83,8 +96,10 @@ def make_train_step(use_adagrad: bool, eps: float = 1e-10):
                                   zero)
             return TrainState(ie, eo, ie_g2, eo_g2), loss
         # plain SGD is additive per pair: scatter straight into the rows
-        eo.index_add_(0, out_flat, (lr * eo_contrib).reshape(-1, D))
-        ie.index_add_(0, in_flat, (lr * ie_contrib).reshape(-1, D))
+        scatter_add_rows(eo, out_flat, (lr * eo_contrib).reshape(-1, D),
+                         deterministic)
+        scatter_add_rows(ie, in_flat, (lr * ie_contrib).reshape(-1, D),
+                         deterministic)
         return TrainState(ie, eo, None, None), loss
 
     return step

@@ -55,6 +55,10 @@ def storage_partition_server(row: int, num_rows: int, num_servers: int) -> int:
     return min(row // block, num_servers - 1)
 
 
+def pad_to_multiple(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def next_bucket(n: int, min_bucket: int = 8) -> int:
     """Smallest bucket size >= n (and >= min_bucket): powers of two up to
     256, then quarter-octave steps. The port pads nothing to buckets for a

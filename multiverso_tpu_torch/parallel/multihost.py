@@ -25,7 +25,14 @@ What this module provides:
   whose multi-process branch is not ported yet;
 * the host collectives: ``host_barrier``, ``host_allreduce_sum``,
   ``host_allgather_bytes``/``host_allgather_objects`` and the
-  standing-cap window exchange ``capped_exchange``.
+  standing-cap window exchange ``capped_exchange``;
+* the application threads' lockstep rounds: ``host_allgather_objects_capped``
+  (a tagged agreement: every rank passes the same call-site key, and a
+  rank at another key fails the CHECK on every rank), and the merges of
+  one collective device write, ``merge_collective_add`` (row or key
+  payloads concatenated in rank order) and ``sum_collective_add``
+  (whole-table deltas summed in rank order), each CHECKing that the
+  ranks' Add options agree. ``STATS`` keeps their seconds and counts.
 
 Two gloo groups carry them. The ENGINE group carries what the engine
 issues (the window and head-marker exchanges); the CONTROL group carries
@@ -50,6 +57,7 @@ import datetime
 import os
 import pickle
 import socket
+import time
 from typing import Optional
 
 import numpy as np
@@ -83,6 +91,30 @@ _initialized = False
 _owns_runtime = False      # True only when this module created the world
 _engine_pg = None
 _ctrl_pg = None
+
+#: the application threads' lockstep rounds, host clock: tagged agreements
+#: (``agree``), the all-gathers of collective device writes (``write``),
+#: the device->host copies of their payloads (``d2h``), the host merge in
+#: rank order (``merge``) and the apply on the replica (``apply``; the
+#: tables add it). ``*_s`` are seconds, ``*_n`` counts; ``reset_stats``
+#: zeroes them.
+STATS: dict = {}
+
+
+def reset_stats() -> None:
+    for k in ("agree", "write", "d2h", "merge", "apply"):
+        STATS[f"{k}_s"] = 0.0
+        STATS[f"{k}_n"] = 0
+
+
+reset_stats()
+
+
+def note(kind: str, seconds: float) -> None:
+    """Add one round of ``kind`` (a ``STATS`` key stem) taking
+    ``seconds``."""
+    STATS[f"{kind}_s"] += seconds
+    STATS[f"{kind}_n"] += 1
 
 
 # -- identity ----------------------------------------------------------------
@@ -233,6 +265,7 @@ def net_finalize() -> None:
         Log.Error("net_finalize: destroy_process_group failed: %r", exc)
     _initialized = _owns_runtime = False
     _engine_pg = _ctrl_pg = None
+    _OBJ_CAPS.clear()
 
 
 # -- machine file -------------------------------------------------------------
@@ -431,9 +464,10 @@ def host_allgather_bytes(data: bytes) -> list:
     return [p.numpy()[:n].tobytes() for p, n in zip(parts, lens)]
 
 
-def capped_exchange(blob: bytes, caps: dict, key) -> list:
+def capped_exchange(blob: bytes, caps: dict, key,
+                    engine: bool = True) -> list:
     """Every process's byte blob in ONE collective round in steady state,
-    on the engine group.
+    on the engine group (``engine=False``: the control group).
 
     Each exchange rides a standing per-``key`` capacity that every rank
     evolves identically from exchanged data: a blob that fits travels
@@ -455,7 +489,8 @@ def capped_exchange(blob: bytes, caps: dict, key) -> list:
     buf[1:9] = np.array([len(blob)], "<i8").view(np.uint8)
     if need <= cap and blob:
         buf[9:9 + len(blob)] = np.frombuffer(blob, np.uint8)
-    gathered = [p.numpy() for p in _all_gather(torch.from_numpy(buf))]
+    gathered = [p.numpy() for p in _all_gather(torch.from_numpy(buf),
+                                               engine)]
     lens = [int(np.frombuffer(g[1:9].tobytes(), "<i8")[0]) for g in gathered]
     fits = [bool(g[0]) for g in gathered]
     caps[key] = next_bucket(max(lens) + 9, min_bucket=4096)
@@ -466,7 +501,8 @@ def capped_exchange(blob: bytes, caps: dict, key) -> list:
         buf2 = np.zeros(big, np.uint8)
         if blob:
             buf2[:len(blob)] = np.frombuffer(blob, np.uint8)
-        gathered = [p.numpy() for p in _all_gather(torch.from_numpy(buf2))]
+        gathered = [p.numpy() for p in _all_gather(torch.from_numpy(buf2),
+                                                   engine)]
         out = [gathered[i][:lens[i]].tobytes() for i in range(n)]
     return out
 
@@ -477,3 +513,103 @@ def host_allgather_objects(obj) -> list:
     if process_count() <= 1:
         return [obj]
     return [pickle.loads(b) for b in host_allgather_bytes(pickle.dumps(obj))]
+
+
+# -- the application threads' lockstep rounds (control group) ----------------
+
+#: standing caps of host_allgather_objects_capped, per call-site key: every
+#: tagged call site is collective, so the caps evolve identically on every
+#: rank
+_OBJ_CAPS: dict = {}
+
+
+def host_allgather_objects_capped(obj, key: str, stat: str = "agree"
+                                  ) -> list:
+    """``host_allgather_objects`` through the standing-cap one-round
+    exchange, on the control group. ``key`` names the call site
+    (``"lr_pop"``, ``"we_pop"``, ...): every rank must pass the same key
+    at this lockstep point, and the key travels with the payload, so a
+    rank at another call site fails the CHECK on every rank instead of
+    pairing unrelated payloads. ``stat`` is the ``STATS`` stem the round's
+    seconds go to."""
+    if process_count() <= 1:
+        return [obj]
+    t0 = time.perf_counter()
+    blobs = capped_exchange(pickle.dumps((key, obj), protocol=5),
+                            _OBJ_CAPS, key, engine=False)
+    parts = [pickle.loads(b) for b in blobs]
+    keys = [k for k, _ in parts]
+    CHECK(all(k == key for k in keys),
+          f"lockstep rounds diverge across processes: the ranks are at "
+          f"call sites {keys} — every rank must issue the same agreements "
+          f"and collective writes in the same order")
+    note(stat, time.perf_counter() - t0)
+    return [o for _, o in parts]
+
+
+def _agree_options(option, parts) -> None:
+    opts = [p[-1] for p in parts]
+    CHECK(all(o == opts[0] for o in opts),
+          f"collective Add options diverge across processes: {opts}")
+
+
+def host_payloads(deltas: list, ride=None):
+    """The host copies of one collective write's deltas (device tensors
+    or host arrays) and of its ``ride`` (a float or a device scalar), with
+    ONE device->host copy for all the device tensors: -> (list of float32
+    arrays shaped like the deltas, ride as a float or None)."""
+    import torch
+    dev = [d for d in deltas if isinstance(d, torch.Tensor)]
+    if isinstance(ride, torch.Tensor):
+        dev.append(ride)
+    host = {}
+    if dev:
+        t0 = time.perf_counter()
+        flat = torch.cat([d.detach().reshape(-1).to(torch.float32)
+                          for d in dev]).cpu().numpy()
+        note("d2h", time.perf_counter() - t0)
+        off = 0
+        for d in dev:
+            host[id(d)] = flat[off: off + d.numel()].reshape(tuple(d.shape))
+            off += d.numel()
+    out = [host[id(d)] if isinstance(d, torch.Tensor)
+           else np.asarray(d, np.float32) for d in deltas]
+    if ride is not None:
+        ride = float(host[id(ride)]) if isinstance(ride, torch.Tensor) \
+            else float(ride)
+    return out, ride
+
+
+def merge_collective_add(option, *arrays, key: str):
+    """Merge every process's payload of one collective row or key Add: one
+    all-gather tagged ``key`` of ``(arrays..., option)``, a CHECK that the
+    option agrees on every rank (divergent scalars would apply different
+    updates to the replicas), and per-position concatenations in rank
+    order. Identity in one process."""
+    if process_count() <= 1:
+        return arrays
+    parts = host_allgather_objects_capped(tuple(arrays) + (option,), key,
+                                          stat="write")
+    _agree_options(option, parts)
+    t0 = time.perf_counter()
+    merged = tuple(np.concatenate([p[i] for p in parts])
+                   for i in range(len(arrays)))
+    note("merge", time.perf_counter() - t0)
+    return merged
+
+
+def sum_collective_add(option, values: np.ndarray, key: str) -> np.ndarray:
+    """Sum every process's delta of one collective whole-table Add in rank
+    order (the same option CHECK as ``merge_collective_add``). Identity in
+    one process."""
+    if process_count() <= 1:
+        return values
+    parts = host_allgather_objects_capped((values, option), key,
+                                          stat="write")
+    _agree_options(option, parts)
+    t0 = time.perf_counter()
+    out = parts[0][0].copy()
+    for p in parts[1:]:
+        out += p[0]
+    note("merge", time.perf_counter() - t0)
+    return out.astype(values.dtype, copy=False)

@@ -21,13 +21,17 @@ one apply, ``ProcessAddRunParts``), and a Get reads the local replica.
 Device plane (``device_*``): a caller that keeps its work on the device
 takes the ``{"data", "aux"}`` state, applies ``device_update`` and writes
 the result back with ``device_set_state``. The verbs bypass the engine:
-the caller owns the table while using them. Their multi-process branch is
-not ported: they raise in a world of several processes instead of
-changing one replica.
+the caller owns the table while using them. In a multi-process world
+``device_update`` is COLLECTIVE: every rank's padded delta comes to the
+host, the ranks' deltas are summed in rank order after one all-gather
+(their options must agree), and the updater's rule applies the sum on
+every replica; ``device_set_state`` then takes only the state that
+collective update returned, so no rank writes a state of its own.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -35,16 +39,13 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.parallel import multihost
-from multiverso_tpu_torch.parallel.mesh import partition_offsets
+from multiverso_tpu_torch.parallel.mesh import (pad_to_multiple,
+                                                 partition_offsets)
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
 from multiverso_tpu_torch.updaters.base import (AddOption, CreateUpdater,
                                                 GetOption, Updater)
 from multiverso_tpu_torch.utils.log import CHECK
-
-
-def pad_to_multiple(n: int, m: int) -> int:
-    return -(-n // m) * m
 
 
 @dataclass
@@ -81,6 +82,9 @@ class ArrayServer(ServerTable):
             "aux": self.updater.init_aux((self.padded,), torch.float32,
                                          zoo.num_workers,
                                          device=self.device)}
+        #: the state the last collective device_update returned: the only
+        #: one device_set_state takes in a multi-process world
+        self._collective_state = None
         # linear aux-free updaters: a window's summed deltas apply as one
         # Add (the matrix table's _merge_adds rule)
         self._merge_adds = (self.updater.combine_scale is not None
@@ -148,7 +152,12 @@ class ArrayServer(ServerTable):
         return self.state
 
     def device_set_state(self, state: Dict) -> None:
-        multihost.require_one_process("device_set_state")
+        if multihost.process_count() > 1:
+            CHECK(state is self._collective_state,
+                  "device_set_state in a multi-process world takes only "
+                  "the state the collective device_update returned (a "
+                  "state of one rank's own would split the replicas)")
+            self._collective_state = None
         data = state["data"]
         CHECK(tuple(data.shape) == (self.padded,)
               and data.dtype == torch.float32,
@@ -165,12 +174,31 @@ class ArrayServer(ServerTable):
         self.state = state
 
     def device_update(self, state: Dict, padded_delta: torch.Tensor,
-                      opt) -> Dict:
+                      opt, ride=None):
         """One whole-table Add through the table's updater (delta padded
         to ``self.padded``; opt = AddOption.as_tensors()); returns the new
-        state and leaves ``state`` alone."""
-        multihost.require_one_process("device_update")
-        return self._updated(state, padded_delta, opt)
+        state and leaves ``state`` alone. Collective in a multi-process
+        world (module docstring). ``ride`` (a float or a device scalar,
+        such as a window's loss) travels with the delta and comes back
+        summed over the ranks in rank order: with it the call returns
+        ``(new state, ride sum)`` (one process: the ride as given)."""
+        if multihost.process_count() <= 1:
+            new = self._updated(state, padded_delta, opt)
+            return new if ride is None else (new, ride)
+        CHECK(tuple(padded_delta.shape) == (self.padded,),
+              "device_update: the delta must be padded to the table")
+        (host,), ride = multihost.host_payloads([padded_delta], ride)
+        # the ride rides as one more float of the summed vector
+        vals = np.append(host, np.float32(0.0 if ride is None else ride))
+        key = tuple((k, float(v)) for k, v in sorted(opt.items()))
+        summed = multihost.sum_collective_add(key, vals,
+                                              key="array_update")
+        t0 = time.perf_counter()
+        new = self._updated(state, self._ctx.place(summed[: self.padded]),
+                            opt)
+        multihost.note("apply", time.perf_counter() - t0)
+        self._collective_state = new
+        return new if ride is None else (new, float(summed[-1]))
 
     def _updated(self, state: Dict, padded_delta: torch.Tensor,
                  opt) -> Dict:

@@ -47,7 +47,9 @@ processes and hands every rank's payloads to the parts verbs
 order, pre-combines duplicates on the host (``_combine_duplicate_rows``,
 never ``index_add_``, whose CUDA atomics sum in an undefined order) and
 applies them through the same row path, so the replicas stay bitwise
-equal; a Get reads this rank's rows from its own replica. Compressed row
+equal; a Get reads this rank's rows from its own replica. The device
+plane's writes follow the same rule as collectives of the application
+thread (``device_apply_rows_many``); its reads stay local. Compressed row
 pushes across processes are not ported yet and fail a CHECK.
 
 The store is updated IN PLACE (the JAX package donates its buffers
@@ -60,6 +62,7 @@ the caller owns the table while using it.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -102,6 +105,65 @@ def _combine_duplicate_rows(ids: np.ndarray, deltas: np.ndarray,
     combined[inverse[~dup_pos]] = deltas[~dup_pos]
     np.add.at(combined, inverse[dup_pos], deltas[dup_pos])
     return uniq.astype(np.int32), combined
+
+
+def device_apply_rows_many(items, option: Optional[AddOption] = None,
+                           ride=None):
+    """``device_apply_rows`` of several (server table, row ids, deltas)
+    items as ONE write: the WordEmbedding device plane's four tables a
+    block, the LR sparse window's one table.
+
+    One process: each item applies on its own (the fused update kernel
+    for the add and sgd updaters); ``ride`` is returned as it was given.
+    Several processes: COLLECTIVE. The deltas come to the host in one
+    copy, every rank's (ids, deltas) of every item and its ``ride`` (a
+    float or device scalar the caller wants summed over the ranks, such
+    as a window's loss) travel in one tagged all-gather with the option,
+    which must agree on every rank; each table concatenates the ranks'
+    batches in rank order, pre-combines duplicate ids on the host in that
+    order (never ``index_add_``, whose CUDA atomics sum in an undefined
+    order) and applies the merge through the row path, so the replicas
+    stay bitwise equal. Returns the ranks' rides summed in rank order
+    (None without a ride)."""
+    option = option or AddOption()
+    opt = option.as_tensors()
+    prepped = []
+    for srv, row_ids, deltas in items:
+        ids = np.asarray(row_ids, np.int32).ravel()
+        srv._check_ids(ids)
+        prepped.append((srv, ids, deltas))
+    if multihost.process_count() <= 1:
+        for srv, ids, deltas in prepped:
+            srv._apply_rows_local(ids, deltas, opt)
+        return ride
+    for srv, _, _ in prepped:
+        CHECK(srv.compress is None,
+              "a compressed table's device writes across processes are "
+              "not ported yet (ROADMAP.md): create the table without "
+              "compress= in a multi-process world")
+    host, ride = multihost.host_payloads([d for _, _, d in prepped], ride)
+    arrays = []
+    for (srv, ids, _), d in zip(prepped, host):
+        arrays += [ids, d.reshape(len(ids), srv.num_cols)]
+    if ride is not None:
+        arrays.append(np.array([ride], np.float64))
+    merged = multihost.merge_collective_add(option, *arrays,
+                                            key="matrix_apply")
+    t0 = time.perf_counter()
+    combined = [_combine_duplicate_rows(merged[2 * i], merged[2 * i + 1],
+                                        srv.num_cols, srv.dtype)
+                for i, (srv, _, _) in enumerate(prepped)]
+    t1 = time.perf_counter()
+    multihost.STATS["merge_s"] += t1 - t0
+    for (srv, _, _), (ids, deltas) in zip(prepped, combined):
+        srv._update_rows(ids, deltas, opt)
+    multihost.note("apply", time.perf_counter() - t1)
+    if ride is None:
+        return None
+    total = 0.0
+    for r in merged[-1]:
+        total += float(r)
+    return total
 
 
 @dataclass
@@ -531,46 +593,59 @@ class MatrixServerTable(ServerTable):
 
     # -- device plane (public) ---------------------------------------------------
     # For callers that keep the rows on the device (the WordEmbedding
-    # communicator's -device_plane path): host-plane validation, no host
-    # round trip of the row data. These bypass the engine — the caller
-    # owns the table while using them. Their multi-process branch (a
-    # collective over every rank's batch) is not ported: the writes raise
-    # in a world of several processes instead of changing one replica.
+    # communicator's -device_plane path, the LR device plane): host-plane
+    # validation, no host round trip of the row data in one process. These
+    # bypass the engine — the caller owns the table while using them.
+    # Multi-process, reads stay local (every row is on every replica) and
+    # writes are COLLECTIVE: every rank calls them in lockstep with its own
+    # batch, the batches meet in one all-gather and every rank applies the
+    # rank-order merge (``device_apply_rows_many``).
 
     def device_fetch_rows(self, row_ids) -> torch.Tensor:
-        """Rows for ``row_ids`` as a fresh device tensor (n, num_cols)."""
+        """Rows for ``row_ids`` as a fresh device tensor (n, num_cols),
+        read from this rank's replica (no collective)."""
         ids = np.asarray(row_ids, np.int32).ravel()
         self._check_ids(ids)
         return self._gather_rows(ids)
 
     def device_apply_rows(self, row_ids, deltas,
-                          option: Optional[AddOption] = None) -> None:
+                          option: Optional[AddOption] = None, ride=None):
         """Apply a (device or host) delta batch to ``row_ids`` in place,
-        with ProcessAdd's validation and duplicate pre-combine."""
-        multihost.require_one_process("device_apply_rows")
-        ids = np.asarray(row_ids, np.int32).ravel()
-        self._check_ids(ids)
-        if len(np.unique(ids)) != len(ids):
-            # duplicates pre-combine on the host (a device->host hop;
-            # callers should dedupe — block row sets are unique)
-            host = deltas.detach().cpu().numpy() if isinstance(
-                deltas, torch.Tensor) else deltas
-            ids, deltas = _combine_duplicate_rows(ids, host, self.num_cols,
-                                                  self.dtype)
-        self._update_rows(ids, deltas, (option or AddOption()).as_tensors())
+        with ProcessAdd's validation and duplicate pre-combine; collective
+        in a multi-process world (``device_apply_rows_many``, which also
+        says what ``ride`` is)."""
+        return device_apply_rows_many([(self, row_ids, deltas)], option,
+                                      ride=ride)
 
     def device_update_gather_rows(self, row_ids, deltas,
                                   option: Optional[AddOption] = None
                                   ) -> torch.Tensor:
         """The fused PS round on the device plane: apply ``deltas`` to the
-        UNIQUE rows ``row_ids`` and return their post-update rows."""
-        multihost.require_one_process("device_update_gather_rows")
+        UNIQUE rows ``row_ids`` and return their post-update rows. In a
+        multi-process world the write is the collective
+        ``device_apply_rows`` and the rows are read back after it, so a
+        rank sees every rank's deltas."""
         ids = np.asarray(row_ids, np.int32).ravel()
         self._check_ids(ids)
         CHECK(len(np.unique(ids)) == len(ids),
               "device_update_gather_rows takes unique row ids")
+        if multihost.process_count() > 1:
+            self.device_apply_rows(ids, deltas, option)
+            return self._gather_rows(ids)
         return self._update_gather_rows(
             ids, deltas, (option or AddOption()).as_tensors())
+
+    def _apply_rows_local(self, ids: np.ndarray, deltas, opt) -> None:
+        """One rank's row batch on this replica: duplicate ids pre-combine
+        on the host in submission order, then the row path
+        (``_update_rows``)."""
+        if len(np.unique(ids)) != len(ids):
+            # a device->host hop; block row sets are unique already
+            host = deltas.detach().cpu().numpy() if isinstance(
+                deltas, torch.Tensor) else deltas
+            ids, deltas = _combine_duplicate_rows(ids, host, self.num_cols,
+                                                  self.dtype)
+        self._update_rows(ids, deltas, opt)
 
     def raw(self) -> np.ndarray:
         """Logical-view snapshot (host numpy)."""

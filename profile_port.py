@@ -41,6 +41,16 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   momentum tables at the PS shape: after 3 warm-up rounds, 5 rounds, rank
   0 under the profiler and rank 1 beside it, with the engine's seconds in
   the window exchange and in the apply,
+* lr_2proc, we_2proc: chip_smoke.py's [lr_2proc] runs (the LR device
+  plane, dense and sparse, on unequal shards; FTRL on the collective host
+  KV verbs) and [we_2proc] runs (-device_pairs 1 -use_adagrad 1 at
+  1,000,000 x 128 on unequal shards, every rank running the global
+  blocks; -device_plane 1 at 100,000 x 128) in a world of two ranks of
+  this script (``--rank-child --child-phase lr|we``) on the one card over
+  gloo, rank 0 under the profiler: per run its device-idle share, the
+  seconds of its tagged agreements, of the collective writes'
+  device->host copies, all-gathers, host merge and apply, and of the
+  engine's window exchanges;
 * bsp: chip_smoke.py's [bsp] phase (one process, 4 worker threads,
   ``-sync=true``) BSP_WORLDS times in each of a row of processes by the
   host clock, no profiler; with ``--baseline DIR`` (another checkout, e.g.
@@ -55,7 +65,8 @@ most host time, for WE the seconds the trainer waited on the block
 loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
-parse, ckpt, ps_compress, ps_2proc, bsp (default: all).
+parse, ckpt, ps_compress, ps_2proc, lr_2proc, we_2proc, bsp (default:
+all).
 """
 
 from __future__ import annotations
@@ -497,6 +508,109 @@ def profile_ps_2proc(seed: int, out: str) -> dict:
     return dict(ranks[0], rank1_round_ms=ranks[1]["round_ms"])
 
 
+def apps_2proc_rank(torch, phase: str, rank: int, port: int, seed: int,
+                    out: str, workdir: str) -> int:
+    """One rank of the lr_2proc / we_2proc profile (``--rank-child``):
+    chip_smoke.py's [lr_2proc] or [we_2proc] runs on this rank's shard in
+    a two-rank world on ``cuda:0``, rank 0's ``Train()`` / ``train()``
+    under the profiler; per run the application thread's lockstep rounds
+    (``multihost.STATS``) and the engine's window-exchange seconds."""
+    import multiverso_tpu_torch as mv
+    from chip_smoke import lr2_configs, we2_options
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    from multiverso_tpu_torch.models.wordembedding.distributed import \
+        DistributedWordEmbedding
+    from multiverso_tpu_torch.parallel import multihost as mh
+    from multiverso_tpu_torch.zoo import Zoo
+    # rank 0 reads its trace while rank 1 waits at the next run's
+    # collectives: past the default timeout it would count as lost
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2", "-mv_dist_timeout_s=1200"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    if phase == "lr":
+        runs = {name: cfg for name, cfg in
+                lr2_configs(workdir, rank, "cuda").items()}
+    else:
+        runs = {name: we2_options(workdir, seed, rank, name)
+                for name in ("we2_pairs", "we2_device")}
+    res = {}
+    for name, cfg in runs.items():
+        mv.MV_Init(base)
+        try:
+            eng = Zoo.Get().server_engine
+            if phase == "lr":
+                app = LogReg(cfg)
+                work = app.Train
+            else:
+                app = DistributedWordEmbedding(cfg)
+                app.prepare()
+                work = app.train
+            mv.MV_Barrier()
+            mh.reset_stats()
+            x0 = eng.xw_busy_s
+            prof = contextlib.nullcontext()
+            if rank == 0:
+                prof = torch.profiler.profile(activities=acts)
+            with prof as p:
+                t0 = time.perf_counter()
+                work()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            r = summarize(torch, p, wall) if rank == 0 else {"wall_s": wall}
+            r.update(collective=dict(mh.STATS),
+                     engine_xw_s=eng.xw_busy_s - x0)
+            if phase == "lr":
+                r["samples"] = sum(n for n, _, _ in app.epoch_log)
+            else:
+                r["words"] = sum(w for w, _, _ in app.block_log)
+            res[name] = r
+        finally:
+            mv.MV_ShutDown(finalize_net=name == list(runs)[-1])
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def profile_apps_2proc(phase: str, seed: int, out: str) -> dict:
+    """Both ranks of the lr_2proc / we_2proc profile on chip_smoke.py's
+    shards; returns rank 0's profile of each run with rank 1's wall."""
+    import socket
+    import subprocess
+
+    import chip_smoke
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory(prefix="mvt_prof_") as workdir:
+        (chip_smoke.lr2_data if phase == "lr" else chip_smoke.we2_data)(
+            workdir, seed)
+        outs = [os.path.join(out, f"{phase}_2proc_rank{r}.json")
+                for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-child",
+             str(r), "--child-phase", phase, "--port", str(port), "--seed",
+             str(seed), "--out", outs[r], "--workdir", workdir])
+            for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                if p.wait(1500) != 0:
+                    raise AssertionError(f"{phase}_2proc rank {r} failed "
+                                         f"(exit {p.returncode})")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return {name: dict(r, rank1_wall_s=ranks[1][name]["wall_s"])
+            for name, r in ranks[0].items()}
+
+
 def bsp_child(torch, root: str, seed: int, out: str) -> int:
     """One process of the bsp turns: ``root``'s package under
     chip_smoke.py's [bsp] phase (this script's copy), BSP_WORLDS worlds;
@@ -543,8 +657,12 @@ def main() -> int:
     ap.add_argument("--paths", default=",".join(PATHS),
                     help="the paths to profile, comma-separated")
     ap.add_argument("--rank-child", type=int, default=-1,
-                    help="run one rank of the ps_2proc profile (the script "
+                    help="run one rank of a two-process profile (the script "
                          "starts both itself)")
+    ap.add_argument("--child-phase", default="ps", choices=("ps", "lr", "we"),
+                    help="the two-process profile of --rank-child")
+    ap.add_argument("--workdir", default="",
+                    help="lr/we --rank-child: the shards' directory")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--baseline", default="",
                     help="bsp: another checkout whose package takes turns "
@@ -555,6 +673,10 @@ def main() -> int:
     args = ap.parse_args()
     if args.rank_child >= 0:
         import torch
+        if args.child_phase != "ps":
+            return apps_2proc_rank(torch, args.child_phase, args.rank_child,
+                                   args.port, args.seed, args.out,
+                                   args.workdir)
         return ps_2proc_rank(torch, args.rank_child, args.port, args.seed,
                              args.out)
     if args.bsp_child:
@@ -582,6 +704,10 @@ def main() -> int:
             "ckpt": lambda: profile_ckpt(torch, args.seed),
             "ps_compress": lambda: profile_ps_compress(torch, args.seed),
             "ps_2proc": lambda: profile_ps_2proc(args.seed, args.out),
+            "lr_2proc": lambda: profile_apps_2proc("lr", args.seed,
+                                                   args.out),
+            "we_2proc": lambda: profile_apps_2proc("we", args.seed,
+                                                   args.out),
             "bsp": lambda: bsp_turns(args.seed, args.out, args.baseline)}
     res = {"card": card}
     for name in PATHS:
@@ -595,7 +721,7 @@ def main() -> int:
 
 #: every path main() can profile, in its order
 PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
-         "ps_2proc", "bsp")
+         "ps_2proc", "lr_2proc", "we_2proc", "bsp")
 #: bsp: worlds a process, and the processes' order against a baseline
 BSP_WORLDS = 3
 BSP_TURNS = ("baseline", "this", "this", "baseline") * 2
@@ -693,6 +819,22 @@ def report(res: dict) -> None:
               f"{r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f}", flush=True)
         print_tops("ps_2proc", r)
+    for path in ("lr_2proc", "we_2proc"):
+        for name, r in res.get(path, {}).items():
+            st = r["collective"]
+            count = (f"{r['samples']} samples" if "samples" in r
+                     else f"{r['words']} words (rank 0's)")
+            print(f"[{path}] {name}: rank 0 {r['wall_s']:.4f} s under the "
+                  f"profiler ({count}), rank 1 {r['rank1_wall_s']:.4f} s; "
+                  f"device busy {r['device_busy_s']:.4f} s, idle share "
+                  f"{r['device_idle_share']:.3f}; agreements {st['agree_n']} "
+                  f"in {st['agree_s']:.4f} s, collective writes "
+                  f"{st['write_n']}: device->host {st['d2h_s']:.4f} s, "
+                  f"all-gathers {st['write_s']:.4f} s, host merge "
+                  f"{st['merge_s']:.4f} s, apply {st['apply_s']:.4f} s; the "
+                  f"engine's window exchanges {r['engine_xw_s']:.4f} s",
+                  flush=True)
+            print_tops(f"{path} {name}", r)
     turns = res.get("bsp", [])
     for i, r in enumerate(turns):
         print(f"[bsp] turn {i + 1} {r['turn']} ({r['root']}): round medians "

@@ -1,5 +1,6 @@
-"""One rank of a two-process world, for tests/test_torch_multihost.py and
-tests/test_torch_windowed.py.
+"""One rank of a two-process world, for tests/test_torch_multihost.py,
+tests/test_torch_windowed.py, tests/test_torch_mh_logreg.py and
+tests/test_torch_mh_wordembedding.py.
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -11,6 +12,9 @@ checks every Get against a numpy oracle of both ranks' Adds. Results go
 to ``OUTDIR/PKG_MODE_RANK.npz``; the last line printed is ``child RANK
 MODE OK``. LIBPATH is the port's build of the repo's C++ library, which
 the JAX package's loader is handed instead of running ``make`` ("" = none).
+The app modes (``lr``, ``lr_dev``, ``we``, ``we_pairs``, ``we_ragged``)
+read the data files their test wrote into OUTDIR; each rank trains on its
+own shard through the apps' entry points.
 """
 
 import os
@@ -293,15 +297,20 @@ def run_bsp(mv):
 
 def run_wiring(mv):
     """A world from MV_NetBind/MV_NetConnect or the machine file (booted
-    by the caller): the control group's collectives and one collective Add,
-    then the unported multi-process paths, each failing loudly on every
-    rank (and leaving the replica as it was)."""
+    by the caller): the control group's collectives and one collective Add;
+    the tables' device writes as collectives (each rank's own batch, every
+    replica the merge); a tagged agreement and a collective write whose
+    Add options diverge, each failing on every rank; then the unported
+    multi-process paths (compressed pushes and device writes, LR's
+    compress=, the KV device writes), each failing loudly on every rank
+    and leaving the replica as it was."""
     import torch
     tables, AddOption, GetOption, Zoo = tables_mod()
     from multiverso_tpu_torch.parallel import multihost as mh
     # the host collectives of the control group, in rank order
     assert mh.host_allreduce_sum(np.full(4, RANK + 1.0)).tolist() == [3.0] * 4
     assert mh.host_allgather_objects({"r": RANK}) == [{"r": 0}, {"r": 1}]
+    assert mh.host_allgather_objects_capped(RANK, "agree") == [0, 1]
     arr = mv.MV_CreateTable(tables.ArrayTableOption(size=8))
     arr.Add(np.full(8, float(RANK + 1), np.float32))
     np.testing.assert_array_equal(arr.Get(), np.full(8, 3.0))
@@ -315,24 +324,78 @@ def run_wiring(mv):
         assert "not ported yet" in str(exc), exc
     else:
         raise AssertionError("a compressed push across processes applied")
-    from multiverso_tpu_torch.utils.world import WorldOwner
+    try:
+        comp.server().device_apply_rows(np.array([0], np.int32),
+                                        np.ones((1, 4), np.float32))
+    except Exception as exc:
+        assert "not ported yet" in str(exc), exc
+    else:
+        raise AssertionError("a compressed device write across processes "
+                             "applied")
     mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=16,
                                                      num_cols=4))
     kv = mv.MV_CreateTable(tables.KVTableOption())
     kv.Add(np.array([3], np.int64), np.ones(1, np.float32))
     ms, asrv, ksrv = mat.server(), arr.server(), kv.server()
-    ids, rows = np.array([RANK], np.int32), np.ones((1, 4), np.float32)
+
+    # the collective device writes: rank r adds r+1 to rows {r, 2} (row 2
+    # from both ranks), device deltas on rank 0, host deltas on rank 1
+    ids = np.array([RANK, 2], np.int32)
+    rows = np.full((2, 4), RANK + 1.0, np.float32)
+    loss = ms.device_apply_rows(ids, torch.from_numpy(rows) if RANK == 0
+                                else rows, ride=torch.tensor(RANK + 0.5))
+    assert loss == 2.0, loss
+    want = np.zeros((16, 4), np.float32)
+    want[0], want[1], want[2] = 1.0, 2.0, 3.0
+    np.testing.assert_array_equal(mat.Get(), want)
+    got = ms.device_update_gather_rows(np.array([2], np.int32),
+                                       np.ones((1, 4), np.float32))
+    np.testing.assert_array_equal(got.numpy(), np.full((1, 4), 5.0))
+    opt = AddOption().as_tensors()
+    new, total = asrv.device_update(asrv.device_state(),
+                                    torch.full((8,), float(RANK + 1)), opt,
+                                    ride=RANK + 1.0)
+    assert total == 3.0, total
+    asrv.device_set_state(new)
+    np.testing.assert_array_equal(arr.Get(), np.full(8, 6.0))
+    try:                # a state this rank made alone
+        asrv.device_set_state(dict(asrv.device_state()))
+    except Exception as exc:
+        assert "collective device_update" in str(exc), exc
+    else:
+        raise AssertionError("device_set_state took a rank's own state")
+
+    # divergences fail on every rank, in one round
+    try:
+        mh.host_allgather_objects_capped(RANK, "lr_pop" if RANK == 0
+                                         else "we_pop")
+    except Exception as exc:
+        assert "diverge" in str(exc) and "lr_pop" in str(exc) \
+            and "we_pop" in str(exc), exc
+    else:
+        raise AssertionError("diverged agreements paired up")
+    try:
+        ms.device_apply_rows(ids, rows, AddOption(worker_id=RANK))
+    except Exception as exc:
+        assert "options diverge" in str(exc), exc
+    else:
+        raise AssertionError("a write with diverged options applied")
+    np.testing.assert_array_equal(ms.raw()[:3], [[1.0] * 4, [2.0] * 4,
+                                                 [5.0] * 4])
+
+    from multiverso_tpu_torch.models.logreg.configure import Configure
+    from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    try:
+        LogReg(Configure(input_size=8, output_size=1, sparse=True,
+                         use_ps=True, compress="sparse", platform="cpu",
+                         output_model_file="", output_file=""))
+    except Exception as exc:
+        assert "compress=sparse" in str(exc) \
+            and "not ported yet" in str(exc), exc
+    else:
+        raise AssertionError("LR compress= started across processes")
     slots = ksrv.device_place_slots(ksrv.device_slots([3]))
     unported = {
-        "LogisticRegression": lambda: WorldOwner.require_single_process(
-            "LogisticRegression"),
-        "device_apply_rows": lambda: ms.device_apply_rows(ids, rows),
-        "device_update_gather_rows": lambda: ms.device_update_gather_rows(
-            ids, rows),
-        "device_update": lambda: asrv.device_update(
-            asrv.device_state(), torch.ones(asrv.padded), None),
-        "device_set_state": lambda: asrv.device_set_state(
-            asrv.device_state()),
         "device_slots(create=True)": lambda: ksrv.device_slots(
             [RANK + 10], create=True),
         "device_set_values": lambda: ksrv.device_set_values(
@@ -347,8 +410,6 @@ def run_wiring(mv):
             assert name in str(exc) and "not ported yet" in str(exc), exc
         else:
             raise AssertionError(f"{name} ran in a multi-process world")
-    np.testing.assert_array_equal(mat.Get(), np.zeros((16, 4)))
-    np.testing.assert_array_equal(arr.Get(), np.full(8, 3.0))
     np.testing.assert_array_equal(kv.Get(np.array([3, 10, 11], np.int64)),
                                   [2.0, 0.0, 0.0])
     mv.MV_Barrier()
@@ -400,6 +461,162 @@ def run_dead(mv):
     results["fail_s"] = np.array(time.perf_counter() - t0)
 
 
+# -- the apps, data-parallel (each rank its own shard) ------------------------
+
+def lr_classes():
+    if PKG == "jax":
+        from multiverso_tpu.models.logreg.configure import Configure
+        from multiverso_tpu.models.logreg.logreg import LogReg
+    else:
+        from multiverso_tpu_torch.models.logreg.configure import Configure
+        from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    return Configure, LogReg
+
+
+def lr_config(Configure, **kw):
+    """The JAX package's two-process LR test configuration
+    (tests/test_multihost.py), no pipelined pulls, no output files."""
+    base = dict(input_size=16, output_size=1, objective_type="sigmoid",
+                updater_type="sgd", learning_rate=0.3, train_epoch=3,
+                minibatch_size=32, use_ps=True, sync_frequency=2,
+                pipeline=False, output_model_file="", output_file="",
+                show_time_per_sample=10 ** 9)
+    base.update(kw)
+    if PKG == "torch":
+        base["platform"] = "cpu"
+    return Configure(**base)
+
+
+def lr_run(name, Configure, LogReg, min_acc=0.85, **kw):
+    cfg = lr_config(Configure, **kw)
+    lr = LogReg(cfg)
+    loss = lr.Train()
+    acc = lr.Test()
+    results[f"{name}_W"] = np.asarray(lr.model.weights())
+    results[f"{name}_loss"] = np.array(float(loss))
+    results[f"{name}_acc"] = np.array(acc)
+    assert acc > min_acc, (name, acc)
+
+
+def run_lr(mv):
+    """The host plane (dense, equal shards), FTRL on the collective host KV
+    verbs (device_plane asked for; equal shards), and, in the port, the
+    warm start: both ranks read the loaded weights after it."""
+    Configure, LogReg = lr_classes()
+    lr_run("host", Configure, LogReg,
+           train_file=f"{OUTDIR}/dense_{RANK}.data",
+           test_file=f"{OUTDIR}/dense_test.data")
+    lr_run("ftrl", Configure, LogReg, objective_type="ftrl",
+           updater_type="ftrl", sparse=True, device_plane=True, alpha=2.0,
+           beta=1.0, lambda1=0.01, lambda2=0.01,
+           train_file=f"{OUTDIR}/sparse_{RANK}.data",
+           test_file=f"{OUTDIR}/sparse_test.data")
+    if PKG == "torch":
+        for sparse in (False, True):
+            cfg = lr_config(Configure, sparse=sparse, train_epoch=0,
+                            init_model_file=f"{OUTDIR}/init.model")
+            W = np.asarray(LogReg(cfg).model.weights())
+            results[f"warm_{'sparse' if sparse else 'dense'}"] = W
+
+
+def run_lr_dev(mv):
+    """The device plane, dense and sparse, on ragged shards (filler windows
+    on the rank whose shard runs out)."""
+    Configure, LogReg = lr_classes()
+    for sparse in (False, True):
+        kind = "sparse" if sparse else "dense"
+        lr_run(kind, Configure, LogReg, sparse=sparse, device_plane=True,
+               train_file=f"{OUTDIR}/{kind}_ragged_{RANK}.data",
+               test_file=f"{OUTDIR}/{kind}_test.data")
+
+
+def we_classes():
+    if PKG == "jax":
+        from multiverso_tpu.models.wordembedding.distributed import \
+            DistributedWordEmbedding
+        from multiverso_tpu.models.wordembedding.option import Option
+    else:
+        from multiverso_tpu_torch.models.wordembedding.distributed import \
+            DistributedWordEmbedding
+        from multiverso_tpu_torch.models.wordembedding.option import Option
+    return DistributedWordEmbedding, Option
+
+
+def we_run(name, corpus, extra=()):
+    """One DistributedWordEmbedding run in the booted world; returns it
+    (its world stays up)."""
+    DWE, Option = we_classes()
+    argv = ["-train_file", f"{OUTDIR}/{corpus}_{RANK}.txt",
+            "-output", f"{OUTDIR}/{PKG}_{name}_{RANK}.txt",
+            "-size", "16", "-epoch", "2", "-negative", "3",
+            "-min_count", "1", "-read_vocab", f"{OUTDIR}/{corpus}_vocab.txt",
+            "-data_block_size", "20000", "-is_pipeline", "0", *extra]
+    if PKG == "torch":
+        argv += ["-platform", "cpu"]
+    we = DWE(Option.parse_args(argv))
+    results[f"{name}_loss"] = np.array(float(we.run()))
+    return we
+
+
+def run_we(mv):
+    """The host plane and -device_plane 1 on equal shards."""
+    we_run("host", "corpus")
+    we_run("device", "corpus", ["-device_plane", "1"])
+
+
+def run_we_pairs(mv):
+    """-device_pairs 1 on ragged shards, in the port, with the JAX
+    program's draws injected (recomputed here from its key) and each
+    global block's layout and lr recorded, so the test can run the JAX
+    program on the same global blocks in one process."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from multiverso_tpu_torch.models.wordembedding import device_pairs as dp
+    orig = dp.DevicePairsTrainer.train_block
+    blocks = []
+
+    def train_block(self, token_ids, token_sent, lr, b=None, draws=None,
+                    agreed=None):
+        ids, sent = self.global_layout(agreed)
+        opt = self.opt
+        n, W = len(ids), opt.window_size
+        key = jax.random.fold_in(jax.random.PRNGKey(opt.seed),
+                                 self._block_counter + 1)
+        kb, kneg = jax.random.split(key)
+        b = np.asarray(jax.random.randint(kb, (n,), 1, W + 1))
+        draws = np.asarray(jax.random.randint(
+            kneg, (2 * W * n, opt.negative_num), 0, self.slots.shape[0]))
+        blocks.append((ids, sent, lr))
+        return orig(self, token_ids, token_sent, lr, b=b, draws=draws,
+                    agreed=agreed)
+
+    dp.DevicePairsTrainer.train_block = train_block
+    we = we_run("pairs", "topics", ["-device_pairs", "1",
+                                    "-data_block_size", "2000"])
+    for i, (ids, sent, lr) in enumerate(blocks):
+        results[f"block{i}_ids"] = ids
+        results[f"block{i}_sent"] = sent
+        results[f"block{i}_lr"] = np.array(lr, np.float32)
+    comm = we.comm
+    for name in ("input_table", "output_table"):
+        results[name] = getattr(comm, name).server().raw()
+    results["slots"] = we.dp_trainer.slots.numpy()
+
+
+def run_we_ragged(mv):
+    """The host plane on unequal block streams fails on BOTH ranks, with
+    the message that says why, and within the collective timeout."""
+    t0 = time.perf_counter()
+    try:
+        we_run("ragged", "ragged", ["-data_block_size", "2000"])
+    except Exception as exc:
+        assert "-device_pairs" in str(exc) and "unequal" in str(exc), exc
+    else:
+        raise AssertionError("a ragged host-plane stream trained")
+    results["fail_s"] = np.array(time.perf_counter() - t0)
+
+
 def main():
     extra = {"bsp": ["-sync=true"],
              "tables": ["-num_workers=2"]}.get(MODE, [])
@@ -418,7 +635,9 @@ def main():
     else:
         mv = boot(extra + EXTRA)
     {"tables": run_tables, "burst": run_burst, "bsp": run_bsp,
-     "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead}[MODE](mv)
+     "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
+     "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
+     "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)
     if MODE != "dead":
         mv.MV_ShutDown()
     np.savez(os.path.join(OUTDIR, f"{PKG}_{MODE}_{RANK}.npz"), **results)

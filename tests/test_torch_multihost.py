@@ -18,12 +18,16 @@ a numpy oracle of both ranks' Adds inside the children. Here:
     normals, which the port sums exactly in float64 and the JAX package
     rounds to float32 per process before the cross-process sum);
 (c) a world wired by ``MV_NetBind``/``MV_NetConnect`` and one by
-    ``-machine_file``; the unported multi-process paths (compressed
-    pushes, the apps, the tables' public ``device_*`` writes) failing on
-    every rank and leaving the replicas alone; a diverging verb stream
-    failing its CHECK on both ranks, and a dead peer failing the next
-    collective Add, each well within the children's 60 s collective
-    timeout.
+    ``-machine_file``; the tables' device writes as collectives (Matrix
+    ``device_apply_rows`` with a ride and ``device_update_gather_rows``,
+    Array ``device_update`` + ``device_set_state``, which refuses a state
+    of one rank's own); a tagged agreement at diverged call sites and a
+    write with diverged Add options, each failing on both ranks; the
+    unported multi-process paths (compressed pushes and device writes,
+    LR's ``compress=``, the KV device writes) failing on every rank and
+    leaving the replicas alone; a diverging verb stream failing its CHECK
+    on both ranks, and a dead peer failing the next collective Add, each
+    well within the children's 60 s collective timeout.
 """
 
 import threading
@@ -71,7 +75,7 @@ def test_single_process_identities(tmp_path, monkeypatch):
     mv.MV_Init(["-mv_device=cpu"])
     try:
         assert (mv.MV_Size(), mv.MV_Rank()) == (1, 0)
-        mh.require_one_process("device_apply_rows")
+        mh.require_one_process("device_set_values")
     finally:
         mv.MV_ShutDown()
 
