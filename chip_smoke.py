@@ -88,7 +88,31 @@ holds every kernel of that path against its plain PyTorch version:
               pipelined): the final table equal to the oracle of both
               ranks' Adds and bitwise equal across the ranks, with the
               burst's seconds, windows, and the engine's exchange and
-              apply seconds;
+              apply seconds; ``[ps_2proc serve]``: after the PS rounds
+              both ranks ``MV_PublishSnapshot`` at one stream position
+              (host residence), the versions agree, 4 threads a rank look
+              up 256 random ids 50 times on each table, bitwise the rank's
+              Get at the cut, with no host collective round on the lookup
+              path; serving (``[serve]``, run after every other phase):
+              the WordEmbedding flagship's width, an sgd and an AdaGrad MatrixTable of 1,000,000 x
+              128 in one process on the card: the sgd table's snapshots
+              device-resident (one clone, read by the row gather), the
+              AdaGrad table's host-resident (aux state), on every
+              published version; the card's allocated memory before
+              publishing, after 3 publishes with a pin (3 copies) and
+              after the unpin (2); the publish times; a trainer pushing
+              AddRows of 10,000 random ids to both tables and publishing
+              every 8 batches while 8 client threads look up 256
+              Zipf(1.0) ids each, tables alternating, for 20 s (lookups/s,
+              p50 / p99, mean coalesced batch, dispatches), then 5 s of
+              it under torch.profiler (device idle); quiesced, served
+              rows equal to the training GetRows at one cut (sgd
+              bitwise, AdaGrad rtol / atol 1e-6), one row-gather launch
+              per device-resident read, and a pinned version bitwise
+              unchanged after 16 more Add batches and 2 publishes; then
+              the gather at the serve union shape (unions of the
+              measured mean batch of Zipf lookups) against its plain
+              version, bitwise, timed as in phase 2;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -228,6 +252,17 @@ CKPT_ROUNDS, CKPT_LR_KEYS = 3, 20_000
 # [ps_compress]: the share of each delta's entries that are zero
 # (tests/test_tables.py:853-872, where the sparse filter's rule engages)
 COMPRESS_ZEROS = 0.8
+# [serve]: the WordEmbedding flagship's table width ([we_pairs_adagrad]'s
+# 1,000,000 x 128 storage); a trainer pushes the PS shape's AddRows batches
+# and publishes every SERVE_PUBLISH_EVERY of them while SERVE_CLIENTS
+# client threads look up SERVE_LOOKUP_IDS Zipf(1.0) ids each for
+# SERVE_WALL_S (and SERVE_IDLE_S under the profiler); a pinned version
+# must outlive SERVE_PIN_ADDS more Add batches; [ps_2proc]'s serving check
+# runs SERVE_2PROC_LOOKUPS lookups from each of 4 threads a rank
+SERVE_ROWS, SERVE_COLS, SERVE_IDS = WE_BIG_VOCAB, WE_DIM, PS_IDS
+SERVE_PUBLISH_EVERY, SERVE_CLIENTS, SERVE_LOOKUP_IDS = 8, 8, 256
+SERVE_WALL_S, SERVE_IDLE_S, SERVE_PIN_ADDS = 20.0, 5.0, 16
+SERVE_2PROC_LOOKUPS = 50
 
 
 def log(msg: str) -> None:
@@ -527,6 +562,10 @@ def time_kernels(torch, cr, dev, rows: int, cols: int, n: int,
     res["update_rows_sgd_library_ms"] = median_ms(
         torch, lambda i: b.index_add_(0, ids64[i], src[i], alpha=-1),
         ID_SETS)
+    # the Add+Get's plain version: the plain update, which returns the
+    # post-update rows too (no single library call does both)
+    res["update_gather_rows_plain_ms"] = median_ms(
+        torch, lambda i: cr.update_rows_plain(b, ids[i], src[i], 1), ID_SETS)
     res["update_gather_rows_bound_ms"] = (
         (4 * n * cols * 4 + 4 * n) / HBM_BYTES_PER_S * 1e3)
     torch.cuda.synchronize()
@@ -1011,6 +1050,47 @@ def ps2_burst_turn(torch, mv, base: list, turn: str, batches: list,
     return res
 
 
+def ps2_serve(mv, tables, gets, seed: int, rank: int) -> dict:
+    """[ps_2proc]'s serving cut: both ranks publish right after the
+    tables' whole Gets ``gets`` (the same stream position on both: the
+    versions must agree, and a multi-process world serves from host
+    copies); 4 threads a rank then look up SERVE_2PROC_LOOKUPS sets of
+    SERVE_LOOKUP_IDS random ids on each table, every one bitwise the
+    rank's training Get at the cut, while the process's host collective
+    rounds stay where they were."""
+    from multiverso_tpu_torch.parallel import multihost
+    from multiverso_tpu_torch.serving import get_plane
+    t0 = time.perf_counter()
+    v = mv.MV_PublishSnapshot()
+    publish_s = time.perf_counter() - t0
+    snap = get_plane().store.get(v)
+    residence = sorted({snap.tables[t.table_id].residence for t in tables})
+    del snap
+    if residence != ["host"]:
+        raise AssertionError(f"[ps_2proc] serving residence {residence}")
+    versions = multihost.host_allgather_objects(v)
+    rounds0 = multihost.collective_rounds()
+
+    def looker(c):
+        g = np.random.default_rng([seed, 650, rank, c])
+        for _ in range(SERVE_2PROC_LOOKUPS):
+            ids = g.choice(PS_ROWS, SERVE_LOOKUP_IDS, replace=False)
+            for t, want in zip(tables, gets):
+                if not np.array_equal(
+                        mv.MV_ServingLookup(t, ids, version=v), want[ids]):
+                    raise AssertionError(f"[ps_2proc] rank {rank}: a "
+                                         f"served row != the Get at the cut")
+
+    t0 = time.perf_counter()
+    run_threads(looker, 4)
+    lookup_s = time.perf_counter() - t0
+    return {"version": v, "versions": versions, "publish_s": publish_s,
+            "lookups": 4 * SERVE_2PROC_LOOKUPS * len(tables),
+            "lookup_s": lookup_s,
+            "lookup_rounds": multihost.collective_rounds() - rounds0,
+            "residence": residence}
+
+
 def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     """One rank of [ps_2proc] (``--rank-child``), on ``cuda:0`` beside its
     peer, over gloo. The PS shape on an add and a momentum table, 5 rounds
@@ -1088,6 +1168,8 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     np.testing.assert_allclose(final_mom, oracle_mom, rtol=1e-6, atol=1e-6)
     res["digest"] = hashlib.sha256(final_add.tobytes()
                                    + final_mom.tobytes()).hexdigest()
+    res["serve"] = ps2_serve(mv, (add, mom), (final_add, final_mom), seed,
+                             rank)
     torch.cuda.synchronize()
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set on the 2-process PS path")
@@ -1224,6 +1306,12 @@ def ps_2proc_phase(seed: int, workdir: str) -> dict:
             raise AssertionError(f"[ps_2proc burst] the ranks' final tables "
                                  f"differ on the {t0['turn']} turn")
     for r in ranks:
+        sv = r["serve"]
+        if sv["versions"] != [sv["version"]] * 2 or sv["lookup_rounds"]:
+            raise AssertionError(f"[ps_2proc] rank {r['rank']} serving: "
+                                 f"versions {sv['versions']}, "
+                                 f"{sv['lookup_rounds']} host collective "
+                                 f"rounds on the lookup path")
         for k in ("gather_rows", "scatter_set_rows", "update_rows"):
             if r["ps_launches"][k] == 0:
                 raise AssertionError(f"[ps_2proc] rank {r['rank']} never "
@@ -1395,6 +1483,368 @@ def ps_compress_phase(torch, mv, cr, dev, seed: int) -> dict:
             "plain_round_median_ms": float(np.median(round_ms[None])),
             "wire_stats": wire,
             "wire_ratio": wire["payload_bytes"] / wire["dense_bytes"]}
+
+
+# -- [serve]: the serving plane beside a trainer --------------------------------
+
+def zipf_cdf(rows: int) -> np.ndarray:
+    """The CDF of Zipf(s=1.0) over ``rows`` ranks (rank k drawn with weight
+    1/(k+1)): a word-frequency skew, row 0 the most frequent word, as in a
+    WordEmbedding vocabulary sorted by count."""
+    cdf = np.cumsum(1.0 / np.arange(1, rows + 1, dtype=np.float64))
+    return cdf / cdf[-1]
+
+
+def zipf_ids(cdf: np.ndarray, g, n: int) -> np.ndarray:
+    return np.minimum(np.searchsorted(cdf, g.random(n), side="right"),
+                      len(cdf) - 1).astype(np.int64)
+
+
+def serve_batches(seed: int, n: int) -> list:
+    """The trainer's AddRows batches: SERVE_IDS unique random rows and
+    small normal deltas (AdaGrad takes real-valued gradients)."""
+    g = np.random.default_rng([seed, 900])
+    return [(g.choice(SERVE_ROWS, SERVE_IDS, replace=False).astype(np.int32),
+             (g.standard_normal((SERVE_IDS, SERVE_COLS)) * 0.01).astype(
+                 np.float32)) for _ in range(n)]
+
+
+def serve_traffic(mv, tables, batches, cdf, wall_s: float, seed: int,
+                  check_residence) -> dict:
+    """One trainer thread pushes ``batches`` in turn to both tables and
+    publishes every SERVE_PUBLISH_EVERY of them while SERVE_CLIENTS client
+    threads each look up SERVE_LOOKUP_IDS Zipf ids, alternating the
+    tables, on the latest version for ``wall_s`` seconds. Every served
+    block must be finite and of its shape; ``check_residence(v)`` holds
+    each published version's residences."""
+    stop = threading.Event()
+    pub_ms, trained, errors = [], [0], []
+
+    def trainer():
+        try:
+            i = 0
+            while not stop.is_set():
+                ids, deltas = batches[i % len(batches)]
+                for t in tables:
+                    t.AddRows(ids, deltas)
+                i += 1
+                trained[0] = i
+                if i % SERVE_PUBLISH_EVERY == 0:
+                    t0 = time.perf_counter()
+                    v = mv.MV_PublishSnapshot()
+                    pub_ms.append((time.perf_counter() - t0) * 1e3)
+                    check_residence(v)
+        except BaseException as exc:         # re-raised below
+            errors.append(exc)
+
+    lat = [[] for _ in range(SERVE_CLIENTS)]
+    t_end = time.perf_counter() + wall_s
+
+    def client(c):
+        g = np.random.default_rng([seed, 910, c])
+        k = 0
+        while time.perf_counter() < t_end:
+            table = tables[k % len(tables)]
+            ids = zipf_ids(cdf, g, SERVE_LOOKUP_IDS)
+            t0 = time.perf_counter()
+            got = mv.MV_ServingLookup(table, ids)
+            lat[c].append(time.perf_counter() - t0)
+            if got.shape != (SERVE_LOOKUP_IDS, SERVE_COLS) or \
+                    not np.isfinite(got).all():
+                raise AssertionError(f"client {c}: a served block of shape "
+                                     f"{got.shape}, finite "
+                                     f"{np.isfinite(got).all()}")
+            k += 1
+
+    th = threading.Thread(target=trainer)
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        run_threads(client, SERVE_CLIENTS)
+    finally:
+        stop.set()
+        th.join(JOIN_S)
+    wall = time.perf_counter() - t0
+    if th.is_alive():
+        raise AssertionError(f"[serve] the trainer hung past {JOIN_S} s")
+    if errors:
+        raise errors[0]
+    flat = np.concatenate([np.asarray(x) for x in lat])
+    return {"wall_s": wall, "lookups": int(flat.size),
+            "lookups_per_s": flat.size / wall,
+            "client_p50_ms": float(np.percentile(flat, 50)) * 1e3,
+            "client_p99_ms": float(np.percentile(flat, 99)) * 1e3,
+            "train_batches": trained[0], "publishes": len(pub_ms),
+            "publish_median_ms": (float(np.median(pub_ms)) if pub_ms
+                                  else 0.0)}
+
+
+def device_idle(torch, fn) -> tuple:
+    """``fn()`` under torch.profiler (CUDA activity): (its result, the
+    device-busy seconds: the summed spans of the device-side events on the
+    one stream, the wall seconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return out, busy_us / 1e6, wall
+
+
+def serve_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """[serve]: MV_Init on the card, an sgd and an AdaGrad MatrixTable at
+    SERVE_ROWS x SERVE_COLS. Memory through retention (3 publishes, one
+    pinned: three device copies; unpin: two), each table's residence
+    (sgd device, AdaGrad host, on every published version), the publish
+    times; the traffic (``serve_traffic``) for SERVE_WALL_S and again
+    for SERVE_IDLE_S under the profiler (device idle); then, quiesced,
+    served rows against the training GetRows at one cut (sgd bitwise,
+    AdaGrad rtol / atol 1e-6), the device-resident lookups' ``<kGather>``
+    launches, and a pinned version's rows bitwise after SERVE_PIN_ADDS
+    more Add batches and two publishes."""
+    from multiverso_tpu_torch.serving import get_plane
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.zoo import Zoo
+    cdf = zipf_cdf(SERVE_ROWS)
+    batches = serve_batches(seed, SERVE_PUBLISH_EVERY)
+    res = {}
+    mv.MV_Init([])
+    try:
+        sgd = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=SERVE_ROWS, num_cols=SERVE_COLS, updater_type="sgd"))
+        ada = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=SERVE_ROWS, num_cols=SERVE_COLS,
+            updater_type="adagrad"))
+        tables = (sgd, ada)
+        storage = sgd.server().state["data"]
+        if storage.device != dev or ada.server().state["data"].device != dev:
+            raise AssertionError("the [serve] tables are not on the card")
+        plane = get_plane()
+        store = plane.store
+        copy_bytes = storage.numel() * storage.element_size()
+
+        def check_residence(v):
+            snap = store.get(v)
+            got = (snap.tables[sgd.table_id].residence,
+                   snap.tables[ada.table_id].residence)
+            if got != ("device", "host"):
+                raise AssertionError(f"[serve] version {v}: residences "
+                                     f"{got}, not (device, host)")
+
+        # memory through retention: -mv_serving_keep 2 plus a pin
+        torch.cuda.synchronize()
+        mem = [torch.cuda.memory_allocated(dev)]
+        v1 = mv.MV_PublishSnapshot()
+        mv.MV_PinVersion(v1)
+        for _ in range(2):
+            check_residence(mv.MV_PublishSnapshot())
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated(dev))
+        live_pinned = store.live_versions()
+        mv.MV_UnpinVersion(v1)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated(dev))
+        live_after = store.live_versions()
+        for k, n in ((1, 3), (2, 2)):
+            grown = mem[k] - mem[0]
+            if not n * copy_bytes <= grown <= n * (copy_bytes + (2 << 20)):
+                raise AssertionError(f"[serve] memory: {grown} bytes over "
+                                     f"the tables, not {n} copies of "
+                                     f"{copy_bytes}")
+        if live_pinned != [1, 2, 3] or live_after != [2, 3]:
+            raise AssertionError(f"[serve] live versions {live_pinned} "
+                                 f"pinned, {live_after} after the unpin")
+        res.update(memory_bytes=mem, copy_bytes=copy_bytes,
+                   live_pinned=live_pinned, live_after=live_after)
+
+        # publish times: each table's export on the engine thread (host
+        # clock; the device export only enqueues its clone), the clone on
+        # the card (CUDA events), a publish waited for
+        exports = {"device": [], "host": []}
+        clone_ms, publish_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            v = mv.MV_PublishSnapshot()
+            torch.cuda.synchronize()
+            publish_ms.append((time.perf_counter() - t0) * 1e3)
+            snap = store.get(v)
+            exports["device"].append(snap.export_s[sgd.table_id] * 1e3)
+            exports["host"].append(snap.export_s[ada.table_id] * 1e3)
+            del snap
+            start, end = _event(torch), _event(torch)
+            start.record()
+            c = storage.clone()
+            end.record()
+            torch.cuda.synchronize()
+            clone_ms.append(start.elapsed_time(end))
+            del c
+        res.update(export_device_ms=float(np.median(exports["device"])),
+                   export_host_ms=float(np.median(exports["host"])),
+                   clone_ms=float(np.median(clone_ms)),
+                   publish_synced_ms=float(np.median(publish_ms)))
+
+        # the traffic, then a window of it under the profiler
+        plane.frontend.reset_stats()
+        traffic = serve_traffic(mv, tables, batches, cdf,
+                                SERVE_WALL_S, seed, check_residence)
+        traffic["frontend"] = plane.frontend.stats()
+        res["traffic"] = traffic
+        _, busy, wall = device_idle(torch, lambda: serve_traffic(
+            mv, tables, batches, cdf, SERVE_IDLE_S, seed + 1,
+            check_residence))
+        res.update(idle_busy_s=busy, idle_wall_s=wall,
+                   idle_share=1.0 - busy / wall)
+
+        # quiesced: served rows against the training Get at one cut
+        Zoo.Get().DrainServer()
+        g = np.random.default_rng([seed, 920])
+        ids = np.unique(np.concatenate([
+            zipf_ids(cdf, g, 4096),
+            g.choice(SERVE_ROWS, 4096, replace=False)])).astype(np.int32)
+        train = [t.GetRows(ids) for t in tables]
+        v = mv.MV_PublishSnapshot()
+        ts = store.get(v).tables[sgd.table_id]
+        l0, d0 = cr.LAUNCHES["gather_rows"], ts.dispatches
+        served = [mv.MV_ServingLookup(t, ids, version=v) for t in tables]
+        for _ in range(7):
+            mv.MV_ServingLookup(sgd, zipf_ids(cdf, g, SERVE_LOOKUP_IDS),
+                                version=v)
+        gathers = cr.LAUNCHES["gather_rows"] - l0
+        if gathers != ts.dispatches - d0 or gathers != 8:
+            raise AssertionError(f"[serve] {gathers} <kGather> launches for "
+                                 f"{ts.dispatches - d0} device-resident "
+                                 f"reads (8 lookups)")
+        del ts
+        np.testing.assert_array_equal(served[0], train[0],
+                                      err_msg="[serve] sgd served != Get")
+        np.testing.assert_allclose(served[1], train[1], rtol=1e-6,
+                                   atol=1e-6,
+                                   err_msg="[serve] AdaGrad served != Get")
+        res.update(cut_ids=int(ids.size), device_gathers=gathers,
+                   ada_bitwise=bool(np.array_equal(served[1], train[1])))
+
+        # a pinned version past later Adds and retention
+        mv.MV_PinVersion(v)
+        g2 = np.random.default_rng([seed, 930])
+        for i in range(SERVE_PIN_ADDS):
+            deltas = (g2.standard_normal((ids.size, SERVE_COLS))
+                      * 0.01).astype(np.float32)
+            for t in tables:
+                t.AddRows(ids, deltas)
+            if i % 8 == 7:
+                mv.MV_PublishSnapshot()
+        if v not in store.live_versions():
+            raise AssertionError("[serve] the pinned version was evicted")
+        for t, before in zip(tables, served):
+            np.testing.assert_array_equal(
+                mv.MV_ServingLookup(t, ids, version=v), before,
+                err_msg="[serve] a pinned version changed")
+            if np.array_equal(t.GetRows(ids), before):
+                raise AssertionError("[serve] the Adds after the pin did "
+                                     "not move the live table")
+        mv.MV_UnpinVersion(v)
+        if v in store.live_versions():
+            raise AssertionError("[serve] the unpinned version stayed live")
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the serving path")
+    finally:
+        mv.MV_ShutDown()
+    return res
+
+
+def time_serve_gather(torch, cr, dev, mean_batch: float, seed: int) -> dict:
+    """``<kGather>`` at the serve path's union shape: a SERVE_ROWS + 1 x
+    SERVE_COLS storage copy, each id set the sorted union of
+    round(mean_batch) lookups of SERVE_LOOKUP_IDS Zipf ids (the coalesced
+    batches [serve] measured); bitwise against the plain version, timed
+    both ways beside ``index_select`` and this data's byte bound (each
+    union row read once and written once, each id read once)."""
+    cdf = zipf_cdf(SERVE_ROWS)
+    g = np.random.default_rng([seed, 940])
+    tg = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn(SERVE_ROWS + 1, SERVE_COLS, generator=tg).to(dev)
+    b = max(1, int(round(mean_batch)))
+    unions = [np.unique(zipf_ids(cdf, g, b * SERVE_LOOKUP_IDS))
+              for _ in range(ID_SETS)]
+    ids = [torch.from_numpy(u.astype(np.int32)).to(dev) for u in unions]
+    ids64 = [i.long() for i in ids]
+    err = 0.0
+    for i, x in enumerate(ids):
+        got, want = cr.gather_rows(data, x), cr.gather_rows_plain(data, x)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[serve] gather at the union shape, set {i}")
+        err = max(err, float((got - want).abs().max()))
+    n = float(np.mean([u.size for u in unions]))
+    res = {"ms": median_ms(torch, lambda i: cr.gather_rows(data, ids[i]),
+                           ID_SETS),
+           "stream_ms": stream_ms(torch, lambda i: cr.gather_rows(
+               data, ids[i]), ID_SETS),
+           "plain_ms": median_ms(torch, lambda i: cr.gather_rows_plain(
+               data, ids[i]), ID_SETS),
+           "library_ms": median_ms(torch, lambda i: torch.index_select(
+               data, 0, ids64[i]), ID_SETS),
+           "bound_ms": (2 * n * SERVE_COLS * 4 + 4 * n) / HBM_BYTES_PER_S
+           * 1e3,
+           "max_abs_err": err, "lookups_per_union": b, "union_ids": n,
+           "shape": [SERVE_ROWS + 1, SERVE_COLS, round(n)]}
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set at the serve union shape")
+    return res
+
+
+def report_serve(sv: dict, k: dict, launches: dict, card: str) -> None:
+    """The [serve] lines."""
+    tr, fe = sv["traffic"], sv["traffic"]["frontend"]
+    mb = [m / 2 ** 20 for m in sv["memory_bytes"]]
+    log(f"[serve] {card}: {SERVE_ROWS:,} x {SERVE_COLS} sgd and AdaGrad "
+        f"MatrixTables, one process on the card; residence: sgd -> device "
+        f"(one clone, read by <kGather>), AdaGrad -> host (aux state), on "
+        f"every published version")
+    log(f"[serve] memory allocated on the card: {mb[0]:.1f} MiB before "
+        f"publishing, {mb[1]:.1f} MiB after 3 publishes with the first "
+        f"pinned (live {sv['live_pinned']}: 3 copies of "
+        f"{sv['copy_bytes']:,} bytes), {mb[2]:.1f} MiB after the unpin "
+        f"(live {sv['live_after']})")
+    log(f"[serve] publish: device export {sv['export_device_ms']:.4f} ms "
+        f"(host clock, enqueues the clone; the clone on the card "
+        f"{sv['clone_ms']:.4f} ms by CUDA events), host export "
+        f"{sv['export_host_ms']:.4f} ms (AdaGrad table to host memory); "
+        f"MV_PublishSnapshot + synchronize {sv['publish_synced_ms']:.4f} "
+        f"ms; under traffic median {tr['publish_median_ms']:.4f} ms over "
+        f"{tr['publishes']} publishes")
+    log(f"[serve] traffic {tr['wall_s']:.3f} s: {SERVE_CLIENTS} clients x "
+        f"{SERVE_LOOKUP_IDS} Zipf(1.0) ids, tables alternating, beside a "
+        f"trainer ({tr['train_batches']} AddRows batches of {SERVE_IDS} "
+        f"ids on both tables, a publish every {SERVE_PUBLISH_EVERY}): "
+        f"{tr['lookups']} lookups = {tr['lookups_per_s']:.1f} lookups/s; "
+        f"client latency p50 {tr['client_p50_ms']:.4f} ms, p99 "
+        f"{tr['client_p99_ms']:.4f} ms; front-end p50 "
+        f"{fe['latency_p50_s'] * 1e3:.4f} ms, p99 "
+        f"{fe['latency_p99_s'] * 1e3:.4f} ms; mean coalesced batch "
+        f"{fe['mean_batch']:.4f} lookups over {fe['batches']} batches; "
+        f"dispatches {fe['dispatches']}; shed {fe['shed']}")
+    log(f"[serve] device idle over {sv['idle_wall_s']:.3f} s of the same "
+        f"traffic under torch.profiler: busy {sv['idle_busy_s']:.4f} s, "
+        f"idle share {sv['idle_share']:.4f}")
+    log(f"[serve] quiesced cut, {sv['cut_ids']} ids: served == training "
+        f"GetRows (sgd bitwise; AdaGrad rtol/atol 1e-6, bitwise "
+        f"{sv['ada_bitwise']}); {sv['device_gathers']} <kGather> launches "
+        f"for 8 device-resident lookups (one per read); a pinned version "
+        f"bitwise unchanged after {SERVE_PIN_ADDS} Add batches and 2 "
+        f"publishes, evicted at its unpin; launches on the path {launches}")
+    log(f"[kernels] serve union {k['shape'][0]}x{k['shape'][1]}, "
+        f"{k['union_ids']:.1f} ids (unions of {k['lookups_per_union']} "
+        f"lookups of {SERVE_LOOKUP_IDS} Zipf ids) gather_rows: kernel == "
+        f"plain bitwise; per-pair {k['ms']:.7f} ms, stream "
+        f"{k['stream_ms']:.7f} ms (bound {k['bound_ms']:.7f}, plain "
+        f"{k['plain_ms']:.7f}, library {k['library_ms']:.7f}, all "
+        f"per-pair), max_abs_err {k['max_abs_err']}")
 
 
 # -- phase 4: WordEmbedding ----------------------------------------------------
@@ -2803,7 +3253,9 @@ def main() -> int:
             f"{res['update_rows_sgd_max_abs_err']}; Add+Get per-pair "
             f"{res['update_gather_rows_ms']:.7f} ms, stream "
             f"{res['update_gather_rows_stream_ms']:.7f} ms (bound "
-            f"{res['update_gather_rows_bound_ms']:.7f})")
+            f"{res['update_gather_rows_bound_ms']:.7f}, plain per-pair "
+            f"{res['update_gather_rows_plain_ms']:.7f}, no single library "
+            f"call)")
         log(f"[kernels] {label} an empty launch: per-pair "
             f"{res['empty_launch_ms']:.7f} ms, stream "
             f"{res['empty_launch_stream_ms']:.7f} ms")
@@ -2943,6 +3395,16 @@ def main() -> int:
                 f"(pipelined / serial {med['pipeline'] / med['serial']:.3f})")
         log("[ps_2proc burst] final tables == the oracle of both ranks' "
             "Adds on every turn, bitwise equal across the ranks")
+        for r in two["ranks"]:
+            sv = r["serve"]
+            log(f"[ps_2proc serve] rank {r['rank']}: MV_PublishSnapshot "
+                f"{sv['publish_s'] * 1e3:.4f} ms, version {sv['version']} "
+                f"(both ranks: {sv['versions']}), residence "
+                f"{sv['residence']}; {sv['lookups']} lookups of "
+                f"{SERVE_LOOKUP_IDS} ids from 4 threads in "
+                f"{sv['lookup_s']:.4f} s, each bitwise the rank's Get at "
+                f"the cut; host collective rounds on the lookup path "
+                f"{sv['lookup_rounds']}")
         log("[ps_2proc] every GetRows == the oracle of both ranks' Adds "
             "(add exact, momentum rtol 1e-6); final tables bitwise equal "
             "across the ranks; BSP i-th GetRows == the oracle after both "
@@ -3022,6 +3484,16 @@ def main() -> int:
         lr_phase(torch, dev, args.seed, workdir, lr_data, drive, results)
         two_k = apps_2proc(torch, cr, dev, args.seed, workdir, lr_data,
                            paths, results)
+    # [serve] runs last: no other phase follows its traffic (512 MB host
+    # snapshots, nine threads) in this process
+    sv = drive("serve", lambda: serve_phase(torch, mv, cr, dev, args.seed),
+               every)
+    results["serve"] = sv
+    serve_k = time_serve_gather(torch, cr, dev,
+                                sv["traffic"]["frontend"]["mean_batch"],
+                                args.seed + 11)
+    results["kernels_serve_shape"] = serve_k
+    report_serve(sv, serve_k, paths["serve"], card)
     launches = {k: sum(p[k] for p in paths.values()) for k in cr.LAUNCHES}
     results["main_path_launches"] = {"paths": paths, "total": launches,
                                      "native_calls": native_uses}
@@ -3048,6 +3520,7 @@ def main() -> int:
                              s["update_rows_sgd_max_abs_err"]
                              if k == "update_rows" else 0.0)]
                 + ([touched[k]["max_abs_err"]] if k in touched else [])
+                + ([serve_k["max_abs_err"]] if k == "gather_rows" else [])
                 + [s[k]["max_abs_err"] for s in two_k.values() if k in s]),
             "ms": r["ms"], "stream_ms": r["stream_ms"],
             "plain_ms": r["plain_ms"],
@@ -3078,6 +3551,12 @@ def main() -> int:
                 entry[name] = {key: shapes[k][key] for key in (
                     "ms", "stream_ms", "plain_ms", "library_ms",
                     "max_abs_err", "bound_ms", "shape")}
+        if k == "gather_rows":
+            # a device-resident snapshot's union gather ([serve])
+            entry["serve"] = dict({key: serve_k[key] for key in (
+                "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
+                "bound_ms", "shape")}, launches=paths["serve"][k],
+                device_resident_launches=results["serve"]["device_gathers"])
         if k in touched:
             # the touched-rows AdaGrad step of [we_pairs_adagrad]
             entry["we_pairs_adagrad"] = {

@@ -14,7 +14,9 @@ model-average ``-ma`` with ``MV_Aggregate``), the Array, KV and
 SparseMatrix tables (``tables``), and the WordEmbedding and
 LogisticRegression apps on the host plane and the device plane, with
 checkpoint/resume of every table (``MV_SaveCheckpoint``) and compressed
-row pushes (``compress="sparse"|"1bit"``), on one GPU, and in worlds of
+row pushes (``compress="sparse"|"1bit"``), and the serving plane
+(versioned snapshots cut in the engine stream, served by batched lookups,
+``MV_PublishSnapshot``/``MV_ServingLookup``), on one GPU, and in worlds of
 several processes over ``torch.distributed`` (gloo), each process keeping a
 replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
@@ -36,12 +38,16 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_NetFinalize,
     MV_NumServers,
     MV_NumWorkers,
+    MV_PinVersion,
+    MV_PublishSnapshot,
     MV_Rank,
     MV_SaveCheckpoint,
     MV_ServerId,
+    MV_ServingLookup,
     MV_SetFlag,
     MV_ShutDown,
     MV_Size,
+    MV_UnpinVersion,
     MV_WorkerContext,
     MV_WorkerId,
 )

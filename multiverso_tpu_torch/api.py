@@ -3,10 +3,12 @@
 Counterpart of ``multiverso_tpu/api.py`` (reference multiverso.h:9-64):
 init/shutdown/barrier, rank and size, worker/server ids, table creation,
 model-average aggregation, programmatic flags, batched verbs, worker
-contexts, checkpoint/resume of every table, and the launcher-free net
+contexts, checkpoint/resume of every table, the launcher-free net
 wiring of a multi-process world (``MV_NetBind``/``MV_NetConnect``/
-``MV_NetFinalize``). The rest of the JAX surface (serving, profiler,
-telemetry, elastic, policy) is later work (``ROADMAP.md``).
+``MV_NetFinalize``) and the serving plane (``MV_PublishSnapshot``,
+``MV_ServingLookup``, ``MV_PinVersion``, ``MV_UnpinVersion``). The rest of
+the JAX surface (profiler, telemetry, elastic, policy) is later work
+(``ROADMAP.md``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -22,6 +24,7 @@ import numpy as np
 from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.utils.configure import (ResetFlagsToDefaults,
                                                   SetCMDFlag)
+from multiverso_tpu_torch.utils.log import CHECK
 from multiverso_tpu_torch.zoo import Zoo
 
 
@@ -122,6 +125,54 @@ def MV_LoadCheckpoint(uri: str) -> int:
     """Restore every registered server table from ``uri``."""
     from multiverso_tpu_torch.checkpoint import load_checkpoint
     return load_checkpoint(uri)
+
+
+def MV_PublishSnapshot() -> int:
+    """Publish an immutable, versioned, cross-table-consistent snapshot of
+    every live table for the serving plane (``serving/``); returns the new
+    version. The cut rides the engine's stream as a barrier: every Add
+    admitted before the call is in and none after. COLLECTIVE in a
+    multi-process world (every process calls it at the same verb-stream
+    position, like ``MV_Barrier``; the versions then agree on every rank).
+    ``-mv_serving_keep`` newest versions stay live; pin older ones with
+    ``MV_PinVersion``. CHECK-fails in ``-ma`` mode, which runs no engine and
+    creates no table."""
+    from multiverso_tpu_torch.serving import publish
+    return publish()
+
+
+def MV_ServingLookup(table, ids=None, version: Optional[int] = None,
+                     deadline: Optional[float] = None) -> np.ndarray:
+    """Serve ``ids`` of ``table`` (a worker table or a table id) from the
+    published snapshot ``version`` (None = the latest) WITHOUT touching
+    the engine's verb stream. ``ids=None`` reads the whole table; KV tables
+    take int64 keys (absent keys read 0). Thread-safe and batched:
+    concurrent callers of one table share one union read (one row gather
+    on a device-resident snapshot). ``deadline`` (seconds, default
+    ``-mv_deadline_s``) bounds the wait with ``DeadlineExceeded``; an
+    admission past ``-mv_serving_max_inflight`` raises
+    ``ServingOverloaded``."""
+    from multiverso_tpu_torch.serving import get_plane
+    table_id = getattr(table, "table_id", table)
+    CHECK(isinstance(table_id, int) and table_id >= 0,
+          f"MV_ServingLookup: bad table {table!r}")
+    return get_plane().frontend.lookup(table_id, ids, version=version,
+                                       deadline=deadline)
+
+
+def MV_PinVersion(version: int) -> int:
+    """Hold snapshot ``version`` live past the ``-mv_serving_keep``
+    retention (pins nest); returns the version. Release with
+    ``MV_UnpinVersion``."""
+    from multiverso_tpu_torch.serving import get_plane
+    return get_plane().store.pin(version)
+
+
+def MV_UnpinVersion(version: int) -> None:
+    """Release one ``MV_PinVersion`` pin; a version left without pins and
+    outside the retention window is evicted at once."""
+    from multiverso_tpu_torch.serving import get_plane
+    get_plane().store.unpin(version)
 
 
 def MV_MultiAddAsync(ops, option=None, track: bool = True):

@@ -33,6 +33,10 @@ class MsgType(enum.IntEnum):
     # payload["fn"] runs on the engine thread at the message's stream
     # position: the consistent-cut mechanism (Zoo.CallOnEngine)
     Request_StoreLoad = 35
+    # the serving plane's snapshot cut: payload["fn"] captures every table
+    # at the message's stream position (serving/snapshot.py publish), the
+    # same handler and barrier as Request_StoreLoad
+    Request_Publish = 36
     Default = 0
 
 

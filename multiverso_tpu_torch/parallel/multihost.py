@@ -57,6 +57,7 @@ import datetime
 import os
 import pickle
 import socket
+import threading
 import time
 from typing import Optional
 
@@ -108,6 +109,23 @@ def reset_stats() -> None:
 
 
 reset_stats()
+
+#: host collective rounds this process issued (every all-gather and
+#: barrier, on either group), for a check that a path issues none (the
+#: serving lookups); never reset
+_rounds = 0
+_rounds_lock = threading.Lock()
+
+
+def collective_rounds() -> int:
+    """Host collective rounds issued by this process so far."""
+    return _rounds
+
+
+def _note_round() -> None:
+    global _rounds
+    with _rounds_lock:
+        _rounds += 1
 
 
 def note(kind: str, seconds: float) -> None:
@@ -416,6 +434,7 @@ def _all_gather(t, engine: bool = True) -> list:
     import torch
     dist = _dist()
     out = [torch.empty_like(t) for _ in range(process_count())]
+    _note_round()
     dist.all_gather(out, t, group=_pg(engine))
     return out
 
@@ -426,6 +445,7 @@ def host_barrier(name: str = "mv_barrier") -> None:
     controller.cpp:12-36)."""
     if process_count() <= 1:
         return
+    _note_round()
     _dist().barrier(group=_ctrl_pg)
 
 

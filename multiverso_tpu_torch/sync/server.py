@@ -17,9 +17,9 @@ Counterpart of the JAX package's ``sync/server.py`` in a single process
     get copies.
 
   Any other message (FinishTrain, a ``Request_Barrier`` drain ping, a
-  ``Request_StoreLoad`` cut) is a window BARRIER: runs split at it and it
-  runs in stream order, so an Add acknowledged before it never applies
-  after it.
+  ``Request_StoreLoad`` checkpoint cut, a ``Request_Publish`` serving cut)
+  is a window BARRIER: runs split at it and it runs in stream order, so an
+  Add acknowledged before it never applies after it.
 
 * ``ShardedServer`` — the async engine split into per-table-group engine
   actors (shards), each a full ``Server`` with its own thread, mailbox and
@@ -51,10 +51,11 @@ the common verb prefix (a divergent verb stream fails a CHECK on every
 rank), and every rank applies every rank's payloads of that prefix to its
 own replica through the tables' parts verbs: a table's Adds of the window
 as one cross-rank merged run at its first Add's position, its Gets grouped
-before and after that run. A non-verb window head (a drain ping, a
-checkpoint cut, FinishTrain) is preceded by a head-marker exchange, so a
-rank at a barrier while a peer exchanges verbs fails loudly instead of
-deadlocking. An exchange thread (``_ExchangeStage``) owns the
+before and after that run. Every non-verb message (a drain ping, a
+checkpoint or publish cut, FinishTrain) is a window head preceded by a
+head-marker exchange, whether or not the pipeline is busy when it arrives
+(``Server._dispatch``), so a rank at a barrier while a peer exchanges
+verbs fails loudly instead of deadlocking. An exchange thread (``_ExchangeStage``) owns the
 collective stream and the actor thread applies: by default
 (``-mv_pipeline``) window N applies while window N+1 is exchanged, since
 every port table's apply is local (``mh_apply_is_local``); barrier heads
@@ -321,6 +322,7 @@ class _ExchangeStage:
                 return
             self._gate()
             self._srv._mh_check_barrier_head(payload)
+            payload._mh_headed = True       # the apply stage runs it now
             self._emitted += 1
             self._fence_at = self._emitted
             self.out.Push(("barrier", payload))
@@ -350,6 +352,10 @@ class Server(Actor):
     #: SyncServer counts MESSAGES into its clocks, so Zoo.SendToServerMulti
     #: delivers the members one at a time there
     MULTI_VERB_OK = True
+    #: whether a non-verb message is a head-marked window head in a
+    #: multi-process world (``_dispatch``); the BSP SyncServer exchanges
+    #: one verb at a time on the actor thread and has no pipeline to race
+    MH_BARRIER_HEADS = True
 
     def __init__(self, name: str = actor_names.kServer):
         super().__init__(name)
@@ -375,6 +381,9 @@ class Server(Actor):
         #: window applies
         self.xw_busy_s = 0.0
         self.apply_busy_s = 0.0
+        #: windows applied on this stream (local windows and exchanged
+        #: ones): the stream position a cut is taken at (``cut_epoch``)
+        self.window_epoch = 0
         self.RegisterHandler(MsgType.Request_Get, self._get_entry)
         self.RegisterHandler(MsgType.Request_Add, self._add_entry)
         self.RegisterHandler(MsgType.Request_MultiVerb, self._get_entry)
@@ -384,6 +393,32 @@ class Server(Actor):
         # touches the BSP clocks, unlike FinishTrain
         self.RegisterHandler(MsgType.Request_Barrier, lambda m: m.reply(None))
         self.RegisterHandler(MsgType.Request_StoreLoad, self._store_load_entry)
+        # the serving plane's publish (serving/snapshot.py): the SAME
+        # handler as StoreLoad on purpose, so checkpoint saves and
+        # publishes are one cut mechanism (Zoo.CallOnEngine) and cannot
+        # drift; as a non-verb message it is a window barrier, a
+        # cross-stream cut on the sharded engine (_CUT_TYPES) and a
+        # head-marked barrier in the windowed multi-process engine
+        self.RegisterHandler(MsgType.Request_Publish, self._store_load_entry)
+
+    def _dispatch(self, msg: Message) -> None:
+        """In a multi-process world every non-verb message (a drain ping, a
+        checkpoint or publish cut, FinishTrain) enters the window stream as
+        a head-marked barrier on every rank, even when this rank's
+        pipeline is idle. Dispatched directly when idle, it would strand a
+        peer whose apply stage was still finishing its last window when
+        the same message arrived: the peer drains it into its pipeline and
+        waits in a head-marker exchange this rank never joins. The exchange
+        stage marks the message ``_mh_headed`` once its marker exchange
+        is done, and the apply stage's dispatch then runs its handler."""
+        if (self.MH_BARRIER_HEADS and multihost.world_size() > 1
+                and msg.msg_type not in (MsgType.Request_Get,
+                                         MsgType.Request_Add,
+                                         MsgType.Request_MultiVerb)
+                and not getattr(msg, "_mh_headed", False)):
+            self._mh_windows([msg])
+            return
+        super()._dispatch(msg)
 
     def receive_multi(self, members) -> None:
         """Accept one batched verb submission: ONE mailbox hop carries the
@@ -413,6 +448,11 @@ class Server(Actor):
         server_table.table_id = table_id
         return table_id
 
+    def cut_epoch(self) -> int:
+        """Windows applied over every stream: the stream position a cut
+        (a snapshot publish, a checkpoint) is taken at."""
+        return self.window_epoch
+
     def shard_states(self) -> List[dict]:
         """Per-shard live state: slot, actor name, mailbox depth, alive."""
         thread = self._thread
@@ -434,6 +474,7 @@ class Server(Actor):
             self._mh_windows(batch)
             return
         self._local_window(batch)
+        self.window_epoch += 1
 
     def _add_entry(self, msg: Message) -> None:
         """Request_Add enters the same window as Gets; SyncServer re-binds
@@ -651,6 +692,7 @@ class Server(Actor):
             else:
                 self._mh_get_group(tid, positions, parts_at, verbs, my_rank)
         self.apply_busy_s += time.perf_counter() - t0
+        self.window_epoch += 1
 
     def _mh_add_run(self, tid: int, positions, parts_at, verbs,
                     my_rank: int) -> None:
@@ -907,8 +949,8 @@ def engine_shard_cap() -> int:
 
 #: non-verb message types the sharded router turns into cross-stream
 #: cuts; any other non-verb type dispatches on shard 0 alone
-_CUT_TYPES = (MsgType.Request_StoreLoad, MsgType.Request_Barrier,
-              MsgType.Server_Finish_Train)
+_CUT_TYPES = (MsgType.Request_StoreLoad, MsgType.Request_Publish,
+              MsgType.Request_Barrier, MsgType.Server_Finish_Train)
 
 
 class _CutFence:
@@ -1189,6 +1231,12 @@ class ShardedServer(Server):
                 self._reopen_locked()
                 raise
 
+    def cut_epoch(self) -> int:
+        """Windows applied over the router's and every sub-shard's stream
+        (read inside a cut, with every stream fenced)."""
+        return self.window_epoch + sum(s.window_epoch
+                                       for s in self._subs.values())
+
     def shard_states(self) -> List[dict]:
         out = super().shard_states()
         for slot in sorted(self._subs):
@@ -1209,6 +1257,7 @@ class SyncServer(Server):
     #: the vector clocks count Get/Add MESSAGES per worker: a batched
     #: envelope would hide N ticks in one message
     MULTI_VERB_OK = False
+    MH_BARRIER_HEADS = False
 
     def __init__(self, num_workers: int):
         super().__init__()

@@ -144,6 +144,13 @@ class ArrayServer(ServerTable):
             out = out.clone()
         return lambda: self._ctx.fetch(out)[: self.size]
 
+    def serving_export(self):
+        """Whole-vector copy-on-publish snapshot: arrays are the small
+        whole-table family, so a device copy would buy nothing over one
+        fetch, and ProcessGet is the training view (access() applied)."""
+        from multiverso_tpu_torch.serving import snapshot as ssnap
+        return ssnap.VectorSnapshot(self.ProcessGet(GetOption()))
+
     # -- device plane ----------------------------------------------------------
 
     def device_state(self) -> Dict:

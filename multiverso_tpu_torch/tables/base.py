@@ -153,6 +153,18 @@ class ServerTable:
         fences its windows."""
         return True
 
+    # -- the serving plane (serving/snapshot.py): called ON the engine thread
+    # inside the publish cut, so every Add admitted before the cut is in
+    # and none after. CONTRACT: the returned TableSnapshot is IMMUTABLE and
+    # self-contained (it outlives later training, and the port's updates
+    # write storage in place, so it aliases no live buffer), and its values
+    # equal what a training Get at this stream position returns.
+
+    def serving_export(self):
+        """A ``serving.snapshot.TableSnapshot`` of this table at the current
+        stream position, or None (the family is not servable)."""
+        return None
+
     def Store(self, stream) -> None:
         raise NotImplementedError
 

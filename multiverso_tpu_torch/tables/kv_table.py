@@ -341,17 +341,31 @@ class KVServerTable(ServerTable):
             return len(self._nat_index)
         return len(self._index)
 
+    # -- serving-plane export (tables/base.py contract) -----------------------
+
+    def serving_export(self):
+        """Key-addressed copy-on-publish snapshot: the (keys, values) pairs
+        of Store()'s cut, host copies that alias nothing the live table
+        later mutates. Absent keys keep reading 0 (the live Get contract)."""
+        from multiverso_tpu_torch.serving import snapshot as ssnap
+        return ssnap.KVSnapshot(*self._items())
+
     # -- checkpoint (improvement over reference kv_table.h:106-112) ----------
 
-    def Store(self, stream) -> None:
-        # keys in slot order: slot i is the i-th key (the dict holds them
-        # in insertion order, the native index sorts its items by slot)
+    def _items(self):
+        """(keys, values) in slot order, host copies: slot i is the i-th
+        key (the dict holds them in insertion order, the native index
+        sorts its items by slot)."""
         if self._nat() is not None:
             keys = self._nat_index.items()[0]
         else:
             keys = np.fromiter(self._index.keys(), np.int64,
                                len(self._index))
         vals = self._values[: len(keys)].cpu().numpy().astype(self.dtype)
+        return keys, vals
+
+    def Store(self, stream) -> None:
+        keys, vals = self._items()
         stream.WriteInt(len(keys))
         stream.Write(keys.tobytes())
         stream.Write(vals.tobytes())

@@ -651,6 +651,48 @@ class MatrixServerTable(ServerTable):
         """Logical-view snapshot (host numpy)."""
         return self._from_storage(self._ctx.fetch(self.state["data"]))
 
+    # -- serving-plane export (tables/base.py contract) -----------------------
+
+    def _gather_from(self, data: torch.Tensor, ids) -> torch.Tensor:
+        """Logical rows ``ids`` (validated, in range) of ``data``, a copy of
+        this table's storage, as an (n, num_cols) tensor on its device:
+        the lane mapping, ``<kGather>`` on the card, the column trim."""
+        _, ids_t = self._lanes_tensor(np.asarray(ids))
+        rows = ops.gather_rows(data, ids_t)
+        if self.store_cols != self.num_cols:
+            rows = rows[:, : self.num_cols]
+        return rows
+
+    def _full_logical(self) -> np.ndarray:
+        """The whole logical table in host memory, as a training Get of the
+        whole table reads it (the updater's ``access()`` applied)."""
+        data = self.updater.access(self.state["data"], self.state["aux"],
+                                   None)
+        return self._from_storage(self._ctx.fetch(data))
+
+    def serving_export(self):
+        """Immutable row snapshot for the serving plane, by
+        ``-mv_serving_residence`` (serving/snapshot.py):
+
+        * device (one process, no updater aux state; under ``auto`` only
+          for a table on a CUDA device): ONE ``clone()`` of the padded
+          storage on the table's device, which later in-place updates
+          cannot reach, read by ``_gather_from`` (``<kGather>`` on the
+          card), so only requested rows cross to the host;
+        * otherwise the logical host materialization ``_full_logical``
+          (the access() view); always so in a multi-process world."""
+        from multiverso_tpu_torch.serving import snapshot as ssnap
+        mode = ssnap.residence_mode()
+        device_legal = (multihost.process_count() <= 1
+                        and not self.state["aux"])
+        want_device = mode == "device" or (mode == "auto"
+                                           and self.device.type == "cuda")
+        if want_device and device_legal:
+            return ssnap.MatrixSnapshot.device(
+                self.state["data"].clone(), self._gather_from,
+                self.num_rows, self.num_cols)
+        return ssnap.MatrixSnapshot.host(self._full_logical())
+
     # -- checkpoint (reference matrix_table.cpp:457-465) ---------------------
 
     def Store(self, stream) -> None:

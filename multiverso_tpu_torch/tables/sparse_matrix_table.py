@@ -23,6 +23,11 @@ The engine hands every rank's (worker, rows) parts of each collective Add
 and Get to every process, and each applies every part's transition in rank
 order: the event stream one shared server would see, so the replicas
 cannot diverge.
+
+The serving plane takes the parent's row snapshot (``serving_export``):
+serving reads are addressed by version, not by freshness (the bits answer
+"what changed since worker w's last training Get"), so they never touch
+the bits and a read plane cannot perturb the training plane's state.
 """
 
 from __future__ import annotations

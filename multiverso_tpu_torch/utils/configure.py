@@ -1,10 +1,10 @@
 """Typed flag/config registry (the port's own copy).
 
 Counterpart of ``multiverso_tpu/utils/configure.py``, trimmed to what the
-port calls: typed static registries keyed by string (the port defines
-string, int and bool flags), ``MV_DEFINE_<type>(name, default, help)``
-registration, ``ParseCMDFlags`` stripping ``-key=value`` entries from argv
-(trying the string, then the int, then the bool registry, reference
+port calls: typed static registries keyed by string (string, int, double
+and bool flags), ``MV_DEFINE_<type>(name, default, help)`` registration,
+``ParseCMDFlags`` stripping ``-key=value`` entries from argv (trying the
+string, the int, the double, then the bool registry, reference
 configure.cpp:24-41) and programmatic ``SetCMDFlag``.
 
 The registry is this package's own, so a flag of the port can never clash
@@ -73,10 +73,12 @@ def _cast_int(raw) -> int:
 
 _string_flags = _FlagRegister(str)
 _int_flags = _FlagRegister(_cast_int)
+_double_flags = _FlagRegister(float)
 _bool_flags = _FlagRegister(_cast_bool)
 
-# lookup order matches reference ParseCMDFlags: string, int, then bool
-_REGISTRIES = (_string_flags, _int_flags, _bool_flags)
+# lookup order matches the JAX package's ParseCMDFlags: string, int,
+# double, then bool
+_REGISTRIES = (_string_flags, _int_flags, _double_flags, _bool_flags)
 
 
 def MV_DEFINE_string(name: str, default: str, help_text: str = "") -> None:
@@ -87,6 +89,12 @@ def MV_DEFINE_string(name: str, default: str, help_text: str = "") -> None:
 def MV_DEFINE_int(name: str, default: int, help_text: str = "") -> None:
     """Define an int flag; ``help_text`` documents it at the call site."""
     _int_flags.register(name, default)
+
+
+def MV_DEFINE_double(name: str, default: float,
+                     help_text: str = "") -> None:
+    """Define a float flag; ``help_text`` documents it at the call site."""
+    _double_flags.register(name, float(default))
 
 
 def MV_DEFINE_bool(name: str, default: bool, help_text: str = "") -> None:

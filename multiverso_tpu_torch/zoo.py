@@ -16,7 +16,8 @@ cross-process sum. Each process keeps a full replica of every table, and
 the engine applies every rank's verbs of each exchanged window to it
 (``sync/server.py``).
 
-The planes the JAX ``Start`` brings up after the engine (reporter, ops,
+``Stop`` takes the serving plane down after the engine (``serving/``). The
+planes the JAX ``Start`` brings up after the engine (reporter, ops,
 ledger, watchdog, elastic, replica, policy) and worker-side write combining
 are later work (``ROADMAP.md``).
 """
@@ -33,7 +34,9 @@ from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
 from multiverso_tpu_torch.parallel import multihost
 # imported for their flag registrations, which must precede Start()'s
 # ParseCMDFlags
+import multiverso_tpu_torch.failsafe  # noqa: F401
 import multiverso_tpu_torch.updaters.base  # noqa: F401
+from multiverso_tpu_torch import serving
 from multiverso_tpu_torch.parallel.allreduce import RendezvousAllreduce
 from multiverso_tpu_torch.parallel.mesh import DeviceContext
 from multiverso_tpu_torch.sync.server import Server
@@ -120,6 +123,10 @@ class Zoo:
                           "shutdown", exc)
             self.server_engine.Stop()
             self.server_engine = None
+        # the serving plane after the engine (no more publish can arrive):
+        # it drops every snapshot and stops its dispatcher, so a later
+        # MV_Init world starts from a fresh plane
+        serving.shutdown_plane()
         self.worker_tables.clear()
         self.server_tables.clear()
         self.started = False

@@ -51,6 +51,19 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   seconds of its tagged agreements, of the collective writes'
   device->host copies, all-gathers, host merge and apply, and of the
   engine's window exchanges;
+* serve: chip_smoke.py's [serve] tables (1,000,000 x 128, sgd with a
+  device-resident snapshot, AdaGrad with a host one) after a publish: one
+  thread's lookups of SERVE_LOOKUP_IDS Zipf ids taken apart stage by stage
+  by the host clock (the union's ``np.unique``, the ids' lane mapping and
+  copy to the card, the ``<kGather>`` launch, the device->host copy that
+  waits for it, each caller's ``searchsorted`` slice; the host snapshot's
+  row index) for unions of 1 and of SERVE_CLIENTS lookups, beside a whole
+  ``MV_ServingLookup``; then SERVE_CLIENTS client threads' lookups for
+  SERVE_IDLE_S under the profiler (no trainer); then, without the
+  profiler, [serve]'s traffic (trainer and clients) for SERVE_IDLE_S on
+  the sgd table alone and beside the AdaGrad table, in turns
+  (SERVE_TURNS), for what a host-resident table's publish costs the
+  lookups;
 * bsp: chip_smoke.py's [bsp] phase (one process, 4 worker threads,
   ``-sync=true``) BSP_WORLDS times in each of a row of processes by the
   host clock, no profiler; with ``--baseline DIR`` (another checkout, e.g.
@@ -65,8 +78,8 @@ most host time, for WE the seconds the trainer waited on the block
 loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
-parse, ckpt, ps_compress, ps_2proc, lr_2proc, we_2proc, bsp (default:
-all).
+parse, ckpt, ps_compress, ps_2proc, lr_2proc, we_2proc, serve, bsp
+(default: all).
 """
 
 from __future__ import annotations
@@ -263,6 +276,140 @@ def profile_ps_compress(torch, seed: int) -> dict:
 THREAD_TURNS = ("default", "one", "one", "default") * 2
 THREAD_ROUNDS = 20
 ENGINE_ARGV = {"default": [], "one": ["-mv_engine_shards=1"]}
+
+
+def serve_stages(mv, tables, cdf, lookups: int, reads: int,
+                 seed: int) -> dict:
+    """Per read of a union of ``lookups`` Zipf lookups, the median host
+    milliseconds of each stage of the front-end's serve on each table's
+    snapshot (the device snapshot's gather split into the lane mapping,
+    the launch and the waiting device->host copy), and of a whole
+    ``MV_ServingLookup`` of one lookup."""
+    from chip_smoke import SERVE_LOOKUP_IDS, zipf_ids
+    from multiverso_tpu_torch import ops
+    from multiverso_tpu_torch.serving import get_plane
+    g = np.random.default_rng([seed, 960, lookups])
+    snap = get_plane().store.get(None)
+    out = {}
+    for t in tables:
+        ts = snap.tables[t.table_id]
+        st = {k: [] for k in ("unique", "lanes", "launch", "d2h", "index",
+                              "slice", "lookup")}
+        for _ in range(reads):
+            parts = [zipf_ids(cdf, g, SERVE_LOOKUP_IDS)
+                     for _ in range(lookups)]
+            t0 = time.perf_counter()
+            union = np.unique(np.concatenate(parts))
+            t1 = time.perf_counter()
+            st["unique"].append(t1 - t0)
+            if ts.residence == "device":
+                data, _ = ts._dev
+                _, ids_t = t.server()._lanes_tensor(union)
+                t2 = time.perf_counter()
+                rows_t = ops.gather_rows(data, ids_t)
+                t3 = time.perf_counter()
+                rows_u = rows_t.cpu().numpy()
+                t4 = time.perf_counter()
+                st["lanes"].append(t2 - t1)
+                st["launch"].append(t3 - t2)
+                st["d2h"].append(t4 - t3)
+            else:
+                t3 = time.perf_counter()
+                rows_u = ts.lookup_union(union)
+                st["index"].append(time.perf_counter() - t3)
+            t5 = time.perf_counter()
+            for ids in parts:
+                rows_u[np.searchsorted(union, ids)]
+            st["slice"].append(time.perf_counter() - t5)
+            t6 = time.perf_counter()
+            mv.MV_ServingLookup(t, parts[0])
+            st["lookup"].append(time.perf_counter() - t6)
+        out[ts.residence] = {k: float(np.median(v)) * 1e3
+                             for k, v in st.items() if v}
+    return out
+
+
+def profile_serve(torch, seed: int) -> dict:
+    """The lookups of chip_smoke.py's [serve] path taken apart by stage
+    (``serve_stages``), then SERVE_CLIENTS client threads' lookups for
+    SERVE_IDLE_S under the profiler."""
+    import threading
+
+    import multiverso_tpu_torch as mv
+    from chip_smoke import (SERVE_CLIENTS, SERVE_COLS, SERVE_IDLE_S,
+                            SERVE_LOOKUP_IDS, SERVE_ROWS, run_threads,
+                            serve_batches, zipf_cdf, zipf_ids)
+    from multiverso_tpu_torch.serving import get_plane
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    cdf = zipf_cdf(SERVE_ROWS)
+    mv.MV_Init([])
+    try:
+        tables = [mv.MV_CreateTable(MatrixTableOption(
+            num_rows=SERVE_ROWS, num_cols=SERVE_COLS, updater_type=u))
+            for u in ("sgd", "adagrad")]
+        for ids, deltas in serve_batches(seed, 4):
+            for t in tables:
+                t.AddRows(ids, deltas)
+        mv.MV_PublishSnapshot()
+        serve_stages(mv, tables, cdf, 1, 20, seed)     # warm-up
+        stages = {n: serve_stages(mv, tables, cdf, n, 200, seed)
+                  for n in (1, SERVE_CLIENTS)}
+        fe = get_plane().frontend
+        fe.reset_stats()
+        counts = [0] * SERVE_CLIENTS
+
+        def client(c):
+            g = np.random.default_rng([seed, 970, c])
+            t_end = time.perf_counter() + SERVE_IDLE_S
+            while time.perf_counter() < t_end:
+                mv.MV_ServingLookup(tables[counts[c] % 2],
+                                    zipf_ids(cdf, g, SERVE_LOOKUP_IDS))
+                counts[c] += 1
+
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_threads(client, SERVE_CLIENTS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res = summarize(torch, prof, wall, top=8)
+        res.update(stages=stages, lookups=sum(counts),
+                   lookups_per_s=sum(counts) / wall, frontend=fe.stats(),
+                   threads=threading.active_count())
+    finally:
+        mv.MV_ShutDown()
+    res["turns"] = [dict(serve_turn(torch, mv, updaters, seed), turn=name)
+                    for name, updaters in SERVE_TURNS]
+    return res
+
+
+#: the serve turns: chip_smoke.py's traffic on the sgd table alone (every
+#: publish one device clone) and beside the AdaGrad table (every publish
+#: also copies 512 MB to host memory), in turns
+SERVE_TURNS = (("sgd", ("sgd",)), ("sgd+adagrad", ("sgd", "adagrad")),
+               ("sgd+adagrad", ("sgd", "adagrad")), ("sgd", ("sgd",)))
+
+
+def serve_turn(torch, mv, updaters, seed: int) -> dict:
+    """chip_smoke.py's [serve] traffic for SERVE_IDLE_S on a world of
+    one SERVE_ROWS x SERVE_COLS table per updater, no profiler."""
+    from chip_smoke import (SERVE_COLS, SERVE_IDLE_S, SERVE_PUBLISH_EVERY,
+                            SERVE_ROWS, serve_batches, serve_traffic,
+                            zipf_cdf)
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    mv.MV_Init([])
+    try:
+        tables = tuple(mv.MV_CreateTable(MatrixTableOption(
+            num_rows=SERVE_ROWS, num_cols=SERVE_COLS, updater_type=u))
+            for u in updaters)
+        mv.MV_PublishSnapshot()
+        return serve_traffic(mv, tables,
+                             serve_batches(seed, SERVE_PUBLISH_EVERY),
+                             zipf_cdf(SERVE_ROWS), SERVE_IDLE_S, seed,
+                             lambda v: None)
+    finally:
+        mv.MV_ShutDown()
 
 
 def profile_ps_threads(torch, seed: int, argv) -> dict:
@@ -708,6 +855,7 @@ def main() -> int:
                                                    args.out),
             "we_2proc": lambda: profile_apps_2proc("we", args.seed,
                                                    args.out),
+            "serve": lambda: profile_serve(torch, args.seed),
             "bsp": lambda: bsp_turns(args.seed, args.out, args.baseline)}
     res = {"card": card}
     for name in PATHS:
@@ -721,7 +869,7 @@ def main() -> int:
 
 #: every path main() can profile, in its order
 PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
-         "ps_2proc", "lr_2proc", "we_2proc", "bsp")
+         "ps_2proc", "lr_2proc", "we_2proc", "serve", "bsp")
 #: bsp: worlds a process, and the processes' order against a baseline
 BSP_WORLDS = 3
 BSP_TURNS = ("baseline", "this", "this", "baseline") * 2
@@ -835,6 +983,29 @@ def report(res: dict) -> None:
                   f"engine's window exchanges {r['engine_xw_s']:.4f} s",
                   flush=True)
             print_tops(f"{path} {name}", r)
+    if "serve" in res:
+        r = res["serve"]
+        for n, by in r["stages"].items():
+            for residence, st in by.items():
+                print(f"[serve] one read of a union of {n} lookup(s), "
+                      f"{residence} snapshot, median host ms: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in st.items()),
+                      flush=True)
+        fe = r["frontend"]
+        print(f"[serve] {r['lookups']} lookups from the clients under the "
+              f"profiler ({r['lookups_per_s']:.1f}/s, mean coalesced batch "
+              f"{fe['mean_batch']:.4f}, p50 {fe['latency_p50_s'] * 1e3:.4f} "
+              f"ms, p99 {fe['latency_p99_s'] * 1e3:.4f} ms): wall "
+              f"{r['wall_s']:.4f} s, device busy {r['device_busy_s']:.4f} s, "
+              f"idle share {r['device_idle_share']:.3f}", flush=True)
+        print_tops("serve", r)
+        for t in r["turns"]:
+            print(f"[serve] turn {t['turn']} (trainer + {t['publishes']} "
+                  f"publishes, no profiler): {t['lookups_per_s']:.1f} "
+                  f"lookups/s, client p50 {t['client_p50_ms']:.4f} ms, p99 "
+                  f"{t['client_p99_ms']:.4f} ms, publish median "
+                  f"{t['publish_median_ms']:.4f} ms, "
+                  f"{t['train_batches']} trainer batches", flush=True)
     turns = res.get("bsp", [])
     for i, r in enumerate(turns):
         print(f"[bsp] turn {i + 1} {r['turn']} ({r['root']}): round medians "

@@ -1,6 +1,6 @@
 """One rank of a two-process world, for tests/test_torch_multihost.py,
-tests/test_torch_windowed.py, tests/test_torch_mh_logreg.py and
-tests/test_torch_mh_wordembedding.py.
+tests/test_torch_windowed.py, tests/test_torch_mh_logreg.py,
+tests/test_torch_mh_wordembedding.py and tests/test_torch_serving_mh.py.
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -461,6 +461,101 @@ def run_dead(mv):
     results["fail_s"] = np.array(time.perf_counter() - t0)
 
 
+def run_serving(mv):
+    """Matrix, Array and KV tables take both ranks' Adds; both ranks publish
+    at the same stream position (host residence, whatever the flag asks)
+    and pin the version; four reader threads a rank hold its lookups to
+    the training Get at the cut while a training burst runs; after a
+    drain, 50 lookups issue no host collective; the versions agree across
+    the ranks."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    if PKG == "jax":
+        from multiverso_tpu import serving
+        from multiverso_tpu.parallel import multihost as mh
+
+        def rounds():
+            return mh.STATS["host_collective_rounds"]
+    else:
+        from multiverso_tpu_torch import serving
+        from multiverso_tpu_torch.parallel import multihost as mh
+        rounds = mh.collective_rounds
+    mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=ROWS,
+                                                     num_cols=COLS))
+    arr = mv.MV_CreateTable(tables.ArrayTableOption(size=16))
+    kv = mv.MV_CreateTable(tables.KVTableOption())
+    all_ids = np.arange(ROWS, dtype=np.int32)
+    keys = np.arange(0, 40, 3, dtype=np.int64)
+    for r in range(4):
+        ids, deltas = row_batch(800 + r, RANK)
+        mat.AddRows(ids, deltas)
+        arr.Add(rng(801, r, RANK).integers(-3, 4, 16).astype(np.float32))
+        kv.Add(rng(802, r, RANK).integers(0, 40, 5).astype(np.int64),
+               np.ones(5, np.float32))
+    mv.MV_Barrier()
+    train = {"mat": mat.GetRows(all_ids), "arr": arr.Get(),
+             "kv": kv.Get(keys)}
+    v = mv.MV_PublishSnapshot()
+    mv.MV_PinVersion(v)
+    snap = serving.get_plane().store.get(v)
+    assert getattr(snap.tables[mat.table_id], "_dev", None) is None
+    served = {"mat": mv.MV_ServingLookup(mat, all_ids, version=v),
+              "arr": mv.MV_ServingLookup(arr, None, version=v),
+              "kv": mv.MV_ServingLookup(kv, keys, version=v)}
+    for k, want in train.items():
+        np.testing.assert_array_equal(served[k], want, err_msg=k)
+        results[f"{k}_served"] = served[k]
+
+    # readers hold the pinned version while training goes on
+    errors, reads, stop = [], [0] * 4, threading.Event()
+
+    def reader(i):
+        g = rng(803, RANK, i)
+        while not stop.is_set():
+            sel = np.sort(g.choice(ROWS, 16, replace=False))
+            got = mv.MV_ServingLookup(mat, sel, version=v, deadline=30.0)
+            if not np.array_equal(got, served["mat"][sel]):
+                errors.append(sel)
+                return
+            reads[i] += 1
+
+    threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+               for i in range(4)]
+    [t.start() for t in threads]
+    for r in range(6):
+        ids, deltas = row_batch(810 + r, RANK)
+        mat.AddRows(ids, deltas)
+        mat.AddFireForget(deltas, row_ids=ids)
+    while min(reads) == 0 and not errors:
+        time.sleep(0.01)
+    stop.set()
+    [t.join(30) for t in threads]
+    assert not any(t.is_alive() for t in threads), "a reader hung"
+    assert not errors, f"a read off the pinned version: {errors[0]}"
+
+    if PKG == "jax":
+        # the JAX engine dispatches a barrier at once when its pipeline is
+        # idle and head-marks it when busy, so a cut right after a
+        # fire-and-forget burst can strand one rank in a marker exchange
+        # (ROADMAP.md §3); a blocking Get quiesces both engines first. The
+        # port head-marks every barrier and drains right after the burst.
+        mat.GetRows(all_ids[:1])
+    # the lookup path issues no host collective
+    Zoo.Get().DrainServer()
+    mv.MV_Barrier()
+    before = rounds()
+    g = rng(804, RANK)
+    for _ in range(50):
+        sel = g.integers(0, ROWS, 16)
+        np.testing.assert_array_equal(
+            mv.MV_ServingLookup(mat, sel, version=v), served["mat"][sel])
+    results["lookup_rounds"] = np.array(rounds() - before)
+    results["live"] = mat.Get()
+    v2 = mv.MV_PublishSnapshot()
+    np.testing.assert_array_equal(mv.MV_ServingLookup(mat, None, version=v2),
+                                  results["live"])
+    results["versions"] = np.array(mh.host_allgather_objects((v, v2)))
+
+
 # -- the apps, data-parallel (each rank its own shard) ------------------------
 
 def lr_classes():
@@ -619,7 +714,8 @@ def run_we_ragged(mv):
 
 def main():
     extra = {"bsp": ["-sync=true"],
-             "tables": ["-num_workers=2"]}.get(MODE, [])
+             "tables": ["-num_workers=2"],
+             "serving": ["-mv_serving_residence=device"]}.get(MODE, [])
     if MODE == "wiring":
         how = EXTRA[0]
         import multiverso_tpu_torch as mv
@@ -636,6 +732,7 @@ def main():
         mv = boot(extra + EXTRA)
     {"tables": run_tables, "burst": run_burst, "bsp": run_bsp,
      "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
+     "serving": run_serving,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)
     if MODE != "dead":

@@ -47,17 +47,19 @@ bad = sorted(m for m in sys.modules
              or m == "multiverso_tpu" or m.startswith("multiverso_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 53, names
+assert len(names) >= 60, names
 # the slices of the Array, KV and SparseMatrix tables and the LR app, of
-# -device_pairs and the native library bridge, and of the checkpoint and
-# the compressed row wire
+# -device_pairs and the native library bridge, of the checkpoint and the
+# compressed row wire, and of the serving plane
 new = {"tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
        "models.logreg.configure", "models.logreg.data",
        "models.logreg.updater", "models.logreg.objective",
        "models.logreg.model", "models.logreg.device_plane",
        "models.logreg.logreg", "models.logreg.main",
        "models.wordembedding.device_pairs", "native", "checkpoint",
-       "utils.quantization"}
+       "utils.quantization", "serving", "serving.store",
+       "serving.snapshot", "serving.frontend", "failsafe",
+       "failsafe.errors", "failsafe.deadline"}
 missing = {m for m in new if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 """
