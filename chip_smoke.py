@@ -66,7 +66,40 @@ holds every kernel of that path against its plain PyTorch version:
               (``[ps_compress]``): the add table at that shape with
               ``compress="sparse"`` beside an uncompressed twin, deltas
               80% zeros, rounds in turns: bitwise equal, with the round
-              times and the wire ratio; two processes (``[ps_2proc]``):
+              times and the wire ratio; the worker-side fast paths
+              (``[ps_combine]``, run after the apps' phases, before
+              ``[serve]``, as are ``[ps_get_cache]``, ``[binding]`` and
+              ``[binding_c_abi]``): one worker pushes 200 fire-and-forget
+              AddRows of 2,000 ids (integer deltas) to the add and the
+              momentum table at the PS shape, then ``DrainServer`` and
+              one GetRows of 10,000 ids a table, at the default
+              ``-mv_write_combine=8`` and at 0 in turns (combined, plain,
+              plain, combined): the add table equal to the oracle in
+              every turn, 25 Add messages a table reaching the engine in
+              a combined turn against 200, the momentum table bitwise
+              equal across the combined turns and within rtol 1e-5, atol
+              1e-6 of the same burst in a world on the CPU, the burst's
+              seconds; ``<kAdd>`` at the combined Add's shape (8 x 2,000
+              ids, duplicates pre-combined) bitwise its plain version,
+              timed as in phase 2; the Get cache (``[ps_get_cache]``,
+              ``-mv_get_staleness=2``): 10 identical GetRows of 10,000
+              ids, the first a miss, the rest hits bitwise the miss
+              launching no row gather, a miss equal to the oracle after
+              the worker's own Add, each Get's seconds; the reference
+              binding (``[binding]``): ``binding.init()`` on the card, a
+              1,000,000 x 50 MatrixTableHandler and a 1,000,000
+              ArrayTableHandler with init values, 5 rounds of 8 async
+              adds and one get, each get equal to the oracle; a
+              TorchParamManager over a model on the card in each of 2
+              worker threads sharing one table (the server and both
+              models end at the base plus both deltas); then the C ABI
+              (``[binding_c_abi]``) through ctypes on the port's build of
+              the native library with the port's bridge installed:
+              ``MV_Init``, ``MV_NewMatrixTable(1000000, 50)``, 5 rounds of
+              8 ``MV_AddAsyncMatrixTableByRows`` and one
+              ``MV_GetMatrixTableByRows``, each equal to the oracle, the
+              row gather and the update launched from the C path, the
+              per-round seconds of both paths; two processes (``[ps_2proc]``):
               after the build, two ranks of this script on ``cuda:0``
               over ``torch.distributed`` (gloo), each keeping a replica
               of the tables, the add and momentum tables at the PS shape,
@@ -82,12 +115,14 @@ holds every kernel of that path against its plain PyTorch version:
               and the launches, each rank launching all three kernels;
               a rank that fails or hangs fails the run; and
               ``[ps_2proc burst]``: 200 fire-and-forget AddRows of 2,000
-              ids a rank on the add table at the PS shape, on the
+              ids a rank on the add table at the PS shape, at the
+              default ``-mv_write_combine`` (8 pushes a message), on the
               default pipelined engine and on ``-mv_pipeline=0``
               ("serial") in turns (pipelined, serial, serial,
-              pipelined): the final table equal to the oracle of both
-              ranks' Adds and bitwise equal across the ranks, with the
-              burst's seconds, windows, and the engine's exchange and
+              pipelined), then pipelined at ``-mv_write_combine=0``: the
+              final table equal to the oracle of both ranks' Adds and
+              bitwise equal across the ranks, with the burst's seconds,
+              Add messages, windows, and the engine's exchange and
               apply seconds; ``[ps_2proc serve]``: after the PS rounds
               both ranks ``MV_PublishSnapshot`` at one stream position
               (host residence), the versions agree, 4 threads a rank look
@@ -230,7 +265,17 @@ RANK_CHILD_S = 600              # a [ps_2proc] rank past this hung
 # untimed ones) of BURST_IDS ids each, ~20 windows of the engine's 4 MB
 # budget; the default pipelined engine and -mv_pipeline=0 in turns
 BURST_VERBS, BURST_WARM, BURST_IDS = 200, 10, 2_000
-BURST_TURNS = ("pipeline", "serial", "serial", "pipeline")
+BURST_TURNS = ("pipeline", "serial", "serial", "pipeline", "pipeline_wc0")
+# [ps_combine]: BURST_VERBS fire-and-forget AddRows of BURST_IDS ids on the
+# add and the momentum table in one process, at the default
+# -mv_write_combine (COMBINE_CAP) and at 0 in turns; then CACHE_GETS
+# repeated GetRows under -mv_get_staleness=CACHE_STALENESS
+COMBINE_CAP = 8
+COMBINE_TURNS = ("combined", "plain", "plain", "combined")
+CACHE_GETS, CACHE_STALENESS = 10, 2
+# [binding]: rounds of BINDING_ADDS async row adds and one get through the
+# Python handlers and through the C ABI; the param manager's model width
+BINDING_ROUNDS, BINDING_ADDS, BINDING_WIDTH = 5, 8, 1024
 # LogisticRegression: bench.py's app configurations (bench.py:446-553) and
 # the RCV1 width (bench.py:44)
 LR_DENSE_IN, LR_DENSE_OUT, LR_SAMPLES = 784, 10, 6_000
@@ -1018,7 +1063,8 @@ def ps2_burst_turn(torch, mv, base: list, turn: str, batches: list,
 
     from multiverso_tpu_torch.tables import MatrixTableOption
     from multiverso_tpu_torch.zoo import Zoo
-    mv.MV_Init(base + [f"-mv_pipeline={int(turn == 'pipeline')}"])
+    mv.MV_Init(base + [f"-mv_pipeline={int(turn != 'serial')}"]
+               + (["-mv_write_combine=0"] if turn == "pipeline_wc0" else []))
     try:
         table = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
                                                     num_cols=PS_COLS))
@@ -1030,6 +1076,7 @@ def ps2_burst_turn(torch, mv, base: list, turn: str, batches: list,
         mv.MV_Barrier()
         x0, a0 = eng.xw_busy_s, eng.apply_busy_s
         e0, v0 = eng.mh_window_exchanges, eng.mh_window_verbs
+        m0 = eng.add_messages
         t0 = time.perf_counter()
         for ids, deltas in mine[BURST_WARM:]:
             table.AddFireForget(deltas, row_ids=ids)
@@ -1039,7 +1086,8 @@ def ps2_burst_turn(torch, mv, base: list, turn: str, batches: list,
                "exchange_s": eng.xw_busy_s - x0,
                "apply_s": eng.apply_busy_s - a0,
                "exchanges": eng.mh_window_exchanges - e0,
-               "verbs": eng.mh_window_verbs - v0}
+               "verbs": eng.mh_window_verbs - v0,
+               "add_messages": eng.add_messages - m0}
         final = table.Get()
         torch.cuda.synchronize()
     finally:
@@ -1483,6 +1531,382 @@ def ps_compress_phase(torch, mv, cr, dev, seed: int) -> dict:
             "plain_round_median_ms": float(np.median(round_ms[None])),
             "wire_stats": wire,
             "wire_ratio": wire["payload_bytes"] / wire["dense_bytes"]}
+
+
+# -- [ps_combine], [ps_get_cache]: the worker-side fast paths -------------------
+
+def combine_batches(seed: int) -> list:
+    """[ps_combine]'s burst: BURST_VERBS (ids, integer deltas) of BURST_IDS
+    unique random rows each."""
+    g = np.random.default_rng([seed, 1100])
+    return [(g.choice(PS_ROWS, BURST_IDS, replace=False).astype(np.int32),
+             g.integers(-3, 4, (BURST_IDS, PS_COLS)).astype(np.float32))
+            for _ in range(BURST_VERBS)]
+
+
+def combine_turn(torch, mv, turn: str, batches, get_ids, argv=()) -> dict:
+    """One world: every batch pushed fire-and-forget to the add and the
+    momentum table (momentum 0.5) by one worker, then ``DrainServer`` and
+    one GetRows of ``get_ids`` a table; ``turn`` "plain" runs at
+    -mv_write_combine=0. Returns the burst's host seconds (drain and the
+    card's queue included), the Add messages the engine received, the
+    combine hits, the Gets and the whole momentum table."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    mv.MV_Init(list(argv) + ([] if turn == "combined"
+                             else ["-mv_write_combine=0"]))
+    try:
+        add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                  num_cols=PS_COLS))
+        mom = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
+        on_card = add.server().state["data"].device.type == "cuda"
+        eng = Zoo.Get().server_engine
+        mopt = AddOption(momentum=0.5)
+        m0 = eng.add_messages
+        t0 = time.perf_counter()
+        for ids, deltas in batches:
+            add.AddFireForget(deltas, row_ids=ids)
+            mom.AddFireForget(deltas, row_ids=ids, option=mopt)
+        Zoo.Get().DrainServer()
+        if on_card:
+            torch.cuda.synchronize()
+        burst_s = time.perf_counter() - t0
+        return {"turn": turn, "burst_s": burst_s,
+                "add_messages": eng.add_messages - m0,
+                "combine_hits": (add.worker_stats["write_combine_hits"]
+                                 + mom.worker_stats["write_combine_hits"]),
+                "add_rows": add.GetRows(get_ids),
+                "mom_rows": mom.GetRows(get_ids), "mom": mom.Get()}
+    finally:
+        mv.MV_ShutDown()
+
+
+def warm_index_add(torch, dev) -> None:
+    """One small ``index_add_`` of 2-D float rows on the card: the engine's
+    merged run of a window's Adds (``ProcessAddRun``) sums with it, and
+    CUDA loads its module at the first call (~0.3 s), which would land in
+    whichever burst merges first."""
+    torch.zeros((4, PS_COLS + 2), device=dev).index_add_(
+        0, torch.zeros(2, dtype=torch.long, device=dev),
+        torch.ones((2, PS_COLS + 2), device=dev))
+    torch.cuda.synchronize()
+
+
+def ps_combine_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """[ps_combine]: the burst in COMBINE_TURNS on the card. The add table
+    must equal the oracle bitwise in every turn; the engine must receive
+    ceil(BURST_VERBS / COMBINE_CAP) Add messages a table in a combined turn
+    and BURST_VERBS in a plain one; the momentum table must be bitwise
+    equal across the combined turns, and within rtol 1e-5, atol 1e-6 of
+    the same combined burst in a world on the CPU (a combined Add applies
+    the momentum step once for its members' summed deltas, so the plain
+    turns' momentum table is another, equally valid, result)."""
+    batches = combine_batches(seed)
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    for ids, deltas in batches:
+        oracle[ids] += deltas
+    get_ids = np.random.default_rng([seed, 1101]).choice(
+        PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+    warm_index_add(torch, dev)
+    turns = []
+    for turn in COMBINE_TURNS:
+        r = combine_turn(torch, mv, turn, batches, get_ids)
+        np.testing.assert_array_equal(r.pop("add_rows"), oracle[get_ids],
+                                      err_msg=f"[ps_combine] {turn} turn")
+        want = 2 * (-(-BURST_VERBS // COMBINE_CAP) if turn == "combined"
+                    else BURST_VERBS)
+        if r["add_messages"] != want:
+            raise AssertionError(f"[ps_combine] {turn} turn: the engine "
+                                 f"received {r['add_messages']} Add "
+                                 f"messages, not {want}")
+        turns.append(r)
+    comb = [t for t in turns if t["turn"] == "combined"]
+    if not np.array_equal(comb[0]["mom"], comb[1]["mom"]):
+        raise AssertionError("[ps_combine] the momentum table differs "
+                             "between the two combined turns")
+    cpu = combine_turn(torch, mv, "combined", batches, get_ids,
+                       ["-mv_device=cpu"])
+    np.testing.assert_allclose(comb[0]["mom"], cpu["mom"], rtol=1e-5,
+                               atol=1e-6, err_msg="[ps_combine] momentum "
+                                                  "card vs CPU")
+    mom_diff = float(np.abs(comb[0]["mom"] - cpu["mom"]).max())
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set on the combined PS path")
+    for t in turns:
+        del t["mom"], t["mom_rows"]
+    return {"turns": turns, "momentum_card_vs_cpu_max_abs": mom_diff,
+            "cpu_add_messages": cpu["add_messages"]}
+
+
+def ps_get_cache_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """[ps_get_cache]: -mv_get_staleness=CACHE_STALENESS on the card, the add
+    table after a few blocking AddRows: CACHE_GETS identical GetRows of
+    PS_IDS ids with no Add between. The first misses and launches the row
+    gather; every later one is a hit, bitwise the miss, launching nothing.
+    After the worker's own AddRows the next GetRows misses and equals the
+    oracle. Each Get's host seconds."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    g = np.random.default_rng([seed, 1102])
+    get_ids = g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    mv.MV_Init([f"-mv_get_staleness={CACHE_STALENESS}"])
+    try:
+        add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                  num_cols=PS_COLS))
+        for _ in range(3):
+            ids = g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+            deltas = g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32)
+            add.AddRows(ids, deltas)
+            oracle[ids] += deltas
+        gets = []
+        for _ in range(CACHE_GETS):
+            h0 = add.worker_stats["get_cache_hits"]
+            k0 = cr.LAUNCHES["gather_rows"]
+            t0 = time.perf_counter()
+            rows = add.GetRows(get_ids)
+            gets.append({"s": time.perf_counter() - t0,
+                         "hit": add.worker_stats["get_cache_hits"] - h0,
+                         "gathers": cr.LAUNCHES["gather_rows"] - k0,
+                         "rows": rows})
+        first = gets[0]
+        if first["hit"] or not first["gathers"]:
+            raise AssertionError(f"[ps_get_cache] the first GetRows: hit "
+                                 f"{first['hit']}, gathers {first['gathers']}")
+        np.testing.assert_array_equal(first["rows"], oracle[get_ids])
+        for i, gt in enumerate(gets[1:], 1):
+            if gt["hit"] != 1 or gt["gathers"]:
+                raise AssertionError(f"[ps_get_cache] GetRows {i}: hit "
+                                     f"{gt['hit']}, gathers {gt['gathers']}")
+            np.testing.assert_array_equal(gt["rows"], first["rows"])
+        deltas = g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32)
+        add.AddRows(get_ids, deltas)
+        oracle[get_ids] += deltas
+        h0, k0 = add.worker_stats["get_cache_hits"], cr.LAUNCHES["gather_rows"]
+        t0 = time.perf_counter()
+        after = add.GetRows(get_ids)
+        after_s = time.perf_counter() - t0
+        if add.worker_stats["get_cache_hits"] != h0 or \
+                cr.LAUNCHES["gather_rows"] == k0:
+            raise AssertionError("[ps_get_cache] the GetRows after the "
+                                 "worker's own Add did not miss")
+        np.testing.assert_array_equal(after, oracle[get_ids])
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the Get cache path")
+    finally:
+        mv.MV_ShutDown()
+    # what a hit's copy of the cached rows costs alone: into a new array
+    # each time (as a hit does, the copies kept alive as the Gets' results
+    # were) and into one reused buffer
+    fresh, reused, kept = [], [], []
+    buf = np.empty_like(first["rows"])
+    for _ in range(CACHE_GETS - 1):
+        t0 = time.perf_counter()
+        kept.append(first["rows"].copy())
+        fresh.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        np.copyto(buf, first["rows"])
+        reused.append(time.perf_counter() - t0)
+    return {"miss_s": first["s"], "hit_s": [gt["s"] for gt in gets[1:]],
+            "copy_new_median_s": float(np.median(fresh)),
+            "copy_reused_median_s": float(np.median(reused)),
+            "hit_median_s": float(np.median([gt["s"] for gt in gets[1:]])),
+            "after_add_miss_s": after_s,
+            "hits": sum(gt["hit"] for gt in gets)}
+
+
+def time_combined_add(torch, cr, dev, batches, seed: int) -> dict:
+    """<kAdd> at the combined Add's shape: each group of COMBINE_CAP
+    consecutive batches of the burst concatenated, duplicates pre-combined
+    (the unique ids and their summed deltas, as the server's duplicate-row
+    pre-combine hands them to the update), on the 1,000,001 x 52 storage.
+    Bitwise against its plain version on every group, then timed as phase
+    2 times it, beside the byte bound of this data and ``index_add_``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cols = PS_COLS + 2
+    data = torch.randn(PS_ROWS + 1, cols, generator=g).to(dev)
+    sets = []
+    for i in range(0, len(batches), COMBINE_CAP):
+        grp = batches[i:i + COMBINE_CAP]
+        uniq, inv = np.unique(np.concatenate([b[0] for b in grp]),
+                              return_inverse=True)
+        summed = np.zeros((len(uniq), cols), np.float32)
+        np.add.at(summed, inv, np.pad(np.concatenate([b[1] for b in grp]),
+                                      ((0, 0), (0, cols - PS_COLS))))
+        sets.append((torch.from_numpy(uniq.astype(np.int32)).to(dev),
+                     torch.from_numpy(summed).to(dev)))
+    ids64 = [s[0].long() for s in sets]
+    a, b = data.clone(), data.clone()
+    for ids, src in sets:
+        cr.update_rows(a, ids, src, 1)
+        cr.update_rows_plain(b, ids, src, 1)
+    if not torch.equal(a[:PS_ROWS], b[:PS_ROWS]):
+        raise AssertionError("<kAdd> at the combined shape != its plain "
+                             "version")
+    err = float((a[:PS_ROWS] - b[:PS_ROWS]).abs().max())
+    n = [int(s[0].shape[0]) for s in sets]
+    res = {"ms": median_ms(torch, lambda i: cr.update_rows(
+               a, sets[i][0], sets[i][1], 1), len(sets)),
+           "stream_ms": stream_ms(torch, lambda i: cr.update_rows(
+               a, sets[i][0], sets[i][1], 1), len(sets)),
+           "plain_ms": median_ms(torch, lambda i: cr.update_rows_plain(
+               b, sets[i][0], sets[i][1], 1), len(sets)),
+           "library_ms": median_ms(torch, lambda i: b.index_add_(
+               0, ids64[i], sets[i][1]), len(sets)),
+           "bound_ms": float(np.mean([3 * k * cols * 4 + 4 * k for k in n]))
+           / HBM_BYTES_PER_S * 1e3,
+           "max_abs_err": err, "shape": [PS_ROWS + 1, cols,
+                                         float(np.mean(n))]}
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set at the combined shape")
+    return res
+
+
+# -- [binding]: the reference binding and the C ABI on the card ------------------
+
+def binding_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """The Python handlers on the card: a MatrixTableHandler of PS_ROWS x
+    PS_COLS and an ArrayTableHandler of PS_ROWS, each with an integer init
+    value, BINDING_ROUNDS rounds of BINDING_ADDS async adds (rows of PS_IDS
+    random ids; whole vectors) and one get, each get equal to the oracle;
+    then a TorchParamManager over an nn.Module on the card in each of 2
+    worker threads sharing one table, the delta trick: the server and both
+    workers' models end at the base plus both deltas."""
+    import multiverso_tpu_torch.binding as b
+    from multiverso_tpu_torch.binding.param_manager import TorchParamManager
+    g = np.random.default_rng([seed, 1200])
+    oracle_m = g.integers(-4, 5, (PS_ROWS, PS_COLS)).astype(np.float32)
+    oracle_a = g.integers(-4, 5, PS_ROWS).astype(np.float32)
+    b.init()
+    try:
+        mat = b.MatrixTableHandler(PS_ROWS, PS_COLS, init_value=oracle_m)
+        arr = b.ArrayTableHandler(PS_ROWS, init_value=oracle_a)
+        if mat._table.server().state["data"].device != dev:
+            raise AssertionError("[binding] the handlers' tables are not on "
+                                 "the card")
+        round_s = []
+        for _ in range(BINDING_ROUNDS):
+            ids = g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+            deltas = [g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32)
+                      for _ in range(BINDING_ADDS)]
+            t0 = time.perf_counter()
+            for d in deltas:
+                mat.add(d, row_ids=ids, sync=False)
+            got = mat.get(ids)
+            round_s.append(time.perf_counter() - t0)
+            for d in deltas:
+                oracle_m[ids] += d
+            np.testing.assert_array_equal(got, oracle_m[ids],
+                                          err_msg="[binding] matrix rows")
+            for _ in range(BINDING_ADDS):
+                v = g.integers(-3, 4, PS_ROWS).astype(np.float32)
+                arr.add(v, sync=False)
+                oracle_a += v
+            np.testing.assert_array_equal(arr.get(), oracle_a,
+                                          err_msg="[binding] array")
+        hits = mat._table.worker_stats["write_combine_hits"]
+    finally:
+        b.shutdown()
+    w = BINDING_WIDTH
+    weight = g.integers(-4, 5, (w, w)).astype(np.float32)
+    bias = g.integers(-4, 5, w).astype(np.float32)
+    base = np.concatenate([weight.ravel(), bias])
+    merged = {}
+    b.init(args=["-num_workers=2"])
+    try:
+        shared = b.ArrayTableHandler(base.size, init_value=base)
+
+        def worker(wid):
+            with mv.MV_WorkerContext(wid):
+                model = torch.nn.Linear(w, w).to(dev)
+                with torch.no_grad():
+                    model.weight.copy_(torch.from_numpy(weight))
+                    model.bias.copy_(torch.from_numpy(bias))
+                mgr = TorchParamManager(model, table=shared)
+                with torch.no_grad():
+                    model.weight += float(wid + 1)      # local training
+                mgr.sync_all_param()
+                b.barrier()                            # both pushes landed
+                mgr.sync_all_param()
+                if model.weight.device != dev:
+                    raise AssertionError("[binding] the model left the card")
+                merged[wid] = torch.cat([model.weight.reshape(-1),
+                                         model.bias]).detach().cpu().numpy()
+
+        run_threads(worker, 2)
+        server = shared.get()
+    finally:
+        b.shutdown()
+    want = base.copy()
+    want[: weight.size] += 3.0
+    for name, got in (("server", server), ("worker 0", merged[0]),
+                      ("worker 1", merged[1])):
+        np.testing.assert_array_equal(got, want, err_msg=f"[binding] param "
+                                                         f"manager {name}")
+    return {"round_s": round_s, "round_median_s": float(np.median(round_s)),
+            "combine_hits": hits, "param_manager_floats": int(base.size)}
+
+
+def c_abi_phase(torch, cr, dev, seed: int) -> dict:
+    """The C ABI on the card: the port's bridge installed into the port's
+    build of the native library, ``MV_Init`` through ctypes (the bridge
+    brings the world up on the card), ``MV_NewMatrixTable(PS_ROWS,
+    PS_COLS)``, BINDING_ROUNDS rounds of BINDING_ADDS
+    ``MV_AddAsyncMatrixTableByRows`` of PS_IDS random ids and one
+    ``MV_GetMatrixTableByRows``, each equal to the oracle."""
+    import ctypes
+
+    from multiverso_tpu_torch import native
+    from multiverso_tpu_torch.binding import native_bridge
+    lib = native.lib()
+    if lib is None:
+        raise AssertionError(f"[binding] no native library: "
+                             f"{native.last_build_error}")
+    g = np.random.default_rng([seed, 1201])
+    fptr, iptr = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    bridge = native_bridge.install(lib)
+    argc = ctypes.c_int(1)
+    lib.MV_Init(ctypes.byref(argc), (ctypes.c_char_p * 1)(b"chip_smoke"))
+    try:
+        handle = ctypes.c_void_p()
+        lib.MV_NewMatrixTable(PS_ROWS, PS_COLS, ctypes.byref(handle))
+        entry = bridge._tables[0]
+        if entry.server.state["data"].device != dev:
+            raise AssertionError("[binding] the C ABI's table is not on the "
+                                 "card")
+        round_s = []
+        out = np.zeros((PS_IDS, PS_COLS), np.float32)
+        for _ in range(BINDING_ROUNDS):
+            ids = g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+            deltas = [g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32)
+                      for _ in range(BINDING_ADDS)]
+            t0 = time.perf_counter()
+            for d in deltas:
+                lib.MV_AddAsyncMatrixTableByRows(
+                    handle, d.ctypes.data_as(fptr), d.size,
+                    ids.ctypes.data_as(iptr), PS_IDS)
+            lib.MV_GetMatrixTableByRows(handle, out.ctypes.data_as(fptr),
+                                        out.size, ids.ctypes.data_as(iptr),
+                                        PS_IDS)
+            round_s.append(time.perf_counter() - t0)
+            for d in deltas:
+                oracle[ids] += d
+            np.testing.assert_array_equal(out, oracle[ids],
+                                          err_msg="[binding] C ABI rows")
+        hits = entry.worker.worker_stats["write_combine_hits"]
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the C ABI path")
+    finally:
+        lib.MV_ShutDown()
+        bridge.uninstall()
+    return {"round_s": round_s, "round_median_s": float(np.median(round_s)),
+            "combine_hits": hits}
 
 
 # -- [serve]: the serving plane beside a trainer --------------------------------
@@ -3380,19 +3804,23 @@ def main() -> int:
             turns = r["burst"]
             for t in turns:
                 log(f"[ps_2proc burst] rank {r['rank']} {t['turn']}: "
-                    f"{t['verbs']} fire-and-forget AddRows of {BURST_IDS} "
-                    f"ids (both ranks) in {t['exchanges']} windows, "
+                    f"{BURST_VERBS - BURST_WARM} fire-and-forget AddRows of "
+                    f"{BURST_IDS} ids a rank reaching the engine as "
+                    f"{t['add_messages']} Add messages, {t['verbs']} verbs "
+                    f"(both ranks) in {t['exchanges']} windows, "
                     f"{t['wall_s']:.4f} s; the engine's exchange "
                     f"{t['exchange_s']:.4f} s + apply {t['apply_s']:.4f} s "
                     f"= {(t['exchange_s'] + t['apply_s']) / t['wall_s']:.3f}"
                     f" of the burst")
             med = {k: float(np.median([t["wall_s"] for t in turns
                                        if t["turn"] == k]))
-                   for k in ("pipeline", "serial")}
+                   for k in ("pipeline", "serial", "pipeline_wc0")}
             r["burst_median_s"] = med
             log(f"[ps_2proc burst] rank {r['rank']} median: pipelined "
                 f"{med['pipeline']:.4f} s, serial {med['serial']:.4f} s "
-                f"(pipelined / serial {med['pipeline'] / med['serial']:.3f})")
+                f"(pipelined / serial {med['pipeline'] / med['serial']:.3f})"
+                f"; pipelined at -mv_write_combine=0 "
+                f"{med['pipeline_wc0']:.4f} s")
         log("[ps_2proc burst] final tables == the oracle of both ranks' "
             "Adds on every turn, bitwise equal across the ranks")
         for r in two["ranks"]:
@@ -3484,6 +3912,68 @@ def main() -> int:
         lr_phase(torch, dev, args.seed, workdir, lr_data, drive, results)
         two_k = apps_2proc(torch, cr, dev, args.seed, workdir, lr_data,
                            paths, results)
+    # the worker fast paths and the binding after the apps' phases, so the
+    # earlier phases run in the process state they ran in before these
+    # phases existed (their 1,000,000 x 50 worlds, one of them on the CPU,
+    # leave the host's memory otherwise) and stay comparable across runs
+    pcomb = drive("ps_combine", lambda: ps_combine_phase(
+        torch, mv, cr, dev, args.seed), every)
+    results["ps_combine"] = pcomb
+    for t in pcomb["turns"]:
+        log(f"[ps_combine] {t['turn']} turn (-mv_write_combine="
+            f"{COMBINE_CAP if t['turn'] == 'combined' else 0}): "
+            f"{BURST_VERBS} fire-and-forget AddRows of {BURST_IDS} ids to "
+            f"each of the add and the momentum table, DrainServer: "
+            f"{t['burst_s']:.4f} s; the engine received {t['add_messages']} "
+            f"Add messages for {2 * BURST_VERBS} pushes, combine hits "
+            f"{t['combine_hits']}; add table GetRows == oracle")
+    log(f"[ps_combine] momentum table bitwise equal across the combined "
+        f"turns; card vs the same combined burst on the CPU max abs diff "
+        f"{pcomb['momentum_card_vs_cpu_max_abs']:.3g} (rtol 1e-5, atol "
+        f"1e-6); the CPU world's engine received "
+        f"{pcomb['cpu_add_messages']} Add messages")
+    combine_k = time_combined_add(torch, cr, dev, combine_batches(args.seed),
+                                  args.seed + 12)
+    results["kernels_combined_shape"] = combine_k
+    log(f"[kernels] update_rows at the combined Add's shape "
+        f"({PS_ROWS + 1}x{PS_COLS + 2}, {combine_k['shape'][2]:.1f} unique "
+        f"ids of {COMBINE_CAP} x {BURST_IDS}): kernel == plain bitwise; "
+        f"per-pair {combine_k['ms']:.7f} ms, stream "
+        f"{combine_k['stream_ms']:.7f} ms (bound {combine_k['bound_ms']:.7f}, "
+        f"plain {combine_k['plain_ms']:.7f}, index_add_ "
+        f"{combine_k['library_ms']:.7f}, all per-pair), max_abs_err "
+        f"{combine_k['max_abs_err']}")
+    gcache = drive("ps_get_cache", lambda: ps_get_cache_phase(
+        torch, mv, cr, dev, args.seed), rows_and_update)
+    results["ps_get_cache"] = gcache
+    log(f"[ps_get_cache] -mv_get_staleness={CACHE_STALENESS}: {CACHE_GETS} "
+        f"GetRows of {PS_IDS} ids, no Add between: the miss "
+        f"{gcache['miss_s'] * 1e3:.4f} ms, {gcache['hits']} hits (median "
+        f"{gcache['hit_median_s'] * 1e3:.4f} ms "
+        f"{[round(x * 1e3, 4) for x in gcache['hit_s']]}) bitwise the miss, "
+        f"no row gather launched; after the worker's own AddRows a miss "
+        f"({gcache['after_add_miss_s'] * 1e3:.4f} ms) == the oracle; the "
+        f"rows' copy alone: into a new array "
+        f"{gcache['copy_new_median_s'] * 1e3:.4f} ms, into one reused "
+        f"buffer {gcache['copy_reused_median_s'] * 1e3:.4f} ms (medians)")
+    bind = drive("binding", lambda: binding_phase(torch, mv, cr, dev,
+                                                  args.seed),
+                 rows_and_update)
+    results["binding"] = bind
+    cabi = drive("binding_c_abi", lambda: c_abi_phase(torch, cr, dev,
+                                                      args.seed),
+                 rows_and_update)
+    results["binding_c_abi"] = cabi
+    for label, r in (("Python handlers", bind), ("C ABI", cabi)):
+        log(f"[binding] {label} on the card, {PS_ROWS:,} x {PS_COLS}: "
+            f"{BINDING_ROUNDS} rounds of {BINDING_ADDS} async row adds of "
+            f"{PS_IDS} ids + one get: round median "
+            f"{r['round_median_s'] * 1e3:.3f} ms "
+            f"{[round(x * 1e3, 3) for x in r['round_s']]}; every get == the "
+            f"oracle; combine hits {r['combine_hits']}")
+    log(f"[binding] TorchParamManager, 2 worker threads on one table of "
+        f"{bind['param_manager_floats']} floats, models on the card: the "
+        f"server and both models == base + both deltas")
     # [serve] runs last: no other phase follows its traffic (512 MB host
     # snapshots, nine threads) in this process
     sv = drive("serve", lambda: serve_phase(torch, mv, cr, dev, args.seed),
@@ -3521,6 +4011,7 @@ def main() -> int:
                              if k == "update_rows" else 0.0)]
                 + ([touched[k]["max_abs_err"]] if k in touched else [])
                 + ([serve_k["max_abs_err"]] if k == "gather_rows" else [])
+                + ([combine_k["max_abs_err"]] if k == "update_rows" else [])
                 + [s[k]["max_abs_err"] for s in two_k.values() if k in s]),
             "ms": r["ms"], "stream_ms": r["stream_ms"],
             "plain_ms": r["plain_ms"],
@@ -3557,6 +4048,11 @@ def main() -> int:
                 "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
                 "bound_ms", "shape")}, launches=paths["serve"][k],
                 device_resident_launches=results["serve"]["device_gathers"])
+        if k == "update_rows":
+            # a combined Add ([ps_combine], [binding])
+            entry["ps_combine"] = {key: combine_k[key] for key in (
+                "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
+                "bound_ms", "shape")}
         if k in touched:
             # the touched-rows AdaGrad step of [we_pairs_adagrad]
             entry["we_pairs_adagrad"] = {

@@ -16,9 +16,12 @@ LogisticRegression apps on the host plane and the device plane, with
 checkpoint/resume of every table (``MV_SaveCheckpoint``) and compressed
 row pushes (``compress="sparse"|"1bit"``), and the serving plane
 (versioned snapshots cut in the engine stream, served by batched lookups,
-``MV_PublishSnapshot``/``MV_ServingLookup``), on one GPU, and in worlds of
-several processes over ``torch.distributed`` (gloo), each process keeping a
-replica of every table on its own card. Its three row
+``MV_PublishSnapshot``/``MV_ServingLookup``), with worker-side write
+combining and the staleness-bounded Get cache at the JAX package's
+defaults, and the reference-compatible binding (``binding``: the Python
+handlers, the param managers, and the C ABI's backend bridge), on one GPU,
+and in worlds of several processes over ``torch.distributed`` (gloo), each
+process keeping a replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
 ``sm_90a`` (``csrc/rows.cu``), built with nvcc at first use.
 """
@@ -43,6 +46,7 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_Rank,
     MV_SaveCheckpoint,
     MV_ServerId,
+    MV_ServerIdToRank,
     MV_ServingLookup,
     MV_SetFlag,
     MV_ShutDown,
@@ -50,6 +54,7 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_UnpinVersion,
     MV_WorkerContext,
     MV_WorkerId,
+    MV_WorkerIdToRank,
 )
 
 __version__ = "0.1.0"

@@ -76,6 +76,16 @@ def MV_ServerId() -> int:
     return 0 if Zoo.Get().node.is_server() else -1
 
 
+def MV_WorkerIdToRank(worker_id: int) -> int:
+    """The rank of the process hosting global worker ``worker_id``."""
+    return Zoo.Get().worker_id_to_rank(worker_id)
+
+
+def MV_ServerIdToRank(server_id: int) -> int:
+    """The rank of the process hosting global server ``server_id``."""
+    return Zoo.Get().server_id_to_rank(server_id)
+
+
 def MV_CreateTable(option):
     """Create a table (reference multiverso.h:34-41)."""
     from multiverso_tpu_torch.tables.base import CreateTable

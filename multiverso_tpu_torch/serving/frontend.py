@@ -162,7 +162,16 @@ class ServingFrontend:
                 raise ValueError(
                     f"serving lookup ids must be integers, got dtype "
                     f"{ids.dtype}")
+            if (ids.dtype == np.uint64 and ids.size
+                    and int(ids.max()) > np.iinfo(np.int64).max):
+                raise ValueError(
+                    f"serving lookup id {int(ids.max())} is above the "
+                    f"int64 maximum")
             ts.validate_ids(ids)
+            # one id dtype for every caller: a group's union would promote
+            # int64 with uint64 to float64 (wrong keys above 2**53, no
+            # integer index at all for a row read)
+            ids = ids.astype(np.int64, copy=False)
         ticket = LookupTicket()
         with self._stats_lock:
             self._lookups += 1

@@ -248,13 +248,14 @@ def _capture_all(engine, store) -> Snapshot:
     return snap
 
 
-def publish() -> int:
-    """Publish a consistent versioned snapshot of every live table; returns
-    the new version. COLLECTIVE in a multi-process world: every process
-    calls it at the same verb-stream position, like ``MV_Barrier``."""
+def publish(zoo=None) -> int:
+    """Publish a consistent versioned snapshot of every live table of
+    ``zoo`` (default: the running world); returns the new version.
+    COLLECTIVE in a multi-process world: every process calls it at the
+    same verb-stream position, like ``MV_Barrier``."""
     from multiverso_tpu_torch.serving import get_plane
     from multiverso_tpu_torch.zoo import Zoo
-    zoo = Zoo.Get()
+    zoo = zoo or Zoo.Get()
     plane = get_plane()
 
     def _cut():

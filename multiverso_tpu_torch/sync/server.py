@@ -80,12 +80,19 @@ device has not finished), which also waits on the work other shards
 queued ahead of it (kernels and copies). A stream per shard would need events at every cut, at every
 routing move and against the app thread's direct device-plane calls.
 
+The worker-side fast paths (``tables/base.py``) read two flags defined
+here, where the first ``MV_Init`` parses them: ``-mv_write_combine`` and
+``-mv_get_staleness``. An engine admits them through ``WRITE_COMBINE_OK``
+and ``GET_CACHE_OK`` (the BSP ``SyncServer`` refuses both: its clocks
+count Get and Add messages), and ``epoch_for_table`` is the Get cache's
+staleness clock: the window epoch of the stream applying the table.
+``add_messages`` counts the Add messages the engine received.
+
 Not ported (ROADMAP.md): the apply pool, the device window transport
 (``-window_transport`` resolves to ``host``; ``device`` fails a CHECK),
 compressed windows, the shared-memory and TCP wires' per-shard channels,
-the failsafe admission gate (dedup window, chaos) and deadlines,
-worker-side write combining and the Get cache, and the telemetry hooks of
-the JAX engine.
+the failsafe admission gate (dedup window, chaos) and deadlines, and the
+telemetry hooks of the JAX engine.
 """
 
 from __future__ import annotations
@@ -131,6 +138,19 @@ MV_DEFINE_int("mv_engine_shards", 0,
               "byte. Clamped to 1 under -sync (the BSP vector clocks "
               "count verbs across ALL tables) and -mv_elastic (the "
               "epoch relay is single-channel).")
+MV_DEFINE_int("mv_write_combine", 8,
+              "worker-side write combining: coalesce up to N consecutive "
+              "fire-and-forget Adds to one table into ONE request before "
+              "the mailbox hop (0 = off, every Add its own message). A "
+              "COUNT cap, not bytes: call sequences are lockstep across "
+              "the ranks of a multi-process world, payload bytes are not")
+MV_DEFINE_int("mv_get_staleness", 0,
+              "worker-side Get cache: serve a repeated identical Get from "
+              "the last fetched result while the engine stream applying "
+              "the table has run at most N windows since the fill and "
+              "this process wrote nothing to the table (0 = off, every "
+              "Get exact). One-process worlds only: a hit removes a verb "
+              "from the stream")
 
 _INF = float("inf")
 
@@ -356,10 +376,19 @@ class Server(Actor):
     #: multi-process world (``_dispatch``); the BSP SyncServer exchanges
     #: one verb at a time on the actor thread and has no pipeline to race
     MH_BARRIER_HEADS = True
+    #: whether the worker-side fast paths may run in front of this engine:
+    #: the async contract (a Get may observe more progress, never less)
+    #: admits both; the BSP SyncServer counts Get and Add MESSAGES into its
+    #: clocks and refuses both
+    WRITE_COMBINE_OK = True
+    GET_CACHE_OK = True
 
     def __init__(self, name: str = actor_names.kServer):
         super().__init__(name)
         self.store_: List = []
+        #: Add messages received (a batch's Add members included)
+        self.add_messages = 0
+        self._count_lock = threading.Lock()
         #: this engine's shard slot (0 unless it is a sub-shard)
         self.slot = 0
         #: window Add runs applied as one merged dispatch
@@ -420,12 +449,26 @@ class Server(Actor):
             return
         super()._dispatch(msg)
 
+    def _count_adds(self, msgs) -> None:
+        n = sum(1 for m in msgs if m.msg_type is MsgType.Request_Add)
+        if n:
+            with self._count_lock:
+                self.add_messages += n
+
+    def Receive(self, msg: Message) -> None:
+        self._count_adds((msg,))
+        super().Receive(msg)
+
     def receive_multi(self, members) -> None:
         """Accept one batched verb submission: ONE mailbox hop carries the
-        pre-built member messages in a Request_MultiVerb envelope. Pushes
-        straight to this actor's mailbox: ShardedServer.receive_multi has
-        already split the batch per shard, and going back through its
-        Receive would split it again forever."""
+        pre-built member messages in a Request_MultiVerb envelope."""
+        self._count_adds(members)
+        self._push_multi(members)
+
+    def _push_multi(self, members) -> None:
+        """Push one envelope straight to this actor's mailbox:
+        ShardedServer.receive_multi has already split the batch per shard,
+        and going back through its Receive would split it again forever."""
         Actor.Receive(self, Message(msg_type=MsgType.Request_MultiVerb,
                                     payload={"members": list(members)},
                                     on_reply=_fail_multi_members))
@@ -451,6 +494,12 @@ class Server(Actor):
     def cut_epoch(self) -> int:
         """Windows applied over every stream: the stream position a cut
         (a snapshot publish, a checkpoint) is taken at."""
+        return self.window_epoch
+
+    def epoch_for_table(self, table_id: int) -> int:
+        """Window epoch of the stream applying ``table_id``'s verbs: the
+        Get cache's staleness clock (the unsharded engine is one
+        stream)."""
         return self.window_epoch
 
     def shard_states(self) -> List[dict]:
@@ -1177,6 +1226,7 @@ class ShardedServer(Server):
         its part as one envelope."""
         if not self._subs:
             return super().receive_multi(members)
+        self._count_adds(members)
         while True:
             self._wait_route_gate()
             with self._route_lock:
@@ -1188,11 +1238,7 @@ class ShardedServer(Server):
                     groups.setdefault(self._slot_for(m.table_id),
                                       []).append(m)
                 for slot, ms in groups.items():
-                    sub = self._subs.get(slot)
-                    if sub is not None:
-                        sub.receive_multi(ms)
-                    else:
-                        Server.receive_multi(self, ms)
+                    (self._subs.get(slot) or self)._push_multi(ms)
                 return
 
     def Receive(self, msg: Message) -> None:
@@ -1202,6 +1248,7 @@ class ShardedServer(Server):
             self.receive_multi(msg.payload["members"])
             return
         if msg.msg_type in (MsgType.Request_Get, MsgType.Request_Add):
+            self._count_adds((msg,))
             self._route_push(msg)
             return
         subs = list(self._subs.values())
@@ -1231,6 +1278,12 @@ class ShardedServer(Server):
                 self._reopen_locked()
                 raise
 
+    def epoch_for_table(self, table_id: int) -> int:
+        """The window epoch of the shard applying ``table_id``: a busy
+        neighbour shard does not age another table's cache entries."""
+        sub = self._subs.get(self._slot_for(table_id))
+        return (sub or self).window_epoch
+
     def cut_epoch(self) -> int:
         """Windows applied over the router's and every sub-shard's stream
         (read inside a cut, with every stream fenced)."""
@@ -1255,8 +1308,11 @@ class SyncServer(Server):
     """BSP server (reference server.cpp:60-222). See module docstring."""
 
     #: the vector clocks count Get/Add MESSAGES per worker: a batched
-    #: envelope would hide N ticks in one message
+    #: envelope would hide N ticks in one message, a combined Add N Add
+    #: ticks, and a cached Get a Get tick
     MULTI_VERB_OK = False
+    WRITE_COMBINE_OK = False
+    GET_CACHE_OK = False
     MH_BARRIER_HEADS = False
 
     def __init__(self, num_workers: int):

@@ -793,6 +793,32 @@ class MatrixWorkerTable(WorkerTable):
         ids = None if row_ids is None else np.asarray(row_ids, np.int32)
         self.AddAsync(self._row_payload(ids, deltas), option, track=False)
 
+    # -- write combining (tables/base.py contract) ----------------------------
+
+    def _combinable_fire_forget(self, payload) -> bool:
+        """Row-set Adds with a dense delta combine: the concatenated (ids,
+        deltas) batch applies as ONE Add whose duplicate-row pre-combine
+        sums in concatenation (= submission) order, the engine's own
+        merged-run semantics for a burst. Whole-table Adds decline (a sum
+        is sound only for linear updaters). A COMPRESSED table declines
+        entirely: the sparse filter's compress-or-dense choice depends on
+        each rank's data, so buffering only the dense fallbacks would
+        make the combining itself data-dependent and diverge the ranks'
+        verb streams; ``_compress`` is creation-time configuration every
+        rank shares."""
+        return (self._compress is None
+                and payload.get("row_ids") is not None
+                and payload.get("compressed") is None
+                and isinstance(payload.get("values"), np.ndarray))
+
+    def _combine_fire_forget(self, payloads) -> dict:
+        ids = np.concatenate([np.asarray(p["row_ids"], np.int32).ravel()
+                              for p in payloads])
+        vals = np.concatenate(
+            [np.asarray(p["values"], self.dtype).reshape(-1, self.num_cols)
+             for p in payloads])
+        return {"row_ids": ids, "values": vals}
+
     def server(self) -> MatrixServerTable:
         """The co-located server half (device-plane access)."""
         return self._zoo.server_tables[self.table_id]

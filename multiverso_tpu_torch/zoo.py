@@ -18,8 +18,13 @@ the engine applies every rank's verbs of each exchanged window to it
 
 ``Stop`` takes the serving plane down after the engine (``serving/``). The
 planes the JAX ``Start`` brings up after the engine (reporter, ops,
-ledger, watchdog, elastic, replica, policy) and worker-side write combining
-are later work (``ROADMAP.md``).
+ledger, watchdog, elastic, replica, policy) are later work
+(``ROADMAP.md``).
+
+Write combining (``tables/base.py``): every global ordering point ships
+the tables' combine buffers first (``flush_combined_adds``): a non-verb
+message (a drain ping, a checkpoint or publish cut, ``CallOnEngine``),
+``FinishTrain``, a tracked batch and ``Barrier``.
 """
 
 from __future__ import annotations
@@ -137,6 +142,7 @@ class Zoo:
         SyncServer drains its caches there."""
         if self.server_engine is None:
             return
+        self.flush_combined_adds()
         waiters = []
         for wid in range(self.num_workers):
             w = Waiter(1)
@@ -188,6 +194,24 @@ class Zoo:
 
     # -- table registries (reference zoo.h:68-73) ---------------------------
 
+    def worker_id_to_rank(self, worker_id: int) -> int:
+        """The rank hosting global worker ``worker_id``: ids partition
+        contiguously, ``num_workers`` a process."""
+        return self._id_to_rank(worker_id, self.num_workers, "worker")
+
+    def server_id_to_rank(self, server_id: int) -> int:
+        return self._id_to_rank(
+            server_id, max(1, self.num_servers // max(1, self.size)),
+            "server")
+
+    def _id_to_rank(self, global_id: int, per_rank: int, what: str) -> int:
+        CHECK(global_id >= 0, f"{what} id must be >= 0, got {global_id}")
+        CHECK(per_rank > 0, f"no {what}s in this world")
+        rank = global_id // per_rank
+        CHECK(rank < self.size, f"{what} id {global_id} out of range for "
+                                f"{self.size} process(es) x {per_rank}")
+        return rank
+
     def RegisterServerTable(self, server_table) -> int:
         CHECK(self.server_engine is not None,
               "cannot create tables in -ma mode (reference zoo.cpp:49)")
@@ -201,14 +225,22 @@ class Zoo:
 
     def SendToServer(self, msg: Message) -> None:
         CHECK(self.server_engine is not None, "no server engine (ma mode?)")
+        if msg.msg_type not in (MsgType.Request_Get, MsgType.Request_Add):
+            # a non-verb message is an ordering point: a cut or a drain
+            # must include every fire-and-forget Add issued before it
+            self.flush_combined_adds()
         self.server_engine.Receive(msg)
 
-    def SendToServerMulti(self, members) -> None:
-        """Ship a batched verb submission in ONE engine mailbox hop. An
-        engine that can't flatten envelopes (the BSP SyncServer counts
-        Get/Add MESSAGES into its clocks, ``MULTI_VERB_OK`` False) receives
-        the members one at a time instead: same stream order, unbatched."""
+    def SendToServerMulti(self, members, tracked: bool = True) -> None:
+        """Ship a batched verb submission in ONE engine mailbox hop; a
+        tracked batch is an ordering point (the combine buffers ship
+        first). An engine that can't flatten envelopes (the BSP SyncServer
+        counts Get/Add MESSAGES into its clocks, ``MULTI_VERB_OK`` False)
+        receives the members one at a time instead: same stream order,
+        unbatched."""
         CHECK(self.server_engine is not None, "no server engine (ma mode?)")
+        if tracked:
+            self.flush_combined_adds()
         eng = self.server_engine
         if not eng.MULTI_VERB_OK:
             for m in members:
@@ -226,6 +258,13 @@ class Zoo:
         CHECK(self.server_engine is not None,
               f"{what} needs a server engine (not -ma mode)")
         return self._round_trip(msg_type, {"fn": fn})
+
+    def flush_combined_adds(self) -> None:
+        """Ship every table's combine buffer (cheap when none holds an
+        Add): a buffered fire-and-forget Add is never missing where the
+        serial message stream would have shown it."""
+        for t in self.worker_tables:
+            t.FlushCombined()
 
     def DrainServer(self) -> None:
         """Round-trip a barrier ping through the engine: returns only after
@@ -252,6 +291,10 @@ class Zoo:
         process; a failure there breaks the thread barrier so the other
         threads raise too)."""
         CHECK(self._barrier is not None, "Zoo not started")
+        if self.server_engine is not None:
+            # after a barrier every worker's earlier pushes are in the
+            # engine stream
+            self.flush_combined_adds()
         idx = self._barrier.wait()
         if self._multihost:
             if idx == 0:

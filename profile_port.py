@@ -64,6 +64,18 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   the sgd table alone and beside the AdaGrad table, in turns
   (SERVE_TURNS), for what a host-resident table's publish costs the
   lookups;
+* ps_combine: chip_smoke.py's [ps_combine] burst (200 fire-and-forget
+  AddRows of 2,000 ids to each of the add and the momentum table at the
+  PS shape, then DrainServer) at the default -mv_write_combine and at 0,
+  in turns (COMBINE_TURNS), each after an unprofiled warm-up burst, under
+  the profiler and cProfile (on Python 3.12 it sees every thread: the
+  pushing worker and the engine shards): per turn the burst's seconds,
+  device idle, the Add messages the engine received and the host
+  functions the time goes to;
+* binding: chip_smoke.py's [binding] rounds (8 async row adds of 10,000
+  ids and one get on a 1,000,000 x 50 MatrixTable) through the Python
+  handlers by the host clock, then through the C ABI (the port's bridge in
+  its build of the native library) under the profiler and cProfile;
 * bsp: chip_smoke.py's [bsp] phase (one process, 4 worker threads,
   ``-sync=true``) BSP_WORLDS times in each of a row of processes by the
   host clock, no profiler; with ``--baseline DIR`` (another checkout, e.g.
@@ -78,8 +90,8 @@ most host time, for WE the seconds the trainer waited on the block
 loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
-parse, ckpt, ps_compress, ps_2proc, lr_2proc, we_2proc, serve, bsp
-(default: all).
+parse, ckpt, ps_compress, ps_2proc, lr_2proc, we_2proc, serve, ps_combine,
+binding, bsp (default: all).
 """
 
 from __future__ import annotations
@@ -269,6 +281,126 @@ def profile_ps_compress(torch, seed: int) -> dict:
     res["turns_ms"] = turns
     res["compress_ms_per_round"] = compress_ms
     res["server_ms_per_round"] = wall / 5 * 1e3
+    return res
+
+
+def _profiled(torch, fn):
+    """``fn()`` under torch.profiler (CPU + CUDA) and cProfile (which on
+    Python 3.12 sees every thread of the interpreter); the summary, the
+    top host functions and fn's result."""
+    import cProfile
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cp = cProfile.Profile()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        cp.enable()
+        out = fn()
+        torch.cuda.synchronize()
+        cp.disable()
+        wall = time.perf_counter() - t0
+    res = summarize(torch, prof, wall)
+    res["top_host_functions"] = top_functions(cp)
+    return res, out
+
+
+def profile_ps_combine(torch, seed: int) -> list:
+    """[ps_combine]'s burst in COMBINE_TURNS: a world a turn, a warm-up
+    burst, then the burst profiled."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    from chip_smoke import (COMBINE_TURNS, PS_COLS, PS_ROWS,
+                            combine_batches, warm_index_add)
+    warm_index_add(torch, torch.device("cuda", 0))
+    batches = combine_batches(seed)
+    warm = combine_batches(seed + 1)[:16]
+    mopt = AddOption(momentum=0.5)
+    out = []
+    for turn in COMBINE_TURNS:
+        mv.MV_Init([] if turn == "combined" else ["-mv_write_combine=0"])
+        try:
+            add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                      num_cols=PS_COLS))
+            mom = mv.MV_CreateTable(MatrixTableOption(
+                num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
+            eng = Zoo.Get().server_engine
+
+            def burst(bs):
+                for ids, d in bs:
+                    add.AddFireForget(d, row_ids=ids)
+                    mom.AddFireForget(d, row_ids=ids, option=mopt)
+                Zoo.Get().DrainServer()
+
+            burst(warm)
+            torch.cuda.synchronize()
+            m0 = eng.add_messages
+            res, _ = _profiled(torch, lambda: burst(batches))
+            res.update(turn=turn, add_messages=eng.add_messages - m0)
+        finally:
+            mv.MV_ShutDown()
+        out.append(res)
+    return out
+
+
+def profile_binding(torch, seed: int) -> dict:
+    """[binding]'s rounds through the handlers by the host clock, then
+    through the C ABI profiled."""
+    import ctypes
+
+    import multiverso_tpu_torch.binding as b
+    from multiverso_tpu_torch import native
+    from multiverso_tpu_torch.binding import native_bridge
+    from chip_smoke import (BINDING_ADDS, BINDING_ROUNDS, PS_COLS, PS_IDS,
+                            PS_ROWS)
+    g = np.random.default_rng([seed, 1300])
+    rounds = [(g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32),
+               [g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32)
+                for _ in range(BINDING_ADDS)])
+              for _ in range(BINDING_ROUNDS + 2)]
+    b.init()
+    try:
+        mat = b.MatrixTableHandler(PS_ROWS, PS_COLS)
+        for i, (ids, deltas) in enumerate(rounds):
+            if i == 2:                               # after 2 warm-up rounds
+                t0 = time.perf_counter()
+            for d in deltas:
+                mat.add(d, row_ids=ids, sync=False)
+            mat.get(ids)
+        handler_ms = (time.perf_counter() - t0) / BINDING_ROUNDS * 1e3
+    finally:
+        b.shutdown()
+    lib = native.lib()
+    if lib is None:
+        raise RuntimeError(f"no native library: {native.last_build_error}")
+    fptr, iptr = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+    bridge = native_bridge.install(lib)
+    argc = ctypes.c_int(1)
+    lib.MV_Init(ctypes.byref(argc), (ctypes.c_char_p * 1)(b"profile_port"))
+    try:
+        handle = ctypes.c_void_p()
+        lib.MV_NewMatrixTable(PS_ROWS, PS_COLS, ctypes.byref(handle))
+        out = np.zeros((PS_IDS, PS_COLS), np.float32)
+
+        def c_rounds(rs):
+            for ids, deltas in rs:
+                for d in deltas:
+                    lib.MV_AddAsyncMatrixTableByRows(
+                        handle, d.ctypes.data_as(fptr), d.size,
+                        ids.ctypes.data_as(iptr), PS_IDS)
+                lib.MV_GetMatrixTableByRows(
+                    handle, out.ctypes.data_as(fptr), out.size,
+                    ids.ctypes.data_as(iptr), PS_IDS)
+
+        c_rounds(rounds[:2])
+        torch.cuda.synchronize()
+        res, _ = _profiled(torch, lambda: c_rounds(rounds[2:]))
+    finally:
+        lib.MV_ShutDown()
+        bridge.uninstall()
+    res["c_round_ms"] = res["wall_s"] / BINDING_ROUNDS * 1e3
+    res["handler_round_ms"] = handler_ms
     return res
 
 
@@ -856,6 +988,8 @@ def main() -> int:
             "we_2proc": lambda: profile_apps_2proc("we", args.seed,
                                                    args.out),
             "serve": lambda: profile_serve(torch, args.seed),
+            "ps_combine": lambda: profile_ps_combine(torch, args.seed),
+            "binding": lambda: profile_binding(torch, args.seed),
             "bsp": lambda: bsp_turns(args.seed, args.out, args.baseline)}
     res = {"card": card}
     for name in PATHS:
@@ -869,7 +1003,8 @@ def main() -> int:
 
 #: every path main() can profile, in its order
 PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
-         "ps_2proc", "lr_2proc", "we_2proc", "serve", "bsp")
+         "ps_2proc", "lr_2proc", "we_2proc", "serve", "ps_combine",
+         "binding", "bsp")
 #: bsp: worlds a process, and the processes' order against a baseline
 BSP_WORLDS = 3
 BSP_TURNS = ("baseline", "this", "this", "baseline") * 2
@@ -1006,6 +1141,26 @@ def report(res: dict) -> None:
                   f"{t['client_p99_ms']:.4f} ms, publish median "
                   f"{t['publish_median_ms']:.4f} ms, "
                   f"{t['train_batches']} trainer batches", flush=True)
+    for i, r in enumerate(res.get("ps_combine", [])):
+        print(f"[ps_combine] turn {i + 1} {r['turn']}: burst "
+              f"{r['wall_s']:.4f} s, {r['add_messages']} Add messages; "
+              f"device busy {r['device_busy_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f}", flush=True)
+        print_tops(f"ps_combine {r['turn']}", r)
+        for key, calls, secs in r["top_host_functions"]:
+            print(f"[ps_combine {r['turn']}]   host function {key} x{calls}: "
+                  f"{secs:.4f} s", flush=True)
+    if "binding" in res:
+        r = res["binding"]
+        print(f"[binding] round (8 async row adds + one get): Python "
+              f"handlers {r['handler_round_ms']:.3f} ms, C ABI "
+              f"{r['c_round_ms']:.3f} ms under the profiler; device busy "
+              f"{r['device_busy_s']:.4f} of {r['wall_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f}", flush=True)
+        print_tops("binding", r)
+        for key, calls, secs in r["top_host_functions"]:
+            print(f"[binding]   host function {key} x{calls}: {secs:.4f} s",
+                  flush=True)
     turns = res.get("bsp", [])
     for i, r in enumerate(turns):
         print(f"[bsp] turn {i + 1} {r['turn']} ({r['root']}): round medians "

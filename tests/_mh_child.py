@@ -14,7 +14,10 @@ MODE OK``. LIBPATH is the port's build of the repo's C++ library, which
 the JAX package's loader is handed instead of running ``make`` ("" = none).
 The app modes (``lr``, ``lr_dev``, ``we``, ``we_pairs``, ``we_ragged``)
 read the data files their test wrote into OUTDIR; each rank trains on its
-own shard through the apps' entry points.
+own shard through the apps' entry points. The JAX worlds run at
+``-mv_write_combine=0`` except in mode ``combine``
+(tests/test_torch_write_combine.py), where both packages run at the JAX
+package's default.
 """
 
 import os
@@ -54,7 +57,8 @@ def boot(extra=()):
         jnative._tried = True
         jnative._build = no_make
         import multiverso_tpu as mv
-        flags.append("-mv_write_combine=0")
+        if MODE != "combine":
+            flags.append("-mv_write_combine=0")
     else:
         import multiverso_tpu_torch as mv
         flags += ["-mv_device=cpu", "-mv_dist_timeout_s=60"]
@@ -271,6 +275,62 @@ def run_burst(mv):
         results["window_verbs"] = np.array(eng.mh_window_verbs)
         results["exchanges"] = np.array(eng.mh_window_exchanges)
         results["merged_runs"] = np.array(eng.mh_add_run_merged)
+
+
+def run_combine(mv):
+    """Fire-and-forget bursts on an add, a momentum and a KV table at the
+    default -mv_write_combine, with a tracked Get and an MV_Barrier inside
+    them: the replicas, and the Add messages each rank's engine received
+    (the JAX engine's counted at its mailbox)."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    add = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=ROWS,
+                                                     num_cols=COLS))
+    mom = mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=ROWS, num_cols=COLS, updater_type="momentum"))
+    kv = mv.MV_CreateTable(tables.KVTableOption())
+    eng = Zoo.Get().server_engine
+    if PKG == "jax":
+        from multiverso_tpu.message import MsgType
+        adds = [0]
+        recv = eng.Receive
+
+        def counting(msg):
+            adds[0] += msg.msg_type == MsgType.Request_Add
+            return recv(msg)
+
+        eng.Receive = counting
+
+        def n_adds():
+            return adds[0]
+    else:
+        def n_adds():
+            return eng.add_messages
+    a0 = n_adds()
+    opt = AddOption(worker_id=0, momentum=0.5)
+    o_add = np.zeros((ROWS, COLS), np.float32)
+    o_kv = np.zeros(40, np.float32)
+    for r in range(20):
+        batches = [row_batch(1200 + r, k) for k in range(2)]
+        ids, deltas = batches[RANK]
+        add.AddFireForget(deltas, row_ids=ids)
+        mom.AddFireForget(deltas, row_ids=ids, option=opt)
+        o_add += combined(*zip(*batches))
+        keys = [rng(402, r, k).integers(0, 40, 5).astype(np.int64)
+                for k in range(2)]
+        kv.AddFireForget(keys[RANK], np.ones(5, np.float32))
+        for k in range(2):
+            np.add.at(o_kv, keys[k], 1.0)
+        if r == 9:
+            results["mid_add"] = add.GetRows(np.arange(ROWS, dtype=np.int32))
+        if r == 14:
+            mv.MV_Barrier()
+    results["final_add"] = add.Get()
+    results["final_mom"] = mom.Get()
+    results["final_kv"] = kv.Get(np.arange(40, dtype=np.int64))
+    np.testing.assert_array_equal(results["final_add"], o_add)
+    np.testing.assert_array_equal(results["final_kv"], o_kv)
+    results["adds"] = np.array(n_adds() - a0)
+    results["pushes"] = np.array(3 * 20)
 
 
 def run_bsp(mv):
@@ -731,6 +791,7 @@ def main():
     else:
         mv = boot(extra + EXTRA)
     {"tables": run_tables, "burst": run_burst, "bsp": run_bsp,
+     "combine": run_combine,
      "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
      "serving": run_serving,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,

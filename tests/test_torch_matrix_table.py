@@ -2,9 +2,10 @@
 
 The same seeded verb script runs in a JAX-package world (``-use_pallas=on``,
 so its device paths run the Pallas kernels in interpret mode;
-``-mv_write_combine=0``, so every Add reaches its engine as its own message,
-as in the port) and then in a port world on the CPU — one world after the
-other, never both up at once. Every result the script observes is recorded
+``-mv_write_combine=0``, so every Add reaches its engine as its own message)
+and then in a port world on the CPU at ``-mv_write_combine=0`` too (the
+burst's momentum Adds combined would apply once as one Add) — one world
+after the other, never both up at once. Every result the script observes is recorded
 and the two records compared: integer-valued deltas must match exactly for
 the linear updaters, momentum to rtol 1e-6. On the CPU the JAX table serves
 add/sgd host verbs from its native mirror and keeps 8 server shards, so
@@ -110,7 +111,7 @@ def _records():
     from multiverso_tpu_torch.utils.io import Stream as TStream
     from multiverso_tpu_torch.zoo import Zoo
 
-    tmv.MV_Init([], devices=[torch.device("cpu")])
+    tmv.MV_Init(["-mv_write_combine=0"], devices=[torch.device("cpu")])
     try:
         trec = _walk(tmv, ttables, tupdaters, TStream,
                      lambda t: t.cpu().numpy())

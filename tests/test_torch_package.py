@@ -50,8 +50,10 @@ assert not bad, bad
 assert len(names) >= 60, names
 # the slices of the Array, KV and SparseMatrix tables and the LR app, of
 # -device_pairs and the native library bridge, of the checkpoint and the
-# compressed row wire, and of the serving plane
-new = {"tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
+# compressed row wire, of the serving plane, and of the binding
+new = {"binding", "binding.param_manager", "binding.sharedvar",
+       "binding.native_bridge", "utils.async_buffer",
+       "tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
        "models.logreg.configure", "models.logreg.data",
        "models.logreg.updater", "models.logreg.objective",
        "models.logreg.model", "models.logreg.device_plane",
@@ -94,6 +96,9 @@ def _check_mv_init_raises():
             mv.MV_Init([])
         with pytest.raises(FatalError, match="no CUDA device"):
             mv.MV_Init([], devices=[torch.device("cuda")])
+        from multiverso_tpu_torch import binding
+        with pytest.raises(FatalError, match="no CUDA device"):
+            binding.init()
         mv.MV_Init(["-mv_device=cpu"])
         from multiverso_tpu_torch.zoo import Zoo
         assert Zoo.Get().device_ctx.device == torch.device("cpu")
@@ -163,8 +168,8 @@ def _check_build_needs_nvcc():
 
 
 def test_no_silent_cpu_fallback_without_a_card(tmp_path):
-    """Without a CUDA device: MV_Init with no CPU request raises, the
-    WordEmbedding CLI (default -platform cuda) and the LogisticRegression
+    """Without a CUDA device: MV_Init and the binding's init with no CPU
+    request raise, the WordEmbedding CLI (default -platform cuda) and the LogisticRegression
     app (default platform cuda, local and PS) raise, a kernel wrapper
     handed a non-CPU tensor raises, and the kernel build needs nvcc."""
     if torch.cuda.is_available():
