@@ -101,13 +101,29 @@ holds every kernel of that path against its plain PyTorch version:
               row gather and the update launched from the C path, the
               per-round seconds of both paths; two processes (``[ps_2proc]``):
               after the build, two ranks of this script on ``cuda:0``
-              over ``torch.distributed`` (gloo), each keeping a replica
+              over ``torch.distributed`` (gloo) and, for the engine's
+              window exchanges, the default host wire of a same-host
+              world, the shared-memory wire (asserted; the size of
+              ``/dev/shm`` is printed first), each keeping a replica
               of the tables, the add and momentum tables at the PS shape,
               5 rounds of AddRows + GetRows of each rank's 10,000 ids
               (overlapping across the ranks) through the windowed
               engine: every GetRows equal to the oracle of both ranks'
               Adds, the final tables bitwise equal across the ranks;
-              then BSP (each rank's i-th GetRows against the oracle after
+              ``[ps_2proc wires]``: the same rounds in a new world a turn
+              (WIRE_TURNS: ``-mv_wire=gloo``; ``-mv_engine_shards=2`` on
+              shm, a channel a shard; tcp, selected by ``auto`` in a
+              loopback cross-host world of ``-mv_wire_hostname`` labels
+              with two shards; compressed, ``compress="sparse"`` tables
+              beside uncompressed twins on 80%-zero deltas; each twice,
+              in mirrored order, then shm again), each turn asserting
+              its wire by name, every GetRows equal to the oracle, the
+              final tables bitwise equal across the ranks and across the
+              wires (the compressed tables bitwise their twins), each
+              rank launching all three kernels in each turn; per turn
+              and wire the round medians, the exchange's seconds and
+              share of the rounds, and the compressed wire ratio; then
+              BSP (each rank's i-th GetRows against the oracle after
               both ranks' i-th Adds) and, with 2 worker threads a rank,
               MV_Aggregate of a 1,000,000 x 50 float32 array from each of
               the four workers (the exact sum); per rank the round
@@ -266,6 +282,14 @@ RANK_CHILD_S = 600              # a [ps_2proc] rank past this hung
 # budget; the default pipelined engine and -mv_pipeline=0 in turns
 BURST_VERBS, BURST_WARM, BURST_IDS = 200, 10, 2_000
 BURST_TURNS = ("pipeline", "serial", "serial", "pipeline", "pipeline_wc0")
+# [ps_2proc wires]: after the default world's PS rounds (the shm wire),
+# each turn a new world on the same process group running the same rounds:
+# gloo and shm with one engine, shm and tcp (a loopback cross-host world
+# through -mv_wire_hostname) with -mv_engine_shards=2, and compressed
+# (compress="sparse" tables beside uncompressed twins, COMPRESS_ZEROS of
+# the deltas zero) on shm; every configuration twice, in mirrored order
+WIRE_TURNS = ("gloo", "shm_sharded", "tcp", "compress", "compress", "tcp",
+              "shm_sharded", "gloo", "shm")
 # [ps_combine]: BURST_VERBS fire-and-forget AddRows of BURST_IDS ids on the
 # add and the momentum table in one process, at the default
 # -mv_write_combine (COMBINE_CAP) and at 0 in turns; then CACHE_GETS
@@ -1052,6 +1076,152 @@ def ps2_batch(seed: int, r: int, rank: int, n: int = PS_IDS) -> tuple:
             g.integers(-3, 4, (n, PS_COLS)).astype(np.float32))
 
 
+def ps2_wire_flags(turn: str, rank: int) -> tuple:
+    """A [ps_2proc wires] turn's extra MV_Init flags and the wire its
+    engine must ride."""
+    return {"shm": ((), "shm"),
+            "gloo": (("-mv_wire=gloo",), "gloo"),
+            "shm_sharded": (("-mv_engine_shards=2",), "shm"),
+            "tcp": (("-mv_engine_shards=2", f"-mv_wire_hostname=node{rank}"),
+                    "tcp"),
+            "compress": ((), "shm")}[turn]
+
+
+def engine_sum(eng, attr: str) -> float:
+    """``attr`` summed over the engine's shards (the router and its
+    sub-shards on the sharded engine)."""
+    shards = [eng] + list(getattr(eng, "_subs", {}).values())
+    return sum(getattr(e, attr) for e in shards)
+
+
+def ps2_compress_batch(seed: int, r: int, rank: int) -> tuple:
+    """The compressed turn's round r of ``rank``: ps2_batch's ids, integer
+    deltas with COMPRESS_ZEROS of the entries zero (the sparse filter
+    compresses every batch)."""
+    ids, deltas = ps2_batch(seed, 300 + r, rank)
+    g = np.random.default_rng([seed, 610 + r, rank])
+    deltas[g.random(deltas.shape) < COMPRESS_ZEROS] = 0.0
+    return ids, deltas
+
+
+def ps2_oracle(batches, momentum: float) -> list:
+    """The oracle of PS_ROUNDS rounds of both ranks' (ids, deltas)
+    ``batches[k][r]`` on an add and a momentum table: per round, each
+    rank's expected GetRows after it, ``{rank: (add rows, momentum
+    rows)}``; and the final add and momentum tables."""
+    m = np.float32(momentum)
+    oracle_add = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    oracle_mom = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    smooth = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    delta = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    out = []
+    for r in range(PS_ROUNDS):
+        touched = np.union1d(batches[0][r][0], batches[1][r][0])
+        delta[touched] = 0.0
+        for k_ids, k_deltas in (batches[0][r], batches[1][r]):
+            delta[k_ids] += k_deltas
+        oracle_add[touched] += delta[touched]
+        smooth[touched] = (m * smooth[touched]
+                           + (np.float32(1) - m) * delta[touched])
+        oracle_mom[touched] -= smooth[touched]
+        out.append({k: (oracle_add[batches[k][r][0]].copy(),
+                        oracle_mom[batches[k][r][0]].copy())
+                    for k in range(2)})
+    return out, oracle_add, oracle_mom
+
+
+def ps2_wire_turn(torch, mv, cr, base: list, turn: str, rank: int,
+                  seed: int) -> dict:
+    """One [ps_2proc wires] turn on ``rank``: a world of ``turn``'s flags
+    (``ps2_wire_flags``) whose engine must ride the turn's wire, the add
+    and momentum tables at the PS shape, PS_ROUNDS rounds of AddRows +
+    GetRows of the rank's 10,000 ids, every GetRows held to the oracle of
+    both ranks' Adds; the compressed turn runs ``compress="sparse"``
+    tables beside uncompressed twins on 80%-zero deltas, every GetRows of
+    a compressed table bitwise its twin's. Returns the round times, the
+    engine's exchange seconds (all shards), the wire's channels' rounds,
+    the final tables' digest and the launches of each kernel in the
+    turn."""
+    import hashlib
+
+    from multiverso_tpu_torch.parallel import multihost
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    flags, want = ps2_wire_flags(turn, rank)
+    compress = turn == "compress"
+    make = ps2_compress_batch if compress else ps2_batch
+    batches = [[make(seed, r, k) for r in range(PS_ROUNDS)]
+               for k in range(2)]
+    expect, final_add, final_mom = ps2_oracle(batches, 0.5)
+    l0 = dict(cr.LAUNCHES)
+    mv.MV_Init(base + list(flags))
+    try:
+        if multihost.wire_name() != want:
+            raise AssertionError(f"[ps_2proc wires] {turn}: the engine "
+                                 f"rides {multihost.wire_name()}, not "
+                                 f"{want}")
+
+        def pair(**kw):
+            return [mv.MV_CreateTable(MatrixTableOption(
+                num_rows=PS_ROWS, num_cols=PS_COLS, compress=c, **kw))
+                for c in (("sparse", None) if compress else (None,))]
+
+        adds, moms = pair(), pair(updater_type="momentum")
+        mopt = AddOption(momentum=0.5)
+        eng = Zoo.Get().server_engine
+        x0 = engine_sum(eng, "xw_busy_s")
+        add_ms, mom_ms = [], []
+        for r, (ids, deltas) in enumerate(batches[rank]):
+            want_add, want_mom = expect[r][rank]
+            t0 = time.perf_counter()
+            got = []
+            for t in adds:
+                t.AddRows(ids, deltas)
+                got.append(t.GetRows(ids))
+            add_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for t in moms:
+                t.AddRows(ids, deltas, mopt)
+                got.append(t.GetRows(ids))
+            mom_ms.append((time.perf_counter() - t0) * 1e3)
+            n = len(adds)
+            for g in got[:n]:
+                np.testing.assert_array_equal(g, want_add)
+            for g in got[n:]:
+                np.testing.assert_allclose(g, want_mom, rtol=1e-6, atol=1e-6)
+            if compress:
+                # a compressed table's rows bitwise its twin's
+                np.testing.assert_array_equal(got[0], got[1])
+                np.testing.assert_array_equal(got[2], got[3])
+        exchange_s = engine_sum(eng, "xw_busy_s") - x0
+        finals = [t.Get() for t in adds + moms]
+        np.testing.assert_array_equal(finals[0], final_add)
+        np.testing.assert_allclose(finals[len(adds)], final_mom, rtol=1e-6,
+                                   atol=1e-6)
+        if compress:
+            np.testing.assert_array_equal(finals[0], finals[1])
+            np.testing.assert_array_equal(finals[2], finals[3])
+        res = {"turn": turn, "wire": multihost.wire_name(),
+               "engine": type(eng).__name__,
+               "channel_rounds": multihost.active_wire().stats()["rounds"]
+               if multihost.active_wire() is not None else None,
+               "add_round_ms": add_ms, "momentum_round_ms": mom_ms,
+               "round_s": (sum(add_ms) + sum(mom_ms)) / 1e3,
+               "exchange_s": exchange_s,
+               "digest": hashlib.sha256(finals[0].tobytes()
+                                        + finals[len(adds)].tobytes()
+                                        ).hexdigest()}
+        if compress:
+            ws = adds[0].server().wire_stats
+            res["wire_ratio"] = ws["payload_bytes"] / ws["dense_bytes"]
+        torch.cuda.synchronize()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    res["launches"] = {k: cr.LAUNCHES[k] - l0[k] for k in l0}
+    return res
+
+
 def ps2_burst_turn(torch, mv, base: list, turn: str, batches: list,
                    oracle: np.ndarray, rank: int) -> dict:
     """One turn of [ps_2proc burst] on ``turn``'s engine: BURST_WARM
@@ -1141,14 +1311,17 @@ def ps2_serve(mv, tables, gets, seed: int, rank: int) -> dict:
 
 def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     """One rank of [ps_2proc] (``--rank-child``), on ``cuda:0`` beside its
-    peer, over gloo. The PS shape on an add and a momentum table, 5 rounds
-    of AddRows + GetRows of each rank's 10,000 ids, every GetRows held to
-    the oracle of BOTH ranks' Adds; the final tables' digest; then, on the
-    same process group, [ps_2proc burst] on both engines in turns, BSP (each rank's i-th GetRows against the oracle
-    after both ranks' i-th Adds) and, in a model-average world of 2
-    worker threads a rank, MV_Aggregate of a 1,000,000 x 50 float32 array
-    from each of the four workers (the exact sum). Writes its measurements and its launch counts
-    to ``out``."""
+    peer. The default world, which must ride the shm wire: the PS shape on
+    an add and a momentum table, 5 rounds of AddRows + GetRows of each
+    rank's 10,000 ids, every GetRows held to the oracle of BOTH ranks'
+    Adds; the final tables' digest; the serving cut; then, on the same
+    process group, [ps_2proc wires] (WIRE_TURNS: the same rounds on gloo,
+    shm and tcp, one engine or two shards, and compressed), [ps_2proc
+    burst] on both engines in turns, BSP (each rank's i-th GetRows against
+    the oracle after both ranks' i-th Adds) and, in a model-average world
+    of 2 worker threads a rank, MV_Aggregate of a 1,000,000 x 50 float32
+    array from each of the four workers (the exact sum). Writes its
+    measurements and its launch counts to ``out``."""
     import hashlib
 
     import torch
@@ -1162,14 +1335,23 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
         print(f"chip_smoke: run from the repository root ({exc})",
               file=sys.stderr)
         return 2
+    from multiverso_tpu_torch.parallel import multihost
     dev = torch.device("cuda", 0)
     base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
             "-dist_size=2"]
     res = {"rank": rank}
+    batches = [[ps2_batch(seed, r, k) for r in range(PS_ROUNDS)]
+               for k in range(2)]
+    expect, oracle_add, oracle_mom = ps2_oracle(batches, 0.5)
     cr.reset_launches()
     t0 = time.perf_counter()
     mv.MV_Init(base)
     res["init_s"] = time.perf_counter() - t0
+    # the default wire of a same-host world
+    res["wire"] = multihost.wire_name()
+    if res["wire"] != "shm":
+        raise AssertionError(f"[ps_2proc] the default world rides "
+                             f"{res['wire']}, not shm")
     add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
                                               num_cols=PS_COLS))
     mom = mv.MV_CreateTable(MatrixTableOption(
@@ -1178,15 +1360,9 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
         raise AssertionError("the PS tables are not on cuda:0")
     eng = Zoo.Get().server_engine
     res["engine"] = type(eng).__name__
-    m = np.float32(0.5)
-    mopt = AddOption(momentum=float(m))
-    oracle_add = np.zeros((PS_ROWS, PS_COLS), np.float32)
-    oracle_mom = np.zeros((PS_ROWS, PS_COLS), np.float32)
-    smooth = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    mopt = AddOption(momentum=0.5)
     add_ms, mom_ms = [], []
-    for r in range(PS_ROUNDS):
-        batches = [ps2_batch(seed, r, k) for k in range(2)]
-        ids, deltas = batches[rank]
+    for r, (ids, deltas) in enumerate(batches[rank]):
         t0 = time.perf_counter()
         add.AddRows(ids, deltas)
         got_add = add.GetRows(ids)
@@ -1195,16 +1371,8 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
         mom.AddRows(ids, deltas, mopt)
         got_mom = mom.GetRows(ids)
         mom_ms.append((time.perf_counter() - t0) * 1e3)
-        delta = np.zeros((PS_ROWS, PS_COLS), np.float32)
-        for k_ids, k_deltas in batches:
-            delta[k_ids] += k_deltas
-        touched = np.union1d(batches[0][0], batches[1][0])
-        oracle_add[touched] += delta[touched]
-        smooth[touched] = (m * smooth[touched]
-                           + (np.float32(1) - m) * delta[touched])
-        oracle_mom[touched] -= smooth[touched]
-        np.testing.assert_array_equal(got_add, oracle_add[ids])
-        np.testing.assert_allclose(got_mom, oracle_mom[ids], rtol=1e-6,
+        np.testing.assert_array_equal(got_add, expect[r][rank][0])
+        np.testing.assert_allclose(got_mom, expect[r][rank][1], rtol=1e-6,
                                    atol=1e-6)
     res.update(add_round_ms=add_ms, momentum_round_ms=mom_ms,
                round_s=(sum(add_ms) + sum(mom_ms)) / 1e3,
@@ -1222,8 +1390,13 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set on the 2-process PS path")
     res["ps_launches"] = dict(cr.LAUNCHES)
-    del oracle_mom, smooth, final_add, final_mom
+    del oracle_mom, final_add, final_mom, expect
     mv.MV_ShutDown(finalize_net=False)      # the process group stays up
+
+    # [ps_2proc wires]: the same rounds on the other wires and engines, and
+    # compressed, in turns
+    res["wires"] = [ps2_wire_turn(torch, mv, cr, base, turn, rank, seed)
+                    for turn in WIRE_TURNS]
 
     # [ps_2proc burst]: both ranks' bursts (each rank knows its peer's
     # for the oracle), then the engines in turns on the same bursts
@@ -1341,14 +1514,94 @@ def rank_children(phase: str, seed: int, workdir: str) -> list:
     return ranks
 
 
+def check_wire_turns(ranks: list) -> None:
+    """[ps_2proc wires]' checks across the ranks: every turn's final
+    tables bitwise equal across the ranks, and, but for the compressed
+    turns' other deltas, to the default world's on every wire; each rank
+    launching all three kernels in every turn."""
+    main = ranks[0]["digest"]
+    for t0, t1 in zip(ranks[0]["wires"], ranks[1]["wires"]):
+        turn = t0["turn"]
+        if t0["digest"] != t1["digest"]:
+            raise AssertionError(f"[ps_2proc wires] the ranks' final tables "
+                                 f"differ on the {turn} turn")
+        if turn != "compress" and t0["digest"] != main:
+            raise AssertionError(f"[ps_2proc wires] the {turn} turn's "
+                                 f"tables differ from the default world's")
+        for t in (t0, t1):
+            for k in ("gather_rows", "scatter_set_rows", "update_rows"):
+                if t["launches"][k] == 0:
+                    raise AssertionError(f"[ps_2proc wires] a rank never "
+                                         f"launched {k} on the {turn} turn")
+    digests = {t["digest"] for t in ranks[0]["wires"]
+               if t["turn"] == "compress"}
+    if len(digests) != 1:
+        raise AssertionError("[ps_2proc wires] the compressed turns differ")
+
+
+def shm_mount_line() -> str:
+    """The size and free bytes of the shared-memory mount the shm wire's
+    segments live in."""
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError as exc:
+        return f"/dev/shm: not available ({exc})"
+    return (f"/dev/shm: {st.f_blocks * st.f_frsize} bytes, "
+            f"{st.f_bavail * st.f_frsize} free")
+
+
+def report_wire_turns(ranks: list) -> None:
+    """[ps_2proc wires]' lines: each turn's rounds, exchange seconds and
+    share per rank; the medians per wire over its turns; the compressed
+    wire ratio."""
+    for r in ranks:
+        for t in r["wires"]:
+            share = t["exchange_s"] / t["round_s"]
+            t["exchange_share"] = share
+            extra = (f", wire ratio {t['wire_ratio']:.4f}"
+                     if "wire_ratio" in t else "")
+            log(f"[ps_2proc wires] rank {r['rank']} {t['turn']}: "
+                f"{t['wire']}, {t['engine']}, channel rounds "
+                f"{t['channel_rounds']}: add round median "
+                f"{np.median(t['add_round_ms']):.3f} ms "
+                f"{[round(x, 3) for x in t['add_round_ms']]}, momentum "
+                f"round median {np.median(t['momentum_round_ms']):.3f} ms "
+                f"{[round(x, 3) for x in t['momentum_round_ms']]}; exchange "
+                f"{t['exchange_s']:.4f} s of the rounds' {t['round_s']:.4f}"
+                f" s (share {share:.3f}){extra}; launches {t['launches']}")
+        med = {}
+        for turn in dict.fromkeys(WIRE_TURNS):
+            ts = [t for t in r["wires"] if t["turn"] == turn]
+            med[turn] = {
+                "add_round_ms": float(np.median(
+                    [x for t in ts for x in t["add_round_ms"]])),
+                "momentum_round_ms": float(np.median(
+                    [x for t in ts for x in t["momentum_round_ms"]])),
+                "exchange_share": float(np.median(
+                    [t["exchange_share"] for t in ts]))}
+        r["wire_medians"] = med
+        log(f"[ps_2proc wires] rank {r['rank']} medians per turn kind "
+            f"(add round ms, momentum round ms, exchange share): "
+            + "; ".join(f"{k} {v['add_round_ms']:.3f}, "
+                        f"{v['momentum_round_ms']:.3f}, "
+                        f"{v['exchange_share']:.3f}" for k, v in med.items()))
+    log("[ps_2proc wires] every GetRows == the oracle of both ranks' Adds on "
+        "every turn; the final tables bitwise equal across the ranks and "
+        "across shm, gloo, sharded shm and tcp; the compressed tables "
+        "bitwise their uncompressed twins; each rank launched all three "
+        "kernels on every turn")
+
+
 def ps_2proc_phase(seed: int, workdir: str) -> dict:
     """[ps_2proc]: both ranks (``rank_children``). Returns each rank's
     measurements and the launches summed over the ranks; each rank must
-    launch all three kernels, and the ranks' final tables must be bitwise
-    equal."""
+    launch all three kernels (in the default world and in every wire
+    turn), and the ranks' final tables must be bitwise equal, on every
+    wire."""
     ranks = rank_children("ps", seed, workdir)
     if ranks[0]["digest"] != ranks[1]["digest"]:
         raise AssertionError("[ps_2proc] the ranks' final tables differ")
+    check_wire_turns(ranks)
     for t0, t1 in zip(ranks[0]["burst"], ranks[1]["burst"]):
         if t0["digest"] != t1["digest"]:
             raise AssertionError(f"[ps_2proc burst] the ranks' final tables "
@@ -3776,6 +4029,8 @@ def main() -> int:
         f"MV_CreateTable raised")
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
         # [ps_2proc]: the two ranks count their own launches from zero
+        log(f"[ps_2proc] {shm_mount_line()}; the shm wire needs 2 ranks x "
+            f"2 channels x 4 MiB at most")
         two = ps_2proc_phase(args.seed, workdir)
         paths["ps_2proc"] = two["launches"]
         results["ps_2proc"] = two
@@ -3784,14 +4039,14 @@ def main() -> int:
             f"update_rows)")
         for r in two["ranks"]:
             share = r["exchange_s"] / r["round_s"]
-            log(f"[ps_2proc] rank {r['rank']} of 2 on cuda:0 over gloo, "
-                f"{r['engine']}: 1,000,000 x 50, {PS_ROUNDS} rounds of "
+            log(f"[ps_2proc] rank {r['rank']} of 2 on cuda:0 over "
+                f"{r['wire']}, {r['engine']}: 1,000,000 x 50, {PS_ROUNDS} rounds of "
                 f"{PS_IDS} ids of its own: add round median "
                 f"{np.median(r['add_round_ms']):.3f} ms "
                 f"{[round(x, 3) for x in r['add_round_ms']]}, momentum "
                 f"round median {np.median(r['momentum_round_ms']):.3f} ms "
                 f"{[round(x, 3) for x in r['momentum_round_ms']]}; in the "
-                f"window exchanges' all-gathers {r['exchange_s']:.4f} s of "
+                f"window exchanges {r['exchange_s']:.4f} s of "
                 f"the rounds' {r['round_s']:.4f} s (share {share:.3f}), "
                 f"{r['window_exchanges']} window "
                 f"exchanges for {r['window_verbs']} verbs, apply "
@@ -3800,6 +4055,7 @@ def main() -> int:
                 f"{[round(x, 4) for x in r['aggregate_s']]} s; launches on "
                 f"the PS rounds {r['ps_launches']}, on the whole rank "
                 f"{r['launches']}")
+        report_wire_turns(two["ranks"])
         for r in two["ranks"]:
             turns = r["burst"]
             for t in turns:

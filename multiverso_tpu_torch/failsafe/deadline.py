@@ -1,9 +1,11 @@
 """``-mv_deadline_s`` and the helpers of a bounded wait (the port's own
-copy of the part of ``multiverso_tpu/failsafe/deadline.py`` serving uses).
+copy of the part of ``multiverso_tpu/failsafe/deadline.py`` serving and
+the host wires use).
 
 The flag is 0 (off) by default, which keeps waits unbounded. In the port
-it bounds a serving lookup's wait (``serving/frontend.py``); the engine's
-own waits are not bounded yet (``ROADMAP.md``).
+it bounds a serving lookup's wait (``serving/frontend.py``) and a shm or
+tcp wire exchange's (``parallel/shm_wire.py``, ``parallel/tcp_wire.py``);
+the engine's own waits are not bounded yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from multiverso_tpu_torch.failsafe.errors import DeadlineExceeded
 from multiverso_tpu_torch.utils.configure import GetFlag, MV_DEFINE_double
 
 MV_DEFINE_double("mv_deadline_s", 0.0,
-                 "bound every serving lookup's wait and raise "
-                 "DeadlineExceeded with the threads' stacks on expiry "
+                 "bound every serving lookup's and host-wire exchange's "
+                 "wait and raise DeadlineExceeded with the threads' "
+                 "stacks on expiry "
                  "(0 = off: waits block)")
 
 

@@ -1,9 +1,17 @@
-"""Typed failures of the serving plane (the port's own copy of the part of
-``multiverso_tpu/failsafe/errors.py`` that serving raises): a caller can
-tell "slow" (``DeadlineExceeded``) from "shed" (``ServingOverloaded``)
-without reading log text."""
+"""Typed failures of the serving plane and of the host wires (the port's
+own copy of the part of ``multiverso_tpu/failsafe/errors.py`` they
+raise): a caller can tell "slow" (``DeadlineExceeded``) from "shed"
+(``ServingOverloaded``), a corrupted frame (``WireCorruption``) from a
+lost peer (``ActorDied``) without reading log text.
+
+``WireCorruption`` and ``ActorDied`` are the classes the window codec
+(``parallel/seal.py``) and the actor runtime (``actor.py``) already raise,
+re-exported here so each failure has one class."""
 
 from __future__ import annotations
+
+from multiverso_tpu_torch.actor import ActorDied  # noqa: F401
+from multiverso_tpu_torch.parallel.seal import WireCorruption  # noqa: F401
 
 
 class FailsafeError(RuntimeError):

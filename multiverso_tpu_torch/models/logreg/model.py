@@ -28,9 +28,10 @@ device plane); the warm start is one collective push in which rank 0
 carries the loaded weights and every other rank zeros.
 
 ``compress=sparse|1bit`` compresses the sparse PS table's row pushes on
-the host plane (the MatrixTable's compressed wire); the device plane
-applies its window deltas on the device and sends nothing, as in the JAX
-package.
+the host plane (the MatrixTable's compressed wire, which in a
+multi-process world crosses the processes inside the engine's windows);
+the device plane applies its window deltas on the device and sends
+nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -195,9 +196,6 @@ class PSModel(Model):
 
     def __init__(self, config):
         super().__init__(config)
-        CHECK(not (config.compress and multihost.process_count() > 1),
-              f"compress={config.compress} in a multi-process world is not "
-              f"ported yet (it needs compressed windows, ROADMAP.md §1)")
         # server-side rule is sgd (data -= delta); the client pre-scales
         # (reference ps_model.cpp:24 forces updater_type=sgd)
         if self.ftrl:

@@ -1,7 +1,7 @@
-"""Multi-process worlds over ``torch.distributed`` with the gloo backend.
+"""Multi-process worlds over ``torch.distributed`` (gloo) and the host wires.
 
 Counterpart of ``multiverso_tpu/parallel/multihost.py`` (the boot world:
-no elastic groups, no shared-memory or TCP wire). The reference scales
+no elastic groups). The reference scales
 across machines with MPI/ZMQ messaging; the JAX package runs one SPMD
 process per host, and so does the port: every process runs worker and
 server actors, and table verbs follow the COLLECTIVE contract — every
@@ -47,8 +47,22 @@ through the list forms of ``all_gather``.
 Every function degrades to the identity (or a no-op) in a single-process
 world, so the one-process world runs the same code paths.
 
-``-mv_wire``: ``auto`` and ``gloo`` resolve to gloo; ``shm`` and ``tcp`` are
-not ported yet and fail a CHECK that says so.
+The host wire (``-mv_wire``, ``maybe_install_wire``): the engine's window
+and head-marker exchanges ride a wire of their own when one comes up, as
+in the JAX package. ``auto`` (the default) installs the shared-memory
+wire (``parallel/shm_wire.py``) when every rank reports the same host
+(``host_label``: ``-mv_wire_hostname`` or the hostname), the TCP wire
+(``parallel/tcp_wire.py``) when the hosts differ and the engine asks for
+more than one channel, and stays on gloo otherwise; ``shm`` and ``tcp``
+require their wire, ``gloo`` refuses both. The install is a voted
+sequence of control-group rounds (hostnames and rank 0's session token,
+then segment creation or the listeners' endpoints, peer attach or the
+mesh, a smoke exchange): a failure on any rank degrades the WHOLE world
+to gloo under ``auto``, loudly, and fails a CHECK under ``shm``/``tcp``.
+A wire offers independent channels (``wire_channels``), one per engine
+shard, which lets ``-mv_engine_shards`` exceed 1 across processes; gloo
+is one ordered stream. The application threads' agreements, collective
+writes and barriers stay on the gloo control group.
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import secrets
 import socket
 import threading
 import time
@@ -63,6 +78,7 @@ from typing import Optional
 
 import numpy as np
 
+from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_int,
                                                   MV_DEFINE_string)
@@ -81,12 +97,25 @@ MV_DEFINE_string("dist_coordinator", "",
 MV_DEFINE_int("dist_rank", -1, "this process's rank")
 MV_DEFINE_int("dist_size", -1, "total process count")
 MV_DEFINE_string("mv_wire", "auto",
-                 "the windowed engine's host wire: auto / gloo (the port's "
-                 "one wire; shm and tcp are not ported yet)")
+                 "windowed-engine host wire: auto (shm when every rank "
+                 "shares a host; tcp when hosts differ and >1 channel "
+                 "is needed; else gloo) / shm (require) / tcp "
+                 "(require) / gloo")
+MV_DEFINE_string("mv_wire_hostname", "",
+                 "override this rank's host identity in wire selection "
+                 "(loopback cross-host worlds fake distinct hosts on one "
+                 "box; dialing still rides real endpoints). Empty = the "
+                 "real hostname")
+MV_DEFINE_int("mv_shm_ring_bytes", 4 << 20,
+              "shared-memory wire: per-(channel, rank) data area bytes "
+              "(frames larger than this chunk through it; the tcp wire's "
+              "chunk cap too)")
 MV_DEFINE_int("mv_dist_timeout_s", 120,
               "timeout of every collective of the process groups, seconds: "
               "a lost, diverged or slower peer fails past it instead of "
               "hanging")
+
+_INF = float("inf")
 
 _initialized = False
 _owns_runtime = False      # True only when this module created the world
@@ -171,20 +200,215 @@ def require_one_process(what: str) -> None:
             f"is not ported yet (ROADMAP.md §1)")
 
 
+def _wire_mode() -> str:
+    mode = str(GetFlag("mv_wire")).lower()
+    CHECK(mode in ("auto", "shm", "tcp", "gloo"),
+          f"-mv_wire must be auto/shm/tcp/gloo, got {mode!r}")
+    return mode
+
+
+# -- the host wire (shm same-host, tcp cross-host) ----------------------------
+
+#: the installed wire behind the engine's ``capped_exchange`` (None = gloo)
+_wire = None
+
+
+def active_wire():
+    """The installed host wire (``ShmWire`` or ``TcpWire``), or None when
+    the engine's exchanges ride gloo."""
+    return _wire
+
+
+def wire_name() -> str:
+    """The transport the engine's exchanges ride: ``shm``, ``tcp``,
+    ``gloo``, or ``local`` in a one-process world."""
+    if _wire is not None:
+        return _wire.name
+    return "gloo" if (_initialized and process_count() > 1) else "local"
+
+
+def host_label() -> str:
+    """This rank's host identity for wire selection:
+    ``-mv_wire_hostname`` when set (loopback cross-host worlds fake
+    distinct hosts on one box; dialing still rides real endpoints), else
+    the hostname."""
+    v = str(GetFlag("mv_wire_hostname"))
+    if v:
+        return v
+    try:
+        return socket.gethostname()
+    except OSError:
+        return "localhost"
+
+
 def wire_channels() -> int:
-    """Independent exchange streams of the wire: gloo is one ordered
-    stream."""
-    return 1
+    """Independent exchange channels the engine's transport offers: one
+    per channel of an installed wire, one on gloo (a single ordered
+    collective stream)."""
+    return _wire.channels if _wire is not None else 1
 
 
-def _resolve_wire() -> str:
-    wire = str(GetFlag("mv_wire")).lower()
-    CHECK(wire in ("auto", "gloo", "shm", "tcp"),
-          f"-mv_wire must be auto/gloo/shm/tcp, got {wire!r}")
-    CHECK(wire in ("auto", "gloo"),
-          f"-mv_wire={wire} is not ported yet: the port's only host wire "
-          f"is gloo (-mv_wire=auto or gloo)")
-    return "gloo"
+class _Vote:
+    """One wire install's voted setup: every rank runs the SAME control
+    rounds whatever fails locally, so a local failure is a False vote,
+    never a skipped round (which would leave the peers off by one on the
+    control group's stream)."""
+
+    def __init__(self, mode: str, kind: str):
+        self.mode, self.kind = mode, kind
+        self.wire = None
+        self.exc: Optional[BaseException] = None
+
+    def run(self, fn) -> None:
+        """Run ``fn`` unless an earlier step failed here; keep its
+        failure for the vote."""
+        if self.exc is None:
+            try:
+                fn()
+            except Exception as exc:    # becomes this rank's False vote
+                self.exc = exc
+
+    def agree(self, step: str, votes=None) -> bool:
+        """The world's vote after ``step``: True when every rank
+        succeeded. On a failure every rank closes its wire; ``auto``
+        falls back to gloo, loudly, and a required wire fails a CHECK."""
+        if votes is None:
+            votes = host_allgather_objects(self.exc is None)
+        if all(votes):
+            return True
+        if self.wire is not None:
+            self.wire.close()
+        CHECK(self.mode != self.kind,
+              f"-mv_wire={self.kind} but the wire failed to come up at "
+              f"{step}: {self.exc!r} (votes {votes})")
+        Log.Error("multihost: %s wire setup failed at %s on rank(s) %s "
+                  "(%r here): falling back to gloo", self.kind, step,
+                  [i for i, v in enumerate(votes) if not v], self.exc)
+        return False
+
+    def smoke(self, exchange) -> None:
+        """A hello through the new wire: every rank's, in rank order."""
+        hello = b"mv-%s-hello-%d" % (self.kind.encode(), process_index())
+        got = exchange(hello)
+        CHECK(got == [b"mv-%s-hello-%d" % (self.kind.encode(), r)
+                      for r in range(process_count())],
+              f"{self.kind} wire smoke exchange returned {got!r}")
+
+
+def maybe_install_wire(channels: int) -> str:
+    """Select and install the host wire of this world (``Zoo.Start``, after
+    the process groups are up, before the engine starts; the JAX package's
+    ``maybe_install_wire``). One control round exchanges (host label,
+    nonce): a same-host world rides the shm wire; a world whose hosts
+    differ takes the tcp wire when more than one channel is asked for
+    (``-mv_wire=tcp`` forces it); gloo is the fallback. Either wire is
+    proven by a smoke exchange before the engine uses it, and a setup
+    failure on any rank degrades the WHOLE world to gloo (a CHECK under
+    ``-mv_wire=shm``/``tcp``). Returns the transport's name."""
+    global _wire
+    mode = _wire_mode()
+    if not _initialized or process_count() <= 1 or mode == "gloo":
+        return wire_name()
+    if _wire is not None:
+        return _wire.name
+    channels = max(1, int(channels))
+    info = host_allgather_objects((host_label(), secrets.token_hex(4),
+                                   os.getpid()))
+    hosts = [h for h, _, _ in info]
+    token = info[0][1]          # rank 0's nonce names the session
+    spans_hosts = any(h != hosts[0] for h in hosts)
+    if mode == "tcp" or (spans_hosts and mode == "auto" and channels > 1):
+        return _install_tcp_wire(mode, token, channels, hosts)
+    if spans_hosts:
+        CHECK(mode != "shm", f"-mv_wire=shm but ranks span hosts: {hosts}")
+        Log.Debug("multihost: ranks span hosts (%s) and %d channel(s) "
+                  "suffice: staying on gloo (-mv_wire=tcp forces the tcp "
+                  "wire)", hosts, channels)
+        return "gloo"
+    from multiverso_tpu_torch.parallel import shm_wire
+    v = _Vote(mode, "shm")
+
+    def create():
+        # payload_crc off: every engine blob arrives sealed
+        # (parallel/seal.py) and is checked before parsing
+        v.wire = shm_wire.ShmWire(
+            token, process_index(), process_count(), channels,
+            int(GetFlag("mv_shm_ring_bytes")), payload_crc=False,
+            peer_pids=[pid for _, _, pid in info])
+
+    v.run(create)
+    if not v.agree("segment create"):
+        return "gloo"
+    v.run(v.wire.attach_peers)
+    if not v.agree("peer attach"):
+        return "gloo"
+    v.run(lambda: v.smoke(lambda b: v.wire.exchange(b, 0)))
+    if not v.agree("smoke exchange"):
+        return "gloo"
+    _wire = v.wire
+    Log.Info("multihost: same-host shared-memory wire up: %d channel(s) "
+             "x %d MiB (token %s)", _wire.channels, _wire.cap >> 20, token)
+    return "shm"
+
+
+def _install_tcp_wire(mode: str, token: str, channels: int, hosts) -> str:
+    """The tcp leg of ``maybe_install_wire``: bind the listeners,
+    all-gather (ok, endpoints) in ONE control round, dial the mesh, vote,
+    and smoke-exchange before the install."""
+    global _wire
+    from multiverso_tpu_torch.parallel import tcp_wire
+    v = _Vote(mode, "tcp")
+
+    def bind():
+        v.wire = tcp_wire.TcpWire(
+            token, process_index(), process_count(), channels,
+            int(GetFlag("mv_shm_ring_bytes")), payload_crc=False)
+
+    v.run(bind)
+    votes = host_allgather_objects(
+        (v.exc is None, v.wire.listen_endpoints() if v.wire else None))
+    if not v.agree("listener bind", [ok for ok, _ in votes]):
+        return "gloo"
+    world_eps = {r: eps for r, (_, eps) in enumerate(votes)}
+    v.run(lambda: v.wire.connect(world_eps, timeout_s=30.0))
+    if not v.agree("mesh connect"):
+        return "gloo"
+    v.run(lambda: v.smoke(lambda b: v.wire.exchange(b, 0, timeout_s=30.0)))
+    if not v.agree("smoke exchange"):
+        return "gloo"
+    _wire = v.wire
+    Log.Info("multihost: cross-host tcp wire up: %d channel(s) x %d KiB "
+             "chunks, hosts %s (token %s)", _wire.channels,
+             _wire.chunk >> 10, sorted(set(hosts)), token)
+    return "tcp"
+
+
+def close_wire() -> None:
+    """Tear the installed wire down (``Zoo.Stop``, ``net_reset``), so the
+    next world picks its wire again. Idempotent; own shm segments are
+    unlinked."""
+    global _wire
+    w, _wire = _wire, None
+    if w is not None:
+        w.close()
+
+
+class wire_bypass:
+    """Run the body on the gloo exchange while a host wire is installed
+    (a wire-against-gloo comparison in one world). Collective: every rank
+    enters and leaves at the same stream position, with the engine
+    quiesced, or the two transports' streams interleave differently on
+    different ranks."""
+
+    def __enter__(self):
+        global _wire
+        self._saved = _wire
+        _wire = None
+        return self
+
+    def __exit__(self, *exc):
+        global _wire
+        _wire = self._saved
 
 
 # -- explicit-endpoint bring-up (MV_NetBind / MV_NetConnect) ----------------
@@ -252,9 +476,11 @@ def net_connect(ranks, endpoints) -> int:
 
 
 def net_reset() -> None:
-    """Forget the explicit wiring."""
+    """Forget the explicit wiring and close the host wire (a new world
+    selects its own)."""
     global _net_rank, _net_endpoint, _net_world
     _net_rank = _net_endpoint = _net_world = None
+    close_wire()
 
 
 def net_finalize() -> None:
@@ -394,7 +620,7 @@ def maybe_initialize() -> bool:
     if (not explicit and mode != "on" and not _env_says_multiprocess()
             and not (adopt and dist.get_world_size() > 1)):
         return False
-    _resolve_wire()
+    _wire_mode()
     timeout = datetime.timedelta(seconds=int(GetFlag("mv_dist_timeout_s")))
     try:
         if adopt:
@@ -484,22 +710,33 @@ def host_allgather_bytes(data: bytes) -> list:
     return [p.numpy()[:n].tobytes() for p, n in zip(parts, lens)]
 
 
-def capped_exchange(blob: bytes, caps: dict, key,
-                    engine: bool = True) -> list:
+def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
+                    channel: int = 0) -> list:
     """Every process's byte blob in ONE collective round in steady state,
-    on the engine group (``engine=False``: the control group).
+    on the engine's transport (``engine=False``: the gloo control group).
 
-    Each exchange rides a standing per-``key`` capacity that every rank
-    evolves identically from exchanged data: a blob that fits travels
-    inline in the capped buffer (a fit flag byte and an ``<i8`` length
-    header), and if ANY rank overflowed, every rank runs one more round at
-    the ladder rung of the now-known longest blob. The standing cap then
-    snaps to that rung, so steady windows headed by the same verb stay on
-    the one-round path. Gloo is one ordered stream: the multi-channel
-    wires' per-shard channels are not ported.
+    With a host wire installed, an engine exchange is the wire's
+    length-framed exchange on ``channel`` (an independent stream per
+    engine shard), and ``caps`` are not used. On gloo, each exchange
+    rides a standing per-``key`` capacity that every rank evolves
+    identically from exchanged data: a blob that fits travels inline in
+    the capped buffer (a fit flag byte and an ``<i8`` length header), and
+    if ANY rank overflowed, every rank runs one more round at the ladder
+    rung of the now-known longest blob. The standing cap then snaps to
+    that rung, so steady windows headed by the same verb stay on the
+    one-round path. Gloo is one ordered stream: only channel 0.
     """
     if process_count() <= 1:
         return [blob]
+    if engine and _wire is not None:
+        _note_round()
+        # the bound of a gloo collective, unless -mv_deadline_s is tighter
+        return _wire.exchange(blob, channel, timeout_s=min(
+            fdeadline.timeout_or_none() or _INF,
+            float(GetFlag("mv_dist_timeout_s"))))
+    CHECK(channel == 0,
+          f"the gloo exchange is one ordered collective stream: channel "
+          f"{channel} needs a multi-channel wire (-mv_wire=shm or tcp)")
     import torch
     n = process_count()
     need = len(blob) + 9

@@ -1,9 +1,9 @@
 """Versioned frame sealing: one corruption posture for every exchanged blob.
 
 The port's own copy of ``multiverso_tpu/parallel/seal.py``, trimmed to what
-the window exchange needs. A sealed blob is its body followed by a trailer;
-verification runs BEFORE any parsing and raises ``WireCorruption`` on a
-mismatch, a truncation or an unknown trailer tag.
+the window exchange and the host wires need. A sealed blob is its body
+followed by a trailer; verification runs BEFORE any parsing and raises
+``WireCorruption`` on a mismatch, a truncation or an unknown trailer tag.
 
 Two trailers, told apart by the last byte:
 
@@ -82,6 +82,19 @@ def crc32c(data, value: int = 0) -> int:
     return _sw_crc32c(data, value)
 
 
+def fast_crc(data, value: int = 0) -> int:
+    """The quickest checksum both ends of a same-build wire agree on:
+    CRC32C through the library when it loads, ``zlib.crc32`` otherwise.
+    For transports whose two ends are one build on one host (the shm and
+    tcp wires' frame headers and optional payload CRC), never for blobs
+    sealed for another build: those carry their algorithm in the trailer
+    tag."""
+    fn = _native_crc32c()
+    if fn is not None:
+        return fn(data, value)
+    return zlib.crc32(data, value) & 0xFFFFFFFF
+
+
 def _zlib_crc_chunked(body) -> int:
     view = memoryview(body)
     crc = 0
@@ -97,6 +110,25 @@ def seal_frame(body: bytes) -> bytes:
     if fn is not None:
         return b"".join((body, _U32.pack(fn(body)), bytes((TAG_CRC32C,))))
     return body + _U32.pack(_zlib_crc_chunked(body))
+
+
+def seal_trailer(parts) -> bytes:
+    """The :func:`seal_frame` trailer of a body given as a sequence of
+    buffers, by streaming: ``seal_frame(b"".join(parts)) ==
+    b"".join(parts) + seal_trailer(parts)``, with no concatenation (the
+    tcp wire writes header and chunk straight into its send buffer and
+    appends this)."""
+    fn = _native_crc32c()
+    crc = 0
+    if fn is not None:
+        for p in parts:
+            crc = fn(p, crc)
+        return _U32.pack(crc & 0xFFFFFFFF) + bytes((TAG_CRC32C,))
+    for p in parts:
+        view = memoryview(p)
+        for off in range(0, len(view), _ZLIB_CHUNK):
+            crc = zlib.crc32(view[off:off + _ZLIB_CHUNK], crc)
+    return _U32.pack(crc & 0xFFFFFFFF)
 
 
 def _legacy_ok(blob: bytes) -> bool:

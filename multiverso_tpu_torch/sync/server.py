@@ -66,8 +66,13 @@ lost past the process group's timeout, a corrupted frame past its
 retries) replies the error to every waiter the stream holds and poisons
 the engine. The BSP ``SyncServer`` exchanges each verb it applies as a
 one-verb window: every rank's engine makes the same defer and drain
-decisions, so the i-th applied verbs pair up. Multi-process worlds run
-one engine stream (gloo is one ordered collective stream).
+decisions, so the i-th applied verbs pair up. Every exchange of a shard
+(its windows, its head markers, and so its cut fences) rides the wire
+channel ``mh_channel`` (the shard's slot): a host wire (shm or tcp,
+``multihost.maybe_install_wire``) offers a channel per shard, so an
+explicit ``-mv_engine_shards=N`` runs N streams across processes; gloo is
+one ordered collective stream, and there the engine runs one
+(``engine_shard_cap``).
 
 CUDA streams. Every engine thread issues its device work on its current
 CUDA stream, which on a thread that never set one is the device's default
@@ -90,9 +95,9 @@ staleness clock: the window epoch of the stream applying the table.
 
 Not ported (ROADMAP.md): the apply pool, the device window transport
 (``-window_transport`` resolves to ``host``; ``device`` fails a CHECK),
-compressed windows, the shared-memory and TCP wires' per-shard channels,
-the failsafe admission gate (dedup window, chaos) and deadlines, and the
-telemetry hooks of the JAX engine.
+the ``-mv_compress`` window codecs, the failsafe admission gate (dedup
+window, chaos) and deadlines, and the telemetry hooks of the JAX
+engine.
 """
 
 from __future__ import annotations
@@ -265,9 +270,9 @@ class _ExchangeStage:
         self._killed = False
         self._depth = PIPELINE_DEPTH if GetFlag("mv_pipeline") else 1
         self.dead: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._main,
-                                        name="mvt-engine-exchange",
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self._main, name=f"mvt-engine-exchange{srv.slot}",
+            daemon=True)
         self._thread.start()
 
     def feed(self, m: Message) -> None:
@@ -389,8 +394,10 @@ class Server(Actor):
         #: Add messages received (a batch's Add members included)
         self.add_messages = 0
         self._count_lock = threading.Lock()
-        #: this engine's shard slot (0 unless it is a sub-shard)
+        #: this engine's shard slot (0 unless it is a sub-shard), and the
+        #: wire channel its exchanges ride in a multi-process world
         self.slot = 0
+        self.mh_channel = 0
         #: window Add runs applied as one merged dispatch
         self.add_runs_merged = 0
         # -- the multi-process window stream (module docstring) --
@@ -621,7 +628,7 @@ class Server(Actor):
         unmatched collective."""
         blobs = multihost.capped_exchange(
             wire.encode_head_barrier(int(head.msg_type)), self._mh_caps,
-            "HEAD_B")
+            "HEAD_B", channel=self.mh_channel)
         kinds = [wire.decode_head_kind(b) for b in blobs]
         CHECK(all(k == kinds[0] for k in kinds),
               f"multi-process window heads diverge: {kinds} — every "
@@ -652,7 +659,8 @@ class Server(Actor):
             blob = wire.encode_window(local, seq=self._mh_seq)
             t0 = time.perf_counter()
             blobs = multihost.capped_exchange(
-                blob, self._mh_caps, (local[0][0], local[0][1]))
+                blob, self._mh_caps, (local[0][0], local[0][1]),
+                channel=self.mh_channel)
             self.xw_busy_s += time.perf_counter() - t0
             try:
                 windows = []
@@ -974,23 +982,42 @@ class Server(Actor):
         return Server()
 
 
+def requested_engine_channels() -> int:
+    """The independent wire channels the engine wants for this world,
+    asked before the wire is selected (``Zoo.Start``; the shm wire creates
+    its channels' segments up front): the explicit ``-mv_engine_shards``
+    value, or 1 when it is unset or 1, or under ``-sync``."""
+    flag = int(GetFlag("mv_engine_shards"))
+    if flag <= 1 or GetFlag("sync"):
+        return 1
+    return flag
+
+
 def engine_shard_cap() -> int:
     """Resolved engine shard-slot count for a new engine (see the
     ``-mv_engine_shards`` help text): 1 under BSP (the vector clocks count
-    verbs across all tables) and in multi-process worlds (gloo is one
-    ordered collective stream; per-shard streams need a multi-channel
-    wire, not ported), the flag when set, else auto,
-    ``min(8, cores // 4)``; lazy shard spawn bounds the live shards by
-    the table count."""
+    verbs across all tables); in a multi-process world the explicit flag
+    when the wire offers that many channels (a shard's stream rides its
+    own channel), else 1, loudly (gloo is one ordered collective stream),
+    and 1 when unset; in one process the flag when set, else auto,
+    ``min(8, cores // 4)``. Lazy shard spawn bounds the live shards by the
+    table count."""
     if GetFlag("sync"):
         return 1
     flag = int(GetFlag("mv_engine_shards"))
     if multihost.world_size() > 1:
-        if flag > multihost.wire_channels():
+        if flag <= 1:
+            return 1        # auto: multi-process worlds opt in explicitly
+        channels = multihost.wire_channels()
+        if channels < flag:
             Log.Error("engine: -mv_engine_shards=%d needs %d independent "
-                      "exchange channels but the gloo wire offers %d — "
-                      "clamped to 1", flag, flag, multihost.wire_channels())
-        return 1
+                      "exchange channels but the %s wire offers %d (gloo is "
+                      "one ordered collective stream: same-host worlds "
+                      "take -mv_wire=auto/shm, cross-host worlds "
+                      "-mv_wire=auto/tcp) — clamped to 1", flag, flag,
+                      multihost.wire_name(), channels)
+            return 1
+        return flag
     if flag >= 1:
         return flag
     return max(1, min(8, (os.cpu_count() or 4) // 4))
@@ -1061,13 +1088,16 @@ class _CutFence:
 
 class _EngineShard(Server):
     """Sub-shard ``slot`` of a :class:`ShardedServer`: a full engine actor
-    (own thread, mailbox and window stream) whose ``store_`` is the
-    router's table list. Non-verb messages reach it only as cut fences."""
+    (own thread, mailbox, window stream, exchange stage and SEQ counter)
+    whose ``store_`` is the router's table list and whose exchanges ride
+    wire channel ``slot``. Non-verb messages reach it only as cut
+    fences."""
 
     def __init__(self, parent: "ShardedServer", slot: int):
         super().__init__(name=f"{actor_names.kServer}_shard{slot}")
         self.store_ = parent.store_     # one table list, router-owned
         self.slot = slot
+        self.mh_channel = slot
         for mt in _CUT_TYPES:
             self.RegisterHandler(mt, self._fence_entry)
 

@@ -49,8 +49,10 @@ never ``index_add_``, whose CUDA atomics sum in an undefined order) and
 applies them through the same row path, so the replicas stay bitwise
 equal; a Get reads this rank's rows from its own replica. The device
 plane's writes follow the same rule as collectives of the application
-thread (``device_apply_rows_many``); its reads stay local. Compressed row
-pushes across processes are not ported yet and fail a CHECK.
+thread (``device_apply_rows_many``); its reads stay local. A compressed
+row push crosses the processes compressed, inside the window, and every
+rank rebuilds it (``_mh_add_compressed_parts``); a device write to a
+compressed table is dense, as in the JAX package.
 
 The store is updated IN PLACE (the JAX package donates its buffers
 instead). So every Get returns a fresh buffer — a gather output or, for
@@ -136,11 +138,6 @@ def device_apply_rows_many(items, option: Optional[AddOption] = None,
         for srv, ids, deltas in prepped:
             srv._apply_rows_local(ids, deltas, opt)
         return ride
-    for srv, _, _ in prepped:
-        CHECK(srv.compress is None,
-              "a compressed table's device writes across processes are "
-              "not ported yet (ROADMAP.md): create the table without "
-              "compress= in a multi-process world")
     host, ride = multihost.host_payloads([d for _, _, d in prepped], ride)
     arrays = []
     for (srv, ids, _), d in zip(prepped, host):
@@ -405,18 +402,30 @@ class MatrixServerTable(ServerTable):
         ops.update_rows(self.state["data"], ids_t, combined, self._sign)
         return True
 
-    def _consume_compressed_on_device(self, comp: dict, opt) -> None:
-        """Rebuild ONE compressed payload's rows on the device and apply
-        them through the normal row update. The payload crosses in the
-        JAX package's layout: sparse (index, value) pairs padded to a
-        bucket with an out-of-range index, or sign bits for the
-        bucket-padded lanes and two means a row (pad lanes zero). Pad
-        entries land in a sink slot or in pad lanes, never in live rows."""
+    def _check_compressed_ids(self, comp: dict) -> np.ndarray:
+        """A compressed payload's row ids, validated: in range and unique
+        (the worker combines duplicates before it compresses)."""
         ids = np.asarray(comp["row_ids"], np.int32).ravel()
         self._check_ids(ids)
         CHECK(len(np.unique(ids)) == len(ids),
               "a compressed payload's row ids must be unique")
-        n, cols = len(ids), self.num_cols
+        return ids
+
+    def _consume_compressed_on_device(self, comp: dict, opt) -> None:
+        """Rebuild ONE compressed payload's rows on the device and apply
+        them through the normal row update."""
+        ids = self._check_compressed_ids(comp)
+        self._update_rows(ids, self._rebuild_compressed(comp, len(ids)), opt)
+
+    def _rebuild_compressed(self, comp: dict, n: int) -> torch.Tensor:
+        """ONE compressed payload of ``n`` (validated) rows, rebuilt as
+        dense (n, num_cols) deltas on the device with tensor code, and
+        counted in ``wire_stats``. The payload crosses in the JAX
+        package's layout: sparse (index, value) pairs padded to a bucket
+        with an out-of-range index, or sign bits for the bucket-padded
+        lanes and two means a row (pad lanes zero). Pad entries land in a
+        sink slot or in pad lanes, never in live rows."""
+        cols = self.num_cols
         bucket = next_bucket(n)
         if comp["kind"] == "sparse":
             idx = np.asarray(comp["idx"], np.int32)
@@ -449,9 +458,9 @@ class MatrixServerTable(ServerTable):
             bits = (packed_t[:, None] >> shifts) & 1
             lanes = bits.reshape(-1)[: n * cols].view(n, cols).bool()
             deltas = torch.where(lanes, pos_t[:n, None], neg_t[:n, None])
-        self._update_rows(ids, deltas, opt)
         self.wire_stats["dense_bytes"] += n * cols * self.dtype.itemsize
         self.wire_stats["payload_bytes"] += sum(a.nbytes for a in wire)
+        return deltas
 
     def ProcessAdd(self, values: Optional[np.ndarray] = None,
                    option: Optional[AddOption] = None,
@@ -491,11 +500,8 @@ class MatrixServerTable(ServerTable):
 
     def _prep_add_parts(self, parts):
         """Validate one collective Add's per-rank payloads -> (option, kind,
-        per-rank values or (ids, deltas)); kind is 'whole' or 'rows'."""
-        CHECK(all(p.get("compressed") is None for p in parts),
-              "compressed row pushes across processes are not ported yet "
-              "(ROADMAP.md): create the table without compress= in a "
-              "multi-process world")
+        per-rank values or (ids, deltas)); kind is 'whole' or 'rows'.
+        Compressed payloads go to ``_mh_add_compressed_parts``."""
         opts = self._check_parts_options(parts)
         whole = [p.get("row_ids") is None for p in parts]
         CHECK(all(whole) or not any(whole),
@@ -516,7 +522,10 @@ class MatrixServerTable(ServerTable):
     def ProcessAddParts(self, parts, my_rank: int) -> None:
         """One collective Add: every rank's rows in rank order, duplicates
         pre-combined on the host, one row update (whole-table payloads sum
-        in rank order first)."""
+        in rank order first; compressed ones: ``_mh_add_compressed_parts``)."""
+        if any(p.get("compressed") is not None for p in parts):
+            self._mh_add_compressed_parts(parts)
+            return
         option, kind, prepped = self._prep_add_parts(parts)
         opt = option.as_tensors()
         if kind == "whole":
@@ -532,6 +541,84 @@ class MatrixServerTable(ServerTable):
             self.dtype)
         self._update_rows(ids, deltas, opt)
         self._note_add_parts(option, [i for i, _ in prepped])
+
+    def _mh_add_compressed_parts(self, parts) -> None:
+        """One collective Add in which at least one rank shipped a
+        COMPRESSED payload (the ranks may mix: the sparse filter falls back
+        to a dense payload per rank by density). The window exchange moved
+        the compressed bytes, which is what the mode exists to shrink; every
+        rank rebuilds them here, as the JAX package does
+        (``_mh_add_compressed_parts``).
+
+        Linear updaters (add, sgd): every rank's part is rebuilt on the
+        device (``_rebuild_compressed``; a dense part pre-combines its
+        duplicates on the host) and summed in rank order into the union
+        batch of the ranks' ids, which one row update applies: the fused
+        ``<kAdd>``/``<kSub>`` on the card. The same unique ids, rank-order
+        sums and kernel as the uncompressed merge, so the exact sparse
+        wire stays bitwise equal to it. Non-linear updaters decompress on
+        the host, merge in rank order and apply once, as an uncompressed
+        collective Add does. Every part is validated before any
+        mutation, so a bad part fails the position on every rank."""
+        option = self._check_parts_options(parts)[0]
+        opt = option.as_tensors()
+        if self.updater.combine_scale is None:
+            host = [self._decompress_payload(p) for p in parts]
+            ids, deltas = _combine_duplicate_rows(
+                np.concatenate([i for i, _ in host]),
+                np.concatenate([d for _, d in host]), self.num_cols,
+                self.dtype)
+            self._update_rows(ids, deltas, opt)
+            self._note_add_parts(option, [i for i, _ in host])
+            return
+        rank_ids = []
+        for p in parts:
+            comp = p.get("compressed")
+            if comp is None:
+                ids = np.asarray(p["row_ids"], np.int32).ravel()
+                self._check_ids(ids)
+            else:
+                ids = self._check_compressed_ids(comp)
+            rank_ids.append(ids)
+        union = np.unique(np.concatenate(rank_ids)).astype(np.int32)
+        combined = torch.zeros((len(union), self.num_cols),
+                               dtype=torch.float32, device=self.device)
+        for p, ids in zip(parts, rank_ids):
+            comp = p.get("compressed")
+            if comp is None:
+                ids, block = _combine_duplicate_rows(
+                    ids, p["values"], self.num_cols, self.dtype)
+                block = torch.from_numpy(np.ascontiguousarray(block)).to(
+                    self.device)
+            else:
+                block = self._rebuild_compressed(comp, len(ids))
+            # unique ids within a part: one add a row, in rank order
+            inv = torch.from_numpy(np.searchsorted(union, ids).astype(
+                np.int64)).to(self.device)
+            combined.index_add_(0, inv, block)
+        self._update_rows(union, combined, opt)
+        self._note_add_parts(option, rank_ids)
+
+    def _decompress_payload(self, p):
+        """A rank's Add payload -> host (ids, deltas), compressed or not
+        (the JAX package's ``_decompress_payload``)."""
+        comp = p.get("compressed")
+        if comp is None:
+            ids = np.asarray(p["row_ids"], np.int32).ravel()
+            self._check_ids(ids)
+            return ids, np.asarray(p["values"], self.dtype).reshape(
+                len(ids), self.num_cols)
+        ids = self._check_compressed_ids(comp)
+        if comp["kind"] == "sparse":
+            deltas = SparseFilter().decompress(
+                True, comp["idx"], comp["val"], len(ids) * self.num_cols,
+                self.dtype).reshape(len(ids), self.num_cols)
+        else:
+            lanes = np.unpackbits(comp["packed"])[: len(ids) * self.num_cols]
+            lanes = lanes.astype(bool).reshape(len(ids), self.num_cols)
+            deltas = np.where(lanes, comp["pos"][:, None],
+                              comp["neg"][:, None]).astype(self.dtype)
+        return ids, deltas
 
     def ProcessAddRunParts(self, positions, my_rank: int) -> bool:
         """A window's collective row Adds (all positions, all ranks) as ONE

@@ -11,7 +11,9 @@ the worker/server table registries, the in-process worker barrier and the
 Multi-process worlds: ``Start`` brings up ``torch.distributed``
 (``parallel/multihost.py``) before it resolves the device, so rank r takes
 its own card (``cuda:(r % device_count)``); rank and size come from the
-world. ``Barrier`` adds the cross-process barrier and ``Aggregate`` the
+world. The host wire (shm same-host, tcp cross-host) is installed next,
+before the engine, with the channels the engine asks for, and ``Stop``
+closes it after the engine. ``Barrier`` adds the cross-process barrier and ``Aggregate`` the
 cross-process sum. Each process keeps a full replica of every table, and
 the engine applies every rank's verbs of each exchanged window to it
 (``sync/server.py``).
@@ -44,7 +46,8 @@ import multiverso_tpu_torch.updaters.base  # noqa: F401
 from multiverso_tpu_torch import serving
 from multiverso_tpu_torch.parallel.allreduce import RendezvousAllreduce
 from multiverso_tpu_torch.parallel.mesh import DeviceContext
-from multiverso_tpu_torch.sync.server import Server
+from multiverso_tpu_torch.sync.server import (Server,
+                                              requested_engine_channels)
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
                                                   MV_DEFINE_int,
                                                   MV_DEFINE_string,
@@ -94,6 +97,10 @@ class Zoo:
         # the device rule next: a world with no usable device never
         # starts, in any mode
         self.device_ctx = DeviceContext.create(devices)
+        if self._multihost:
+            # the host wire before the engine exists: its channels are
+            # what let a sharded engine exchange across processes
+            multihost.maybe_install_wire(requested_engine_channels())
         self._ma_mode = bool(GetFlag("ma"))
         role = ROLE_NAMES.get(str(GetFlag("ps_role")).lower(), Role.ALL)
         self.num_workers = max(1, int(GetFlag("num_workers")))
@@ -128,6 +135,9 @@ class Zoo:
                           "shutdown", exc)
             self.server_engine.Stop()
             self.server_engine = None
+        # the wire outlives the engine (its drain above exchanged on it)
+        # and dies with the world: the next world selects its own
+        multihost.close_wire()
         # the serving plane after the engine (no more publish can arrive):
         # it drops every snapshot and stops its dispatcher, so a later
         # MV_Init world starts from a fresh plane

@@ -37,10 +37,13 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   (ProcessAdd of the compressed payload + ProcessGet) on this thread
   under the profiler;
 * ps_2proc: chip_smoke.py's [ps_2proc] PS rounds in a world of two ranks
-  of this script (``--rank-child``) on the one card over gloo, the add and
-  momentum tables at the PS shape: after 3 warm-up rounds, 5 rounds, rank
-  0 under the profiler and rank 1 beside it, with the engine's seconds in
-  the window exchange and in the apply,
+  of this script (``--rank-child``) on the one card, one world a wire
+  (PS2_WIRES: shm, gloo, shm with two engine shards, tcp; chip_smoke.py's
+  ``ps2_wire_flags``), the add and momentum tables at the PS shape: after
+  3 warm-up rounds, 5 rounds, rank 0 under the profiler and cProfile
+  (which on Python 3.12 sees the engine's exchange threads: the host
+  functions the exchange time goes to) and rank 1 beside it, with the
+  engine's seconds in the window exchange and in the apply,
 * lr_2proc, we_2proc: chip_smoke.py's [lr_2proc] runs (the LR device
   plane, dense and sparse, on unequal shards; FTRL on the collective host
   KV verbs) and [we_2proc] runs (-device_pairs 1 -use_adagrad 1 at
@@ -700,18 +703,25 @@ def parse_turns(torch, seed: int) -> dict:
     return res
 
 
-def ps_2proc_rank(torch, rank: int, port: int, seed: int, out: str) -> int:
-    """One rank of the ps_2proc profile (``--rank-child``): rounds of
-    chip_smoke.py's [ps_2proc] on both tables, the measured ones under the
-    profiler on rank 0."""
+def ps_2proc_rank(torch, rank: int, port: int, seed: int, out: str,
+                  wire: str) -> int:
+    """One rank of the ps_2proc profile (``--rank-child``) on ``wire``'s
+    world: rounds of chip_smoke.py's [ps_2proc] on both tables, the
+    measured ones under the profilers on rank 0."""
     import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.parallel import multihost
     from multiverso_tpu_torch.tables import MatrixTableOption
     from multiverso_tpu_torch.updaters.base import AddOption
     from multiverso_tpu_torch.zoo import Zoo
-    from chip_smoke import PS_COLS, PS_ROUNDS, PS_ROWS, ps2_batch
+    from chip_smoke import (PS_COLS, PS_ROUNDS, PS_ROWS, engine_sum,
+                            ps2_batch, ps2_wire_flags)
+    flags, want = ps2_wire_flags(wire, rank)
     mv.MV_Init([f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
-                "-dist_size=2"])
+                "-dist_size=2", *flags])
     try:
+        if multihost.wire_name() != want:
+            raise AssertionError(f"ps_2proc {wire}: the engine rides "
+                                 f"{multihost.wire_name()}, not {want}")
         add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
                                                   num_cols=PS_COLS))
         mom = mv.MV_CreateTable(MatrixTableOption(
@@ -731,24 +741,25 @@ def ps_2proc_rank(torch, rank: int, port: int, seed: int, out: str) -> int:
             return time.perf_counter() - t0
 
         rounds(0, 3)                                   # warm-up
-        x0, a0 = eng.xw_busy_s, eng.apply_busy_s
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        prof = None
-        # the ranks meet once the profiler runs, so neither's rounds
+        x0 = engine_sum(eng, "xw_busy_s")
+        a0 = engine_sum(eng, "apply_busy_s")
+        # the ranks meet once the profilers run, so neither's rounds
         # include the other's profiler start
         if rank == 0:
-            with torch.profiler.profile(activities=acts) as prof:
+            def measured():
                 mv.MV_Barrier()
-                wall = rounds(3, PS_ROUNDS)
+                return rounds(3, PS_ROUNDS)
+
+            res, wall = _profiled(torch, measured)
         else:
             mv.MV_Barrier()
             wall = rounds(3, PS_ROUNDS)
-        res = summarize(torch, prof, wall) if prof is not None else {
-            "wall_s": wall}
-        res.update(rank=rank, round_ms=wall / PS_ROUNDS * 1e3,
-                   engine_xw_s=eng.xw_busy_s - x0,
-                   engine_apply_s=eng.apply_busy_s - a0)
+            res = {"wall_s": wall}
+        res.update(rank=rank, wire=multihost.wire_name(),
+                   engine=type(eng).__name__,
+                   round_ms=wall / PS_ROUNDS * 1e3,
+                   engine_xw_s=engine_sum(eng, "xw_busy_s") - x0,
+                   engine_apply_s=engine_sum(eng, "apply_busy_s") - a0)
     finally:
         mv.MV_ShutDown()
     with open(out, "w") as f:
@@ -756,24 +767,30 @@ def ps_2proc_rank(torch, rank: int, port: int, seed: int, out: str) -> int:
     return 0
 
 
-def profile_ps_2proc(seed: int, out: str) -> dict:
-    """Both ranks of the ps_2proc profile; returns rank 0's profile with
-    rank 1's round time."""
+def profile_ps_2proc(seed: int, out: str) -> list:
+    """Both ranks of the ps_2proc profile, one world a wire of PS2_WIRES;
+    returns rank 0's profile of each with rank 1's round time."""
+    return [profile_ps_2proc_wire(seed, out, wire) for wire in PS2_WIRES]
+
+
+def profile_ps_2proc_wire(seed: int, out: str, wire: str) -> dict:
     import socket
     import subprocess
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    outs = [os.path.join(out, f"ps_2proc_rank{r}.json") for r in range(2)]
+    outs = [os.path.join(out, f"ps_2proc_{wire}_rank{r}.json")
+            for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
-         "--port", str(port), "--seed", str(seed), "--out", outs[r]])
+         "--port", str(port), "--seed", str(seed), "--out", outs[r],
+         "--wire", wire])
         for r in range(2)]
     try:
         for r, p in enumerate(procs):
             if p.wait(600) != 0:
-                raise AssertionError(f"ps_2proc rank {r} failed "
+                raise AssertionError(f"ps_2proc {wire} rank {r} failed "
                                      f"(exit {p.returncode})")
     finally:
         for p in procs:
@@ -943,6 +960,9 @@ def main() -> int:
     ap.add_argument("--workdir", default="",
                     help="lr/we --rank-child: the shards' directory")
     ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--wire", default="shm", choices=PS2_WIRES,
+                    help="the ps_2proc rank child's world (chip_smoke.py's "
+                         "ps2_wire_flags)")
     ap.add_argument("--baseline", default="",
                     help="bsp: another checkout whose package takes turns "
                          "with this one's")
@@ -957,7 +977,7 @@ def main() -> int:
                                    args.port, args.seed, args.out,
                                    args.workdir)
         return ps_2proc_rank(torch, args.rank_child, args.port, args.seed,
-                             args.out)
+                             args.out, args.wire)
     if args.bsp_child:
         import torch
         return bsp_child(torch, args.bsp_child, args.seed, args.out)
@@ -1005,6 +1025,8 @@ def main() -> int:
 PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
          "ps_2proc", "lr_2proc", "we_2proc", "serve", "ps_combine",
          "binding", "bsp")
+#: ps_2proc: one world a wire, in this order
+PS2_WIRES = ("shm", "gloo", "shm_sharded", "tcp")
 #: bsp: worlds a process, and the processes' order against a baseline
 BSP_WORLDS = 3
 BSP_TURNS = ("baseline", "this", "this", "baseline") * 2
@@ -1091,17 +1113,19 @@ def report(res: dict) -> None:
               f" device busy {r['device_busy_s']:.4f} s, idle share "
               f"{r['device_idle_share']:.3f})", flush=True)
         print_tops("ps_compress", r)
-    if "ps_2proc" in res:
-        r = res["ps_2proc"]
-        print(f"[ps_2proc] two ranks on one card over gloo, add + momentum "
-              f"round (AddRows + GetRows on both tables): rank 0 "
-              f"{r['round_ms']:.3f} ms under the profiler, rank 1 "
-              f"{r['rank1_round_ms']:.3f} ms; rank 0's engine: exchange "
-              f"{r['engine_xw_s']:.4f} s, apply {r['engine_apply_s']:.4f} s "
-              f"of the rounds' {r['wall_s']:.4f} s; device busy "
-              f"{r['device_busy_s']:.4f} s, idle share "
-              f"{r['device_idle_share']:.3f}", flush=True)
-        print_tops("ps_2proc", r)
+    for r in res.get("ps_2proc", []):
+        print(f"[ps_2proc] two ranks on one card over {r['wire']} "
+              f"({r['engine']}), add + momentum round (AddRows + GetRows on "
+              f"both tables): rank 0 {r['round_ms']:.3f} ms under the "
+              f"profilers, rank 1 {r['rank1_round_ms']:.3f} ms; rank 0's "
+              f"engine: exchange {r['engine_xw_s']:.4f} s, apply "
+              f"{r['engine_apply_s']:.4f} s; over the profiled "
+              f"{r['wall_s']:.4f} s device busy {r['device_busy_s']:.4f} s,"
+              f" idle share {r['device_idle_share']:.3f}", flush=True)
+        print_tops(f"ps_2proc {r['wire']}", r)
+        for name, calls, secs in r["top_host_functions"]:
+            print(f"[ps_2proc {r['wire']}]   host function {name} "
+                  f"x{calls}: {secs:.4f} s", flush=True)
     for path in ("lr_2proc", "we_2proc"):
         for name, r in res.get(path, {}).items():
             st = r["collective"]

@@ -12,12 +12,21 @@ checks every Get against a numpy oracle of both ranks' Adds. Results go
 to ``OUTDIR/PKG_MODE_RANK.npz``; the last line printed is ``child RANK
 MODE OK``. LIBPATH is the port's build of the repo's C++ library, which
 the JAX package's loader is handed instead of running ``make`` ("" = none).
-The app modes (``lr``, ``lr_dev``, ``we``, ``we_pairs``, ``we_ragged``)
-read the data files their test wrote into OUTDIR; each rank trains on its
-own shard through the apps' entry points. The JAX worlds run at
-``-mv_write_combine=0`` except in mode ``combine``
-(tests/test_torch_write_combine.py), where both packages run at the JAX
-package's default.
+EXTRA are more flags for ``MV_Init``, except the options of the host-wire
+modes (``wire``, ``compress``, ``lr_compress``): ``want=NAME`` asserts
+that the world's engine exchanges ride the wire NAME (shm, tcp or gloo);
+``tables=local`` runs mode ``wire`` on the two tables whose apply the JAX
+package's sharded multi-process engine keeps on the host (an add Matrix
+and a KV table; it refuses a momentum or Array table there);
+``hosts=split`` gives each rank a host label of its own
+(``-mv_wire_hostname``: a loopback cross-host world); ``break=shm`` or
+``break=tcp`` makes rank 0's setup of that wire fail.
+The app modes (``lr``, ``lr_dev``, ``lr_compress``, ``we``, ``we_pairs``,
+``we_ragged``) read the data files their test wrote into OUTDIR; each rank
+trains on its own shard through the apps' entry points. The JAX worlds run
+at ``-mv_write_combine=0`` except in the modes of ``DEFAULT_MODES``
+(tests/test_torch_write_combine.py and the host-wire tests), where both
+packages run at the JAX package's default.
 """
 
 import os
@@ -28,7 +37,13 @@ import time
 import numpy as np
 
 PKG, MODE, RANK, PORT, OUTDIR, LIBPATH = sys.argv[1:7]
-EXTRA = sys.argv[7:]
+_OPTS = ("want=", "tables=", "hosts=", "break=")
+OPTS = dict(a.split("=", 1) for a in sys.argv[7:] if a.startswith(_OPTS))
+EXTRA = [a for a in sys.argv[7:] if not a.startswith(_OPTS)]
+WANT = [OPTS["want"]] if "want" in OPTS else []
+LOCAL_TABLES = OPTS.get("tables") == "local"
+#: the modes whose JAX world runs at the package's default write combining
+DEFAULT_MODES = ("combine", "wire", "compress", "lr_compress")
 RANK = int(RANK)
 SEED = 11
 ROWS, COLS, IDS = 200, 6, 40
@@ -43,6 +58,8 @@ def boot(extra=()):
     """MV_Init the two-process world of PKG; returns the package."""
     flags = [f"-dist_coordinator=127.0.0.1:{PORT}", f"-dist_rank={RANK}",
              "-dist_size=2", *extra]
+    if OPTS.get("hosts") == "split":
+        flags.append(f"-mv_wire_hostname=node{'AB'[RANK]}")
     if PKG == "jax":
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
@@ -57,14 +74,33 @@ def boot(extra=()):
         jnative._tried = True
         jnative._build = no_make
         import multiverso_tpu as mv
-        if MODE != "combine":
+        if MODE not in DEFAULT_MODES:
             flags.append("-mv_write_combine=0")
     else:
         import multiverso_tpu_torch as mv
         flags += ["-mv_device=cpu", "-mv_dist_timeout_s=60"]
+    if "break" in OPTS and RANK == 0:
+        break_wire(OPTS["break"])
     mv.MV_Init(flags)
     assert mv.MV_Size() == 2 and mv.MV_Rank() == RANK
     return mv
+
+
+def break_wire(kind):
+    """This rank's setup of the ``kind`` wire fails (an exhausted
+    ``/dev/shm``, a listener that cannot bind)."""
+    if PKG == "jax":
+        from multiverso_tpu.parallel import shm_wire, tcp_wire
+    else:
+        from multiverso_tpu_torch.parallel import shm_wire, tcp_wire
+    mod, name = ((shm_wire, "ShmWire") if kind == "shm"
+                 else (tcp_wire, "TcpWire"))
+
+    class Broken(getattr(mod, name)):
+        def __init__(self, *a, **k):
+            raise OSError(f"simulated {kind} wire setup failure")
+
+    setattr(mod, name, Broken)
 
 
 def tables_mod():
@@ -357,13 +393,15 @@ def run_bsp(mv):
 
 def run_wiring(mv):
     """A world from MV_NetBind/MV_NetConnect or the machine file (booted
-    by the caller): the control group's collectives and one collective Add;
-    the tables' device writes as collectives (each rank's own batch, every
-    replica the merge); a tagged agreement and a collective write whose
-    Add options diverge, each failing on every rank; then the unported
-    multi-process paths (compressed pushes and device writes, LR's
-    compress=, the KV device writes), each failing loudly on every rank
-    and leaving the replica as it was."""
+    by the caller), on the shm wire: the control group's collectives and
+    one collective Add; a compressed table's push and device write (both
+    ranks' rows applied on every replica); the tables' device writes as
+    collectives (each rank's own batch, every replica the merge); a tagged
+    agreement and a collective write whose Add options diverge, each
+    failing on every rank; LR with ``compress=`` starting on its
+    compressed table; then the unported multi-process paths (the KV device
+    writes), each failing loudly on every rank and leaving the replica as
+    it was."""
     import torch
     tables, AddOption, GetOption, Zoo = tables_mod()
     from multiverso_tpu_torch.parallel import multihost as mh
@@ -371,27 +409,27 @@ def run_wiring(mv):
     assert mh.host_allreduce_sum(np.full(4, RANK + 1.0)).tolist() == [3.0] * 4
     assert mh.host_allgather_objects({"r": RANK}) == [{"r": 0}, {"r": 1}]
     assert mh.host_allgather_objects_capped(RANK, "agree") == [0, 1]
+    assert mh.wire_name() == "shm", mh.wire_name()
     arr = mv.MV_CreateTable(tables.ArrayTableOption(size=8))
     arr.Add(np.full(8, float(RANK + 1), np.float32))
     np.testing.assert_array_equal(arr.Get(), np.full(8, 3.0))
     comp = mv.MV_CreateTable(tables.MatrixTableOption(
         num_rows=16, num_cols=4, compress="sparse"))
+    # each rank pushes one sparse row of its own (compressed) and row 2
+    # (both ranks): every replica holds both ranks' rows
     delta = np.zeros((2, 4), np.float32)
-    delta[:, 0] = 1.0
-    try:
-        comp.AddRows(np.array([0, 1], np.int32), delta)
-    except Exception as exc:
-        assert "not ported yet" in str(exc), exc
-    else:
-        raise AssertionError("a compressed push across processes applied")
-    try:
-        comp.server().device_apply_rows(np.array([0], np.int32),
-                                        np.ones((1, 4), np.float32))
-    except Exception as exc:
-        assert "not ported yet" in str(exc), exc
-    else:
-        raise AssertionError("a compressed device write across processes "
-                             "applied")
+    delta[:, 0] = RANK + 1.0
+    comp.AddRows(np.array([RANK, 2], np.int32), delta)
+    want = np.zeros((16, 4), np.float32)
+    want[0, 0], want[1, 0], want[2, 0] = 1.0, 2.0, 3.0
+    np.testing.assert_array_equal(comp.Get(), want)
+    assert comp.server().wire_stats["payload_bytes"] > 0
+    # a device write to a compressed table applies its dense rows, as the
+    # JAX package's device write does
+    comp.server().device_apply_rows(np.array([0], np.int32),
+                                    np.ones((1, 4), np.float32))
+    want[0] += 2.0
+    np.testing.assert_array_equal(comp.Get(), want)
     mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=16,
                                                      num_cols=4))
     kv = mv.MV_CreateTable(tables.KVTableOption())
@@ -445,15 +483,13 @@ def run_wiring(mv):
 
     from multiverso_tpu_torch.models.logreg.configure import Configure
     from multiverso_tpu_torch.models.logreg.logreg import LogReg
+    app = LogReg(Configure(input_size=8, output_size=1, sparse=True,
+                           use_ps=True, compress="sparse", platform="cpu",
+                           output_model_file="", output_file=""))
     try:
-        LogReg(Configure(input_size=8, output_size=1, sparse=True,
-                         use_ps=True, compress="sparse", platform="cpu",
-                         output_model_file="", output_file=""))
-    except Exception as exc:
-        assert "compress=sparse" in str(exc) \
-            and "not ported yet" in str(exc), exc
-    else:
-        raise AssertionError("LR compress= started across processes")
+        assert app.model.table.server().compress == "sparse"
+    finally:
+        app.close()
     slots = ksrv.device_place_slots(ksrv.device_slots([3]))
     unported = {
         "device_slots(create=True)": lambda: ksrv.device_slots(
@@ -614,6 +650,186 @@ def run_serving(mv):
     np.testing.assert_array_equal(mv.MV_ServingLookup(mat, None, version=v2),
                                   results["live"])
     results["versions"] = np.array(mh.host_allgather_objects((v, v2)))
+
+
+# -- the host wires ------------------------------------------------------------
+
+def mh_mod():
+    if PKG == "jax":
+        from multiverso_tpu.parallel import multihost
+    else:
+        from multiverso_tpu_torch.parallel import multihost
+    return multihost
+
+
+def check_wire(results_prefix=""):
+    """The world's engine exchanges ride the wire the test asked for;
+    records its name, its session token and each channel's rounds."""
+    mh = mh_mod()
+    assert mh.wire_name() == WANT[0], (mh.wire_name(), WANT)
+    w = mh.active_wire()
+    results[results_prefix + "wire"] = np.array(mh.wire_name())
+    if w is not None:
+        st = w.stats()
+        results[results_prefix + "token"] = np.array(st["token"])
+        results[results_prefix + "rounds"] = np.array(st["rounds"])
+
+
+def run_wire(mv):
+    """The PS tables on the world's host wire: an add and a momentum
+    Matrix table (tables 0 and 1: shards 0 and 1, so channels 0 and 1 under
+    ``-mv_engine_shards=2``), a KV and an Array table (``tables=local``:
+    the add table and the KV table, on channels 0 and 1); blocking rounds
+    held to the oracle of both ranks' Adds, a fire-and-forget burst, then
+    a checkpoint cut (every shard fences) and its reload."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    add = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=ROWS,
+                                                     num_cols=COLS))
+    if LOCAL_TABLES:
+        mom = arr = None
+    else:
+        mom = mv.MV_CreateTable(tables.MatrixTableOption(
+            num_rows=ROWS, num_cols=COLS, updater_type="momentum"))
+    kv = mv.MV_CreateTable(tables.KVTableOption())
+    if not LOCAL_TABLES:
+        arr = mv.MV_CreateTable(tables.ArrayTableOption(size=32))
+    results["engine"] = np.array(type(Zoo.Get().server_engine).__name__)
+    m = np.float32(0.5)
+    mopt = AddOption(momentum=float(m))
+    o_add = np.zeros((ROWS, COLS), np.float32)
+    o_mom = np.zeros((ROWS, COLS), np.float32)
+    smooth = np.zeros((ROWS, COLS), np.float32)
+    for r in range(4):
+        batches = [row_batch(1400 + r, k) for k in range(2)]
+        ids, deltas = batches[RANK]
+        add.AddRows(ids, deltas)
+        delta = combined(*zip(*batches))
+        o_add += delta
+        results[f"add_get{r}"] = add.GetRows(ids)
+        np.testing.assert_array_equal(results[f"add_get{r}"], o_add[ids])
+        kv.Add(rng(1401, r, RANK).integers(0, 30, 4).astype(np.int64),
+               np.ones(4, np.float32))
+        if LOCAL_TABLES:
+            continue
+        mom.AddRows(ids, deltas, mopt)
+        touched = np.unique(np.concatenate([b[0] for b in batches]))
+        smooth[touched] = (m * smooth[touched]
+                           + (np.float32(1) - m) * delta[touched])
+        o_mom[touched] -= smooth[touched]
+        results[f"mom_get{r}"] = mom.GetRows(ids)
+        np.testing.assert_allclose(results[f"mom_get{r}"], o_mom[ids],
+                                   rtol=1e-6, atol=1e-6)
+        arr.Add(np.full(32, RANK + 1.0, np.float32))
+    for r in range(12):
+        batches = [row_batch(1500 + r, k) for k in range(2)]
+        add.AddFireForget(batches[RANK][1], row_ids=batches[RANK][0])
+        o_add += combined(*zip(*batches))
+        kv.AddFireForget(rng(1501, r, RANK).integers(0, 30, 3).astype(
+            np.int64), np.ones(3, np.float32))
+    # blocking Gets on every table quiesce both ranks' shards before the
+    # cut (the JAX engine dispatches a barrier at once on an idle
+    # pipeline, ROADMAP.md §3)
+    np.testing.assert_array_equal(add.Get(), o_add)
+    kv.Get(np.arange(2, dtype=np.int64))
+    dense = {"add": add} if LOCAL_TABLES else {"add": add, "mom": mom,
+                                                "arr": arr}
+    for t in dense.values():
+        t.Get()
+    check_wire()
+    mh = mh_mod()
+    if mh.active_wire() is not None and str(results["engine"]) == "Server":
+        # the same world's exchanges on gloo for a stretch (one stream:
+        # the one-engine world only), then back on the wire
+        with mh.wire_bypass():
+            assert mh.wire_name() == "gloo"
+            np.testing.assert_array_equal(add.Get(), o_add)
+        assert mh.wire_name() == WANT[0]
+    uri = f"file://{OUTDIR}/{PKG}_wire.mvt"
+    before = {k: t.Get() for k, t in dense.items()}
+    mv.MV_SaveCheckpoint(uri)
+    if not LOCAL_TABLES:
+        # (the JAX package's sharded multi-process engine refuses the
+        # windows after a load: the load drops the add table's host
+        # mirror, and its next apply would be a collective)
+        add.AddRows(np.array([RANK], np.int32),
+                    np.ones((1, COLS), np.float32))
+        mv.MV_LoadCheckpoint(uri)
+    for k, t in dense.items():
+        np.testing.assert_array_equal(t.Get(), before[k], err_msg=k)
+        results[f"final_{k}"] = before[k]
+    results["final_kv"] = kv.Get(np.arange(30, dtype=np.int64))
+    if mh.active_wire() is not None:
+        results["rounds_end"] = np.array(mh.active_wire().stats()["rounds"])
+
+
+def run_compress(mv):
+    """Compressed row Adds across the ranks on the world's wire:
+    ``compress="sparse"`` add and momentum tables beside uncompressed
+    twins (even steps 80% zeros, compressed; odd steps dense, so a rank's
+    dense fallback meets its peer's compressed payload in one position),
+    then ``compress="1bit"`` pushes of constant rows to each rank's own
+    rows (the JAX test's 1bit drill, tests/test_windowed_multihost.py)."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    R, C = 128, 16
+
+    def mat(**kw):
+        return mv.MV_CreateTable(tables.MatrixTableOption(
+            num_rows=R, num_cols=C, **kw))
+
+    comp, plain = mat(compress="sparse"), mat()
+    cmom = mat(compress="sparse", updater_type="momentum")
+    pmom = mat(updater_type="momentum")
+    mopt = AddOption(momentum=0.5)
+    g = rng(1600, RANK)
+    for step in range(6):
+        ids = np.sort(g.choice(R, 12, replace=False)).astype(np.int32)
+        deltas = np.zeros((12, C), np.float32)
+        nz = 3 if step % 2 == 0 else C
+        deltas[:, :nz] = g.standard_normal((12, nz)).astype(np.float32)
+        comp.AddRows(ids, deltas)
+        plain.AddRows(ids, deltas)
+        cmom.AddRows(ids, deltas, mopt)
+        pmom.AddRows(ids, deltas, mopt)
+    all_ids = np.arange(R, dtype=np.int32)
+    for name, t in (("sparse", comp), ("plain", plain), ("sparse_mom", cmom),
+                    ("plain_mom", pmom)):
+        results[name] = t.GetRows(all_ids)
+    np.testing.assert_array_equal(results["sparse"], results["plain"])
+    np.testing.assert_array_equal(results["sparse_mom"],
+                                  results["plain_mom"])
+    # the linear table rebuilds the payloads on its device, counted in
+    # its wire_stats (the momentum table decompresses on the host)
+    ws = comp.server().wire_stats
+    assert 0 < ws["payload_bytes"] < ws["dense_bytes"], ws
+    results["sparse_wire"] = np.array([ws["dense_bytes"],
+                                       ws["payload_bytes"]])
+    one, twin = mat(compress="1bit"), mat()
+    my_rows = np.arange(8, dtype=np.int32) + RANK * 16
+    const = np.tile(np.linspace(-1.0, 1.0, C, dtype=np.float32), (8, 1))
+    for _ in range(8):
+        one.AddRows(my_rows, const)
+        twin.AddRows(my_rows, const)
+    both = np.concatenate([np.arange(8), np.arange(8) + 16]).astype(np.int32)
+    results["onebit"] = one.GetRows(both)
+    results["onebit_twin"] = twin.GetRows(both)
+    a, b = results["onebit"], results["onebit_twin"]
+    assert np.abs(b).max() > 0, "the twin's rows are empty"
+    assert np.abs(a - b).max() < 0.35 * np.abs(b).max(), (
+        np.abs(a - b).max(), np.abs(b).max())
+    ws = one.server().wire_stats
+    assert ws["payload_bytes"] < ws["dense_bytes"], ws
+    check_wire()
+
+
+def run_lr_compress(mv):
+    """LR's host plane with ``compress=sparse`` and ``compress=1bit`` on
+    each rank's own shard of the sparse data."""
+    Configure, LogReg = lr_classes()
+    for mode in ("sparse", "1bit"):
+        lr_run(f"lr_{mode}", Configure, LogReg, sparse=True, compress=mode,
+               train_file=f"{OUTDIR}/sparse_{RANK}.data",
+               test_file=f"{OUTDIR}/sparse_test.data")
+    check_wire()
 
 
 # -- the apps, data-parallel (each rank its own shard) ------------------------
@@ -793,7 +1009,8 @@ def main():
     {"tables": run_tables, "burst": run_burst, "bsp": run_bsp,
      "combine": run_combine,
      "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
-     "serving": run_serving,
+     "serving": run_serving, "wire": run_wire, "compress": run_compress,
+     "lr_compress": run_lr_compress,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)
     if MODE != "dead":

@@ -7,9 +7,11 @@ a numpy oracle of both ranks' Adds inside the children. Here:
 
 (a) the single-process identities in this process: ``-multihost=off``, auto
     without a launcher's environment, ``MV_Size() == 1``, the collectives'
-    identities, the unported wires' CHECKs, the net declarations, the
-    machine file, and ``RendezvousAllreduce``'s cross-process leg (applied
-    once a round by the last thread; a failure releases every waiter);
+    identities (no host wire: ``wire_name()`` is ``local``), the CHECKs on
+    an unknown ``-mv_wire`` and on the unported device transport, the net
+    declarations, the machine file, and ``RendezvousAllreduce``'s
+    cross-process leg (applied once a round by the last thread; a failure
+    releases every waiter);
 (b) Array, Matrix (add and momentum), KV with divergent key sets,
     SparseMatrix's dirty rows, ``MV_Aggregate`` across 2 processes x 2
     threads and a checkpoint (rank 0 writes, both reload): both port ranks
@@ -18,14 +20,16 @@ a numpy oracle of both ranks' Adds inside the children. Here:
     normals, which the port sums exactly in float64 and the JAX package
     rounds to float32 per process before the cross-process sum);
 (c) a world wired by ``MV_NetBind``/``MV_NetConnect`` and one by
-    ``-machine_file``; the tables' device writes as collectives (Matrix
+    ``-machine_file``, each on the shm wire; a compressed table's push and
+    device write applying both ranks' rows on every replica; the tables'
+    device writes as collectives (Matrix
     ``device_apply_rows`` with a ride and ``device_update_gather_rows``,
     Array ``device_update`` + ``device_set_state``, which refuses a state
     of one rank's own); a tagged agreement at diverged call sites and a
-    write with diverged Add options, each failing on both ranks; the
-    unported multi-process paths (compressed pushes and device writes,
-    LR's ``compress=``, the KV device writes) failing on every rank and
-    leaving the replicas alone; a diverging verb stream failing its CHECK
+    write with diverged Add options, each failing on both ranks; LR with
+    ``compress=`` starting; the unported multi-process paths (the KV
+    device writes) failing on every rank and leaving the replicas alone;
+    a diverging verb stream failing its CHECK
     on both ranks, and a dead peer failing the next collective Add, each
     well within the children's 60 s collective timeout.
 """
@@ -71,6 +75,9 @@ def test_single_process_identities(tmp_path, monkeypatch):
     assert mh.host_allgather_objects(x)[0] is x
     assert mh.host_allgather_bytes(b"ab") == [b"ab"]
     assert mh.capped_exchange(b"ab", {}, "k") == [b"ab"]
+    assert mh.capped_exchange(b"ab", {}, "k", channel=1) == [b"ab"]
+    assert mh.maybe_install_wire(2) == mh.wire_name() == "local"
+    assert mh.active_wire() is None and mh.wire_channels() == 1
     mh.host_barrier()
     mv.MV_Init(["-mv_device=cpu"])
     try:
@@ -79,12 +86,12 @@ def test_single_process_identities(tmp_path, monkeypatch):
     finally:
         mv.MV_ShutDown()
 
-    # the unported wires and transport fail a CHECK that says so
+    # an unknown wire (checked before any rendezvous) and the unported
+    # transport fail a CHECK that says so
     for argv, words in (
-            (["-multihost=on", "-mv_wire=shm", "-dist_coordinator=127.0.0.1:1",
-              "-dist_rank=0", "-dist_size=2"], "-mv_wire=shm is not ported"),
-            (["-multihost=on", "-mv_wire=tcp", "-dist_coordinator=127.0.0.1:1",
-              "-dist_rank=0", "-dist_size=2"], "-mv_wire=tcp is not ported"),
+            (["-multihost=on", "-mv_wire=ib", "-dist_coordinator=127.0.0.1:1",
+              "-dist_rank=0", "-dist_size=2"],
+             "-mv_wire must be auto/shm/tcp/gloo"),
             (["-window_transport=device"], "is not ported yet")):
         with pytest.raises(FatalError, match=words):
             mv.MV_Init(["-mv_device=cpu"] + argv)

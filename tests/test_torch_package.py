@@ -50,7 +50,8 @@ assert not bad, bad
 assert len(names) >= 60, names
 # the slices of the Array, KV and SparseMatrix tables and the LR app, of
 # -device_pairs and the native library bridge, of the checkpoint and the
-# compressed row wire, of the serving plane, and of the binding
+# compressed row wire, of the serving plane, of the binding and of the
+# host wires
 new = {"binding", "binding.param_manager", "binding.sharedvar",
        "binding.native_bridge", "utils.async_buffer",
        "tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
@@ -61,7 +62,8 @@ new = {"binding", "binding.param_manager", "binding.sharedvar",
        "models.wordembedding.device_pairs", "native", "checkpoint",
        "utils.quantization", "serving", "serving.store",
        "serving.snapshot", "serving.frontend", "failsafe",
-       "failsafe.errors", "failsafe.deadline"}
+       "failsafe.errors", "failsafe.deadline", "parallel.shm_wire",
+       "parallel.tcp_wire"}
 missing = {m for m in new if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 """

@@ -26,10 +26,12 @@ in a port world (``-mv_device=cpu``), one after the other.
     ``worker.get_cache_hits`` sequence and the expected one: entries age
     by the windows of their own shard only (a busy neighbour shard does
     not expire them), the worker's own Add invalidates them
-    (read-your-writes), and a hit is bitwise the miss it copies. The
-    window counts are chosen so that the pattern holds whichever of the
-    two possible windows the fill is dated at; the cached bytes equal
-    JAX's. On ``-sync=true`` the cache is off. KV ``raw()`` equals JAX's.
+    (read-your-writes), and a hit is bitwise the miss it copies. A fill
+    is dated at its Get's submit, one window either way, so the window
+    counts are chosen to hold whichever window it got; a Get that first
+    flushes a buffered Add can be a further window off, so the script
+    follows that probe with a tracked Add before its last fill. The
+    cached bytes equal JAX's. On ``-sync=true`` the cache is off. KV ``raw()`` equals JAX's.
 (c) A two-rank world at the default (``tests/_mh_child.py`` mode
     ``combine``): the replicas bitwise equal across the ranks and to the
     JAX two-rank world, and the Add messages of each rank's engine equal.
@@ -351,6 +353,12 @@ def _cache_script(ns, staleness):
     probe()                                  # own write: miss
     a.AddFireForget(np.ones((2, C), np.float32), row_ids=ids[2:4])
     probe()                                  # own buffered write: miss
+    # that miss flushed the buffered Add ahead of its Get, so its fill may
+    # be dated before or after the flushed Add's window; a tracked Add
+    # applies before it returns, so the next fill is dated at a quiet
+    # stream and the last probe is a hit on every schedule
+    a.AddRows(ids[4:6], np.ones((2, C), np.float32))
+    probe()                                  # own write: miss
     probe()                                  # hit
     rec["rows"] = np.stack(rec["rows"])
     rec["hits"] = np.array(rec["hits"])
@@ -375,12 +383,14 @@ def test_get_cache_matches_jax_on_the_sharded_engine():
         jrec, trec = _both(argv, _cache_script, staleness)
         _same(jrec, trec)
         np.testing.assert_array_equal(
-            trec["hits"], [0, 1, 1, 1, 0, 1, 0, 0, 1])
+            trec["hits"], [0, 1, 1, 1, 0, 1, 0, 0, 0, 1])
         rows = trec["rows"]
         np.testing.assert_array_equal(rows[1], rows[0])   # hits copy the miss
         np.testing.assert_array_equal(rows[4], rows[0])
         np.testing.assert_array_equal(rows[6][:2], rows[0][:2] + 1)
         np.testing.assert_array_equal(rows[7][2:4], rows[0][2:4] + 1)
+        np.testing.assert_array_equal(rows[8][4:6], rows[0][4:6] + 1)
+        np.testing.assert_array_equal(rows[9], rows[8])
         assert trec["cache_bytes"] == trec["rows"][0].nbytes
         raw = dict(trec["raw"].tolist())
         assert raw.pop(3) == 1.0 and raw.pop(77) == 3.0
