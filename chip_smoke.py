@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
 
-(``--rank-child R --child-phase ps|lr|we --port P`` runs one rank of
-``[ps_2proc]``, ``[lr_2proc]`` or ``[we_2proc]``; the script starts both
-ranks itself.)
+(``--rank-child R --child-phase ps|mh|lr|we --port P`` runs one rank of
+``[ps_2proc]``, of ``[ps_2proc apply]``, ``[ps_2proc compress]`` and
+``[kv_2proc device]``, of ``[lr_2proc]`` or of ``[we_2proc]``; the script
+starts both ranks itself.)
 
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
@@ -144,7 +145,30 @@ holds every kernel of that path against its plain PyTorch version:
               (host residence), the versions agree, 4 threads a rank look
               up 256 random ids 50 times on each table, bitwise the rank's
               Get at the cut, with no host collective round on the lookup
-              path; serving (``[serve]``, run after every other phase):
+              path; the rest of the two-process table surface (two more
+              ranks, ``--child-phase mh``, each path's launch counts
+              zeroed before it): ``[ps_2proc apply]``, an add, sgd,
+              momentum and AdaGrad table at the PS shape, 50 rounds of
+              fire-and-forget AddRows of 2,000 ids a rank to each table
+              in turn (the first 5 untimed; ``-mv_write_combine=0``, so a
+              window carries the four tables) and a GetRows of 10,000 ids
+              a table, in a world a turn at ``-mv_apply_workers`` 4, 1, 1,
+              4: every table bitwise equal across the ranks and the turns,
+              add and sgd equal to the oracle, pool jobs at 4 workers and
+              none at 1, with the burst's seconds, the engine's apply
+              seconds, the pool and inline jobs and the share of windows
+              that took the pool; ``[ps_2proc compress]``, [ps_2proc]'s add
+              rounds with the window codecs off, with ``-mv_compress``
+              alone (bitwise the first) and with ``-mv_compress_lossy=all``
+              (the ranks bitwise equal, within the int8 bound of the first
+              turn and not equal to it), with the window bytes before and
+              after the codec; ``[kv_2proc device]``, 1,000,000 keys a rank
+              (half shared) through ``device_slots(create=True)``,
+              ``device_place_slots``, the scatter-add and the gather on the
+              card, the values bitwise equal across the ranks and to a twin
+              KV table that took the same deltas through the host Add, and
+              each rank's lanes of the gather its keys' values;
+              serving (``[serve]``, run after every other phase):
               the WordEmbedding flagship's width, an sgd and an AdaGrad MatrixTable of 1,000,000 x
               128 in one process on the card: the sgd table's snapshots
               device-resident (one clone, read by the row gather), the
@@ -332,6 +356,18 @@ SERVE_ROWS, SERVE_COLS, SERVE_IDS = WE_BIG_VOCAB, WE_DIM, PS_IDS
 SERVE_PUBLISH_EVERY, SERVE_CLIENTS, SERVE_LOOKUP_IDS = 8, 8, 256
 SERVE_WALL_S, SERVE_IDLE_S, SERVE_PIN_ADDS = 20.0, 5.0, 16
 SERVE_2PROC_LOOKUPS = 50
+# [ps_2proc apply]: four tables at the PS shape; APPLY_ROUNDS rounds of
+# fire-and-forget AddRows of BURST_IDS ids a rank to each in turn (the
+# first APPLY_WARM untimed), in a world a turn at -mv_apply_workers of
+# APPLY_TURNS (mirrored)
+APPLY_KINDS = (("add", "default"), ("sgd", "sgd"), ("momentum", "momentum"),
+               ("adagrad", "adagrad"))
+APPLY_ROUNDS, APPLY_WARM, APPLY_TURNS = 50, 5, (4, 1, 1, 4)
+# [ps_2proc compress]: [ps_2proc]'s add rounds with the window codecs off,
+# -mv_compress alone, and -mv_compress with every table lossy-opted
+CODEC_TURNS = ("off", "lossless", "lossy")
+# [kv_2proc device]: the keys each rank resolves on the KV device plane
+KV_DEVICE_KEYS = 1_000_000
 
 
 def log(msg: str) -> None:
@@ -1620,6 +1656,378 @@ def ps_2proc_phase(seed: int, workdir: str) -> dict:
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     return {"ranks": ranks, "launches": launches}
+
+
+def apply_batches(seed: int, rank: int) -> list:
+    """[ps_2proc apply]'s traffic of ``rank``: per round, a (ids, integer
+    deltas) batch of BURST_IDS ids for each of the four tables."""
+    return [[ps2_batch(seed, 3000 + len(APPLY_KINDS) * r + j, rank,
+                       BURST_IDS) for j in range(len(APPLY_KINDS))]
+            for r in range(APPLY_ROUNDS)]
+
+
+def apply_oracles(seed: int) -> dict:
+    """The add and sgd tables after both ranks' [ps_2proc apply] traffic
+    (the sgd table takes the deltas with the minus sign)."""
+    out = {}
+    for j, (name, _) in enumerate(APPLY_KINDS[:2]):
+        table = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        for k in range(2):
+            for batch in apply_batches(seed, k):
+                ids, deltas = batch[j]
+                table[ids] += deltas
+        out[name] = table if name == "add" else -table
+    return out
+
+
+def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
+                   seed: int, mine: list, oracle: dict) -> dict:
+    """One [ps_2proc apply] turn: a world at ``-mv_apply_workers=workers``
+    (``-mv_write_combine=0``: every push its own Add, so a window carries
+    one round of the four tables), the add, sgd, momentum and AdaGrad
+    tables at the PS shape; this rank's first APPLY_WARM rounds of
+    fire-and-forget AddRows to each table in turn and a GetRows of one id
+    a table, untimed; after a barrier, the other rounds, then a blocking
+    GetRows of PS_IDS ids on every table (it waits for every Add before
+    it). Returns the timed burst's seconds, the engine's apply seconds,
+    pool and inline jobs, windows, the tables' digests and the turn's
+    launches; the add and sgd tables must equal ``oracle``."""
+    import hashlib
+
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    opts = {"add": None, "sgd": None, "momentum": AddOption(momentum=0.5),
+            "adagrad": AddOption(learning_rate=2.0, rho=0.25)}
+    get_ids = ps2_batch(seed, 3999, rank)[0]
+    l0 = dict(cr.LAUNCHES)
+    mv.MV_Init(base + [f"-mv_apply_workers={workers}",
+                       "-mv_write_combine=0"])
+    try:
+        tables = [mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type=u))
+            for _, u in APPLY_KINDS]
+        eng = Zoo.Get().server_engine
+        names = [n for n, _ in APPLY_KINDS]
+        counters = ("apply_busy_s", "xw_busy_s", "apply_pool_jobs",
+                    "apply_pool_inline", "mh_window_exchanges")
+
+        def push(batches):
+            for batch in batches:
+                for name, t, (ids, deltas) in zip(names, tables, batch):
+                    t.AddFireForget(deltas, row_ids=ids, option=opts[name])
+
+        push(mine[:APPLY_WARM])
+        for t in tables:
+            t.GetRows(get_ids[:1])
+        mv.MV_Barrier()
+        c0 = {c: getattr(eng, c) for c in counters}
+        t0 = time.perf_counter()
+        push(mine[APPLY_WARM:])
+        gets = [t.GetRows(get_ids) for t in tables]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = {"workers": workers, "wall_s": wall}
+        res.update({c: getattr(eng, c) - c0[c] for c in counters})
+        res["pool_share"] = (res["apply_pool_inline"]
+                             / max(1, res["mh_window_exchanges"]))
+        res["digests"] = {}
+        for name, t, got in zip(names, tables, gets):
+            final = t.Get()
+            if name in oracle:
+                np.testing.assert_array_equal(
+                    final, oracle[name], err_msg=f"[ps_2proc apply] {name}")
+                np.testing.assert_array_equal(got, oracle[name][get_ids])
+            elif not np.isfinite(final).all():
+                raise AssertionError(f"[ps_2proc apply] {name}: not finite")
+            res["digests"][name] = hashlib.sha256(final.tobytes()).hexdigest()
+        torch.cuda.synchronize()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    res["launches"] = {k: cr.LAUNCHES[k] - l0[k] for k in l0}
+    return res
+
+
+def ps2_codec_turns(torch, mv, base: list, rank: int, seed: int) -> list:
+    """[ps_2proc compress]: the add table at the PS shape, [ps_2proc]'s
+    PS_ROUNDS rounds of AddRows + GetRows of the rank's PS_IDS ids, in a
+    world a turn of CODEC_TURNS: the window codecs off, ``-mv_compress``
+    alone (bitwise the first turn), and with every table lossy-opted
+    (int8 window values: within the int8 bound of the first turn, summed
+    over both ranks' Adds, max|row| / 254 an element of each row, and not
+    equal to it). Returns each turn's round times, exchange seconds, the
+    window bytes before and after the codecs (``compress.stats()``) and
+    its table's digest; the first turn's table must equal the oracle."""
+    import hashlib
+
+    from multiverso_tpu_torch.parallel import compress
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.zoo import Zoo
+    batches = [[ps2_batch(seed, r, k) for r in range(PS_ROUNDS)]
+               for k in range(2)]
+    _, oracle, _ = ps2_oracle(batches, 0.5)
+    bound = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    for k in range(2):
+        for ids, deltas in batches[k]:
+            bound[ids] += np.abs(deltas).max(axis=1, keepdims=True) / 254
+    turns = []
+    for turn in CODEC_TURNS:
+        flags = {"off": [], "lossless": ["-mv_compress=true"],
+                 "lossy": ["-mv_compress=true",
+                           "-mv_compress_lossy=all"]}[turn]
+        mv.MV_Init(base + flags)
+        try:
+            table = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                        num_cols=PS_COLS))
+            eng = Zoo.Get().server_engine
+            compress.reset_stats()
+            x0 = eng.xw_busy_s
+            round_ms = []
+            for ids, deltas in batches[rank]:
+                t0 = time.perf_counter()
+                table.AddRows(ids, deltas)
+                table.GetRows(ids)
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+            st = compress.stats()
+            final = table.Get()
+            res = {"turn": turn, "round_ms": round_ms,
+                   "exchange_s": eng.xw_busy_s - x0,
+                   "pre_bytes": st["compress.pre_bytes.window"],
+                   "post_bytes": st["compress.post_bytes.window"],
+                   "digest": hashlib.sha256(final.tobytes()).hexdigest()}
+            torch.cuda.synchronize()
+        finally:
+            mv.MV_ShutDown(finalize_net=False)
+        if turn == "off":
+            np.testing.assert_array_equal(final, oracle)
+        elif turn == "lossy":
+            err = np.abs(final - oracle)
+            res["max_err"] = float(err.max())
+            res["max_err_over_bound"] = float(
+                (err / np.maximum(bound, 1e-30)).max())
+            if not (err <= bound * 1.0001).all() or err.max() == 0:
+                raise AssertionError(f"[ps_2proc compress] lossy turn: "
+                                     f"error {err.max()} against the int8 "
+                                     f"bound")
+        turns.append(res)
+    return turns
+
+
+def kv_keys(seed: int, rank: int) -> tuple:
+    """[kv_2proc device]'s (keys, integer deltas) of ``rank``: half the
+    KV_DEVICE_KEYS keys shared with the peer, half its own."""
+    half = KV_DEVICE_KEYS // 2
+    shared = np.random.default_rng([seed, 800]).integers(0, 1 << 40, half)
+    own = np.random.default_rng([seed, 801, rank]).integers(0, 1 << 40, half)
+    keys = np.concatenate([shared, own + ((rank + 1) << 41)]).astype(np.int64)
+    deltas = np.random.default_rng([seed, 802, rank]).integers(
+        -3, 4, KV_DEVICE_KEYS).astype(np.float32)
+    return keys, deltas
+
+
+def kv2_device(torch, mv, base: list, rank: int, seed: int) -> dict:
+    """[kv_2proc device]: a KV table on the card; this rank resolves its
+    KV_DEVICE_KEYS keys with ``device_slots(create=True)`` (collective:
+    the union in rank order, one shared bucket), places the global batch
+    with device deltas, scatter-adds it (the deterministic segment sums)
+    and gathers it; a twin KV table takes the same deltas through the
+    host Add. Both tables' values at both ranks' keys must be bitwise
+    equal, and this rank's lanes of the gather its keys' values."""
+    import hashlib
+
+    from multiverso_tpu_torch.tables import KVTableOption
+    dev = torch.device("cuda", 0)
+    keys, deltas = kv_keys(seed, rank)
+    n = len(keys)
+    mv.MV_Init(base)
+    try:
+        kv = mv.MV_CreateTable(KVTableOption())
+        twin = mv.MV_CreateTable(KVTableOption())
+        srv = kv.server()
+        if srv.device_values().device != dev:
+            raise AssertionError("[kv_2proc device] the KV table is not on "
+                                 "cuda:0")
+        mv.MV_Barrier()
+        res = {}
+        t0 = time.perf_counter()
+        slots = srv.device_slots(keys, create=True)
+        res["slots_s"] = time.perf_counter() - t0
+        b = len(slots)
+        pad = torch.zeros(b, dtype=torch.float32, device=dev)
+        pad[:n] = torch.from_numpy(deltas).to(dev)
+        t0 = time.perf_counter()
+        gslots, gdeltas = srv.device_place_slots(slots, pad)
+        torch.cuda.synchronize()
+        res["place_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv.device_set_values(srv.device_scatter_add_slots(
+            srv.device_values(), gslots, gdeltas))
+        torch.cuda.synchronize()
+        res["scatter_add_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gathered = srv.device_gather_slots(srv.device_values(), gslots)
+        torch.cuda.synchronize()
+        res["gather_s"] = time.perf_counter() - t0
+        mine = gathered[rank * b: rank * b + n].cpu().numpy()
+        t0 = time.perf_counter()
+        twin.Add(keys, deltas)
+        res["twin_add_s"] = time.perf_counter() - t0
+        np.testing.assert_array_equal(mine, kv.Get(keys),
+                                      err_msg="[kv_2proc device] own lanes")
+        every = np.concatenate([kv_keys(seed, k)[0] for k in range(2)])
+        values = kv.Get(every)
+        np.testing.assert_array_equal(values, twin.Get(every),
+                                      err_msg="[kv_2proc device] twin")
+        res.update(bucket=b, keys=n, table_keys=srv.size,
+                   capacity=srv.capacity,
+                   digest=hashlib.sha256(values.tobytes()).hexdigest())
+        torch.cuda.synchronize()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    return res
+
+
+def mh_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
+    """One rank of [ps_2proc apply], [ps_2proc compress] and [kv_2proc
+    device] (``--rank-child R --child-phase mh``), on ``cuda:0`` beside
+    its peer, one world a turn on one process group; the launch counts
+    zeroed before each phase and read after it."""
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2"]
+    res = {"rank": rank}
+    mine = apply_batches(seed, rank)
+    oracle = apply_oracles(seed)
+    cr.reset_launches()
+    res["apply"] = [ps2_apply_turn(torch, mv, cr, base, w, rank, seed, mine,
+                                   oracle) for w in APPLY_TURNS]
+    res["apply_launches"] = dict(cr.LAUNCHES)
+    del mine, oracle
+    cr.reset_launches()
+    res["compress"] = ps2_codec_turns(torch, mv, base, rank, seed)
+    res["compress_launches"] = dict(cr.LAUNCHES)
+    cr.reset_launches()
+    res["kv"] = kv2_device(torch, mv, base, rank, seed)
+    res["kv_launches"] = dict(cr.LAUNCHES)
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set on the two-process table paths")
+    mv.MV_ShutDown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print(f"[mh_2proc rank {rank}] ok", flush=True)
+    return 0
+
+
+def mh_2proc_phase(seed: int, workdir: str) -> dict:
+    """[ps_2proc apply], [ps_2proc compress] and [kv_2proc device]: both
+    ranks (``rank_children``), then the checks across them: every table
+    bitwise equal across the ranks and the apply turns, pool jobs only at
+    more than one worker, the lossless codec turn bitwise the plain one,
+    the KV values equal on both ranks; each rank launching the row gather,
+    the scatter-set and the update on the apply turns, the gather and the
+    update on the codec turns. Returns the ranks and each path's launches
+    summed over them."""
+    ranks = rank_children("mh", seed, workdir)
+    first = ranks[0]["apply"][0]["digests"]
+    for r in ranks:
+        for t in r["apply"]:
+            if t["digests"] != first:
+                raise AssertionError(f"[ps_2proc apply] rank {r['rank']} at "
+                                     f"{t['workers']} workers: tables differ "
+                                     f"from rank 0's first turn")
+            pooled = t["apply_pool_jobs"] > 0
+            if pooled != (t["workers"] > 1):
+                raise AssertionError(f"[ps_2proc apply] rank {r['rank']} at "
+                                     f"{t['workers']} workers: "
+                                     f"{t['apply_pool_jobs']} pool jobs")
+        codec = {t["turn"]: t for t in r["compress"]}
+        if codec["lossless"]["digest"] != codec["off"]["digest"]:
+            raise AssertionError("[ps_2proc compress] -mv_compress alone "
+                                 "changed the table")
+        if codec["lossless"]["pre_bytes"] or not codec["lossy"]["pre_bytes"]:
+            raise AssertionError("[ps_2proc compress] the lossy codec ran "
+                                 "on the wrong turn")
+        for k, needs in (("apply_launches", ("gather_rows",
+                                             "scatter_set_rows",
+                                             "update_rows")),
+                         ("compress_launches", ("gather_rows",
+                                                "update_rows"))):
+            for kern in needs:
+                if r[k][kern] == 0:
+                    raise AssertionError(f"{k}: rank {r['rank']} never "
+                                         f"launched {kern}")
+    for turn in range(len(CODEC_TURNS)):
+        if len({r["compress"][turn]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"[ps_2proc compress] the ranks differ on "
+                                 f"the {CODEC_TURNS[turn]} turn")
+    if ranks[0]["kv"]["digest"] != ranks[1]["kv"]["digest"]:
+        raise AssertionError("[kv_2proc device] the ranks' values differ")
+    launches = {path: {k: sum(r[f"{key}_launches"][k] for r in ranks)
+                       for k in ranks[0][f"{key}_launches"]}
+                for path, key in (("ps_2proc_apply", "apply"),
+                                  ("ps_2proc_compress", "compress"),
+                                  ("kv_2proc_device", "kv"))}
+    return {"ranks": ranks, "launches": launches}
+
+
+def report_mh_2proc(mh: dict, card: str) -> None:
+    """The lines of [ps_2proc apply], [ps_2proc compress] and [kv_2proc
+    device], each naming the card."""
+    for r in mh["ranks"]:
+        for t in r["apply"]:
+            log(f"[ps_2proc apply] rank {r['rank']} -mv_apply_workers="
+                f"{t['workers']}: {APPLY_ROUNDS - APPLY_WARM} timed rounds x "
+                f"4 tables of {BURST_IDS}-id fire-and-forget AddRows + 4 "
+                f"GetRows of {PS_IDS} ids in {t['wall_s']:.4f} s; the "
+                f"engine's apply "
+                f"{t['apply_busy_s']:.4f} s, exchange {t['xw_busy_s']:.4f} "
+                f"s; {t['mh_window_exchanges']} windows, "
+                f"{t['apply_pool_inline']} took the pool (share "
+                f"{t['pool_share']:.3f}) with {t['apply_pool_jobs']} pool "
+                f"jobs + {t['apply_pool_inline']} inline; launches "
+                f"{t['launches']} ({card})")
+        for w in sorted(set(APPLY_TURNS)):
+            walls = [t["wall_s"] for t in r["apply"] if t["workers"] == w]
+            apply_s = [t["apply_busy_s"] for t in r["apply"]
+                       if t["workers"] == w]
+            log(f"[ps_2proc apply] rank {r['rank']} -mv_apply_workers={w}: "
+                f"median burst {np.median(walls):.4f} s, median apply "
+                f"{np.median(apply_s):.4f} s ({card})")
+        for t in r["compress"]:
+            ratio = (f", window bytes {t['pre_bytes']} -> {t['post_bytes']}"
+                     f" (ratio {t['post_bytes'] / t['pre_bytes']:.4f})"
+                     if t["pre_bytes"] else "")
+            err = (f", max error {t['max_err']:.6g} = "
+                   f"{t['max_err_over_bound']:.4f} of the int8 bound"
+                   if "max_err" in t else "")
+            log(f"[ps_2proc compress] rank {r['rank']} {t['turn']}: round "
+                f"median {np.median(t['round_ms']):.3f} ms "
+                f"{[round(x, 3) for x in t['round_ms']]}, exchange "
+                f"{t['exchange_s']:.4f} s{ratio}{err} ({card})")
+        kv = r["kv"]
+        log(f"[kv_2proc device] rank {r['rank']}: {kv['keys']} keys a rank "
+            f"(half shared), {kv['table_keys']} in the table (capacity "
+            f"{kv['capacity']}), bucket {kv['bucket']}: device_slots "
+            f"{kv['slots_s']:.4f} s, device_place_slots "
+            f"{kv['place_s']:.4f} s, scatter-add {kv['scatter_add_s']:.4f} "
+            f"s, gather {kv['gather_s']:.4f} s; the twin's host Add "
+            f"{kv['twin_add_s']:.4f} s ({card})")
+    log("[ps_2proc apply] every table bitwise equal across the ranks and "
+        "the turns; add and sgd == the oracle; pool jobs only at 4 workers")
+    log("[ps_2proc compress] -mv_compress alone bitwise the plain turn; the "
+        "lossy turn bitwise equal across the ranks, inside the int8 bound")
+    log("[kv_2proc device] values bitwise equal across the ranks and to the "
+        "twin's host Adds; each rank's lanes of the global gather == its "
+        "keys' values")
 
 
 def ckpt_tables(mv):
@@ -3812,9 +4220,12 @@ def main() -> int:
     ap.add_argument("--rank-child", type=int, default=-1,
                     help="run one rank of a two-process phase (the script "
                          "starts both itself)")
-    ap.add_argument("--child-phase", default="ps", choices=("ps", "lr", "we"),
+    ap.add_argument("--child-phase", default="ps",
+                    choices=("ps", "mh", "lr", "we"),
                     help="the two-process phase of --rank-child: "
-                         "[ps_2proc], [lr_2proc] or [we_2proc]")
+                         "[ps_2proc]; [ps_2proc apply], [ps_2proc "
+                         "compress] and [kv_2proc device]; [lr_2proc] or "
+                         "[we_2proc]")
     ap.add_argument("--port", type=int, default=0,
                     help="a two-process phase's rank 0 rendezvous port")
     ap.add_argument("--workdir", default="",
@@ -3827,9 +4238,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.rank_child >= 0:
-        if args.child_phase == "ps":
-            return ps_2proc_rank(args.rank_child, args.port, args.seed,
-                                 args.json_out)
+        if args.child_phase in ("ps", "mh"):
+            return {"ps": ps_2proc_rank, "mh": mh_2proc_rank}[
+                args.child_phase](args.rank_child, args.port, args.seed,
+                                  args.json_out)
         return {"lr": lr_2proc_rank, "we": we_2proc_rank}[args.child_phase](
             args.rank_child, args.port, args.seed, args.json_out,
             args.workdir)
@@ -4094,6 +4506,18 @@ def main() -> int:
             "across the ranks; BSP i-th GetRows == the oracle after both "
             "ranks' i-th Adds; MV_Aggregate (2 ranks x 2 threads) == the "
             "exact sum")
+        # the rest of the multi-process table surface: the parallel window
+        # apply, the window codecs, the KV device verbs (each path's
+        # launches zeroed before it in each rank)
+        mh = mh_2proc_phase(args.seed, workdir)
+        results["mh_2proc"] = mh
+        paths.update(mh["launches"])
+        for name, counts in mh["launches"].items():
+            log(f"[main path] {name}: launches {counts} (both ranks)"
+                + (" (the KV device verbs run no row kernel: index_select "
+                   "and the segment sums, XLA in the JAX package)"
+                   if name == "kv_2proc_device" else ""))
+        report_mh_2proc(mh, card)
         ck = drive("ckpt", lambda: ckpt_phase(torch, mv, cr, dev, args.seed,
                                               workdir), every)
         results["ckpt"] = ck

@@ -15,13 +15,15 @@ Value tags (the JAX package's bytes for the tags the port sends)::
     l  list: u32 count + values
     t  bool (u8)    i  int (i64)    f  float (f64)
     s  str / b  bytes: i64 length + raw
+    q  compressed ndarray: i64 envelope length + a ``parallel/compress.py``
+       envelope; decoded EAGERLY (the consumer gets the reconstructed
+       array, and an unknown codec tag fails inside the envelope)
     p  pickle fallback (anything else: exotic options, user payloads,
        arrays whose dtype the flat header cannot represent)
 
-The JAX package's ``v`` (a value deferred to the device wire) and ``q`` (an
-int8-compressed value, ``-mv_compress``) are not ported: the port's windows
-ride the host wire uncompressed, and a blob carrying either tag fails to
-decode with an error that says so.
+The JAX package's ``v`` (a value deferred to the device wire) is not
+ported: the port's windows ride the host wire, and a blob carrying it fails
+to decode with an error that says so.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ import struct
 from typing import Optional, Tuple
 
 import numpy as np
+
+from multiverso_tpu_torch.parallel.compress import (CompressedArray,
+                                                    decode_array)
 
 _U8 = struct.Struct("<B")
 _U32 = struct.Struct("<I")
@@ -93,6 +98,10 @@ def encode_value(parts: list, v, ext: Optional[Extension] = None) -> None:
             parts.append(v.tobytes())  # memoryview can't cast 0-d
         else:
             parts.append(memoryview(v).cast("B"))
+    elif isinstance(v, CompressedArray):
+        parts.append(b"q")
+        parts.append(_I64.pack(len(v.blob)))
+        parts.append(v.blob)
     elif ext is not None and ext.encode(parts, v):
         pass
     elif isinstance(v, dict):
@@ -197,12 +206,12 @@ def decode_value(cur: _Cursor, ext: Optional[Extension] = None):
     if tag == b"p":
         (n,) = cur.unpack(_I64)
         return pickle.loads(bytes(cur.take(n)))
-    if tag in (b"v", b"q"):
-        what = ("a device-wire value" if tag == b"v"
-                else "a compressed window value")
-        raise ValueError(f"wire tag {tag!r} ({what}) is not ported yet: "
-                         f"the port's windows ride the host wire "
-                         f"uncompressed")
+    if tag == b"q":
+        (n,) = cur.unpack(_I64)
+        return decode_array(cur.take(n))
+    if tag == b"v":
+        raise ValueError("wire tag b'v' (a device-wire value) is not ported "
+                         "yet: the port's windows ride the host wire")
     if ext is not None:
         ok, val = ext.decode(tag, cur)
         if ok:

@@ -21,8 +21,7 @@ What this module provides:
   than the timeout in local work before its next collective) is treated
   as lost too;
 * identity: ``process_index``/``process_count``,
-  ``world_rank``/``world_size``, and ``require_one_process`` for the paths
-  whose multi-process branch is not ported yet;
+  ``world_rank``/``world_size``;
 * the host collectives: ``host_barrier``, ``host_allreduce_sum``,
   ``host_allgather_bytes``/``host_allgather_objects`` and the
   standing-cap window exchange ``capped_exchange``;
@@ -187,17 +186,6 @@ def world_rank() -> int:
 
 def world_size() -> int:
     return process_count()
-
-
-def require_one_process(what: str) -> None:
-    """``what`` has no multi-process branch in the port yet: in a world of
-    several processes it raises on every rank instead of running a
-    single-process program in each (which would let the replicas drift
-    apart)."""
-    if process_count() > 1:
-        raise NotImplementedError(
-            f"{what} in a multi-process world ({process_count()} processes) "
-            f"is not ported yet (ROADMAP.md §1)")
 
 
 def _wire_mode() -> str:

@@ -33,6 +33,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from multiverso_tpu_torch.parallel.compress import CompressedArray
 from multiverso_tpu_torch.parallel.flat import (Extension, _Cursor,
                                                 decode_value, encode_value)
 from multiverso_tpu_torch.parallel.seal import check_crc, seal_frame
@@ -79,10 +80,10 @@ _EXT = _OptionExt()
 
 def payload_nbytes(payload: dict) -> int:
     """Array bytes a verb payload carries: the engine's window byte
-    budget counts these."""
+    budget counts these, and a compressed value at its envelope's size."""
     total = 0
     for v in payload.values():
-        if isinstance(v, np.ndarray):
+        if isinstance(v, (np.ndarray, CompressedArray)):
             total += v.nbytes
         elif isinstance(v, dict):       # compressed row payloads
             total += sum(a.nbytes for a in v.values()

@@ -57,11 +57,18 @@ head-marker exchange, whether or not the pipeline is busy when it arrives
 (``Server._dispatch``), so a rank at a barrier while a peer exchanges
 verbs fails loudly instead of deadlocking. An exchange thread (``_ExchangeStage``) owns the
 collective stream and the actor thread applies: by default
-(``-mv_pipeline``) window N applies while window N+1 is exchanged, since
+(``-mv_pipeline``) up to ``-mv_pipeline_depth`` windows are exchanged
+ahead of the apply (window N applies while window N+1 is exchanged), since
 every port table's apply is local (``mh_apply_is_local``); barrier heads
 fence the pipeline. ``-mv_pipeline=0`` bounds the stage at one window, so
-each exchange waits until the previous window applied (no overlap). Any
-escape from the window stream (a divergence CHECK, a peer
+each exchange waits until the previous window applied (no overlap). A
+pipelined window that carries several tables applies them in parallel
+(``-mv_apply_workers``, ``_ApplyPool``): one job a table, its ops in
+window order, the last job inline on the actor thread, the engine's
+counters summed after every job joined. A lossy-opted table's Add values
+cross as int8 envelopes under ``-mv_compress``/``-mv_compress_lossy``
+(``parallel/compress.py``), and every rank, the sender included, applies
+the same decode. Any escape from the window stream (a divergence CHECK, a peer
 lost past the process group's timeout, a corrupted frame past its
 retries) replies the error to every waiter the stream holds and poisons
 the engine. The BSP ``SyncServer`` exchanges each verb it applies as a
@@ -93,11 +100,10 @@ count Get and Add messages), and ``epoch_for_table`` is the Get cache's
 staleness clock: the window epoch of the stream applying the table.
 ``add_messages`` counts the Add messages the engine received.
 
-Not ported (ROADMAP.md): the apply pool, the device window transport
+Not ported (ROADMAP.md): the device window transport
 (``-window_transport`` resolves to ``host``; ``device`` fails a CHECK),
-the ``-mv_compress`` window codecs, the failsafe admission gate (dedup
-window, chaos) and deadlines, and the telemetry hooks of the JAX
-engine.
+the failsafe admission gate (dedup window, chaos) and deadlines, and the
+telemetry hooks of the JAX engine.
 """
 
 from __future__ import annotations
@@ -111,8 +117,9 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from multiverso_tpu_torch.actor import Actor, ActorDied, actor_names
+from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.message import Message, MsgType, copy_result
-from multiverso_tpu_torch.parallel import multihost, wire
+from multiverso_tpu_torch.parallel import compress, multihost, wire
 from multiverso_tpu_torch.parallel.seal import WireCorruption
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
@@ -122,10 +129,22 @@ from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
 
 MV_DEFINE_bool("sync", False, "sync or async")
+# declared but dead in the reference (server.cpp:21); kept for flag parity
+MV_DEFINE_int("backup_worker_ratio", 0,
+              "ratio% of backup workers (dead flag, parity)")
 MV_DEFINE_bool("mv_pipeline", True,
                "pipelined windowed engine (multi-process worlds): apply "
                "window N while window N+1 is exchanged (false = each "
                "exchange waits until the previous window applied)")
+MV_DEFINE_int("mv_pipeline_depth", 2,
+              "pipelined engine depth: the most exchanged-but-unapplied "
+              "windows before the exchange stage waits (-mv_pipeline=0 "
+              "means 1)")
+MV_DEFINE_int("mv_apply_workers", 4,
+              "apply-stage worker pool: apply DIFFERENT tables' parts of "
+              "one exchanged window concurrently (a table's ops stay in "
+              "window order; only windows whose apply is local on every "
+              "rank); <=1 = serial apply")
 MV_DEFINE_string("window_transport", "auto",
                  "windowed-engine Add-value transport: auto / host resolve "
                  "to the host exchange; device is not ported yet")
@@ -158,10 +177,6 @@ MV_DEFINE_int("mv_get_staleness", 0,
               "from the stream")
 
 _INF = float("inf")
-
-#: exchanged but not yet applied windows before the exchange stage waits,
-#: under -mv_pipeline (without it: 1, no overlap)
-PIPELINE_DEPTH = 2
 
 #: apply-stage poll while an exchange is in flight: the actor keeps
 #: draining its mailbox (feeding the NEXT window) between polls
@@ -227,6 +242,40 @@ class VectorClock:
         return f"global {self._global} local: {local}"
 
 
+class _ApplyPool:
+    """Daemon threads draining one queue of apply jobs (the JAX package's
+    ``_ApplyPool``): a job wedged in a native call must not keep the
+    process from exiting, so no ``concurrent.futures``. A job reports
+    through its box: ``done`` set, and ``result`` or ``error``."""
+
+    def __init__(self, workers: int, name: str):
+        self._q: MtQueue = MtQueue()
+        self.workers = max(1, workers)
+        for i in range(self.workers):
+            threading.Thread(target=self._loop, daemon=True,
+                             name=f"mvt-apply-{name}-{i}").start()
+
+    def submit(self, fn) -> dict:
+        box = {"done": threading.Event()}
+        self._q.Push((fn, box))
+        return box
+
+    def _loop(self) -> None:
+        while True:
+            ok, item = self._q.Pop()
+            if not ok:
+                return
+            fn, box = item
+            try:
+                box["result"] = fn()
+            except BaseException as exc:    # raised again by the waiter
+                box["error"] = exc
+            box["done"].set()
+
+    def shutdown(self) -> None:
+        self._q.Exit()
+
+
 class _StageKilled(Exception):
     """The apply stage killed the exchange stage after a fatal engine
     error; the actor has already failed every waiter."""
@@ -245,7 +294,8 @@ class _ExchangeStage:
     * ``("verbs", [msgs])`` — admitted Get/Add messages join the pending
       deque; the thread packs a window from it, exchanges it, agrees on
       the cross-rank prefix and emits ``("window", mine, windows, prefix,
-      descs0, t0)``; verbs past the prefix lead the next exchange;
+      descs0, local)`` (``local``: the window's apply is local on every
+      rank); verbs past the prefix lead the next exchange;
     * ``("barrier", msg)`` — a non-verb head: every pending verb goes
       first, then the head-marker exchange, then ``("barrier", msg)``;
     * ``("stop", None)`` — exit.
@@ -253,7 +303,7 @@ class _ExchangeStage:
     After a barrier, or a window whose apply is not local, the thread
     FENCES: no further collective until the actor reports that item
     applied (the decision comes from exchanged bytes, so every rank
-    fences at the same items). ``PIPELINE_DEPTH`` (1 under
+    fences at the same items). ``-mv_pipeline_depth`` (1 under
     ``-mv_pipeline=0``) bounds the exchanged-but-unapplied items. Any
     escape parks the stage (``dead``) and emits ``("error", exc)``.
     """
@@ -268,7 +318,6 @@ class _ExchangeStage:
         self._fence_at = 0
         self._cv = threading.Condition()
         self._killed = False
-        self._depth = PIPELINE_DEPTH if GetFlag("mv_pipeline") else 1
         self.dead: Optional[BaseException] = None
         self._thread = threading.Thread(
             target=self._main, name=f"mvt-engine-exchange{srv.slot}",
@@ -304,8 +353,11 @@ class _ExchangeStage:
         self._in.Exit()
 
     def _gate(self) -> None:
-        """Before any new collective: the fence and the depth bound."""
-        target = max(self._fence_at, self._emitted - self._depth + 1)
+        """Before any new collective: the fence and the depth bound (read
+        live, so a changed flag takes effect at the next window)."""
+        depth = (max(1, int(GetFlag("mv_pipeline_depth")))
+                 if GetFlag("mv_pipeline") else 1)
+        target = max(self._fence_at, self._emitted - depth + 1)
         with self._cv:
             self._cv.wait_for(lambda: self._applied >= target
                               or self._killed)
@@ -355,17 +407,17 @@ class _ExchangeStage:
     def _exchange_one(self) -> None:
         srv = self._srv
         self._gate()
-        t0 = time.perf_counter()
         local, used = srv._mh_pack_window(list(self._pending))
         windows = srv._mh_exchange_decode(local)
         prefix, descs0 = srv._mh_agree(windows)
         for _ in range(prefix):
             self._pending.popleft()
         self._emitted += 1
-        if not srv._mh_window_is_local(descs0):
+        is_local = srv._mh_window_is_local(descs0)
+        if not is_local:
             self._fence_at = self._emitted
         self.out.Push(("window", used[:prefix], windows, prefix, descs0,
-                       t0))
+                       is_local))
 
 
 class Server(Actor):
@@ -400,6 +452,12 @@ class Server(Actor):
         self.mh_channel = 0
         #: window Add runs applied as one merged dispatch
         self.add_runs_merged = 0
+        #: the parallel window apply (``-mv_apply_workers``): its pool,
+        #: the jobs handed to the pool and the jobs run inline on the
+        #: actor thread (one a parallel window)
+        self._apply_pool: Optional[_ApplyPool] = None
+        self.apply_pool_jobs = 0
+        self.apply_pool_inline = 0
         # -- the multi-process window stream (module docstring) --
         #: standing exchange capacities per window-head key; they evolve
         #: from exchanged data only, identically on every rank
@@ -541,6 +599,11 @@ class Server(Actor):
         if self._ex_stage is not None:
             self._ex_stage.stop()
         super().Stop()
+        # no join: the drain above applied every window, and the workers
+        # are daemons
+        pool, self._apply_pool = self._apply_pool, None
+        if pool is not None:
+            pool.shutdown()
 
     # -- the multi-process windowed protocol (module docstring) -------------
 
@@ -602,8 +665,12 @@ class Server(Actor):
                           "pipeline completion order desync (engine bug)")
                     self._dispatch(item[1])
                 else:
-                    _, mine, windows, prefix, descs0, t0 = item
-                    self._mh_apply_window(mine, windows, prefix, descs0)
+                    # a window local on every rank (the stage's
+                    # rank-agreed decision) may apply its tables in
+                    # parallel
+                    _, mine, windows, prefix, descs0, is_local = item
+                    self._mh_apply_window(mine, windows, prefix, descs0,
+                                          parallel_ok=is_local)
                     for m in mine:
                         CHECK(fed.popleft() is m,
                               "pipeline completion order desync (engine "
@@ -615,7 +682,7 @@ class Server(Actor):
 
     def _mh_collective_window(self, msg: Message) -> None:
         """A one-verb window on the actor thread (the BSP engine): pack,
-        exchange, agree, apply."""
+        exchange, agree, apply (serially)."""
         local, used = self._mh_pack_window([msg])
         windows = self._mh_exchange_decode(local)
         prefix, descs0 = self._mh_agree(windows)
@@ -637,22 +704,32 @@ class Server(Actor):
 
     def _mh_pack_window(self, verbs):
         """``(local, used)``: the packed ``(kind, table, payload)`` records
-        under the byte budget and the messages they came from (>= 1)."""
+        under the byte budget and the messages they came from (>= 1). An
+        Add of a lossy-opted table carries its values as an int8 envelope
+        under ``-mv_compress`` (``compress.pack_window_values``), counted
+        at the envelope's size; the packed payload stays on the message, so
+        a verb cut by the budget or the peers' prefix is not packed or
+        counted again."""
         local, used, packed = [], [], 0
         for i, m in enumerate(verbs):
+            kind = "A" if m.msg_type is MsgType.Request_Add else "G"
+            if kind == "A":
+                m.payload = compress.pack_window_values(m.table_id,
+                                                        m.payload)
             nbytes = wire.payload_nbytes(m.payload)
             if packed + nbytes > self.MH_WINDOW_BYTES and i > 0:
                 break
             packed += nbytes
-            local.append(("A" if m.msg_type is MsgType.Request_Add else "G",
-                          m.table_id, m.payload))
+            local.append((kind, m.table_id, m.payload))
             used.append(m)
         return local, used
 
     def _mh_exchange_decode(self, local) -> list:
         """Encode, exchange and decode one window; every rank's verb list
-        in rank order (this rank's own records verbatim). A frame failing
-        its seal re-runs the whole collective exchange."""
+        in rank order (this rank's own records verbatim, but for
+        compressed values, which it decodes as its peers do, so every
+        replica applies the same reconstruction). A frame failing its seal
+        re-runs the whole collective exchange."""
         my_rank = multihost.world_rank()
         last_exc = None
         for attempt in range(1 + self.MH_WIRE_RETRIES):
@@ -666,7 +743,7 @@ class Server(Actor):
                 windows = []
                 for i, b in enumerate(blobs):
                     if i == my_rank:
-                        windows.append(local)
+                        windows.append(compress.materialize_window(local))
                         continue
                     head_kind, head_mt = wire.decode_head_kind(b)
                     CHECK(head_kind == "window",
@@ -717,20 +794,43 @@ class Server(Actor):
                 return False       # a bad table id: its verb fails alone
         return True
 
-    def _mh_apply_window(self, verbs, windows, prefix, descs0) -> None:
-        """Apply an exchanged window's agreed prefix in op order: a table's
-        Adds as one run at its first Add's position, its Gets grouped
-        before and after that run (no Get observes less than strict order
-        would show it). Replies go to this rank's own messages; failures
-        reply per position, identically on every rank."""
+    def _mh_apply_window(self, verbs, windows, prefix, descs0,
+                         parallel_ok: bool = False) -> None:
+        """Apply an exchanged window's agreed prefix: a table's Adds as one
+        run at its first Add's position, its Gets grouped before and after
+        that run (no Get observes less than strict order would show it).
+        Replies go to this rank's own messages; failures reply per
+        position, identically on every rank. With ``parallel_ok`` (the
+        window's apply is local on every rank) and more than one table,
+        the tables apply concurrently on the ``-mv_apply_workers`` pool;
+        otherwise the ops run in position order on this thread."""
         t0 = time.perf_counter()
         my_rank = multihost.world_rank()
         self.mh_window_verbs += prefix
+        parts_at = [[w[i][2] for w in windows] for i in range(prefix)]
+        ops = self._mh_window_ops(descs0)
+        n_tables = len({tid for _, tid, _ in ops})
+        if (parallel_ok and n_tables > 1
+                and int(GetFlag("mv_apply_workers")) > 1):
+            merged = self._mh_apply_parallel(ops, parts_at, verbs, my_rank)
+        else:
+            merged = self._mh_run_ops(ops, parts_at, verbs, my_rank)
+        self.mh_add_run_merged += merged
+        self.apply_busy_s += time.perf_counter() - t0
+        self.window_epoch += 1
+
+    @staticmethod
+    def _mh_window_ops(descs0) -> list:
+        """The window's op list in first-position order, shared by the
+        serial and the parallel apply: ``("A", tid, positions)`` once a
+        table (its merged Add run), ``("G", tid, positions)`` once a
+        (table, before/after its Add run) Get group. Within a table this is
+        its serial order: the Gets before the run, the run, the Gets
+        after."""
         add_pos: Dict[int, list] = {}
         for i, (kind, tid) in enumerate(descs0):
             if kind == "A":
                 add_pos.setdefault(tid, []).append(i)
-        parts_at = [[w[i][2] for w in windows] for i in range(prefix)]
         groups: Dict[tuple, list] = {}
         ops = []
         for i, (kind, tid) in enumerate(descs0):
@@ -743,25 +843,90 @@ class Server(Actor):
                 groups[(tid, seg)] = []
                 ops.append(("G", tid, groups[(tid, seg)]))
             groups[(tid, seg)].append(i)
+        return ops
+
+    def _mh_run_ops(self, ops, parts_at, verbs, my_rank: int) -> int:
+        """Run window ops in the given order: the serial apply's body and
+        each parallel job's. Returns the Add runs applied merged (summed
+        by the caller: pool jobs write no engine counter)."""
+        merged = 0
         for kind, tid, positions in ops:
             if kind == "A":
-                self._mh_add_run(tid, positions, parts_at, verbs, my_rank)
+                merged += self._mh_add_run(tid, positions, parts_at, verbs,
+                                           my_rank)
             else:
                 self._mh_get_group(tid, positions, parts_at, verbs, my_rank)
-        self.apply_busy_s += time.perf_counter() - t0
-        self.window_epoch += 1
+        return merged
+
+    def _mh_job(self, ops, parts_at, verbs, my_rank: int) -> int:
+        """One table's ops as a parallel job, issuing on the table's
+        device: a pool thread's current CUDA device is otherwise the
+        process default."""
+        try:
+            dev = getattr(self.store_[ops[0][1]], "device", None)
+        except IndexError:
+            dev = None      # a bad table id: its verbs fail in the ops
+        if dev is None or dev.type != "cuda":
+            return self._mh_run_ops(ops, parts_at, verbs, my_rank)
+        import torch
+        with torch.cuda.device(dev):
+            return self._mh_run_ops(ops, parts_at, verbs, my_rank)
+
+    def _ensure_apply_pool(self) -> _ApplyPool:
+        """The pool at the live ``-mv_apply_workers`` size (2..16), rebuilt
+        between windows when the flag changed (every earlier job has
+        joined, so the retired pool's queue is empty)."""
+        want = max(2, min(int(GetFlag("mv_apply_workers")), 16))
+        pool = self._apply_pool
+        if pool is None or pool.workers != want:
+            if pool is not None:
+                pool.shutdown()
+            pool = self._apply_pool = _ApplyPool(want, self.name)
+        return pool
+
+    def _mh_apply_parallel(self, ops, parts_at, verbs, my_rank: int) -> int:
+        """The parallel apply: the op list regrouped into one job a table
+        (its ops in their serial order), the jobs run concurrently, the
+        last inline on this thread. Reached only for windows whose apply
+        is local on every rank, where different tables share no state and
+        issue no collective, so the cross-table order was never
+        observable. A job's escape is raised again here; the wait is
+        bounded by ``-mv_deadline_s``. Returns the merged Add runs."""
+        jobs: Dict[int, list] = {}
+        for op in ops:
+            jobs.setdefault(op[1], []).append(op)
+        job_lists = list(jobs.values())
+        pool = self._ensure_apply_pool()
+        boxes = [pool.submit(lambda j=j: self._mh_job(j, parts_at, verbs,
+                                                      my_rank))
+                 for j in job_lists[:-1]]
+        self.apply_pool_jobs += len(boxes)
+        self.apply_pool_inline += 1
+        merged = self._mh_job(job_lists[-1], parts_at, verbs, my_rank)
+        limit = fdeadline.timeout_or_none()
+        t0 = time.perf_counter()
+        for box in boxes:
+            left = (None if limit is None
+                    else max(0.0, limit - (time.perf_counter() - t0)))
+            if not box["done"].wait(left):
+                fdeadline.raise_deadline("the parallel window apply (a "
+                                         "table's apply job never finished)")
+            if "error" in box:
+                raise box["error"]
+            merged += box["result"]
+        return merged
 
     def _mh_add_run(self, tid: int, positions, parts_at, verbs,
-                    my_rank: int) -> None:
+                    my_rank: int) -> int:
         """A table's window-worth of collective Adds: merged across
         positions and ranks when the table accepts, per position
-        otherwise."""
+        otherwise. Returns 1 when the run applied merged, else 0."""
         try:
             table = self.store_[tid]
         except IndexError as exc:
             for p in positions:
                 verbs[p].reply(exc)
-            return
+            return 0
         if len(positions) > 1:
             try:
                 merged = table.ProcessAddRunParts(
@@ -770,12 +935,11 @@ class Server(Actor):
                 Log.Error("table %d merged parts Add failed: %r", tid, exc)
                 for p in positions:
                     verbs[p].reply(exc)
-                return
+                return 0
             if merged:
-                self.mh_add_run_merged += 1
                 for p in positions:
                     verbs[p].reply(None)
-                return
+                return 1
         for p in positions:
             try:
                 table.ProcessAddParts(parts_at[p], my_rank)
@@ -784,6 +948,7 @@ class Server(Actor):
                 verbs[p].reply(exc)
                 continue
             verbs[p].reply(None)
+        return 0
 
     def _mh_get_group(self, tid: int, positions, parts_at, verbs,
                       my_rank: int) -> None:

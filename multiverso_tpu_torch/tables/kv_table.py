@@ -34,7 +34,16 @@ resolves its keys to a padded slot vector once (``device_slots``), places
 it (``device_place_slots``) and gathers from / scatter-adds into the live
 values (``device_values``). The verbs bypass the engine: the caller owns
 the table while using them. Resolve with ``create=True`` BEFORE taking
-``device_values()``: growth replaces the values tensor.
+``device_values()``: growth replaces the values tensor. Across processes
+the verbs are COLLECTIVE, as in the JAX package: ``device_slots`` merges
+every rank's keys in rank order (one shared bucket), ``device_place_slots``
+returns the GLOBAL batch (every rank's slots and deltas in rank order, the
+part the JAX package places as a batch-sharded array), and
+``device_scatter_add_slots`` applies that batch to the local replica with
+the deterministic segment sums, so the replicas stay bitwise equal. A rank
+reads its own lanes of a gathered global batch at ``[rank * bucket,
+(rank + 1) * bucket)``. ``device_set_values`` stays local: every rank sets
+the same values on its replica.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch
 
 from multiverso_tpu_torch import native
 from multiverso_tpu_torch.parallel import multihost
+from multiverso_tpu_torch.ops.rows import scatter_add_rows
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
@@ -86,6 +96,11 @@ class KVServerTable(ServerTable):
         self._nat_index_tried = False
         self._values = torch.zeros(self.capacity, dtype=self._tdtype,
                                    device=self._device)
+
+    @property
+    def device(self) -> torch.device:
+        """Where the values live (the CPU for a 64-bit table)."""
+        return self._device
 
     # -- slot management ------------------------------------------------------
 
@@ -277,30 +292,69 @@ class KVServerTable(ServerTable):
 
     def device_slots(self, keys, create: bool = False, *,
                      bucket: Optional[int] = None) -> np.ndarray:
-        """keys -> bucket-padded int32 slot vector (pad and absent lanes
-        -> the trash slot). Creating slots outside the engine is not
-        ported across processes: the ranks' slot maps would drift."""
+        """keys -> bucket-padded int32 slot vector (pad and absent lanes ->
+        the trash slot: a gather's caller masks them, a scatter-add's
+        deltas there must be zero). Collective across processes with
+        ``create=True`` or without ``bucket``: one tagged all-gather of
+        every rank's keys; ``create`` adds their union in rank order on
+        every rank (the host Add's rule, so the slot maps stay identical),
+        and the vectors share ONE bucket, the global longest key batch's.
+        An explicit ``bucket`` with ``create=False`` issues no
+        collective."""
         self._check_device_plane()
-        if create:
-            multihost.require_one_process("device_slots(create=True)")
         keys = np.asarray(keys, np.int64).ravel()
+        if multihost.world_size() > 1 and (create or bucket is None):
+            parts = multihost.host_allgather_objects_capped(keys,
+                                                            "kv_slots")
+            if create:
+                self._slots_for(np.concatenate(parts), create=True)
+            if bucket is None:
+                bucket = next_bucket(max(len(p) for p in parts))
         return self._pad_slots(self._slots_for(keys, create=create), bucket)
 
     def device_place_slots(self, padded_slots, deltas=None, *, dtype=None):
         """A padded slot vector (and optional delta vector) -> tensors on
-        the table's device; device deltas stay where they are."""
+        the table's device; device deltas stay where they are. Collective
+        across processes: the GLOBAL batch, every rank's slots (and
+        deltas) concatenated in rank order, every rank passing the shared
+        bucket of ``device_slots``."""
         self._check_device_plane()
         slots = np.asarray(padded_slots, np.int32).ravel()
+        if deltas is not None:
+            if isinstance(deltas, torch.Tensor):
+                CHECK(tuple(deltas.shape) == slots.shape,
+                      "device_place_slots: size mismatch")
+            else:
+                deltas = np.asarray(deltas, dtype or self.dtype).ravel()
+                CHECK(deltas.size == slots.size,
+                      "device_place_slots: size mismatch")
+        if multihost.world_size() > 1:
+            slots, deltas = self._global_batch(slots, deltas)
         gslots = torch.from_numpy(slots.astype(np.int64)).to(self._device)
         if deltas is None:
             return gslots
         if isinstance(deltas, torch.Tensor):
-            CHECK(tuple(deltas.shape) == slots.shape,
-                  "device_place_slots: size mismatch")
             return gslots, deltas.to(self._device)
-        d = np.asarray(deltas, dtype or self.dtype).ravel()
-        CHECK(d.size == slots.size, "device_place_slots: size mismatch")
-        return gslots, torch.from_numpy(d).to(self._device)
+        return gslots, torch.from_numpy(deltas).to(self._device)
+
+    @staticmethod
+    def _global_batch(slots: np.ndarray, deltas):
+        """Every rank's (slots, deltas) in rank order: one tagged
+        all-gather of host copies (device deltas cross in one D2H)."""
+        if isinstance(deltas, torch.Tensor):
+            deltas = deltas.detach().cpu().numpy()
+        parts = multihost.host_allgather_objects_capped((slots, deltas),
+                                                        "kv_place")
+        CHECK(all(len(p[0]) == len(slots) for p in parts),
+              f"device_place_slots: the ranks' buckets differ "
+              f"{[len(p[0]) for p in parts]}; pass device_slots' shared "
+              f"bucket on every rank")
+        CHECK(all((p[1] is None) == (deltas is None) for p in parts),
+              "device_place_slots: some ranks passed deltas, some did not")
+        slots = np.concatenate([p[0] for p in parts])
+        if deltas is not None:
+            deltas = np.concatenate([p[1] for p in parts])
+        return slots, deltas
 
     def device_values(self) -> torch.Tensor:
         """The live values tensor (take it fresh after any host-plane
@@ -309,7 +363,8 @@ class KVServerTable(ServerTable):
         return self._values
 
     def device_set_values(self, values: torch.Tensor) -> None:
-        multihost.require_one_process("device_set_values")
+        """Install ``values`` as the live values (local: across processes
+        every rank sets the same values on its own replica)."""
         self._check_device_plane()
         CHECK(tuple(values.shape) == (self.capacity,),
               f"values shape {tuple(values.shape)} != capacity "
@@ -325,14 +380,19 @@ class KVServerTable(ServerTable):
         """values[slots] (mask the trash lanes yourself)."""
         return values.index_select(0, padded_slots)
 
-    @staticmethod
-    def device_scatter_add_slots(values: torch.Tensor,
+    def device_scatter_add_slots(self, values: torch.Tensor,
                                  padded_slots: torch.Tensor,
                                  padded_deltas: torch.Tensor
                                  ) -> torch.Tensor:
         """values[slots] += deltas IN PLACE (duplicates accumulate; pad
-        lanes' deltas must be zero); returns ``values``."""
-        multihost.require_one_process("device_scatter_add_slots")
+        lanes' deltas must be zero); returns ``values``. Across processes
+        ``padded_slots``/``padded_deltas`` are the global batch of
+        ``device_place_slots``, applied with the deterministic segment
+        sums (``index_add_``'s CUDA atomics sum duplicates in an undefined
+        order, and the replicas must stay bitwise equal)."""
+        if multihost.world_size() > 1:
+            return scatter_add_rows(values, padded_slots, padded_deltas,
+                                    deterministic=True)
         return values.index_add_(0, padded_slots, padded_deltas)
 
     @property

@@ -44,6 +44,17 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   (which on Python 3.12 sees the engine's exchange threads: the host
   functions the exchange time goes to) and rank 1 beside it, with the
   engine's seconds in the window exchange and in the apply,
+* ps_2proc_apply: chip_smoke.py's [ps_2proc apply] burst (the add, sgd,
+  momentum and AdaGrad tables at the PS shape, APPLY_ROUNDS rounds of
+  fire-and-forget AddRows of BURST_IDS ids a rank to each table in turn,
+  then a GetRows of PS_IDS ids on each) in a world of two ranks of this
+  script (``--rank-child --child-phase apply``) a turn, at
+  ``-mv_apply_workers`` 4 and 1 (APPLY_PROFILE_TURNS): after a warm-up
+  burst, rank 0's burst under the profiler and cProfile (on Python 3.12
+  it sees the apply pool's threads): device idle, the engine's apply and
+  exchange seconds, pool and inline jobs, the host functions; whether
+  the interpreter lock serializes the pool's jobs shows as apply seconds
+  that do not fall at 4 workers;
 * lr_2proc, we_2proc: chip_smoke.py's [lr_2proc] runs (the LR device
   plane, dense and sparse, on unequal shards; FTRL on the collective host
   KV verbs) and [we_2proc] runs (-device_pairs 1 -use_adagrad 1 at
@@ -93,8 +104,8 @@ most host time, for WE the seconds the trainer waited on the block
 loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
-parse, ckpt, ps_compress, ps_2proc, lr_2proc, we_2proc, serve, ps_combine,
-binding, bsp (default: all).
+parse, ckpt, ps_compress, ps_2proc, ps_2proc_apply, lr_2proc, we_2proc,
+serve, ps_combine, binding, bsp (default: all).
 """
 
 from __future__ import annotations
@@ -770,27 +781,30 @@ def ps_2proc_rank(torch, rank: int, port: int, seed: int, out: str,
 def profile_ps_2proc(seed: int, out: str) -> list:
     """Both ranks of the ps_2proc profile, one world a wire of PS2_WIRES;
     returns rank 0's profile of each with rank 1's round time."""
-    return [profile_ps_2proc_wire(seed, out, wire) for wire in PS2_WIRES]
+    out_ranks = [_two_ranks(seed, out, f"ps_2proc_{wire}",
+                            ["--wire", wire]) for wire in PS2_WIRES]
+    return [dict(r0, rank1_round_ms=r1["round_ms"]) for r0, r1 in out_ranks]
 
 
-def profile_ps_2proc_wire(seed: int, out: str, wire: str) -> dict:
+def _two_ranks(seed: int, out: str, tag: str, extra: list) -> list:
+    """Both ranks of a two-process profile (this script's ``--rank-child``
+    with ``extra``); returns their JSON results."""
     import socket
     import subprocess
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    outs = [os.path.join(out, f"ps_2proc_{wire}_rank{r}.json")
-            for r in range(2)]
+    outs = [os.path.join(out, f"{tag}_rank{r}.json") for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
          "--port", str(port), "--seed", str(seed), "--out", outs[r],
-         "--wire", wire])
+         *extra])
         for r in range(2)]
     try:
         for r, p in enumerate(procs):
             if p.wait(600) != 0:
-                raise AssertionError(f"ps_2proc {wire} rank {r} failed "
+                raise AssertionError(f"{tag} rank {r} failed "
                                      f"(exit {p.returncode})")
     finally:
         for p in procs:
@@ -801,7 +815,73 @@ def profile_ps_2proc_wire(seed: int, out: str, wire: str) -> dict:
     for path in outs:
         with open(path) as f:
             ranks.append(json.load(f))
-    return dict(ranks[0], rank1_round_ms=ranks[1]["round_ms"])
+    return ranks
+
+
+def ps_2proc_apply_rank(torch, rank: int, port: int, seed: int, out: str,
+                        workers: int) -> int:
+    """One rank of the ps_2proc_apply profile (``--rank-child
+    --child-phase apply``) at ``-mv_apply_workers=workers``: a warm-up
+    burst, then chip_smoke.py's [ps_2proc apply] burst, rank 0's under the
+    profilers."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    from chip_smoke import (APPLY_KINDS, APPLY_WARM, PS_COLS, PS_ROWS,
+                            apply_batches, ps2_batch)
+    mv.MV_Init([f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+                "-dist_size=2", f"-mv_apply_workers={workers}",
+                "-mv_write_combine=0"])
+    try:
+        tables = [mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type=u))
+            for _, u in APPLY_KINDS]
+        opts = [None, None, AddOption(momentum=0.5),
+                AddOption(learning_rate=2.0, rho=0.25)]
+        mine = apply_batches(seed, rank)
+        get_ids = ps2_batch(seed, 3999, rank)[0]
+        eng = Zoo.Get().server_engine
+        counters = ("apply_busy_s", "xw_busy_s", "apply_pool_jobs",
+                    "apply_pool_inline", "mh_window_exchanges")
+
+        def burst(batches) -> float:
+            mv.MV_Barrier()
+            t0 = time.perf_counter()
+            for batch in batches:
+                for t, opt, (ids, deltas) in zip(tables, opts, batch):
+                    t.AddFireForget(deltas, row_ids=ids, option=opt)
+            for t in tables:
+                t.GetRows(get_ids)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        burst(mine[:APPLY_WARM])                       # warm-up
+        c0 = {c: getattr(eng, c) for c in counters}
+        if rank == 0:
+            res, wall = _profiled(torch, lambda: burst(mine[APPLY_WARM:]))
+        else:
+            wall = burst(mine[APPLY_WARM:])
+            res = {"wall_s": wall}
+        res.update({c: getattr(eng, c) - c0[c] for c in counters},
+                   rank=rank, workers=workers, burst_s=wall)
+    finally:
+        mv.MV_ShutDown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def profile_ps_2proc_apply(seed: int, out: str) -> list:
+    """Both ranks of the ps_2proc_apply profile, one world a turn of
+    APPLY_PROFILE_TURNS; rank 0's profile of each with rank 1's burst."""
+    res = []
+    for i, workers in enumerate(APPLY_PROFILE_TURNS):
+        r0, r1 = _two_ranks(seed, out, f"ps_2proc_apply{i}",
+                            ["--child-phase", "apply", "--apply-workers",
+                             str(workers)])
+        res.append(dict(r0, rank1_burst_s=r1["burst_s"]))
+    return res
 
 
 def apps_2proc_rank(torch, phase: str, rank: int, port: int, seed: int,
@@ -955,8 +1035,11 @@ def main() -> int:
     ap.add_argument("--rank-child", type=int, default=-1,
                     help="run one rank of a two-process profile (the script "
                          "starts both itself)")
-    ap.add_argument("--child-phase", default="ps", choices=("ps", "lr", "we"),
+    ap.add_argument("--child-phase", default="ps",
+                    choices=("ps", "apply", "lr", "we"),
                     help="the two-process profile of --rank-child")
+    ap.add_argument("--apply-workers", type=int, default=4,
+                    help="the apply rank child's -mv_apply_workers")
     ap.add_argument("--workdir", default="",
                     help="lr/we --rank-child: the shards' directory")
     ap.add_argument("--port", type=int, default=0)
@@ -972,6 +1055,10 @@ def main() -> int:
     args = ap.parse_args()
     if args.rank_child >= 0:
         import torch
+        if args.child_phase == "apply":
+            return ps_2proc_apply_rank(torch, args.rank_child, args.port,
+                                       args.seed, args.out,
+                                       args.apply_workers)
         if args.child_phase != "ps":
             return apps_2proc_rank(torch, args.child_phase, args.rank_child,
                                    args.port, args.seed, args.out,
@@ -1003,6 +1090,8 @@ def main() -> int:
             "ckpt": lambda: profile_ckpt(torch, args.seed),
             "ps_compress": lambda: profile_ps_compress(torch, args.seed),
             "ps_2proc": lambda: profile_ps_2proc(args.seed, args.out),
+            "ps_2proc_apply": lambda: profile_ps_2proc_apply(args.seed,
+                                                             args.out),
             "lr_2proc": lambda: profile_apps_2proc("lr", args.seed,
                                                    args.out),
             "we_2proc": lambda: profile_apps_2proc("we", args.seed,
@@ -1023,10 +1112,12 @@ def main() -> int:
 
 #: every path main() can profile, in its order
 PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
-         "ps_2proc", "lr_2proc", "we_2proc", "serve", "ps_combine",
-         "binding", "bsp")
+         "ps_2proc", "ps_2proc_apply", "lr_2proc", "we_2proc", "serve",
+         "ps_combine", "binding", "bsp")
 #: ps_2proc: one world a wire, in this order
 PS2_WIRES = ("shm", "gloo", "shm_sharded", "tcp")
+#: ps_2proc_apply: -mv_apply_workers a world, in this order
+APPLY_PROFILE_TURNS = (4, 1, 1, 4)
 #: bsp: worlds a process, and the processes' order against a baseline
 BSP_WORLDS = 3
 BSP_TURNS = ("baseline", "this", "this", "baseline") * 2
@@ -1126,6 +1217,20 @@ def report(res: dict) -> None:
         for name, calls, secs in r["top_host_functions"]:
             print(f"[ps_2proc {r['wire']}]   host function {name} "
                   f"x{calls}: {secs:.4f} s", flush=True)
+    for r in res.get("ps_2proc_apply", []):
+        tag = f"ps_2proc_apply workers={r['workers']}"
+        print(f"[{tag}] rank 0 burst {r['burst_s']:.4f} s under the "
+              f"profilers, rank 1 {r['rank1_burst_s']:.4f} s; rank 0's "
+              f"engine: apply {r['apply_busy_s']:.4f} s, exchange "
+              f"{r['xw_busy_s']:.4f} s, {r['mh_window_exchanges']} windows, "
+              f"{r['apply_pool_jobs']} pool jobs + {r['apply_pool_inline']} "
+              f"inline; device busy {r['device_busy_s']:.4f} of "
+              f"{r['wall_s']:.4f} s, idle share "
+              f"{r['device_idle_share']:.3f}", flush=True)
+        print_tops(tag, r)
+        for name, calls, secs in r["top_host_functions"]:
+            print(f"[{tag}]   host function {name} x{calls}: {secs:.4f} s",
+                  flush=True)
     for path in ("lr_2proc", "we_2proc"):
         for name, r in res.get(path, {}).items():
             st = r["collective"]

@@ -1,6 +1,8 @@
 """One rank of a two-process world, for tests/test_torch_multihost.py,
 tests/test_torch_windowed.py, tests/test_torch_mh_logreg.py,
-tests/test_torch_mh_wordembedding.py and tests/test_torch_serving_mh.py.
+tests/test_torch_mh_wordembedding.py, tests/test_torch_serving_mh.py,
+tests/test_torch_apply_pool.py (mode ``apply``) and
+tests/test_torch_mh_kv_device.py (mode ``kv_device``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -101,6 +103,15 @@ def break_wire(kind):
             raise OSError(f"simulated {kind} wire setup failure")
 
     setattr(mod, name, Broken)
+
+
+def set_flag(name, value):
+    """SetCMDFlag of PKG's flag registry."""
+    if PKG == "jax":
+        from multiverso_tpu.utils.configure import SetCMDFlag
+    else:
+        from multiverso_tpu_torch.utils.configure import SetCMDFlag
+    SetCMDFlag(name, value)
 
 
 def tables_mod():
@@ -399,9 +410,7 @@ def run_wiring(mv):
     collectives (each rank's own batch, every replica the merge); a tagged
     agreement and a collective write whose Add options diverge, each
     failing on every rank; LR with ``compress=`` starting on its
-    compressed table; then the unported multi-process paths (the KV device
-    writes), each failing loudly on every rank and leaving the replica as
-    it was."""
+    compressed table; then the KV device verbs as collectives."""
     import torch
     tables, AddOption, GetOption, Zoo = tables_mod()
     from multiverso_tpu_torch.parallel import multihost as mh
@@ -490,24 +499,21 @@ def run_wiring(mv):
         assert app.model.table.server().compress == "sparse"
     finally:
         app.close()
-    slots = ksrv.device_place_slots(ksrv.device_slots([3]))
-    unported = {
-        "device_slots(create=True)": lambda: ksrv.device_slots(
-            [RANK + 10], create=True),
-        "device_set_values": lambda: ksrv.device_set_values(
-            ksrv.device_values()),
-        "device_scatter_add_slots": lambda: ksrv.device_scatter_add_slots(
-            ksrv.device_values(), slots, torch.ones(len(slots))),
-    }
-    for name, call in unported.items():
-        try:
-            call()
-        except NotImplementedError as exc:
-            assert name in str(exc) and "not ported yet" in str(exc), exc
-        else:
-            raise AssertionError(f"{name} ran in a multi-process world")
+    # the KV device verbs, collective: each rank creates its own key and
+    # both add to key 3 through the global batch
+    slots = ksrv.device_slots([RANK + 10, 3], create=True)
+    assert len(slots) == 8 and ksrv.size == 3, (slots, ksrv.size)
+    deltas = torch.zeros(len(slots))
+    deltas[:2] = RANK + 1.0
+    gslots, gdeltas = ksrv.device_place_slots(slots, deltas)
+    assert gslots.shape == (16,) and gdeltas.shape == (16,)
+    ksrv.device_set_values(ksrv.device_scatter_add_slots(
+        ksrv.device_values(), gslots, gdeltas))
     np.testing.assert_array_equal(kv.Get(np.array([3, 10, 11], np.int64)),
-                                  [2.0, 0.0, 0.0])
+                                  [5.0, 1.0, 2.0])
+    mine = ksrv.device_gather_slots(ksrv.device_values(), gslots)
+    np.testing.assert_array_equal(mine[RANK * 8: RANK * 8 + 2].numpy(),
+                                  [RANK + 1.0, 5.0])
     mv.MV_Barrier()
 
 
@@ -818,7 +824,187 @@ def run_compress(mv):
         np.abs(a - b).max(), np.abs(b).max())
     ws = one.server().wire_stats
     assert ws["payload_bytes"] < ws["dense_bytes"], ws
+    run_lossy_windows(mv, mat)
     check_wire()
+
+
+def run_lossy_windows(mv, mat):
+    """``-mv_compress`` with one table lossy-opted (``-mv_compress_lossy``):
+    its Add values cross the windows as int8 rows, every rank (the sender
+    too) applies the same decode, beside a lossless twin; the table stays
+    within the int8 bound of its twin (per Add and row, max|row| / 254 an
+    element) and the error is not zero (the codec engaged)."""
+    lossy, twin = mat(), mat()
+    set_flag("mv_compress", True)
+    set_flag("mv_compress_lossy", str(lossy.table_id))
+    bound = np.zeros((128, 16), np.float32)
+    for step in range(6):
+        batches = []
+        for k in range(2):
+            gk = rng(1700, step, k)
+            batches.append((gk.choice(128, 24, replace=False).astype(
+                np.int32), gk.standard_normal((24, 16)).astype(np.float32)))
+            ids, deltas = batches[k]
+            bound[ids] += np.abs(deltas).max(axis=1, keepdims=True) / 254
+        ids, deltas = batches[RANK]
+        lossy.AddRows(ids, deltas)
+        twin.AddRows(ids, deltas)
+    results["lossy"] = lossy.Get()
+    results["lossy_twin"] = twin.Get()
+    err = np.abs(results["lossy"] - results["lossy_twin"])
+    assert (err <= bound * 1.0001 + 1e-6).all(), (err - bound).max()
+    assert err.max() > 0, "the lossy table equals its lossless twin"
+    set_flag("mv_compress", False)
+    set_flag("mv_compress_lossy", "")
+    if PKG == "torch":
+        from multiverso_tpu_torch.parallel import compress
+        st = compress.stats()
+        assert 0 < st["compress.post_bytes.window"] < \
+            0.35 * st["compress.pre_bytes.window"], st
+        results["lossy_window_bytes"] = np.array(
+            [st["compress.pre_bytes.window"],
+             st["compress.post_bytes.window"]])
+
+
+APPLY_ROUNDS = 12
+APPLY_KINDS = (("add", "default"), ("sgd", "sgd"), ("mom", "momentum"),
+               ("ada", "adagrad"))
+
+
+def apply_turn(mv, tag, bad=False):
+    """One turn of ``apply``: an add, sgd, momentum and AdaGrad table,
+    APPLY_ROUNDS rounds of fire-and-forget AddRows (integer deltas) to
+    each in turn, so a window carries several tables; with ``bad``, a
+    tracked Add to a fifth table with an id out of range in the middle of
+    the traffic, which must fail at its caller alone. Returns the engine
+    counters' deltas of the turn (the port's)."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    ts = {k: mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=ROWS, num_cols=COLS, updater_type=u))
+        for k, u in APPLY_KINDS}
+    opts = {"add": None, "sgd": None, "mom": AddOption(momentum=0.5),
+            "ada": AddOption(learning_rate=2.0, rho=0.25)}
+    bad_t = (mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=ROWS, num_cols=COLS)) if bad else None)
+    eng = Zoo.Get().server_engine
+    c0 = {k: getattr(eng, k, 0) for k in ("apply_pool_jobs",
+                                          "apply_pool_inline",
+                                          "mh_window_exchanges")}
+    oracle = {k: np.zeros((ROWS, COLS), np.float32) for k in ("add", "sgd")}
+    handle = None
+    for r in range(APPLY_ROUNDS):
+        for j, (k, _) in enumerate(APPLY_KINDS):
+            batches = [row_batch(1800 + 10 * r + j, rank) for rank in
+                       range(2)]
+            ids, deltas = batches[RANK]
+            ts[k].AddFireForget(deltas, row_ids=ids, option=opts[k])
+            if k in oracle:
+                oracle[k] += combined(*zip(*batches))
+        if bad and r == APPLY_ROUNDS // 2:
+            handle = bad_t.AddAsyncHandle(np.ones((1, COLS), np.float32),
+                                          row_ids=np.array([ROWS + 5]))
+    if bad:
+        try:
+            bad_t.Wait(handle)
+        except Exception as exc:
+            assert "out of range" in str(exc), exc
+        else:
+            raise AssertionError("an Add out of range applied")
+    out = {k: t.Get() for k, t in ts.items()}
+    np.testing.assert_array_equal(out["add"], oracle["add"])
+    np.testing.assert_array_equal(out["sgd"], -oracle["sgd"])
+    for k, v in out.items():
+        results[f"{tag}_{k}"] = v
+    return {k: getattr(eng, k, 0) - v for k, v in c0.items()}
+
+
+def run_apply(mv):
+    """The parallel window apply (``-mv_apply_workers``): the turn at the
+    default 4 workers (with the failing Add), then at 1 (and
+    ``-mv_pipeline_depth=3``); every table bitwise equal between the
+    turns; the port's pool took jobs at 4 and none at 1."""
+    four = apply_turn(mv, "w4", bad=True)
+    set_flag("mv_apply_workers", 1)
+    set_flag("mv_pipeline_depth", 3)
+    one = apply_turn(mv, "w1")
+    for k, _ in APPLY_KINDS:
+        np.testing.assert_array_equal(results[f"w4_{k}"], results[f"w1_{k}"],
+                                      err_msg=k)
+    if PKG == "torch":
+        assert four["apply_pool_jobs"] > 0, four
+        assert four["apply_pool_inline"] > 0, four
+        assert one["apply_pool_jobs"] == one["apply_pool_inline"] == 0, one
+    results["pool_w4"] = np.array([four["apply_pool_jobs"],
+                                   four["apply_pool_inline"],
+                                   four["mh_window_exchanges"]])
+    results["pool_w1"] = np.array([one["apply_pool_jobs"],
+                                   one["apply_pool_inline"],
+                                   one["mh_window_exchanges"]])
+
+
+def run_kv_device(mv):
+    """The KV device verbs as collectives (the JAX package's two-process
+    script, tests/test_multihost.py's kv part, widened): each rank
+    resolves its keys with ``create=True`` (half shared with its peer),
+    places the global batch, scatter-adds integer deltas and gathers;
+    every rank's values equal a twin table that took the same deltas
+    through the host Add, and each rank's own lanes of the global gather
+    equal its keys' values."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    kv = mv.MV_CreateTable(tables.KVTableOption())
+    twin = mv.MV_CreateTable(tables.KVTableOption())
+    ksrv = kv.server()
+    n = 600
+    for step in range(3):
+        keys = [np.concatenate([rng(1900, step).integers(0, 10 ** 6, n // 2),
+                                rng(1901, step, k).integers(0, 10 ** 6,
+                                                            n // 2)
+                                + k * 10 ** 6]).astype(np.int64)
+                for k in range(2)]
+        deltas = [rng(1902, step, k).integers(-3, 4, n).astype(np.float32)
+                  for k in range(2)]
+        slots = ksrv.device_slots(keys[RANK], create=True)
+        b = len(slots)
+        pad = np.zeros(b, np.float32)
+        pad[:n] = deltas[RANK]
+        if PKG == "jax":
+            import jax
+            from jax.sharding import NamedSharding
+            from jax.sharding import PartitionSpec as P
+            gslots, gdeltas = ksrv.device_place_slots(slots, pad)
+            vals = jax.jit(ksrv.device_scatter_add_slots,
+                           donate_argnums=(0,))(ksrv.device_values(),
+                                                gslots, gdeltas)
+            ksrv.device_set_values(vals)
+            rep = jax.jit(ksrv.device_gather_slots,
+                          out_shardings=NamedSharding(
+                              ksrv._zoo.mesh_ctx.mesh, P()))(
+                ksrv.device_values(), gslots)
+            gathered = np.asarray(rep.addressable_data(0))
+        else:
+            import torch
+            gslots, gdeltas = ksrv.device_place_slots(
+                slots, torch.from_numpy(pad) if RANK == 0 else pad)
+            assert gslots.shape == (2 * b,)
+            ksrv.device_set_values(ksrv.device_scatter_add_slots(
+                ksrv.device_values(), gslots, gdeltas))
+            gathered = ksrv.device_gather_slots(ksrv.device_values(),
+                                                gslots).numpy()
+        twin.Add(keys[RANK], deltas[RANK])
+        mine = gathered[RANK * b: RANK * b + n]
+        np.testing.assert_array_equal(mine, kv.Get(keys[RANK]))
+        results[f"mine{step}"] = mine
+    all_keys = np.concatenate([
+        np.concatenate([rng(1900, s).integers(0, 10 ** 6, n // 2),
+                        rng(1901, s, k).integers(0, 10 ** 6, n // 2)
+                        + k * 10 ** 6]) for s in range(3)
+        for k in range(2)]).astype(np.int64)
+    results["values"] = kv.Get(all_keys)
+    np.testing.assert_array_equal(results["values"], twin.Get(all_keys))
+    results["size"] = np.array(ksrv.size)
+    # an explicit bucket without create issues no collective
+    fast = ksrv.device_slots(all_keys[:5], bucket=8)
+    assert len(fast) == 8 and (fast[:5] < ksrv.capacity - 1).all()
 
 
 def run_lr_compress(mv):
@@ -991,6 +1177,7 @@ def run_we_ragged(mv):
 def main():
     extra = {"bsp": ["-sync=true"],
              "tables": ["-num_workers=2"],
+             "apply": ["-mv_write_combine=0"],
              "serving": ["-mv_serving_residence=device"]}.get(MODE, [])
     if MODE == "wiring":
         how = EXTRA[0]
@@ -1010,6 +1197,7 @@ def main():
      "combine": run_combine,
      "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
      "serving": run_serving, "wire": run_wire, "compress": run_compress,
+     "apply": run_apply, "kv_device": run_kv_device,
      "lr_compress": run_lr_compress,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)

@@ -11,7 +11,12 @@ against the JAX package's (``_mh_add_compressed_parts``).
     its uncompressed twin, across the ranks and to the JAX world; then
     ``compress="1bit"`` pushes to each rank's own rows, within the JAX
     test's bound of the twin (checked in the children) and bitwise equal
-    to the JAX world; the sparse table's wire ratio equals JAX's.
+    to the JAX world; the sparse table's wire ratio equals JAX's; then
+    ``-mv_compress`` windows with one table in ``-mv_compress_lossy``: its
+    Add values cross as int8 rows, the ranks bitwise equal to each other
+    and to the JAX world's ranks (tolerance 0: both decode the same
+    envelope bytes with the same numpy ops), within the int8 bound of a
+    lossless twin and not equal to it (checked in the children).
 (b) The same pushes on ``-mv_engine_shards=2`` (the compressed windows on
     two channels), bitwise equal to the one-engine world. The JAX
     package's sharded multi-process engine refuses compressed tables (their
@@ -33,20 +38,21 @@ from tests.test_torch_mh_logreg import ATOL, RTOL, _data
 torch.set_num_threads(1)
 
 _TABLES = ("sparse", "plain", "sparse_mom", "plain_mom", "onebit",
-           "onebit_twin")
+           "onebit_twin", "lossy", "lossy_twin")
 
 
 def _port(tmp_path, name, *flags):
     sub = tmp_path / name
     sub.mkdir()
     res, _ = run_world("torch", "compress", sub, "want=shm", *flags)
-    for key in ("sparse", "sparse_mom", "onebit"):
+    for key in ("sparse", "sparse_mom", "onebit", "lossy"):
         np.testing.assert_array_equal(res[0][key], res[1][key], err_msg=key)
     return res
 
 
 def test_sparse_and_onebit_pushes_match_jax(tmp_path):
     jres, _ = run_world("jax", "compress", tmp_path, "want=shm")
+    np.testing.assert_array_equal(jres[0]["lossy"], jres[1]["lossy"])
     tres = _port(tmp_path, "port")
     for r in range(2):
         np.testing.assert_array_equal(tres[r]["sparse"], tres[r]["plain"])

@@ -82,7 +82,6 @@ def test_single_process_identities(tmp_path, monkeypatch):
     mv.MV_Init(["-mv_device=cpu"])
     try:
         assert (mv.MV_Size(), mv.MV_Rank()) == (1, 0)
-        mh.require_one_process("device_set_values")
     finally:
         mv.MV_ShutDown()
 

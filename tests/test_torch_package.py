@@ -50,8 +50,8 @@ assert not bad, bad
 assert len(names) >= 60, names
 # the slices of the Array, KV and SparseMatrix tables and the LR app, of
 # -device_pairs and the native library bridge, of the checkpoint and the
-# compressed row wire, of the serving plane, of the binding and of the
-# host wires
+# compressed row wire, of the serving plane, of the binding, of the
+# host wires and of the window codecs
 new = {"binding", "binding.param_manager", "binding.sharedvar",
        "binding.native_bridge", "utils.async_buffer",
        "tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
@@ -63,7 +63,7 @@ new = {"binding", "binding.param_manager", "binding.sharedvar",
        "utils.quantization", "serving", "serving.store",
        "serving.snapshot", "serving.frontend", "failsafe",
        "failsafe.errors", "failsafe.deadline", "parallel.shm_wire",
-       "parallel.tcp_wire"}
+       "parallel.tcp_wire", "parallel.compress"}
 missing = {m for m in new if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 """

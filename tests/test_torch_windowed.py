@@ -3,8 +3,9 @@
 (a) the window codec in this process: the port encodes a window to the
     JAX package's bytes and each decodes the other's; a flipped bit or a
     truncation raises ``WireCorruption`` before parsing; a head-marker
-    blob decodes to its message type; a device-wire or compressed value
-    (not ported) fails to decode with an error that says so;
+    blob decodes to its message type; a device-wire value (not ported)
+    fails to decode with an error that says so, and a compressed value
+    (``-mv_compress``) decodes to the JAX package's bits;
 (b) fire-and-forget bursts on four tables (add, sgd, Array, KV) with
     tracked Gets between them, two processes, on the default pipelined
     engine and on ``-mv_pipeline=0``: the ranks' Gets bitwise equal, the
@@ -76,18 +77,21 @@ def test_window_codec_matches_jax():
     marker = wire.encode_head_barrier(33)
     assert wire.decode_head_kind(marker) == ("barrier", 33)
     assert jwire.decode_head_kind(marker) == ("barrier", 33)
-    # a JAX device-wire value and a compressed value: not ported
-    from multiverso_tpu.parallel.compress import CompressedArray
+    # a JAX device-wire value: not ported; a JAX compressed value (the q
+    # tag, -mv_compress): decoded by the port as by the JAX package
+    from multiverso_tpu.parallel.compress import (CompressedArray,
+                                                  encode_int8_rows)
     from multiverso_tpu.parallel.flat import DeferredArray
     deferred = jwire.encode_window([("A", 0, {"values": DeferredArray.of(
         vals)})])
     with pytest.raises(ValueError, match="device-wire value.*not ported"):
         wire.decode_window_seq(deferred)
     comp = jwire.encode_window([("A", 0, {"values": CompressedArray(
-        b"\x00")})])
-    with pytest.raises(ValueError, match="compressed window value.*not "
-                                         "ported"):
-        wire.decode_window_seq(comp)
+        encode_int8_rows(vals))})])
+    got = wire.decode_window_seq(comp)[1][0][2]["values"]
+    want = jwire.decode_window_seq(comp)[1][0][2]["values"]
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert 0 < np.abs(got - vals).max() <= np.abs(vals).max() / 254
 
 
 def test_bursts_on_both_engines_match_jax(tmp_path):
