@@ -188,6 +188,28 @@ holds every kernel of that path against its plain PyTorch version:
               the gather at the serve union shape (unions of the
               measured mean batch of Zipf lookups) against its plain
               version, bitwise, timed as in phase 2;
+              telemetry (``[telemetry]``): the PS round (add and
+              momentum) with the JAX package's default-on telemetry and
+              with ``-telemetry=false -mv_flight_events=0``, a world a
+              turn, ABBA twice, every GetRows equal to the oracle, the
+              medians and their ratio; in a ``-trace=true
+              -mv_ops_port=0`` world the collective metrics snapshot's
+              per-table counts equal to the verbs issued,
+              ``MV_StartProfiler``/``MV_StopProfiler`` around 2 rounds
+              (the trace's ``rows_group_kernel`` events exactly the
+              wrappers' launches there, the ``mv`` spans on the host),
+              the byte ledger (each table's device bytes its storage's,
+              208,000,208 B and twice that with momentum, at most
+              ``memory_allocated``; the probe, under a profiler of its
+              own, launches nothing) and ``/metrics``, ``/healthz``,
+              ``/memory``, ``/perf`` over HTTP; the same on/off turns of
+              ``[ps_combine]``'s combined burst and of ``[ps_2proc]``'s
+              rounds (tables bitwise equal on and off); and the port's
+              ``telemetry/critpath.py`` over both ranks' flight rings of
+              ``[ps_2proc]`` and of each ``[ps_2proc apply]`` turn (the
+              binding rank and phase, seconds blocked in the collective
+              against the codec's, ``align_err_s``, apply seconds a
+              table);
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -368,6 +390,19 @@ APPLY_ROUNDS, APPLY_WARM, APPLY_TURNS = 50, 5, (4, 1, 1, 4)
 CODEC_TURNS = ("off", "lossless", "lossy")
 # [kv_2proc device]: the keys each rank resolves on the KV device plane
 KV_DEVICE_KEYS = 1_000_000
+# [telemetry]: the flags that turn the JAX package's default-on telemetry
+# off; the PS round (AddRows + GetRows on the add and on the momentum table,
+# PS_IDS ids) with telemetry at its defaults ("on") and off, a world a
+# turn, TELE_ROUNDS rounds a world of which the first TELE_WARM are
+# untimed; the same turns of [ps_combine]'s burst (COMBINE_TELE_TURNS) and
+# of [ps_2proc]'s rounds (TELE2_TURNS); TELE_PROBE_ROUNDS rounds counted in
+# the metrics snapshot and traced under MV_StartProfiler
+TELE_OFF = ("-telemetry=false", "-mv_flight_events=0")
+TELE_TURNS = ("on", "off", "off", "on", "on", "off", "off", "on")
+TELE_ROUNDS, TELE_WARM, TELE_PROBE_ROUNDS = 23, 3, 2
+COMBINE_TELE_TURNS = ("on", "off", "off", "on")
+TELE2_TURNS = ("on", "off", "off", "on")
+TELE2_ROUNDS = 13
 
 
 def log(msg: str) -> None:
@@ -881,6 +916,114 @@ def run_threads(fn, n: int) -> None:
         raise errors[0]
 
 
+def counter(name: str) -> float:
+    """A metrics counter's process total (``telemetry/metrics.py``); a
+    phase reads the difference across its world."""
+    from multiverso_tpu_torch.telemetry import metrics
+    return metrics.counter(name).value
+
+
+def serving_stats(s0: dict, s1: dict) -> dict:
+    """The serving front-end's work between two local metrics snapshots:
+    the ``serving.*`` counters' differences, the batches and the mean
+    coalesced batch (``serving.batch_size``), and the latency p50 / p99
+    (admission to fill) from ``serving.latency_s``'s bucket differences
+    (the log-bucket estimate: within a bucket's octave)."""
+    from multiverso_tpu_torch.telemetry.metrics import N_BUCKETS, Histogram
+
+    def diff(name, key="value"):
+        return (s1.get(name, {}).get(key, 0.0)
+                - s0.get(name, {}).get(key, 0.0))
+
+    def buckets(name):
+        a = s0.get(name, {}).get("buckets", {})
+        b = s1.get(name, {}).get("buckets", {})
+        return [b.get(str(i), 0) - a.get(str(i), 0) for i in range(N_BUCKETS)]
+
+    n_batch = diff("serving.batch_size", "count")
+    n_lat = diff("serving.latency_s", "count")
+    lat = buckets("serving.latency_s")
+    return {"lookups": int(diff("serving.lookups")),
+            "shed": int(diff("serving.shed")),
+            "dispatches": int(diff("serving.dispatches")),
+            "batches": int(n_batch),
+            "mean_batch": (diff("serving.batch_size", "sum") / n_batch
+                           if n_batch else 0.0),
+            "latency_p50_s": Histogram.percentile(lat, n_lat, 0.50),
+            "latency_p99_s": Histogram.percentile(lat, n_lat, 0.99)}
+
+
+def tele_argv(turn: str) -> list:
+    """A [telemetry] turn's flags: the defaults, or telemetry off."""
+    return [] if turn == "on" else list(TELE_OFF)
+
+
+def spread(values) -> float:
+    """max / min of a configuration's turn medians (1.0 = no spread)."""
+    return float(max(values) / min(values))
+
+
+def flight_slice(path: str, since: float) -> str:
+    """Keep the header and the events recorded at or after ``since`` (wall
+    seconds) of the flight dump at ``path``: the ring is process-wide and
+    outlives worlds, and a turn's stream positions restart at SEQ 0, so
+    the offline tools must see one world's events only."""
+    with open(path) as f:
+        lines = f.readlines()
+    keep = [lines[0]] + [ln for ln in lines[1:]
+                         if json.loads(ln)["t"] >= since]
+    with open(path, "w") as f:
+        f.writelines(keep)
+    return path
+
+
+def critpath_summary(paths: list) -> dict:
+    """The port's ``telemetry/critpath.py`` over both ranks' dumps of one
+    turn: the windows, the binding rank and phase histograms, per rank the
+    seconds blocked in the exchange's collective against the codec's
+    (encode + decode) and the whole exchange, the alignment error, and the
+    apply seconds per (table, verb). Fails when the report degrades (the
+    dumps hold no common stamped window)."""
+    from multiverso_tpu_torch.telemetry import critpath
+    rep = critpath.correlate(paths)
+    if rep["degraded"] is not None or rep["n_windows"] == 0:
+        raise AssertionError(f"critpath degraded on {paths}: "
+                             f"{rep['degraded']}")
+    tot = rep["phase_totals_s"]
+    return {
+        "n_windows": rep["n_windows"],
+        "binding_rank_hist": {str(k): v for k, v in
+                              rep["binding_rank_hist"].items()},
+        "binding_phase_hist": rep["binding_phase_hist"],
+        "exchange_wait_s": {str(r): tot[r]["exchange_wait"] for r in tot},
+        "exchange_s": {str(r): tot[r]["exchange"] for r in tot},
+        "codec_s": {str(r): tot[r]["encode"] + tot[r]["decode"]
+                    for r in tot},
+        "apply_s": {str(r): tot[r]["apply"] for r in tot},
+        "wait_excess_s": {str(k): v for k, v in
+                          rep["exchange_wait_excess_s"].items()},
+        "align_err_s": rep["align_err_s"],
+        "accounted_pct": rep["accounted_pct"],
+        "tables": rep["tables_top"], "note": rep["note"]}
+
+
+def critpath_line(tag: str, c: dict, card: str) -> str:
+    """One turn's critpath verdict as a log line."""
+    tables = ", ".join(f"{t['table']} {t['verb']} {t['seconds']:.4f} s"
+                       for t in c["tables"][:6])
+    ranks = "; ".join(
+        f"rank {r}: blocked in the collective {c['exchange_wait_s'][r]:.4f} "
+        f"s of the exchange's {c['exchange_s'][r]:.4f} s, codec "
+        f"{c['codec_s'][r]:.4f} s, apply {c['apply_s'][r]:.4f} s"
+        for r in sorted(c["exchange_s"]))
+    return (f"{tag} critpath: {c['n_windows']} windows, binding ranks "
+            f"{c['binding_rank_hist']}, binding phases "
+            f"{c['binding_phase_hist']}; {ranks}; wait on a slower peer "
+            f"{c['wait_excess_s']}; align_err_s {c['align_err_s']}; "
+            f"accounted {c['accounted_pct']}%; apply by table: {tables} "
+            f"({card})")
+
+
 def shut_down(mv, what: str) -> float:
     """MV_ShutDown, bounded: a world that does not come down (a BSP drain
     that never completes) fails the phase. Returns the seconds it took."""
@@ -952,6 +1095,206 @@ def ps_phase(torch, mv, cr, dev, seed: int, argv=()) -> tuple:
     return dict(info, add_round_ms=add_ms, momentum_round_ms=mom_ms,
                 add_round_median_ms=float(np.median(add_ms)),
                 momentum_round_median_ms=float(np.median(mom_ms))), final
+
+
+def ps_tables(mv):
+    """The PS shape's add and momentum tables."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                              num_cols=PS_COLS))
+    mom = mv.MV_CreateTable(MatrixTableOption(
+        num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="momentum"))
+    return add, mom
+
+
+def tele_rounds(seed: int, n: int) -> list:
+    """[telemetry]'s rounds: n (ids, integer deltas) of PS_IDS unique
+    rows."""
+    g = np.random.default_rng([seed, 1300])
+    return [(g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32),
+             g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32))
+            for _ in range(n)]
+
+
+def tele_round(add, mom, mopt, ids, deltas) -> tuple:
+    """One PS round, host clock: AddRows + GetRows on the add table, then
+    on the momentum table. Returns (ms, the add table's rows)."""
+    t0 = time.perf_counter()
+    add.AddRows(ids, deltas)
+    got = add.GetRows(ids)
+    mom.AddRows(ids, deltas, mopt)
+    mom.GetRows(ids)
+    return (time.perf_counter() - t0) * 1e3, got
+
+
+def http_get(port: int, path: str) -> tuple:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def telemetry_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
+    """[telemetry] at the PS shape on the default engine: (1) the PS round
+    with telemetry at the JAX package's defaults and off (TELE_OFF), a
+    world a turn of TELE_TURNS (ABBA twice), every GetRows held to the
+    oracle; (2) one world at ``-trace=true -mv_ops_port=0``: the metrics
+    snapshot's per-table counts against the verbs issued;
+    ``MV_StartProfiler``/``MV_StopProfiler`` around TELE_PROBE_ROUNDS
+    rounds: the trace file's CUDA kernel events named rows_group_kernel as
+    many as the wrappers counted in that window, and the ``mv`` spans on
+    the host; the byte ledger: each table's device bytes its storage's
+    (208,000,208 B for the add table, twice that with momentum's aux
+    state), the sum in ``mem.tables.device_bytes``, at most
+    ``torch.cuda.memory_allocated()``, and the probe (under a CUDA
+    profiler of its own) launches no kernel; the ops endpoint's
+    ``/metrics``, ``/healthz``, ``/memory`` and ``/perf`` over HTTP."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiverso_tpu_torch.telemetry import accounting, metrics, ops
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    mopt = AddOption(momentum=0.5)
+    rounds = tele_rounds(seed, TELE_ROUNDS)
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    turns = []
+    for turn in TELE_TURNS:
+        oracle[:] = 0
+        mv.MV_Init(tele_argv(turn))
+        try:
+            add, mom = ps_tables(mv)
+            ms = []
+            for ids, deltas in rounds:
+                t, got = tele_round(add, mom, mopt, ids, deltas)
+                oracle[ids] += deltas
+                np.testing.assert_array_equal(got, oracle[ids],
+                                              err_msg=f"[telemetry] {turn}")
+                ms.append(t)
+            names = len(metrics.snapshot())
+        finally:
+            mv.MV_ShutDown()
+        turns.append({"turn": turn, "round_ms": ms[TELE_WARM:],
+                      "median_ms": float(np.median(ms[TELE_WARM:])),
+                      "instruments": names})
+    med = {k: [t["median_ms"] for t in turns if t["turn"] == k]
+           for k in ("on", "off")}
+    res = {"turns": turns,
+           "on_median_ms": float(np.median(med["on"])),
+           "off_median_ms": float(np.median(med["off"])),
+           "on_spread": spread(med["on"]), "off_spread": spread(med["off"])}
+    res["on_over_off"] = res["on_median_ms"] / res["off_median_ms"]
+
+    mv.MV_Init(["-trace=true", "-mv_ops_port=0"])
+    try:
+        add, mom = ps_tables(mv)
+        probe = tele_rounds(seed + 1, 2 + 2 * TELE_PROBE_ROUNDS)
+        for ids, deltas in probe[:2]:                     # warm up
+            tele_round(add, mom, mopt, ids, deltas)
+        Zoo.Get().DrainServer()
+        c0 = mv.MV_MetricsSnapshot()
+        for ids, deltas in probe[2:2 + TELE_PROBE_ROUNDS]:
+            tele_round(add, mom, mopt, ids, deltas)
+        Zoo.Get().DrainServer()
+        c1 = mv.MV_MetricsSnapshot()
+        want = {f"table.matrix{t}.{v}.count": TELE_PROBE_ROUNDS
+                for t in (0, 1) for v in ("add", "get")}
+        want["server.window.verbs"] = 4 * TELE_PROBE_ROUNDS
+        got = {k: c1[k]["value"] - c0.get(k, {"value": 0})["value"]
+               for k in want}
+        if got != want:
+            raise AssertionError(f"[telemetry] MV_MetricsSnapshot counts "
+                                 f"{got}, verbs issued {want}")
+        res["snapshot_counts"] = got
+        # the profiler around TELE_PROBE_ROUNDS rounds
+        tdir = os.path.join(workdir, "mv_profile")
+        l0 = dict(cr.LAUNCHES)
+        mv.MV_StartProfiler(tdir)
+        try:
+            for ids, deltas in probe[2 + TELE_PROBE_ROUNDS:]:
+                tele_round(add, mom, mopt, ids, deltas)
+            torch.cuda.synchronize()
+        finally:
+            path = mv.MV_StopProfiler()
+        launched = {k: cr.LAUNCHES[k] - l0[k] for k in l0}
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"
+                and "rows_group_kernel" in e.get("name", "")]
+        spans = sorted({e["name"] for e in events
+                        if e.get("cat") == "user_annotation"})
+        if len(kern) != sum(launched.values()) or not kern:
+            raise AssertionError(f"[telemetry] the profiler trace holds "
+                                 f"{len(kern)} rows_group_kernel events; "
+                                 f"the wrappers launched {launched}")
+        if not {"worker.add", "worker.get"} <= set(spans):
+            raise AssertionError(f"[telemetry] no mv spans in the trace: "
+                                 f"{spans}")
+        res["profiler"] = {"kernel_events": len(kern), "launched": launched,
+                           "kernel_names": sorted({e["name"] for e in kern}),
+                           "spans": spans,
+                           "trace_mb": os.path.getsize(path) / 1e6}
+        # the byte ledger, its probe under a CUDA profiler of its own
+        torch.cuda.synchronize()
+        l0 = dict(cr.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rep = accounting.memory_report()
+            torch.cuda.synchronize()
+        probe_kernels = sum(1 for e in prof.events()
+                            if e.device_type == DeviceType.CUDA)
+        if probe_kernels or cr.LAUNCHES != l0:
+            raise AssertionError(f"[telemetry] the ledger probe launched "
+                                 f"{probe_kernels} device events")
+        per = {r["table_id"]: r["device_bytes"]
+               for r in rep["components"]["tables"]["per_table"]}
+        storage = (PS_ROWS + 1) * (PS_COLS + 2) * 4
+        if per != {0: storage, 1: 2 * storage}:
+            raise AssertionError(f"[telemetry] ledger device bytes {per}, "
+                                 f"storage {storage} and {2 * storage}")
+        gauge = metrics.snapshot()["mem.tables.device_bytes"]["value"]
+        allocated = torch.cuda.memory_allocated()
+        if gauge != 3 * storage or gauge > allocated:
+            raise AssertionError(f"[telemetry] mem.tables.device_bytes "
+                                 f"{gauge}, allocated {allocated}")
+        res["ledger"] = {"per_table": per, "device_bytes": gauge,
+                         "allocated": allocated,
+                         "total_bytes": rep["total_bytes"]}
+        # the ops endpoint over HTTP
+        port = ops.port()
+        scrape = {}
+        for p in ("/metrics", "/healthz", "/memory", "/perf"):
+            code, body = http_get(port, p)
+            if code != 200:
+                raise AssertionError(f"[telemetry] {p}: HTTP {code}")
+            scrape[p] = body
+        samples = dict(ln.rsplit(" ", 1) for ln in
+                       scrape["/metrics"].splitlines()
+                       if not ln.startswith("#"))
+        if float(samples["mv_mem_tables_device_bytes"]) != 3 * storage:
+            raise AssertionError("[telemetry] /metrics ledger gauge")
+        health = json.loads(scrape["/healthz"])
+        perf = json.loads(scrape["/perf"])
+        if health["status"] != "ok" or "apply" not in perf["phases"]:
+            raise AssertionError(f"[telemetry] /healthz {health['status']}"
+                                 f", /perf phases {sorted(perf['phases'])}")
+        res["ops"] = {"metrics_lines": len(scrape["/metrics"].splitlines()),
+                      "health": health["status"],
+                      "memory_total_bytes": json.loads(
+                          scrape["/memory"])["total_bytes"],
+                      "perf_phases": {k: v["count"] for k, v in
+                                      perf["phases"].items()},
+                      "binding_phase": perf["binding_phase"]}
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the telemetry path")
+    finally:
+        mv.MV_ShutDown()
+    return res
 
 
 def ps_threads_phase(torch, mv, cr, dev, seed: int) -> dict:
@@ -1380,6 +1723,7 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
                for k in range(2)]
     expect, oracle_add, oracle_mom = ps2_oracle(batches, 0.5)
     cr.reset_launches()
+    since = time.time()
     t0 = time.perf_counter()
     mv.MV_Init(base)
     res["init_s"] = time.perf_counter() - t0
@@ -1415,6 +1759,9 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
                window_exchanges=eng.mh_window_exchanges,
                window_verbs=eng.mh_window_verbs,
                exchange_s=eng.xw_busy_s, engine_apply_s=eng.apply_busy_s)
+    # this world's flight ring, for the port's critpath in the parent
+    res["flight_ps"] = flight_slice(mv.MV_DumpFlightRecorder(os.path.join(
+        os.path.dirname(out), f"flight_ps_rank{rank}.jsonl")), since)
     final_add, final_mom = add.Get(), mom.Get()
     np.testing.assert_array_equal(final_add, oracle_add)
     np.testing.assert_allclose(final_mom, oracle_mom, rtol=1e-6, atol=1e-6)
@@ -1428,6 +1775,14 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     res["ps_launches"] = dict(cr.LAUNCHES)
     del oracle_mom, final_add, final_mom, expect
     mv.MV_ShutDown(finalize_net=False)      # the process group stays up
+
+    # [ps_2proc telemetry]: TELE2_ROUNDS rounds with telemetry at its
+    # defaults and off, in turns (the parent checks the tables bitwise
+    # equal across the turns and the ranks)
+    mine = [ps2_batch(seed, 5000 + r, rank) for r in range(TELE2_ROUNDS)]
+    res["tele"] = [ps2_tele_turn(mv, base, turn, mine)
+                   for turn in TELE2_TURNS]
+    del mine
 
     # [ps_2proc wires]: the same rounds on the other wires and engines, and
     # compressed, in turns
@@ -1501,6 +1856,28 @@ def ps_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
         json.dump(res, f)
     print(f"[ps_2proc rank {rank}] ok", flush=True)
     return 0
+
+
+def ps2_tele_turn(mv, base: list, turn: str, mine: list) -> dict:
+    """One [ps_2proc telemetry] turn: a round of AddRows + GetRows on fresh
+    add and momentum tables for each of this rank's batches ``mine``,
+    telemetry at its defaults ("on") or off. Returns the round times after
+    the first TELE_WARM and the final tables' digest."""
+    import hashlib
+
+    from multiverso_tpu_torch.updaters.base import AddOption
+    mopt = AddOption(momentum=0.5)
+    mv.MV_Init(base + tele_argv(turn))
+    try:
+        add, mom = ps_tables(mv)
+        ms = [tele_round(add, mom, mopt, ids, deltas)[0]
+              for ids, deltas in mine]
+        got = hashlib.sha256(add.Get().tobytes()
+                             + mom.Get().tobytes()).hexdigest()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    return {"turn": turn, "round_ms": ms[TELE_WARM:],
+            "median_ms": float(np.median(ms[TELE_WARM:])), "digest": got}
 
 
 def rank_children(phase: str, seed: int, workdir: str) -> list:
@@ -1655,7 +2032,18 @@ def ps_2proc_phase(seed: int, workdir: str) -> dict:
                                      f"launched {k}")
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
-    return {"ranks": ranks, "launches": launches}
+    if len({t["digest"] for r in ranks for t in r["tele"]}) != 1:
+        raise AssertionError("[ps_2proc telemetry] the tables differ across "
+                             "the turns or the ranks")
+    tele = {}
+    for k in ("on", "off"):
+        meds = [t["median_ms"] for r in ranks for t in r["tele"]
+                if t["turn"] == k]
+        tele[k] = {"median_ms": float(np.median(meds)),
+                   "spread": spread(meds)}
+    tele["on_over_off"] = tele["on"]["median_ms"] / tele["off"]["median_ms"]
+    return {"ranks": ranks, "launches": launches, "tele": tele,
+            "critpath": critpath_summary([r["flight_ps"] for r in ranks])}
 
 
 def apply_batches(seed: int, rank: int) -> list:
@@ -1681,7 +2069,8 @@ def apply_oracles(seed: int) -> dict:
 
 
 def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
-                   seed: int, mine: list, oracle: dict) -> dict:
+                   seed: int, mine: list, oracle: dict,
+                   flight_path: str) -> dict:
     """One [ps_2proc apply] turn: a world at ``-mv_apply_workers=workers``
     (``-mv_write_combine=0``: every push its own Add, so a window carries
     one round of the four tables), the add, sgd, momentum and AdaGrad
@@ -1691,7 +2080,9 @@ def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
     GetRows of PS_IDS ids on every table (it waits for every Add before
     it). Returns the timed burst's seconds, the engine's apply seconds,
     pool and inline jobs, windows, the tables' digests and the turn's
-    launches; the add and sgd tables must equal ``oracle``."""
+    launches; the add and sgd tables must equal ``oracle``. The world's
+    flight ring goes to ``flight_path`` (the parent runs critpath on
+    it)."""
     import hashlib
 
     from multiverso_tpu_torch.tables import MatrixTableOption
@@ -1701,6 +2092,7 @@ def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
             "adagrad": AddOption(learning_rate=2.0, rho=0.25)}
     get_ids = ps2_batch(seed, 3999, rank)[0]
     l0 = dict(cr.LAUNCHES)
+    since = time.time()
     mv.MV_Init(base + [f"-mv_apply_workers={workers}",
                        "-mv_write_combine=0"])
     try:
@@ -1709,8 +2101,9 @@ def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
             for _, u in APPLY_KINDS]
         eng = Zoo.Get().server_engine
         names = [n for n, _ in APPLY_KINDS]
-        counters = ("apply_busy_s", "xw_busy_s", "apply_pool_jobs",
-                    "apply_pool_inline", "mh_window_exchanges")
+        counters = ("apply_busy_s", "xw_busy_s", "mh_window_exchanges")
+        pool = {"apply_pool_jobs": "engine.apply_pool.jobs",
+                "apply_pool_inline": "engine.apply_pool.inline_jobs"}
 
         def push(batches):
             for batch in batches:
@@ -1722,6 +2115,7 @@ def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
             t.GetRows(get_ids[:1])
         mv.MV_Barrier()
         c0 = {c: getattr(eng, c) for c in counters}
+        p0 = {k: counter(name) for k, name in pool.items()}
         t0 = time.perf_counter()
         push(mine[APPLY_WARM:])
         gets = [t.GetRows(get_ids) for t in tables]
@@ -1729,6 +2123,8 @@ def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
         wall = time.perf_counter() - t0
         res = {"workers": workers, "wall_s": wall}
         res.update({c: getattr(eng, c) - c0[c] for c in counters})
+        res.update({k: int(counter(name) - p0[k])
+                    for k, name in pool.items()})
         res["pool_share"] = (res["apply_pool_inline"]
                              / max(1, res["mh_window_exchanges"]))
         res["digests"] = {}
@@ -1742,6 +2138,8 @@ def ps2_apply_turn(torch, mv, cr, base: list, workers: int, rank: int,
                 raise AssertionError(f"[ps_2proc apply] {name}: not finite")
             res["digests"][name] = hashlib.sha256(final.tobytes()).hexdigest()
         torch.cuda.synchronize()
+        res["flight"] = flight_slice(mv.MV_DumpFlightRecorder(flight_path),
+                                     since)
     finally:
         mv.MV_ShutDown(finalize_net=False)
     res["launches"] = {k: cr.LAUNCHES[k] - l0[k] for k in l0}
@@ -1907,8 +2305,10 @@ def mh_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     mine = apply_batches(seed, rank)
     oracle = apply_oracles(seed)
     cr.reset_launches()
-    res["apply"] = [ps2_apply_turn(torch, mv, cr, base, w, rank, seed, mine,
-                                   oracle) for w in APPLY_TURNS]
+    res["apply"] = [ps2_apply_turn(
+        torch, mv, cr, base, w, rank, seed, mine, oracle,
+        os.path.join(os.path.dirname(out), f"flight_apply{i}_rank{rank}.jsonl"))
+        for i, w in enumerate(APPLY_TURNS)]
     res["apply_launches"] = dict(cr.LAUNCHES)
     del mine, oracle
     cr.reset_launches()
@@ -1976,7 +2376,11 @@ def mh_2proc_phase(seed: int, workdir: str) -> dict:
                 for path, key in (("ps_2proc_apply", "apply"),
                                   ("ps_2proc_compress", "compress"),
                                   ("kv_2proc_device", "kv"))}
-    return {"ranks": ranks, "launches": launches}
+    critpaths = [dict(critpath_summary([r["apply"][i]["flight"]
+                                        for r in ranks]), workers=w)
+                 for i, w in enumerate(APPLY_TURNS)]
+    return {"ranks": ranks, "launches": launches,
+            "apply_critpath": critpaths}
 
 
 def report_mh_2proc(mh: dict, card: str) -> None:
@@ -2021,6 +2425,9 @@ def report_mh_2proc(mh: dict, card: str) -> None:
             f"{kv['place_s']:.4f} s, scatter-add {kv['scatter_add_s']:.4f} "
             f"s, gather {kv['gather_s']:.4f} s; the twin's host Add "
             f"{kv['twin_add_s']:.4f} s ({card})")
+    for i, c in enumerate(mh["apply_critpath"]):
+        log(critpath_line(f"[ps_2proc apply] turn {i} -mv_apply_workers="
+                          f"{c['workers']}", c, card))
     log("[ps_2proc apply] every table bitwise equal across the ranks and "
         "the turns; add and sgd == the oracle; pool jobs only at 4 workers")
     log("[ps_2proc compress] -mv_compress alone bitwise the plain turn; the "
@@ -2226,6 +2633,7 @@ def combine_turn(torch, mv, turn: str, batches, get_ids, argv=()) -> dict:
         eng = Zoo.Get().server_engine
         mopt = AddOption(momentum=0.5)
         m0 = eng.add_messages
+        h0 = counter("worker.write_combine_hits")
         t0 = time.perf_counter()
         for ids, deltas in batches:
             add.AddFireForget(deltas, row_ids=ids)
@@ -2236,8 +2644,7 @@ def combine_turn(torch, mv, turn: str, batches, get_ids, argv=()) -> dict:
         burst_s = time.perf_counter() - t0
         return {"turn": turn, "burst_s": burst_s,
                 "add_messages": eng.add_messages - m0,
-                "combine_hits": (add.worker_stats["write_combine_hits"]
-                                 + mom.worker_stats["write_combine_hits"]),
+                "combine_hits": counter("worker.write_combine_hits") - h0,
                 "add_rows": add.GetRows(get_ids),
                 "mom_rows": mom.GetRows(get_ids), "mom": mom.Get()}
     finally:
@@ -2287,6 +2694,21 @@ def ps_combine_phase(torch, mv, cr, dev, seed: int) -> dict:
     if not np.array_equal(comb[0]["mom"], comb[1]["mom"]):
         raise AssertionError("[ps_combine] the momentum table differs "
                              "between the two combined turns")
+    # the combined burst with telemetry at its defaults and off, in turns:
+    # the same tables either way
+    tele = []
+    for turn in COMBINE_TELE_TURNS:
+        r = combine_turn(torch, mv, "combined", batches, get_ids,
+                         tele_argv(turn))
+        np.testing.assert_array_equal(r["add_rows"], oracle[get_ids],
+                                      err_msg=f"[ps_combine] telemetry "
+                                              f"{turn}")
+        if not np.array_equal(r["mom"], comb[0]["mom"]):
+            raise AssertionError(f"[ps_combine] telemetry {turn}: the "
+                                 f"momentum table differs")
+        tele.append({"turn": turn, "burst_s": r["burst_s"]})
+    tmed = {k: [t["burst_s"] for t in tele if t["turn"] == k]
+            for k in ("on", "off")}
     cpu = combine_turn(torch, mv, "combined", batches, get_ids,
                        ["-mv_device=cpu"])
     np.testing.assert_allclose(comb[0]["mom"], cpu["mom"], rtol=1e-5,
@@ -2299,7 +2721,11 @@ def ps_combine_phase(torch, mv, cr, dev, seed: int) -> dict:
     for t in turns:
         del t["mom"], t["mom_rows"]
     return {"turns": turns, "momentum_card_vs_cpu_max_abs": mom_diff,
-            "cpu_add_messages": cpu["add_messages"]}
+            "cpu_add_messages": cpu["add_messages"], "tele_turns": tele,
+            "tele_on_median_s": float(np.median(tmed["on"])),
+            "tele_off_median_s": float(np.median(tmed["off"])),
+            "tele_on_spread": spread(tmed["on"]),
+            "tele_off_spread": spread(tmed["off"])}
 
 
 def ps_get_cache_phase(torch, mv, cr, dev, seed: int) -> dict:
@@ -2324,12 +2750,12 @@ def ps_get_cache_phase(torch, mv, cr, dev, seed: int) -> dict:
             oracle[ids] += deltas
         gets = []
         for _ in range(CACHE_GETS):
-            h0 = add.worker_stats["get_cache_hits"]
+            h0 = counter("worker.get_cache_hits")
             k0 = cr.LAUNCHES["gather_rows"]
             t0 = time.perf_counter()
             rows = add.GetRows(get_ids)
             gets.append({"s": time.perf_counter() - t0,
-                         "hit": add.worker_stats["get_cache_hits"] - h0,
+                         "hit": counter("worker.get_cache_hits") - h0,
                          "gathers": cr.LAUNCHES["gather_rows"] - k0,
                          "rows": rows})
         first = gets[0]
@@ -2345,11 +2771,11 @@ def ps_get_cache_phase(torch, mv, cr, dev, seed: int) -> dict:
         deltas = g.integers(-3, 4, (PS_IDS, PS_COLS)).astype(np.float32)
         add.AddRows(get_ids, deltas)
         oracle[get_ids] += deltas
-        h0, k0 = add.worker_stats["get_cache_hits"], cr.LAUNCHES["gather_rows"]
+        h0, k0 = counter("worker.get_cache_hits"), cr.LAUNCHES["gather_rows"]
         t0 = time.perf_counter()
         after = add.GetRows(get_ids)
         after_s = time.perf_counter() - t0
-        if add.worker_stats["get_cache_hits"] != h0 or \
+        if counter("worker.get_cache_hits") != h0 or \
                 cr.LAUNCHES["gather_rows"] == k0:
             raise AssertionError("[ps_get_cache] the GetRows after the "
                                  "worker's own Add did not miss")
@@ -2442,6 +2868,7 @@ def binding_phase(torch, mv, cr, dev, seed: int) -> dict:
     g = np.random.default_rng([seed, 1200])
     oracle_m = g.integers(-4, 5, (PS_ROWS, PS_COLS)).astype(np.float32)
     oracle_a = g.integers(-4, 5, PS_ROWS).astype(np.float32)
+    h0 = counter("worker.write_combine_hits")
     b.init()
     try:
         mat = b.MatrixTableHandler(PS_ROWS, PS_COLS, init_value=oracle_m)
@@ -2469,7 +2896,8 @@ def binding_phase(torch, mv, cr, dev, seed: int) -> dict:
                 oracle_a += v
             np.testing.assert_array_equal(arr.get(), oracle_a,
                                           err_msg="[binding] array")
-        hits = mat._table.worker_stats["write_combine_hits"]
+        # the matrix handler's (the array table does not combine)
+        hits = counter("worker.write_combine_hits") - h0
     finally:
         b.shutdown()
     w = BINDING_WIDTH
@@ -2530,6 +2958,7 @@ def c_abi_phase(torch, cr, dev, seed: int) -> dict:
     g = np.random.default_rng([seed, 1201])
     fptr, iptr = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
     oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    h0 = counter("worker.write_combine_hits")
     bridge = native_bridge.install(lib)
     argc = ctypes.c_int(1)
     lib.MV_Init(ctypes.byref(argc), (ctypes.c_char_p * 1)(b"chip_smoke"))
@@ -2559,7 +2988,7 @@ def c_abi_phase(torch, cr, dev, seed: int) -> dict:
                 oracle[ids] += d
             np.testing.assert_array_equal(out, oracle[ids],
                                           err_msg="[binding] C ABI rows")
-        hits = entry.worker.worker_stats["write_combine_hits"]
+        hits = counter("worker.write_combine_hits") - h0
         torch.cuda.synchronize()
         if cr.read_error(dev) != 0:
             raise AssertionError("error word set on the C ABI path")
@@ -2773,10 +3202,11 @@ def serve_phase(torch, mv, cr, dev, seed: int) -> dict:
                    publish_synced_ms=float(np.median(publish_ms)))
 
         # the traffic, then a window of it under the profiler
-        plane.frontend.reset_stats()
+        from multiverso_tpu_torch.telemetry import metrics
+        s0 = metrics.snapshot()
         traffic = serve_traffic(mv, tables, batches, cdf,
                                 SERVE_WALL_S, seed, check_residence)
-        traffic["frontend"] = plane.frontend.stats()
+        traffic["frontend"] = serving_stats(s0, metrics.snapshot())
         res["traffic"] = traffic
         _, busy, wall = device_idle(torch, lambda: serve_traffic(
             mv, tables, batches, cdf, SERVE_IDLE_S, seed + 1,
@@ -3464,8 +3894,12 @@ def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
     if not (np.array_equal(weights["lr_sparse_compress"],
                            weights["lr_sparse_host"])
             and a["epoch_loss"] == b["epoch_loss"]):
-        raise AssertionError("lr_sparse_compress: weights or epoch losses "
-                             "differ from the uncompressed run")
+        wa, wb = weights["lr_sparse_compress"], weights["lr_sparse_host"]
+        raise AssertionError(
+            f"lr_sparse_compress: weights or epoch losses differ from the "
+            f"uncompressed run: {int((wa != wb).sum())} weights differ, max "
+            f"{float(np.abs(wa - wb).max())}; losses {a['epoch_loss']} vs "
+            f"{b['epoch_loss']}")
     log("[lr_sparse_compress] final weights and every epoch's loss bitwise "
         "equal to lr_sparse_host's (uncompressed)")
     if not results["lr_softmax_1bit"]["wire_stats"].get("payload_bytes"):
@@ -4440,6 +4874,35 @@ def main() -> int:
         f"{ma['wall_s']:.4f} s; every worker holds the exact sum; "
         f"MV_CreateTable raised")
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
+        # [telemetry]: the default-on telemetry against off, the profiler,
+        # the metrics snapshot, the byte ledger and the ops endpoint
+        tele = drive("telemetry", lambda: telemetry_phase(
+            torch, mv, cr, dev, args.seed, workdir), every)
+        results["telemetry"] = tele
+        for t in tele["turns"]:
+            log(f"[telemetry] turn {t['turn']}: PS round (AddRows + GetRows "
+                f"of {PS_IDS} ids on the add and the momentum table) median "
+                f"{t['median_ms']:.4f} ms over {len(t['round_ms'])} rounds "
+                f"{[round(x, 4) for x in t['round_ms']]}; "
+                f"{t['instruments']} instruments registered ({card})")
+        log(f"[telemetry] PS round median of the turns' medians: on "
+            f"{tele['on_median_ms']:.4f} ms (spread {tele['on_spread']:.4f})"
+            f", off {tele['off_median_ms']:.4f} ms (spread "
+            f"{tele['off_spread']:.4f}); on / off {tele['on_over_off']:.4f} "
+            f"({card})")
+        pr = tele["profiler"]
+        log(f"[telemetry] MV_StartProfiler around {TELE_PROBE_ROUNDS} "
+            f"rounds: {pr['kernel_events']} CUDA kernel events "
+            f"{pr['kernel_names']} == the wrappers' launches "
+            f"{pr['launched']}; host spans {pr['spans']}; trace "
+            f"{pr['trace_mb']:.2f} MB")
+        led = tele["ledger"]
+        log(f"[telemetry] MV_MetricsSnapshot counts {tele['snapshot_counts']}"
+            f" == the verbs issued; ledger device bytes {led['per_table']} "
+            f"(the tables' storage), mem.tables.device_bytes "
+            f"{led['device_bytes']:.0f} <= memory_allocated "
+            f"{led['allocated']}; the probe launched nothing; ops endpoint "
+            f"{tele['ops']}")
         # [ps_2proc]: the two ranks count their own launches from zero
         log(f"[ps_2proc] {shm_mount_line()}; the shm wire needs 2 ranks x "
             f"2 channels x 4 MiB at most")
@@ -4467,6 +4930,20 @@ def main() -> int:
                 f"{[round(x, 4) for x in r['aggregate_s']]} s; launches on "
                 f"the PS rounds {r['ps_launches']}, on the whole rank "
                 f"{r['launches']}")
+        for r in two["ranks"]:
+            ts = r["tele"]
+            log(f"[ps_2proc telemetry] rank {r['rank']}: round medians "
+                + ", ".join(f"{t['turn']} {t['median_ms']:.4f}" for t in ts)
+                + f" ms ({card})")
+        tl = two["tele"]
+        log(f"[ps_2proc telemetry] both ranks: on {tl['on']['median_ms']:.4f}"
+            f" ms (spread {tl['on']['spread']:.4f}), off "
+            f"{tl['off']['median_ms']:.4f} ms (spread "
+            f"{tl['off']['spread']:.4f}); on / off {tl['on_over_off']:.4f}; "
+            f"{TELE2_ROUNDS - TELE_WARM} timed rounds a turn after "
+            f"{TELE_WARM}; the tables bitwise equal across the turns and "
+            f"the ranks ({card})")
+        log(critpath_line("[ps_2proc]", two["critpath"], card))
         report_wire_turns(two["ranks"])
         for r in two["ranks"]:
             turns = r["burst"]
@@ -4607,6 +5084,13 @@ def main() -> int:
             f"{t['burst_s']:.4f} s; the engine received {t['add_messages']} "
             f"Add messages for {2 * BURST_VERBS} pushes, combine hits "
             f"{t['combine_hits']}; add table GetRows == oracle")
+    log(f"[ps_combine] telemetry turns (combined): "
+        + ", ".join(f"{t['turn']} {t['burst_s']:.4f} s"
+                    for t in pcomb["tele_turns"])
+        + f"; on median {pcomb['tele_on_median_s']:.4f} s (spread "
+        f"{pcomb['tele_on_spread']:.4f}), off "
+        f"{pcomb['tele_off_median_s']:.4f} s (spread "
+        f"{pcomb['tele_off_spread']:.4f}); tables bitwise equal ({card})")
     log(f"[ps_combine] momentum table bitwise equal across the combined "
         f"turns; card vs the same combined burst on the CPU max abs diff "
         f"{pcomb['momentum_card_vs_cpu_max_abs']:.3g} (rtol 1e-5, atol "

@@ -19,7 +19,11 @@ row pushes (``compress="sparse"|"1bit"``), and the serving plane
 ``MV_PublishSnapshot``/``MV_ServingLookup``), with worker-side write
 combining and the staleness-bounded Get cache at the JAX package's
 defaults, and the reference-compatible binding (``binding``: the Python
-handlers, the param managers, and the C ABI's backend bridge), on one GPU,
+handlers, the param managers, and the C ABI's backend bridge), and the
+telemetry plane (``telemetry``: metrics, spans, the flight recorder, the
+ops endpoint, the byte ledger, the watchdog, the offline critpath and
+forensics tools) with ``MV_StartProfiler`` over ``torch.profiler``, on one
+GPU,
 and in worlds of several processes over ``torch.distributed`` (gloo), each
 process keeping a replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
@@ -30,8 +34,12 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_Aggregate,
     MV_Barrier,
     MV_CreateTable,
+    MV_DumpDiagnostics,
+    MV_DumpFlightRecorder,
+    MV_DumpTrace,
     MV_Init,
     MV_LoadCheckpoint,
+    MV_MetricsSnapshot,
     MV_MultiAdd,
     MV_MultiAddAsync,
     MV_MultiGet,
@@ -51,6 +59,8 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_SetFlag,
     MV_ShutDown,
     MV_Size,
+    MV_StartProfiler,
+    MV_StopProfiler,
     MV_UnpinVersion,
     MV_WorkerContext,
     MV_WorkerId,

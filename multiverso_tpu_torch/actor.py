@@ -4,15 +4,23 @@ port's own copy of ``multiverso_tpu/actor.py``, reference actor.h:18-57).
 Only the server engine is an actor: it serializes Get/Add application onto
 the device-resident store, the single-writer discipline the reference's
 server mailbox provided.
+
+Telemetry as in the JAX actor: the ``actor.<name>.mailbox_depth`` gauge,
+the ``actor.<name>.queue_wait_s`` histogram, the ``actor.<name>.messages``
+and ``actor.<name>.deaths`` counters, the ``actor.<name>.dispatch`` span
+parented to the message's ``trace_ctx``, and the ``actor.poison`` flight
+event when the loop thread dies.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import traceback
 from typing import Callable, Dict, Optional
 
 from multiverso_tpu_torch.message import Message, MsgType
+from multiverso_tpu_torch.telemetry import flight, metrics, trace
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
 
@@ -46,6 +54,12 @@ class Actor:
         #: raises ActorDied instead of enqueueing into a dead thread
         self._poison: Optional[BaseException] = None
         self._current_msg: Optional[Message] = None
+        # mailbox backlog and how long messages sat in it (the actor-side
+        # half of a verb's latency; the other half is the dispatch span)
+        self._m_depth = metrics.gauge(f"actor.{name}.mailbox_depth")
+        self._m_qwait = metrics.histogram(f"actor.{name}.queue_wait_s")
+        self._m_received = metrics.counter(f"actor.{name}.messages")
+        self._span_name = f"actor.{name}.dispatch"
 
     def RegisterHandler(self, msg_type: MsgType,
                         handler: Callable[[Message], None]) -> None:
@@ -75,30 +89,51 @@ class Actor:
         ``ActorDied`` when the loop thread is dead."""
         if self._poison is not None:
             raise ActorDied(self.name, self._poison) from self._poison
+        msg._enq_t = time.perf_counter()
         self.mailbox.Push(msg)
+        self._m_received.inc()
+        self._m_depth.set(self.mailbox.Size())
         if self._poison is not None:
             # lost the race with a dying loop thread: fail what is queued
             self._fail_pending(self._poison)
+
+    def note_dequeue(self, msg: Message) -> None:
+        """Telemetry at the moment a message leaves the mailbox: its queue
+        wait, the refreshed depth gauge and the end of its flow arrow.
+        Once per message (an engine drains a window with TryPop and then
+        passes the head back through ``_dispatch``)."""
+        if msg._enq_t:
+            self._m_qwait.observe(time.perf_counter() - msg._enq_t)
+            msg._enq_t = 0.0
+            self._m_depth.set(self.mailbox.Size())
+            trace.flow_end(msg.trace_ctx)
 
     def _dispatch(self, msg: Message) -> None:
         """Route one message through its handler; a failure replies to
         the caller's Wait() instead of killing the loop, unless it carries
         ``mv_fatal``: then the loop dies and every queued waiter fails."""
+        self.note_dequeue(msg)
         handler = self._handlers.get(msg.msg_type)
         if handler is None:
             Log.Error("actor %s: unhandled message type %s", self.name,
                       msg.msg_type)
             return
-        try:
-            handler(msg)
-        except Exception as exc:
-            if getattr(exc, "mv_fatal", False):
-                # the handler left the actor unsound (a multi-process
-                # window stream desynced): the loop dies and poisons
-                raise
-            Log.Error("actor %s: handler for %s raised: %r", self.name,
-                      msg.msg_type, exc)
-            msg.reply(exc)
+        # the span's args are built only when tracing is on: this is the
+        # one span entry on the per-message path
+        with trace.span(self._span_name, cat="actor",
+                        parent=msg.trace_ctx,
+                        args=({"msg_type": int(msg.msg_type)}
+                              if trace.enabled() else None)):
+            try:
+                handler(msg)
+            except Exception as exc:
+                if getattr(exc, "mv_fatal", False):
+                    # the handler left the actor unsound (a multi-process
+                    # window stream desynced): the loop dies and poisons
+                    raise
+                Log.Error("actor %s: handler for %s raised: %r", self.name,
+                          msg.msg_type, exc)
+                msg.reply(exc)
 
     def _fail_pending(self, original: BaseException) -> None:
         died = ActorDied(self.name, original)
@@ -124,6 +159,9 @@ class Actor:
                 self._current_msg = None
         except BaseException as exc:
             self._poison = exc
+            metrics.counter(f"actor.{self.name}.deaths").inc()
+            flight.record("actor.poison",
+                          detail=f"{self.name}: {type(exc).__name__}")
             Log.Error("actor %s: loop thread died, poisoning mailbox:\n%s",
                       self.name, traceback.format_exc())
             self.mailbox.Exit()

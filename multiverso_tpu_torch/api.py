@@ -6,9 +6,11 @@ model-average aggregation, programmatic flags, batched verbs, worker
 contexts, checkpoint/resume of every table, the launcher-free net
 wiring of a multi-process world (``MV_NetBind``/``MV_NetConnect``/
 ``MV_NetFinalize``) and the serving plane (``MV_PublishSnapshot``,
-``MV_ServingLookup``, ``MV_PinVersion``, ``MV_UnpinVersion``). The rest of
-the JAX surface (profiler, telemetry, elastic, policy) is later work
-(``ROADMAP.md``).
+``MV_ServingLookup``, ``MV_PinVersion``, ``MV_UnpinVersion``), the
+profiler (``MV_StartProfiler``/``MV_StopProfiler`` over
+``torch.profiler``) and the telemetry verbs (``MV_MetricsSnapshot``,
+``MV_DumpTrace``, ``MV_DumpFlightRecorder``, ``MV_DumpDiagnostics``). The
+rest of the JAX surface (elastic, policy) is later work (``ROADMAP.md``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -17,6 +19,8 @@ with neither and no CUDA device it raises.
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -24,7 +28,7 @@ import numpy as np
 from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.utils.configure import (ResetFlagsToDefaults,
                                                   SetCMDFlag)
-from multiverso_tpu_torch.utils.log import CHECK
+from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.zoo import Zoo
 
 
@@ -212,3 +216,129 @@ def MV_MultiGet(ops, option=None) -> list:
 def MV_WorkerContext(worker_id: int):
     """Bind the calling thread to a worker id for the ``with`` block."""
     return Zoo.Get().worker_context(worker_id)
+
+
+_profiler_lock = threading.Lock()
+#: the running trace: {"prof", "logdir", "cuda", "launches"} or None
+_profiler: Optional[dict] = None
+
+
+def _world_on_cuda() -> bool:
+    """Whether the profiler traces the card: the running world's device,
+    or (no world) whether the process has a card at all."""
+    zoo = Zoo.Get()
+    if zoo.started and zoo.device_ctx is not None:
+        return zoo.device_ctx.device.type == "cuda"
+    import torch
+    return torch.cuda.is_available()
+
+
+def _all_threads():
+    """A Kineto config that records every thread's ``record_function``
+    ranges (the engine shards, the exchange stage and the apply pool run
+    off the caller's thread), or None on a torch without the option (the
+    caller thread's spans and every kernel are recorded either way)."""
+    import torch
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
+def MV_StartProfiler(logdir: str) -> None:
+    """Start a ``torch.profiler`` trace into ``logdir``: the host's
+    activity, and the card's (``ProfilerActivity.CUDA``) in a world on a
+    CUDA device. One trace at a time: a second start fails the CHECK.
+    While it runs, every telemetry span also enters a
+    ``torch.profiler.record_function`` of its name (telemetry/trace.py),
+    so the ``mv`` spans sit on the timeline beside the kernels they
+    launched. Only one profiler runs in a process: never call this inside
+    another ``torch.profiler.profile``."""
+    global _profiler
+    import torch
+    from multiverso_tpu_torch.ops import cuda_rows
+    from multiverso_tpu_torch.telemetry import trace as ttrace
+    with _profiler_lock:
+        CHECK(_profiler is None,
+              "MV_StartProfiler: a profiler trace is already active — "
+              "one trace at a time (call MV_StopProfiler first)")
+        cuda = _world_on_cuda()
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        prof = torch.profiler.profile(activities=acts,
+                                      experimental_config=_all_threads())
+        prof.start()
+        _profiler = {"prof": prof, "logdir": logdir, "cuda": cuda,
+                     "launches": sum(cuda_rows.LAUNCHES.values())}
+    ttrace.set_xplane(True)
+
+
+def MV_StopProfiler() -> Optional[str]:
+    """Stop the trace ``MV_StartProfiler`` started and write it as Chrome
+    trace JSON into its ``logdir``; returns the file's path. Without an
+    active trace this is a logged no-op (None). A CUDA trace in which the
+    row kernels launched but no kernel event arrived (the CUPTI tracer did
+    not load) raises instead of passing off a host-only trace."""
+    global _profiler
+    from multiverso_tpu_torch.ops import cuda_rows
+    from multiverso_tpu_torch.telemetry import trace as ttrace
+    with _profiler_lock:
+        if _profiler is None:
+            Log.Error("MV_StopProfiler without an active MV_StartProfiler "
+                      "trace — no-op")
+            return None
+        ttrace.set_xplane(False)
+        run, _profiler = _profiler, None
+        run["prof"].stop()
+        path = os.path.join(run["logdir"],
+                            f"mv_profile_rank{multihost.process_index()}_"
+                            f"{os.getpid()}.json")
+        run["prof"].export_chrome_trace(path)
+    if run["cuda"] and sum(cuda_rows.LAUNCHES.values()) > run["launches"]:
+        from torch.autograd import DeviceType
+        kernels = sum(1 for e in run["prof"].events()
+                      if e.device_type == DeviceType.CUDA)
+        CHECK(kernels > 0,
+              f"MV_StopProfiler: the row kernels launched during the trace "
+              f"but it holds no CUDA event ({path}) — the CUPTI tracer did "
+              f"not record the card")
+    return path
+
+
+def MV_MetricsSnapshot() -> dict:
+    """Job-wide telemetry snapshot: every registered instrument
+    (telemetry/metrics.py) merged across processes, ``{name: {"type":
+    ..., "value"/"count"/"p50"/...}}``. COLLECTIVE in a multi-process
+    world (every process calls it at the same point with the engine
+    quiesced, after MV_Barrier), on the gloo control group; identity in
+    one process."""
+    from multiverso_tpu_torch.telemetry import metrics
+    return metrics.merged_snapshot()
+
+
+def MV_DumpTrace(path: str) -> str:
+    """Write the buffered spans (``-trace=true``) as Chrome trace-event
+    JSON to ``path`` (each rank its own); returns ``path``."""
+    from multiverso_tpu_torch.telemetry import trace
+    return trace.dump(path)
+
+
+def MV_DumpFlightRecorder(path: str) -> str:
+    """Write the flight recorder's ring (``-mv_flight_events``) as JSONL
+    to ``path``: a header line, then one event per line. Per rank, never
+    collective; ``python -m multiverso_tpu_torch.telemetry.forensics`` and
+    ``.critpath`` align several ranks' dumps. Returns ``path``."""
+    from multiverso_tpu_torch.telemetry import flight
+    return flight.dump(path)
+
+
+def MV_DumpDiagnostics(dir_path: Optional[str] = None) -> Optional[str]:
+    """Write the postmortem set (``flight_rank<R>.jsonl``,
+    ``telemetry_rank<R>.json``, ``trace_rank<R>.json``) under ``dir_path``
+    (default ``-mv_diag_dir``); returns the directory, or None when none
+    is configured."""
+    from multiverso_tpu_torch.telemetry.ops import dump_diagnostics
+    return dump_diagnostics(dir_path)

@@ -77,6 +77,13 @@ class Message:
     waiter: Optional[Waiter] = None
     result: Any = None
     on_reply: Optional[Callable[["Message"], None]] = None
+    #: telemetry (telemetry/trace.py): the sender's span context; the
+    #: actor that dequeues this message parents its dispatch span here, so
+    #: one span tree follows the verb across the mailbox hop
+    trace_ctx: Any = None
+    #: telemetry: enqueue stamp (time.perf_counter seconds), set by
+    #: Actor.Receive and zeroed once the queue wait has been observed
+    _enq_t: float = 0.0
     _replied: bool = False
 
     def reply(self, result: Any = None) -> None:

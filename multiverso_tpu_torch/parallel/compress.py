@@ -99,6 +99,10 @@ def _note(path: str, pre: int, post: int) -> None:
     with _stats_lock:
         _stats[f"compress.pre_bytes.{path}"] += pre
         _stats[f"compress.post_bytes.{path}"] += post
+    # the same bytes in the metrics registry, under the same names
+    from multiverso_tpu_torch.telemetry import metrics as _tmetrics
+    _tmetrics.counter("compress.pre_bytes." + path).inc(pre)
+    _tmetrics.counter("compress.post_bytes." + path).inc(post)
 
 
 @functools.lru_cache(maxsize=64)

@@ -156,6 +156,37 @@ def _note_round() -> None:
         _rounds += 1
 
 
+#: timing of this process's latest engine ``capped_exchange``: the engine's
+#: phase stamps read it right after their window exchange, on the same
+#: thread, to split the seconds BLOCKED IN THE COLLECTIVE (``coll_s``) from
+#: local staging, and to anchor the cross-rank clock alignment on the
+#: exchange-done wall stamp (every rank leaves one exchange at about the
+#: same instant; telemetry/critpath.py). Replaced whole per call, so a
+#: reader sees an old or a new record, never a torn one.
+_exchange_last = {"enter_m": 0.0, "done_m": 0.0, "done_w": 0.0,
+                  "coll_s": 0.0}
+
+
+def _stamp_exchange(enter_m: float, coll_s: float, done_m: float,
+                    done_w: float) -> None:
+    global _exchange_last
+    _exchange_last = {"enter_m": enter_m, "done_m": done_m,
+                      "done_w": done_w, "coll_s": coll_s}
+
+
+def last_exchange_stats() -> dict:
+    """Timing of this process's most recent engine exchange:
+    ``enter_m``/``done_m`` (perf_counter), ``done_w`` (wall clock at the
+    collective's exit) and ``coll_s`` (seconds inside the collective)."""
+    return _exchange_last
+
+
+def membership_epoch() -> int:
+    """The membership epoch the flight events are stamped with: always 0
+    (the boot world), since the elastic plane is not ported."""
+    return 0
+
+
 def note(kind: str, seconds: float) -> None:
     """Add one round of ``kind`` (a ``STATS`` key stem) taking
     ``seconds``."""
@@ -719,14 +750,20 @@ def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
     if engine and _wire is not None:
         _note_round()
         # the bound of a gloo collective, unless -mv_deadline_s is tighter
-        return _wire.exchange(blob, channel, timeout_s=min(
+        t0 = time.perf_counter()
+        out = _wire.exchange(blob, channel, timeout_s=min(
             fdeadline.timeout_or_none() or _INF,
             float(GetFlag("mv_dist_timeout_s"))))
+        # a length-framed wire: the whole call is the collective
+        done_m, done_w = time.perf_counter(), time.time()
+        _stamp_exchange(t0, done_m - t0, done_m, done_w)
+        return out
     CHECK(channel == 0,
           f"the gloo exchange is one ordered collective stream: channel "
           f"{channel} needs a multi-channel wire (-mv_wire=shm or tcp)")
     import torch
     n = process_count()
+    t_enter = time.perf_counter()
     need = len(blob) + 9
     cap = caps.get(key, 4096)
     buf = np.zeros(cap, np.uint8)
@@ -734,8 +771,11 @@ def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
     buf[1:9] = np.array([len(blob)], "<i8").view(np.uint8)
     if need <= cap and blob:
         buf[9:9 + len(blob)] = np.frombuffer(blob, np.uint8)
+    tc = time.perf_counter()
     gathered = [p.numpy() for p in _all_gather(torch.from_numpy(buf),
                                                engine)]
+    done_m, done_w = time.perf_counter(), time.time()
+    coll_s = done_m - tc
     lens = [int(np.frombuffer(g[1:9].tobytes(), "<i8")[0]) for g in gathered]
     fits = [bool(g[0]) for g in gathered]
     caps[key] = next_bucket(max(lens) + 9, min_bucket=4096)
@@ -746,9 +786,14 @@ def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
         buf2 = np.zeros(big, np.uint8)
         if blob:
             buf2[:len(blob)] = np.frombuffer(blob, np.uint8)
+        tc = time.perf_counter()
         gathered = [p.numpy() for p in _all_gather(torch.from_numpy(buf2),
                                                    engine)]
+        done_m, done_w = time.perf_counter(), time.time()
+        coll_s += done_m - tc
         out = [gathered[i][:lens[i]].tobytes() for i in range(n)]
+    if engine:
+        _stamp_exchange(t_enter, coll_s, done_m, done_w)
     return out
 
 

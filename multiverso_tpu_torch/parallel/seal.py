@@ -138,8 +138,14 @@ def _legacy_ok(blob: bytes) -> bool:
         == _U32.unpack_from(blob, n - CRC_TRAILER_BYTES)[0])
 
 
+def _count_failure() -> None:
+    from multiverso_tpu_torch.telemetry import metrics as _tmetrics
+    _tmetrics.counter("wire.crc_failures").inc()
+
+
 def _verify(blob: bytes) -> int:
-    """Verify ``blob``'s trailer; returns the body length."""
+    """Verify ``blob``'s trailer; returns the body length. A failure counts
+    ``wire.crc_failures`` before it raises."""
     n = len(blob)
     tag = blob[-1] if n else -1
     if tag == TAG_CRC32C and n > TAGGED_TRAILER_BYTES:
@@ -149,15 +155,18 @@ def _verify(blob: bytes) -> int:
             return body
         if _legacy_ok(blob):    # a legacy CRC whose high byte is the tag
             return n - CRC_TRAILER_BYTES
+        _count_failure()
         raise WireCorruption(f"wire blob failed its CRC32C seal ({n} "
                              f"bytes): corrupted or truncated frame")
     if _legacy_ok(blob):
         return n - CRC_TRAILER_BYTES
     if TAG_BASE <= tag <= TAG_BASE + 0x0F and n > TAGGED_TRAILER_BYTES:
+        _count_failure()
         raise WireCorruption(
             f"wire blob carries unknown seal trailer tag {tag:#x} ({n} "
             f"bytes): sealed by a newer writer, or corrupted in the "
             f"trailer; refusing to parse")
+    _count_failure()
     raise WireCorruption(f"wire blob failed CRC check ({n} bytes): "
                          f"corrupted or truncated frame")
 

@@ -63,6 +63,7 @@ from multiverso_tpu_torch.failsafe.errors import ActorDied, WireCorruption
 # both ends of a ring are one build on one host, so they pick the same
 # checksum engine
 from multiverso_tpu_torch.parallel.seal import fast_crc
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.utils.log import CHECK
 
 #: header field offsets (little-endian u64 unless noted)
@@ -241,6 +242,14 @@ class ShmWire:
         self._crc_failures = 0
         self.writer_stall_s = 0.0
         self.frame_hw_bytes = 0
+        # the JAX wire's instruments, under its names: the watchdog's
+        # shm_backpressure rule reads exchanges and writer_stall_s
+        self._t_crc = tmetrics.counter("shm_wire.crc_failures")
+        self._t_rounds = tmetrics.counter("shm_wire.exchanges")
+        self._t_bytes = tmetrics.counter("shm_wire.bytes_out")
+        self._t_wstall = tmetrics.counter("shm_wire.writer_stall_s")
+        self._t_hw = tmetrics.gauge("shm_wire.frame_hw_bytes")
+        self._t_occ = tmetrics.gauge("shm_wire.ring_occupancy_pct")
         try:
             for ch in range(channels):
                 seg = _Segment(shared_memory.SharedMemory(
@@ -298,6 +307,7 @@ class ShmWire:
     def _corrupt(self, msg: str) -> WireCorruption:
         with self._lock:
             self._crc_failures += 1
+        self._t_crc.inc()
         return WireCorruption(msg)
 
     def exchange(self, blob: bytes, channel: int,
@@ -432,7 +442,14 @@ class ShmWire:
         with self._lock:
             self._bytes_out += len(blob)
             self.writer_stall_s += wstall_s
-            self.frame_hw_bytes = max(self.frame_hw_bytes, len(blob))
+            if len(blob) > self.frame_hw_bytes:
+                self.frame_hw_bytes = len(blob)
+                self._t_hw.set(float(len(blob)))
+                self._t_occ.set(min(100.0, 100.0 * len(blob) / self.cap))
+        self._t_rounds.inc()
+        self._t_bytes.inc(len(blob))
+        if wstall_s > 0.0:
+            self._t_wstall.inc(wstall_s)
         return [blob if r == self.rank else bytes(rstate[r][0])
                 for r in range(self.nprocs)]
 

@@ -57,6 +57,7 @@ from typing import Dict, List, Optional, Tuple
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.failsafe.errors import ActorDied, WireCorruption
 from multiverso_tpu_torch.parallel import seal
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.utils.log import CHECK, Log
 
 #: frame header: magic u32 | sender u32 | round u64 | total u64 |
@@ -139,6 +140,12 @@ class TcpWire:
         self._crc_failures = 0
         self.frame_hw_bytes = 0
         self.stall_s = 0.0
+        self._t_crc = tmetrics.counter("tcp_wire.crc_failures")
+        self._t_rounds = tmetrics.counter("tcp_wire.exchanges")
+        self._t_bytes = tmetrics.counter("tcp_wire.bytes_out")
+        self._t_stall = tmetrics.counter("tcp_wire.stall_s")
+        self._t_connects = tmetrics.counter("tcp_wire.connects")
+        self._t_hw = tmetrics.gauge("tcp_wire.frame_hw_bytes")
         self._listeners: List[socket.socket] = []
         self._endpoints: List[Tuple[str, int]] = []
         host = _dial_host()
@@ -226,6 +233,7 @@ class TcpWire:
                 f"tcp wire mesh connect: {len(self._conn)}/{total} "
                 f"streams up before the bound"
                 + (f" ({exc!r})" if exc else ""), deadline)
+        self._t_connects.inc(len(self._conn))
         for (ch, r), s in self._conn.items():
             s.setblocking(False)
             self._inbuf.setdefault((ch, r), bytearray())
@@ -426,7 +434,13 @@ class TcpWire:
         with self._lock:
             self._bytes_out += len(blob) * len(peers)
             self.stall_s += stall_s
-            self.frame_hw_bytes = max(self.frame_hw_bytes, len(blob))
+            if len(blob) > self.frame_hw_bytes:
+                self.frame_hw_bytes = len(blob)
+                self._t_hw.set(float(len(blob)))
+        self._t_rounds.inc()
+        self._t_bytes.inc(len(blob) * len(peers))
+        if stall_s > 0.0:
+            self._t_stall.inc(stall_s)
         return [blob if r == self.rank else bytes(st[r]["asm"])
                 for r in range(self.nprocs)]
 
@@ -505,6 +519,7 @@ class TcpWire:
     def _corrupt(self, msg: str) -> WireCorruption:
         with self._lock:
             self._crc_failures += 1
+        self._t_crc.inc()
         return WireCorruption(msg)
 
     def _parse_frames(self, r: int, channel: int, rnd: int, s: dict,

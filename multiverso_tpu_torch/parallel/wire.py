@@ -108,7 +108,11 @@ def encode_window(verbs: List[Tuple[str, int, dict]],
             parts.append(_U8.pack(len(kb)))
             parts.append(kb)
             encode_value(parts, payload[key], _EXT)
-    return seal_frame(b"".join(parts))
+    blob = seal_frame(b"".join(parts))
+    # byte accounting per window, not per element
+    from multiverso_tpu_torch.telemetry import metrics as _tmetrics
+    _tmetrics.counter("wire.encode_bytes").inc(len(blob))
+    return blob
 
 
 def decode_window_seq(blob: bytes):
@@ -116,6 +120,8 @@ def decode_window_seq(blob: bytes):
     entries are zero-copy read-only views into ``blob``; the seal is
     verified first."""
     check_crc(blob)
+    from multiverso_tpu_torch.telemetry import metrics as _tmetrics
+    _tmetrics.counter("wire.decode_bytes").inc(len(blob))
     cur = _Cursor(blob)
     (magic,) = cur.unpack(_U8)
     if magic != KIND_WINDOW:

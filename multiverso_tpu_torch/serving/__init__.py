@@ -14,14 +14,14 @@ Public surface: ``MV_PublishSnapshot`` / ``MV_ServingLookup`` /
 ``MV_PinVersion`` / ``MV_UnpinVersion`` (api.py).
 
 The flags live here, so zoo's eager import registers them before
-``MV_Init``'s ``ParseCMDFlags``. The JAX plane's dashboard lines
-(``status_lines``) wait with the dashboard (``ROADMAP.md``).
+``MV_Init``'s ``ParseCMDFlags``. ``status_lines`` is the Dashboard's
+``[Serving]`` line (``utils/dashboard.py`` DisplayAll).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import List, Optional
 
 from multiverso_tpu_torch.utils.configure import (MV_DEFINE_double,
                                                   MV_DEFINE_int,
@@ -86,3 +86,36 @@ def shutdown_plane() -> None:
         plane, _plane = _plane, None
     if plane is not None:
         plane.frontend.stop()
+
+
+def status_lines() -> List[str]:
+    """Dashboard lines for DisplayAll: [] when serving never ran."""
+    plane = peek_plane()
+    if plane is None:
+        return []
+    from multiverso_tpu_torch.telemetry import metrics
+    snap = metrics.snapshot()
+
+    def val(name, key="value", default=0):
+        return snap.get(name, {}).get(key, default)
+
+    latest = plane.store.latest_version()
+    age = epoch = 0.0
+    if latest is not None:
+        snap_latest = plane.store.get(None)
+        age = snap_latest.age_s()
+        epoch = snap_latest.window_epoch   # the cut's stream position
+    return [
+        "[Serving] lookups = %d, shed = %d, p99 = %.3f ms, "
+        "batch_p50 = %.1f, snapshot_age = %.1f s, live_versions = %s "
+        "(latest v%s @ window epoch %s)" % (
+            val("serving.lookups"),
+            val("serving.shed"),
+            1e3 * val("serving.latency_s", "p99", 0.0),
+            val("serving.batch_size", "p50", 0.0),
+            age,
+            plane.store.live_versions(),
+            latest,
+            epoch,
+        )
+    ]

@@ -21,14 +21,18 @@ union by ``searchsorted`` (fresh arrays: callers own what they get).
   at admission, before the request can join a batch, so an id out of
   range never reaches a kernel; a failed read fails only its group.
 
-The JAX front-end's telemetry counters and histograms are plain counts
-here, read through ``stats()``; its chaos sites wait with the chaos module
+Telemetry as in the JAX front-end: the ``serving.lookups``,
+``serving.shed`` and ``serving.dispatches`` counters, the
+``serving.batch_size`` and ``serving.latency_s`` histograms, the
+``digest.serving.latency_s`` digest, the ``serving.snapshot_age_s`` gauge
+and the ``serving.shed``/``serving.dispatch`` flight events: the one count
+of its work (a measurement reads their difference across its window).
+The JAX front-end's chaos sites wait with the chaos module
 (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
-import collections
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -37,6 +41,8 @@ import numpy as np
 
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.failsafe.errors import ServingOverloaded
+from multiverso_tpu_torch.telemetry import flight as tflight
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.utils.configure import GetFlag
 from multiverso_tpu_torch.utils.log import Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
@@ -45,9 +51,6 @@ from multiverso_tpu_torch.utils.waiter import Waiter
 #: dispatcher idle poll: shutdown never waits on a quiet queue longer than
 #: this (the queue's Exit wakes it at once anyway)
 _IDLE_POLL_S = 0.2
-
-#: the latencies ``stats()`` takes its percentiles over: the newest ones
-LATENCY_WINDOW = 1 << 16
 
 #: shared first-fill-wins gate (the guarded region is two stores)
 _fill_lock = threading.Lock()
@@ -98,37 +101,13 @@ class ServingFrontend:
         #: test hook: while set, the dispatcher parks before its pop, so
         #: admissions pile up and then coalesce into ONE batch
         self._hold_for_tests: Optional[threading.Event] = None
-        self._stats_lock = threading.Lock()
-        self._lookups = 0
-        self._shed = 0
-        self._dispatches = 0
-        self._batches = 0
-        self._batched = 0
-        self._latencies: "collections.deque" = collections.deque(
-            maxlen=LATENCY_WINDOW)
-
-    def stats(self) -> Dict[str, float]:
-        """Admitted lookups, shed admissions, union reads (dispatches),
-        served batches and their mean size, and the p50 / p99 of the
-        newest ``LATENCY_WINDOW`` lookups' latencies (admission to fill,
-        seconds; 0.0 before any)."""
-        with self._stats_lock:
-            lat = np.asarray(self._latencies, np.float64)
-            out = {"lookups": self._lookups, "shed": self._shed,
-                   "dispatches": self._dispatches, "batches": self._batches,
-                   "mean_batch": (self._batched / self._batches
-                                  if self._batches else 0.0)}
-        out["latency_p50_s"] = float(np.percentile(lat, 50)) if lat.size \
-            else 0.0
-        out["latency_p99_s"] = float(np.percentile(lat, 99)) if lat.size \
-            else 0.0
-        return out
-
-    def reset_stats(self) -> None:
-        with self._stats_lock:
-            self._lookups = self._shed = self._dispatches = 0
-            self._batches = self._batched = 0
-            self._latencies.clear()
+        self._t_lookups = tmetrics.counter("serving.lookups")
+        self._t_shed = tmetrics.counter("serving.shed")
+        self._t_dispatch = tmetrics.counter("serving.dispatches")
+        self._t_batch = tmetrics.histogram("serving.batch_size")
+        self._t_latency = tmetrics.histogram("serving.latency_s")
+        self._d_latency = tmetrics.digest("digest.serving.latency_s")
+        self._t_age = tmetrics.gauge("serving.snapshot_age_s")
 
     # -- caller side ---------------------------------------------------------
 
@@ -142,8 +121,8 @@ class ServingFrontend:
             raise ServingOverloaded("serving plane is shut down")
         max_inflight = max(1, int(GetFlag("mv_serving_max_inflight")))
         if self._q.Size() >= max_inflight:
-            with self._stats_lock:
-                self._shed += 1
+            self._t_shed.inc()
+            tflight.record("serving.shed", detail="overload")
             raise ServingOverloaded(
                 f"serving admission queue full ({max_inflight} in "
                 f"flight): shed; retry with backpressure or raise "
@@ -173,8 +152,7 @@ class ServingFrontend:
             # integer index at all for a row read)
             ids = ids.astype(np.int64, copy=False)
         ticket = LookupTicket()
-        with self._stats_lock:
-            self._lookups += 1
+        self._t_lookups.inc()
         self._q.Push((snap, table_id, ids, ticket))
         if self._stopped:
             # lost the race with stop(): its drain may have run before
@@ -271,11 +249,12 @@ class ServingFrontend:
                 ticket._fill(exc)
 
     def _serve_batch(self, batch: List[tuple]) -> None:
+        self._t_batch.observe(len(batch))
+        tflight.record("serving.dispatch", detail=f"{len(batch)}req")
         groups: Dict[Tuple[int, int], List[tuple]] = {}
         for item in batch:
             snap, table_id, _, _ = item
             groups.setdefault((snap.version, table_id), []).append(item)
-        reads = 0
         for (_, table_id), items in groups.items():
             ts = items[0][0].tables[table_id]
             id_items = [it for it in items if it[2] is not None]
@@ -284,11 +263,11 @@ class ServingFrontend:
                     union = np.unique(np.concatenate(
                         [it[2] for it in id_items]))
                     rows_u = ts.lookup_union(union)     # ONE read
-                    reads += 1
+                    self._t_dispatch.inc()
                 for _, _, ids, ticket in items:
                     if ids is None:
                         ticket._fill(ts.full())
-                        reads += 1       # a full read is a read too
+                        self._t_dispatch.inc()   # a full read is a read
                     else:
                         # fancy indexing copies: each caller owns its rows
                         ticket._fill(rows_u[np.searchsorted(union, ids)])
@@ -297,8 +276,10 @@ class ServingFrontend:
                 for _, _, _, ticket in items:
                     ticket._fill(exc)
         now = time.perf_counter()
-        with self._stats_lock:
-            self._dispatches += reads
-            self._batches += 1
-            self._batched += len(batch)
-            self._latencies.extend(now - it[3].enq_t for it in batch)
+        for _, _, _, ticket in batch:
+            self._t_latency.observe(now - ticket.enq_t)
+            self._d_latency.observe(now - ticket.enq_t)
+        latest = (self._store.get(None) if self._store.live_versions()
+                  else None)
+        if latest is not None:
+            self._t_age.set(latest.age_s())

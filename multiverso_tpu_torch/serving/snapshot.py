@@ -52,6 +52,7 @@ from typing import Dict
 import numpy as np
 
 from multiverso_tpu_torch.message import MsgType
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.utils.configure import GetFlag
 from multiverso_tpu_torch.utils.log import CHECK, Log
 
@@ -222,6 +223,9 @@ class Snapshot:
     #: host seconds of each table's export on the engine thread
     export_s: Dict[int, float] = field(default_factory=dict)
 
+    def age_s(self) -> float:
+        return max(0.0, time.time() - self.created_wall)
+
     def nbytes(self) -> int:
         return sum(t.nbytes() for t in self.tables.values())
 
@@ -229,6 +233,7 @@ class Snapshot:
 def _capture_all(engine, store) -> Snapshot:
     """Runs ON the engine thread inside the publish barrier: every table's
     export at one stream position is one consistent cut."""
+    t_start = time.perf_counter()
     tables: Dict[int, TableSnapshot] = {}
     export_s: Dict[int, float] = {}
     for tid, table in enumerate(engine.store_):
@@ -243,6 +248,10 @@ def _capture_all(engine, store) -> Snapshot:
                     window_epoch=engine.cut_epoch(), tables=tables,
                     export_s=export_s)
     store.install(snap)
+    tmetrics.gauge("serving.snapshot_bytes").set(snap.nbytes())
+    tmetrics.gauge("serving.snapshot_age_s").set(0.0)
+    tmetrics.histogram("serving.publish_s").observe(
+        time.perf_counter() - t_start)
     Log.Debug("serving: published snapshot v%d (%d tables, %d bytes)",
               snap.version, len(tables), snap.nbytes())
     return snap

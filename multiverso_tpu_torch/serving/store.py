@@ -22,8 +22,9 @@ Contracts:
   unpin; pins nest.
 * **monotonic latest**: ``get(None)`` serves the newest installed version.
 
-The JAX store's telemetry gauges and flight events are plain counts here
-(``publishes``, ``evictions``), like the tables' ``wire_stats``.
+Telemetry as in the JAX store: the ``serving.publishes`` and
+``serving.evictions`` counters, the ``serving.live_versions`` gauge and the
+``snapshot.publish``/``snapshot.evict`` flight events.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import collections
 import threading
 from typing import Dict, List, Optional
 
+from multiverso_tpu_torch.telemetry import flight as tflight
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.utils.configure import GetFlag
 from multiverso_tpu_torch.utils.log import CHECK, Log
 
@@ -48,9 +51,9 @@ class SnapshotStore:
         self._versions: "collections.OrderedDict" = collections.OrderedDict()
         self._pins: Dict[int, int] = {}
         self._next_version = 1
-        #: versions installed and evicted
-        self.publishes = 0
-        self.evictions = 0
+        self._t_live = tmetrics.gauge("serving.live_versions")
+        self._t_published = tmetrics.counter("serving.publishes")
+        self._t_evicted = tmetrics.counter("serving.evictions")
 
     # -- publish side (engine thread) ----------------------------------------
 
@@ -74,8 +77,13 @@ class SnapshotStore:
             for v in list(self._versions)[:-keep]:
                 if self._pins.get(v, 0) == 0:
                     del self._versions[v]
-                    self.evictions += 1
-            self.publishes += 1
+                    self._t_evicted.inc()
+                    tflight.record("snapshot.evict", detail=f"v{v}")
+            self._t_published.inc()
+            self._t_live.set(len(self._versions))
+        tflight.record("snapshot.publish",
+                       epoch=getattr(snap, "window_epoch", -1),
+                       detail=f"v{snap.version}")
 
     # -- read side (any thread) ----------------------------------------------
 
@@ -132,6 +140,8 @@ class SnapshotStore:
                 del self._pins[version]
                 if version in list(self._versions)[:-keep]:
                     del self._versions[version]
-                    self.evictions += 1
+                    self._t_evicted.inc()
+                    tflight.record("snapshot.evict", detail=f"v{version}")
+                    self._t_live.set(len(self._versions))
             else:
                 self._pins[version] = n - 1

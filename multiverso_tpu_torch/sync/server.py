@@ -100,10 +100,32 @@ count Get and Add messages), and ``epoch_for_table`` is the Get cache's
 staleness clock: the window epoch of the stream applying the table.
 ``add_messages`` counts the Add messages the engine received.
 
+Telemetry as in the JAX engine, under its names (``telemetry/``): the
+``server.*`` and ``engine.*`` counters, gauges and histograms (window
+latency, codec seconds, exchanges, verbs, barrier splits, Add dispatches
+and merged runs, wire bytes, the fence-cause taxonomy
+``engine.fence.<cause>`` registered at zero, the ``engine.phase.<p>_s``
+histograms, per-family apply seconds, the binding-phase gauges, the apply
+pool's jobs, batched-verb sizes, the BSP staleness), the spans
+``server.window`` / ``.exchange`` / ``.apply`` / ``.add_run`` /
+``.get_group``, the ``SERVER_PROCESS_GET``/``_ADD`` Dashboard monitors,
+and the flight events ``window.admitted``, ``window.exchanged`` (recorded
+before the cross-rank CHECK, so a diverging window is in the ring),
+``window.applied``, ``window.phases`` (``-mv_phase_stamps``: a window's
+form/pack/encode/exchange/exchange_wait/decode/apply microseconds and its
+exchange-done anchor, read by ``telemetry/critpath.py``), ``window.tables``
+(per-(table, verb) apply microseconds), ``fence`` with its cause,
+``barrier``, ``wire.crc_retry`` and ``engine.fatal`` (then the ring goes
+to ``-mv_diag_dir``). The phases are HOST clocks: an apply that only
+launches kernels returns before the card has run them, as a JAX dispatch
+does, so ``apply`` is launch-and-queue time, not the kernels' device time;
+a window's Get finalize (the synchronising device-to-host copy) is inside
+its apply. No synchronisation is added for telemetry's sake.
+
 Not ported (ROADMAP.md): the device window transport
 (``-window_transport`` resolves to ``host``; ``device`` fails a CHECK),
-the failsafe admission gate (dedup window, chaos) and deadlines, and the
-telemetry hooks of the JAX engine.
+the failsafe admission gate (dedup window, chaos) and deadlines (their
+counters register at zero), and the elastic membership events.
 """
 
 from __future__ import annotations
@@ -121,10 +143,15 @@ from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.message import Message, MsgType, copy_result
 from multiverso_tpu_torch.parallel import compress, multihost, wire
 from multiverso_tpu_torch.parallel.seal import WireCorruption
+from multiverso_tpu_torch.telemetry import flight as tflight
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
+from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
                                                   MV_DEFINE_int,
-                                                  MV_DEFINE_string)
+                                                  MV_DEFINE_string,
+                                                  cached_bool_flag)
+from multiverso_tpu_torch.utils.dashboard import monitor_region
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
 
@@ -175,6 +202,47 @@ MV_DEFINE_int("mv_get_staleness", 0,
               "this process wrote nothing to the table (0 = off, every "
               "Get exact). One-process worlds only: a hit removes a verb "
               "from the stream")
+
+MV_DEFINE_bool("mv_phase_stamps", True,
+               "per-window lifecycle phase stamping (form/pack/encode/"
+               "exchange/decode/apply flight events + engine.phase.* "
+               "histograms; false = window events only). No-op while "
+               "-mv_flight_events=0 gates the recorder off. Multi-process "
+               "windows stamp EVERY window; single-process windows observe "
+               "the apply histogram every window but sample the flight "
+               "events and per-table attribution 1-in-32")
+_phase_stamps_flag = cached_bool_flag("mv_phase_stamps", True)
+
+#: single-process sampling period of the full stamp (a power of two;
+#: windows 1, 33, 65, ... stamp, so short runs still leave records)
+_PH_SP_SAMPLE = 32
+
+#: the window lifecycle phases (the order is the engine.binding_phase
+#: gauge's encoding: an index into this tuple, -1 = none yet);
+#: ``exchange_wait`` is the slice of ``exchange`` blocked inside the
+#: collective, the part a straggling peer inflates
+ENGINE_PHASES = ("form", "pack", "encode", "exchange", "exchange_wait",
+                 "decode", "apply")
+
+#: table families whose apply-seconds histograms register at zero
+_TABLE_FAMILIES = ("matrix", "sparse", "array", "kv")
+
+#: the fence-cause taxonomy: every stall of the pipelined exchange stage
+#: counts in exactly one ``engine.fence.<cause>``. ``device_wire`` stays at
+#: zero in the port (no device window transport).
+FENCE_CAUSES = ("barrier", "nonlocal_table", "device_wire", "depth")
+
+
+def _table_family(table) -> str:
+    """Short family label of a server table for the apply attribution
+    (``SparseMatrixServerTable`` -> ``sparse``, ``KVServerTable`` ->
+    ``kv``; another class its lowercased name)."""
+    name = type(table).__name__.lower()
+    for fam in ("sparse", "kv", "array", "matrix"):
+        if fam in name:
+            return fam
+    return name.replace("servertable", "").replace("table", "") or "table"
+
 
 _INF = float("inf")
 
@@ -316,9 +384,19 @@ class _ExchangeStage:
         self._emitted = 0
         self._applied = 0
         self._fence_at = 0
+        #: why _fence_at was last raised (``engine.fence.<cause>``); a
+        #: stall under the depth bound alone is classified ``depth``
+        self._fence_cause = "barrier"
         self._cv = threading.Condition()
         self._killed = False
         self.dead: Optional[BaseException] = None
+        #: overlap telemetry: start of the exchange in flight (0.0 = idle)
+        #: and the stage's busy seconds
+        self.busy_since = 0.0
+        self.busy_s = 0.0
+        #: when the current pending run started filling (0.0 = empty): a
+        #: window's ``form`` phase
+        self._pending_since = 0.0
         self._thread = threading.Thread(
             target=self._main, name=f"mvt-engine-exchange{srv.slot}",
             daemon=True)
@@ -352,17 +430,33 @@ class _ExchangeStage:
             self._cv.notify_all()
         self._in.Exit()
 
+    def depth(self) -> int:
+        """Exchanged-but-unapplied items (diagnostics)."""
+        return self._emitted - self._applied
+
+    def pending_verbs(self) -> int:
+        return len(self._pending)
+
     def _gate(self) -> None:
         """Before any new collective: the fence and the depth bound (read
-        live, so a changed flag takes effect at the next window)."""
+        live, so a changed flag takes effect at the next window). A stall
+        is classified (the fence's recorded cause, or ``depth`` when only
+        the bound holds) and its seconds observed."""
         depth = (max(1, int(GetFlag("mv_pipeline_depth")))
                  if GetFlag("mv_pipeline") else 1)
-        target = max(self._fence_at, self._emitted - depth + 1)
+        depth_target = self._emitted - depth + 1
+        target = max(self._fence_at, depth_target)
+        stall = self._applied < target      # advisory: classifies only
+        t0 = time.perf_counter()
         with self._cv:
             self._cv.wait_for(lambda: self._applied >= target
                               or self._killed)
         if self._killed:
             raise _StageKilled()
+        if stall:
+            cause = (self._fence_cause if self._fence_at >= depth_target
+                     else "depth")
+            self._srv._note_fence(cause, time.perf_counter() - t0)
 
     def _main(self) -> None:
         try:
@@ -390,6 +484,8 @@ class _ExchangeStage:
             # input order is admission order: only LEADING verb items may
             # join pending ahead of a queued barrier
             while items and items[0][0] == "verbs":
+                if not self._pending:
+                    self._pending_since = time.perf_counter()
                 self._pending.extend(items.popleft()[1])
             if self._pending:
                 self._exchange_one()
@@ -402,22 +498,58 @@ class _ExchangeStage:
             payload._mh_headed = True       # the apply stage runs it now
             self._emitted += 1
             self._fence_at = self._emitted
+            self._fence_cause = "barrier"
             self.out.Push(("barrier", payload))
 
     def _exchange_one(self) -> None:
         srv = self._srv
         self._gate()
-        local, used = srv._mh_pack_window(list(self._pending))
-        windows = srv._mh_exchange_decode(local)
+        verbs = list(self._pending)
+        t0 = time.perf_counter()
+        self.busy_since = t0
+        # the window's phase record: filled here, closed by the apply
+        # stage, emitted as ONE window.phases event
+        ph = None
+        if srv._phases_on():
+            ph = {}
+            if self._pending_since:
+                ph["form"] = max(0.0, t0 - self._pending_since)
+        try:
+            # the window span opens here, parented to the head verb; the
+            # apply stage parents its apply span to it
+            with ttrace.span("server.window", cat="server",
+                             parent=verbs[0].trace_ctx,
+                             args={"pending": len(verbs)}) as win_ctx:
+                tp = time.perf_counter()
+                local, used = srv._mh_pack_window(verbs)
+                if ph is not None:
+                    ph["pack"] = time.perf_counter() - tp
+                windows = srv._mh_exchange_decode(local, ph)
+        finally:
+            now = time.perf_counter()
+            self.busy_since = 0.0
+            self.busy_s += now - t0
+            a0 = srv._apply_since
+            if a0:
+                # this exchange ended while an apply ran: the overlapped
+                # stretch is recorded here
+                srv._note_overlap(max(0.0, now - max(a0, t0)))
         prefix, descs0 = srv._mh_agree(windows)
         for _ in range(prefix):
             self._pending.popleft()
         self._emitted += 1
+        # the next window's form clock starts at this cut
+        self._pending_since = (time.perf_counter() if self._pending
+                               else 0.0)
         is_local = srv._mh_window_is_local(descs0)
         if not is_local:
             self._fence_at = self._emitted
+            self._fence_cause = "nonlocal_table"
+        if ph is not None:
+            ph["seq"] = srv._mh_seq - 1
+            ph["mepoch"] = multihost.membership_epoch()
         self.out.Push(("window", used[:prefix], windows, prefix, descs0,
-                       is_local))
+                       is_local, t0, win_ctx, ph))
 
 
 class Server(Actor):
@@ -446,18 +578,17 @@ class Server(Actor):
         #: Add messages received (a batch's Add members included)
         self.add_messages = 0
         self._count_lock = threading.Lock()
-        #: this engine's shard slot (0 unless it is a sub-shard), and the
-        #: wire channel its exchanges ride in a multi-process world
+        #: this engine's shard slot (0 unless it is a sub-shard), the wire
+        #: channel its exchanges ride in a multi-process world, and the
+        #: stream id its flight events carry
         self.slot = 0
         self.mh_channel = 0
+        self.mh_stream = 0
         #: window Add runs applied as one merged dispatch
         self.add_runs_merged = 0
-        #: the parallel window apply (``-mv_apply_workers``): its pool,
-        #: the jobs handed to the pool and the jobs run inline on the
-        #: actor thread (one a parallel window)
+        #: the parallel window apply's pool (``-mv_apply_workers``); the
+        #: ``engine.apply_pool.*`` counters count its jobs
         self._apply_pool: Optional[_ApplyPool] = None
-        self.apply_pool_jobs = 0
-        self.apply_pool_inline = 0
         # -- the multi-process window stream (module docstring) --
         #: standing exchange capacities per window-head key; they evolve
         #: from exchanged data only, identically on every rank
@@ -478,6 +609,13 @@ class Server(Actor):
         #: windows applied on this stream (local windows and exchanged
         #: ones): the stream position a cut is taken at (``cut_epoch``)
         self.window_epoch = 0
+        #: windows split by a non-verb barrier message
+        self.window_barrier_splits = 0
+        #: per-table verbs this stream processed and per-table apply
+        #: seconds (multi-process windows): the watchdog's shard load
+        self.table_verbs: Dict[int, int] = {}
+        self.table_apply_s: Dict[int, float] = {}
+        self._init_telemetry()
         self.RegisterHandler(MsgType.Request_Get, self._get_entry)
         self.RegisterHandler(MsgType.Request_Add, self._add_entry)
         self.RegisterHandler(MsgType.Request_MultiVerb, self._get_entry)
@@ -495,6 +633,64 @@ class Server(Actor):
         # head-marked barrier in the windowed multi-process engine
         self.RegisterHandler(MsgType.Request_Publish, self._store_load_entry)
 
+    def _init_telemetry(self) -> None:
+        """The JAX engine's instruments, registered at construction (the
+        whole taxonomy scrapes at zero from the first read); handles are
+        cached on the engine, never looked up per window."""
+        self._t_window_s = tmetrics.histogram("server.window.latency_s")
+        self._t_encode_s = tmetrics.histogram("server.wire.encode_s")
+        self._t_decode_s = tmetrics.histogram("server.wire.decode_s")
+        self._t_exchanges = tmetrics.counter("server.window.exchanges")
+        self._t_verbs = tmetrics.counter("server.window.verbs")
+        self._t_splits = tmetrics.counter("server.window.barrier_splits")
+        self._t_dispatch = tmetrics.counter("server.add.dispatches")
+        self._t_merged = tmetrics.counter("server.add.run_merged")
+        # the device window transport's: zero in the port (not ported)
+        tmetrics.counter("server.add.device_deferrals")
+        tmetrics.counter("server.wire.device_bytes")
+        self._t_host_bytes = tmetrics.counter("server.wire.host_bytes")
+        self._t_budget = tmetrics.gauge("server.window.host_budget_bytes")
+        # the failsafe machinery's counters, at zero: the port has no
+        # dedup window, retries or engine deadlines yet (ROADMAP.md)
+        tmetrics.counter("failsafe.dedup_hits")
+        tmetrics.counter("failsafe.deadline_exceeded")
+        tmetrics.counter("failsafe.retries")
+        tmetrics.counter("wire.crc_failures")
+        self._t_overlap_pct = tmetrics.gauge("engine.overlap_pct")
+        tmetrics.counter("worker.write_combine_hits")
+        tmetrics.counter("worker.get_cache_hits")
+        for cause in FENCE_CAUSES:
+            tmetrics.counter(f"engine.fence.{cause}")
+        self._t_fence_stall_s = tmetrics.histogram("engine.fence.stall_s")
+        #: last classified fence cause and locally binding phase (the
+        #: Dashboard [Ops] line, /perf)
+        self.last_fence_cause = ""
+        self._t_phase = {p: tmetrics.histogram(f"engine.phase.{p}_s")
+                         for p in ENGINE_PHASES}
+        self._d_window = tmetrics.digest("digest.engine.window_s")
+        self._t_apply_fam = {
+            fam: tmetrics.histogram(f"engine.apply.table_s.{fam}")
+            for fam in _TABLE_FAMILIES}
+        #: tid -> (family, histogram) of the apply attribution
+        self._fam_cache: Dict[int, tuple] = {}
+        self._t_binding = tmetrics.gauge("engine.binding_phase")
+        self._t_binding.set(-1.0)
+        self.last_binding_phase = ""
+        self._t_binding_st = None
+        self._t_pool_jobs = tmetrics.counter("engine.apply_pool.jobs")
+        self._t_pool_inline = tmetrics.counter(
+            "engine.apply_pool.inline_jobs")
+        self._t_multi = tmetrics.counter("engine.multi_verb_batches")
+        self._t_multi_size = tmetrics.histogram("engine.multi_verb_size")
+        #: the single-process 1-in-N full-stamp sampling
+        self._ph_tick = 0
+        self._ph_stamp_this = False
+        #: overlap telemetry: the apply interval in progress (0.0 = none)
+        #: and the seconds the exchange and the apply ran together
+        self._apply_since = 0.0
+        self._overlap_s = 0.0
+        self._overlap_lock = threading.Lock()
+
     def _dispatch(self, msg: Message) -> None:
         """In a multi-process world every non-verb message (a drain ping, a
         checkpoint or publish cut, FinishTrain) enters the window stream as
@@ -510,6 +706,7 @@ class Server(Actor):
                                          MsgType.Request_Add,
                                          MsgType.Request_MultiVerb)
                 and not getattr(msg, "_mh_headed", False)):
+            self.note_dequeue(msg)
             self._mh_windows([msg])
             return
         super()._dispatch(msg)
@@ -538,14 +735,18 @@ class Server(Actor):
                                     payload={"members": list(members)},
                                     on_reply=_fail_multi_members))
 
-    @staticmethod
-    def _expand_multi(batch: list) -> list:
+    def _expand_multi(self, batch: list) -> list:
         """Flatten envelopes into their member verbs in place of the
-        envelope's drain position (submission order)."""
+        envelope's drain position (submission order). Members carry no
+        enqueue stamp: the envelope's one stamp accounts the hop."""
         out: list = []
         for m in batch:
             if m.msg_type is MsgType.Request_MultiVerb:
-                out.extend(m.payload["members"])
+                self.note_dequeue(m)
+                members = m.payload["members"]
+                self._t_multi.inc()
+                self._t_multi_size.observe(len(members))
+                out.extend(members)
             else:
                 out.append(m)
         return out
@@ -568,12 +769,169 @@ class Server(Actor):
         return self.window_epoch
 
     def shard_states(self) -> List[dict]:
-        """Per-shard live state: slot, actor name, mailbox depth, alive."""
+        """Per-shard live state (local, never collective): slot, actor
+        name, mailbox depth and liveness, and the JAX engine's stream
+        state /healthz, the Dashboard and the watchdog read."""
         thread = self._thread
-        return [{"slot": self.slot, "name": self.name,
-                 "mailbox_depth": self.mailbox.Size(),
-                 "alive": (self._poison is None and thread is not None
-                           and thread.is_alive())}]
+        st = self._ex_stage
+        return [{
+            "slot": self.slot, "name": self.name,
+            "mailbox_depth": self.mailbox.Size(),
+            "alive": (self._poison is None and thread is not None
+                      and thread.is_alive()),
+            "shard": self.mh_stream, "actor": self.name,
+            "poisoned": (repr(self._poison) if self._poison is not None
+                         else None),
+            "window_epoch": self.window_epoch,
+            "window_exchanges": self.mh_window_exchanges,
+            "apply_busy_s": round(self.apply_busy_s, 6),
+            "xw_busy_s": round(self.xw_busy_s, 6),
+            "window_verbs": self.mh_window_verbs,
+            "table_verbs": dict(self.table_verbs),
+            "table_apply_s": {t: round(v, 6)
+                              for t, v in self.table_apply_s.items()},
+            "stage": None if st is None else {
+                "depth": st.depth(),
+                "pending_verbs": st.pending_verbs(),
+                "mid_exchange": bool(st.busy_since),
+                "dead": repr(st.dead) if st.dead is not None else None,
+            },
+        }]
+
+    # -- telemetry helpers (the JAX engine's, sync/server.py) ----------------
+
+    def _flight_exchanged(self, descs, my_rank: int) -> None:
+        """Flight event of one completed exchange: THIS rank's verbs over
+        the agreed prefix, recorded BEFORE the cross-rank divergence
+        CHECK, so a diverging window is in the ring when the CHECK aborts
+        it (``telemetry/forensics.py`` aligns on it)."""
+        if tflight.enabled():
+            tflight.record("window.exchanged", seq=self._mh_seq - 1,
+                           epoch=self.window_epoch,
+                           mepoch=multihost.membership_epoch(),
+                           stream=self.mh_stream,
+                           detail=",".join(f"{k}{t}"
+                                           for k, t in descs[my_rank]))
+
+    def _note_fence(self, cause: str, stall_s: float) -> None:
+        """One pipelined-stage stall: ``engine.fence.<cause>``, the stall
+        histogram and a flight event (exchange stage thread)."""
+        tmetrics.counter(f"engine.fence.{cause}").inc()
+        self._t_fence_stall_s.observe(stall_s)
+        self.last_fence_cause = cause
+        tflight.record("fence", seq=self._mh_seq, epoch=self.window_epoch,
+                       mepoch=multihost.membership_epoch(),
+                       stream=self.mh_stream, detail=cause)
+
+    def _note_overlap(self, s: float) -> None:
+        """``s`` seconds the exchange and the apply ran together; refreshes
+        the engine.overlap_pct gauge (the share of the stage's busy
+        seconds)."""
+        if s <= 0:
+            return
+        st = self._ex_stage
+        with self._overlap_lock:
+            self._overlap_s += s
+            busy = st.busy_s if st is not None else 0.0
+            if busy > 0:
+                self._t_overlap_pct.set(
+                    min(100.0, 100.0 * self._overlap_s / busy))
+
+    def _phases_on(self) -> bool:
+        """The phase-stamping gate: two cached flag reads."""
+        return _phase_stamps_flag() and tflight.enabled()
+
+    def _binding_stream_gauge(self):
+        """This stream's binding-phase gauge (lazy: a sub-shard learns its
+        stream id after construction; touched only when the phase
+        changes)."""
+        g = self._t_binding_st
+        if g is None:
+            g = self._t_binding_st = tmetrics.gauge(
+                f"engine.stream{self.mh_stream}.binding_phase")
+        return g
+
+    def _set_binding(self, phase: str) -> None:
+        if phase and phase != self.last_binding_phase:
+            self.last_binding_phase = phase
+            idx = float(ENGINE_PHASES.index(phase))
+            self._t_binding.set(idx)
+            self._binding_stream_gauge().set(idx)
+
+    def _ph_emit(self, ph: dict, nverbs: int) -> None:
+        """Emit one window's phase record: the ``window.phases`` flight
+        event (durations in integer microseconds), the engine.phase.*_s
+        histograms and the binding-phase gauges. ``xd`` re-anchors the
+        exchange-done stamp to the event's own ``tm`` (its wall time is
+        the event's ``t`` minus xd, the rendezvous critpath aligns clocks
+        on) and ``ax`` is exchange-done to apply-start. A single-process
+        window carries only ``a`` and seq -1 (no stream position)."""
+        apply_s = ph.get("apply", 0.0)
+        if "x" not in ph:
+            if apply_s > 0.0:
+                self._t_phase["apply"].observe(apply_s)
+                self._d_window.observe(apply_s)
+                self._set_binding("apply")
+            tflight.record("window.phases", seq=ph.get("seq", -1),
+                           epoch=self.window_epoch,
+                           mepoch=ph.get("mepoch", 0),
+                           stream=self.mh_stream,
+                           detail=f"v={nverbs};a={int(apply_s * 1e6)}")
+            return
+        durs = {"form": ph.get("form", 0.0), "pack": ph.get("pack", 0.0),
+                "encode": ph.get("encode", 0.0),
+                "exchange": ph.get("x", 0.0),
+                "exchange_wait": ph.get("xw", 0.0),
+                "decode": ph.get("dec", 0.0),
+                "apply": apply_s}
+        for name, secs in durs.items():
+            if secs > 0.0:
+                self._t_phase[name].observe(secs)
+        # the exchange already contains its wait
+        self._d_window.observe(sum(durs.values()) - durs["exchange_wait"])
+        cand = {k: v for k, v in durs.items() if k != "exchange"}
+        self._set_binding(max(cand, key=cand.get)
+                          if any(cand.values()) else "")
+        parts = [f"v={nverbs}"]
+        for tag, key in (("f", "form"), ("p", "pack"), ("e", "encode"),
+                         ("x", "exchange"), ("xw", "exchange_wait"),
+                         ("d", "decode"), ("a", "apply")):
+            if durs[key] > 0.0:
+                parts.append(f"{tag}={int(durs[key] * 1e6)}")
+        x_done_m = ph.get("x_done_m", 0.0)
+        if x_done_m:
+            now_m = time.perf_counter()
+            parts.append(f"xd={int((now_m - x_done_m) * 1e6)}")
+            a_start = ph.get("a_start_m", 0.0)
+            if a_start:
+                parts.append(f"ax={int((a_start - x_done_m) * 1e6)}")
+        tflight.record("window.phases", seq=ph.get("seq", -1),
+                       epoch=self.window_epoch, mepoch=ph.get("mepoch", 0),
+                       stream=self.mh_stream, detail=";".join(parts))
+
+    def _ph_tables(self, tbl: dict, seq: int, mepoch: int) -> None:
+        """Apply seconds per (table, verb): one ``window.tables`` flight
+        event (``<family><tid>:<A|G>=<us>``) and the per-family
+        engine.apply.table_s.* histograms."""
+        parts = []
+        items = tbl.items() if len(tbl) == 1 else sorted(tbl.items())
+        for (tid, verb), secs in items:
+            cached = self._fam_cache.get(tid)
+            if cached is None:
+                try:
+                    fam = _table_family(self.store_[tid])
+                except Exception:
+                    fam = "table"
+                hist = (self._t_apply_fam.get(fam)
+                        or tmetrics.histogram(f"engine.apply.table_s.{fam}"))
+                cached = self._fam_cache[tid] = (fam, hist)
+            fam, hist = cached
+            hist.observe(secs)
+            parts.append(f"{fam}{tid}:{verb}={int(secs * 1e6)}")
+        if parts:
+            tflight.record("window.tables", seq=seq,
+                           epoch=self.window_epoch, mepoch=mepoch,
+                           stream=self.mh_stream, detail=";".join(parts))
 
     def _get_entry(self, msg: Message) -> None:
         """Window handler for Request_Get, Request_Add and envelopes."""
@@ -584,11 +942,40 @@ class Server(Actor):
                 break
             batch.append(nxt)
         batch = self._expand_multi(batch)
+        for m in batch:
+            # drained messages bypass _dispatch: their queue wait is
+            # observed here (once per message)
+            self.note_dequeue(m)
         if multihost.world_size() > 1:
             self._mh_windows(batch)
             return
-        self._local_window(batch)
+        t0 = time.perf_counter()
+        phases = self._phases_on()
+        if phases:
+            self._ph_tick += 1
+            self._ph_stamp_this = (self._ph_tick
+                                   & (_PH_SP_SAMPLE - 1)) == 1
+        else:
+            self._ph_stamp_this = False
+        with ttrace.span("server.window", cat="server",
+                         args={"verbs": len(batch)}):
+            self._local_window(batch)
         self.window_epoch += 1
+        tflight.record("window.applied", epoch=self.window_epoch,
+                       stream=self.mh_stream, detail=f"{len(batch)}v")
+        win_s = time.perf_counter() - t0
+        self._t_window_s.observe(win_s)
+        # a single-process window's whole body is apply
+        self.apply_busy_s += win_s
+        if phases:
+            # the apply histogram sees every window, the flight record
+            # the 1-in-N sample
+            if self._ph_stamp_this:
+                self._ph_emit({"apply": win_s}, len(batch))
+            else:
+                self._t_phase["apply"].observe(win_s)
+        self._t_verbs.inc(sum(1 for m in batch if m.msg_type in
+                              (MsgType.Request_Add, MsgType.Request_Get)))
 
     def _add_entry(self, msg: Message) -> None:
         """Request_Add enters the same window as Gets; SyncServer re-binds
@@ -628,6 +1015,16 @@ class Server(Actor):
                 self._ex_stage.poison()
             Log.Error("engine: multi-process window stream aborted: %r",
                       exc)
+            # forensics: the abort is a ring event, then the ring goes to
+            # -mv_diag_dir, BEFORE the waiters fail (a fast-exiting worker
+            # must not beat the dump)
+            tflight.record("engine.fatal", seq=self._mh_seq,
+                           epoch=self.window_epoch,
+                           mepoch=multihost.membership_epoch(),
+                           stream=self.mh_stream,
+                           detail=f"{type(exc).__name__}: {exc}"[:200])
+            tflight.dump_failure(
+                f"engine window stream abort ({type(exc).__name__})")
             for m in pending:
                 m.reply(exc)
             exc.mv_fatal = True
@@ -649,6 +1046,7 @@ class Server(Actor):
                 ok, m = self.mailbox.TryPop()
                 if not ok:
                     break
+                self.note_dequeue(m)
                 for mm in self._expand_multi([m]):
                     fed.append(mm)
                     stage.feed(mm)
@@ -663,30 +1061,86 @@ class Server(Actor):
                 if item[0] == "barrier":
                     CHECK(fed.popleft() is item[1],
                           "pipeline completion order desync (engine bug)")
+                    self.window_barrier_splits += 1
+                    self._t_splits.inc()
                     self._dispatch(item[1])
                 else:
                     # a window local on every rank (the stage's
                     # rank-agreed decision) may apply its tables in
                     # parallel
-                    _, mine, windows, prefix, descs0, is_local = item
-                    self._mh_apply_window(mine, windows, prefix, descs0,
-                                          parallel_ok=is_local)
+                    (_, mine, windows, prefix, descs0, is_local, t0,
+                     win_ctx, ph) = item
+                    self._pl_apply(mine, windows, prefix, descs0, win_ctx,
+                                   ph, parallel_ok=is_local)
                     for m in mine:
                         CHECK(fed.popleft() is m,
                               "pipeline completion order desync (engine "
                               "bug)")
+                    self._t_window_s.observe(time.perf_counter() - t0)
             finally:
                 # always lift the fence, even before a fatal raise: the
                 # stage must not hang waiting for it
                 stage.note_applied()
 
+    def _pl_apply(self, verbs, windows, prefix, descs0, win_ctx, ph,
+                  parallel_ok: bool) -> None:
+        """Apply one exchanged window on the actor thread, recording the
+        apply interval for the overlap telemetry and closing the window's
+        phase record (``ph`` came from the exchange stage)."""
+        t0 = time.perf_counter()
+        self._apply_since = t0
+        if ph is not None:
+            ph["a_start_m"] = t0
+        try:
+            with ttrace.span("server.window.apply", cat="server",
+                             parent=win_ctx, args={"verbs": prefix}):
+                self._mh_apply_window(verbs, windows, prefix, descs0,
+                                      seq=(ph or {}).get("seq", -1),
+                                      parallel_ok=parallel_ok)
+        finally:
+            now = time.perf_counter()
+            self._apply_since = 0.0
+            st = self._ex_stage
+            b0 = st.busy_since if st is not None else 0.0
+            if b0:
+                # an exchange is still in flight as this apply ends
+                self._note_overlap(max(0.0, now - max(b0, t0)))
+            if ph is not None:
+                ph["apply"] = now - t0
+                self._ph_emit(ph, prefix)
+            tflight.record("window.applied", seq=self._mh_seq,
+                           epoch=self.window_epoch,
+                           mepoch=multihost.membership_epoch(),
+                           stream=self.mh_stream, detail=f"{prefix}v")
+
     def _mh_collective_window(self, msg: Message) -> None:
         """A one-verb window on the actor thread (the BSP engine): pack,
         exchange, agree, apply (serially)."""
-        local, used = self._mh_pack_window([msg])
-        windows = self._mh_exchange_decode(local)
-        prefix, descs0 = self._mh_agree(windows)
-        self._mh_apply_window(used[:prefix], windows, prefix, descs0)
+        t_start = time.perf_counter()
+        with ttrace.span("server.window", cat="server",
+                         parent=msg.trace_ctx, args={"verbs": 1}):
+            ph = {} if self._phases_on() else None
+            tp = time.perf_counter()
+            local, used = self._mh_pack_window([msg])
+            if ph is not None:
+                ph["pack"] = time.perf_counter() - tp
+            windows = self._mh_exchange_decode(local, ph)
+            prefix, descs0 = self._mh_agree(windows)
+            seq = self._mh_seq - 1
+            if ph is not None:
+                ph["seq"] = seq
+                ph["mepoch"] = multihost.membership_epoch()
+                ph["a_start_m"] = time.perf_counter()
+            self._mh_apply_window(used[:prefix], windows, prefix, descs0,
+                                  seq=seq)
+            if ph is not None:
+                ph["apply"] = time.perf_counter() - ph["a_start_m"]
+                self._ph_emit(ph, prefix)
+            tflight.record("window.applied", seq=self._mh_seq,
+                           epoch=self.window_epoch,
+                           mepoch=multihost.membership_epoch(),
+                           stream=self.mh_stream, detail=f"{prefix}v")
+        self._t_window_s.observe(time.perf_counter() - t_start)
 
     def _mh_check_barrier_head(self, head: Message) -> None:
         """Exchange a head-kind marker for a non-verb window head: a rank at
@@ -696,6 +1150,12 @@ class Server(Actor):
         blobs = multihost.capped_exchange(
             wire.encode_head_barrier(int(head.msg_type)), self._mh_caps,
             "HEAD_B", channel=self.mh_channel)
+        # the seq of the NEXT exchange (barriers do not advance it), so
+        # forensics aligns a barrier against a diverged peer's verbs
+        tflight.record("barrier", seq=self._mh_seq, epoch=self.window_epoch,
+                       mepoch=multihost.membership_epoch(),
+                       stream=self.mh_stream,
+                       detail=MsgType(head.msg_type).name)
         kinds = [wire.decode_head_kind(b) for b in blobs]
         CHECK(all(k == kinds[0] for k in kinds),
               f"multi-process window heads diverge: {kinds} — every "
@@ -722,23 +1182,48 @@ class Server(Actor):
             packed += nbytes
             local.append((kind, m.table_id, m.payload))
             used.append(m)
+        self._t_budget.set(packed)
+        tflight.record("window.admitted", seq=self._mh_seq,
+                       epoch=self.window_epoch,
+                       mepoch=multihost.membership_epoch(),
+                       stream=self.mh_stream,
+                       detail=f"{len(used)}v/{packed}B")
         return local, used
 
-    def _mh_exchange_decode(self, local) -> list:
+    def _mh_exchange_decode(self, local, ph: Optional[dict] = None) -> list:
         """Encode, exchange and decode one window; every rank's verb list
         in rank order (this rank's own records verbatim, but for
         compressed values, which it decodes as its peers do, so every
         replica applies the same reconstruction). A frame failing its seal
-        re-runs the whole collective exchange."""
+        re-runs the whole collective exchange. ``ph`` accumulates the
+        window's encode / exchange (its wall, and the seconds blocked in
+        the collective, ``multihost.last_exchange_stats``) / decode
+        seconds and keeps the successful exchange's done stamps, the
+        cross-rank clock anchor."""
         my_rank = multihost.world_rank()
         last_exc = None
         for attempt in range(1 + self.MH_WIRE_RETRIES):
-            blob = wire.encode_window(local, seq=self._mh_seq)
             t0 = time.perf_counter()
-            blobs = multihost.capped_exchange(
-                blob, self._mh_caps, (local[0][0], local[0][1]),
-                channel=self.mh_channel)
-            self.xw_busy_s += time.perf_counter() - t0
+            blob = wire.encode_window(local, seq=self._mh_seq)
+            enc_s = time.perf_counter() - t0
+            self._t_encode_s.observe(enc_s)
+            if ph is not None:
+                ph["encode"] = ph.get("encode", 0.0) + enc_s
+            self._t_host_bytes.inc(len(blob))
+            tx = time.perf_counter()
+            with ttrace.span("server.window.exchange", cat="server",
+                             args={"bytes": len(blob)}):
+                blobs = multihost.capped_exchange(
+                    blob, self._mh_caps, (local[0][0], local[0][1]),
+                    channel=self.mh_channel)
+            xs = multihost.last_exchange_stats()
+            self.xw_busy_s += xs["coll_s"]
+            if ph is not None:
+                ph["x"] = ph.get("x", 0.0) + time.perf_counter() - tx
+                ph["xw"] = ph.get("xw", 0.0) + xs["coll_s"]
+                ph["x_done_m"] = xs["done_m"]
+                ph["x_done_w"] = xs["done_w"]
+            t0 = time.perf_counter()
             try:
                 windows = []
                 for i, b in enumerate(blobs):
@@ -760,22 +1245,33 @@ class Server(Actor):
                     windows.append(decoded)
             except WireCorruption as exc:
                 last_exc = exc
+                tflight.record("wire.crc_retry", seq=self._mh_seq,
+                               epoch=self.window_epoch,
+                               mepoch=multihost.membership_epoch(),
+                               stream=self.mh_stream,
+                               detail=f"attempt{attempt + 1}")
                 Log.Error("window exchange frame corrupt (attempt %d/%d): "
                           "%r — re-exchanging", attempt + 1,
                           1 + self.MH_WIRE_RETRIES, exc)
                 continue
+            dec_s = time.perf_counter() - t0
+            self._t_decode_s.observe(dec_s)
+            if ph is not None:
+                ph["dec"] = ph.get("dec", 0.0) + dec_s
             self._mh_seq += 1
             self.mh_window_exchanges += 1
+            self._t_exchanges.inc()
             return windows
         raise last_exc
 
-    @staticmethod
-    def _mh_agree(windows):
+    def _mh_agree(self, windows):
         """``(prefix, descs0)``: the common verb prefix of every rank's
         window and its ``(kind, table)`` records; a divergence CHECK-fails
-        identically on every rank."""
+        identically on every rank, after the ``window.exchanged`` flight
+        event recorded this rank's verbs."""
         prefix = min(len(w) for w in windows)
         descs = [[(k, t) for k, t, _ in w[:prefix]] for w in windows]
+        self._flight_exchanged(descs, multihost.world_rank())
         CHECK(all(d == descs[0] for d in descs),
               f"multi-process verb streams diverge inside a window: "
               f"{descs} — every process must issue the same table-verb "
@@ -795,7 +1291,7 @@ class Server(Actor):
         return True
 
     def _mh_apply_window(self, verbs, windows, prefix, descs0,
-                         parallel_ok: bool = False) -> None:
+                         seq: int = -1, parallel_ok: bool = False) -> None:
         """Apply an exchanged window's agreed prefix: a table's Adds as one
         run at its first Add's position, its Gets grouped before and after
         that run (no Get observes less than strict order would show it).
@@ -803,19 +1299,29 @@ class Server(Actor):
         position, identically on every rank. With ``parallel_ok`` (the
         window's apply is local on every rank) and more than one table,
         the tables apply concurrently on the ``-mv_apply_workers`` pool;
-        otherwise the ops run in position order on this thread."""
+        otherwise the ops run in position order on this thread. ``seq``
+        keys the per-table apply attribution (``window.tables``)."""
         t0 = time.perf_counter()
         my_rank = multihost.world_rank()
         self.mh_window_verbs += prefix
+        self._t_verbs.inc(prefix)
+        for _, tid in descs0:
+            self.table_verbs[tid] = self.table_verbs.get(tid, 0) + 1
+        tbl: Dict[tuple, float] = {}
         parts_at = [[w[i][2] for w in windows] for i in range(prefix)]
         ops = self._mh_window_ops(descs0)
         n_tables = len({tid for _, tid, _ in ops})
         if (parallel_ok and n_tables > 1
                 and int(GetFlag("mv_apply_workers")) > 1):
-            merged = self._mh_apply_parallel(ops, parts_at, verbs, my_rank)
+            merged = self._mh_apply_parallel(ops, parts_at, verbs, my_rank,
+                                             tbl)
         else:
-            merged = self._mh_run_ops(ops, parts_at, verbs, my_rank)
+            merged = self._mh_run_ops(ops, parts_at, verbs, my_rank, tbl)
         self.mh_add_run_merged += merged
+        for (tid, _), secs in tbl.items():
+            self.table_apply_s[tid] = self.table_apply_s.get(tid, 0.0) + secs
+        if tbl and self._phases_on():
+            self._ph_tables(tbl, seq, multihost.membership_epoch())
         self.apply_busy_s += time.perf_counter() - t0
         self.window_epoch += 1
 
@@ -845,32 +1351,45 @@ class Server(Actor):
             groups[(tid, seg)].append(i)
         return ops
 
-    def _mh_run_ops(self, ops, parts_at, verbs, my_rank: int) -> int:
+    def _mh_run_ops(self, ops, parts_at, verbs, my_rank: int,
+                    tbl: dict) -> int:
         """Run window ops in the given order: the serial apply's body and
-        each parallel job's. Returns the Add runs applied merged (summed
-        by the caller: pool jobs write no engine counter)."""
+        each parallel job's. Returns the Add runs applied merged and adds
+        each op's seconds to ``tbl[(table, "A"|"G")]`` (a pool job gets a
+        private dict: pool jobs write no engine state, the caller sums
+        after the join)."""
         merged = 0
         for kind, tid, positions in ops:
+            tt = time.perf_counter()
             if kind == "A":
-                merged += self._mh_add_run(tid, positions, parts_at, verbs,
-                                           my_rank)
+                with ttrace.span("server.window.add_run", cat="server",
+                                 args={"table_id": tid,
+                                       "positions": len(positions)}):
+                    merged += self._mh_add_run(tid, positions, parts_at,
+                                               verbs, my_rank)
             else:
-                self._mh_get_group(tid, positions, parts_at, verbs, my_rank)
+                with ttrace.span("server.window.get_group", cat="server",
+                                 args={"table_id": tid}):
+                    self._mh_get_group(tid, positions, parts_at, verbs,
+                                       my_rank)
+            k = (tid, kind)
+            tbl[k] = tbl.get(k, 0.0) + time.perf_counter() - tt
         return merged
 
-    def _mh_job(self, ops, parts_at, verbs, my_rank: int) -> int:
+    def _mh_job(self, ops, parts_at, verbs, my_rank: int) -> tuple:
         """One table's ops as a parallel job, issuing on the table's
-        device: a pool thread's current CUDA device is otherwise the
-        process default."""
+        device (a pool thread's current CUDA device is otherwise the
+        process default); returns ``(merged runs, its tbl)``."""
+        tbl: dict = {}
         try:
             dev = getattr(self.store_[ops[0][1]], "device", None)
         except IndexError:
             dev = None      # a bad table id: its verbs fail in the ops
         if dev is None or dev.type != "cuda":
-            return self._mh_run_ops(ops, parts_at, verbs, my_rank)
+            return self._mh_run_ops(ops, parts_at, verbs, my_rank, tbl), tbl
         import torch
         with torch.cuda.device(dev):
-            return self._mh_run_ops(ops, parts_at, verbs, my_rank)
+            return self._mh_run_ops(ops, parts_at, verbs, my_rank, tbl), tbl
 
     def _ensure_apply_pool(self) -> _ApplyPool:
         """The pool at the live ``-mv_apply_workers`` size (2..16), rebuilt
@@ -884,7 +1403,8 @@ class Server(Actor):
             pool = self._apply_pool = _ApplyPool(want, self.name)
         return pool
 
-    def _mh_apply_parallel(self, ops, parts_at, verbs, my_rank: int) -> int:
+    def _mh_apply_parallel(self, ops, parts_at, verbs, my_rank: int,
+                           tbl: dict) -> int:
         """The parallel apply: the op list regrouped into one job a table
         (its ops in their serial order), the jobs run concurrently, the
         last inline on this thread. Reached only for windows whose apply
@@ -900,9 +1420,10 @@ class Server(Actor):
         boxes = [pool.submit(lambda j=j: self._mh_job(j, parts_at, verbs,
                                                       my_rank))
                  for j in job_lists[:-1]]
-        self.apply_pool_jobs += len(boxes)
-        self.apply_pool_inline += 1
-        merged = self._mh_job(job_lists[-1], parts_at, verbs, my_rank)
+        self._t_pool_jobs.inc(len(boxes))
+        self._t_pool_inline.inc()
+        merged, own = self._mh_job(job_lists[-1], parts_at, verbs, my_rank)
+        results = [own]
         limit = fdeadline.timeout_or_none()
         t0 = time.perf_counter()
         for box in boxes:
@@ -913,7 +1434,11 @@ class Server(Actor):
                                          "table's apply job never finished)")
             if "error" in box:
                 raise box["error"]
-            merged += box["result"]
+            merged += box["result"][0]
+            results.append(box["result"][1])
+        for local in results:
+            for k, v in local.items():
+                tbl[k] = tbl.get(k, 0.0) + v
         return merged
 
     def _mh_add_run(self, tid: int, positions, parts_at, verbs,
@@ -937,16 +1462,20 @@ class Server(Actor):
                     verbs[p].reply(exc)
                 return 0
             if merged:
+                self._t_dispatch.inc()
+                self._t_merged.inc()
                 for p in positions:
                     verbs[p].reply(None)
                 return 1
         for p in positions:
-            try:
-                table.ProcessAddParts(parts_at[p], my_rank)
-            except Exception as exc:
-                Log.Error("table %d parts Add failed: %r", tid, exc)
-                verbs[p].reply(exc)
-                continue
+            with monitor_region("SERVER_PROCESS_ADD"):
+                try:
+                    table.ProcessAddParts(parts_at[p], my_rank)
+                    self._t_dispatch.inc()
+                except Exception as exc:
+                    Log.Error("table %d parts Add failed: %r", tid, exc)
+                    verbs[p].reply(exc)
+                    continue
             verbs[p].reply(None)
         return 0
 
@@ -977,12 +1506,13 @@ class Server(Actor):
                 verbs[p].reply(res)
             return
         for p in positions:
-            try:
-                result = table.ProcessGetParts(parts_at[p], my_rank)
-            except Exception as exc:
-                Log.Error("table %d parts Get failed: %r", tid, exc)
-                verbs[p].reply(exc)
-                continue
+            with monitor_region("SERVER_PROCESS_GET"):
+                try:
+                    result = table.ProcessGetParts(parts_at[p], my_rank)
+                except Exception as exc:
+                    Log.Error("table %d parts Get failed: %r", tid, exc)
+                    verbs[p].reply(exc)
+                    continue
             verbs[p].reply(result)
 
     def _local_window(self, batch) -> None:
@@ -991,13 +1521,23 @@ class Server(Actor):
         for m in batch:
             if m.msg_type in (MsgType.Request_Add, MsgType.Request_Get):
                 segments[-1].append(m)
+                if m.table_id >= 0:
+                    self.table_verbs[m.table_id] = (
+                        self.table_verbs.get(m.table_id, 0) + 1)
             else:
                 segments.append(m)       # barrier marker
                 segments.append([])
         pending = []   # (finalize, [msgs]) in dispatch order
         seen: Dict[tuple, int] = {}
+        # per-(table, verb) apply seconds, on the sampled windows only
+        tbl = {} if self._ph_stamp_this else None
         for seg in segments:
             if not isinstance(seg, list):
+                self.window_barrier_splits += 1
+                self._t_splits.inc()
+                tflight.record("barrier", epoch=self.window_epoch,
+                               stream=self.mh_stream,
+                               detail=MsgType(seg.msg_type).name)
                 self._dispatch(seg)
                 seen.clear()
                 continue
@@ -1013,7 +1553,12 @@ class Server(Actor):
                 if m.msg_type is MsgType.Request_Add:
                     if m.table_id not in applied:
                         applied.add(m.table_id)
+                        tt = time.perf_counter() if tbl is not None else 0.0
                         self._process_add_run(add_runs[m.table_id])
+                        if tbl is not None:
+                            k = (m.table_id, "A")
+                            tbl[k] = (tbl.get(k, 0.0)
+                                      + time.perf_counter() - tt)
                         # a Get queued after this Add must not join a
                         # gather dispatched before it
                         seen = {k: v for k, v in seen.items()
@@ -1023,33 +1568,48 @@ class Server(Actor):
                 if key is not None and key in seen:
                     pending[seen[key]][1].append(m)
                     continue
-                try:
-                    table = self.store_[m.table_id]
-                    finalize = table.ProcessGetAsync(**m.payload)
-                    if finalize is None:
-                        self.ProcessGet(m)
-                    else:
-                        if key is not None:
-                            seen[key] = len(pending)
-                        pending.append((finalize, [m]))
-                except Exception as exc:
-                    # a failure (bad table id included) replies to THIS
-                    # message only — escaping would abandon every pending
-                    # finalize and hang its waiters
-                    Log.Error("table ProcessGet dispatch failed: %r", exc)
-                    m.reply(exc)
+                tt = time.perf_counter() if tbl is not None else 0.0
+                with monitor_region("SERVER_PROCESS_GET"):
+                    try:
+                        table = self.store_[m.table_id]
+                        finalize = table.ProcessGetAsync(**m.payload)
+                        if finalize is None:
+                            self.ProcessGet(m)
+                        else:
+                            if key is not None:
+                                seen[key] = len(pending)
+                            pending.append((finalize, [m]))
+                    except Exception as exc:
+                        # a failure (bad table id included) replies to
+                        # THIS message only — escaping would abandon every
+                        # pending finalize and hang its waiters
+                        Log.Error("table ProcessGet dispatch failed: %r",
+                                  exc)
+                        m.reply(exc)
+                if tbl is not None:
+                    k = (m.table_id, "G")
+                    tbl[k] = tbl.get(k, 0.0) + time.perf_counter() - tt
         for finalize, msgs in pending:
+            tt = time.perf_counter() if tbl is not None else 0.0
+            err = None
             try:
                 result = finalize()
             except Exception as exc:
                 Log.Error("table %d Get finalize failed: %r",
                           msgs[0].table_id, exc)
+                err = exc
+            if tbl is not None:
+                k = (msgs[0].table_id, "G")
+                tbl[k] = tbl.get(k, 0.0) + time.perf_counter() - tt
+            if err is not None:
                 for m in msgs:
-                    m.reply(exc)
+                    m.reply(err)
                 continue
             msgs[0].reply(result)
             for m in msgs[1:]:
                 m.reply(copy_result(result))
+        if tbl:
+            self._ph_tables(tbl, -1, 0)
 
     def _process_add_run(self, msgs) -> None:
         """Apply a table's window-worth of Adds: merged when the table
@@ -1067,6 +1627,8 @@ class Server(Actor):
                 return
             if merged:
                 self.add_runs_merged += 1
+                self._t_dispatch.inc()
+                self._t_merged.inc()
                 for m in msgs:
                     m.reply(None)
                 return
@@ -1091,24 +1653,29 @@ class Server(Actor):
         return tuple(parts)
 
     def ProcessGet(self, msg: Message) -> None:
-        try:
-            result = self.store_[msg.table_id].ProcessGet(**msg.payload)
-        except Exception as exc:
-            # replies to THIS message: a cached message drained inside
-            # another worker's request (SyncServer) must not hang
-            Log.Error("table %d ProcessGet failed: %r", msg.table_id, exc)
-            msg.reply(exc)
-            return
-        msg.reply(result)
+        with monitor_region("SERVER_PROCESS_GET"):
+            try:
+                result = self.store_[msg.table_id].ProcessGet(**msg.payload)
+            except Exception as exc:
+                # replies to THIS message: a cached message drained inside
+                # another worker's request (SyncServer) must not hang
+                Log.Error("table %d ProcessGet failed: %r", msg.table_id,
+                          exc)
+                msg.reply(exc)
+                return
+            msg.reply(result)
 
     def ProcessAdd(self, msg: Message) -> None:
-        try:
-            self.store_[msg.table_id].ProcessAdd(**msg.payload)
-        except Exception as exc:
-            Log.Error("table %d ProcessAdd failed: %r", msg.table_id, exc)
-            msg.reply(exc)
-            return
-        msg.reply(None)
+        with monitor_region("SERVER_PROCESS_ADD"):
+            try:
+                self.store_[msg.table_id].ProcessAdd(**msg.payload)
+            except Exception as exc:
+                Log.Error("table %d ProcessAdd failed: %r", msg.table_id,
+                          exc)
+                msg.reply(exc)
+                return
+            self._t_dispatch.inc()
+            msg.reply(None)
 
     def ProcessFinishTrain(self, msg: Message) -> None:
         msg.reply(None)
@@ -1263,6 +1830,7 @@ class _EngineShard(Server):
         self.store_ = parent.store_     # one table list, router-owned
         self.slot = slot
         self.mh_channel = slot
+        self.mh_stream = slot
         for mt in _CUT_TYPES:
             self.RegisterHandler(mt, self._fence_entry)
 
@@ -1521,6 +2089,13 @@ class SyncServer(Server):
         self._num_waited_add = [0] * num_workers
         self._add_cache: Deque[Message] = collections.deque()
         self._get_cache: Deque[Message] = collections.deque()
+        #: the worst clock skew of the two vector clocks; a MAX-merge
+        #: gauge (job-wide it is the worst rank's skew, not a sum)
+        self._t_staleness = tmetrics.max_gauge("server.bsp.staleness")
+
+    def _note_staleness(self) -> None:
+        self._t_staleness.set(max(self._get_clocks.staleness(),
+                                  self._add_clocks.staleness()))
 
     def _verb(self, msg: Message) -> None:
         """Apply one verb strictly. Across processes it is a one-verb
@@ -1538,6 +2113,13 @@ class SyncServer(Server):
             self._mh_collective_window(msg)
         except Exception as exc:
             Log.Error("engine: multi-process BSP stream aborted: %r", exc)
+            tflight.record("engine.fatal", seq=self._mh_seq,
+                           epoch=self.window_epoch,
+                           mepoch=multihost.membership_epoch(),
+                           stream=self.mh_stream,
+                           detail=f"{type(exc).__name__}: {exc}"[:200])
+            tflight.dump_failure(
+                f"engine BSP stream abort ({type(exc).__name__})")
             for m in (msg, *self._add_cache, *self._get_cache):
                 m.reply(exc)
             exc.mv_fatal = True
@@ -1550,6 +2132,7 @@ class SyncServer(Server):
                 > self._get_clocks.global_clock()):
             self._add_cache.append(msg)
             self._num_waited_add[worker] += 1
+            self._note_staleness()
             return
         # 2. Process add
         self._verb(msg)
@@ -1561,6 +2144,7 @@ class SyncServer(Server):
                 self._verb(get_msg)
                 CHECK(not self._get_clocks.Update(get_msg.src),
                       "drained Get must not complete a round")
+        self._note_staleness()
 
     def _multi_entry_bsp(self, msg: Message) -> None:
         """A batched envelope on the BSP engine: its members, strictly one
@@ -1588,6 +2172,7 @@ class SyncServer(Server):
                 > self._add_clocks.global_clock()
                 or self._num_waited_add[worker] > 0):
             self._get_cache.append(msg)
+            self._note_staleness()
             return
         # 2. Process get
         self._verb(msg)
@@ -1599,6 +2184,7 @@ class SyncServer(Server):
                 CHECK(not self._add_clocks.Update(add_msg.src),
                       "drained Add must not complete a round")
                 self._num_waited_add[add_msg.src] -= 1
+        self._note_staleness()
 
     def ProcessFinishTrain(self, msg: Message) -> None:
         """server.cpp:188-211: force the worker's clocks to infinity,

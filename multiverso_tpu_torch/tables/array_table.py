@@ -250,6 +250,8 @@ class ArrayServer(ServerTable):
 class ArrayWorker(WorkerTable):
     """Worker half (reference array_table.h:13-39)."""
 
+    telemetry_label = "array"
+
     def __init__(self, size: int, dtype=np.float32):
         super().__init__()
         self.size = size

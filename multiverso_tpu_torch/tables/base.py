@@ -32,14 +32,19 @@ package:
   process wrote nothing to the table (read-your-writes). One process and
   the async engines only: a hit removes a verb from the stream.
 
-``worker_stats`` counts the combined members and the cache hits (the JAX
-package's ``worker.write_combine_hits`` and ``worker.get_cache_hits``
-counters).
+Telemetry as in the JAX package: per-table ``table.<label><id>.{get,add}.
+{count,bytes}`` counters, the ``worker.write_combine_hits`` and
+``worker.get_cache_hits`` counters, the ``digest.worker.rtt_s`` digest of a
+batch's round trip, the ``WORKER_TABLE_SYNC_GET``/``_ADD`` Dashboard
+monitors, and the worker span whose context rides the message across the
+mailbox hop. A server table's ``ledger_bytes`` is the byte ledger's probe
+(``telemetry/accounting.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -49,8 +54,11 @@ from multiverso_tpu_torch.message import (Message, MsgType, copy_result,
                                           next_msg_id)
 from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.wire import payload_nbytes
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
+from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
 from multiverso_tpu_torch.utils.configure import GetFlag
+from multiverso_tpu_torch.utils.dashboard import monitor_region
 from multiverso_tpu_torch.utils.log import CHECK
 from multiverso_tpu_torch.utils.waiter import Waiter
 
@@ -200,6 +208,24 @@ class ServerTable:
         stream position, or None (the family is not servable)."""
         return None
 
+    # -- the byte ledger (telemetry/accounting.py): a sampling probe, called
+    # from the ops handler, the watchdog tick or a Dashboard render. It
+    # NEVER syncs the device, launches a kernel, or makes a host copy: no
+    # ``.item()``, ``.cpu()`` or ``torch.cuda.synchronize()``, only the
+    # storage sizes the tensors already know. Keys: ``device_bytes`` (the
+    # table's tensors on its device: the STORAGE bytes, padded rows and
+    # columns included), ``host_mirror_bytes`` (host copies of device
+    # state: none in the port) and ``host_bytes`` (host-authoritative
+    # state: numpy arrays, tensors of a table on the CPU are its device).
+
+    def ledger_bytes(self) -> Dict[str, int]:
+        """Byte placement of this table's live state: every tensor reached
+        from ``state`` (the data and the updater's aux state) counts its
+        storage once, every numpy array its ``nbytes`` as host bytes."""
+        out = {"device_bytes": 0, "host_mirror_bytes": 0, "host_bytes": 0}
+        ledger_walk(vars(self).get("state"), out, set())
+        return out
+
     def Store(self, stream) -> None:
         raise NotImplementedError
 
@@ -207,17 +233,41 @@ class ServerTable:
         raise NotImplementedError
 
 
+def ledger_walk(obj, out: Dict[str, int], seen: set) -> None:
+    """Add the bytes of every tensor (storage bytes, each storage once) and
+    numpy array reached through dicts, lists and tuples in ``obj`` to
+    ``out``. Reads sizes only."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        st = obj.untyped_storage()
+        key = (str(obj.device), st.data_ptr())
+        if key not in seen:
+            seen.add(key)
+            out["device_bytes"] += int(st.nbytes())
+    elif isinstance(obj, np.ndarray):
+        out["host_bytes"] += int(obj.nbytes)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            ledger_walk(v, out, seen)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            ledger_walk(v, out, seen)
+
+
 class MultiCall:
     """Handle for one batched verb submission: one counting Waiter covers
     every tracked member; results land in submission order. ``Wait``
     raises the first member error unless ``return_exceptions``."""
 
-    __slots__ = ("_waiter", "_results", "_n")
+    __slots__ = ("_waiter", "_results", "_n", "_t0")
 
     def __init__(self, n_tracked: int, n_members: int):
         self._waiter = Waiter(n_tracked) if n_tracked else None
         self._results: list = [None] * n_members
         self._n = n_members
+        #: submission stamp for the round-trip digest (digest.worker.rtt_s),
+        #: observed once, at the first Wait that sees every reply
+        self._t0 = time.perf_counter() if n_tracked else None
 
     def _member_cb(self, idx: int):
         def _on_reply(msg) -> None:
@@ -227,6 +277,10 @@ class MultiCall:
     def Wait(self, return_exceptions: bool = False) -> list:
         if self._waiter is not None:
             self._waiter.Wait()
+            if self._t0 is not None:
+                tmetrics.digest("digest.worker.rtt_s").observe(
+                    time.perf_counter() - self._t0)
+                self._t0 = None
         if not return_exceptions:
             for r in self._results:
                 if isinstance(r, Exception):
@@ -236,6 +290,10 @@ class MultiCall:
 
 class WorkerTable:
     """Worker half: request construction + waiter bookkeeping."""
+
+    #: short telemetry family tag (array / matrix / sparse_matrix / kv):
+    #: per-table instrument names read like "table.matrix0.add.count"
+    telemetry_label = "table"
 
     def __init__(self):
         from multiverso_tpu_torch.zoo import Zoo
@@ -267,9 +325,23 @@ class WorkerTable:
         #: survives the owner's own write
         self._write_epoch = 0
         self._gc_enabled: Optional[bool] = None      # fixed per world
-        #: fire-and-forget Adds that joined a non-empty combine buffer, and
-        #: Gets served from the cache
-        self.worker_stats = {"write_combine_hits": 0, "get_cache_hits": 0}
+        #: the first buffered member's span context: the combined message
+        #: belongs to the Adds' trace, not to the verb that flushed it
+        self._wc_ctx = None
+        self._tele: Optional[Dict[str, Any]] = None
+
+    def _tele_verbs(self) -> Dict[str, Any]:
+        """Per-table per-verb count/byte counters, fetched lazily (the
+        table id is assigned after construction)."""
+        if self._tele is None:
+            base = f"table.{self.telemetry_label}{self.table_id}"
+            self._tele = {
+                "get_n": tmetrics.counter(f"{base}.get.count"),
+                "get_b": tmetrics.counter(f"{base}.get.bytes"),
+                "add_n": tmetrics.counter(f"{base}.add.count"),
+                "add_b": tmetrics.counter(f"{base}.add.bytes"),
+            }
+        return self._tele
 
     def _submit(self, msg_type: MsgType, payload: Dict[str, Any],
                 worker_id: int, track: bool = True) -> int:
@@ -291,6 +363,10 @@ class WorkerTable:
                 self._waiters[msg_id] = waiter
             msg.waiter = waiter
             msg.on_reply = self._on_reply
+        # the worker span's context crosses the mailbox hop (the engine
+        # parents its dispatch span here), with its flow arrow
+        msg.trace_ctx = ttrace.current_ctx()
+        ttrace.flow_start(msg.trace_ctx)
         self._zoo.SendToServer(msg)
         return msg_id
 
@@ -329,44 +405,61 @@ class WorkerTable:
 
     def GetAsync(self, payload: Dict[str, Any],
                  option: Optional[GetOption] = None) -> int:
-        opt = option or GetOption(worker_id=self._zoo.current_worker_id())
-        payload = dict(payload, option=opt)
-        hit, key = self._gc_probe(payload)
-        if hit is not None:
-            return hit
-        handle = self._submit(MsgType.Request_Get, payload, opt.worker_id)
-        if key is not None:
-            # a miss under an active bound: the reply fills the entry,
-            # dated by BOTH clocks as they stand at submit (the engine
-            # serves the Get at this window or later, and a concurrent
-            # worker's Add between submit and Wait must invalidate it)
-            eng = self._zoo.server_engine
-            with self._lock:
-                self._gc_fill[handle] = (
-                    key, eng.epoch_for_table(self.table_id),
-                    self._write_epoch)
-        return handle
+        with monitor_region("WORKER_TABLE_SYNC_GET"):
+            opt = option or GetOption(
+                worker_id=self._zoo.current_worker_id())
+            payload = dict(payload, option=opt)
+            tele = self._tele_verbs()
+            tele["get_n"].inc()
+            tele["get_b"].inc(payload_nbytes(payload))
+            hit, key = self._gc_probe(payload)
+            if hit is not None:
+                return hit
+            with ttrace.span("worker.get", cat="worker",
+                             args={"table_id": self.table_id}):
+                handle = self._submit(MsgType.Request_Get, payload,
+                                      opt.worker_id)
+            if key is not None:
+                # a miss under an active bound: the reply fills the
+                # entry, dated by BOTH clocks as they stand at submit (the
+                # engine serves the Get at this window or later, and a
+                # concurrent worker's Add between submit and Wait must
+                # invalidate it)
+                eng = self._zoo.server_engine
+                with self._lock:
+                    self._gc_fill[handle] = (
+                        key, eng.epoch_for_table(self.table_id),
+                        self._write_epoch)
+            return handle
 
     def AddAsync(self, payload: Dict[str, Any],
                  option: Optional[AddOption] = None,
                  track: bool = True) -> int:
-        opt = option or AddOption(worker_id=self._zoo.current_worker_id())
-        payload = dict(payload, option=opt)
-        self._bump_write_epoch()
-        if not track:
-            if self._wc_try_buffer(payload, opt):
-                return 0
-            # a non-combinable push: the buffered Adds still go first
-            # (per-table FIFO)
-            self.FlushCombined()
-        return self._submit(MsgType.Request_Add, payload, opt.worker_id,
-                            track=track)
+        with monitor_region("WORKER_TABLE_SYNC_ADD"):
+            opt = option or AddOption(
+                worker_id=self._zoo.current_worker_id())
+            payload = dict(payload, option=opt)
+            tele = self._tele_verbs()
+            tele["add_n"].inc()
+            tele["add_b"].inc(payload_nbytes(payload))
+            self._bump_write_epoch()
+            with ttrace.span("worker.add", cat="worker",
+                             args={"table_id": self.table_id}):
+                if not track:
+                    if self._wc_try_buffer(payload, opt):
+                        return 0
+                    # a non-combinable push: the buffered Adds still go
+                    # first (per-table FIFO)
+                    self.FlushCombined()
+                return self._submit(MsgType.Request_Add, payload,
+                                    opt.worker_id, track=track)
 
     # -- batched verbs --------------------------------------------------------
 
     def _multi_member(self, kind: str, payload: Dict[str, Any], option,
                       call: MultiCall, idx: int, track: bool) -> Message:
         CHECK(kind in ("A", "G"), f"multi member kind {kind!r}")
+        tele = self._tele_verbs()
         if kind == "A":
             opt = option or AddOption(
                 worker_id=self._zoo.current_worker_id())
@@ -377,11 +470,17 @@ class WorkerTable:
                 worker_id=self._zoo.current_worker_id())
             msg_type = MsgType.Request_Get
             track = True        # a Get's whole point is its result
-        return Message(
+        payload = dict(payload, option=opt)
+        verb = "add" if kind == "A" else "get"
+        tele[f"{verb}_n"].inc()
+        tele[f"{verb}_b"].inc(payload_nbytes(payload))
+        msg = Message(
             msg_type=msg_type, table_id=self.table_id, msg_id=next_msg_id(),
-            src=opt.worker_id, payload=dict(payload, option=opt),
+            src=opt.worker_id, payload=payload,
             waiter=call._waiter if track else None,
             on_reply=call._member_cb(idx) if track else None)
+        msg.trace_ctx = ttrace.current_ctx()
+        return msg
 
     def MultiAddAsync(self, payloads, option=None,
                       track: bool = True) -> MultiCall:
@@ -435,7 +534,9 @@ class WorkerTable:
             if self._wc_buf and self._wc_option != opt:
                 self._flush_wc_locked()
             if self._wc_buf:
-                self.worker_stats["write_combine_hits"] += 1
+                tmetrics.counter("worker.write_combine_hits").inc()
+            else:
+                self._wc_ctx = ttrace.current_ctx()
             self._wc_buf.append(payload)
             self._wc_option = opt
             self._wc_src = opt.worker_id
@@ -452,13 +553,16 @@ class WorkerTable:
         if not self._wc_buf:
             return
         bufs, opt, src = self._wc_buf, self._wc_option, self._wc_src
-        self._wc_buf, self._wc_option = [], None
+        ctx = self._wc_ctx
+        self._wc_buf, self._wc_option, self._wc_ctx = [], None, None
         payload = bufs[0] if len(bufs) == 1 else \
             self._combine_fire_forget(bufs)
         payload["option"] = opt
-        self._zoo.SendToServer(Message(
-            msg_type=MsgType.Request_Add, table_id=self.table_id,
-            msg_id=next_msg_id(), src=src, payload=payload))
+        msg = Message(msg_type=MsgType.Request_Add, table_id=self.table_id,
+                      msg_id=next_msg_id(), src=src, payload=payload)
+        msg.trace_ctx = ctx
+        ttrace.flow_start(msg.trace_ctx)
+        self._zoo.SendToServer(msg)
 
     # -- the staleness-bounded Get cache --------------------------------------
 
@@ -511,7 +615,7 @@ class WorkerTable:
                 if (fill_wep == self._write_epoch
                         and (eng.epoch_for_table(self.table_id)
                              - fill_epoch) <= staleness):
-                    self.worker_stats["get_cache_hits"] += 1
+                    tmetrics.counter("worker.get_cache_hits").inc()
                     self._gc_next_hit -= 1
                     hid = self._gc_next_hit
                     self._gc_results[hid] = copy_result(result)

@@ -58,6 +58,7 @@ from multiverso_tpu_torch import native
 from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.ops.rows import scatter_add_rows
 from multiverso_tpu_torch.parallel.mesh import next_bucket
+from multiverso_tpu_torch.telemetry import sketch as tsketch
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
@@ -94,6 +95,9 @@ class KVServerTable(ServerTable):
         self._pending: Dict[int, int] = {}
         self._nat_index: Optional[native.KvIndex] = None
         self._nat_index_tried = False
+        #: the -mv_row_sketch key-access sketch (lazily created when armed)
+        self._row_sketch = None
+        self._row_sketch_notes = 0
         self._values = torch.zeros(self.capacity, dtype=self._tdtype,
                                    device=self._device)
 
@@ -274,15 +278,47 @@ class KVServerTable(ServerTable):
         self._apply_parts(flat)
         return True
 
+    def ledger_bytes(self):
+        """Byte-ledger probe (tables/base.py contract): the values vector's
+        storage (device bytes, or host bytes for a 64-bit table, which is
+        host-resident) and the key index's host arrays. Sizes only."""
+        out = {"device_bytes": 0, "host_mirror_bytes": 0, "host_bytes": 0}
+        nbytes = int(self._values.untyped_storage().nbytes())
+        out["host_bytes" if self._host_backed else "device_bytes"] += nbytes
+        out["host_bytes"] += int(self._sorted_keys.nbytes
+                                 + self._sorted_slots.nbytes)
+        nat = self._nat_index
+        if nat is not None:
+            out["host_bytes"] += 12 * int(nat.capacity())  # i64 key + i32
+        return out
+
     def ProcessGet(self, keys: np.ndarray,
                    option: Optional[GetOption] = None) -> np.ndarray:
+        return self._get_dispatch(keys)()
+
+    def ProcessGetAsync(self, keys=None, option=None):
+        """Two-phase Get (tables/base.py contract), as the JAX KV table: in
+        one process the gather dispatches now and the device->host fetch
+        waits for the window's finalize; across processes the parts path
+        serves it."""
+        if multihost.world_size() > 1 or keys is None:
+            return None
+        return self._get_dispatch(keys)
+
+    def _get_dispatch(self, keys):
         keys = np.asarray(keys, np.int64).ravel()
+        # key-access skew (-mv_row_sketch): this rank's requested keys;
+        # every Get path funnels here, so each logical Get notes once
+        tsketch.note_table_access(self, keys, "kv")
         slots = self._slots_for(keys, create=False)
         vals = self._values.index_select(0, torch.from_numpy(
             np.where(slots < 0, 0, slots).astype(np.int64)).to(self._device))
-        out = vals.cpu().numpy().copy()
-        out[slots < 0] = 0   # absent keys read as 0
-        return out
+
+        def _finalize():
+            out = vals.cpu().numpy().copy()
+            out[slots < 0] = 0   # absent keys read as 0
+            return out
+        return _finalize
 
     # -- device plane (matrix_table device_* counterpart) ---------------------
 
@@ -459,6 +495,8 @@ class KVServerTable(ServerTable):
 class KVWorkerTable(WorkerTable):
     """Worker half with a local cache of the values it fetched (reference
     kv_table.h:19-46)."""
+
+    telemetry_label = "kv"
 
     #: buffered fetched elements past which the local cache merges at once
     CACHE_MERGE_ELEMS = 2_000_000

@@ -74,6 +74,8 @@ import torch
 from multiverso_tpu_torch import ops
 from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.mesh import ceil_block_rows, next_bucket
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
+from multiverso_tpu_torch.telemetry import sketch as tsketch
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
                                               WorkerTable)
 from multiverso_tpu_torch.updaters.base import (AddOption, CreateUpdater,
@@ -193,6 +195,9 @@ class MatrixServerTable(ServerTable):
         #: compressed Adds' wire accounting: the bytes their rows would
         #: have moved dense, and the bytes that crossed to the device
         self.wire_stats = {"dense_bytes": 0, "payload_bytes": 0}
+        #: the -mv_row_sketch access sketch (lazily created when armed)
+        self._row_sketch = None
+        self._row_sketch_notes = 0
         self.dtype = np.dtype(dtype)
         CHECK(self.dtype == np.float32,
               f"matrix tables hold float32 in this port (the row kernels' "
@@ -458,9 +463,17 @@ class MatrixServerTable(ServerTable):
             bits = (packed_t[:, None] >> shifts) & 1
             lanes = bits.reshape(-1)[: n * cols].view(n, cols).bool()
             deltas = torch.where(lanes, pos_t[:n, None], neg_t[:n, None])
-        self.wire_stats["dense_bytes"] += n * cols * self.dtype.itemsize
-        self.wire_stats["payload_bytes"] += sum(a.nbytes for a in wire)
+        self._note_wire(n * cols * self.dtype.itemsize,
+                        sum(a.nbytes for a in wire))
         return deltas
+
+    def _note_wire(self, dense_bytes: int, payload_bytes: int) -> None:
+        """One compressed payload's wire economics: the table's own
+        ``wire_stats`` and the ``wire.compress.*`` counters."""
+        self.wire_stats["dense_bytes"] += dense_bytes
+        self.wire_stats["payload_bytes"] += payload_bytes
+        tmetrics.counter("wire.compress.dense_bytes").inc(dense_bytes)
+        tmetrics.counter("wire.compress.payload_bytes").inc(payload_bytes)
 
     def ProcessAdd(self, values: Optional[np.ndarray] = None,
                    option: Optional[AddOption] = None,
@@ -675,8 +688,20 @@ class MatrixServerTable(ServerTable):
             return lambda: self._from_storage(self._ctx.fetch(data))
         ids = np.asarray(row_ids, np.int32).ravel()
         self._check_ids(ids)
+        # the -mv_row_sketch hook: every engine row Get (one process or
+        # the parts paths, which funnel here) notes its host ids once
+        self._note_row_access(ids)
         rows = self._gather_rows(ids)
         return lambda: self._ctx.fetch(rows)
+
+    def _note_row_access(self, ids) -> None:
+        """Feed one Get's host row ids to the ``-mv_row_sketch`` access
+        sketch (``telemetry/sketch.py``; off = one cached int read). The
+        device-plane verbs hold their ids on the caller's side and do not
+        note (as in the JAX package)."""
+        fam = ("sparse" if "sparse" in type(self).__name__.lower()
+               else "matrix")
+        tsketch.note_table_access(self, ids, fam)
 
     # -- device plane (public) ---------------------------------------------------
     # For callers that keep the rows on the device (the WordEmbedding
@@ -798,6 +823,8 @@ class MatrixServerTable(ServerTable):
 
 class MatrixWorkerTable(WorkerTable):
     """Worker half (reference matrix_table.h:26-77)."""
+
+    telemetry_label = "matrix"
 
     def __init__(self, num_rows: int, num_cols: int, dtype=np.float32,
                  compress: Optional[str] = None):

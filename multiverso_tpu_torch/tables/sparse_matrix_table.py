@@ -76,6 +76,13 @@ class SparseMatrixServerTable(MatrixServerTable):
         self.up_to_date = np.ones((self._procs * zoo.num_workers, num_rows),
                                   dtype=bool)
 
+    def ledger_bytes(self):
+        """Matrix placement plus the per-(worker, row) freshness bitmap,
+        host state the dense family does not carry."""
+        out = super().ledger_bytes()
+        out["host_bytes"] += int(self.up_to_date.nbytes)
+        return out
+
     def _gwid(self, rank: int, worker_id: int) -> Optional[int]:
         """Global worker id, or None for an id outside [0, num_workers) —
         a push no worker owns: everyone goes stale."""
@@ -210,6 +217,8 @@ class SparseMatrixServerTable(MatrixServerTable):
 class SparseMatrixWorkerTable(MatrixWorkerTable):
     """Worker half: Get returns (row_ids, rows), since the server picks the
     rows (reference sparse ProcessReplyGet fills only returned rows)."""
+
+    telemetry_label = "sparse_matrix"
 
     def Get(self, option: Optional[GetOption] = None):
         if option is None:

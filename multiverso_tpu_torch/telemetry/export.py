@@ -1,0 +1,109 @@
+"""Telemetry export: the periodic stats reporter + snapshot sidecars.
+
+``-stats_interval_s=N`` starts a daemon thread at MV_Init that logs a
+compact JSON line of the LOCAL metrics snapshot every N seconds through
+the leveled logger (so stats respect the configured log level and
+sink). The reporter never issues collectives — a timer thread running
+allgathers would interleave with the engine's window exchanges and
+corrupt the SPMD stream; job-wide totals come from the explicitly
+collective ``MV_MetricsSnapshot()`` instead.
+
+``write_snapshot_sidecar`` serializes a snapshot next to a run artifact
+(``ops.dump_diagnostics`` writes ``telemetry_rank<R>.json``).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from typing import Optional
+
+from multiverso_tpu_torch.telemetry import metrics
+from multiverso_tpu_torch.utils.configure import GetFlag, MV_DEFINE_double
+from multiverso_tpu_torch.utils.log import Log
+
+MV_DEFINE_double("stats_interval_s", 0.0,
+                 "log a local telemetry snapshot every N seconds "
+                 "(0 = off)")
+
+
+def _compact(snap: dict) -> dict:
+    """Snapshot with histogram bucket maps dropped — the periodic line
+    is for humans tailing a log, not for re-aggregation."""
+    out = {}
+    for name, rec in snap.items():
+        if rec.get("type") in ("histogram", "digest"):
+            rec = {k: (round(v, 6) if isinstance(v, float) else v)
+                   for k, v in rec.items() if k != "buckets"}
+        out[name] = rec
+    return out
+
+
+class StatsReporter:
+    """Daemon timer thread emitting ``[telemetry] {...}`` log lines."""
+
+    def __init__(self, interval_s: float):
+        self.interval_s = float(interval_s)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="mv-stats-reporter",
+                                        daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        # bounded join: Zoo.Stop must never hang on a wedged reporter
+        self._thread.join(timeout=5)
+        if self._thread.is_alive():
+            Log.Error("stats reporter thread still alive after bounded "
+                      "join — daemon thread abandoned")
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.emit()
+        self.emit()     # final flush so short runs still report once
+
+    def emit(self) -> None:
+        snap = metrics.snapshot()
+        if not snap:
+            return
+        Log.Info("[telemetry] %s",
+                 json.dumps(_compact(snap), sort_keys=True))
+
+
+_reporter: Optional[StatsReporter] = None
+_reporter_lock = threading.Lock()
+
+
+def start_reporter() -> bool:
+    """Start the periodic reporter when -stats_interval_s > 0 (called
+    by Zoo.Start after flag parsing). Idempotent; False when off."""
+    global _reporter
+    try:
+        interval = float(GetFlag("stats_interval_s"))
+    except Exception:
+        interval = 0.0
+    with _reporter_lock:
+        if interval <= 0 or _reporter is not None:
+            return _reporter is not None
+        _reporter = StatsReporter(interval)
+        _reporter.start()
+        return True
+
+
+def stop_reporter() -> None:
+    """Stop + flush the reporter (Zoo.Stop)."""
+    global _reporter
+    with _reporter_lock:
+        rep, _reporter = _reporter, None
+    if rep is not None:
+        rep.stop()
+
+
+def write_snapshot_sidecar(path: str) -> str:
+    """Write the LOCAL metrics snapshot as pretty JSON to ``path``."""
+    with open(path, "w") as f:
+        json.dump(metrics.snapshot(), f, indent=1, sort_keys=True)
+    return path

@@ -18,9 +18,18 @@ cross-process sum. Each process keeps a full replica of every table, and
 the engine applies every rank's verbs of each exchanged window to it
 (``sync/server.py``).
 
-``Stop`` takes the serving plane down after the engine (``serving/``). The
-planes the JAX ``Start`` brings up after the engine (reporter, ops,
-ledger, watchdog, elastic, replica, policy) are later work
+``Stop`` takes the serving plane down after the engine (``serving/``).
+
+Telemetry (``telemetry/``) in the JAX order: ``Start`` stamps the trace
+dump's process label, then after the engine starts the
+``-stats_interval_s`` reporter, the ``-mv_ops_port`` endpoint, the byte
+ledger and the ``-mv_watchdog_s`` watchdog; ``Stop`` stops the reporter,
+the endpoint, the watchdog and the ledger FIRST (bounded joins, so
+back-to-back worlds leak no thread and no port, whether or not the engine
+drain below succeeds), and with ``-mv_diag_dir`` set it leaves the
+diagnostics (flight ring, metrics sidecar, span trace) on disk last.
+``Barrier`` observes ``zoo.barrier_wait_s``. The elastic, replica and
+policy planes the JAX ``Start`` brings up last are later work
 (``ROADMAP.md``).
 
 Write combining (``tables/base.py``): every global ordering point ships
@@ -32,6 +41,7 @@ message (a drain ping, a checkpoint or publish cut, ``CallOnEngine``),
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, List, Optional
 
 import numpy as np
@@ -42,12 +52,19 @@ from multiverso_tpu_torch.parallel import multihost
 # imported for their flag registrations, which must precede Start()'s
 # ParseCMDFlags
 import multiverso_tpu_torch.failsafe  # noqa: F401
+import multiverso_tpu_torch.telemetry  # noqa: F401
 import multiverso_tpu_torch.updaters.base  # noqa: F401
 from multiverso_tpu_torch import serving
 from multiverso_tpu_torch.parallel.allreduce import RendezvousAllreduce
 from multiverso_tpu_torch.parallel.mesh import DeviceContext
 from multiverso_tpu_torch.sync.server import (Server,
                                               requested_engine_channels)
+from multiverso_tpu_torch.telemetry import accounting as taccounting
+from multiverso_tpu_torch.telemetry import export as texport
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
+from multiverso_tpu_torch.telemetry import ops as tops
+from multiverso_tpu_torch.telemetry import trace as ttrace
+from multiverso_tpu_torch.telemetry import watchdog as twatchdog
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
                                                   MV_DEFINE_int,
                                                   MV_DEFINE_string,
@@ -81,6 +98,13 @@ class Zoo:
 
     @classmethod
     def Get(cls) -> "Zoo":
+        # lock-free once the singleton exists: a telemetry sampler (the
+        # watchdog tick, an ops scrape) reading the Zoo while _reset holds
+        # the lock through Stop must not wait for that Stop, which is
+        # joining the sampler's thread
+        inst = cls._instance
+        if inst is not None:
+            return inst
         with cls._instance_lock:
             if cls._instance is None:
                 cls._instance = Zoo()
@@ -104,6 +128,10 @@ class Zoo:
         self._ma_mode = bool(GetFlag("ma"))
         role = ROLE_NAMES.get(str(GetFlag("ps_role")).lower(), Role.ALL)
         self.num_workers = max(1, int(GetFlag("num_workers")))
+        # the trace dump's process label, stamped where the identity is
+        # known (a dump caller must not have to look it up)
+        ttrace.set_process_label(
+            f"multiverso rank {multihost.process_index()}")
         self.node = Node(rank=multihost.process_index(), role=role,
                          worker_id=0 if role & Role.WORKER else -1,
                          server_id=0 if role & Role.SERVER else -1)
@@ -116,6 +144,12 @@ class Zoo:
         if not self._ma_mode:
             self.server_engine = Server.GetServer(self.num_workers)
             self.server_engine.Start()
+        texport.start_reporter()     # -stats_interval_s
+        tops.start_ops()             # -mv_ops_port
+        # the mem.* families register at zero every world; the watchdog's
+        # tick thread arms only when -mv_watchdog_s > 0 (both local only)
+        taccounting.start_ledger()
+        twatchdog.start_watchdog()
         self.started = True
         Log.Debug("Zoo started on %s, rank %d of %d: %d worker(s), engine "
                   "%s", self.device_ctx.device, self.rank, self.size,
@@ -126,6 +160,12 @@ class Zoo:
     def Stop(self) -> None:
         if not self.started:
             return
+        # the samplers down FIRST, bounded, before anything that can fail:
+        # back-to-back worlds must not leak their threads or the ops port
+        texport.stop_reporter()
+        tops.stop_ops()
+        twatchdog.stop_watchdog()
+        taccounting.stop_ledger()
         if self.server_engine is not None:
             try:
                 self.FinishTrain()
@@ -142,6 +182,12 @@ class Zoo:
         # it drops every snapshot and stops its dispatcher, so a later
         # MV_Init world starts from a fresh plane
         serving.shutdown_plane()
+        # one-flag postmortem: with -mv_diag_dir set every world leaves its
+        # flight ring, metrics sidecar and span trace on disk
+        try:
+            tops.dump_diagnostics()
+        except Exception as exc:   # diagnostics must never break Stop
+            Log.Error("Zoo.Stop: diagnostics dump failed: %r", exc)
         self.worker_tables.clear()
         self.server_tables.clear()
         self.started = False
@@ -305,6 +351,7 @@ class Zoo:
             # after a barrier every worker's earlier pushes are in the
             # engine stream
             self.flush_combined_adds()
+        t0 = time.perf_counter()
         idx = self._barrier.wait()
         if self._multihost:
             if idx == 0:
@@ -314,6 +361,10 @@ class Zoo:
                     self._barrier.abort()
                     raise
             self._barrier.wait()     # hold the threads until it ends
+        # how long this thread sat in the barrier (straggler skew shows
+        # as a wide distribution)
+        tmetrics.histogram("zoo.barrier_wait_s").observe(
+            time.perf_counter() - t0)
 
     def Aggregate(self, data: np.ndarray) -> np.ndarray:
         """In-place elementwise-sum allreduce across the worker threads

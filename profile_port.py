@@ -484,8 +484,8 @@ def profile_serve(torch, seed: int) -> dict:
     import multiverso_tpu_torch as mv
     from chip_smoke import (SERVE_CLIENTS, SERVE_COLS, SERVE_IDLE_S,
                             SERVE_LOOKUP_IDS, SERVE_ROWS, run_threads,
-                            serve_batches, zipf_cdf, zipf_ids)
-    from multiverso_tpu_torch.serving import get_plane
+                            serve_batches, serving_stats, zipf_cdf,
+                            zipf_ids)
     from multiverso_tpu_torch.tables import MatrixTableOption
     cdf = zipf_cdf(SERVE_ROWS)
     mv.MV_Init([])
@@ -500,8 +500,8 @@ def profile_serve(torch, seed: int) -> dict:
         serve_stages(mv, tables, cdf, 1, 20, seed)     # warm-up
         stages = {n: serve_stages(mv, tables, cdf, n, 200, seed)
                   for n in (1, SERVE_CLIENTS)}
-        fe = get_plane().frontend
-        fe.reset_stats()
+        from multiverso_tpu_torch.telemetry import metrics
+        s0 = metrics.snapshot()
         counts = [0] * SERVE_CLIENTS
 
         def client(c):
@@ -521,7 +521,8 @@ def profile_serve(torch, seed: int) -> dict:
             wall = time.perf_counter() - t0
         res = summarize(torch, prof, wall, top=8)
         res.update(stages=stages, lookups=sum(counts),
-                   lookups_per_s=sum(counts) / wall, frontend=fe.stats(),
+                   lookups_per_s=sum(counts) / wall,
+                   frontend=serving_stats(s0, metrics.snapshot()),
                    threads=threading.active_count())
     finally:
         mv.MV_ShutDown()
@@ -829,7 +830,7 @@ def ps_2proc_apply_rank(torch, rank: int, port: int, seed: int, out: str,
     from multiverso_tpu_torch.updaters.base import AddOption
     from multiverso_tpu_torch.zoo import Zoo
     from chip_smoke import (APPLY_KINDS, APPLY_WARM, PS_COLS, PS_ROWS,
-                            apply_batches, ps2_batch)
+                            apply_batches, counter, ps2_batch)
     mv.MV_Init([f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
                 "-dist_size=2", f"-mv_apply_workers={workers}",
                 "-mv_write_combine=0"])
@@ -842,8 +843,9 @@ def ps_2proc_apply_rank(torch, rank: int, port: int, seed: int, out: str,
         mine = apply_batches(seed, rank)
         get_ids = ps2_batch(seed, 3999, rank)[0]
         eng = Zoo.Get().server_engine
-        counters = ("apply_busy_s", "xw_busy_s", "apply_pool_jobs",
-                    "apply_pool_inline", "mh_window_exchanges")
+        counters = ("apply_busy_s", "xw_busy_s", "mh_window_exchanges")
+        pool = {"apply_pool_jobs": "engine.apply_pool.jobs",
+                "apply_pool_inline": "engine.apply_pool.inline_jobs"}
 
         def burst(batches) -> float:
             mv.MV_Barrier()
@@ -858,6 +860,7 @@ def ps_2proc_apply_rank(torch, rank: int, port: int, seed: int, out: str,
 
         burst(mine[:APPLY_WARM])                       # warm-up
         c0 = {c: getattr(eng, c) for c in counters}
+        p0 = {k: counter(name) for k, name in pool.items()}
         if rank == 0:
             res, wall = _profiled(torch, lambda: burst(mine[APPLY_WARM:]))
         else:
@@ -865,6 +868,8 @@ def ps_2proc_apply_rank(torch, rank: int, port: int, seed: int, out: str,
             res = {"wall_s": wall}
         res.update({c: getattr(eng, c) - c0[c] for c in counters},
                    rank=rank, workers=workers, burst_s=wall)
+        res.update({k: int(counter(name) - p0[k])
+                    for k, name in pool.items()})
     finally:
         mv.MV_ShutDown()
     with open(out, "w") as f:

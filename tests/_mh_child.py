@@ -1,8 +1,9 @@
 """One rank of a two-process world, for tests/test_torch_multihost.py,
 tests/test_torch_windowed.py, tests/test_torch_mh_logreg.py,
 tests/test_torch_mh_wordembedding.py, tests/test_torch_serving_mh.py,
-tests/test_torch_apply_pool.py (mode ``apply``) and
-tests/test_torch_mh_kv_device.py (mode ``kv_device``).
+tests/test_torch_apply_pool.py (mode ``apply``),
+tests/test_torch_mh_kv_device.py (mode ``kv_device``) and
+tests/test_torch_telemetry_mh.py (mode ``telemetry``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -322,6 +323,25 @@ def run_burst(mv):
         results["window_verbs"] = np.array(eng.mh_window_verbs)
         results["exchanges"] = np.array(eng.mh_window_exchanges)
         results["merged_runs"] = np.array(eng.mh_add_run_merged)
+
+
+def run_telemetry(mv):
+    """Mode ``burst``, then the collective metrics snapshot after a
+    barrier: the merged counters against this rank's own. The flight rings
+    go to ``-mv_diag_dir`` at shutdown (EXTRA)."""
+    run_burst(mv)
+    mv.MV_Barrier()
+    merged = mv.MV_MetricsSnapshot()
+    if PKG == "jax":
+        from multiverso_tpu.telemetry import metrics
+    else:
+        from multiverso_tpu_torch.telemetry import metrics
+    local = metrics.snapshot()
+    for name in ("server.window.exchanges", "server.window.verbs",
+                 "table.matrix0.add.count"):
+        results[f"merged:{name}"] = np.array(merged[name]["value"])
+        results[f"local:{name}"] = np.array(local[name]["value"])
+    results["merged_names"] = np.array(sorted(merged))
 
 
 def run_combine(mv):
@@ -887,9 +907,20 @@ def apply_turn(mv, tag, bad=False):
     bad_t = (mv.MV_CreateTable(tables.MatrixTableOption(
         num_rows=ROWS, num_cols=COLS)) if bad else None)
     eng = Zoo.Get().server_engine
-    c0 = {k: getattr(eng, k, 0) for k in ("apply_pool_jobs",
-                                          "apply_pool_inline",
-                                          "mh_window_exchanges")}
+    if PKG == "jax":
+        from multiverso_tpu.telemetry import metrics
+    else:
+        from multiverso_tpu_torch.telemetry import metrics
+
+    def counts():
+        """The pool's counters (both packages) and the engine's windows."""
+        return {"apply_pool_jobs": metrics.counter(
+                    "engine.apply_pool.jobs").value,
+                "apply_pool_inline": metrics.counter(
+                    "engine.apply_pool.inline_jobs").value,
+                "mh_window_exchanges": eng.mh_window_exchanges}
+
+    c0 = counts()
     oracle = {k: np.zeros((ROWS, COLS), np.float32) for k in ("add", "sgd")}
     handle = None
     for r in range(APPLY_ROUNDS):
@@ -915,7 +946,7 @@ def apply_turn(mv, tag, bad=False):
     np.testing.assert_array_equal(out["sgd"], -oracle["sgd"])
     for k, v in out.items():
         results[f"{tag}_{k}"] = v
-    return {k: getattr(eng, k, 0) - v for k, v in c0.items()}
+    return {k: v - c0[k] for k, v in counts().items()}
 
 
 def run_apply(mv):
@@ -1198,6 +1229,7 @@ def main():
      "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
      "serving": run_serving, "wire": run_wire, "compress": run_compress,
      "apply": run_apply, "kv_device": run_kv_device,
+     "telemetry": run_telemetry,
      "lr_compress": run_lr_compress,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)

@@ -115,9 +115,13 @@ def _window(spec):
 def test_parallel_apply_in_process(monkeypatch):
     from multiverso_tpu_torch.failsafe.errors import DeadlineExceeded
     from multiverso_tpu_torch.sync.server import Server
+    from multiverso_tpu_torch.telemetry import metrics
     from multiverso_tpu_torch.utils.configure import SetCMDFlag
 
     srv = Server()
+    pool = [metrics.counter(f"engine.apply_pool.{n}")
+            for n in ("jobs", "inline_jobs")]
+    p0 = [c.value for c in pool]
     log: list = []
     srv.store_ = [_Table(t, log) for t in range(3)]
     spec = [("A", 0, {}), ("G", 1, {}), ("A", 0, {}), ("A", 1, {}),
@@ -140,7 +144,7 @@ def test_parallel_apply_in_process(monkeypatch):
     assert results[False] == results[True] == [
         "None", "1", "None", "None", "0",
         "ValueError('bad add to table 2')", "0", "None", "2"]
-    assert (srv.apply_pool_jobs, srv.apply_pool_inline) == (2, 1)
+    assert [c.value - v for c, v in zip(pool, p0)] == [2, 1]
     assert any(n.startswith("mvt-apply-") for t in srv.store_
                for n in t.threads)
 
@@ -154,7 +158,7 @@ def test_parallel_apply_in_process(monkeypatch):
                              parallel_ok=True)
     finally:
         SetCMDFlag("mv_apply_workers", 4)
-    assert (srv.apply_pool_jobs, srv.apply_pool_inline) == (2, 1)
+    assert [c.value - v for c, v in zip(pool, p0)] == [2, 1]
 
     # a job's escape (not a verb's failure) reaches the actor thread
     verbs, windows, prefix, descs0 = _window(

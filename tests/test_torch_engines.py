@@ -114,9 +114,13 @@ def _check_lazy_spawn():
     # lazy spawn: table 0 rides the router, tables 1 and 2 spawn shards,
     # table 3 routes back to slot 0
     assert tslots == jslots == [[0], [0, 1], [0, 1, 2], [0, 1, 2]]
-    assert states == [
+    # the port's keys, then the JAX engine's stream state beside them
+    assert [{k: st[k] for k in ("slot", "name", "mailbox_depth", "alive")}
+            for st in states] == [
         {"slot": k, "name": "server" if k == 0 else f"server_shard{k}",
          "mailbox_depth": 0, "alive": True} for k in range(3)]
+    assert [(st["shard"], st["actor"], st["poisoned"]) for st in states] \
+        == [(k, st["name"], None) for k, st in enumerate(states)]
 
 
 def _check_workload_parity():

@@ -214,6 +214,13 @@ def test_publish_cut_matches_jax(tmp_path):
 
 def _store_script(ns):
     mv, tables = ns.mv, ns.tables
+    if ns.pkg == "jax":
+        from multiverso_tpu.telemetry import metrics
+    else:
+        from multiverso_tpu_torch.telemetry import metrics
+    counts = [metrics.counter(f"serving.{n}") for n in ("publishes",
+                                                        "evictions")]
+    c0 = [c.value for c in counts]
     arr = mv.MV_CreateTable(tables.ArrayTableOption(size=4))
     with pytest.raises(KeyError):             # nothing published yet
         mv.MV_ServingLookup(arr, None)
@@ -239,8 +246,8 @@ def _store_script(ns):
         mv.MV_PinVersion(v1)
     mv.MV_UnpinVersion(vs[-1])                 # no pin: a logged no-op
     assert store.latest_version() == vs[-1]
-    if ns.pkg == "torch":                      # the JAX package's metrics
-        assert (store.publishes, store.evictions) == (4, 2)
+    # both packages' serving.publishes / serving.evictions counters
+    assert [c.value - v for c, v in zip(counts, c0)] == [4, 2]
     out["versions"] = np.array([v1] + vs)
     return out
 
@@ -372,18 +379,36 @@ def test_frontend_matches_jax():
                   for i in range(8)]))
 
     def stats(ns):
+        if ns.pkg == "jax":
+            from multiverso_tpu.telemetry import metrics
+        else:
+            from multiverso_tpu_torch.telemetry import metrics
         mat = ns.mv.MV_CreateTable(ns.tables.MatrixTableOption(num_rows=8,
                                                                num_cols=2))
         v = ns.mv.MV_PublishSnapshot()
         fe = ns.serving.get_plane().frontend
+        s0 = metrics.snapshot()
         _hold(fe)
         tickets = [fe.lookup_async(mat.table_id, np.array([i]), version=v)
                    for i in range(5)]
         _release(fe)
         [t.Wait(10.0) for t in tickets]
-        return fe.stats()
+        s1 = metrics.snapshot()
 
-    s = _world("torch", [], stats)
-    assert (s["lookups"], s["dispatches"], s["batches"]) == (5, 1, 1)
-    assert s["mean_batch"] == 5.0 and s["shed"] == 0
-    assert 0 < s["latency_p50_s"] <= s["latency_p99_s"]
+        def diff(name, key="value"):
+            return s1[name][key] - s0.get(name, {}).get(key, 0)
+
+        return {"lookups": diff("serving.lookups"),
+                "dispatches": diff("serving.dispatches"),
+                "shed": diff("serving.shed"),
+                "batches": diff("serving.batch_size", "count"),
+                "batched": diff("serving.batch_size", "sum"),
+                "latencies": diff("serving.latency_s", "count"),
+                "p50": s1["serving.latency_s"]["p50"]}
+
+    # the serving.* instruments of one held batch, in both packages
+    for pkg in ("jax", "torch"):
+        s = _world(pkg, [], stats)
+        assert (s["lookups"], s["dispatches"], s["batches"]) == (5, 1, 1)
+        assert s["batched"] == 5 and s["shed"] == 0
+        assert s["latencies"] == 5 and s["p50"] > 0

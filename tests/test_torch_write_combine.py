@@ -15,8 +15,7 @@ in a port world (``-mv_device=cpu``), one after the other.
     buffer length and buffered byte count (``worker_ledger_bytes``)
     observed between the verbs and the published rows are bitwise JAX's
     (AdaGrad to rtol 1e-6, atol 1e-6); so are the Add messages the engine received and the
-    combine hits (the port's ``worker_stats`` against JAX's
-    ``worker.write_combine_hits``). A ``-sync=true`` world combines
+    combine hits (each package's ``worker.write_combine_hits`` counter). A ``-sync=true`` world combines
     nothing in either package. Then, in the port alone, 8 worker threads
     push to one shared table with the interpreter switching threads every
     microsecond: the table equals the oracle, and every push is counted
@@ -86,16 +85,18 @@ def _ns(pkg, argv):
     else:
         import multiverso_tpu_torch as mv
         from multiverso_tpu_torch import tables
+        from multiverso_tpu_torch.telemetry import metrics as tmetrics
         from multiverso_tpu_torch.updaters.base import AddOption, GetOption
         from multiverso_tpu_torch.zoo import Zoo
         mv.MV_Init(["-mv_device=cpu"] + list(argv))
 
+        def stat(name):
+            return int(tmetrics.snapshot().get(name, {}).get("value", 0))
+
         def counts():
-            zoo = Zoo.Get()
-            out = {"adds": zoo.server_engine.add_messages}
-            for k in ("write_combine_hits", "get_cache_hits"):
-                out[k] = sum(t.worker_stats[k] for t in zoo.worker_tables)
-            return out
+            return {"adds": Zoo.Get().server_engine.add_messages,
+                    "write_combine_hits": stat("worker.write_combine_hits"),
+                    "get_cache_hits": stat("worker.get_cache_hits")}
     return SimpleNamespace(pkg=pkg, mv=mv, tables=tables, Zoo=Zoo,
                            AddOption=AddOption, GetOption=GetOption,
                            counts=counts)
@@ -250,8 +251,10 @@ def _threaded_pushes():
     switch = sys.getswitchinterval()
     try:
         t = mv.MV_CreateTable(MatrixTableOption(num_rows=R, num_cols=C))
+        from multiverso_tpu_torch.telemetry import metrics as tmetrics
+        hits = tmetrics.counter("worker.write_combine_hits")
         eng = Zoo.Get().server_engine
-        m0 = eng.add_messages
+        m0, h0 = eng.add_messages, hits.value
         sys.setswitchinterval(1e-6)
 
         def worker(w):
@@ -278,7 +281,7 @@ def _threaded_pushes():
                 np.add.at(oracle, g.integers(0, R, K), 1.0)
         np.testing.assert_array_equal(got, oracle)
         # every push is the first of a message or a hit, exactly once
-        assert (eng.add_messages - m0 + t.worker_stats["write_combine_hits"]
+        assert (eng.add_messages - m0 + hits.value - h0
                 == workers * pushes)
     finally:
         sys.setswitchinterval(switch)
