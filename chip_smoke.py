@@ -392,15 +392,18 @@ CODEC_TURNS = ("off", "lossless", "lossy")
 KV_DEVICE_KEYS = 1_000_000
 # [telemetry]: the flags that turn the JAX package's default-on telemetry
 # off; the PS round (AddRows + GetRows on the add and on the momentum table,
-# PS_IDS ids) with telemetry at its defaults ("on") and off, a world a
-# turn, TELE_ROUNDS rounds a world of which the first TELE_WARM are
-# untimed; the same turns of [ps_combine]'s burst (COMBINE_TELE_TURNS) and
-# of [ps_2proc]'s rounds (TELE2_TURNS); TELE_PROBE_ROUNDS rounds counted in
-# the metrics snapshot and traced under MV_StartProfiler
+# PS_IDS ids) with telemetry at its defaults ("on"), with the metrics but
+# no flight ring ("metrics": no flight events and no phase stamps) and off,
+# a world a turn of TELE_TURNS, TELE_ROUNDS rounds a world of which the
+# first TELE_WARM are untimed; the same on and off turns of [ps_combine]'s
+# burst (COMBINE_TELE_TURNS) and of [ps_2proc]'s rounds (TELE2_TURNS);
+# TELE_PROBE_ROUNDS rounds counted in the metrics snapshot and traced under
+# MV_StartProfiler
 TELE_OFF = ("-telemetry=false", "-mv_flight_events=0")
-TELE_TURNS = ("on", "off", "off", "on", "on", "off", "off", "on")
-TELE_ROUNDS, TELE_WARM, TELE_PROBE_ROUNDS = 23, 3, 2
-COMBINE_TELE_TURNS = ("on", "off", "off", "on")
+TELE_METRICS_ONLY = ("-mv_flight_events=0",)
+TELE_TURNS = ("on", "metrics", "off", "off", "metrics", "on") * 3
+TELE_ROUNDS, TELE_WARM, TELE_PROBE_ROUNDS = 43, 3, 2
+COMBINE_TELE_TURNS = ("on", "off", "off", "on") * 2
 TELE2_TURNS = ("on", "off", "off", "on")
 TELE2_ROUNDS = 13
 
@@ -954,8 +957,10 @@ def serving_stats(s0: dict, s1: dict) -> dict:
 
 
 def tele_argv(turn: str) -> list:
-    """A [telemetry] turn's flags: the defaults, or telemetry off."""
-    return [] if turn == "on" else list(TELE_OFF)
+    """A [telemetry] turn's flags: the defaults ("on"), the metrics without
+    the flight ring ("metrics"), or telemetry off."""
+    return {"on": [], "metrics": list(TELE_METRICS_ONLY),
+            "off": list(TELE_OFF)}[turn]
 
 
 def spread(values) -> float:
@@ -1140,8 +1145,9 @@ def http_get(port: int, path: str) -> tuple:
 
 def telemetry_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
     """[telemetry] at the PS shape on the default engine: (1) the PS round
-    with telemetry at the JAX package's defaults and off (TELE_OFF), a
-    world a turn of TELE_TURNS (ABBA twice), every GetRows held to the
+    with telemetry at the JAX package's defaults, with the metrics alone
+    (TELE_METRICS_ONLY) and off (TELE_OFF), a world a turn of TELE_TURNS
+    (each order of the three, balanced), every GetRows held to the
     oracle; (2) one world at ``-trace=true -mv_ops_port=0``: the metrics
     snapshot's per-table counts against the verbs issued;
     ``MV_StartProfiler``/``MV_StopProfiler`` around TELE_PROBE_ROUNDS
@@ -1181,13 +1187,16 @@ def telemetry_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
         turns.append({"turn": turn, "round_ms": ms[TELE_WARM:],
                       "median_ms": float(np.median(ms[TELE_WARM:])),
                       "instruments": names})
-    med = {k: [t["median_ms"] for t in turns if t["turn"] == k]
-           for k in ("on", "off")}
-    res = {"turns": turns,
-           "on_median_ms": float(np.median(med["on"])),
-           "off_median_ms": float(np.median(med["off"])),
-           "on_spread": spread(med["on"]), "off_spread": spread(med["off"])}
+    res = {"turns": turns}
+    for k in ("on", "metrics", "off"):
+        med = [t["median_ms"] for t in turns if t["turn"] == k]
+        res[f"{k}_median_ms"] = float(np.median(med))
+        res[f"{k}_spread"] = spread(med)
+        # every timed round of the configuration's turns
+        res[f"{k}_pooled_ms"] = float(np.median(np.concatenate(
+            [t["round_ms"] for t in turns if t["turn"] == k])))
     res["on_over_off"] = res["on_median_ms"] / res["off_median_ms"]
+    res["metrics_over_off"] = res["metrics_median_ms"] / res["off_median_ms"]
 
     mv.MV_Init(["-trace=true", "-mv_ops_port=0"])
     try:
@@ -3871,16 +3880,134 @@ def lr_runs(workdir: str, seed: int, lr_data: dict) -> dict:
     }
 
 
+class GradSumProbe:
+    """Counts the LR objective's duplicate-key sums (``_scatter_rows``)
+    during one run and keeps a copy of the first call's inputs, so that
+    they can be timed afterwards against a plain ``index_add_`` on the same
+    inputs."""
+
+    def __init__(self, objective):
+        self.objective, self.fn = objective, objective._scatter_rows
+        self.calls, self.args = 0, None
+
+    def __enter__(self):
+        def probe(n_rows, keys, contrib):
+            self.calls += 1
+            if self.args is None:
+                self.args = (n_rows, keys.clone(), contrib.clone())
+            return self.fn(n_rows, keys, contrib)
+        self.objective._scatter_rows = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.objective._scatter_rows = self.fn
+
+
+def waits_for_card(torch, fn) -> bool:
+    """``fn(0)`` enqueued behind a spin kernel: True when the call returned
+    only after the spin ended, so it waits for the card."""
+    fn(0)
+    torch.cuda.synchronize()
+    spin_start, held = _spin(torch)
+    t0 = time.perf_counter()
+    fn(0)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms >= spin_start.elapsed_time(held)
+
+
+def sync_sites(torch, fn) -> list:
+    """The source lines where ``fn(0)`` made torch synchronise with the
+    card (``torch.cuda.set_sync_debug_mode``'s warnings)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sorted({f"{os.path.relpath(w.filename)}:{w.lineno}"
+                   for w in caught})
+
+
+#: GradSumProbe's repeats of one input, each bitwise the first; the rows
+#: of its crowded input (every lane's key modulo GRAD_SUM_CROWD)
+GRAD_SUM_REPEATS, GRAD_SUM_CROWD = 10, 50
+
+
+def grad_sum_cost(torch, probe: GradSumProbe, train_s: float) -> dict:
+    """The objective's duplicate-key sums against ``index_add_`` at the
+    first call's inputs: the same sums within rtol 1e-5, atol 1e-6, and the
+    same bits in each of GRAD_SUM_REPEATS repeats, also with every key
+    folded onto GRAD_SUM_CROWD rows (``index_add_``'s repeats are counted,
+    not held); each call's host-inclusive ms (call_ms), whether it waits
+    for the card and where it synchronises, and the run's extra seconds at
+    its call count over its train_s."""
+    n_rows, keys, contrib = probe.args
+    out = contrib.shape[-1]
+    flat_keys, flat = keys.reshape(-1), contrib.reshape(-1, out)
+
+    def plain(_, k=flat_keys):
+        return torch.zeros((n_rows, out), dtype=contrib.dtype,
+                           device=contrib.device).index_add_(0, k, flat)
+
+    def det(_, k=keys):
+        return probe.fn(n_rows, k, contrib)
+
+    # the same sums, in another order where keys repeat
+    torch.testing.assert_close(det(0), plain(0), rtol=1e-5, atol=1e-6)
+    crowd = torch.remainder(flat_keys, GRAD_SUM_CROWD)
+    plain_differ = 0
+    for k in (keys, crowd.view(keys.shape)):
+        first, first_plain = det(0, k), plain(0, k.reshape(-1))
+        for _ in range(GRAD_SUM_REPEATS):
+            if not torch.equal(det(0, k), first):
+                raise AssertionError("the LR objective's duplicate-key sums "
+                                     "differ between runs of one input")
+            plain_differ += not torch.equal(plain(0, k.reshape(-1)),
+                                            first_plain)
+    r = {"calls": probe.calls, "lanes": int(flat_keys.numel()),
+         "rows": int(n_rows), "out": int(out),
+         "det_call_ms": call_ms(torch, det, 1),
+         "index_add_call_ms": call_ms(torch, plain, 1),
+         "det_waits": waits_for_card(torch, det),
+         "index_add_waits": waits_for_card(torch, plain),
+         "det_sync_sites": sync_sites(torch, det),
+         "index_add_repeats_differing": plain_differ}
+    r["extra_s"] = probe.calls * (r["det_call_ms"]
+                                  - r["index_add_call_ms"]) / 1e3
+    r["extra_share"] = r["extra_s"] / train_s
+    return r
+
+
 def lr_phase(torch, dev, seed: int, workdir: str, lr_data: dict, drive,
              results: dict) -> None:
     """Each LR run as a main path of its own (``drive``), then the card
-    against the CPU."""
+    against the CPU. Each run's duplicate-key sums are counted and, where
+    it made any, timed against ``index_add_`` (GradSumProbe)."""
+    from multiverso_tpu_torch.models.logreg import objective
     runs = lr_runs(workdir, seed, lr_data)
     weights = {}
     for name, (what, needs, cfg, native_needs) in runs.items():
-        r, weights[name] = drive(name, lambda: lr_run(torch, cfg, dev),
-                                 needs, native_needs)
+        with GradSumProbe(objective) as probe:
+            r, weights[name] = drive(name, lambda: lr_run(torch, cfg, dev),
+                                     needs, native_needs)
         check_lr(name, r)
+        if probe.calls:
+            r["grad_sums"] = gs = grad_sum_cost(torch, probe, r["train_s"])
+            log(f"[lr] {name} duplicate-key sums: {gs['calls']} calls, the "
+                f"first of {gs['lanes']} lanes onto {gs['rows']} x "
+                f"{gs['out']} rows; deterministic {gs['det_call_ms']:.4f} ms "
+                f"a call with its host time (waits for the card: "
+                f"{gs['det_waits']}, syncs at {gs['det_sync_sites']}), "
+                f"index_add_ {gs['index_add_call_ms']:.4f} ms (waits: "
+                f"{gs['index_add_waits']}): {gs['extra_s']:.4f} s more at "
+                f"this run's calls, {gs['extra_share']:.4f} of its train_s; "
+                f"{GRAD_SUM_REPEATS} repeats bitwise the first, also onto "
+                f"{GRAD_SUM_CROWD} rows (index_add_: "
+                f"{gs['index_add_repeats_differing']} of "
+                f"{2 * GRAD_SUM_REPEATS} differ)")
         results[name] = r
         log(f"[lr] {what}: {r['samples']} samples ({cfg.train_epoch} epochs "
             f"of {LR_SAMPLES}) in {r['train_s']:.3f} s = "
@@ -4887,9 +5014,15 @@ def main() -> int:
                 f"{t['instruments']} instruments registered ({card})")
         log(f"[telemetry] PS round median of the turns' medians: on "
             f"{tele['on_median_ms']:.4f} ms (spread {tele['on_spread']:.4f})"
-            f", off {tele['off_median_ms']:.4f} ms (spread "
-            f"{tele['off_spread']:.4f}); on / off {tele['on_over_off']:.4f} "
-            f"({card})")
+            f", metrics without the flight ring "
+            f"{tele['metrics_median_ms']:.4f} ms (spread "
+            f"{tele['metrics_spread']:.4f}), off {tele['off_median_ms']:.4f} "
+            f"ms (spread {tele['off_spread']:.4f}); on / off "
+            f"{tele['on_over_off']:.4f}, metrics / off "
+            f"{tele['metrics_over_off']:.4f}; medians of every timed round: "
+            f"on {tele['on_pooled_ms']:.4f}, metrics "
+            f"{tele['metrics_pooled_ms']:.4f}, off {tele['off_pooled_ms']:.4f}"
+            f" ms ({card})")
         pr = tele["profiler"]
         log(f"[telemetry] MV_StartProfiler around {TELE_PROBE_ROUNDS} "
             f"rounds: {pr['kernel_events']} CUDA kernel events "

@@ -29,8 +29,6 @@ from typing import Callable
 
 import torch
 
-from multiverso_tpu_torch.ops.rows import scatter_add_rows
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -128,17 +126,16 @@ def _sparse_diff(act_fn, out, x, logits, labels, weights):
 
 def _scatter_rows(n_rows: int, keys: torch.Tensor, contrib: torch.Tensor):
     """Sum ``contrib`` lanes into rows ``keys`` of an (n_rows, out) zero
-    tensor, duplicates accumulating in lane order on every run: on the card
+    tensor, duplicates accumulating in lane order on every run. On the card
     ``index_add_`` adds duplicates in atomic order, so two runs of one
-    window could differ in the last bits; the deterministic segment sums
-    (``ops.rows.scatter_add_rows``, a trash row past the n_rows) are
-    bitwise the CPU's ``index_add_``."""
+    window could differ in the last bits; ``index_put_`` with
+    ``accumulate`` sorts the lanes stably and sums each row's lanes in
+    turn."""
     out = contrib.shape[-1]
-    table = torch.zeros((n_rows + 1, out), dtype=contrib.dtype,
-                        device=contrib.device)
-    return scatter_add_rows(table, keys.reshape(-1),
-                            contrib.reshape(-1, out),
-                            deterministic=True)[:n_rows]
+    return torch.zeros((n_rows, out), dtype=contrib.dtype,
+                       device=contrib.device).index_put_(
+        (keys.reshape(-1).long(),), contrib.reshape(-1, out),
+        accumulate=True)
 
 
 def make_sparse_grad_fn(config) -> Callable:

@@ -211,9 +211,8 @@ def _configure_signatures(h: ctypes.CDLL) -> None:
     h.MV_KvIndexFree.argtypes = [ctypes.c_void_p]
     h.MV_KvIndexSize.restype = i64
     h.MV_KvIndexSize.argtypes = [ctypes.c_void_p]
-    if hasattr(h, "MV_KvIndexCapacity"):
-        h.MV_KvIndexCapacity.restype = i64
-        h.MV_KvIndexCapacity.argtypes = [ctypes.c_void_p]
+    h.MV_KvIndexCapacity.restype = i64
+    h.MV_KvIndexCapacity.argtypes = [ctypes.c_void_p]
     h.MV_KvIndexLookup.argtypes = [ctypes.c_void_p, i64p, i64, i32p]
     h.MV_KvIndexInsert.argtypes = [ctypes.c_void_p, i64p, i64, i32p]
     h.MV_KvIndexItems.argtypes = [ctypes.c_void_p, i64p, i32p]
@@ -325,12 +324,8 @@ class KvIndex:
         return int(self._h.MV_KvIndexSize(self._ptr))
 
     def capacity(self) -> int:
-        """Allocated probing-table slots (the byte ledger's count); the
-        length when the library exports no capacity query."""
-        fn = getattr(self._h, "MV_KvIndexCapacity", None)
-        if fn is None:
-            return len(self)
-        return int(fn(self._ptr))
+        """Allocated probing-table slots (the byte ledger's count)."""
+        return int(self._h.MV_KvIndexCapacity(self._ptr))
 
     def lookup(self, keys: np.ndarray) -> np.ndarray:
         """Slots of ``keys``, -1 for absent keys."""

@@ -156,29 +156,30 @@ def _note_round() -> None:
         _rounds += 1
 
 
-#: timing of this process's latest engine ``capped_exchange``: the engine's
-#: phase stamps read it right after their window exchange, on the same
-#: thread, to split the seconds BLOCKED IN THE COLLECTIVE (``coll_s``) from
-#: local staging, and to anchor the cross-rank clock alignment on the
+#: timing of the calling thread's latest engine ``capped_exchange``: the
+#: engine's phase stamps read it right after their window exchange, on the
+#: same thread, to split the seconds BLOCKED IN THE COLLECTIVE (``coll_s``)
+#: from local staging, and to anchor the cross-rank clock alignment on the
 #: exchange-done wall stamp (every rank leaves one exchange at about the
-#: same instant; telemetry/critpath.py). Replaced whole per call, so a
-#: reader sees an old or a new record, never a torn one.
-_exchange_last = {"enter_m": 0.0, "done_m": 0.0, "done_w": 0.0,
+#: same instant; telemetry/critpath.py). Kept per thread: the shards of a
+#: sharded engine exchange at the same time, each on its own thread and
+#: channel, and each must read its own exchange.
+_exchange_tls = threading.local()
+_EXCHANGE_NONE = {"enter_m": 0.0, "done_m": 0.0, "done_w": 0.0,
                   "coll_s": 0.0}
 
 
 def _stamp_exchange(enter_m: float, coll_s: float, done_m: float,
                     done_w: float) -> None:
-    global _exchange_last
-    _exchange_last = {"enter_m": enter_m, "done_m": done_m,
-                      "done_w": done_w, "coll_s": coll_s}
+    _exchange_tls.last = {"enter_m": enter_m, "done_m": done_m,
+                          "done_w": done_w, "coll_s": coll_s}
 
 
 def last_exchange_stats() -> dict:
-    """Timing of this process's most recent engine exchange:
+    """Timing of the calling thread's most recent engine exchange:
     ``enter_m``/``done_m`` (perf_counter), ``done_w`` (wall clock at the
     collective's exit) and ``coll_s`` (seconds inside the collective)."""
-    return _exchange_last
+    return getattr(_exchange_tls, "last", _EXCHANGE_NONE)
 
 
 def membership_epoch() -> int:

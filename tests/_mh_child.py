@@ -3,7 +3,8 @@ tests/test_torch_windowed.py, tests/test_torch_mh_logreg.py,
 tests/test_torch_mh_wordembedding.py, tests/test_torch_serving_mh.py,
 tests/test_torch_apply_pool.py (mode ``apply``),
 tests/test_torch_mh_kv_device.py (mode ``kv_device``) and
-tests/test_torch_telemetry_mh.py (mode ``telemetry``).
+tests/test_torch_telemetry_mh.py and tests/test_torch_telemetry_exchange.py
+(mode ``telemetry``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -342,6 +343,12 @@ def run_telemetry(mv):
         results[f"merged:{name}"] = np.array(merged[name]["value"])
         results[f"local:{name}"] = np.array(local[name]["value"])
     results["merged_names"] = np.array(sorted(merged))
+    if PKG == "torch":
+        # each engine shard's collective seconds, by its window stream
+        eng = tables_mod()[3].Get().server_engine
+        shards = [eng] + list(getattr(eng, "_subs", {}).values())
+        results["xw_stream"] = np.array([s.mh_stream for s in shards])
+        results["xw_busy_s"] = np.array([s.xw_busy_s for s in shards])
 
 
 def run_combine(mv):
