@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
 
-(``--rank-child R --child-phase ps|mh|lr|we --port P`` runs one rank of
+(``--rank-child R --child-phase ps|mh|fs|lr|we --port P`` runs one rank of
 ``[ps_2proc]``, of ``[ps_2proc apply]``, ``[ps_2proc compress]`` and
-``[kv_2proc device]``, of ``[lr_2proc]`` or of ``[we_2proc]``; the script
-starts both ranks itself.)
+``[kv_2proc device]``, of ``[ps_2proc chaos]``, of ``[lr_2proc]`` or of
+``[we_2proc]``; the script starts both ranks itself.)
 
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
@@ -209,7 +209,34 @@ holds every kernel of that path against its plain PyTorch version:
               ``[ps_2proc]`` and of each ``[ps_2proc apply]`` turn (the
               binding rank and phase, seconds blocked in the collective
               against the codec's, ``align_err_s``, apply seconds a
-              table);
+              table); failsafe (``[failsafe]``, after ``[ma]``): the PS
+              rounds in a world a turn, clean, chaos, chaos, clean, on
+              the default engine and on ``-mv_engine_shards=1``, the chaos
+              turns under the JAX soak's verb and mailbox sites
+              (``mailbox.drop:0.06,mailbox.dup:0.08,mailbox.delay:0.08@
+              0.002,verb.transient:0.06,verb.failack:0.06``,
+              ``-chaos_seed=1234 -mv_max_retries=12``): every GetRows equal
+              to the oracle, the final tables bitwise the clean turn's,
+              ``failsafe.dedup_hits``, ``failsafe.retries`` and each armed
+              ``chaos.*`` counter moved, the round medians of each turn;
+              the deadline drill (``-mv_deadline_s=0.5``,
+              ``apply.delay:1.0@2.0``): a GetRows raises
+              ``DeadlineExceeded`` within 0.5-2.0 s with the bundle's five
+              sections and the waiting msg_id,
+              ``failsafe.deadline_exceeded`` moves by 1 and
+              ``MV_ShutDown`` returns within 5 s; the PS rounds at
+              ``-mv_deadline_s`` 0 and 30 in turns (off, on, on, off);
+              ``[ps_2proc chaos]`` (two more ranks, ``--child-phase fs``,
+              after ``[kv_2proc device]``): [ps_2proc]'s rounds in a world a
+              turn (clean, chaos, chaos, clean; ``-mv_deadline_s=60``, so
+              the window exchanges run through the bounded runner), the
+              chaos turns under the same spec plus ``wire.bitflip:0.05`` on
+              the default (shm) wire: every GetRows equal to the oracle of
+              both ranks' Adds, the final tables bitwise equal across the
+              ranks and the turns, every flipped frame caught by the CRC
+              and re-exchanged, the counters moved, each rank's round
+              medians against its clean turn; then the rounds at
+              ``-mv_deadline_s`` 0 and 30 in turns;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -289,7 +316,8 @@ holds every kernel of that path against its plain PyTorch version:
 Each main path of phases 3 to 5 runs with the launch counters (and the
 native library's call counters) zeroed just before it and read just
 after: each kernel that path runs must have launched there, and the
-``kernels`` line sums the paths. Any failure
+``kernels`` line sums the paths (``[failsafe]``'s and ``[ps_2proc
+chaos]``'s ranks' included). Any failure
 raises and the script exits non-zero without the ``ok`` line. Without a
 CUDA device, or away from the repository, it exits non-zero at once.
 """
@@ -406,6 +434,23 @@ TELE_ROUNDS, TELE_WARM, TELE_PROBE_ROUNDS = 43, 3, 2
 COMBINE_TELE_TURNS = ("on", "off", "off", "on") * 2
 TELE2_TURNS = ("on", "off", "off", "on")
 TELE2_ROUNDS = 13
+# [failsafe]: the JAX package's chaos soak's verb and mailbox sites
+# (tests/test_failsafe_multiproc.py) under one seed, a world a turn of
+# FS_TURNS on the PS path; the deadline drill stalls the engine's window
+# apply FS_DELAY_S under a deadline of FS_DEADLINE_S; the PS rounds at
+# -mv_deadline_s 0 and 30 in FS_DEADLINE_TURNS
+FS_SPEC = ("mailbox.drop:0.06,mailbox.dup:0.08,mailbox.delay:0.08@0.002,"
+           "verb.transient:0.06,verb.failack:0.06")
+FS_CHAOS = (f"-chaos_spec={FS_SPEC}", "-chaos_seed=1234",
+            "-mv_max_retries=12")
+FS_SITES = ("mailbox.drop", "mailbox.dup", "mailbox.delay",
+            "verb.transient", "verb.failack")
+FS_COUNTERS = ("failsafe.dedup_hits", "failsafe.retries",
+               "failsafe.deadline_exceeded", "wire.crc_failures",
+               *(f"chaos.{s}" for s in FS_SITES + ("wire.bitflip",)))
+FS_TURNS = ("clean", "chaos", "chaos", "clean")
+FS_DEADLINE_TURNS = ("off", "on", "on", "off")
+FS_DEADLINE_S, FS_DELAY_S, FS_SHUTDOWN_S = 0.5, 2.0, 5.0
 
 
 def log(msg: str) -> None:
@@ -4769,6 +4814,297 @@ def apps_2proc(torch, cr, dev, seed: int, workdir: str, lr_data: dict,
     return {"lr_2proc": lr2_k, "we_2proc": touched}
 
 
+def fs_counts() -> dict:
+    """This process's failsafe and chaos counters (FS_COUNTERS)."""
+    return {k: counter(k) for k in FS_COUNTERS}
+
+
+def fs_delta(c0: dict, c1: dict) -> dict:
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def fs_check_counts(tag: str, moved: dict, sites) -> None:
+    """Each armed site fired and the recovery it drives engaged."""
+    for k in ("failsafe.dedup_hits", "failsafe.retries",
+              *(f"chaos.{s}" for s in sites)):
+        if moved[k] <= 0:
+            raise AssertionError(f"{tag}: {k} did not move ({moved})")
+
+
+def fs_quiet_engine() -> None:
+    """Wait for an engine thread a deadline abandoned (the drill's stalled
+    apply) to finish before the next path: its late launch must not land
+    in another path's counts."""
+    for t in threading.enumerate():
+        if t.name.startswith("mvt-server"):
+            t.join(FS_DELAY_S + 5.0)
+            if t.is_alive():
+                raise AssertionError(f"engine thread {t.name} still runs "
+                                     f"{FS_DELAY_S + 5.0} s after the drill")
+
+
+def failsafe_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """[failsafe] on the PS path in one process: the PS rounds
+    (``ps_phase``) in a world a turn of FS_TURNS on the default engine and
+    on ``-mv_engine_shards=1``, the chaos turns under FS_SPEC: every GetRows
+    equal to the oracle, the final tables bitwise the clean turn's, the
+    dedup, retry and every armed site's counters moved; the deadline drill;
+    the PS rounds at ``-mv_deadline_s`` 0 and 30 in turns."""
+    from multiverso_tpu_torch.failsafe.errors import DeadlineExceeded
+    out = {"engines": {}}
+    for engine, eflags in (("default", ()),
+                           ("one", ("-mv_engine_shards=1",))):
+        turns, clean = [], None
+        for turn in FS_TURNS:
+            flags = list(eflags) + (list(FS_CHAOS) if turn == "chaos"
+                                    else [])
+            c0 = fs_counts()
+            stats, final = ps_phase(torch, mv, cr, dev, seed, flags)
+            moved = fs_delta(c0, fs_counts())
+            if turn == "chaos":
+                fs_check_counts(f"[failsafe] {engine} chaos turn", moved,
+                                FS_SITES)
+            elif any(moved[k] for k in moved):
+                raise AssertionError(f"[failsafe] a clean turn moved the "
+                                     f"failsafe counters: {moved}")
+            if clean is None:
+                clean = final
+            for k in ("add", "momentum"):
+                if not np.array_equal(final[k], clean[k]):
+                    raise AssertionError(f"[failsafe] {engine} {turn} turn: "
+                                         f"the {k} table differs from the "
+                                         f"clean turn's")
+            del final
+            turns.append({"turn": turn, "engine": stats["engine"],
+                          "add_round_ms": stats["add_round_ms"],
+                          "momentum_round_ms": stats["momentum_round_ms"],
+                          "round_median_ms": float(np.median(
+                              np.add(stats["add_round_ms"],
+                                     stats["momentum_round_ms"]))),
+                          "counters": moved})
+        del clean
+        out["engines"][engine] = turns
+    # the deadline drill: the engine's window apply stalls FS_DELAY_S under
+    # a deadline of FS_DEADLINE_S
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    mv.MV_Init([f"-mv_deadline_s={FS_DEADLINE_S}",
+                f"-chaos_spec=apply.delay:1.0@{FS_DELAY_S}"])
+    try:
+        add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                  num_cols=PS_COLS))
+        ids = np.random.default_rng([seed, 1500]).choice(
+            PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+        d0 = counter("failsafe.deadline_exceeded")
+        t0 = time.perf_counter()
+        try:
+            add.GetRows(ids)
+        except DeadlineExceeded as exc:
+            raised_s = time.perf_counter() - t0
+            text = str(exc)
+        else:
+            raise AssertionError("[failsafe] the stalled GetRows returned")
+        moved = counter("failsafe.deadline_exceeded") - d0
+    finally:
+        t0 = time.perf_counter()
+        mv.MV_ShutDown()
+        shutdown_s = time.perf_counter() - t0
+    fs_quiet_engine()
+    if not FS_DEADLINE_S <= raised_s <= 2.0:
+        raise AssertionError(f"[failsafe] the deadline fired after "
+                             f"{raised_s:.3f} s, outside [{FS_DEADLINE_S}, "
+                             f"2.0]")
+    titles = [ln[3:-3] for ln in text.splitlines()
+              if ln.startswith("-- ") and ln.endswith(" --")]
+    if titles != ["threads", "engine", "in-flight requests", "telemetry",
+                  "flight"]:
+        raise AssertionError(f"[failsafe] the bundle's sections: {titles}")
+    msg_id = text.split("reply to msg_id ", 1)[1].split()[0]
+    if f"waiting on msg_ids [{msg_id}]" not in text:
+        raise AssertionError(f"[failsafe] the bundle does not name the "
+                             f"waiting msg_id {msg_id}")
+    if moved != 1:
+        raise AssertionError(f"[failsafe] failsafe.deadline_exceeded moved "
+                             f"by {moved}, not 1")
+    if shutdown_s > FS_SHUTDOWN_S:
+        raise AssertionError(f"[failsafe] MV_ShutDown took {shutdown_s:.3f}"
+                             f" s on the stalled engine (bound "
+                             f"{FS_SHUTDOWN_S} s)")
+    out["drill"] = {"raised_s": raised_s, "shutdown_s": shutdown_s,
+                    "bundle_chars": len(text), "msg_id": int(msg_id)}
+    # the bounded waits' cost: the PS rounds at -mv_deadline_s 0 and 30
+    dl = []
+    for turn in FS_DEADLINE_TURNS:
+        flags = ["-mv_deadline_s=30"] if turn == "on" else []
+        stats, final = ps_phase(torch, mv, cr, dev, seed, flags)
+        del final
+        dl.append({"turn": turn, "round_ms": [
+            float(x) for x in np.add(stats["add_round_ms"],
+                                     stats["momentum_round_ms"])]})
+    out["deadline_turns"] = dl
+    return out
+
+
+def report_failsafe(fs: dict, card: str) -> None:
+    for engine, turns in fs["engines"].items():
+        for t in turns:
+            log(f"[failsafe] {engine} engine ({t['engine']}) {t['turn']} "
+                f"turn: PS round (AddRows + GetRows of {PS_IDS} ids on the "
+                f"add and the momentum table) median "
+                f"{t['round_median_ms']:.4f} ms (add "
+                f"{[round(x, 4) for x in t['add_round_ms']]}, momentum "
+                f"{[round(x, 4) for x in t['momentum_round_ms']]}); "
+                f"counters {t['counters']} ({card})")
+    log(f"[failsafe] chaos {','.join(FS_CHAOS)}: every GetRows == the oracle"
+        f" (add exact, momentum rtol 1e-6), the final tables bitwise the "
+        f"clean turn's on both engines; dedup, retry and every armed site's "
+        f"counters moved in every chaos turn")
+    d = fs["drill"]
+    log(f"[failsafe] deadline drill (-mv_deadline_s={FS_DEADLINE_S}, "
+        f"apply.delay:1.0@{FS_DELAY_S}): GetRows raised DeadlineExceeded "
+        f"after {d['raised_s']:.4f} s with the bundle's five sections and "
+        f"msg_id {d['msg_id']} ({d['bundle_chars']} chars); "
+        f"failsafe.deadline_exceeded moved by 1; MV_ShutDown "
+        f"{d['shutdown_s']:.4f} s ({card})")
+    for t in fs["deadline_turns"]:
+        log(f"[failsafe] -mv_deadline_s={30 if t['turn'] == 'on' else 0}: "
+            f"PS round median {np.median(t['round_ms']):.4f} ms "
+            f"{[round(x, 4) for x in t['round_ms']]} ({card})")
+
+
+def fs_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
+    """One rank of [ps_2proc chaos] (``--rank-child R --child-phase fs``):
+    the PS shape on an add and a momentum table, [ps_2proc]'s 5 rounds of
+    AddRows + GetRows of each rank's 10,000 ids, in a world a turn of
+    FS_TURNS at ``-mv_deadline_s=60`` (the window exchanges through the
+    bounded runner), the chaos turns under FS_CHAOS plus
+    ``wire.bitflip:0.05`` on the default wire: every GetRows equal to the
+    oracle of both ranks' Adds, the final tables' digest (the parent holds
+    it across the ranks and the turns); then the rounds at
+    ``-mv_deadline_s`` 0 and 30 in turns. Writes its measurements and
+    launch counts to ``out``."""
+    import hashlib
+
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.parallel import multihost
+        from multiverso_tpu_torch.updaters.base import AddOption
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2"]
+    batches = [[ps2_batch(seed, r, k) for r in range(PS_ROUNDS)]
+               for k in range(2)]
+    expect, oracle_add, oracle_mom = ps2_oracle(batches, 0.5)
+    mopt = AddOption(momentum=0.5)
+    res = {"rank": rank, "turns": [], "deadline_turns": []}
+    cr.reset_launches()
+
+    def rounds(flags, final: bool) -> tuple:
+        mv.MV_Init(base + flags)
+        try:
+            wire = multihost.wire_name()
+            add, mom = ps_tables(mv)
+            ms = []
+            for r, (ids, deltas) in enumerate(batches[rank]):
+                t0 = time.perf_counter()
+                add.AddRows(ids, deltas)
+                got_add = add.GetRows(ids)
+                mom.AddRows(ids, deltas, mopt)
+                got_mom = mom.GetRows(ids)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                np.testing.assert_array_equal(got_add, expect[r][rank][0])
+                np.testing.assert_allclose(got_mom, expect[r][rank][1],
+                                           rtol=1e-6, atol=1e-6)
+            digest = None
+            if final:
+                fa, fm = add.Get(), mom.Get()
+                np.testing.assert_array_equal(fa, oracle_add)
+                np.testing.assert_allclose(fm, oracle_mom, rtol=1e-6,
+                                           atol=1e-6)
+                digest = hashlib.sha256(fa.tobytes()
+                                        + fm.tobytes()).hexdigest()
+                del fa, fm
+            torch.cuda.synchronize()
+            if cr.read_error(dev) != 0:
+                raise AssertionError("error word set on the chaos path")
+        finally:
+            mv.MV_ShutDown(finalize_net=False)
+        return ms, digest, wire
+
+    for turn in FS_TURNS:
+        flags = ["-mv_deadline_s=60"]
+        if turn == "chaos":
+            flags += [f"-chaos_spec={FS_SPEC},wire.bitflip:0.05",
+                      *FS_CHAOS[1:]]
+        c0 = fs_counts()
+        ms, digest, wire = rounds(flags, True)
+        moved = fs_delta(c0, fs_counts())
+        if wire != "shm":
+            raise AssertionError(f"[ps_2proc chaos] rode {wire}, not shm")
+        if turn == "chaos":
+            fs_check_counts(f"[ps_2proc chaos] rank {rank}", moved,
+                            FS_SITES + ("wire.bitflip",))
+            if not 0 < moved["chaos.wire.bitflip"] <= moved["wire.crc_failures"]:
+                raise AssertionError(f"[ps_2proc chaos] rank {rank}: "
+                                     f"flipped frames not caught: {moved}")
+        res["turns"].append({"turn": turn, "round_ms": ms,
+                             "digest": digest, "counters": moved})
+    for turn in FS_DEADLINE_TURNS:
+        flags = ["-mv_deadline_s=30"] if turn == "on" else []
+        ms, _, _ = rounds(flags, False)
+        res["deadline_turns"].append({"turn": turn, "round_ms": ms})
+    res["launches"] = dict(cr.LAUNCHES)
+    multihost.net_finalize()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def fs_2proc_phase(seed: int, workdir: str) -> dict:
+    """[ps_2proc chaos]: both ranks (``fs_2proc_rank``); the final tables
+    bitwise equal across the ranks and across every turn; each rank
+    launching all three kernels."""
+    ranks = rank_children("fs", seed, workdir)
+    digests = {t["digest"] for r in ranks for t in r["turns"]}
+    if len(digests) != 1:
+        raise AssertionError(f"[ps_2proc chaos] the final tables differ "
+                             f"across the ranks or the turns: {digests}")
+    for r in ranks:
+        for k, n in r["launches"].items():
+            if n == 0:
+                raise AssertionError(f"[ps_2proc chaos] rank {r['rank']} "
+                                     f"never launched {k}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return {"ranks": ranks, "launches": launches}
+
+
+def report_fs_2proc(fs2: dict, card: str) -> None:
+    for r in fs2["ranks"]:
+        med = {}
+        for t in r["turns"]:
+            med.setdefault(t["turn"], []).append(
+                float(np.median(t["round_ms"])))
+        log(f"[ps_2proc chaos] rank {r['rank']}: PS round medians "
+            + ", ".join(f"{t['turn']} {np.median(t['round_ms']):.4f}"
+                        for t in r["turns"])
+            + f" ms (chaos / clean {np.median(med['chaos']) / np.median(med['clean']):.4f}); "
+            f"chaos counters {[t['counters'] for t in r['turns'] if t['turn'] == 'chaos']} "
+            f"({card})")
+        log(f"[ps_2proc chaos] rank {r['rank']}: -mv_deadline_s 0 / 30 round "
+            f"medians " + ", ".join(
+                f"{t['turn']} {np.median(t['round_ms']):.4f}"
+                for t in r["deadline_turns"]) + f" ms ({card})")
+    log("[ps_2proc chaos] every GetRows == the oracle of both ranks' Adds, "
+        "the final tables bitwise equal across the ranks and the turns, "
+        "every flipped frame caught by the CRC and re-exchanged")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4782,11 +5118,11 @@ def main() -> int:
                     help="run one rank of a two-process phase (the script "
                          "starts both itself)")
     ap.add_argument("--child-phase", default="ps",
-                    choices=("ps", "mh", "lr", "we"),
+                    choices=("ps", "mh", "fs", "lr", "we"),
                     help="the two-process phase of --rank-child: "
                          "[ps_2proc]; [ps_2proc apply], [ps_2proc "
-                         "compress] and [kv_2proc device]; [lr_2proc] or "
-                         "[we_2proc]")
+                         "compress] and [kv_2proc device]; [ps_2proc "
+                         "chaos]; [lr_2proc] or [we_2proc]")
     ap.add_argument("--port", type=int, default=0,
                     help="a two-process phase's rank 0 rendezvous port")
     ap.add_argument("--workdir", default="",
@@ -4799,8 +5135,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.rank_child >= 0:
-        if args.child_phase in ("ps", "mh"):
-            return {"ps": ps_2proc_rank, "mh": mh_2proc_rank}[
+        if args.child_phase in ("ps", "mh", "fs"):
+            return {"ps": ps_2proc_rank, "mh": mh_2proc_rank,
+                    "fs": fs_2proc_rank}[
                 args.child_phase](args.rank_child, args.port, args.seed,
                                   args.json_out)
         return {"lr": lr_2proc_rank, "we": we_2proc_rank}[args.child_phase](
@@ -5000,6 +5337,12 @@ def main() -> int:
         f"{[round(x, 4) for x in ma['aggregate_s']]} s, wall "
         f"{ma['wall_s']:.4f} s; every worker holds the exact sum; "
         f"MV_CreateTable raised")
+    # [failsafe]: seeded chaos on the PS path (both engines), the deadline
+    # drill and the bounded waits' cost
+    fs = drive("failsafe", lambda: failsafe_phase(torch, mv, cr, dev,
+                                                  args.seed), every)
+    results["failsafe"] = fs
+    report_failsafe(fs, card)
     with tempfile.TemporaryDirectory(prefix="mvt_smoke_") as workdir:
         # [telemetry]: the default-on telemetry against off, the profiler,
         # the metrics snapshot, the byte ledger and the ops endpoint
@@ -5128,6 +5471,15 @@ def main() -> int:
                    "and the segment sums, XLA in the JAX package)"
                    if name == "kv_2proc_device" else ""))
         report_mh_2proc(mh, card)
+        # [ps_2proc chaos]: the chaos soak across two ranks (two more
+        # ranks, their launches counted from zero)
+        fs2 = fs_2proc_phase(args.seed, workdir)
+        results["fs_2proc"] = fs2
+        paths["fs_2proc"] = fs2["launches"]
+        log(f"[main path] fs_2proc: launches {fs2['launches']} (both ranks;"
+            f" each rank must launch gather_rows, scatter_set_rows, "
+            f"update_rows)")
+        report_fs_2proc(fs2, card)
         ck = drive("ckpt", lambda: ckpt_phase(torch, mv, cr, dev, args.seed,
                                               workdir), every)
         results["ckpt"] = ck

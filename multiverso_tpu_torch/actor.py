@@ -10,6 +10,12 @@ the ``actor.<name>.queue_wait_s`` histogram, the ``actor.<name>.messages``
 and ``actor.<name>.deaths`` counters, the ``actor.<name>.dispatch`` span
 parented to the message's ``trace_ctx``, and the ``actor.poison`` flight
 event when the loop thread dies.
+
+Failsafe as in the JAX actor: ``Receive`` raises ``ActorDied`` once the
+loop thread died; an armed chaos injector (``failsafe/chaos.py``) may
+drop, duplicate or delay a table verb at its first delivery; ``Stop``
+joins for ``-mv_deadline_s`` (or ``DEFAULT_SHUTDOWN_JOIN_S``) and logs a
+stuck actor instead of hanging.
 """
 
 from __future__ import annotations
@@ -19,22 +25,14 @@ import time
 import traceback
 from typing import Callable, Dict, Optional
 
+from multiverso_tpu_torch.failsafe import chaos
+from multiverso_tpu_torch.failsafe.deadline import (DEFAULT_SHUTDOWN_JOIN_S,
+                                                    deadline_s)
+from multiverso_tpu_torch.failsafe.errors import ActorDied  # noqa: F401
 from multiverso_tpu_torch.message import Message, MsgType
 from multiverso_tpu_torch.telemetry import flight, metrics, trace
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
-
-#: how long Stop waits for the loop thread before abandoning it (logged)
-SHUTDOWN_JOIN_S = 60.0
-
-
-class ActorDied(RuntimeError):
-    """The actor's loop thread died; queued and future requests fail with
-    this instead of hanging."""
-
-    def __init__(self, name: str, original: BaseException):
-        super().__init__(f"actor {name} died: {original!r}")
-        self.original = original
 
 
 class actor_names:
@@ -73,11 +71,12 @@ class Actor:
               f"actor {self.name} thread failed to start in 60s")
 
     def Stop(self) -> None:
-        """Drain + join, bounded: a stuck actor is logged with its queue
-        depth instead of hanging MV_ShutDown."""
+        """Drain + join, bounded by ``-mv_deadline_s`` (or
+        ``DEFAULT_SHUTDOWN_JOIN_S`` when unset): a stuck actor is logged
+        with its queue depth instead of hanging MV_ShutDown."""
         self.mailbox.Exit()
         if self._thread is not None:
-            self._thread.join(SHUTDOWN_JOIN_S)
+            self._thread.join(deadline_s() or DEFAULT_SHUTDOWN_JOIN_S)
             if self._thread.is_alive():
                 Log.Error("actor %s stuck at shutdown (mailbox depth %d) — "
                           "abandoning its daemon thread", self.name,
@@ -86,9 +85,31 @@ class Actor:
 
     def Receive(self, msg: Message) -> None:
         """Push into the mailbox (reference actor.h:45-47); raises
-        ``ActorDied`` when the loop thread is dead."""
+        ``ActorDied`` when the loop thread is dead. An armed chaos
+        injector may drop (redeliver later), duplicate or delay a table
+        verb here, one decision per first delivery."""
         if self._poison is not None:
             raise ActorDied(self.name, self._poison) from self._poison
+        cz = chaos.get()
+        if (cz is not None
+                and msg.msg_type in (MsgType.Request_Get,
+                                     MsgType.Request_Add)
+                and not getattr(msg, "_fs_chaos_done", False)):
+            # redeliveries and dups do not roll the dice again: the
+            # schedules stay lockstep across ranks running one program
+            msg._fs_chaos_done = True
+            action = cz.mailbox_action()
+            if action == "dup":
+                self._push(msg)       # the same object twice: the
+                self._push(msg)       # engine's admission drops the copy
+                return
+            if action in ("drop", "delay"):
+                chaos.schedule_redelivery(self._push, msg, action,
+                                          cz.param(f"mailbox.{action}"))
+                return
+        self._push(msg)
+
+    def _push(self, msg: Message) -> None:
         msg._enq_t = time.perf_counter()
         self.mailbox.Push(msg)
         self._m_received.inc()

@@ -199,6 +199,7 @@ def MV_MultiAddAsync(ops, option=None, track: bool = True):
 
 
 def MV_MultiAdd(ops, option=None, track: bool = True) -> None:
+    # unbounded-ok: MultiCall.Wait honors -mv_deadline_s internally
     MV_MultiAddAsync(ops, option=option, track=track).Wait()
 
 
@@ -210,6 +211,7 @@ def MV_MultiGetAsync(ops, option=None):
 
 
 def MV_MultiGet(ops, option=None) -> list:
+    # unbounded-ok: MultiCall.Wait honors -mv_deadline_s internally
     return MV_MultiGetAsync(ops, option=option).Wait()
 
 

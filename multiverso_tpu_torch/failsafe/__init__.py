@@ -1,22 +1,33 @@
-"""Failsafe: the typed errors and the deadline of the serving plane and
-the host wires.
+"""Failsafe: bounded waits, seeded chaos, at-most-once Adds, fail-fast
+(the port of ``multiverso_tpu/failsafe/``).
 
-The port's trimmed copy of ``multiverso_tpu/failsafe/``: the error types
-serving and the wires raise (``errors.py``) and the ``-mv_deadline_s``
-bound on a lookup's wait and on a wire exchange's (``deadline.py``). The
-rest of the JAX subsystem (seeded chaos, the server's dedup window, the
-diagnostic bundle, deadlines on the engine's own waits) is later work
-(``ROADMAP.md``).
+* :mod:`deadline` — ``-mv_deadline_s`` bounds every blocking wait of the
+  runtime (the worker table's ``Wait``, the barriers, the engine's drain,
+  cut waits, apply fence and window collectives, the allreduce
+  rendezvous, serving lookups, wire exchanges); expiry raises
+  :class:`DeadlineExceeded` carrying a :mod:`diagnostics` bundle.
+  ``-mv_max_retries`` bounds the worker's retries of a
+  :class:`TransientError`.
+* :mod:`chaos` — ``-chaos_spec``/``-chaos_seed``, the seeded fault
+  injector: mailbox drop/dup/delay, wire bitflip/truncate, verb
+  transient/failack, serving overload/delay, apply delay, tcp
+  delay/drop/partition; deterministic given the seed.
+* :mod:`dedup` — the engine's ``(src, msg_id)`` at-most-once window
+  (``-mv_dedup_window``), so a retried Add never applies twice.
+* fail-fast actor death — a dead loop thread poisons its mailbox
+  (:class:`ActorDied`).
 
-Importing this package registers ``-mv_deadline_s`` (zoo imports it
+Importing this package registers every failsafe flag (zoo imports it
 before ``ParseCMDFlags`` runs).
 """
 
-from multiverso_tpu_torch.failsafe import deadline  # noqa: F401
+from multiverso_tpu_torch.failsafe import chaos, deadline, diagnostics  # noqa: F401
+from multiverso_tpu_torch.failsafe.dedup import DedupWindow  # noqa: F401
 from multiverso_tpu_torch.failsafe.errors import (  # noqa: F401
     ActorDied,
     DeadlineExceeded,
     FailsafeError,
     ServingOverloaded,
+    TransientError,
     WireCorruption,
 )

@@ -90,6 +90,7 @@ class Communicator:
         return {"call": call, "names": [name for name, _, _ in specs]}
 
     def wait_parameter(self, handles: dict) -> Tuple[TrainState, dict]:
+        # unbounded-ok: MultiCall.Wait honors -mv_deadline_s internally
         fetched = dict(zip(handles["names"], handles["call"].Wait()))
         dev = {k: torch.from_numpy(v.copy()).to(self.device)
                for k, v in fetched.items()}

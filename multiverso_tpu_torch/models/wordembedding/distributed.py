@@ -209,7 +209,7 @@ class DistributedWordEmbedding:
             else:
                 current = pop_block()
         harvest(force=True)
-        loader.join()
+        loader.join()  # unbounded-ok: loader terminates with the corpus
         return self.total_loss / max(self.total_pairs, 1)
 
     def _current_lr(self) -> float:

@@ -11,6 +11,11 @@ round reduces the thread sum across processes once (``Zoo`` passes
 ``multihost.host_allreduce_sum`` in a multi-process world; reference
 MPI_Allreduce, mpi_net.h:148-152).
 
+The rendezvous is bounded by ``-mv_deadline_s``: a participant that never
+arrives raises ``DeadlineExceeded`` on the waiting threads and BREAKS the
+rendezvous (its contribution is already in the sum, so a retry would
+count it twice); every later call raises until the world restarts.
+
 Not ported (ROADMAP.md): the device collectives (``device_allreduce``,
 ``jit_mean_across``), which have no caller in the JAX package outside
 their export.
@@ -35,7 +40,8 @@ class RendezvousAllreduce:
     ``cross_reduce`` (optional) runs once per round, on the last-arriving
     thread, over the thread-summed float64 buffer: every process's last
     thread issues the same collective. A raise there still ends the round:
-    every participant raises, and the next round works.
+    every participant raises, and the next round works. A deadline breaks
+    the rendezvous for good (``_broken``).
     """
 
     def __init__(self, num_participants: int, cross_reduce=None):
@@ -49,10 +55,19 @@ class RendezvousAllreduce:
         self._generation = 0
         self._result: Optional[np.ndarray] = None
         self._error: Optional[BaseException] = None
+        #: set when a participant's deadline expired mid-round: the round
+        #: can never complete correctly (its contribution is in _accum but
+        #: its caller moved on), so the rendezvous breaks for everyone
+        self._broken = False
 
     def allreduce(self, arr: np.ndarray) -> np.ndarray:
         arr = np.asarray(arr)
+        from multiverso_tpu_torch.failsafe import deadline as fdeadline
         with self._lock:
+            if self._broken:
+                fdeadline.raise_deadline(
+                    "allreduce rendezvous (broken by an earlier "
+                    "participant deadline)")
             gen = self._generation
             if self._accum is None:
                 self._accum = arr.astype(np.float64, copy=True)
@@ -76,7 +91,17 @@ class RendezvousAllreduce:
             else:
                 # no participant of the next round can arrive before this
                 # one returns, so the result read below is this round's
-                self._lock.wait_for(lambda: self._generation > gen)
+                if not self._lock.wait_for(
+                        lambda: self._generation > gen or self._broken,
+                        fdeadline.timeout_or_none()):
+                    self._broken = True
+                    self._lock.notify_all()
+                    fdeadline.raise_deadline(
+                        "allreduce rendezvous (missing participants)")
+                if self._broken and self._generation <= gen:
+                    fdeadline.raise_deadline(
+                        "allreduce rendezvous (broken by a peer "
+                        "participant deadline)")
             if self._error is not None:
                 raise RuntimeError(
                     "cross-process allreduce failed") from self._error

@@ -437,7 +437,7 @@ class ShmWire:
                     fdeadline.raise_deadline(
                         f"shm wire exchange (channel {channel}, round "
                         f"{rnd}): a peer never published or consumed its "
-                        f"frame", deadline)
+                        f"frame", deadline, fatal=True)
         self._wseq[channel] += len(plan)
         with self._lock:
             self._bytes_out += len(blob)

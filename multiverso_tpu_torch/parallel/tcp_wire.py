@@ -39,10 +39,12 @@ exits once the mesh is up: an exchange runs on the caller's thread, a
 selectors loop interleaving sends and receives over every peer, so
 frames of many chunks cannot deadlock on flow control.
 
-Selection lives in ``multihost.maybe_install_wire``. Not ported: the chaos
-hooks (``tcp.delay``, ``tcp.drop``, ``tcp.partition``), the elastic lease
-probe and the ``tcp_wire.*`` telemetry counters, which ``stats()`` keeps
-as plain counts.
+Selection lives in ``multihost.maybe_install_wire``. Chaos as in the JAX
+wire (``failsafe/chaos.py``), consulted once per exchange: ``tcp.delay``
+sleeps before the frame train, ``tcp.drop`` swallows the final frame
+toward the lowest peer (that peer's deadline converts the stall),
+``tcp.partition`` severs every stream of the channel (``ActorDied`` on
+both ends). Not ported: the elastic lease probe.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from multiverso_tpu_torch.failsafe import chaos as fchaos
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.failsafe.errors import ActorDied, WireCorruption
 from multiverso_tpu_torch.parallel import seal
@@ -201,7 +204,7 @@ class TcpWire:
                     if remaining <= 0:
                         fdeadline.raise_deadline(
                             f"tcp wire mesh connect (dial rank {r} "
-                            f"channel {ch})", deadline)
+                            f"channel {ch})", deadline, fatal=True)
                     try:
                         s = socket.create_connection(
                             (host, int(port)),
@@ -232,7 +235,7 @@ class TcpWire:
             fdeadline.raise_deadline(
                 f"tcp wire mesh connect: {len(self._conn)}/{total} "
                 f"streams up before the bound"
-                + (f" ({exc!r})" if exc else ""), deadline)
+                + (f" ({exc!r})" if exc else ""), deadline, fatal=True)
         self._t_connects.inc(len(self._conn))
         for (ch, r), s in self._conn.items():
             s.setblocking(False)
@@ -339,26 +342,30 @@ class TcpWire:
     # -- the exchange --------------------------------------------------------
 
     def _frames(self, blob: bytes, rnd: int, channel: int,
-                crc: int) -> bytearray:
+                crc: int) -> Tuple[bytearray, List[int]]:
         """The outbound frame train, the same toward every peer, built in
         ONE pass: header, chunk and streamed seal trailer go straight into
         the send buffer, so the blob is copied once whatever its chunk
-        count."""
+        count. Returns the buffer and each frame's bytes (chaos
+        ``tcp.drop`` trims the final frame off a peer's send limit)."""
         mv = memoryview(blob)
         plan = ([(0, 0)] if not blob else
                 [(off, min(self.chunk, len(blob) - off))
                  for off in range(0, len(blob), self.chunk)])
         out = bytearray()
+        sizes = []
         for off, ln in plan:
             hdr = struct.pack(_HDR_FMT, _MAGIC, self.rank, rnd,
                               len(blob), off, ln, channel, crc)
             chunk = mv[off:off + ln]
             trailer = seal.seal_trailer((hdr, chunk))
-            out += struct.pack("<I", _HDR_LEN + ln + len(trailer))
+            flen = _HDR_LEN + ln + len(trailer)
+            out += struct.pack("<I", flen)
             out += hdr
             out += chunk
             out += trailer
-        return out
+            sizes.append(4 + flen)
+        return out, sizes
 
     def exchange(self, blob: bytes, channel: int,
                  timeout_s: Optional[float] = None) -> List[bytes]:
@@ -376,9 +383,20 @@ class TcpWire:
         crc = ((seal.fast_crc(blob) & 0xFFFFFFFF)
                if self.payload_crc else 0)
         peers = [r for r in range(self.nprocs) if r != self.rank]
-        out = self._frames(blob, rnd, channel, crc)
+        inj = fchaos.get()
+        if inj is not None:
+            d = inj.tcp_delay()
+            if d > 0:
+                time.sleep(d)
+            if inj.tcp_partition():
+                self._partition(channel)
+        out, frame_sizes = self._frames(blob, rnd, channel, crc)
         out_view = memoryview(out)
-        limit = len(out)
+        out_limit = {r: len(out) for r in peers}
+        if inj is not None and inj.tcp_drop():
+            # swallow the final frame toward the lowest peer: it stalls on
+            # bytes that never arrive, and its deadline converts the stall
+            out_limit[peers[0]] = len(out) - frame_sizes[-1]
         st = {r: {"buf": self._inbuf.setdefault((channel, r),
                                                 bytearray()),
                   "out_pos": 0, "asm": None, "total": None,
@@ -402,12 +420,21 @@ class TcpWire:
                         f"tcp wire peer rank {r} (channel {channel}, "
                         f"round {rnd})",
                         ConnectionResetError("stream severed"))
-                events = selectors.EVENT_WRITE
+                events = 0
                 if not s["done_r"]:
                     events |= selectors.EVENT_READ
-                sel.register(sock, events, r)
-            while not all(s["done_r"] and s["out_pos"] >= limit
-                          for s in st.values()):
+                if s["out_pos"] < out_limit[r]:
+                    events |= selectors.EVENT_WRITE
+                if events:
+                    try:
+                        sel.register(sock, events, r)
+                    except (ValueError, OSError) as e:
+                        # a severed stream (chaos tcp.partition)
+                        raise ActorDied(
+                            f"tcp wire peer rank {r} (channel {channel}, "
+                            f"round {rnd})", e)
+            while not all(s["done_r"] and s["out_pos"] >= out_limit[r]
+                          for r, s in st.items()):
                 iter_t0 = time.perf_counter()
                 progressed = False
                 for key, mask in sel.select(timeout=0.05):
@@ -416,10 +443,11 @@ class TcpWire:
                     sock = key.fileobj
                     if mask & selectors.EVENT_WRITE:
                         progressed |= self._pump_send(
-                            sock, s, out_view, limit, r, channel, rnd, sel)
+                            sock, s, out_view, out_limit[r], r, channel,
+                            rnd, sel)
                     if mask & selectors.EVENT_READ and not s["done_r"]:
                         progressed |= self._pump_recv(
-                            sock, s, r, channel, rnd, sel, limit)
+                            sock, s, r, channel, rnd, sel, out_limit[r])
                 if progressed:
                     continue
                 now = time.perf_counter()
@@ -428,7 +456,7 @@ class TcpWire:
                     fdeadline.raise_deadline(
                         f"tcp wire exchange (channel {channel}, round "
                         f"{rnd}): a peer never sent or consumed its "
-                        f"frame train", deadline)
+                        f"frame train", deadline, fatal=True)
         finally:
             sel.close()
         with self._lock:
@@ -443,6 +471,22 @@ class TcpWire:
             self._t_stall.inc(stall_s)
         return [blob if r == self.rank else bytes(st[r]["asm"])
                 for r in range(self.nprocs)]
+
+    def _partition(self, channel: int) -> None:
+        """Chaos ``tcp.partition``: sever every stream of this channel.
+        The peers see EOF (``ActorDied``); this rank's next socket
+        operation fails the same way."""
+        with self._lock:
+            severed = [(k, s) for k, s in self._conn.items()
+                       if k[0] == channel]
+        for _, sock in severed:
+            try:
+                sock.close()
+            except OSError:
+                pass
+        Log.Error("tcp wire rank %d: chaos tcp.partition severed %d "
+                  "streams on channel %d", self.rank, len(severed),
+                  channel)
 
     def _pump_send(self, sock, s, out_view, limit, r, channel, rnd,
                    sel) -> bool:

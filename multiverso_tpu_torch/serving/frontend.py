@@ -27,8 +27,11 @@ Telemetry as in the JAX front-end: the ``serving.lookups``,
 ``digest.serving.latency_s`` digest, the ``serving.snapshot_age_s`` gauge
 and the ``serving.shed``/``serving.dispatch`` flight events: the one count
 of its work (a measurement reads their difference across its window).
-The JAX front-end's chaos sites wait with the chaos module
-(``ROADMAP.md``).
+
+Chaos as in the JAX front-end (``failsafe/chaos.py``): ``serving.overload``
+sheds a lookup at admission (``ServingOverloaded``, a ``serving.shed``
+flight event with detail ``chaos``) and ``serving.delay`` stalls a
+micro-batch before it is served (the per-request deadline path).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from multiverso_tpu_torch.failsafe import chaos
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.failsafe.errors import ServingOverloaded
 from multiverso_tpu_torch.telemetry import flight as tflight
@@ -119,6 +123,11 @@ class ServingFrontend:
         missing-version errors at once."""
         if self._stopped:
             raise ServingOverloaded("serving plane is shut down")
+        cz = chaos.get()
+        if cz is not None and cz.serving_admission():
+            self._t_shed.inc()
+            tflight.record("serving.shed", detail="chaos")
+            raise ServingOverloaded("chaos: serving admission shed")
         max_inflight = max(1, int(GetFlag("mv_serving_max_inflight")))
         if self._q.Size() >= max_inflight:
             self._t_shed.inc()
@@ -249,6 +258,11 @@ class ServingFrontend:
                 ticket._fill(exc)
 
     def _serve_batch(self, batch: List[tuple]) -> None:
+        cz = chaos.get()
+        if cz is not None:
+            delay = cz.serving_delay()
+            if delay > 0:
+                time.sleep(delay)
         self._t_batch.observe(len(batch))
         tflight.record("serving.dispatch", detail=f"{len(batch)}req")
         groups: Dict[Tuple[int, int], List[tuple]] = {}

@@ -122,10 +122,29 @@ does, so ``apply`` is launch-and-queue time, not the kernels' device time;
 a window's Get finalize (the synchronising device-to-host copy) is inside
 its apply. No synchronisation is added for telemetry's sake.
 
+Failsafe (``failsafe/``) as in the JAX engines. Every drained Get and Add
+passes the admission gate ``_admit`` BEFORE it can become a window
+position (the async drain, the windowed multi-process drain, each shard
+of the sharded engine, the BSP ``SyncServer`` before its clocks): a
+duplicate delivery of an admitted message is dropped by object identity,
+a retried tracked Add whose ``(src, msg_id)`` is in the engine's dedup
+window (``-mv_dedup_window``, one window per engine and per shard) is
+answered from the recorded outcome, and an armed chaos injector may
+reject a tracked verb with ``TransientError`` (``verb.transient``) or
+apply an Add and fail its ack (``verb.failack``). ``apply.delay`` stalls
+each window's apply (the single-process window too), ``wire.bitflip`` and
+``wire.truncate`` corrupt the encoded window blob (the seal's CRC catches
+it and ``wire.crc_retry`` re-exchanges). With ``-mv_deadline_s`` set the
+window collectives run through ``deadline.bounded`` and the pipelined
+engine's apply fence is bounded; expiry is fatal to the stream. The
+counters ``failsafe.dedup_hits``, ``failsafe.retries``,
+``failsafe.deadline_exceeded`` and the ``dedup.hit`` flight events count
+it.
+
 Not ported (ROADMAP.md): the device window transport
-(``-window_transport`` resolves to ``host``; ``device`` fails a CHECK),
-the failsafe admission gate (dedup window, chaos) and deadlines (their
-counters register at zero), and the elastic membership events.
+(``-window_transport`` resolves to ``host``; ``device`` fails a CHECK) and
+the elastic membership events, with the lease consult of a bounded
+collective.
 """
 
 from __future__ import annotations
@@ -139,7 +158,10 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from multiverso_tpu_torch.actor import Actor, ActorDied, actor_names
+from multiverso_tpu_torch.failsafe import chaos
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
+from multiverso_tpu_torch.failsafe.dedup import DedupWindow
+from multiverso_tpu_torch.failsafe.errors import TransientError
 from multiverso_tpu_torch.message import Message, MsgType, copy_result
 from multiverso_tpu_torch.parallel import compress, multihost, wire
 from multiverso_tpu_torch.parallel.seal import WireCorruption
@@ -437,6 +459,20 @@ class _ExchangeStage:
     def pending_verbs(self) -> int:
         return len(self._pending)
 
+    def _wait_applied(self, upto: int, what: str) -> None:
+        """Block until the actor applied ``upto`` items, bounded by
+        ``-mv_deadline_s`` (expiry is fatal: the stream is unsound)."""
+        with self._cv:
+            ok = self._cv.wait_for(
+                lambda: self._applied >= upto or self._killed,
+                fdeadline.timeout_or_none())
+        if self._killed:
+            raise _StageKilled()
+        if not ok:
+            fdeadline.raise_deadline(what, fatal=True)
+
+    _GATE_WHAT = "pipelined engine apply fence (apply stage did not drain)"
+
     def _gate(self) -> None:
         """Before any new collective: the fence and the depth bound (read
         live, so a changed flag takes effect at the next window). A stall
@@ -448,11 +484,7 @@ class _ExchangeStage:
         target = max(self._fence_at, depth_target)
         stall = self._applied < target      # advisory: classifies only
         t0 = time.perf_counter()
-        with self._cv:
-            self._cv.wait_for(lambda: self._applied >= target
-                              or self._killed)
-        if self._killed:
-            raise _StageKilled()
+        self._wait_applied(target, self._GATE_WHAT)
         if stall:
             cause = (self._fence_cause if self._fence_at >= depth_target
                      else "depth")
@@ -650,9 +682,11 @@ class Server(Actor):
         tmetrics.counter("server.wire.device_bytes")
         self._t_host_bytes = tmetrics.counter("server.wire.host_bytes")
         self._t_budget = tmetrics.gauge("server.window.host_budget_bytes")
-        # the failsafe machinery's counters, at zero: the port has no
-        # dedup window, retries or engine deadlines yet (ROADMAP.md)
-        tmetrics.counter("failsafe.dedup_hits")
+        #: the (src, msg_id) at-most-once window for tracked Adds and its
+        #: hit counter; the other failsafe counters register at zero so a
+        #: healthy run's snapshot shows them
+        self._dedup = DedupWindow(int(GetFlag("mv_dedup_window")))
+        self._t_dedup_hits = tmetrics.counter("failsafe.dedup_hits")
         tmetrics.counter("failsafe.deadline_exceeded")
         tmetrics.counter("failsafe.retries")
         tmetrics.counter("wire.crc_failures")
@@ -933,6 +967,97 @@ class Server(Actor):
                            epoch=self.window_epoch, mepoch=mepoch,
                            stream=self.mh_stream, detail=";".join(parts))
 
+    def _admit(self, msg: Message) -> bool:
+        """The failsafe admission gate, applied to every drained message
+        BEFORE it can become a window position (the JAX engine's
+        ``_admit``).
+
+        (1) At-most-once Adds: a duplicate delivery of an admitted message
+        (a mailbox dup) is dropped by object identity, which needs no
+        window slot, so it holds for fire-and-forget Adds and for Gets
+        (a duplicate Get would tick a BSP clock twice); a retried tracked
+        Add whose key is in the dedup window is answered from the record.
+        Neither enters the verb stream, where an extra verb on one rank
+        would fail the cross-rank CHECK.
+
+        (2) Chaos: the armed injector may reject a tracked verb with
+        ``TransientError`` before it applies, or mark an Add to apply and
+        then fail its ack. Every verb draws in admission order, so two
+        ranks with one seed fault the same lockstep positions."""
+        if (msg.msg_type in (MsgType.Request_Add, MsgType.Request_Get)
+                and getattr(msg, "_fs_admitted", False)):
+            self._t_dedup_hits.inc()
+            tflight.record("dedup.hit", epoch=self.window_epoch,
+                           detail=f"obj src{msg.src}")
+            return False
+        if msg.msg_type is MsgType.Request_Add and msg.msg_id:
+            key = (msg.src, msg.msg_id)
+            tracked = msg.waiter is not None
+            if tracked and self._dedup.seen(key):
+                self._t_dedup_hits.inc()
+                tflight.record("dedup.hit", epoch=self.window_epoch,
+                               detail=f"retry src{msg.src}")
+                ready, outcome = self._dedup.outcome(key)
+                msg.reply(outcome if ready else TransientError(
+                    "duplicate Add while the original is in flight"))
+                return False
+            failack = False
+            cz = chaos.get()
+            if cz is not None:
+                action = cz.verb_action(tracked=tracked)
+                if action == "transient":
+                    msg.reply(TransientError("chaos: transient verb "
+                                             "fault (pre-apply)"))
+                    return False
+                failack = action == "failack"
+            msg._fs_admitted = True
+            if tracked:
+                # only tracked Adds take dedup slots: only they can be
+                # retried, and a fire-and-forget burst must not evict a
+                # pending retry's record
+                self._dedup.record(key)
+                self._fs_wrap_reply(msg, key, failack)
+            return True
+        if msg.msg_type is MsgType.Request_Get:
+            cz = chaos.get()
+            if (cz is not None
+                    and cz.verb_action(tracked=msg.waiter is not None)
+                    == "transient"):
+                # a Get takes only the pre-serve fault (a retry re-serves
+                # it); the draw advances either way, keeping the ranks'
+                # schedules in lockstep
+                msg.reply(TransientError("chaos: transient verb fault"))
+                return False
+            msg._fs_admitted = True
+        return True
+
+    def _fs_wrap_reply(self, msg: Message, key, failack: bool) -> None:
+        """Shadow ``msg.reply`` so the apply outcome lands in the dedup
+        window whichever engine path replies, and, under chaos
+        ``failack``, the worker's ack becomes a ``TransientError`` while
+        the record stays truthful: the retry is answered from it, never
+        applied again."""
+        orig = msg.reply
+        dedup = self._dedup
+
+        def _reply(result=None):
+            dedup.set_outcome(key, result)
+            if failack and not isinstance(result, Exception):
+                orig(TransientError("chaos: ack failed after apply"))
+            else:
+                orig(result)
+
+        msg.reply = _reply
+
+    def _apply_delay(self) -> None:
+        """Chaos ``apply.delay``: stall this window's apply (a perf fault;
+        the stream stays lockstep). Consulted once per window."""
+        cz = chaos.get()
+        if cz is not None:
+            delay = cz.apply_delay()
+            if delay > 0.0:
+                time.sleep(delay)
+
     def _get_entry(self, msg: Message) -> None:
         """Window handler for Request_Get, Request_Add and envelopes."""
         batch = [msg]
@@ -946,10 +1071,16 @@ class Server(Actor):
             # drained messages bypass _dispatch: their queue wait is
             # observed here (once per message)
             self.note_dequeue(m)
+        # the failsafe gate BEFORE windowing: a duplicate or a rejected
+        # verb never becomes a stream position
+        batch = [m for m in batch if self._admit(m)]
+        if not batch:
+            return
         if multihost.world_size() > 1:
             self._mh_windows(batch)
             return
         t0 = time.perf_counter()
+        self._apply_delay()
         phases = self._phases_on()
         if phases:
             self._ph_tick += 1
@@ -1041,6 +1172,8 @@ class Server(Actor):
             stage = self._ex_stage = _ExchangeStage(self)
         for m in fed:
             stage.feed(m)
+        deadline = fdeadline.timeout_or_none()
+        stall_s = 0.0
         while fed:
             for _ in range(64):
                 ok, m = self.mailbox.TryPop()
@@ -1048,13 +1181,24 @@ class Server(Actor):
                     break
                 self.note_dequeue(m)
                 for mm in self._expand_multi([m]):
-                    fed.append(mm)
-                    stage.feed(mm)
+                    if self._admit(mm):
+                        fed.append(mm)
+                        stage.feed(mm)
             ok, item = stage.out.TryPop()
             if not ok:
                 ok, item = stage.out.Pop(timeout=_PL_POLL_S)
             if not ok:
+                # an exchange in flight (or waiting for peers): the stage
+                # bounds its own collective; this catches a stage that
+                # died without emitting, a grace past the stage's deadline
+                # so its richer error wins when both fire
+                stall_s += _PL_POLL_S
+                if deadline is not None and stall_s > deadline + 1.0:
+                    fdeadline.raise_deadline(
+                        "pipelined window flush (exchange stage stalled)",
+                        fatal=True)
                 continue
+            stall_s = 0.0
             if item[0] == "error":
                 raise item[1]
             try:
@@ -1147,9 +1291,11 @@ class Server(Actor):
         a barrier while a peer exchanges verbs (or another barrier) fails
         the CHECK on every rank instead of stranding the verb rank in an
         unmatched collective."""
-        blobs = multihost.capped_exchange(
-            wire.encode_head_barrier(int(head.msg_type)), self._mh_caps,
-            "HEAD_B", channel=self.mh_channel)
+        blob = wire.encode_head_barrier(int(head.msg_type))
+        blobs = fdeadline.bounded(
+            lambda: multihost.capped_exchange(
+                blob, self._mh_caps, "HEAD_B", channel=self.mh_channel),
+            "window head-marker exchange")
         # the seq of the NEXT exchange (barriers do not advance it), so
         # forensics aligns a barrier against a diverged peer's verbs
         tflight.record("barrier", seq=self._mh_seq, epoch=self.window_epoch,
@@ -1209,14 +1355,24 @@ class Server(Actor):
             self._t_encode_s.observe(enc_s)
             if ph is not None:
                 ph["encode"] = ph.get("encode", 0.0) + enc_s
+            cz = chaos.get()
+            if cz is not None:
+                bad = cz.corrupt_blob(blob)
+                if bad is not None:
+                    blob = bad
             self._t_host_bytes.inc(len(blob))
             tx = time.perf_counter()
             with ttrace.span("server.window.exchange", cat="server",
                              args={"bytes": len(blob)}):
-                blobs = multihost.capped_exchange(
-                    blob, self._mh_caps, (local[0][0], local[0][1]),
-                    channel=self.mh_channel)
-            xs = multihost.last_exchange_stats()
+                # the exchange's timing is per thread: read it on the
+                # thread that ran the collective (a bounded call runs it
+                # on the runner)
+                blobs, xs = fdeadline.bounded(
+                    lambda b=blob: (multihost.capped_exchange(
+                        b, self._mh_caps, (local[0][0], local[0][1]),
+                        channel=self.mh_channel),
+                        multihost.last_exchange_stats()),
+                    "window exchange")
             self.xw_busy_s += xs["coll_s"]
             if ph is not None:
                 ph["x"] = ph.get("x", 0.0) + time.perf_counter() - tx
@@ -1305,6 +1461,7 @@ class Server(Actor):
         my_rank = multihost.world_rank()
         self.mh_window_verbs += prefix
         self._t_verbs.inc(prefix)
+        self._apply_delay()
         for _, tid in descs0:
             self.table_verbs[tid] = self.table_verbs.get(tid, 0) + 1
         tbl: Dict[tuple, float] = {}
@@ -1783,7 +1940,9 @@ class _CutFence:
 
     def hold(self) -> None:
         """Sub-shard side: arrive, then block until the head releases the
-        cut, aborts it, or dies."""
+        cut, aborts it, dies, or ``-mv_deadline_s`` expires."""
+        deadline = fdeadline.timeout_or_none()
+        t0 = time.perf_counter()
         with self._cv:
             self._arrived += 1
             self._cv.notify_all()
@@ -1791,12 +1950,19 @@ class _CutFence:
                 if self._head._poison is not None:
                     raise ActorDied(self._head.name, self._head._poison)
                 self._cv.wait(self._POLL_S)
+                if (deadline is not None
+                        and time.perf_counter() - t0 > deadline):
+                    fdeadline.raise_deadline(
+                        "cross-stream cut (the head shard never ran the "
+                        "cut payload)", fatal=True)
             if self._abort is not None:
                 raise self._abort
 
     def arrive_head(self, subs) -> None:
-        """Head side: block until every sub-shard fenced. A dead sub aborts
-        the cut on every waiter."""
+        """Head side: block until every sub-shard fenced. A dead sub, or an
+        expired ``-mv_deadline_s``, aborts the cut on every waiter."""
+        deadline = fdeadline.timeout_or_none()
+        t0 = time.perf_counter()
         with self._cv:
             while self._arrived < self._need:
                 for sub in subs:
@@ -1806,6 +1972,16 @@ class _CutFence:
                         self._cv.notify_all()
                         raise exc
                 self._cv.wait(self._POLL_S)
+                if (deadline is not None
+                        and time.perf_counter() - t0 > deadline):
+                    try:
+                        fdeadline.raise_deadline(
+                            "cross-stream cut (a shard never fenced)",
+                            fatal=True)
+                    except BaseException as exc:
+                        self._abort = exc
+                        self._cv.notify_all()
+                        raise
 
     def abort(self, exc: BaseException) -> None:
         with self._cv:
@@ -2158,11 +2334,16 @@ class SyncServer(Server):
 
     def _get_entry(self, msg: Message) -> None:
         # no window under BSP: the defer/drain decisions depend on strict
-        # one-at-a-time processing
+        # one-at-a-time processing. The failsafe gate still runs BEFORE
+        # the clocks see the verb: a duplicate must not tick a clock twice
+        if not self._admit(msg):
+            return
         self.ProcessGet(msg)
 
     def _add_entry(self, msg: Message) -> None:
         # no add coalescing under BSP either
+        if not self._admit(msg):
+            return
         self.ProcessAdd(msg)
 
     def ProcessGet(self, msg: Message) -> None:

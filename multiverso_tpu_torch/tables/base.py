@@ -39,10 +39,20 @@ batch's round trip, the ``WORKER_TABLE_SYNC_GET``/``_ADD`` Dashboard
 monitors, and the worker span whose context rides the message across the
 mailbox hop. A server table's ``ledger_bytes`` is the byte ledger's probe
 (``telemetry/accounting.py``).
+
+Failsafe as in the JAX package (``failsafe/``): a tracked request keeps
+its ``(msg_type, payload, src)`` until ``Wait``; ``Wait`` is bounded by
+``-mv_deadline_s`` (expiry drops every bookkeeping slot of the request and
+raises ``DeadlineExceeded`` with the diagnostic bundle) and retries a
+``TransientError`` reply up to ``-mv_max_retries`` times with exponential
+backoff and jitter, resending the request under its ORIGINAL msg_id: the
+engine's dedup window makes the retry at-most-once. ``MultiCall.Wait`` is
+bounded too; its members do not retry (the failure surfaces per member).
 """
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from dataclasses import dataclass
@@ -50,6 +60,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from multiverso_tpu_torch.failsafe import deadline as fdeadline
+from multiverso_tpu_torch.failsafe.errors import TransientError
 from multiverso_tpu_torch.message import (Message, MsgType, copy_result,
                                           next_msg_id)
 from multiverso_tpu_torch.parallel import multihost
@@ -57,10 +69,18 @@ from multiverso_tpu_torch.parallel.wire import payload_nbytes
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
-from multiverso_tpu_torch.utils.configure import GetFlag
+from multiverso_tpu_torch.utils.configure import GetFlag, cached_int_flag
 from multiverso_tpu_torch.utils.dashboard import monitor_region
-from multiverso_tpu_torch.utils.log import CHECK
+from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.waiter import Waiter
+
+#: retry backoff: base * 2**attempt plus uniform jitter of one base (the
+#: transients here are engine-side or momentary, not WAN outages)
+_RETRY_BACKOFF_BASE_S = 0.02
+
+#: listener-refreshed (Wait runs once per tracked verb); the flag is
+#: defined in failsafe/deadline.py
+_max_retries_flag = cached_int_flag("mv_max_retries", 3)
 
 #: distinct request keys the Get cache keeps per table (training loops
 #: reuse a handful of request shapes; the oldest entry goes first)
@@ -274,9 +294,17 @@ class MultiCall:
             self._results[idx] = msg.result
         return _on_reply
 
-    def Wait(self, return_exceptions: bool = False) -> list:
+    def Wait(self, deadline: Optional[float] = None,
+             return_exceptions: bool = False) -> list:
+        """Block until every tracked member replied; the member results in
+        submission order (None for untracked members). Bounded by
+        ``deadline`` seconds when given, else ``-mv_deadline_s``."""
         if self._waiter is not None:
-            self._waiter.Wait()
+            timeout = (float(deadline) if deadline is not None
+                       else fdeadline.timeout_or_none())
+            if not self._waiter.Wait(timeout):
+                fdeadline.raise_deadline(
+                    f"multi-verb batch replies ({self._n} members)")
             if self._t0 is not None:
                 tmetrics.digest("digest.worker.rtt_s").observe(
                     time.perf_counter() - self._t0)
@@ -302,6 +330,10 @@ class WorkerTable:
         self._lock = threading.Lock()
         self._waiters: Dict[int, Waiter] = {}
         self._results: Dict[int, Any] = {}
+        #: tracked requests' (msg_type, payload, src), kept until Wait so
+        #: a TransientError reply can resend the SAME request under the
+        #: SAME msg_id (the engine dedup window's retry identity)
+        self._inflight: Dict[int, tuple] = {}
         # -- write combining (-mv_write_combine) --
         #: buffered fire-and-forget Add payloads awaiting one combined
         #: mailbox hop, their shared option and the worker whose run it is
@@ -361,6 +393,7 @@ class WorkerTable:
             waiter = Waiter(1)
             with self._lock:
                 self._waiters[msg_id] = waiter
+                self._inflight[msg_id] = (msg_type, payload, worker_id)
             msg.waiter = waiter
             msg.on_reply = self._on_reply
         # the worker span's context crosses the mailbox hop (the engine
@@ -372,24 +405,75 @@ class WorkerTable:
 
     def _on_reply(self, msg: Message) -> None:
         with self._lock:
+            # a reply to an abandoned request (its deadline dropped the
+            # slots) must not repopulate _results: nothing would pop it
             if msg.msg_id in self._waiters:
                 self._results[msg.msg_id] = msg.result
+
+    def _resubmit(self, msg_id: int) -> Waiter:
+        """Resend a tracked request under its ORIGINAL msg_id after a
+        TransientError: the engine's (src, msg_id) dedup window is what
+        makes the retry at-most-once for Adds."""
+        with self._lock:
+            msg_type, payload, src = self._inflight[msg_id]
+            waiter = Waiter(1)
+            self._waiters[msg_id] = waiter
+            self._results.pop(msg_id, None)
+        msg = Message(msg_type=msg_type, table_id=self.table_id,
+                      msg_id=msg_id, src=src, payload=payload,
+                      waiter=waiter, on_reply=self._on_reply)
+        msg.trace_ctx = ttrace.current_ctx()
+        ttrace.flow_start(msg.trace_ctx)
+        self._zoo.SendToServer(msg)
+        return waiter
 
     def Wait(self, msg_id: int) -> Any:
         """Block until the request's reply arrived; return its result or
         raise the server-side failure (reference table.cpp:84-95). A
         negative id is a Get served from the cache: its parked copy is the
-        result."""
+        result. Bounded by ``-mv_deadline_s`` (expiry abandons the
+        request: every slot is dropped, a late reply is ignored); a
+        ``TransientError`` reply is retried up to ``-mv_max_retries``
+        times with exponential backoff and jitter."""
         if msg_id < 0:
             with self._lock:
                 return self._gc_results.pop(msg_id)
         with self._lock:
             waiter = self._waiters.get(msg_id)
         CHECK(waiter is not None, f"unknown msg_id {msg_id}")
-        waiter.Wait()
+        max_retries = _max_retries_flag()
+        attempt = 0
+        while True:
+            if not waiter.Wait(fdeadline.timeout_or_none()):
+                try:
+                    # the bundle first (it reports THIS request), then
+                    # abandon it: an app catching DeadlineExceeded per
+                    # request must not leak a waiter and a pinned payload
+                    fdeadline.raise_deadline(
+                        f"table {self.table_id} reply to msg_id {msg_id}")
+                finally:
+                    with self._lock:
+                        self._waiters.pop(msg_id, None)
+                        self._inflight.pop(msg_id, None)
+                        self._results.pop(msg_id, None)
+                        self._gc_fill.pop(msg_id, None)
+            with self._lock:
+                result = self._results.pop(msg_id, None)
+            if isinstance(result, TransientError) and attempt < max_retries:
+                attempt += 1
+                tmetrics.counter("failsafe.retries").inc()
+                backoff = _RETRY_BACKOFF_BASE_S * (2 ** (attempt - 1))
+                backoff += random.random() * _RETRY_BACKOFF_BASE_S
+                Log.Debug("table %d msg_id %d transient (%r): retry %d/%d "
+                          "in %.3fs", self.table_id, msg_id, result,
+                          attempt, max_retries, backoff)
+                time.sleep(backoff)
+                waiter = self._resubmit(msg_id)
+                continue
+            break
         with self._lock:
             self._waiters.pop(msg_id, None)
-            result = self._results.pop(msg_id, None)
+            self._inflight.pop(msg_id, None)
             fill = self._gc_fill.pop(msg_id, None)
         if isinstance(result, Exception):
             raise result
@@ -497,9 +581,11 @@ class WorkerTable:
                             option=option)
 
     def MultiAdd(self, payloads, option=None) -> None:
+        # unbounded-ok: MultiCall.Wait honors -mv_deadline_s internally
         self.MultiAddAsync(payloads, option=option).Wait()
 
     def MultiGet(self, payloads, option=None) -> list:
+        # unbounded-ok: MultiCall.Wait honors -mv_deadline_s internally
         return self.MultiGetAsync(payloads, option=option).Wait()
 
     # -- write combining ------------------------------------------------------

@@ -54,8 +54,19 @@ class StatsReporter:
 
     def stop(self) -> None:
         self._stop.set()
-        # bounded join: Zoo.Stop must never hang on a wedged reporter
-        self._thread.join(timeout=5)
+        # bounded join through failsafe.deadline.bounded (imported here:
+        # this module loads before the failsafe package): with
+        # -mv_deadline_s set a wedged reporter raises a typed
+        # DeadlineExceeded we log instead of stalling Zoo.Stop; the inner
+        # timeout bounds the unset path
+        from multiverso_tpu_torch.failsafe import deadline as fdeadline
+        from multiverso_tpu_torch.failsafe.errors import DeadlineExceeded
+        try:
+            fdeadline.bounded(lambda: self._thread.join(timeout=5),
+                              "stats reporter join", fatal=False)
+        except DeadlineExceeded as exc:
+            Log.Error("stats reporter stop timed out (%r) — abandoning "
+                      "its daemon thread", exc)
         if self._thread.is_alive():
             Log.Error("stats reporter thread still alive after bounded "
                       "join — daemon thread abandoned")

@@ -143,6 +143,16 @@ class FlightRecorder:
                  "stream": ev[7] if len(ev) > 7 else 0}
                 for ev in raw]
 
+    def tail_text(self, n: int = 40) -> str:
+        """Compact textual tail for the failsafe diagnostic bundle."""
+        lines = []
+        for e in self.events(n):
+            me = f" mepoch={e['mepoch']}" if e.get("mepoch") else ""
+            st = f" stream={e['stream']}" if e.get("stream") else ""
+            lines.append(f"{e['t']:.6f} {e['kind']} seq={e['seq']} "
+                         f"epoch={e['epoch']}{me}{st} {e['detail']}")
+        return "\n".join(lines) or "<flight ring empty>"
+
     def _reset_for_tests(self) -> None:
         with self._lock:
             self._ring.clear()
@@ -175,6 +185,10 @@ def stats() -> Tuple[int, int]:
 
 def events(n: Optional[int] = None) -> List[dict]:
     return RECORDER.events(n)
+
+
+def tail_text(n: int = 40) -> str:
+    return RECORDER.tail_text(n)
 
 
 def _rank() -> int:

@@ -386,10 +386,22 @@ class OpsServer:
 
     def stop(self, join_s: float = 5.0) -> None:
         """Shut down + join BOUNDED (Zoo.Stop must never hang on a
-        wedged scrape)."""
-        self._httpd.shutdown()
-        self._httpd.server_close()
-        self._thread.join(join_s)
+        wedged scrape; failsafe.deadline.bounded raises typed, logged
+        here, when -mv_deadline_s is set)."""
+        from multiverso_tpu_torch.failsafe import deadline as fdeadline
+        from multiverso_tpu_torch.failsafe.errors import DeadlineExceeded
+
+        def _shutdown():
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._thread.join(join_s)
+
+        try:
+            fdeadline.bounded(_shutdown, "ops HTTP thread join",
+                              fatal=False)
+        except DeadlineExceeded as exc:
+            Log.Error("ops endpoint stop timed out (%r) — abandoning "
+                      "its daemon thread", exc)
         if self._thread.is_alive():
             Log.Error("ops HTTP thread still alive after bounded join "
                       "— daemon thread abandoned")

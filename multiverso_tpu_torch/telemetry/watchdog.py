@@ -590,7 +590,14 @@ class Watchdog:
         self._stop.set()
         if self._thread is None:
             return
-        self._thread.join(timeout=5)
+        from multiverso_tpu_torch.failsafe import deadline as fdeadline
+        from multiverso_tpu_torch.failsafe.errors import DeadlineExceeded
+        try:
+            fdeadline.bounded(lambda: self._thread.join(timeout=5),
+                              "watchdog thread join", fatal=False)
+        except DeadlineExceeded as exc:
+            Log.Error("watchdog stop timed out (%r) — abandoning its "
+                      "daemon thread", exc)
         if self._thread.is_alive():
             Log.Error("watchdog thread still alive after bounded join "
                       "— daemon thread abandoned")

@@ -35,7 +35,9 @@ class ASyncBuffer(Generic[T]):
         """Wait for the in-flight fill, return its buffer, prefetch the
         other one."""
         assert self._pending is not None, "ASyncBuffer.Get after Join"
-        # the fill is caller code whose end defines the buffer's readiness
+        # unbounded-ok: fill() is caller code whose end defines the
+        # buffer's readiness (a deadline would hand back a half-filled
+        # buffer; a wedged fill is the caller's bug to bound)
         self._pending.join()
         ready = self._buffers[self._ready_idx]
         self._ready_idx ^= 1
@@ -45,5 +47,6 @@ class ASyncBuffer(Generic[T]):
     def Join(self) -> None:
         """Wait for the last fill; the buffer takes no further Get."""
         if self._pending is not None:
+            # unbounded-ok: completion rendezvous with the last fill
             self._pending.join()
             self._pending = None

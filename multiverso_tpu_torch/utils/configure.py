@@ -68,6 +68,10 @@ def cached_int_flag(name: str, default: int):
     return cached_flag(name, default, int)
 
 
+def cached_float_flag(name: str, default: float):
+    return cached_flag(name, default, float)
+
+
 class _FlagRegister:
     """One typed registry (reference configure.h:40-57 FlagRegister<T>)."""
 

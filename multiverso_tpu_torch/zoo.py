@@ -32,6 +32,13 @@ diagnostics (flight ring, metrics sidecar, span trace) on disk last.
 policy planes the JAX ``Start`` brings up last are later work
 (``ROADMAP.md``).
 
+Failsafe (``failsafe/``) as in the JAX Zoo: with ``-mv_deadline_s`` set
+the FinishTrain drain, ``DrainServer``'s ping, a cut's wait
+(``CallOnEngine``), the worker barrier and the cross-process barrier
+(through ``deadline.bounded``) raise ``DeadlineExceeded`` with the
+diagnostic bundle instead of hanging; ``Stop`` waits for every chaos
+redelivery (``chaos.quiesce``) before the mailboxes go down.
+
 Write combining (``tables/base.py``): every global ordering point ships
 the tables' combine buffers first (``flush_combined_adds``): a non-verb
 message (a drain ping, a checkpoint or publish cut, ``CallOnEngine``),
@@ -52,6 +59,8 @@ from multiverso_tpu_torch.parallel import multihost
 # imported for their flag registrations, which must precede Start()'s
 # ParseCMDFlags
 import multiverso_tpu_torch.failsafe  # noqa: F401
+from multiverso_tpu_torch.failsafe import chaos as fchaos
+from multiverso_tpu_torch.failsafe import deadline as fdeadline
 import multiverso_tpu_torch.telemetry  # noqa: F401
 import multiverso_tpu_torch.updaters.base  # noqa: F401
 from multiverso_tpu_torch import serving
@@ -166,6 +175,8 @@ class Zoo:
         tops.stop_ops()
         twatchdog.stop_watchdog()
         taccounting.stop_ledger()
+        # no chaos redelivery may land in a mailbox that is going down
+        fchaos.quiesce()
         if self.server_engine is not None:
             try:
                 self.FinishTrain()
@@ -195,7 +206,9 @@ class Zoo:
     def FinishTrain(self) -> None:
         """Send Server_Finish_Train for every worker (reference
         zoo.cpp:152-162) and wait for the engine to drain to it: a
-        SyncServer drains its caches there."""
+        SyncServer drains its caches there. Bounded by ``-mv_deadline_s``:
+        a wedged engine raises ``DeadlineExceeded`` instead of hanging the
+        drain."""
         if self.server_engine is None:
             return
         self.flush_combined_adds()
@@ -206,7 +219,8 @@ class Zoo:
                 msg_type=MsgType.Server_Finish_Train, src=wid, waiter=w))
             waiters.append(w)
         for w in waiters:
-            w.Wait()
+            if not w.Wait(fdeadline.timeout_or_none()):
+                fdeadline.raise_deadline("engine FinishTrain drain")
 
     # -- identity (reference zoo.h:40-66) ------------------------------------
 
@@ -310,10 +324,10 @@ class Zoo:
         non-verb message as a window barrier (a cross-stream cut on the
         sharded engine), so every Add admitted before this call is applied
         first and none after. Returns ``fn``'s result; its failure
-        re-raises here."""
+        re-raises here. Bounded by ``-mv_deadline_s``."""
         CHECK(self.server_engine is not None,
               f"{what} needs a server engine (not -ma mode)")
-        return self._round_trip(msg_type, {"fn": fn})
+        return self._round_trip(msg_type, {"fn": fn}, what)
 
     def flush_combined_adds(self) -> None:
         """Ship every table's combine buffer (cheap when none holds an
@@ -327,40 +341,58 @@ class Zoo:
         every request enqueued before it, fire-and-forget Adds included,
         has applied (on every shard). No-op without an engine (-ma)."""
         if self.server_engine is not None:
-            self._round_trip(MsgType.Request_Barrier, {})
+            self._round_trip(MsgType.Request_Barrier, {},
+                             "engine barrier ping (DrainServer)")
 
-    def _round_trip(self, msg_type: MsgType, payload: dict):
-        """Send one non-verb message, wait for its reply, re-raise an
-        engine-side failure."""
+    def _round_trip(self, msg_type: MsgType, payload: dict, what: str):
+        """Send one non-verb message, wait for its reply (bounded by
+        ``-mv_deadline_s``), re-raise an engine-side failure."""
         waiter = Waiter(1)
         msg = Message(msg_type=msg_type, payload=payload, waiter=waiter)
         self.SendToServer(msg)
-        waiter.Wait()
+        if not waiter.Wait(fdeadline.timeout_or_none()):
+            fdeadline.raise_deadline(what)
         if isinstance(msg.result, Exception):
             raise msg.result
         return msg.result
+
+    def _barrier_wait(self, leg: str) -> int:
+        """One in-process barrier rendezvous, bounded by
+        ``-mv_deadline_s``: a worker thread that never arrives raises
+        ``DeadlineExceeded`` on every waiting thread (the barrier stays
+        broken). Unset, the wait blocks and a broken barrier raises
+        ``BrokenBarrierError`` as before."""
+        timeout = fdeadline.timeout_or_none()
+        try:
+            return self._barrier.wait(timeout)
+        except threading.BrokenBarrierError:
+            if timeout is None:
+                raise
+            fdeadline.raise_deadline(f"worker barrier ({leg})")
 
     def Barrier(self) -> None:
         """Worker barrier (reference zoo.cpp:164-177): every in-process
         worker thread, then, in a multi-process world, every process (one
         cross-process barrier a rendezvous, issued by one thread of each
-        process; a failure there breaks the thread barrier so the other
-        threads raise too)."""
+        process through ``deadline.bounded``; a failure there breaks the
+        thread barrier so the other threads raise too)."""
         CHECK(self._barrier is not None, "Zoo not started")
         if self.server_engine is not None:
             # after a barrier every worker's earlier pushes are in the
             # engine stream
             self.flush_combined_adds()
         t0 = time.perf_counter()
-        idx = self._barrier.wait()
+        idx = self._barrier_wait("enter")
         if self._multihost:
             if idx == 0:
                 try:
-                    multihost.host_barrier("mv_barrier")
+                    fdeadline.bounded(
+                        lambda: multihost.host_barrier("mv_barrier"),
+                        "cross-host barrier")
                 except BaseException:
                     self._barrier.abort()
                     raise
-            self._barrier.wait()     # hold the threads until it ends
+            self._barrier_wait("exit")   # hold the threads until it ends
         # how long this thread sat in the barrier (straggler skew shows
         # as a wide distribution)
         tmetrics.histogram("zoo.barrier_wait_s").observe(

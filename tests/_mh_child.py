@@ -4,7 +4,8 @@ tests/test_torch_mh_wordembedding.py, tests/test_torch_serving_mh.py,
 tests/test_torch_apply_pool.py (mode ``apply``),
 tests/test_torch_mh_kv_device.py (mode ``kv_device``) and
 tests/test_torch_telemetry_mh.py and tests/test_torch_telemetry_exchange.py
-(mode ``telemetry``).
+(mode ``telemetry``) and tests/test_torch_failsafe_mh.py (mode
+``failsafe``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -687,6 +688,53 @@ def run_serving(mv):
 
 # -- the host wires ------------------------------------------------------------
 
+FAILSAFE_SPEC = ("mailbox.drop:0.06,mailbox.dup:0.08,mailbox.delay:0.08@0.002,"
+                 "verb.transient:0.06,verb.failack:0.06,wire.bitflip:0.05")
+FAILSAFE_COUNTERS = ("chaos.mailbox.drop", "chaos.mailbox.dup",
+                     "chaos.mailbox.delay", "chaos.verb.transient",
+                     "chaos.verb.failack", "chaos.wire.bitflip",
+                     "failsafe.retries", "failsafe.dedup_hits",
+                     "wire.crc_failures")
+
+
+def run_failsafe(mv):
+    """The chaos soak (the JAX package's tests/test_failsafe_multiproc.py
+    spec without the serving sites, ``-chaos_seed=1234``): 12 rounds of
+    tracked AddRows + GetRows on an add and a momentum table, every Get of
+    the add table held to the oracle of both ranks' Adds; then chaos off,
+    quiesced, the final tables and this process's failsafe counters."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    if PKG == "jax":
+        from multiverso_tpu.failsafe import chaos
+        from multiverso_tpu.telemetry import metrics
+    else:
+        from multiverso_tpu_torch.failsafe import chaos
+        from multiverso_tpu_torch.telemetry import metrics
+    add = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=ROWS,
+                                                     num_cols=COLS))
+    mom = mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=ROWS, num_cols=COLS, updater_type="momentum"))
+    mopt = AddOption(momentum=0.5)
+    o_add = np.zeros((ROWS, COLS), np.float32)
+    for r in range(12):
+        batches = [row_batch(1700 + r, k) for k in range(2)]
+        ids, deltas = batches[RANK]
+        add.AddRows(ids, deltas)
+        o_add += combined(*zip(*batches))
+        results[f"add_get{r}"] = add.GetRows(ids)
+        np.testing.assert_array_equal(results[f"add_get{r}"], o_add[ids])
+        mom.AddRows(ids, deltas, mopt)
+        results[f"mom_get{r}"] = mom.GetRows(ids)
+    chaos.quiesce()
+    set_flag("chaos_spec", "")
+    chaos.quiesce()
+    results["final_add"] = add.Get()
+    results["final_mom"] = mom.Get()
+    np.testing.assert_array_equal(results["final_add"], o_add)
+    for name in FAILSAFE_COUNTERS:
+        results[name] = np.array(metrics.counter(name).value)
+
+
 def mh_mod():
     if PKG == "jax":
         from multiverso_tpu.parallel import multihost
@@ -1216,7 +1264,10 @@ def main():
     extra = {"bsp": ["-sync=true"],
              "tables": ["-num_workers=2"],
              "apply": ["-mv_write_combine=0"],
-             "serving": ["-mv_serving_residence=device"]}.get(MODE, [])
+             "serving": ["-mv_serving_residence=device"],
+             "failsafe": [f"-chaos_spec={FAILSAFE_SPEC}", "-chaos_seed=1234",
+                          "-mv_max_retries=12", "-mv_deadline_s=60"],
+             }.get(MODE, [])
     if MODE == "wiring":
         how = EXTRA[0]
         import multiverso_tpu_torch as mv
@@ -1236,7 +1287,7 @@ def main():
      "wiring": run_wiring, "diverge": run_diverge, "dead": run_dead,
      "serving": run_serving, "wire": run_wire, "compress": run_compress,
      "apply": run_apply, "kv_device": run_kv_device,
-     "telemetry": run_telemetry,
+     "telemetry": run_telemetry, "failsafe": run_failsafe,
      "lr_compress": run_lr_compress,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)
