@@ -2,6 +2,7 @@
 """Smoke run of multiverso_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
+    python3 chip_smoke.py --record-of RUN.json [RUN.json ...]
 
 (``--rank-child R --child-phase ps|mh|fs|lr|we --port P`` runs one rank of
 ``[ps_2proc]``, of ``[ps_2proc apply]``, ``[ps_2proc compress]`` and
@@ -63,7 +64,11 @@ holds every kernel of that path against its plain PyTorch version:
               world on the card loads the file and takes the same 3
               rounds: data and aux bitwise equal on the card, and the file
               loaded in a world on the CPU equal to the card's load; save
-              and load seconds and MB/s; compressed pushes
+              and load seconds and MB/s; then the remote turn: an AdaGrad
+              table at the PS shape in a ``-use_remote_io=true`` world,
+              saved to fsspec's ``memory://`` store and to a local file
+              (the same bytes), resumed from ``memory://`` in a new world
+              bitwise equal to the uninterrupted run; compressed pushes
               (``[ps_compress]``): the add table at that shape with
               ``compress="sparse"`` beside an uncompressed twin, deltas
               80% zeros, rounds in turns: bitwise equal, with the round
@@ -100,7 +105,13 @@ holds every kernel of that path against its plain PyTorch version:
               8 ``MV_AddAsyncMatrixTableByRows`` and one
               ``MV_GetMatrixTableByRows``, each equal to the oracle, the
               row gather and the update launched from the C path, the
-              per-round seconds of both paths; two processes (``[ps_2proc]``):
+              per-round seconds of both paths; ``[flag_cache]``, after
+              ``[ps_combine]``: one line of [ps]'s round medians on both
+              engines, [ps_combine]'s burst medians and [ps_2proc
+              apply]'s burst and apply medians a rank and worker count
+              (``--record-of A.json [B.json ...]`` prints the same line
+              from earlier runs' ``--json-out`` files, and the medians
+              across them, reading files only); two processes (``[ps_2proc]``):
               after the build, two ranks of this script on ``cuda:0``
               over ``torch.distributed`` (gloo) and, for the engine's
               window exchanges, the default host wire of a same-host
@@ -392,6 +403,8 @@ WE2_RUNS = ("we2_topics", "we2_pairs", "we2_device")
 # [ckpt]: rounds run after the save, and again after the load; the LR
 # table's keys a round (about a window's distinct keys at the RCV1 width)
 CKPT_ROUNDS, CKPT_LR_KEYS = 3, 20_000
+# [ckpt]'s remote turn: fsspec's in-process store, opened by -use_remote_io
+CKPT_REMOTE = "memory://mvt_smoke/ckpt_adagrad.mvt"
 # [ps_compress]: the share of each delta's entries that are zero
 # (tests/test_tables.py:853-872, where the sparse filter's rule engages)
 COMPRESS_ZEROS = 0.8
@@ -2612,6 +2625,126 @@ def ckpt_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
             "load_s": load_s, "save_mb_s": nbytes / save_s / 1e6,
             "load_mb_s": nbytes / load_s / 1e6,
             "leaves": [len(x) for x in loaded]}
+
+
+def ckpt_remote_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
+    """[ckpt]'s remote turn: a Matrix table at the PS shape with AdaGrad
+    (its ['hist'] aux leaf as large as the data), in a world with
+    ``-use_remote_io=true``, takes PS_ROUNDS rounds and is saved to
+    CKPT_REMOTE (fsspec's ``memory://``) and to a local file; the two
+    files must be the same bytes. After CKPT_ROUNDS more rounds (state A)
+    a new world loads the remote file and runs the same rounds (state B):
+    A and B bitwise equal, data and aux, on the card."""
+    import fsspec
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.updaters.base import AddOption
+    rng = np.random.default_rng([seed, 310])
+    batches = [(rng.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32),
+                (rng.standard_normal((PS_IDS, PS_COLS)) * 0.1).astype(
+                    np.float32))
+               for _ in range(PS_ROUNDS + CKPT_ROUNDS)]
+    opt = AddOption(worker_id=0, learning_rate=0.1, rho=0.5)
+
+    def world():
+        mv.MV_Init(["-use_remote_io=true"])
+        return mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type="adagrad"))
+
+    def rounds(table, part):
+        for ids, deltas in part:
+            table.AddRows(ids, deltas, opt)
+            table.GetRows(ids)
+
+    local = os.path.join(workdir, "ckpt_adagrad.mvt")
+    try:
+        table = world()
+        if table.server().state["data"].device != dev:
+            raise AssertionError("the remote checkpoint's table is not on "
+                                 "the card")
+        rounds(table, batches[:PS_ROUNDS])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = mv.MV_SaveCheckpoint(CKPT_REMOTE)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mv.MV_SaveCheckpoint(local)
+        local_save_s = time.perf_counter() - t0
+        rounds(table, batches[PS_ROUNDS:])
+        state_a = table_states([table], host=False)[0]
+    finally:
+        mv.MV_ShutDown()
+    fs = fsspec.filesystem("memory")
+    remote_path = CKPT_REMOTE[len("memory://"):]
+    try:
+        with open(local, "rb") as f:
+            if fs.cat(remote_path) != f.read():
+                raise AssertionError("[ckpt] the memory:// file differs from "
+                                     "the local file of the same table")
+        nbytes = fs.size(remote_path)
+        try:
+            table = world()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mv.MV_LoadCheckpoint(CKPT_REMOTE)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            rounds(table, batches[PS_ROUNDS:])
+            state_b = table_states([table], host=False)[0]
+            torch.cuda.synchronize()
+            if cr.read_error(dev) != 0:
+                raise AssertionError("error word set on the remote "
+                                     "checkpoint path")
+        finally:
+            mv.MV_ShutDown()
+    finally:
+        fs.rm(remote_path)
+    if len(state_a) != 2 or not all(torch.equal(a, b)
+                                    for a, b in zip(state_a, state_b)):
+        raise AssertionError("[ckpt] AdaGrad through memory://: the resumed "
+                             "run differs from the uninterrupted one")
+    return {"tables": n, "file_bytes": nbytes, "save_s": save_s,
+            "local_save_s": local_save_s, "load_s": load_s,
+            "save_mb_s": nbytes / save_s / 1e6,
+            "load_mb_s": nbytes / load_s / 1e6}
+
+
+def flag_cache_record(results: dict) -> dict:
+    """The numbers the flag-caching repair is recorded by (PERF.md §6),
+    from one run's results (this run's, or an earlier run's --json-out):
+    [ps]'s round medians on both engines, [ps_combine]'s burst medians a
+    turn kind, and [ps_2proc apply]'s burst and apply medians a rank and
+    worker count."""
+    rec = {}
+    for key in ("ps", "ps_one_engine"):
+        for kind in ("add", "momentum"):
+            rec[f"{key}.{kind}_round_median_ms"] = \
+                results[key][f"{kind}_round_median_ms"]
+    for kind in ("combined", "plain"):
+        rec[f"ps_combine.{kind}_burst_median_s"] = float(np.median(
+            [t["burst_s"] for t in results["ps_combine"]["turns"]
+             if t["turn"] == kind]))
+    for r in results["mh_2proc"]["ranks"]:
+        for w in sorted({t["workers"] for t in r["apply"]}):
+            turns = [t for t in r["apply"] if t["workers"] == w]
+            for k in ("wall_s", "apply_busy_s"):
+                rec[f"ps_2proc_apply.rank{r['rank']}.workers{w}.{k}"] = \
+                    float(np.median([t[k] for t in turns]))
+    return rec
+
+
+def print_records(paths: list) -> int:
+    """``--record-of``: flag_cache_record of each --json-out file, then
+    the median of each number across the files."""
+    recs = []
+    for path in paths:
+        with open(path) as f:
+            results = json.load(f)
+        recs.append(flag_cache_record(results))
+        log(f"[flag_cache] {path} ({results['card']}): "
+            f"{json.dumps(recs[-1])}")
+    log(f"[flag_cache] median of {len(recs)}: " + json.dumps(
+        {k: float(np.median([r[k] for r in recs])) for k in recs[0]}))
+    return 0
 
 
 def ps_compress_phase(torch, mv, cr, dev, seed: int) -> dict:
@@ -5127,7 +5260,13 @@ def main() -> int:
                     help="a two-process phase's rank 0 rendezvous port")
     ap.add_argument("--workdir", default="",
                     help="a two-process phase's data directory")
+    ap.add_argument("--record-of", nargs="+", default=[],
+                    help="print the flag-cache record of each of these "
+                         "--json-out files of earlier runs, and the "
+                         "medians across them (reads files only)")
     args = ap.parse_args()
+    if args.record_of:
+        return print_records(args.record_of)
 
     import torch
     if not torch.cuda.is_available():
@@ -5491,6 +5630,18 @@ def main() -> int:
             f"{ck['leaves']}, {ck['file_bytes']} bytes: save "
             f"{ck['save_s']:.3f} s ({ck['save_mb_s']:.1f} MB/s), load "
             f"{ck['load_s']:.3f} s ({ck['load_mb_s']:.1f} MB/s)")
+        ckr = drive("ckpt_remote", lambda: ckpt_remote_phase(
+            torch, mv, cr, dev, args.seed, workdir),
+            ("gather_rows", "scatter_set_rows"))
+        results["ckpt_remote"] = ckr
+        log(f"[ckpt] 1,000,000 x 50 AdaGrad through {CKPT_REMOTE} "
+            f"(-use_remote_io=true): the file bitwise the local file of the "
+            f"same table, the resumed run in a new world bitwise equal to "
+            f"the uninterrupted one (data and ['hist'], on the card); "
+            f"{ckr['file_bytes']} bytes: save {ckr['save_s']:.3f} s "
+            f"({ckr['save_mb_s']:.1f} MB/s; the local file "
+            f"{ckr['local_save_s']:.3f} s), load {ckr['load_s']:.3f} s "
+            f"({ckr['load_mb_s']:.1f} MB/s) ({card})")
         pc = drive("ps_compress", lambda: ps_compress_phase(
             torch, mv, cr, dev, args.seed), rows_and_update)
         results["ps_compress"] = pc
@@ -5581,6 +5732,9 @@ def main() -> int:
         f"{pcomb['momentum_card_vs_cpu_max_abs']:.3g} (rtol 1e-5, atol "
         f"1e-6); the CPU world's engine received "
         f"{pcomb['cpu_add_messages']} Add messages")
+    results["flag_cache"] = flag_cache_record(results)
+    log(f"[flag_cache] [ps], [ps_combine] and [ps_2proc apply] medians "
+        f"({card}): {json.dumps(results['flag_cache'])}")
     combine_k = time_combined_add(torch, cr, dev, combine_batches(args.seed),
                                   args.seed + 12)
     results["kernels_combined_shape"] = combine_k

@@ -27,7 +27,10 @@ GPU,
 and in worlds of several processes over ``torch.distributed`` (gloo), each
 process keeping a replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
-``sm_90a`` (``csrc/rows.cu``), built with nvcc at first use.
+``sm_90a`` (``csrc/rows.cu``), built with nvcc at first use. Checkpoints
+reach remote stores through fsspec behind ``-use_remote_io``, and the
+JAX package's static analysis holds the port to its threading and
+hot-path laws (``analysis``: ``python -m multiverso_tpu_torch.analysis``).
 """
 
 from multiverso_tpu_torch.api import (  # noqa: F401

@@ -102,6 +102,7 @@ class _Runner:
                          daemon=True).start()
 
     def submit(self, fn, cuda, box: dict, done: threading.Event) -> None:
+        # mv-lint: ok(cross-domain-state): queue-handoff flag — set before Push, cleared by the runner after the call; the MtQueue's cv orders the stores, and the worst stale read makes bounded() spawn one fresh runner instead of reusing this one
         self.busy = True
         self._calls.Push((fn, cuda, box, done))
 

@@ -254,18 +254,22 @@ class PSModel(Model):
         if self.ftrl:
             flat = self._flat_keys(np.arange(self.config.input_size,
                                              dtype=np.int64))
+            # mv-lint: ok(spmd-stream-guard): single-submitter warm start by design (ps_model.cpp:117-152); worker 0 of every process issues the same verbs, rank 0's carrying the weights and the others' zeros
             self.z_table.Add(flat, keep * self.z.cpu().numpy().ravel())
+            # mv-lint: ok(spmd-stream-guard): same single-submitter warm start as the z push above
             self.n_table.Add(flat, keep * self.n.cpu().numpy().ravel())
             return
         # the weights Load() set, not a pull of the still-empty table (the
         # JAX package's self.weights() here pulls and pushes zeros)
         W = keep * Model.weights(self)
         if self.config.sparse:
+            # mv-lint: ok(spmd-stream-guard): same single-submitter warm start as the FTRL pushes above
             self.table.AddRows(np.arange(self.config.input_size,
                                          dtype=np.int32),
                                -W.astype(np.float32))
         else:
             # the server does -=
+            # mv-lint: ok(spmd-stream-guard): same single-submitter warm start as the FTRL pushes above
             self.table.Add(np.ascontiguousarray(-W.T, np.float32).ravel())
 
     def train_window(self, window: Window):

@@ -60,8 +60,10 @@ _lock = threading.Lock()
 _uses_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
-#: why the last build failed (compiler output), None after a success
+#: why the last build failed (compiler output), None after a success;
+#: written only under ``_build_lock``
 last_build_error: Optional[str] = None
+_build_lock = threading.Lock()
 
 
 def reset_uses() -> None:
@@ -125,48 +127,53 @@ def lib_path(cxx: Optional[str] = None) -> Path:
 def build() -> Optional[Path]:
     """Compile and link the library unless this source hash already has
     one; returns its path, or None when there is no compiler or the build
-    fails (``last_build_error`` then says why)."""
+    fails (``last_build_error`` then says why). One build at a time in a
+    process (``_build_lock``), so two threads never both run the compiler
+    or overwrite each other's ``last_build_error``; the file lock orders
+    builds across processes."""
     global last_build_error
-    cxx = os.environ.get("CXX", "g++")
-    if shutil.which(cxx) is None:
-        last_build_error = f"no C++ compiler ({cxx})"
-        return None
-    out = lib_path(cxx)
-    if out.exists():
-        return out
-    srcs, flags, extra = makefile_recipe()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with open(out.parent / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if out.exists():                # another process built it
+    with _build_lock:
+        cxx = os.environ.get("CXX", "g++")
+        if shutil.which(cxx) is None:
+            last_build_error = f"no C++ compiler ({cxx})"
+            return None
+        out = lib_path(cxx)
+        if out.exists():
             return out
-        with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-            procs = []
-            for src in srcs:
-                obj = os.path.join(tmp, src.stem + ".o")
-                cmd = [cxx, *flags, *extra.get(src.name, ()), "-c",
-                       str(src), "-o", obj]
-                procs.append((obj, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
-            errors = []
-            for obj, p in procs:
-                log, _ = p.communicate(timeout=600)
-                if p.returncode != 0:
-                    errors.append(log)
-            if errors:
-                last_build_error = "\n".join(errors)
-                return None
-            tmp_lib = os.path.join(tmp, LIB_NAME)
-            res = subprocess.run([cxx, "-shared", "-o", tmp_lib,
-                                  *(o for o, _ in procs), "-pthread"],
-                                 capture_output=True, text=True, timeout=600)
-            if res.returncode != 0:
-                last_build_error = res.stdout + res.stderr
-                return None
-            os.replace(tmp_lib, out)
-    last_build_error = None
-    return out
+        srcs, flags, extra = makefile_recipe()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        with open(out.parent / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if out.exists():                # another process built it
+                return out
+            with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+                procs = []
+                for src in srcs:
+                    obj = os.path.join(tmp, src.stem + ".o")
+                    cmd = [cxx, *flags, *extra.get(src.name, ()), "-c",
+                           str(src), "-o", obj]
+                    procs.append((obj, subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True)))
+                errors = []
+                for obj, p in procs:
+                    log, _ = p.communicate(timeout=600)
+                    if p.returncode != 0:
+                        errors.append(log)
+                if errors:
+                    last_build_error = "\n".join(errors)
+                    return None
+                tmp_lib = os.path.join(tmp, LIB_NAME)
+                res = subprocess.run([cxx, "-shared", "-o", tmp_lib,
+                                      *(o for o, _ in procs), "-pthread"],
+                                     capture_output=True, text=True,
+                                     timeout=600)
+                if res.returncode != 0:
+                    last_build_error = res.stdout + res.stderr
+                    return None
+                os.replace(tmp_lib, out)
+        last_build_error = None
+        return out
 
 
 def lib() -> Optional[ctypes.CDLL]:

@@ -68,8 +68,10 @@ _lib_lock = threading.Lock()
 _state_lock = threading.Lock()
 _err_words: Dict[torch.device, torch.Tensor] = {}
 #: compiler output of the last build (register and spill report); None
-#: when the library came from an earlier build
+#: when the library came from an earlier build. Written only under
+#: ``_build_lock``
 last_build_log: Optional[str] = None
+_build_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -189,23 +191,30 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/rows.cu`` unless this source's library exists;
-    returns the library path. Concurrent builders race safely (each writes
-    a private temp file, the first rename wins)."""
+    returns the library path. One build at a time in a process
+    (``_build_lock``: two threads never both run nvcc, and
+    ``last_build_log`` is the log of the build that made the library);
+    builders in other processes race safely (each writes a private temp
+    file, the first rename wins)."""
     global last_build_log
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_ROOT / key / "libmvt_rows.so"
-    if out.exists():
+    with _build_lock:
+        src = SOURCE.read_bytes()
+        key = hashlib.sha256(
+            src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_ROOT / key / "libmvt_rows.so"
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}")
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {SOURCE}:\n{res.stderr}")
+        os.replace(tmp, out)
+        last_build_log = res.stderr + res.stdout
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{res.stderr}")
-    os.replace(tmp, out)
-    last_build_log = res.stderr + res.stdout
-    return out
 
 
 def _load() -> ctypes.CDLL:

@@ -40,7 +40,6 @@ JAX package's counter names (``compress.pre_bytes.<path>``,
 
 from __future__ import annotations
 
-import functools
 import struct
 import threading
 from typing import Optional
@@ -48,8 +47,10 @@ from typing import Optional
 import numpy as np
 
 from multiverso_tpu_torch.parallel.seal import WireCorruption
-from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
-                                                  MV_DEFINE_string)
+from multiverso_tpu_torch.utils.configure import (MV_DEFINE_bool,
+                                                  MV_DEFINE_string,
+                                                  cached_bool_flag,
+                                                  cached_flag)
 
 MV_DEFINE_bool("mv_compress", False,
                "compress the byte paths between processes (the windowed "
@@ -105,7 +106,6 @@ def _note(path: str, pre: int, post: int) -> None:
     _tmetrics.counter("compress.post_bytes." + path).inc(post)
 
 
-@functools.lru_cache(maxsize=64)
 def _parse_lossy(raw: str):
     s = str(raw).strip().lower()
     if not s:
@@ -115,15 +115,22 @@ def _parse_lossy(raw: str):
     return frozenset(p.strip() for p in s.split(",") if p.strip())
 
 
+#: the two flags, read per window through listener caches; the lossy
+#: spec is cached parsed, so a membership test does not re-split it
+_enabled_flag = cached_bool_flag("mv_compress", False)
+_lossy_set_flag = cached_flag("mv_compress_lossy", frozenset(),
+                              _parse_lossy)
+
+
 def enabled() -> bool:
-    """True when ``-mv_compress`` is on."""
-    return bool(GetFlag("mv_compress"))
+    """True when ``-mv_compress`` is on (listener-cached read)."""
+    return _enabled_flag()
 
 
 def lossy_opted(table_id) -> bool:
     """True when ``table_id`` opted into the lossy codecs through
     ``-mv_compress_lossy`` (lossless by default)."""
-    spec = _parse_lossy(str(GetFlag("mv_compress_lossy")))
+    spec = _lossy_set_flag()
     return spec == "all" or str(table_id) in spec
 
 

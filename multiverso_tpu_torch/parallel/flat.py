@@ -154,6 +154,7 @@ class _Cursor:
 
     def unpack(self, st: struct.Struct):
         vals = st.unpack_from(self.buf, self.pos)
+        # mv-lint: ok(cross-domain-state): a _Cursor is constructed, walked and dropped inside ONE decode call — instance-local state; the class-level write aggregation is instance-blind here
         self.pos += st.size
         return vals
 

@@ -80,7 +80,8 @@ import numpy as np
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.parallel.mesh import next_bucket
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_int,
-                                                  MV_DEFINE_string)
+                                                  MV_DEFINE_string,
+                                                  cached_float_flag)
 from multiverso_tpu_torch.utils.log import CHECK, Log
 
 MV_DEFINE_string("multihost", "auto", "multi-process init: auto / on / off")
@@ -113,6 +114,8 @@ MV_DEFINE_int("mv_dist_timeout_s", 120,
               "timeout of every collective of the process groups, seconds: "
               "a lost, diverged or slower peer fails past it instead of "
               "hanging")
+#: the same bound, read per window exchange through a listener cache
+_dist_timeout_flag = cached_float_flag("mv_dist_timeout_s", 120.0)
 
 _INF = float("inf")
 
@@ -754,7 +757,7 @@ def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
         t0 = time.perf_counter()
         out = _wire.exchange(blob, channel, timeout_s=min(
             fdeadline.timeout_or_none() or _INF,
-            float(GetFlag("mv_dist_timeout_s"))))
+            _dist_timeout_flag()))
         # a length-framed wire: the whole call is the collective
         done_m, done_w = time.perf_counter(), time.time()
         _stamp_exchange(t0, done_m - t0, done_m, done_w)

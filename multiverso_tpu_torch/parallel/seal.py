@@ -65,6 +65,7 @@ def _sw_crc32c(data, value: int = 0) -> int:
             for _ in range(8):
                 c = (0x82F63B78 ^ (c >> 1)) if c & 1 else c >> 1
             table.append(c)
+        # mv-lint: ok(cross-domain-state): idempotent lazy init — racing threads build identical tables; last store wins harmlessly
         _sw_table = table
     crc = (value & 0xFFFFFFFF) ^ 0xFFFFFFFF
     table = _sw_table

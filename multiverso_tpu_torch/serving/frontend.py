@@ -47,7 +47,8 @@ from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.failsafe.errors import ServingOverloaded
 from multiverso_tpu_torch.telemetry import flight as tflight
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
-from multiverso_tpu_torch.utils.configure import GetFlag
+from multiverso_tpu_torch.utils.configure import (cached_float_flag,
+                                                  cached_int_flag)
 from multiverso_tpu_torch.utils.log import Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
 from multiverso_tpu_torch.utils.waiter import Waiter
@@ -55,6 +56,11 @@ from multiverso_tpu_torch.utils.waiter import Waiter
 #: dispatcher idle poll: shutdown never waits on a quiet queue longer than
 #: this (the queue's Exit wakes it at once anyway)
 _IDLE_POLL_S = 0.2
+
+#: read per lookup and per micro-batch through listener caches, as the
+#: JAX package's front-end reads them (flags defined in serving/__init__)
+_max_inflight_flag = cached_int_flag("mv_serving_max_inflight", 4096)
+_batch_window_flag = cached_float_flag("mv_serving_batch_window_s", 0.0)
 
 #: shared first-fill-wins gate (the guarded region is two stores)
 _fill_lock = threading.Lock()
@@ -128,7 +134,7 @@ class ServingFrontend:
             self._t_shed.inc()
             tflight.record("serving.shed", detail="chaos")
             raise ServingOverloaded("chaos: serving admission shed")
-        max_inflight = max(1, int(GetFlag("mv_serving_max_inflight")))
+        max_inflight = max(1, _max_inflight_flag())
         if self._q.Size() >= max_inflight:
             self._t_shed.inc()
             tflight.record("serving.shed", detail="overload")
@@ -244,7 +250,7 @@ class ServingFrontend:
                 if self._stopped:
                     return
                 continue
-            window = float(GetFlag("mv_serving_batch_window_s"))
+            window = _batch_window_flag()
             if window > 0:
                 time.sleep(window)      # let concurrent callers join
             self._serve_guarded([first] + self._drain())

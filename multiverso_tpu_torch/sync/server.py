@@ -172,7 +172,8 @@ from multiverso_tpu_torch.updaters.base import AddOption, GetOption
 from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
                                                   MV_DEFINE_int,
                                                   MV_DEFINE_string,
-                                                  cached_bool_flag)
+                                                  cached_bool_flag,
+                                                  cached_int_flag)
 from multiverso_tpu_torch.utils.dashboard import monitor_region
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
@@ -194,6 +195,11 @@ MV_DEFINE_int("mv_apply_workers", 4,
               "one exchanged window concurrently (a table's ops stay in "
               "window order; only windows whose apply is local on every "
               "rank); <=1 = serial apply")
+# read per window through listener caches (a SetFlag between two windows
+# takes effect at the next one), as the JAX package's engine reads them
+_pipeline_flag = cached_bool_flag("mv_pipeline", True)
+_pipeline_depth_flag = cached_int_flag("mv_pipeline_depth", 2)
+_apply_workers_flag = cached_int_flag("mv_apply_workers", 4)
 MV_DEFINE_string("window_transport", "auto",
                  "windowed-engine Add-value transport: auto / host resolve "
                  "to the host exchange; device is not ported yet")
@@ -478,8 +484,8 @@ class _ExchangeStage:
         live, so a changed flag takes effect at the next window). A stall
         is classified (the fence's recorded cause, or ``depth`` when only
         the bound holds) and its seconds observed."""
-        depth = (max(1, int(GetFlag("mv_pipeline_depth")))
-                 if GetFlag("mv_pipeline") else 1)
+        depth = (max(1, _pipeline_depth_flag()) if _pipeline_flag()
+                 else 1)
         depth_target = self._emitted - depth + 1
         target = max(self._fence_at, depth_target)
         stall = self._applied < target      # advisory: classifies only
@@ -1469,7 +1475,7 @@ class Server(Actor):
         ops = self._mh_window_ops(descs0)
         n_tables = len({tid for _, tid, _ in ops})
         if (parallel_ok and n_tables > 1
-                and int(GetFlag("mv_apply_workers")) > 1):
+                and _apply_workers_flag() > 1):
             merged = self._mh_apply_parallel(ops, parts_at, verbs, my_rank,
                                              tbl)
         else:
@@ -1552,7 +1558,7 @@ class Server(Actor):
         """The pool at the live ``-mv_apply_workers`` size (2..16), rebuilt
         between windows when the flag changed (every earlier job has
         joined, so the retired pool's queue is empty)."""
-        want = max(2, min(int(GetFlag("mv_apply_workers")), 16))
+        want = max(2, min(_apply_workers_flag(), 16))
         pool = self._apply_pool
         if pool is None or pool.workers != want:
             if pool is not None:
@@ -2206,6 +2212,7 @@ class ShardedServer(Server):
             self._route_open.clear()
             try:
                 for sub in subs:
+                    # mv-lint: ok(lock-order): sub is an _EngineShard whose Receive IS Server.Receive (a count and a mailbox push, no _route_lock) — the by-name edge to ShardedServer.Receive cannot execute (a sub is never the router)
                     sub.Receive(Message(msg_type=msg.msg_type,
                                         payload={"_mv_fence": fence}))
                 msg._mv_cut = fence

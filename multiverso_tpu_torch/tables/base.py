@@ -69,7 +69,7 @@ from multiverso_tpu_torch.parallel.wire import payload_nbytes
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
-from multiverso_tpu_torch.utils.configure import GetFlag, cached_int_flag
+from multiverso_tpu_torch.utils.configure import cached_int_flag
 from multiverso_tpu_torch.utils.dashboard import monitor_region
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.waiter import Waiter
@@ -81,6 +81,11 @@ _RETRY_BACKOFF_BASE_S = 0.02
 #: listener-refreshed (Wait runs once per tracked verb); the flag is
 #: defined in failsafe/deadline.py
 _max_retries_flag = cached_int_flag("mv_max_retries", 3)
+#: the worker fast paths' flags (defined in sync/server.py), read once per
+#: fire-and-forget Add and once per Get through listener caches, as the
+#: JAX package's tables/base.py reads them
+_write_combine_flag = cached_int_flag("mv_write_combine", 8)
+_get_staleness_flag = cached_int_flag("mv_get_staleness", 0)
 
 #: distinct request keys the Get cache keeps per table (training loops
 #: reuse a handful of request shapes; the oldest entry goes first)
@@ -610,7 +615,7 @@ class WorkerTable:
         """Buffer one fire-and-forget Add; False when the payload or the
         world wants the per-message path (the cap is off, the table
         declines, or the engine counts Add messages: BSP)."""
-        cap = int(GetFlag("mv_write_combine"))
+        cap = _write_combine_flag()
         if cap <= 0 or not self._combinable_fire_forget(payload):
             return False
         eng = self._zoo.server_engine
@@ -618,6 +623,7 @@ class WorkerTable:
             return False
         with self._lock:
             if self._wc_buf and self._wc_option != opt:
+                # mv-lint: ok(lock-order): the flushed message is a Request_Add, and Zoo.SendToServer calls flush_combined_adds (FlushCombined, which takes _lock) only for a non-verb message — the by-name chain back to _lock cannot execute from here
                 self._flush_wc_locked()
             if self._wc_buf:
                 tmetrics.counter("worker.write_combine_hits").inc()
@@ -685,7 +691,7 @@ class WorkerTable:
         """``(pseudo_handle, None)`` on a hit within the staleness bound,
         ``(None, key)`` on a cacheable miss, ``(None, None)`` when the
         cache is off or the request cannot be keyed."""
-        staleness = int(GetFlag("mv_get_staleness"))
+        staleness = _get_staleness_flag()
         if staleness <= 0 or not self._gc_ok():
             return None, None
         key = self._gc_key(payload)

@@ -9,11 +9,16 @@ int64, doubles little-endian float64, strings an int64 byte length then
 UTF-8, so a table or a checkpoint written by one package loads in the
 other.
 
-Local files (``file://`` and scheme-less paths) are built in; another
-scheme raises until a backend is registered with
+Local files (``file://`` and scheme-less paths) are built in. The remote
+schemes (``hdfs://``, ``gs://``/``gcs://``, ``s3://``, ``az://``,
+``abfs://``, and fsspec's in-process ``memory://`` store, the test
+double) are served through fsspec behind a gate, as in the JAX package:
+off by default, opened by ``-use_remote_io=true`` or
+``MULTIVERSO_USE_REMOTE_IO=1`` (the reference gates its HDFS stream the
+same way, ``MULTIVERSO_USE_HDFS``, io.cpp:14-17). A remote scheme with
+the gate shut raises ``NotImplementedError`` and never falls back to a
+local path. Any other scheme raises until a backend is registered with
 ``StreamFactory.RegisterSchemeBackend`` (the reference's extension seam).
-The JAX package's fsspec backend for remote schemes is not ported yet
-(``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ import io
 import os
 import struct
 from typing import Callable, Dict
+
+from multiverso_tpu_torch.utils.configure import (MV_DEFINE_bool,
+                                                  cached_bool_flag)
 
 
 class URI:
@@ -109,6 +117,29 @@ def _open_local(uri: URI, mode: str) -> Stream:
 
 _scheme_backends["file"] = _open_local
 
+#: the schemes fsspec serves once the gate is open ("memory" is fsspec's
+#: in-process store, the test double of the checkpoint path)
+REMOTE_SCHEMES = ("hdfs", "gs", "gcs", "s3", "az", "abfs", "memory")
+
+MV_DEFINE_bool("use_remote_io", False,
+               "serve hdfs://, gs://, s3://... through fsspec "
+               "(reference MULTIVERSO_USE_HDFS gate)")
+_use_remote_io_flag = cached_bool_flag("use_remote_io", False)
+
+
+def _remote_io_enabled() -> bool:
+    """The reference's ``MULTIVERSO_USE_HDFS`` gate (io.cpp:14-17) as a
+    runtime flag or environment variable."""
+    if os.environ.get("MULTIVERSO_USE_REMOTE_IO", "") == "1":
+        return True
+    return _use_remote_io_flag()
+
+
+def _open_fsspec(uri: URI, mode: str) -> Stream:
+    import fsspec
+    pymode = _MODE_MAP.get(mode, mode)
+    return Stream(fsspec.open(uri.uri, pymode).open(), uri.name())
+
 
 class StreamFactory:
     """Scheme dispatch (reference src/io/io.cpp:8-24)."""
@@ -118,6 +149,14 @@ class StreamFactory:
         if isinstance(uri, str):
             uri = URI(uri)
         backend = _scheme_backends.get(uri.scheme)
+        if backend is None and uri.scheme in REMOTE_SCHEMES:
+            if not _remote_io_enabled():
+                raise NotImplementedError(
+                    f"remote scheme {uri.scheme!r} is gated off — enable "
+                    f"with -use_remote_io=true or MULTIVERSO_USE_REMOTE_IO=1 "
+                    f"(the reference gates hdfs the same way: "
+                    f"MULTIVERSO_USE_HDFS, io.cpp:14-17)")
+            backend = _open_fsspec
         if backend is None:
             raise NotImplementedError(
                 f"no stream backend registered for scheme {uri.scheme!r} "

@@ -63,6 +63,7 @@ from multiverso_tpu_torch.failsafe import chaos as fchaos
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 import multiverso_tpu_torch.telemetry  # noqa: F401
 import multiverso_tpu_torch.updaters.base  # noqa: F401
+import multiverso_tpu_torch.utils.io  # noqa: F401
 from multiverso_tpu_torch import serving
 from multiverso_tpu_torch.parallel.allreduce import RendezvousAllreduce
 from multiverso_tpu_torch.parallel.mesh import DeviceContext

@@ -96,6 +96,11 @@ On one CUDA device, after a warm-up, profiles (CPU + CUDA activities)
   the parent commit unpacked with ``git archive``) the processes take
   turns (BSP_TURNS: baseline, this, this, baseline, twice), each
   importing its checkout's package under this script's phase,
+* flag_cache: chip_smoke.py's [ps] phase on the default engine and its
+  [ps_combine] phase in a row of processes, in the same turns against
+  ``--baseline`` as bsp: the PS round medians and the combined and plain
+  burst medians, each process starting fresh (no earlier phase's host
+  state), for what the listener-cached flag reads change on those paths,
 
 and prints, per path, the wall seconds, the device-busy seconds (the sum
 of the self device time of every op: kernels and copies on the one
@@ -105,7 +110,7 @@ loader, and for LR the seconds of the first epoch (which parses the text)
 and of the later ones (replayed from the epoch cache). The PS Chrome trace and a JSON summary land in DIR (default
 chiprun_out/profile). ``--paths`` picks some of ps, ps_threads, we, lr,
 parse, ckpt, ps_compress, ps_2proc, ps_2proc_apply, lr_2proc, we_2proc,
-serve, ps_combine, binding, bsp (default: all).
+serve, ps_combine, binding, bsp, flag_cache (default: all).
 """
 
 from __future__ import annotations
@@ -992,10 +997,12 @@ def profile_apps_2proc(phase: str, seed: int, out: str) -> dict:
             for name, r in ranks[0].items()}
 
 
-def bsp_child(torch, root: str, seed: int, out: str) -> int:
-    """One process of the bsp turns: ``root``'s package under
-    chip_smoke.py's [bsp] phase (this script's copy), BSP_WORLDS worlds;
-    writes each world's round median."""
+def bsp_child(torch, root: str, seed: int, out: str,
+              phase: str = "bsp") -> int:
+    """One process of the bsp or flag_cache turns: ``root``'s package
+    under chip_smoke.py's phases (this script's copy). bsp: BSP_WORLDS
+    worlds of [bsp], each world's round median; flag_cache: [ps] on the
+    default engine, then [ps_combine], their round and burst medians."""
     import importlib.util
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.abspath(root))
@@ -1008,24 +1015,37 @@ def bsp_child(torch, root: str, seed: int, out: str) -> int:
     if not mv.__file__.startswith(os.path.abspath(root)):
         raise AssertionError(f"imported {mv.__file__}, not {root}'s package")
     dev = torch.device("cuda", 0)
-    medians = [smoke.bsp_phase(torch, mv, cr, dev, seed)["round_median_ms"]
-               for _ in range(BSP_WORLDS)]
+    if phase == "bsp":
+        res = {"round_median_ms": [
+            smoke.bsp_phase(torch, mv, cr, dev, seed)["round_median_ms"]
+            for _ in range(BSP_WORLDS)]}
+    else:
+        ps, _ = smoke.ps_phase(torch, mv, cr, dev, seed)
+        comb = smoke.ps_combine_phase(torch, mv, cr, dev, seed)
+        res = {"ps_add_round_median_ms": ps["add_round_median_ms"],
+               "ps_momentum_round_median_ms": ps["momentum_round_median_ms"]}
+        for kind in ("combined", "plain"):
+            res[f"combine_{kind}_burst_median_s"] = float(np.median(
+                [t["burst_s"] for t in comb["turns"] if t["turn"] == kind]))
     with open(out, "w") as f:
-        json.dump({"root": root, "round_median_ms": medians}, f)
+        json.dump(dict(res, root=root), f)
     return 0
 
 
-def bsp_turns(seed: int, out: str, baseline: str) -> list:
-    """The bsp processes in turns; returns each turn's world medians."""
+def bsp_turns(seed: int, out: str, baseline: str,
+              phase: str = "bsp") -> list:
+    """The bsp (or flag_cache) processes in turns; returns each turn's
+    results."""
     import subprocess
     roots = {"this": os.path.dirname(os.path.abspath(__file__)),
              "baseline": baseline}
     res = []
     for i, who in enumerate(BSP_TURNS if baseline else ("this",) * 2):
-        path = os.path.join(out, f"bsp_turn{i}.json")
+        path = os.path.join(out, f"{phase}_turn{i}.json")
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--bsp-child", roots[who], "--seed", str(seed),
-                        "--out", path], check=True, timeout=600)
+                        "--bsp-child", roots[who], "--turns-phase", phase,
+                        "--seed", str(seed), "--out", path], check=True,
+                       timeout=600)
         with open(path) as f:
             res.append(dict(json.load(f), turn=who))
     return res
@@ -1055,8 +1075,11 @@ def main() -> int:
                     help="bsp: another checkout whose package takes turns "
                          "with this one's")
     ap.add_argument("--bsp-child", default="",
-                    help="run one process of the bsp turns on this "
-                         "checkout's package (the script starts them)")
+                    help="run one process of the bsp or flag_cache turns on "
+                         "this checkout's package (the script starts them)")
+    ap.add_argument("--turns-phase", default="bsp",
+                    choices=("bsp", "flag_cache"),
+                    help="the phase of a --bsp-child process")
     args = ap.parse_args()
     if args.rank_child >= 0:
         import torch
@@ -1072,7 +1095,8 @@ def main() -> int:
                              args.out, args.wire)
     if args.bsp_child:
         import torch
-        return bsp_child(torch, args.bsp_child, args.seed, args.out)
+        return bsp_child(torch, args.bsp_child, args.seed, args.out,
+                         args.turns_phase)
     paths = args.paths.split(",")
     unknown = set(paths) - set(PATHS)
     if unknown:
@@ -1104,7 +1128,9 @@ def main() -> int:
             "serve": lambda: profile_serve(torch, args.seed),
             "ps_combine": lambda: profile_ps_combine(torch, args.seed),
             "binding": lambda: profile_binding(torch, args.seed),
-            "bsp": lambda: bsp_turns(args.seed, args.out, args.baseline)}
+            "bsp": lambda: bsp_turns(args.seed, args.out, args.baseline),
+            "flag_cache": lambda: bsp_turns(args.seed, args.out,
+                                            args.baseline, "flag_cache")}
     res = {"card": card}
     for name in PATHS:
         if name in paths:
@@ -1118,7 +1144,7 @@ def main() -> int:
 #: every path main() can profile, in its order
 PATHS = ("ps", "ps_threads", "we", "lr", "parse", "ckpt", "ps_compress",
          "ps_2proc", "ps_2proc_apply", "lr_2proc", "we_2proc", "serve",
-         "ps_combine", "binding", "bsp")
+         "ps_combine", "binding", "bsp", "flag_cache")
 #: ps_2proc: one world a wire, in this order
 PS2_WIRES = ("shm", "gloo", "shm_sharded", "tcp")
 #: ps_2proc_apply: -mv_apply_workers a world, in this order
@@ -1307,6 +1333,21 @@ def report(res: dict) -> None:
             print(f"[bsp] {who}: median of its worlds' round medians "
                   f"{np.median(ms):.3f} ms, range {min(ms):.3f}-"
                   f"{max(ms):.3f} ms over {len(ms)} worlds", flush=True)
+    turns = res.get("flag_cache", [])
+    keys = ("ps_add_round_median_ms", "ps_momentum_round_median_ms",
+            "combine_combined_burst_median_s",
+            "combine_plain_burst_median_s")
+    for i, r in enumerate(turns):
+        print(f"[flag_cache] turn {i + 1} {r['turn']} ({r['root']}): "
+              + ", ".join(f"{k} {r[k]:.4f}" for k in keys), flush=True)
+    for who in ("this", "baseline"):
+        mine = [r for r in turns if r["turn"] == who]
+        if mine:
+            print(f"[flag_cache] {who}, {len(mine)} processes: "
+                  + ", ".join(f"{k} median {np.median([r[k] for r in mine]):.4f}"
+                              f" (range {min(r[k] for r in mine):.4f}-"
+                              f"{max(r[k] for r in mine):.4f})"
+                              for k in keys), flush=True)
 
 
 if __name__ == "__main__":
