@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
     python3 chip_smoke.py --record-of RUN.json [RUN.json ...]
 
-(``--rank-child R --child-phase ps|mh|fs|lr|we --port P`` runs one rank of
-``[ps_2proc]``, of ``[ps_2proc apply]``, ``[ps_2proc compress]`` and
-``[kv_2proc device]``, of ``[ps_2proc chaos]``, of ``[lr_2proc]`` or of
-``[we_2proc]``; the script starts both ranks itself.)
+(``--rank-child R --child-phase ps|mh|fs|el|lr|we --port P --port2 Q``
+runs one rank of ``[ps_2proc]``, of ``[ps_2proc apply]``, ``[ps_2proc
+compress]`` and ``[kv_2proc device]``, of ``[ps_2proc chaos]``, of
+``[elastic_2proc]``, of ``[lr_2proc]`` or of ``[we_2proc]``; the script
+starts both ranks itself.)
 
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
@@ -248,6 +249,21 @@ holds every kernel of that path against its plain PyTorch version:
               and re-exchanged, the counters moved, each rank's round
               medians against its clean turn; then the rounds at
               ``-mv_deadline_s`` 0 and 30 in turns;
+              ``[elastic_2proc]`` (two more ranks, ``--child-phase el``):
+              the PS shape's add and momentum tables under
+              ``-mv_elastic`` on the shm wire; the graceful turn (both
+              ranks train, sync, rank 1 drains and its verbs fail
+              typed, rank 0 trains alone, rank 1 re-joins through the
+              coordinator's shard plane, both train on the relay) ends
+              with both add tables bitwise the fixed-world oracle and
+              the momentum tables and aux bitwise equal across the
+              ranks; the kill turn (rank 1 ``os._exit(3)`` after a
+              sync) ends with the survivor past exactly one
+              ``MembershipChanged``, at epoch 1 with members (0,),
+              bitwise the shrunk-world oracle; each transition's step
+              seconds and bytes, each first verb after one, the relay
+              and shm rounds, the seconds from the exit to the typed
+              error, each turn's launches;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -464,6 +480,16 @@ FS_COUNTERS = ("failsafe.dedup_hits", "failsafe.retries",
 FS_TURNS = ("clean", "chaos", "chaos", "clean")
 FS_DEADLINE_TURNS = ("off", "on", "on", "off")
 FS_DEADLINE_S, FS_DELAY_S, FS_SHUTDOWN_S = 0.5, 2.0, 5.0
+# [elastic_2proc]: the PS shape's add and momentum tables across two
+# ranks under -mv_elastic; the graceful turn's rounds with both ranks
+# (EL_A), rank 0 alone after rank 1 drained (EL_B) and both again after
+# the re-join (EL_C, on the coordinator relay); the kill turn's rounds
+# before the sync (EL_A) and on the survivor after it (EL_B). The lease
+# is short so the silent death is seen fast; the verb deadline long, so
+# the worker's wait outlasts the restore at this width
+EL_A, EL_B, EL_C = 3, 2, 3
+EL_LEASE_S, EL_DEADLINE_S = 2.0, 60.0
+EL_STEPS = ("fence", "capture", "ship", "download", "rebuild", "commit")
 
 
 def log(msg: str) -> None:
@@ -1947,23 +1973,292 @@ def ps2_tele_turn(mv, base: list, turn: str, mine: list) -> dict:
             "median_ms": float(np.median(ms[TELE_WARM:])), "digest": got}
 
 
-def rank_children(phase: str, seed: int, workdir: str) -> list:
-    """Both ranks of a two-process phase: two processes of this script
-    (``--rank-child R --child-phase PHASE``) on the one card over gloo,
-    started after the build so they load the built kernels; a rank that
-    fails or hangs past RANK_CHILD_S fails the run (both are killed).
-    Returns each rank's JSON results."""
+def free_port() -> int:
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
+    return port
+
+
+def el_train(add, mom, mopt, seed: int, r: int, who: int) -> float:
+    """One [elastic_2proc] round of rank ``who``'s batch: AddRows on the
+    add and the momentum table, GetRows of the add table; its ms."""
+    ids, deltas = ps2_batch(seed, 700 + r, who)
+    t0 = time.perf_counter()
+    add.AddRows(ids, deltas)
+    mom.AddRows(ids, deltas, mopt)
+    add.GetRows(ids)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def el_oracle(seed: int, rounds) -> np.ndarray:
+    """The add table after ``rounds``: (round, ranks that trained it)."""
+    out = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    for r, who in rounds:
+        for k in who:
+            ids, deltas = ps2_batch(seed, 700 + r, k)
+            out[ids] += deltas      # ids unique within a rank's batch
+    return out
+
+
+def el_2proc_rank(rank: int, port: int, port2: int, seed: int,
+                  out: str) -> int:
+    """One rank of [elastic_2proc] (``--rank-child R --child-phase el``):
+    the PS shape's add and momentum tables on ``cuda:0`` over the shm
+    wire under ``-mv_elastic``. The graceful turn: both ranks train, sync,
+    rank 1 drains (its verbs then fail typed), rank 0 trains alone, rank 1
+    re-joins through the shard-move plane, both train on the coordinator
+    relay; the add table bitwise the fixed-world oracle, the momentum
+    table's digest for the parent to hold across the ranks. The kill turn
+    (a new world on the same process group): both ranks train and sync,
+    rank 1 ``os._exit(3)``s; the survivor catches exactly one
+    ``MembershipChanged``, re-runs the round and ends at epoch 1 with
+    members (0,), its add table bitwise the shrunk-world oracle. Each
+    turn's launches counted from zero, the transitions' step seconds and
+    bytes, each first verb after a transition timed. Writes ``out``
+    (rank 1 before it dies)."""
+    import hashlib
+
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch import elastic
+        from multiverso_tpu_torch.failsafe.errors import MembershipChanged
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.parallel import multihost
+        from multiverso_tpu_torch.updaters.base import AddOption
+        from multiverso_tpu_torch.zoo import Zoo
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2", "-mv_elastic=true",
+            f"-mv_elastic_addr=127.0.0.1:{port2}",
+            f"-mv_elastic_lease_s={EL_LEASE_S}",
+            f"-mv_deadline_s={EL_DEADLINE_S}"]
+    mopt = AddOption(momentum=0.5)
+    res = {"rank": rank}
+
+    def write() -> None:
+        with open(out, "w") as f:
+            json.dump(res, f)
+
+    def check_card() -> None:
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the elastic path")
+
+    # -- the graceful turn -------------------------------------------------
+    cr.reset_launches()
+    mv.MV_Init(base)
+    g = {"wire": multihost.wire_name(), "first_verb_ms": {}}
+    if g["wire"] != "shm":
+        raise AssertionError(f"[elastic_2proc] rode {g['wire']}, not shm")
+    add, mom = ps_tables(mv)
+    g["a_ms"] = [el_train(add, mom, mopt, seed, r, rank)
+                 for r in range(EL_A)]
+    t0 = time.perf_counter()
+    assert mv.MV_ElasticSync() == 0
+    g["sync_s"] = time.perf_counter() - t0
+    if rank == 1:
+        t0 = time.perf_counter()
+        assert mv.MV_ElasticLeave() == 1
+        g["leave_s"] = time.perf_counter() - t0
+        assert mv.MV_ElasticMembers() == (0,)
+        try:
+            add.GetRows(ps2_batch(seed, 0, 1)[0])
+            raise AssertionError("a departed member served a verb")
+        except MembershipChanged:
+            pass
+        t0 = time.perf_counter()
+        assert mv.MV_ElasticJoin() == 2
+        g["join_s"] = time.perf_counter() - t0
+    else:
+        t0 = time.perf_counter()
+        assert mv.MV_ElasticSync() == 1
+        g["drain_s"] = time.perf_counter() - t0
+        assert mv.MV_Size() == 1
+        g["first_verb_ms"]["drain"] = el_train(add, mom, mopt, seed, EL_A, 0)
+        g["b_ms"] = [el_train(add, mom, mopt, seed, r, 0)
+                     for r in range(EL_A + 1, EL_A + EL_B)]
+        t0 = time.perf_counter()
+        for polls in range(1, 401):
+            if mv.MV_ElasticSync() == 2:
+                break
+            time.sleep(0.025)
+        g["admit_s"], g["admit_polls"] = time.perf_counter() - t0, polls
+    assert mv.MV_ElasticEpoch() == 2
+    assert mv.MV_ElasticMembers() == (0, 1) and mv.MV_Size() == 2
+    if multihost.wire_name() != "relay":
+        raise AssertionError(f"[elastic_2proc] the re-admitted world rode "
+                             f"{multihost.wire_name()}, not the relay")
+    assert mv.MV_ElasticSync() == 2
+    last = EL_A + EL_B
+    g["first_verb_ms"]["join"] = el_train(add, mom, mopt, seed, last, rank)
+    g["c_ms"] = [el_train(add, mom, mopt, seed, r, rank)
+                 for r in range(last + 1, last + EL_C)]
+    mv.MV_Barrier()
+    fa, fm = add.Get(), mom.Get()
+    want = el_oracle(seed, [(r, (0, 1)) for r in range(EL_A)]
+                     + [(r, (0,)) for r in range(EL_A, last)]
+                     + [(r, (0, 1)) for r in range(last, last + EL_C)])
+    np.testing.assert_array_equal(fa, want)
+    if not np.isfinite(fm).all():
+        raise AssertionError("[elastic_2proc] momentum table not finite")
+    g["add_digest"] = hashlib.sha256(fa.tobytes()).hexdigest()
+    g["mom_digest"] = hashlib.sha256(fm.tobytes()).hexdigest()
+    # the momentum updater's row-shaped aux state, in the logical layout
+    mtable = Zoo.Get().server_tables[1]
+    aux = mtable.state["aux"]
+    g["aux_digest"] = hashlib.sha256(b"".join(
+        np.ascontiguousarray(mtable.aux_to_logical(aux[n])).tobytes()
+        for n in sorted(aux))).hexdigest()
+    del fa, fm, want, aux
+    check_card()
+    g["transitions"] = elastic.transitions()
+    g["launches"] = dict(cr.LAUNCHES)
+    mv.MV_ShutDown(finalize_net=False)
+    res["graceful"] = g
+
+    # -- the kill turn ----------------------------------------------------
+    cr.reset_launches()
+    mv.MV_Init(base)
+    k = {"wire": multihost.wire_name()}
+    add, mom = ps_tables(mv)
+    k["a_ms"] = [el_train(add, mom, mopt, seed, r, rank)
+                 for r in range(EL_A)]
+    assert mv.MV_ElasticSync() == 0
+    if rank == 1:
+        check_card()
+        k["launches"] = dict(cr.LAUNCHES)
+        res["kill"] = k
+        k["exit_wall"] = time.time()
+        write()
+        os._exit(3)             # a SILENT death: the heartbeats just stop
+    step, caught = EL_A, []
+    while step < EL_A + EL_B:
+        try:
+            ms = el_train(add, mom, mopt, seed, step, 0)
+            if caught and "first_verb_ms" not in k:
+                k["first_verb_ms"] = ms
+            step += 1
+        except MembershipChanged as exc:
+            caught.append({"wall": time.time(), "step": step,
+                           "epoch": exc.epoch, "members": list(exc.members),
+                           "departed": list(exc.departed)})
+    if [(c["step"], c["members"]) for c in caught] != [(EL_A, [0])]:
+        raise AssertionError(f"[elastic_2proc] the survivor caught "
+                             f"{caught}, not one MembershipChanged at the "
+                             f"first round after the sync")
+    assert mv.MV_ElasticEpoch() == 1 and mv.MV_ElasticMembers() == (0,)
+    assert mv.MV_Size() == 1
+    fa = add.Get()
+    np.testing.assert_array_equal(
+        fa, el_oracle(seed, [(r, (0, 1)) for r in range(EL_A)]
+                      + [(r, (0,)) for r in range(EL_A, EL_A + EL_B)]))
+    k["add_digest"] = hashlib.sha256(fa.tobytes()).hexdigest()
+    del fa
+    check_card()
+    k["caught"] = caught
+    k["transitions"] = elastic.transitions()
+    k["launches"] = dict(cr.LAUNCHES)
+    mv.MV_ShutDown()            # skips the dead peer's gloo teardown
+    res["kill"] = k
+    write()
+    sys.stdout.flush()
+    os._exit(0)                 # the dead peer's gloo groups: no teardown
+
+
+def el_2proc_phase(seed: int, workdir: str) -> dict:
+    """[elastic_2proc]: both ranks (``el_2proc_rank``; rank 1 exits 3 in
+    the kill turn, by design); the graceful turn's tables bitwise equal
+    across the ranks; each rank launching all three kernels in each turn
+    it trained; the kill turn's seconds from the peer's exit to the
+    survivor's typed error."""
+    ranks = rank_children("el", seed, workdir, rcs=(0, 3))
+    r0, r1 = ranks
+    for key in ("add_digest", "mom_digest", "aux_digest"):
+        if r0["graceful"][key] != r1["graceful"][key]:
+            raise AssertionError(f"[elastic_2proc] {key} differs across "
+                                 f"the ranks after the re-join")
+    turns = {}
+    for turn in ("graceful", "kill"):
+        for r in ranks:
+            for name, n in r[turn]["launches"].items():
+                if n == 0:
+                    raise AssertionError(f"[elastic_2proc] rank "
+                                         f"{r['rank']} never launched "
+                                         f"{name} in the {turn} turn")
+        turns[turn] = {name: sum(r[turn]["launches"][name] for r in ranks)
+                       for name in r0[turn]["launches"]}
+    kill_s = r0["kill"]["caught"][0]["wall"] - r1["kill"]["exit_wall"]
+    launches = {name: sum(t[name] for t in turns.values())
+                for name in turns["graceful"]}
+    return {"ranks": ranks, "turn_launches": turns, "launches": launches,
+            "kill_to_typed_s": kill_s}
+
+
+def report_el_2proc(el: dict, card: str) -> None:
+    r0, r1 = el["ranks"]
+    for turn in ("graceful", "kill"):
+        for r in el["ranks"]:
+            for t in r[turn].get("transitions", []):
+                steps = ", ".join(f"{s} {t[s + '_s']:.4f}" for s in EL_STEPS
+                                  if s + "_s" in t)
+                log(f"[elastic_2proc] {turn} rank {r['rank']}: epoch "
+                    f"{t['epoch']} ({t['cause']}) seconds: {steps}; bytes "
+                    f"shipped {t['bytes_shipped']} ({card})")
+    g0, g1 = r0["graceful"], r1["graceful"]
+    log(f"[elastic_2proc] graceful: first verb after the drain "
+        f"{g0['first_verb_ms']['drain']:.4f} ms (rank 0 alone), after the "
+        f"re-join {g0['first_verb_ms']['join']:.4f} / "
+        f"{g1['first_verb_ms']['join']:.4f} ms (ranks 0 / 1, relay); sync "
+        f"{g0['sync_s']:.4f} s, drain {g0['drain_s']:.4f} s, leave "
+        f"{g1['leave_s']:.4f} s, join {g1['join_s']:.4f} s, admit "
+        f"{g0['admit_s']:.4f} s over {g0['admit_polls']} sync(s) "
+        f"({card})")
+    log(f"[elastic_2proc] graceful: round medians after each world's first "
+        f"round (AddRows add + momentum, GetRows, {PS_IDS} ids) shm "
+        f"{np.median(g0['a_ms'][1:]):.4f} / {np.median(g1['a_ms'][1:]):.4f} "
+        f"ms (first {g0['a_ms'][0]:.4f}), rank 0 alone "
+        f"{np.median(g0['b_ms']):.4f} ms, coordinator relay "
+        f"{np.median(g0['c_ms']):.4f} / {np.median(g1['c_ms']):.4f} ms "
+        f"(ranks 0 / 1; {card})")
+    k0 = r0["kill"]
+    log(f"[elastic_2proc] kill: rank 1 exited after the sync; the "
+        f"survivor's typed MembershipChanged {el['kill_to_typed_s']:.4f} s "
+        f"later (lease {EL_LEASE_S} s), epoch {k0['caught'][0]['epoch']} "
+        f"members {k0['caught'][0]['members']}; the re-run round "
+        f"{k0['first_verb_ms']:.4f} ms on the restored world ({card})")
+    for turn, counts in el["turn_launches"].items():
+        log(f"[elastic_2proc] {turn} turn launches (both ranks): {counts}")
+    log("[elastic_2proc] graceful: both ranks' add tables bitwise the "
+        "fixed-world oracle, the momentum tables and their ['smooth'] aux "
+        "bitwise equal across the ranks; kill: the survivor bitwise the "
+        "shrunk-world oracle after exactly one MembershipChanged")
+
+
+def rank_children(phase: str, seed: int, workdir: str,
+                  rcs=(0, 0)) -> list:
+    """Both ranks of a two-process phase: two processes of this script
+    (``--rank-child R --child-phase PHASE``) on the one card over gloo,
+    started after the build so they load the built kernels; a rank that
+    exits with another code than ``rcs`` gives it, or hangs past
+    RANK_CHILD_S, fails the run (both are killed). ``--port2`` is a second
+    free port (the elastic coordinator's). Returns each rank's JSON
+    results."""
+    port, port2 = free_port(), free_port()
     tag = f"{phase}_2proc"
     outs = [os.path.join(workdir, f"{tag}_rank{r}.json") for r in range(2)]
     logs = [open(os.path.join(workdir, f"{tag}_rank{r}.log"), "w+")
             for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
-         "--child-phase", phase, "--port", str(port), "--seed", str(seed),
+         "--child-phase", phase, "--port", str(port), "--port2", str(port2),
+         "--seed", str(seed),
          "--workdir", workdir, "--json-out", outs[r]],
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
     deadline = time.monotonic() + RANK_CHILD_S
@@ -1975,7 +2270,7 @@ def rank_children(phase: str, seed: int, workdir: str) -> list:
                 raise AssertionError(f"[{tag}] rank {r} hung past "
                                      f"{RANK_CHILD_S} s") from None
         for r, p in enumerate(procs):
-            if p.returncode != 0:
+            if p.returncode != rcs[r]:
                 logs[r].seek(0)
                 raise AssertionError(f"[{tag}] rank {r} failed "
                                      f"(exit {p.returncode}):\n"
@@ -5251,13 +5546,17 @@ def main() -> int:
                     help="run one rank of a two-process phase (the script "
                          "starts both itself)")
     ap.add_argument("--child-phase", default="ps",
-                    choices=("ps", "mh", "fs", "lr", "we"),
+                    choices=("ps", "mh", "fs", "el", "lr", "we"),
                     help="the two-process phase of --rank-child: "
                          "[ps_2proc]; [ps_2proc apply], [ps_2proc "
                          "compress] and [kv_2proc device]; [ps_2proc "
-                         "chaos]; [lr_2proc] or [we_2proc]")
+                         "chaos]; [elastic_2proc]; [lr_2proc] or "
+                         "[we_2proc]")
     ap.add_argument("--port", type=int, default=0,
                     help="a two-process phase's rank 0 rendezvous port")
+    ap.add_argument("--port2", type=int, default=0,
+                    help="a two-process phase's second port (the elastic "
+                         "coordinator's)")
     ap.add_argument("--workdir", default="",
                     help="a two-process phase's data directory")
     ap.add_argument("--record-of", nargs="+", default=[],
@@ -5274,6 +5573,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.rank_child >= 0:
+        if args.child_phase == "el":
+            return el_2proc_rank(args.rank_child, args.port, args.port2,
+                                 args.seed, args.json_out)
         if args.child_phase in ("ps", "mh", "fs"):
             return {"ps": ps_2proc_rank, "mh": mh_2proc_rank,
                     "fs": fs_2proc_rank}[
@@ -5619,6 +5921,15 @@ def main() -> int:
             f" each rank must launch gather_rows, scatter_set_rows, "
             f"update_rows)")
         report_fs_2proc(fs2, card)
+        # [elastic_2proc]: the elastic plane across two ranks (two more
+        # ranks, each turn's launches counted from zero in each rank)
+        el2 = el_2proc_phase(args.seed, workdir)
+        results["el_2proc"] = el2
+        paths["el_2proc"] = el2["launches"]
+        log(f"[main path] el_2proc: launches {el2['launches']} (both ranks, "
+            f"both turns; each rank must launch gather_rows, "
+            f"scatter_set_rows, update_rows in each turn it trains)")
+        report_el_2proc(el2, card)
         ck = drive("ckpt", lambda: ckpt_phase(torch, mv, cr, dev, args.seed,
                                               workdir), every)
         results["ckpt"] = ck
@@ -5840,6 +6151,12 @@ def main() -> int:
         entry["ps_2proc"] = {key: ps2_k[k][key] for key in (
             "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
             "bound_ms", "shape")}
+        # [elastic_2proc] runs at the shapes held above: [ps]'s 10,000
+        # ids (rank 0 alone) and [ps_2proc]'s merged union (two ranks)
+        entry["el_2proc"] = {"launches": el2["launches"][k],
+                             "turns": {t: c[k] for t, c in
+                                       el2["turn_launches"].items()},
+                             "shapes_checked": ["ps", "ps_2proc"]}
         for name, shapes in two_k.items():
             if k in shapes:
                 entry[name] = {key: shapes[k][key] for key in (

@@ -22,8 +22,10 @@ defaults, and the reference-compatible binding (``binding``: the Python
 handlers, the param managers, and the C ABI's backend bridge), and the
 telemetry plane (``telemetry``: metrics, spans, the flight recorder, the
 ops endpoint, the byte ledger, the watchdog, the offline critpath and
-forensics tools) with ``MV_StartProfiler`` over ``torch.profiler``, on one
-GPU,
+forensics tools, the fleet rollup) with ``MV_StartProfiler`` over
+``torch.profiler``, and the elastic membership plane (``elastic``: epochs,
+heartbeat leases, drain and re-admit, resume from the snapshot cut after a
+silent death, ``MV_Elastic*``), on one GPU,
 and in worlds of several processes over ``torch.distributed`` (gloo), each
 process keeping a replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
@@ -40,6 +42,11 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_DumpDiagnostics,
     MV_DumpFlightRecorder,
     MV_DumpTrace,
+    MV_ElasticEpoch,
+    MV_ElasticJoin,
+    MV_ElasticLeave,
+    MV_ElasticMembers,
+    MV_ElasticSync,
     MV_Init,
     MV_LoadCheckpoint,
     MV_MetricsSnapshot,

@@ -36,8 +36,8 @@ from multiverso_tpu_torch.analysis.core import (Checker, Finding,
 
 #: restricted roots: node id -> the convention it encodes. The JAX
 #: package's roots of the planes the port has not ported yet (the replica
-#: lookup and fan-out threads, the policy daemon, the fleet rollup legs,
-#: the standby takeover) come back with those planes.
+#: lookup and fan-out threads, the policy daemon, the standby takeover)
+#: come back with those planes.
 DEFAULT_ROOTS: Dict[str, str] = {
     "telemetry/ops.py:_OpsHandler.do_GET":
         "ops HTTP handler (serves on the HTTP thread, engine unquiesced)",
@@ -57,11 +57,18 @@ DEFAULT_ROOTS: Dict[str, str] = {
         "local dashboard render (DisplayAll is the collective sibling)",
     "utils/dashboard.py:Dashboard._ops_lines":
         "dashboard [Ops] line (renders during teardown)",
+    # the fleet plane's two legs: rollup builds run on lease heartbeat
+    # daemons (a collective there deadlocks the beat against the engine
+    # stream), and the coordinator-side fold runs on RPC handler threads
+    # serving members that are mid-collective
+    "telemetry/fleet.py:build_rollup":
+        "fleet rollup build (lease heartbeat daemon threads)",
+    "telemetry/fleet.py:FleetAccumulator.ingest":
+        "coordinator-side fleet rollup fold (RPC handler threads)",
 }
 
 #: collective primitives: node id -> what it is. The JAX package's
-#: ``broadcast_from_master``, ``union_collective_ids`` and the membership
-#: ``Group`` have no port yet (the elastic plane brings ``Group``).
+#: ``broadcast_from_master`` and ``union_collective_ids`` have no port.
 DEFAULT_SINKS: Dict[str, str] = {
     "parallel/multihost.py:_all_gather":
         "the one torch.distributed all_gather every host collective rides",
@@ -75,6 +82,8 @@ DEFAULT_SINKS: Dict[str, str] = {
         "capped object allgather",
     "parallel/multihost.py:merge_collective_add": "collective row merge",
     "parallel/multihost.py:sum_collective_add": "collective value sum",
+    "parallel/multihost.py:Group.exchange": "membership-group exchange",
+    "parallel/multihost.py:Group.barrier": "membership-group barrier",
     "parallel/shm_wire.py:ShmWire.exchange": "shm-wire exchange",
     "parallel/tcp_wire.py:TcpWire.exchange": "tcp-wire exchange",
     "parallel/allreduce.py:RendezvousAllreduce.allreduce":

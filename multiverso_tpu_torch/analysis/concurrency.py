@@ -715,7 +715,8 @@ class BlockingDomainChecker(Checker):
     #: verb/apply threads (a stuck engine wedges every rank), request
     #: handlers (a stuck handler leaks server threads), and the policy
     #: daemon (round 20: a parked actuator is a silent dead-man switch)
-    RESTRICTED = frozenset({"engine-shard", "apply-pool", "ops-http"})
+    RESTRICTED = frozenset({"engine-shard", "apply-pool", "ops-http",
+                            "elastic"})
     #: no exempt file: the JAX package's one (its Pallas DMA semaphore
     #: waits) has no Python counterpart in the port
     ALLOW: Dict[str, str] = {}

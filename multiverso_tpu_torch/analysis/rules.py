@@ -328,7 +328,7 @@ class SpmdStreamGuardChecker(Checker):
                             "MV_PublishSnapshot", "MV_SaveCheckpoint",
                             "MV_LoadCheckpoint", "MV_MultiAdd",
                             "MV_MultiAddAsync", "MV_MultiGet",
-                            "MV_MultiGetAsync"})
+                            "MV_MultiGetAsync", "MV_ElasticSync"})
     RANK_TOKENS = frozenset({"rank", "my_rank", "world_rank", "dist_rank",
                              "local_rank", "node_rank", "rank_id",
                              "worker_id", "server_id", "process_id",

@@ -77,8 +77,9 @@ class DomainRoot:
 #: public API surface + model-layer loader threads — the "worker/main"
 #: domain; deliberately MANY threads, see the domain-granularity bound
 #: above), helper (bounded-call runner + chaos redelivery timers, whose
-#: payloads are caller-defined). The JAX package's fanout, replica-*,
-#: elastic, standby and policy domains come back with their planes.
+#: payloads are caller-defined), elastic (coordinator RPC dispatch +
+#: member heartbeats). The JAX package's fanout, replica-*, standby and
+#: policy domains come back with their planes.
 INVENTORY: List[DomainRoot] = [
     # -- engine side
     DomainRoot("engine-shard", "actor.py", r"^Actor\._main$",
@@ -142,6 +143,16 @@ INVENTORY: List[DomainRoot] = [
                "async prefetch fill thread (target: the caller's fill "
                "callable — an attribute, so claim-only)",
                spawn=("utils/async_buffer.py", "ASyncBuffer._launch")),
+    # -- elastic plane
+    DomainRoot("elastic", "elastic/coordinator.py",
+               r"^Coordinator\._dispatch$",
+               "coordinator RPC dispatch (per-connection threads)",
+               spawn=("elastic/coordinator.py", "Coordinator.serve")),
+    DomainRoot("elastic", "elastic/coordinator.py",
+               r"^MemberClient\.start_heartbeats$",
+               "member heartbeat thread (the _beat closure)",
+               spawn=("elastic/coordinator.py",
+                      "MemberClient.start_heartbeats")),
     # -- tcp wire: the only thread the transport owns is the
     # install-time accept loop — it collects the mesh's inbound dials,
     # closes the listeners and EXITS; steady-state exchanges run

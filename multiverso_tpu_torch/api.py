@@ -9,8 +9,10 @@ wiring of a multi-process world (``MV_NetBind``/``MV_NetConnect``/
 ``MV_ServingLookup``, ``MV_PinVersion``, ``MV_UnpinVersion``), the
 profiler (``MV_StartProfiler``/``MV_StopProfiler`` over
 ``torch.profiler``) and the telemetry verbs (``MV_MetricsSnapshot``,
-``MV_DumpTrace``, ``MV_DumpFlightRecorder``, ``MV_DumpDiagnostics``). The
-rest of the JAX surface (elastic, policy) is later work (``ROADMAP.md``).
+``MV_DumpTrace``, ``MV_DumpFlightRecorder``, ``MV_DumpDiagnostics``) and
+the elastic membership verbs (``MV_ElasticSync``, ``MV_ElasticLeave``,
+``MV_ElasticJoin``, ``MV_ElasticEpoch``, ``MV_ElasticMembers``). The
+policy verbs are later work (``ROADMAP.md``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -344,3 +346,50 @@ def MV_DumpDiagnostics(dir_path: Optional[str] = None) -> Optional[str]:
     is configured."""
     from multiverso_tpu_torch.telemetry.ops import dump_diagnostics
     return dump_diagnostics(dir_path)
+
+
+def MV_ElasticSync() -> int:
+    """Elastic sync point (requires ``-mv_elastic``): a LOCKSTEP rendezvous
+    every active member calls at the same loop position. Applies at most
+    one staged membership transition (drain / admit) at a fenced
+    window-stream cut and always refreshes the retained snapshot cut (the
+    silent-death rollback anchor). Returns the membership epoch in
+    effect."""
+    from multiverso_tpu_torch import elastic
+    return elastic.sync()
+
+
+def MV_ElasticLeave() -> int:
+    """Gracefully drain THIS member from the running world: stages the
+    departure and runs the final collective sync that applies it (the
+    other members reach the same position through ``MV_ElasticSync``).
+    The process stays alive, and ``MV_ElasticJoin`` re-admits it. Returns
+    the epoch departed at."""
+    from multiverso_tpu_torch import elastic
+    return elastic.leave()
+
+
+def MV_ElasticJoin() -> int:
+    """Re-admit a departed member: stages the join, parks until the live
+    members reach a sync point, downloads every table from the shard-move
+    plane (the cut the world fenced at), rebuilds them on this process's
+    device and commits. Returns the epoch joined at."""
+    from multiverso_tpu_torch import elastic
+    # unbounded-ok: every RPC inside elastic.join() is bounded by the
+    # elastic control timeout (the joiner legitimately parks until the
+    # live members reach a sync point)
+    return elastic.join()
+
+
+def MV_ElasticEpoch() -> int:
+    """The membership epoch in effect (0 = the boot world or the plane
+    off)."""
+    from multiverso_tpu_torch import elastic
+    return elastic.epoch()
+
+
+def MV_ElasticMembers() -> tuple:
+    """Boot ranks of the current world's members (an empty tuple when the
+    elastic plane is off)."""
+    from multiverso_tpu_torch import elastic
+    return elastic.members()

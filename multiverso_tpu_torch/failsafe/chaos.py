@@ -42,15 +42,19 @@ Spec grammar (comma-separated)::
                                lowest peer is swallowed
     tcp.partition:P            tcp wire: every stream of the exchanged
                                channel is severed (ActorDied both ends)
-    membership.leave:P, membership.join:P, policy.flap:P[@period],
-    coord.kill:P, coord.delay:P[@delay_s]
-                               parsed and drawn as in the JAX package;
-                               the planes that consult them (elastic,
-                               policy, coordinator HA) are not in the
-                               port, so nothing consults them here
+    membership.leave:P         elastic leave: the staged op is
+    membership.join:P          delivered twice (the coordinator's
+                               idempotent staging must absorb it)
+    coord.kill:P               the coordinator hard-stops mid-op
+                               (one-shot latched; refused connects)
+    coord.delay:P[@delay_s]    a coordinator op handler stalls
+    policy.flap:P[@period]     parsed and drawn as in the JAX package;
+                               the policy plane that consults it is not
+                               in the port
 
 Faults target table verbs (Get/Add), the serving read plane, the engine's
-window apply and the host wires; control messages (barrier pings, cuts,
+window apply, the host wires and the elastic control plane; control
+messages (barrier pings, cuts,
 FinishTrain) stay reliable.
 """
 

@@ -7,7 +7,8 @@ controller barrier. These types give every bounded wait, corrupted frame,
 retryable fault, shed lookup and dead actor a name the caller can catch,
 so recovery code tells "slow" (``DeadlineExceeded``) from "retry"
 (``TransientError``), "shed" (``ServingOverloaded``), "corrupt"
-(``WireCorruption``) and "gone" (``ActorDied``) without reading log text.
+(``WireCorruption``), "gone" (``ActorDied``) and "the world changed"
+(``MembershipChanged``) without reading log text.
 
 ``WireCorruption`` is the class the window seal (``parallel/seal.py``)
 raises, re-exported here so each failure has one class.
@@ -50,6 +51,23 @@ class TransientError(FailsafeError):
     ``-mv_max_retries``."""
 
 
+class CoordinatorUnreachable(TransientError):
+    """The coordinator dialer (``elastic/dialer.py``) exhausted its
+    deadline without a TCP connect to ANY endpoint of the ordered list.
+    A ``TransientError``, so every retry site that absorbs transients
+    keeps working. ``endpoints`` is the list tried, ``deadline_s`` the
+    bound that expired."""
+
+    def __init__(self, what: str, endpoints=(), deadline_s: float = 0.0):
+        self.what = what
+        self.endpoints = tuple(endpoints)
+        self.deadline_s = float(deadline_s)
+        eps = ",".join(f"{h}:{p}" for h, p in self.endpoints)
+        super().__init__(
+            f"no coordinator reachable for {what} within "
+            f"{deadline_s:g}s (tried [{eps}])")
+
+
 class ServingOverloaded(FailsafeError):
     """The serving plane shed this lookup: the front-end's admission queue
     already holds ``-mv_serving_max_inflight`` requests, the plane is shut
@@ -70,3 +88,39 @@ class ActorDied(FailsafeError):
         self.original = original
         super().__init__(
             f"actor {actor_name!r} loop thread died: {original!r}")
+
+
+class MembershipChanged(FailsafeError):
+    """The elastic world's membership changed under this operation.
+
+    Raised (instead of a hang or a fatal ``DeadlineExceeded``) when a rank
+    joins or leaves the running world, gracefully through the
+    coordinator's drain/admit protocol or silently when a member's
+    heartbeat lease expired mid-collective. It carries the NEW view:
+
+    * a worker whose verb was in flight across the transition receives
+      it: its effects were rolled back to the epoch's snapshot cut, so it
+      re-runs from its last elastic sync point;
+    * a stale identity lookup (``MV_WorkerIdToRank`` past the view)
+      receives it instead of a wrong rank.
+
+    ``epoch`` is the membership epoch now in effect, ``members`` the
+    surviving boot ranks, ``departed``/``joined`` the delta against the
+    previous view."""
+
+    def __init__(self, what: str, epoch: int, members=(),
+                 departed=(), joined=()):
+        self.what = what
+        self.epoch = int(epoch)
+        self.members = tuple(members)
+        self.departed = tuple(departed)
+        self.joined = tuple(joined)
+        delta = []
+        if self.departed:
+            delta.append(f"departed={list(self.departed)}")
+        if self.joined:
+            delta.append(f"joined={list(self.joined)}")
+        super().__init__(
+            f"membership changed during {what}: epoch {epoch}, "
+            f"members={list(self.members)}"
+            + (f" ({', '.join(delta)})" if delta else ""))

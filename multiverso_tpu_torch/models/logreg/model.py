@@ -121,10 +121,12 @@ class Model:
             if self.ftrl:
                 dz, dn, loss = self._ftrl_grad(
                     self.z, self.n, *self._sparse_inputs(batch, batch.keys))
+                # mv-lint: ok(cross-domain-state): the engine-domain writer is the elastic-restore leg (Model.Load via rebuild_world), which runs inside a fenced world transition while training is quiesced — the phases never overlap
                 self.z, self.n = self.z - dz, self.n - dn
             elif self.config.sparse:
                 grad, loss = self._sparse_grad(
                     self.W, *self._sparse_inputs(batch, batch.keys))
+                # mv-lint: ok(cross-domain-state): same fenced-transition argument as the ftrl branch above
                 self.W = self.W - lr * grad
             else:
                 grad, loss = self._dense_grad(self.W,

@@ -21,6 +21,10 @@ Value tags (the JAX package's bytes for the tags the port sends)::
     p  pickle fallback (anything else: exotic options, user payloads,
        arrays whose dtype the flat header cannot represent)
 
+A whole FRAME (``encode_frame``/``decode_frame``: the fleet rollup that
+rides a heartbeat) is a kind byte, one value and the seal trailer
+(``parallel/seal.py``), byte for byte the JAX package's.
+
 The JAX package's ``v`` (a value deferred to the device wire) is not
 ported: the port's windows ride the host wire, and a blob carrying it fails
 to decode with an error that says so.
@@ -41,6 +45,9 @@ _U8 = struct.Struct("<B")
 _U32 = struct.Struct("<I")
 _I64 = struct.Struct("<q")
 _F64 = struct.Struct("<d")
+
+#: leading byte of a flat frame
+KIND_FLAT = 0x46        # 'F'
 
 
 class Extension:
@@ -218,3 +225,25 @@ def decode_value(cur: _Cursor, ext: Optional[Extension] = None):
         if ok:
             return val
     raise ValueError(f"unknown wire tag {tag!r}")
+
+
+def encode_frame(obj) -> bytes:
+    """One flat frame: the kind byte, the value grammar, the seal
+    trailer."""
+    from multiverso_tpu_torch.parallel import seal
+    parts: list = [_U8.pack(KIND_FLAT)]
+    encode_value(parts, obj)
+    return seal.seal_frame(b"".join(parts))
+
+
+def decode_frame(blob: bytes):
+    """Verify the seal (``WireCorruption`` before any parsing), check the
+    kind byte, decode the value. Arrays are zero-copy read-only views into
+    ``blob``."""
+    from multiverso_tpu_torch.parallel import seal
+    seal.check_crc(blob)
+    cur = _Cursor(blob)
+    (kind,) = cur.unpack(_U8)
+    if kind != KIND_FLAT:
+        raise ValueError(f"not a flat frame (leading byte {kind:#x})")
+    return decode_value(cur)

@@ -1,7 +1,6 @@
 """Multi-process worlds over ``torch.distributed`` (gloo) and the host wires.
 
-Counterpart of ``multiverso_tpu/parallel/multihost.py`` (the boot world:
-no elastic groups). The reference scales
+Counterpart of ``multiverso_tpu/parallel/multihost.py``. The reference scales
 across machines with MPI/ZMQ messaging; the JAX package runs one SPMD
 process per host, and so does the port: every process runs worker and
 server actors, and table verbs follow the COLLECTIVE contract — every
@@ -20,8 +19,8 @@ What this module provides:
   diverged peer fails instead of hanging; a peer that is only slow (longer
   than the timeout in local work before its next collective) is treated
   as lost too;
-* identity: ``process_index``/``process_count``,
-  ``world_rank``/``world_size``;
+* identity: ``process_index``/``process_count`` (the boot world),
+  ``world_rank``/``world_size`` (the current membership view);
 * the host collectives: ``host_barrier``, ``host_allreduce_sum``,
   ``host_allgather_bytes``/``host_allgather_objects`` and the
   standing-cap window exchange ``capped_exchange``;
@@ -45,6 +44,20 @@ through the list forms of ``all_gather``.
 
 Every function degrades to the identity (or a no-op) in a single-process
 world, so the one-process world runs the same code paths.
+
+Elastic membership (``elastic/``): an epoch installs a :class:`Group`, the
+subset of boot ranks now in the world (``install_group``), and every host
+collective above routes through it: a singleton group takes the identity
+path (no collective at all, which keeps a survivor sound after a peer died
+mid-collective: the abandoned gloo stream and the wire are never touched
+again), and a multi-member group takes the coordinator relay, never gloo
+and never a wire whose segments a departed member owns.
+``process_index``/``process_count`` keep their boot meaning (the device,
+forensic identity); membership-aware code asks ``world_rank``/
+``world_size``. ``collective_isolation`` makes the collectives answer as a
+one-member world while a transition rebuilds the tables, and
+``mark_boot_world_broken`` makes ``net_finalize`` skip the gloo barrier
+and the group teardown once a boot member has died.
 
 The host wire (``-mv_wire``, ``maybe_install_wire``): the engine's window
 and head-marker exchanges ride a wire of their own when one comes up, as
@@ -185,10 +198,115 @@ def last_exchange_stats() -> dict:
     return getattr(_exchange_tls, "last", _EXCHANGE_NONE)
 
 
+# -- elastic membership groups (elastic/) -----------------------------------
+
+class Group:
+    """One membership epoch's view of the world.
+
+    ``members`` are boot ranks, sorted; ``exchange(blob, key)`` is the
+    group's all-gather of bytes (None for a singleton group, which takes
+    the identity path); ``barrier(name)`` its rendezvous."""
+
+    def __init__(self, epoch: int, members, exchange=None, barrier=None):
+        self.epoch = int(epoch)
+        self.members = tuple(sorted(int(m) for m in members))
+        self._exchange = exchange
+        self._barrier = barrier
+
+    @property
+    def size(self) -> int:
+        return len(self.members)
+
+    def rank(self) -> int:
+        """This process's position in the member list, -1 if departed."""
+        try:
+            return self.members.index(process_index())
+        except ValueError:
+            return -1
+
+    def _require_member(self, what: str) -> None:
+        if self.rank() < 0:
+            from multiverso_tpu_torch.failsafe.errors import \
+                MembershipChanged
+            raise MembershipChanged(
+                f"{what} from a departed member", epoch=self.epoch,
+                members=self.members, departed=(process_index(),))
+
+    def exchange(self, blob: bytes, key) -> list:
+        if self.size <= 1 and self.rank() >= 0:
+            return [blob]
+        self._require_member("collective exchange")
+        CHECK(self._exchange is not None,
+              "multi-member elastic group without an exchange transport")
+        _note_round()
+        return self._exchange(blob, key)
+
+    def barrier(self, name: str) -> None:
+        if self.size <= 1 and self.rank() >= 0:
+            return
+        self._require_member("collective barrier")
+        CHECK(self._barrier is not None,
+              "multi-member elastic group without a barrier transport")
+        _note_round()
+        self._barrier(name)
+
+
+_group: Optional[Group] = None
+
+#: collective isolation (``elastic/rebalance.rebuild_world``): the host
+#: collectives answer as a one-member world while a transition fence
+#: rebuilds tables, whose constructors may re-run boot-time agreements
+#: with no matched peer round inside the fence. world_rank/world_size are
+#: NOT isolated: the rebuilt tables bind the new view's identity.
+_isolated = False
+
+#: a boot-world member DIED (an elastic shrink): the gloo groups hold a
+#: dead peer, so net_finalize skips their closing barrier and teardown
+_boot_world_broken = False
+
+
+class collective_isolation:
+    def __enter__(self):
+        global _isolated
+        self._prev = _isolated
+        _isolated = True
+        return self
+
+    def __exit__(self, *exc):
+        global _isolated
+        _isolated = self._prev
+
+
+def mark_boot_world_broken() -> None:
+    global _boot_world_broken
+    if not _boot_world_broken:
+        _boot_world_broken = True
+        Log.Error("multihost: a boot-world member died — the gloo process "
+                  "groups will not be torn down cleanly (survivors skip "
+                  "their closing barrier)")
+
+
+def install_group(group: Optional[Group]) -> None:
+    """Install the membership view every host collective routes through
+    from now on (None restores the boot world). Called by the elastic
+    plane at an epoch transition, on the engine thread at the fenced
+    stream position, so no exchange is in flight across the swap."""
+    global _group
+    _group = group
+    if group is not None:
+        Log.Info("multihost: membership epoch %d installed — members %s "
+                 "(this process %s)", group.epoch, list(group.members),
+                 "rank %d" % group.rank() if group.rank() >= 0
+                 else "DEPARTED")
+
+
+def current_group() -> Optional[Group]:
+    return _group
+
+
 def membership_epoch() -> int:
-    """The membership epoch the flight events are stamped with: always 0
-    (the boot world), since the elastic plane is not ported."""
-    return 0
+    """The installed membership epoch (0 = the boot world)."""
+    return _group.epoch if _group is not None else 0
 
 
 def note(kind: str, seconds: float) -> None:
@@ -214,12 +332,18 @@ def process_count() -> int:
 
 
 def world_rank() -> int:
-    """This process's rank in the world (the boot rank: the port has no
-    elastic membership)."""
+    """This process's rank in the CURRENT world ordering (the boot rank
+    until an elastic epoch is installed); -1 once this process departed."""
+    if _group is not None:
+        return _group.rank()
     return process_index()
 
 
 def world_size() -> int:
+    """Active members of the CURRENT world (the boot process count until
+    an elastic epoch is installed)."""
+    if _group is not None:
+        return _group.size
     return process_count()
 
 
@@ -243,8 +367,11 @@ def active_wire():
 
 
 def wire_name() -> str:
-    """The transport the engine's exchanges ride: ``shm``, ``tcp``,
-    ``gloo``, or ``local`` in a one-process world."""
+    """The transport the engine's exchanges ride: ``relay`` while a
+    multi-member elastic group is installed, ``shm``, ``tcp``, ``gloo``,
+    or ``local`` in a one-process world."""
+    if _group is not None and _group.size > 1:
+        return "relay"
     if _wire is not None:
         return _wire.name
     return "gloo" if (_initialized and process_count() > 1) else "local"
@@ -501,8 +628,9 @@ def net_connect(ranks, endpoints) -> int:
 def net_reset() -> None:
     """Forget the explicit wiring and close the host wire (a new world
     selects its own)."""
-    global _net_rank, _net_endpoint, _net_world
+    global _net_rank, _net_endpoint, _net_world, _group
     _net_rank = _net_endpoint = _net_world = None
+    _group = None       # a new world starts at epoch 0 (boot membership)
     close_wire()
 
 
@@ -517,6 +645,15 @@ def net_finalize() -> None:
     if not _initialized:
         return
     dist = _dist()
+    if _boot_world_broken:
+        # a dead boot member can never reach the closing barrier, and its
+        # gloo connections are gone: leave the groups to process exit
+        Log.Info("net_finalize: boot world broken — skipping the gloo "
+                 "closing barrier and teardown")
+        _initialized = _owns_runtime = False
+        _engine_pg = _ctrl_pg = None
+        _OBJ_CAPS.clear()
+        return
     try:
         host_barrier("mv_finalize")
     except Exception as exc:
@@ -689,9 +826,14 @@ def _all_gather(t, engine: bool = True) -> list:
 
 
 def host_barrier(name: str = "mv_barrier") -> None:
-    """Block until every process reaches this point (no-op in one process).
-    Collective on the control group (reference controller barrier,
-    controller.cpp:12-36)."""
+    """Block until every member of the CURRENT world reaches this point
+    (no-op in one process). Collective on the control group, or the
+    elastic group (reference controller barrier, controller.cpp:12-36)."""
+    if _isolated:
+        return
+    if _group is not None:
+        _group.barrier(name)
+        return
     if process_count() <= 1:
         return
     _note_round()
@@ -701,7 +843,17 @@ def host_barrier(name: str = "mv_barrier") -> None:
 def host_allreduce_sum(data: np.ndarray) -> np.ndarray:
     """Elementwise sum of ``data`` across the processes, summed in rank
     order on every rank (identity in one process). Collective on the
-    control group."""
+    control group, or the elastic group."""
+    if _isolated:
+        return data
+    if _group is not None:
+        if _group.size <= 1:
+            return data
+        parts = host_allgather_objects(np.asarray(data))
+        out = parts[0].copy()
+        for p in parts[1:]:
+            out += p
+        return out.astype(data.dtype, copy=False)
     if process_count() <= 1:
         return data
     import torch
@@ -716,7 +868,12 @@ def host_allreduce_sum(data: np.ndarray) -> np.ndarray:
 def host_allgather_bytes(data: bytes) -> list:
     """Every process's byte blob in rank order (``[data]`` in one
     process), on the control group: the lengths first, then the payloads
-    padded to the ladder rung of the longest."""
+    padded to the ladder rung of the longest (an elastic group's relay
+    carries them in one keyed round)."""
+    if _isolated:
+        return [data]
+    if _group is not None:
+        return _group.exchange(data, "HAB")
     if process_count() <= 1:
         return [data]
     import torch
@@ -748,7 +905,19 @@ def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
     rung of the now-known longest blob. The standing cap then snaps to
     that rung, so steady windows headed by the same verb stay on the
     one-round path. Gloo is one ordered stream: only channel 0.
+
+    In an elastic epoch the exchange rides the group's coordinator relay
+    (length-framed, ``caps`` unused), whose whole wall is the collective.
     """
+    if _isolated:
+        return [blob]
+    if _group is not None:
+        t0 = time.perf_counter()
+        out = _group.exchange(blob, key)
+        done_m = time.perf_counter()
+        if engine:
+            _stamp_exchange(t0, done_m - t0, done_m, time.time())
+        return out
     if process_count() <= 1:
         return [blob]
     if engine and _wire is not None:
@@ -803,8 +972,8 @@ def capped_exchange(blob: bytes, caps: dict, key, engine: bool = True,
 
 def host_allgather_objects(obj) -> list:
     """Every process's picklable object in rank order (``[obj]`` in one
-    process). Collective on the control group."""
-    if process_count() <= 1:
+    process). Collective on the control group, or the elastic group."""
+    if world_size() <= 1:
         return [obj]
     return [pickle.loads(b) for b in host_allgather_bytes(pickle.dumps(obj))]
 
@@ -826,7 +995,7 @@ def host_allgather_objects_capped(obj, key: str, stat: str = "agree"
     rank at another call site fails the CHECK on every rank instead of
     pairing unrelated payloads. ``stat`` is the ``STATS`` stem the round's
     seconds go to."""
-    if process_count() <= 1:
+    if world_size() <= 1:
         return [obj]
     t0 = time.perf_counter()
     blobs = capped_exchange(pickle.dumps((key, obj), protocol=5),
@@ -880,7 +1049,7 @@ def merge_collective_add(option, *arrays, key: str):
     option agrees on every rank (divergent scalars would apply different
     updates to the replicas), and per-position concatenations in rank
     order. Identity in one process."""
-    if process_count() <= 1:
+    if world_size() <= 1:
         return arrays
     parts = host_allgather_objects_capped(tuple(arrays) + (option,), key,
                                           stat="write")
@@ -896,7 +1065,7 @@ def sum_collective_add(option, values: np.ndarray, key: str) -> np.ndarray:
     """Sum every process's delta of one collective whole-table Add in rank
     order (the same option CHECK as ``merge_collective_add``). Identity in
     one process."""
-    if process_count() <= 1:
+    if world_size() <= 1:
         return values
     parts = host_allgather_objects_capped((values, option), key,
                                           stat="write")

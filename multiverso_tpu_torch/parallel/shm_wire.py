@@ -34,8 +34,11 @@ sharing a collective order):
 Liveness: shared memory has no connection a dead peer could break. A
 stalled wait checks the peers' processes (``peer_pids``, the same host by
 construction) a few times a second and raises ``ActorDied`` once one has
-exited; the JAX package asks its elastic plane's leases instead, which the
-port does not have. Every wait is also bounded by ``timeout_s`` or
+exited; under ``-mv_elastic`` it first asks the membership authority
+whether a peer's lease expired (``_peer_loss_probe``, the JAX package's
+probe) and raises the typed ``MembershipChanged``, and an ``ActorDied``
+reaches the engine's lease consult too (``Server._bounded_collective``),
+never the fatal path while a transition is possible. Every wait is also bounded by ``timeout_s`` or
 ``-mv_deadline_s`` (``failsafe/deadline.py``), whose expiry raises
 ``DeadlineExceeded``; with neither, the wait blocks, as the gloo
 collective would, backing off to short sleeps (the engine's exchanges
@@ -85,8 +88,28 @@ _MAGIC = 0x4D56_5348  # "MVSH"
 _HOT_SPINS = 400
 _SLEEP_S = 50e-6
 
-#: how often a stalled wait checks that its peers' processes live
+#: how often a stalled wait checks that its peers' processes live (and,
+#: under -mv_elastic, asks for their leases)
 _PROBE_PERIOD_S = 0.25
+
+#: the lease probe's wait for a verdict: a stalled exchange must not sit
+#: in the coordinator while its peer arrives; the blocking consult is the
+#: engine's error path (Server._bounded_collective)
+_PROBE_WAIT_S = 0.05
+
+
+def _peer_loss_probe(what: str):
+    """A stalled exchange asks the elastic authority whether a peer is
+    DEAD (lease expired). Returns the typed MembershipChanged to raise, or
+    None (no elastic plane, every lease fresh, the probe failed: keep
+    waiting; the deadline still bounds the wait)."""
+    try:
+        from multiverso_tpu_torch import elastic
+        if not elastic.enabled():
+            return None
+        return elastic.peer_loss(what, wait_s=_PROBE_WAIT_S)
+    except Exception:
+        return None
 
 #: wires not closed yet: their own segments are unlinked at exit
 _LIVE: "weakref.WeakSet[ShmWire]" = weakref.WeakSet()
@@ -432,6 +455,11 @@ class ShmWire:
                 now = time.perf_counter()
                 if now - last_probe > _PROBE_PERIOD_S:
                     last_probe = now
+                    dead = _peer_loss_probe(
+                        f"shm wire exchange (channel {channel}, round "
+                        f"{rnd}): peer silent")
+                    if dead is not None:
+                        raise dead
                     self._check_peers(channel, rnd)
                 if deadline is not None and now - t0 > deadline:
                     fdeadline.raise_deadline(

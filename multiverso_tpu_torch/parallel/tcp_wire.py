@@ -25,7 +25,11 @@ frames never interleave across channels):
   still sends one zero-length frame, so a reader always has a header.
 
 Liveness: a peer that closes its streams (killed, or shut down) raises
-``ActorDied`` at once; everything else is bounded by ``-mv_deadline_s``
+``ActorDied`` at once (under ``-mv_elastic`` the engine's lease consult
+turns it into ``MembershipChanged`` when the peer's lease expired); a
+stalled exchange asks the membership authority for a dead peer a few
+times a second under ``-mv_elastic`` (the lease probe: a powered-off host
+sends no reset); everything else is bounded by ``-mv_deadline_s``
 (or the caller's ``timeout_s``), whose expiry raises ``DeadlineExceeded``
 (the stream position is then unsound: the caller scraps the wire).
 
@@ -44,7 +48,7 @@ wire (``failsafe/chaos.py``), consulted once per exchange: ``tcp.delay``
 sleeps before the frame train, ``tcp.drop`` swallows the final frame
 toward the lowest peer (that peer's deadline converts the stall),
 ``tcp.partition`` severs every stream of the channel (``ActorDied`` on
-both ends). Not ported: the elastic lease probe.
+both ends).
 """
 
 from __future__ import annotations
@@ -70,6 +74,17 @@ _HDR_LEN = struct.calcsize(_HDR_FMT)
 
 _MAGIC = 0x4D565443        # "MVTC"
 _HELLO_MAGIC = 0x4D564849  # "MVHI"
+
+#: how often a stalled exchange asks the elastic authority for a dead
+#: peer (the shm wire's period and wait)
+_PROBE_PERIOD_S = 0.25
+
+
+def _peer_loss_probe(what: str):
+    """The shm wire's lease probe (``shm_wire._peer_loss_probe``)."""
+    from multiverso_tpu_torch.parallel import shm_wire
+    return shm_wire._peer_loss_probe(what)
+
 
 #: bound of the mesh bring-up when neither timeout_s nor -mv_deadline_s
 #: is set: a half-up mesh must never hang the install
@@ -406,6 +421,7 @@ class TcpWire:
         deadline = (timeout_s if timeout_s is not None
                     else fdeadline.timeout_or_none())
         t0 = time.perf_counter()
+        last_probe = t0
         stall_s = 0.0
         sel = selectors.DefaultSelector()
         try:
@@ -452,6 +468,13 @@ class TcpWire:
                     continue
                 now = time.perf_counter()
                 stall_s += now - iter_t0
+                if now - last_probe > _PROBE_PERIOD_S:
+                    last_probe = now
+                    dead = _peer_loss_probe(
+                        f"tcp wire exchange (channel {channel}, round "
+                        f"{rnd}): peer silent")
+                    if dead is not None:
+                        raise dead
                 if deadline is not None and now - t0 > deadline:
                     fdeadline.raise_deadline(
                         f"tcp wire exchange (channel {channel}, round "

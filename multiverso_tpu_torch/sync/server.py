@@ -157,11 +157,13 @@ from typing import Deque, Dict, List, Optional
 
 import numpy as np
 
+from multiverso_tpu_torch import elastic
 from multiverso_tpu_torch.actor import Actor, ActorDied, actor_names
 from multiverso_tpu_torch.failsafe import chaos
 from multiverso_tpu_torch.failsafe import deadline as fdeadline
 from multiverso_tpu_torch.failsafe.dedup import DedupWindow
-from multiverso_tpu_torch.failsafe.errors import TransientError
+from multiverso_tpu_torch.failsafe.errors import (MembershipChanged,
+                                                  TransientError)
 from multiverso_tpu_torch.message import Message, MsgType, copy_result
 from multiverso_tpu_torch.parallel import compress, multihost, wire
 from multiverso_tpu_torch.parallel.seal import WireCorruption
@@ -1129,6 +1131,65 @@ class Server(Actor):
         if pool is not None:
             pool.shutdown()
 
+    # -- elastic plane hooks (elastic/) ---------------------------------------
+
+    def _elastic_rebase(self, mepoch: int, cause: str) -> None:
+        """Epoch transition, ON the engine thread with the stream fenced:
+        re-base the exchange stream for the new world — SEQ back to 0
+        (every surviving member re-bases at the same cut), standing caps
+        dropped (the world size changed, so the exchanged buffer shapes
+        did), and the exchange stage retired (the next window builds a
+        fresh one). A stage thread left inside an abandoned collective is
+        never joined or reused."""
+        st = self._ex_stage
+        if st is not None:
+            st.poison()
+            st.dead = st.dead or _StageKilled()
+            self._ex_stage = None
+        self._mh_seq = 0
+        self._mh_caps.clear()
+        tflight.record("membership.epoch", seq=0, epoch=self.window_epoch,
+                       mepoch=mepoch, stream=self.mh_stream,
+                       detail=f"cause={cause}")
+        Log.Info("engine: exchange stream re-based for membership epoch "
+                 "%d (%s)", mepoch, cause)
+
+    def _elastic_post_transition(self, pending) -> bool:
+        """After a barrier dispatch that performed an epoch transition:
+        when the new world has one member the collective protocol is
+        gone — drain the remaining messages through the local window
+        path and report True."""
+        if multihost.world_size() > 1:
+            return False
+        batch = list(pending)
+        pending.clear()
+        if batch:
+            self._local_window(batch)
+            self.window_epoch += 1
+            tflight.record("window.applied", epoch=self.window_epoch,
+                           mepoch=multihost.membership_epoch(),
+                           stream=self.mh_stream, detail=f"{len(batch)}v")
+        return True
+
+    @staticmethod
+    def _bounded_collective(fn, what: str):
+        """``deadline.bounded`` plus the membership-lease consult: a
+        collective that failed (its deadline, a dead shm peer's
+        ``ActorDied``, a reset tcp stream) asks the elastic authority
+        whether a peer's lease expired BEFORE going fatal, and a dead peer
+        turns the failure into the typed ``MembershipChanged`` the
+        transition path handles. No elastic plane, or every lease fresh:
+        the original error re-raises untouched (fatal)."""
+        try:
+            return fdeadline.bounded(fn, what)
+        except MembershipChanged:
+            raise
+        except BaseException as exc:
+            repl = elastic.peer_loss(what) if elastic.enabled() else None
+            if repl is not None:
+                raise repl from exc
+            raise
+
     # -- the multi-process windowed protocol (module docstring) -------------
 
     #: byte budget of one exchange's packed payloads: verbs past it lead
@@ -1146,7 +1207,26 @@ class Server(Actor):
         holds gets the error, and the engine poisons."""
         pending: Deque[Message] = collections.deque(batch)
         try:
-            self._mh_pipelined(pending)
+            try:
+                self._mh_pipelined(pending)
+            except MembershipChanged as exc:
+                # a peer's lease expired (the coordinator confirmed it
+                # when the failed collective consulted it): not fatal
+                # when the elastic plane can transition. The tables roll
+                # back to the retained cut on the shrunk world, the
+                # stream re-bases, and the drained messages fail TYPED
+                # (their effects were rolled back with everything after
+                # the cut), so workers re-run from their last sync point
+                if self._ex_stage is not None:
+                    st = self._ex_stage
+                    st.poison()
+                    st.dead = st.dead or exc
+                    self._ex_stage = None
+                if not elastic.engine_transition(self, exc):
+                    raise       # no plane / no cut: the fatal path below
+                for m in pending:
+                    m.reply(exc)
+                return
         except Exception as exc:
             if self._ex_stage is not None:
                 self._ex_stage.poison()
@@ -1214,6 +1294,7 @@ class Server(Actor):
                     self.window_barrier_splits += 1
                     self._t_splits.inc()
                     self._dispatch(item[1])
+                    transitioned = self._ex_stage is not stage
                 else:
                     # a window local on every rank (the stage's
                     # rank-agreed decision) may apply its tables in
@@ -1231,6 +1312,17 @@ class Server(Actor):
                 # always lift the fence, even before a fatal raise: the
                 # stage must not hang waiting for it
                 stage.note_applied()
+            if item[0] == "barrier" and transitioned:
+                # an elastic rebase retired the stage inside that barrier
+                # dispatch (an epoch transition): the pipeline's remaining
+                # messages re-anchor to the NEW world — a one-member world
+                # drains them through the local window path, otherwise a
+                # fresh stage (SEQ 0, the new world rank) takes over
+                if self._elastic_post_transition(fed):
+                    return
+                stage = self._ex_stage = _ExchangeStage(self)
+                for m in fed:
+                    stage.feed(m)
 
     def _pl_apply(self, verbs, windows, prefix, descs0, win_ctx, ph,
                   parallel_ok: bool) -> None:
@@ -1298,7 +1390,7 @@ class Server(Actor):
         the CHECK on every rank instead of stranding the verb rank in an
         unmatched collective."""
         blob = wire.encode_head_barrier(int(head.msg_type))
-        blobs = fdeadline.bounded(
+        blobs = self._bounded_collective(
             lambda: multihost.capped_exchange(
                 blob, self._mh_caps, "HEAD_B", channel=self.mh_channel),
             "window head-marker exchange")
@@ -1373,7 +1465,7 @@ class Server(Actor):
                 # the exchange's timing is per thread: read it on the
                 # thread that ran the collective (a bounded call runs it
                 # on the runner)
-                blobs, xs = fdeadline.bounded(
+                blobs, xs = self._bounded_collective(
                     lambda b=blob: (multihost.capped_exchange(
                         b, self._mh_caps, (local[0][0], local[0][1]),
                         channel=self.mh_channel),
@@ -1881,9 +1973,10 @@ def requested_engine_channels() -> int:
     """The independent wire channels the engine wants for this world,
     asked before the wire is selected (``Zoo.Start``; the shm wire creates
     its channels' segments up front): the explicit ``-mv_engine_shards``
-    value, or 1 when it is unset or 1, or under ``-sync``."""
+    value, or 1 when it is unset or 1, under ``-sync`` or under
+    ``-mv_elastic``."""
     flag = int(GetFlag("mv_engine_shards"))
-    if flag <= 1 or GetFlag("sync"):
+    if flag <= 1 or GetFlag("sync") or GetFlag("mv_elastic"):
         return 1
     return flag
 
@@ -1891,7 +1984,9 @@ def requested_engine_channels() -> int:
 def engine_shard_cap() -> int:
     """Resolved engine shard-slot count for a new engine (see the
     ``-mv_engine_shards`` help text): 1 under BSP (the vector clocks count
-    verbs across all tables); in a multi-process world the explicit flag
+    verbs across all tables); 1 under ``-mv_elastic`` (the epoch relay is
+    one ordered channel, and a transition re-bases one stream); in a
+    multi-process world the explicit flag
     when the wire offers that many channels (a shard's stream rides its
     own channel), else 1, loudly (gloo is one ordered collective stream),
     and 1 when unset; in one process the flag when set, else auto,
@@ -1900,6 +1995,12 @@ def engine_shard_cap() -> int:
     if GetFlag("sync"):
         return 1
     flag = int(GetFlag("mv_engine_shards"))
+    if GetFlag("mv_elastic"):
+        if flag > 1:
+            Log.Info("engine: -mv_engine_shards=%d clamped to 1 under "
+                     "-mv_elastic (the epoch relay is a single ordered "
+                     "channel)", flag)
+        return 1
     if multihost.world_size() > 1:
         if flag <= 1:
             return 1        # auto: multi-process worlds opt in explicitly

@@ -159,7 +159,7 @@ class ArrayServer(ServerTable):
         return self.state
 
     def device_set_state(self, state: Dict) -> None:
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             CHECK(state is self._collective_state,
                   "device_set_state in a multi-process world takes only "
                   "the state the collective device_update returned (a "
@@ -189,7 +189,7 @@ class ArrayServer(ServerTable):
         such as a window's loss) travels with the delta and comes back
         summed over the ranks in rank order: with it the call returns
         ``(new state, ride sum)`` (one process: the ride as given)."""
-        if multihost.process_count() <= 1:
+        if multihost.world_size() <= 1:
             new = self._updated(state, padded_delta, opt)
             return new if ride is None else (new, ride)
         CHECK(tuple(padded_delta.shape) == (self.padded,),

@@ -765,6 +765,10 @@ def CreateTable(option: TableOption):
     zoo = Zoo.Get()
     CHECK(zoo.started, "MV_CreateTable needs a started world (MV_Init)")
     server_table = option.make_server(zoo)
+    # the creation record rides the server half: an elastic epoch
+    # transition re-runs make_server and restores the state from the cut
+    # frame (elastic/rebalance.rebuild_world)
+    server_table._mv_option = option
     table_id = zoo.RegisterServerTable(server_table)
     worker_table = option.make_worker(zoo)
     worker_table.table_id = table_id

@@ -136,7 +136,7 @@ def device_apply_rows_many(items, option: Optional[AddOption] = None,
         ids = np.asarray(row_ids, np.int32).ravel()
         srv._check_ids(ids)
         prepped.append((srv, ids, deltas))
-    if multihost.process_count() <= 1:
+    if multihost.world_size() <= 1:
         for srv, ids, deltas in prepped:
             srv._apply_rows_local(ids, deltas, opt)
         return ride
@@ -741,7 +741,7 @@ class MatrixServerTable(ServerTable):
         self._check_ids(ids)
         CHECK(len(np.unique(ids)) == len(ids),
               "device_update_gather_rows takes unique row ids")
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             self.device_apply_rows(ids, deltas, option)
             return self._gather_rows(ids)
         return self._update_gather_rows(
@@ -795,7 +795,7 @@ class MatrixServerTable(ServerTable):
           (the access() view); always so in a multi-process world."""
         from multiverso_tpu_torch.serving import snapshot as ssnap
         mode = ssnap.residence_mode()
-        device_legal = (multihost.process_count() <= 1
+        device_legal = (multihost.world_size() <= 1
                         and not self.state["aux"])
         want_device = mode == "device" or (mode == "auto"
                                            and self.device.type == "cuda")

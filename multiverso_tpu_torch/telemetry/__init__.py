@@ -30,17 +30,20 @@ either package read the other's dumps.
   over local instruments.
 * ``sketch`` — the ``-mv_row_sketch`` Space-Saving row-access sketch.
 
-The fleet plane (``telemetry/fleet.py`` in the JAX package) rides the
-elastic member heartbeats and the replica plane, which the port does not
-have yet (``ROADMAP.md``).
+* ``fleet`` — the fleet rollups the elastic member heartbeats carry to
+  the coordinator, the accumulator behind ``/fleet`` (per-member QPS and
+  p50/p99, staleness, the slowest member), three fleet watchdog rules,
+  and the ``python -m multiverso_tpu_torch.telemetry.fleet --trace``
+  trace merge.
 
 Importing this package registers every telemetry flag (``-telemetry``,
 ``-trace``, ``-stats_interval_s``, ``-mv_flight_events``,
 ``-mv_diag_dir``, ``-mv_ops_port``, ``-mv_watchdog_s``,
-``-mv_row_sketch``) so ``MV_Init``'s argv parsing claims them.
+``-mv_row_sketch``, ``-mv_fleet_stale_s``, ``-mv_fleet_p99_s``) so
+``MV_Init``'s argv parsing claims them.
 """
 
 from multiverso_tpu_torch.telemetry import (export, flight,  # noqa: F401
                                             metrics, ops, sketch, trace)
 from multiverso_tpu_torch.telemetry import (  # noqa: F401,E402
-    accounting, watchdog)
+    accounting, fleet, watchdog)

@@ -429,6 +429,25 @@ class MetricsRegistry:
     def digest(self, name: str) -> Digest:
         return self._get(name, Digest)
 
+    def digest_vectors(self) -> Dict[str, List[float]]:
+        """{name: vector} of every registered Digest: the fleet rollup's
+        raw material. Never collective."""
+        with self._lock:
+            items = [(n, i) for n, i in self._instruments.items()
+                     if i.kind == "d"]
+        return {name: inst._vector() for name, inst in sorted(items)}
+
+    def gauge_values(self, prefixes=()) -> Dict[str, float]:
+        """{name: value} of the gauges and max-gauges, optionally only
+        those under a name prefix: the fleet rollup's key gauges. Never
+        collective."""
+        pfx = tuple(prefixes)
+        with self._lock:
+            return {n: float(i.value)
+                    for n, i in self._instruments.items()
+                    if i.kind in ("g", "m")
+                    and (not pfx or n.startswith(pfx))}
+
     def snapshot(self) -> Dict[str, dict]:
         """LOCAL snapshot: {name: typed dict}. Never collective — safe
         from any thread (the periodic reporter calls it on a timer)."""
@@ -459,7 +478,7 @@ class MetricsRegistry:
             local = {name: (inst.kind, inst._vector())
                      for name, inst in self._instruments.items()}
         tagged = {f"{kind}:{name}" for name, (kind, _) in local.items()}
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             blobs = multihost.host_allgather_bytes(
                 "\x00".join(sorted(tagged)).encode())
             union = set()
@@ -492,7 +511,7 @@ class MetricsRegistry:
             else:
                 vec.extend([0.0] * _WIDTHS[kind])
         arr = np.asarray(vec, np.float64)
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             # allgather (not allreduce-sum) so each kind picks its own
             # reduction: max-gauges must not sum across ranks
             blobs = multihost.host_allgather_bytes(arr.tobytes())

@@ -25,9 +25,12 @@ multi-world processes) starts one daemon thread at MV_Init running a
   rule's hysteresis counters; says "off" while ``-mv_watchdog_s`` is
   unarmed. Active alerts also degrade ``/healthz`` to a distinct
   ``warn`` status — still 200 (503 stays death-only).
-* ``GET /actions`` and ``GET /fleet`` — the policy and fleet planes
-  documents. Neither plane is ported (``ROADMAP.md`` item 5): both
-  answer a well-formed "not running" document.
+* ``GET /fleet`` — the fleet view (``telemetry/fleet.py``): per-member
+  rollup rows, the fleet-merged p50/p95/p99/QPS and the slowest member,
+  with the coordinator client's endpoint posture; the empty fleet on a
+  process that hosts no coordinator. ``GET /actions`` — the policy
+  plane's document; that plane is not ported (``ROADMAP.md``), so it
+  answers a well-formed "not running" document.
 * ``GET /memory`` — the process byte ledger (round 13,
   telemetry/accounting.py): per-table device/mirror/host placement,
   per-version snapshot retention, flight/dedup/buffer estimates, shm
@@ -69,10 +72,9 @@ MV_DEFINE_int("mv_ops_port", -1,
 
 _NAME_SAN = re.compile(r"[^a-zA-Z0-9_:]")
 
-#: the JAX package's planes this port does not run yet (ROADMAP.md item
-#: 5); /healthz names them instead of omitting them silently
-_NOT_RUNNING = ("elastic", "replica", "policy", "coordinator_ha",
-                "fleet")
+#: the JAX package's planes this port does not run yet (ROADMAP.md);
+#: /healthz names them instead of omitting them silently
+_NOT_RUNNING = ("replica", "policy")
 
 
 def _fmt(v) -> str:
@@ -155,6 +157,16 @@ def health_report() -> dict:
             if poison is not None:
                 out["healthy"] = False
                 out["reasons"].append(f"engine poisoned: {poison!r}")
+            try:
+                from multiverso_tpu_torch import elastic
+                el = elastic.state_report()
+                if el is not None:
+                    # the membership epoch and members: the liveness
+                    # answer changes meaning across epochs, so the scrape
+                    # names the epoch it describes
+                    out["elastic"] = el
+            except Exception:   # elastic plane torn down mid-scrape
+                pass
             stage = getattr(eng, "_ex_stage", None)
             if stage is not None:
                 out["engine"]["exchange_stage"] = {
@@ -213,8 +225,18 @@ def health_report() -> dict:
             }
     except Exception:           # serving is optional
         pass
-    # the elastic, replica, policy and coordinator-HA planes of the JAX
-    # package are not ported (ROADMAP.md item 5): named, not hidden
+    # the coordinator client's posture: endpoint list, active endpoint,
+    # failover count and the standby state (always "solo": the standby
+    # is not ported)
+    try:
+        from multiverso_tpu_torch import elastic
+        ha = elastic.ha_status()
+        if ha is not None:
+            out["coordinator_ha"] = ha
+    except Exception:           # elastic plane torn down mid-scrape
+        pass
+    # the replica and policy planes of the JAX package are not ported
+    # (ROADMAP.md): named, not hidden
     out["not_running"] = list(_NOT_RUNNING)
     rec, drop = flight.stats()
     out["flight"] = {"recorded": rec, "dropped": drop,
@@ -343,11 +365,21 @@ class _OpsHandler(BaseHTTPRequestHandler):
                 self._send(200, json.dumps(twatchdog.alerts_report(),
                                            indent=1, sort_keys=True),
                            "application/json")
-            elif path in ("/fleet", "/actions"):
+            elif path == "/fleet":
+                from multiverso_tpu_torch import elastic
+                from multiverso_tpu_torch.telemetry import fleet as tfleet
+                rep = tfleet.fleet_report()
+                ha = elastic.ha_status()
+                if ha is not None:
+                    rep["coordinator_ha"] = ha
+                self._send(200, json.dumps(rep, indent=1,
+                                           sort_keys=True),
+                           "application/json")
+            elif path == "/actions":
                 self._send(200, json.dumps(
                     {"enabled": False,
-                     "note": f"{path[1:]}: plane not running (not "
-                             f"ported: ROADMAP.md item 5)"},
+                     "note": "actions: plane not running (the policy "
+                             "plane is not ported: ROADMAP.md)"},
                     indent=1, sort_keys=True), "application/json")
             elif path == "/memory":
                 from multiverso_tpu_torch.telemetry import accounting

@@ -48,14 +48,27 @@ straggler           sustained local proxy: per-window apply seconds
                     collective — ITS apply gates the stream (the
                     critpath drill's culprit); a live stamped binding
                     phase other than ``apply`` vetoes
+
+fleet_p99_breach    the coordinator-side fleet-merged request p99
+                    (``telemetry/fleet.py`` rollups) exceeds
+                    ``-mv_fleet_p99_s`` (0 disables)
+member_qps_outlier  one previously-serving fleet member's QPS fell far
+                    below its peers' mean
+rollup_stale        a member's fleet rollup stopped refreshing
+                    (``-mv_fleet_stale_s``)
+coordinator_failover  this process's coordinator client landed on
+                    another endpoint of the ``-mv_coordinator`` list
 ==================  ====================================================
 
+The three fleet rules read the coordinator-side accumulator's fold
+(``fleet.peek_sample()``, merged into every tick's evidence) and HOLD on
+every other process; the fold is local, filled by the members' pushed
+heartbeats, so the tick stays collective-free.
+
 ``apply_pool_sat`` watches the JAX package's native host-store pool, which
-the port does not have: its evidence never arrives and it HOLDs.
-The JAX package's five fleet, replica and coordinator rules
-(``replica_lag``, ``fleet_p99_breach``, ``member_qps_outlier``,
-``rollup_stale``, ``coordinator_failover``) read planes this port does not
-run yet; they wait with them (``ROADMAP.md`` item 5).
+the port does not have: its evidence never arrives and it HOLDs. The JAX
+package's ``replica_lag`` reads the replica plane, which is not ported; it
+waits with it (``ROADMAP.md``).
 
 Every ``alert.*`` counter is registered EAGERLY at
 :func:`start_watchdog` (the PR 6 rule) so the whole rule family scrapes
@@ -70,6 +83,7 @@ import time
 from typing import Deque, Dict, List, Optional
 
 from multiverso_tpu_torch.telemetry import accounting
+from multiverso_tpu_torch.telemetry import fleet as tfleet
 from multiverso_tpu_torch.telemetry import flight as tflight
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.utils.configure import GetFlag, MV_DEFINE_double
@@ -105,6 +119,8 @@ def stream_pos() -> tuple:
     no engine/world is live (synthetic-sample unit tests)."""
     mep, seq = 0, -1
     try:
+        from multiverso_tpu_torch.parallel import multihost
+        mep = int(multihost.membership_epoch())
         from multiverso_tpu_torch.zoo import Zoo
         eng = Zoo.Get().server_engine
         if eng is not None:
@@ -368,10 +384,132 @@ class StragglerRule(Rule):
         return None
 
 
+class FleetP99BreachRule(Rule):
+    """COORDINATOR-side: the fleet-merged request p99 (folded from the
+    rollups members pushed on their lease heartbeats) exceeds the
+    ``-mv_fleet_p99_s`` budget. HOLDs on every rank that accumulated
+    no rollups and while the flag is 0 (no budget, no verdict)."""
+
+    name = "fleet_p99_breach"
+
+    def __init__(self, threshold_s: Optional[float] = None):
+        self.threshold_s = threshold_s      # None: read the flag live
+
+    def check(self, history):
+        cur = history[-1]
+        p99 = cur.get("fleet_p99_s")
+        if p99 is None:
+            return HOLD      # no accumulator here / no rollups yet
+        thr = self.threshold_s
+        if thr is None:
+            try:
+                thr = float(GetFlag("mv_fleet_p99_s"))
+            except Exception:
+                thr = 0.0
+        if thr <= 0:
+            return HOLD      # unbudgeted: the rule is disarmed
+        if p99 >= thr:
+            return (f"fleet-merged request p99 {1e3 * p99:.2f}ms >= "
+                    f"{1e3 * thr:.2f}ms budget across "
+                    f"{int(cur.get('fleet_members', 0))} member(s)")
+        return None
+
+
+class MemberQpsOutlierRule(Rule):
+    """COORDINATOR-side: one PREVIOUSLY-SERVING member's QPS fell far
+    below its peers' mean — the live tripwire for a chaos-delayed or
+    wedged member dragging the fleet tail. Members that never served a
+    request (ops == 0 — e.g. a trainer rank in a replica-serving
+    fleet) are not candidates: a role that serves nothing is not an
+    outlier among roles that do. HOLDs while fewer than two members
+    serve or the fleet is near-idle (an idle fleet's QPS spread is
+    noise, not evidence)."""
+
+    name = "member_qps_outlier"
+
+    def __init__(self, frac: float = 0.25, min_peer_qps: float = 5.0):
+        self.frac = frac
+        self.min_peer_qps = min_peer_qps
+
+    def check(self, history):
+        cur = history[-1]
+        qps = cur.get("fleet_member_qps")
+        ops = cur.get("fleet_member_ops", {})
+        if not qps:
+            return HOLD
+        serving = {m: q for m, q in qps.items() if ops.get(m, 0) > 0}
+        if len(serving) < 2:
+            return HOLD
+        total = sum(serving.values())
+        worst = min(serving, key=serving.get)
+        peers_mean = (total - serving[worst]) / (len(serving) - 1)
+        if peers_mean < self.min_peer_qps:
+            return HOLD      # near-idle fleet: spread is noise
+        if serving[worst] < self.frac * peers_mean:
+            return (f"member {worst} serves {serving[worst]:.1f} qps "
+                    f"vs a {peers_mean:.1f} qps peer mean over "
+                    f"{len(serving) - 1} peer(s) "
+                    f"(< {100 * self.frac:.0f}%)")
+        return None
+
+
+class RollupStaleRule(Rule):
+    """COORDINATOR-side: a member's lease heartbeats still arrive (it
+    is in the fold) but its fleet rollup stopped refreshing past
+    ``-mv_fleet_stale_s`` — every number it contributes to /fleet is
+    frozen. Named per member so the operator knows WHOSE telemetry to
+    distrust."""
+
+    name = "rollup_stale"
+
+    def __init__(self, stale_s: Optional[float] = None):
+        self.stale_s = stale_s              # None: read the flag live
+
+    def check(self, history):
+        cur = history[-1]
+        ages = cur.get("fleet_rollup_ages_s")
+        if not ages:
+            return HOLD
+        limit = (self.stale_s if self.stale_s is not None
+                 else tfleet.stale_s())
+        worst = max(ages, key=ages.get)
+        if ages[worst] > limit:
+            return (f"member {worst} rollup is {ages[worst]:.1f}s "
+                    f"stale (> {limit:.1f}s) — its fleet numbers are "
+                    f"frozen")
+        return None
+
+
+class CoordinatorFailoverRule(Rule):
+    """This process's coordinator clients failed over to a different
+    endpoint of the ordered ``-mv_coordinator`` list since the last
+    tick — the primary died (or vanished long enough for the dialer to
+    land on a successor). Fires on the FIRST tick that sees the
+    counter move (fire_after=1: one failover is already the event, not
+    noise needing corroboration), clears once the counter stops moving
+    — so one takeover alerts exactly once."""
+
+    name = "coordinator_failover"
+    fire_after = 1
+    clear_after = 1
+
+    def check(self, history):
+        if len(history) < 2:
+            return HOLD
+        d = self._delta(history, "coordinator_failovers")
+        if d > 0:
+            return (f"{int(d)} coordinator client failover(s) this "
+                    f"tick — active endpoint index "
+                    f"{int(history[-1].get('coordinator_endpoint', 0))}")
+        return None
+
+
 def default_rules() -> List[Rule]:
     return [ShardImbalanceRule(), ShmBackpressureRule(),
             ApplyPoolSaturationRule(), MailboxBacklogRule(),
-            SnapshotStaleRule(), MemoryGrowthRule(), StragglerRule()]
+            SnapshotStaleRule(), MemoryGrowthRule(), StragglerRule(),
+            FleetP99BreachRule(), MemberQpsOutlierRule(),
+            RollupStaleRule(), CoordinatorFailoverRule()]
 
 
 def refresh_saturation_gauges() -> None:
@@ -415,6 +553,12 @@ def collect_sample() -> dict:
     sample["publishes"] = _counter("serving.publishes")
     sample["shm_writer_stall_s"] = _counter("shm_wire.writer_stall_s")
     sample["shm_rounds"] = _counter("shm_wire.exchanges")
+    # the coordinator dialer's failover counter and active endpoint index
+    # (CoordinatorFailoverRule watches the counter's delta)
+    sample["coordinator_failovers"] = _counter("elastic.client_failovers")
+    ep = snap.get("elastic.active_endpoint")
+    if ep:
+        sample["coordinator_endpoint"] = ep.get("value", 0.0)
     try:
         from multiverso_tpu_torch.zoo import Zoo
         eng = Zoo.Get().server_engine
@@ -444,6 +588,12 @@ def collect_sample() -> dict:
         plane = peek_plane()
         if plane is not None and plane.store.latest_version() is not None:
             sample["snapshot_age_s"] = plane.store.get(None).age_s()
+    except Exception:
+        pass
+    # the fleet accumulator's fold: non-empty only on the process that
+    # hosts the coordinator (everywhere else the fleet rules HOLD)
+    try:
+        sample.update(tfleet.peek_sample())
     except Exception:
         pass
     try:
@@ -485,6 +635,7 @@ class Watchdog:
         # plane's always-on families ride the same moment
         for r in self.rules:
             tmetrics.counter(f"alert.{r.name}")
+        tfleet.eager_register()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 

@@ -140,7 +140,7 @@ class Dashboard:
             local_map = {n: (float(m.count), m.elapse_ms)
                          for n, m in cls._records.items()}
         names = sorted(local_map)
-        if multihost.process_count() > 1:
+        if multihost.world_size() > 1:
             blobs = multihost.host_allgather_bytes(
                 "\x00".join(names).encode())
             union = set()
@@ -176,8 +176,12 @@ class Dashboard:
             lines += serving.status_lines()
         except Exception:       # pragma: no cover - serving torn down
             pass
-        # the replica and fleet lines wait with their planes
-        # (ROADMAP.md item 5)
+        # the replica line waits with its plane (ROADMAP.md)
+        try:
+            from multiverso_tpu_torch.telemetry import fleet
+            lines += fleet.status_lines()
+        except Exception:       # pragma: no cover - telemetry torn down
+            pass
         lines += cls._ops_lines()
         out = "\n".join(lines)
         for line in lines:
@@ -268,8 +272,24 @@ class Dashboard:
                                  f"active_alerts = {names}")
             except Exception:
                 pass
-            # the [Elastic] and [CoordHA] lines wait with the elastic
-            # plane (ROADMAP.md item 5)
+            from multiverso_tpu_torch import elastic
+            el = elastic.state_report()
+            if el is not None:
+                lines.append(
+                    f"[Elastic] epoch = {el['epoch']}, members = "
+                    f"{len(el['members'])} {el['members']}"
+                    + (" (this member departed)" if el["departed"]
+                       else "")
+                    + (f", cut_seq = {el['cut_seq']}"
+                       if el.get("cut_seq") is not None else ""))
+            ha = elastic.ha_status()
+            if ha is not None:
+                line = (f"[CoordHA] endpoint = {ha['active_endpoint']}"
+                        f" (of {len(ha['endpoints'])}), failovers = "
+                        f"{ha['failover_gen']}")
+                if "standby" in ha:
+                    line += f", standby = {ha['standby']}"
+                lines.append(line)
             return lines
         except Exception:       # pragma: no cover - teardown races
             return []

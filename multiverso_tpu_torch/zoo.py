@@ -28,9 +28,15 @@ the endpoint, the watchdog and the ledger FIRST (bounded joins, so
 back-to-back worlds leak no thread and no port, whether or not the engine
 drain below succeeds), and with ``-mv_diag_dir`` set it leaves the
 diagnostics (flight ring, metrics sidecar, span trace) on disk last.
-``Barrier`` observes ``zoo.barrier_wait_s``. The elastic, replica and
-policy planes the JAX ``Start`` brings up last are later work
-(``ROADMAP.md``).
+``Barrier`` observes ``zoo.barrier_wait_s``.
+
+Elastic membership (``elastic/``, ``-mv_elastic``): the plane starts
+after the engine (rank 0 hosts the coordinator, every rank registers and
+heartbeats) and stops after the engine drain in ``Stop``, which then
+clears the fleet fold. ``size`` and the id maps follow the CURRENT view
+(an id past it raises ``MembershipChanged``), and a departed member's
+verbs fail typed (``elastic.guard_verbs``). The replica and policy planes
+the JAX ``Start`` brings up last are later work (``ROADMAP.md``).
 
 Failsafe (``failsafe/``) as in the JAX Zoo: with ``-mv_deadline_s`` set
 the FinishTrain drain, ``DrainServer``'s ping, a cut's wait
@@ -53,6 +59,8 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from multiverso_tpu_torch import elastic
+from multiverso_tpu_torch.failsafe.errors import MembershipChanged
 from multiverso_tpu_torch.message import Message, MsgType
 from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
 from multiverso_tpu_torch.parallel import multihost
@@ -71,6 +79,7 @@ from multiverso_tpu_torch.sync.server import (Server,
                                               requested_engine_channels)
 from multiverso_tpu_torch.telemetry import accounting as taccounting
 from multiverso_tpu_torch.telemetry import export as texport
+from multiverso_tpu_torch.telemetry import fleet as tfleet
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.telemetry import ops as tops
 from multiverso_tpu_torch.telemetry import trace as ttrace
@@ -160,7 +169,14 @@ class Zoo:
         # tick thread arms only when -mv_watchdog_s > 0 (both local only)
         taccounting.start_ledger()
         twatchdog.start_watchdog()
+        # the membership plane LAST (it needs the engine up): rank 0
+        # hosts the coordinator, every rank registers and heartbeats
         self.started = True
+        try:
+            elastic.start_plane(self)
+        except BaseException:
+            self.Stop()
+            raise
         Log.Debug("Zoo started on %s, rank %d of %d: %d worker(s), engine "
                   "%s", self.device_ctx.device, self.rank, self.size,
                   self.num_workers,
@@ -187,6 +203,10 @@ class Zoo:
                           "shutdown", exc)
             self.server_engine.Stop()
             self.server_engine = None
+        # the membership plane down AFTER the engine drain (the drain's
+        # flushes route under the CURRENT view); heartbeats stop and the
+        # boot-world group is restored for the next MV_Init
+        elastic.shutdown_plane()
         # the wire outlives the engine (its drain above exchanged on it)
         # and dies with the world: the next world selects its own
         multihost.close_wire()
@@ -194,6 +214,9 @@ class Zoo:
         # it drops every snapshot and stops its dispatcher, so a later
         # MV_Init world starts from a fresh plane
         serving.shutdown_plane()
+        # the fleet fold last among the telemetry planes: whatever pushed
+        # rollups into it is down, and the next world starts empty
+        tfleet.shutdown_plane()
         # one-flag postmortem: with -mv_diag_dir set every world leaves its
         # flight ring, metrics sidecar and span trace on disk
         try:
@@ -231,6 +254,8 @@ class Zoo:
 
     @property
     def size(self) -> int:
+        """Member count of the CURRENT world: the boot process count until
+        an elastic epoch transition shrinks or regrows it."""
         return multihost.world_size() if self._multihost else 1
 
     @property
@@ -266,22 +291,39 @@ class Zoo:
     # -- table registries (reference zoo.h:68-73) ---------------------------
 
     def worker_id_to_rank(self, worker_id: int) -> int:
-        """The rank hosting global worker ``worker_id``: ids partition
-        contiguously, ``num_workers`` a process."""
-        return self._id_to_rank(worker_id, self.num_workers, "worker")
+        """The boot rank hosting global worker ``worker_id`` under the
+        current view: ids partition contiguously, ``num_workers`` a
+        member."""
+        return self._id_to_member(worker_id, self.num_workers, "worker")
 
     def server_id_to_rank(self, server_id: int) -> int:
-        return self._id_to_rank(
+        return self._id_to_member(
             server_id, max(1, self.num_servers // max(1, self.size)),
             "server")
 
-    def _id_to_rank(self, global_id: int, per_rank: int, what: str) -> int:
+    def _id_to_member(self, global_id: int, per_member: int,
+                      what: str) -> int:
+        """Global worker/server id -> the hosting member's boot rank under
+        the CURRENT epoch view (member i hosts ids [i*per_member,
+        (i+1)*per_member)). An id the view no longer hosts (the world
+        shrank) raises the typed MembershipChanged under the elastic
+        plane, and fails a CHECK otherwise."""
         CHECK(global_id >= 0, f"{what} id must be >= 0, got {global_id}")
-        CHECK(per_rank > 0, f"no {what}s in this world")
-        rank = global_id // per_rank
-        CHECK(rank < self.size, f"{what} id {global_id} out of range for "
-                                f"{self.size} process(es) x {per_rank}")
-        return rank
+        CHECK(per_member > 0, f"no {what}s in this world")
+        group = multihost.current_group()
+        view = (group.members if group is not None
+                else tuple(range(multihost.process_count()
+                                 if self._multihost else 1)))
+        member_pos = global_id // per_member
+        if member_pos >= len(view):
+            if elastic.enabled():
+                raise MembershipChanged(
+                    f"{what}_id_to_rank({global_id}) — the id maps past "
+                    f"the current view", epoch=elastic.epoch(),
+                    members=view)
+            CHECK(False, f"{what} id {global_id} out of range for "
+                         f"{len(view)} member(s) x {per_member}")
+        return view[member_pos]
 
     def RegisterServerTable(self, server_table) -> int:
         CHECK(self.server_engine is not None,
@@ -296,6 +338,9 @@ class Zoo:
 
     def SendToServer(self, msg: Message) -> None:
         CHECK(self.server_engine is not None, "no server engine (ma mode?)")
+        # a DEPARTED elastic member's verb fails typed instead of forking
+        # the world's state (one bool read when the plane is off)
+        elastic.guard_verbs()
         if msg.msg_type not in (MsgType.Request_Get, MsgType.Request_Add):
             # a non-verb message is an ordering point: a cut or a drain
             # must include every fire-and-forget Add issued before it
@@ -310,6 +355,7 @@ class Zoo:
         receives the members one at a time instead: same stream order,
         unbatched."""
         CHECK(self.server_engine is not None, "no server engine (ma mode?)")
+        elastic.guard_verbs()
         if tracked:
             self.flush_combined_adds()
         eng = self.server_engine
@@ -319,16 +365,19 @@ class Zoo:
             return
         eng.receive_multi(members)
 
-    def CallOnEngine(self, msg_type: MsgType, fn, what: str):
+    def CallOnEngine(self, msg_type: MsgType, fn, what: str,
+                     timeout_s: Optional[float] = None):
         """Run ``fn()`` on the engine thread at the current stream
         position — the consistent-cut mechanism: the engine treats any
         non-verb message as a window barrier (a cross-stream cut on the
         sharded engine), so every Add admitted before this call is applied
-        first and none after. Returns ``fn``'s result; its failure
-        re-raises here. Bounded by ``-mv_deadline_s``."""
+        first and none after. Checkpoint saves, serving publishes and
+        elastic membership transitions all ride it. Returns ``fn``'s
+        result; its failure re-raises here. Bounded by ``timeout_s``, else
+        ``-mv_deadline_s``."""
         CHECK(self.server_engine is not None,
               f"{what} needs a server engine (not -ma mode)")
-        return self._round_trip(msg_type, {"fn": fn}, what)
+        return self._round_trip(msg_type, {"fn": fn}, what, timeout_s)
 
     def flush_combined_adds(self) -> None:
         """Ship every table's combine buffer (cheap when none holds an
@@ -345,14 +394,18 @@ class Zoo:
             self._round_trip(MsgType.Request_Barrier, {},
                              "engine barrier ping (DrainServer)")
 
-    def _round_trip(self, msg_type: MsgType, payload: dict, what: str):
+    def _round_trip(self, msg_type: MsgType, payload: dict, what: str,
+                    timeout_s: Optional[float] = None):
         """Send one non-verb message, wait for its reply (bounded by
-        ``-mv_deadline_s``), re-raise an engine-side failure."""
+        ``timeout_s``, else ``-mv_deadline_s``), re-raise an engine-side
+        failure."""
         waiter = Waiter(1)
         msg = Message(msg_type=msg_type, payload=payload, waiter=waiter)
         self.SendToServer(msg)
-        if not waiter.Wait(fdeadline.timeout_or_none()):
-            fdeadline.raise_deadline(what)
+        limit = timeout_s if timeout_s is not None \
+            else fdeadline.timeout_or_none()
+        if not waiter.Wait(limit):
+            fdeadline.raise_deadline(what, limit)
         if isinstance(msg.result, Exception):
             raise msg.result
         return msg.result

@@ -149,7 +149,9 @@ def test_ops_endpoint_health_and_teardown():
               if k.startswith("mv_alert_")}
     assert set(talert) == {f"mv_alert_{r}" for r in (
         "shard_imbalance", "shm_backpressure", "apply_pool_sat",
-        "mailbox_backlog", "snapshot_stale", "memory_growth", "straggler")}
+        "mailbox_backlog", "snapshot_stale", "memory_growth", "straggler",
+        "fleet_p99_breach", "member_qps_outlier", "rollup_stale",
+        "coordinator_failover")}
     assert set(talert) <= set(scr["jax"]["samples"])
     assert not any(talert.values())
 
@@ -246,7 +248,9 @@ def test_watchdog_rules_and_hysteresis_match_jax():
     names = [r.name for r in twd.default_rules()]
     assert names == ["shard_imbalance", "shm_backpressure",
                      "apply_pool_sat", "mailbox_backlog", "snapshot_stale",
-                     "memory_growth", "straggler"]
+                     "memory_growth", "straggler", "fleet_p99_breach",
+                     "member_qps_outlier", "rollup_stale",
+                     "coordinator_failover"]
     samples = _samples()
     for name in names:
         trule = next(r for r in twd.default_rules() if r.name == name)
