@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
     python3 chip_smoke.py --record-of RUN.json [RUN.json ...]
 
-(``--rank-child R --child-phase ps|mh|fs|el|lr|we --port P --port2 Q``
-runs one rank of ``[ps_2proc]``, of ``[ps_2proc apply]``, ``[ps_2proc
-compress]`` and ``[kv_2proc device]``, of ``[ps_2proc chaos]``, of
-``[elastic_2proc]``, of ``[lr_2proc]`` or of ``[we_2proc]``; the script
+(``--rank-child R --child-phase ps|mh|fs|el|sb|po|lr|we --port P --port2
+Q [--port3 S --port4 L]`` runs one rank of ``[ps_2proc]``, of ``[ps_2proc
+apply]``, ``[ps_2proc compress]`` and ``[kv_2proc device]``, of
+``[ps_2proc chaos]``, of ``[elastic_2proc]``, of ``[standby_2proc]``, of
+``[policy_2proc]``, of ``[lr_2proc]`` or of ``[we_2proc]``; the script
 starts both ranks itself.)
 
 Drives the port's main path through the entry points a user calls and
@@ -264,6 +265,33 @@ holds every kernel of that path against its plain PyTorch version:
               seconds and bytes, each first verb after one, the relay
               and shm rounds, the seconds from the exit to the typed
               error, each turn's launches;
+              ``[standby_2proc]`` (two more ranks, ``--child-phase sb``,
+              beside a standby process, ``python -m
+              multiverso_tpu_torch.elastic.standby``): the same tables
+              under ``-mv_elastic -mv_standby`` with both coordinator
+              endpoints in ``-mv_coordinator``; 3 rounds and a sync,
+              ``coord.kill`` on rank 0's coordinator, 3 rounds and a sync
+              served by the successor: the standby "replicated" before,
+              ``elastic.standby_degraded`` 0, the successor's digest at
+              takeover equal to the dead primary's, no member evicted,
+              each rank failed over, the standby with no CUDA context,
+              the tables (and the momentum aux) bitwise a no-kill world's
+              of the same rounds; the records replayed, the takeover ms,
+              the kill to the successor's first served op, the rounds
+              before and after; ``[policy]`` (one process,
+              ``-mv_engine_shards=2 -mv_policy=true``, four add tables at
+              the PS shape): a route installs at the cut from two tick
+              records, table 0's verbs follow it to stream 1, the route
+              event aligned with its alert, ``/actions`` shows it, the
+              install's seconds; ``[policy_2proc]`` (two more ranks,
+              ``--child-phase po``, ``-mv_engine_shards=2`` on shm, four
+              add tables at the PS shape, tables 0 and 2 hot,
+              ``MV_PolicySync`` every 4th iteration): a route installs on
+              both ranks, a hot probe after it lands balanced (max/mean
+              under 1.5), the alert clears, the tables bitwise a
+              ``-mv_policy=false`` world's; a clean world installs
+              nothing; each shard's apply seconds and the iterations
+              before and after the install;
 4. WE       — WordEmbedding at the repo's width: 100,000 words x 128,
               skip-gram NEG, 3 blocks of a Zipf corpus made from --seed,
               on ``-device_plane 1 -is_pipeline 0`` and on the host plane
@@ -490,6 +518,17 @@ FS_DEADLINE_S, FS_DELAY_S, FS_SHUTDOWN_S = 0.5, 2.0, 5.0
 EL_A, EL_B, EL_C = 3, 2, 3
 EL_LEASE_S, EL_DEADLINE_S = 2.0, 60.0
 EL_STEPS = ("fence", "capture", "ship", "download", "rebuild", "commit")
+# [standby_2proc]: [elastic_2proc]'s tables, lease and deadline; SB_A rounds
+# before the primary's kill and SB_B after it; the standby's takeover lease
+SB_A, SB_B, SB_LEASE_S = 3, 3, 1.0
+# [policy_2proc]: the skew drill's iterations, the hot tables' AddRows an
+# iteration each (half of it on all four tables in the clean world), and
+# the post-install probe's AddRows to each hot table. A window's apply
+# takes ~35 ms at this width, so a watchdog tick of PO_TICK_S (the JAX
+# drill's 0.15 s holds ~3 windows: a tick that caught one stream alone
+# read as a 2x imbalance) and a revert watch of PO_REVERT_AFTER ticks
+PO_ITERS, PO_BURST, PO_PROBE = 48, 4, 12
+PO_TICK_S, PO_REVERT_AFTER = 1.0, 12
 
 
 def log(msg: str) -> None:
@@ -2241,14 +2280,514 @@ def report_el_2proc(el: dict, card: str) -> None:
         "shrunk-world oracle after exactly one MembershipChanged")
 
 
+def sb_2proc_rank(rank: int, port: int, port2: int, succ: int,
+                  log_port: int, seed: int, out: str) -> int:
+    """One rank of [standby_2proc] (``--rank-child R --child-phase sb``):
+    the PS shape's add and momentum tables on ``cuda:0`` over the shm wire
+    under ``-mv_elastic``, rank 0's coordinator replicating to the standby
+    process the parent started (``-mv_standby``), both endpoints in
+    ``-mv_coordinator``. SB_A rounds and a sync; rank 0 then fires
+    ``coord.kill`` (the chaos site, armed for one op) and times the op it
+    sent until the successor answers; SB_B rounds and a sync on the
+    successor; no member evicted, each rank failed over, no standby
+    degrade. Then a world with no standby and no kill runs the same
+    rounds: the tables' digests must be equal. Writes ``out``."""
+    import hashlib
+
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch import elastic
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.parallel import multihost
+        from multiverso_tpu_torch.telemetry import metrics
+        from multiverso_tpu_torch.updaters.base import AddOption
+        from multiverso_tpu_torch.zoo import Zoo
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2", f"-mv_deadline_s={EL_DEADLINE_S}"]
+    mopt = AddOption(momentum=0.5)
+    res = {"rank": rank}
+
+    def digests(add, mom) -> dict:
+        fa, fm = add.Get(), mom.Get()
+        if not (np.isfinite(fa).all() and np.isfinite(fm).all()):
+            raise AssertionError("[standby_2proc] a table is not finite")
+        mtable = Zoo.Get().server_tables[1]
+        aux = mtable.state["aux"]
+        return {"add": hashlib.sha256(fa.tobytes()).hexdigest(),
+                "mom": hashlib.sha256(fm.tobytes()).hexdigest(),
+                "aux": hashlib.sha256(b"".join(
+                    np.ascontiguousarray(mtable.aux_to_logical(
+                        aux[n])).tobytes() for n in sorted(aux))).hexdigest()}
+
+    def check_card() -> None:
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the standby path")
+
+    cr.reset_launches()
+    mv.MV_Init(base + [
+        "-mv_elastic=true", f"-mv_elastic_lease_s={EL_LEASE_S}",
+        f"-mv_coordinator=127.0.0.1:{port2},127.0.0.1:{succ}",
+        f"-mv_standby=127.0.0.1:{log_port}"])
+    if multihost.wire_name() != "shm":
+        raise AssertionError(f"[standby_2proc] rode "
+                             f"{multihost.wire_name()}, not shm")
+    add, mom = ps_tables(mv)
+    res["before_ms"] = [el_train(add, mom, mopt, seed, 100 + r, rank)
+                        for r in range(SB_A)]
+    assert mv.MV_ElasticSync() == 0
+    st = elastic._state
+    if rank == 0:
+        res["standby_before"] = elastic.ha_status()["standby"]
+        if res["standby_before"] != "replicated":
+            raise AssertionError(f"[standby_2proc] the standby is "
+                                 f"{res['standby_before']}")
+        mv.MV_SetFlag("chaos_spec", "coord.kill:1.0")
+        res["kill_wall"] = time.time()
+        t0 = time.perf_counter()
+        st.client.call("state", timeout=60.0)   # dies mid-op; the retry
+        res["kill_to_first_op_s"] = time.perf_counter() - t0    # lands on
+        mv.MV_SetFlag("chaos_spec", "")                         # the succ
+        res["primary_digest"] = st.coordinator.state_digest()
+    res["after_ms"] = [el_train(add, mom, mopt, seed, 100 + r, rank)
+                       for r in range(SB_A, SB_A + SB_B)]
+    t0 = time.perf_counter()
+    assert mv.MV_ElasticSync() == 0
+    res["sync_on_successor_s"] = time.perf_counter() - t0
+    state = st.client.call("state", timeout=60.0)
+    res["statuses"] = {str(k): v for k, v in state["statuses"].items()}
+    res["successor_standby"] = state["standby"]
+    res["failover_gen"] = st.client.failover_gen
+    res["members"] = list(mv.MV_ElasticMembers())
+    res["degraded"] = metrics.snapshot().get(
+        "elastic.standby_degraded", {}).get("value", 0)
+    if res["statuses"] != {"0": "active", "1": "active"} or \
+            res["failover_gen"] < 1 or res["degraded"] != 0:
+        raise AssertionError(f"[standby_2proc] rank {rank} after the "
+                             f"takeover: {res}")
+    mv.MV_Barrier()
+    res["killed"] = digests(add, mom)
+    check_card()
+    res["launches"] = dict(cr.LAUNCHES)
+    del add, mom
+    mv.MV_ShutDown(finalize_net=False)
+
+    mv.MV_Init(base)            # the no-kill oracle world, same rounds
+    add, mom = ps_tables(mv)
+    for r in range(SB_A + SB_B):
+        el_train(add, mom, mopt, seed, 100 + r, rank)
+    mv.MV_Barrier()
+    res["oracle"] = digests(add, mom)
+    check_card()
+    del add, mom
+    mv.MV_ShutDown()
+    if res["killed"] != res["oracle"]:
+        raise AssertionError(f"[standby_2proc] rank {rank}: the tables "
+                             f"after the kill differ from the no-kill "
+                             f"world's")
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def wait_status(path: str, role: str, timeout: float = 60.0) -> dict:
+    """The standby process's status file once it names ``role``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(path) as fh:
+                st = json.load(fh)
+            if st.get("role") == role:
+                return st
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"[standby_2proc] no {role!r} status in {path}")
+
+
+def sb_2proc_phase(seed: int, workdir: str) -> dict:
+    """[standby_2proc]: a standby process (``python -m
+    multiverso_tpu_torch.elastic.standby``, never a CUDA context) and both
+    ranks (``sb_2proc_rank``); the successor's digest at takeover equal
+    to the dead primary's; the tables equal across the ranks and to the
+    no-kill world; each rank launching all three kernels."""
+    succ = free_port()
+    status = os.path.join(workdir, "standby_status.json")
+    standby = subprocess.Popen(
+        [sys.executable, "-m", "multiverso_tpu_torch.elastic.standby",
+         "--listen", "127.0.0.1:0", "--serve", f"127.0.0.1:{succ}",
+         "--lease", str(SB_LEASE_S), "--coord-lease", str(EL_LEASE_S),
+         "--status-file", status],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=open(os.path.join(workdir, "standby.log"), "w"),
+        stderr=subprocess.STDOUT)
+    try:
+        log_port = wait_status(status, "standby")["log_port"]
+        ranks = rank_children("sb", seed, workdir,
+                              extra=("--port3", str(succ), "--port4",
+                                     str(log_port)))
+        sst = wait_status(status, "successor")
+    finally:
+        standby.kill()
+        standby.wait()
+    r0, r1 = ranks
+    if sst.get("cuda_initialized") is not False:
+        raise AssertionError(f"[standby_2proc] the standby made a CUDA "
+                             f"context: {sst}")
+    if sst["digest"] != r0["primary_digest"]:
+        raise AssertionError(f"[standby_2proc] successor digest "
+                             f"{sst['digest']} != primary "
+                             f"{r0['primary_digest']}")
+    if r0["killed"] != r1["killed"]:
+        raise AssertionError("[standby_2proc] the tables differ across "
+                             "the ranks")
+    for r in ranks:
+        for name, n in r["launches"].items():
+            if n == 0:
+                raise AssertionError(f"[standby_2proc] rank {r['rank']} "
+                                     f"never launched {name}")
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in r0["launches"]}
+    return {"ranks": ranks, "successor": sst, "launches": launches}
+
+
+def report_sb_2proc(sb: dict, card: str) -> None:
+    r0, r1 = sb["ranks"]
+    s = sb["successor"]
+    log(f"[standby_2proc] takeover: {s['records']} op-log records "
+        f"replayed in {s['takeover_ms']:.4f} ms (takeover lease "
+        f"{SB_LEASE_S} s); {r0['kill_to_first_op_s']:.4f} s from the kill "
+        f"to the successor's first served op; the sync on the successor "
+        f"{r0['sync_on_successor_s']:.4f} / {r1['sync_on_successor_s']:.4f}"
+        f" s (ranks 0 / 1; {card})")
+    log(f"[standby_2proc] digests: primary {r0['primary_digest']}, "
+        f"successor {s['digest']} (equal); failover_gen "
+        f"{r0['failover_gen']} / {r1['failover_gen']}, statuses "
+        f"{r0['statuses']}, standby_degraded {r0['degraded']}, successor "
+        f"standby {r0['successor_standby']}; the standby process's CUDA "
+        f"context: {s['cuda_initialized']}")
+    log(f"[standby_2proc] rounds (AddRows add + momentum, GetRows, "
+        f"{PS_IDS} ids) before the kill {np.median(r0['before_ms']):.4f} / "
+        f"{np.median(r1['before_ms']):.4f} ms, after "
+        f"{np.median(r0['after_ms']):.4f} / {np.median(r1['after_ms']):.4f}"
+        f" ms (median, ranks 0 / 1; first before "
+        f"{r0['before_ms'][0]:.4f} ms; {card})")
+    log(f"[standby_2proc] launches (both ranks, the kill world): "
+        f"{sb['launches']}; the add and momentum tables and the momentum "
+        f"aux bitwise equal across the ranks and to the no-kill world")
+
+
+def po_tables(mv) -> list:
+    """[policy]/[policy_2proc]'s four add tables at the PS shape (the
+    modulo map puts tables 0 and 2 on shard 0, 1 and 3 on shard 1)."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    return [mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                num_cols=PS_COLS))
+            for _ in range(4)]
+
+
+def po_rec(n: int, active=(), shards=None) -> dict:
+    sample = {"t": float(n)}
+    if shards is not None:
+        sample["shards"] = shards
+    return {"ticks": n, "sample": sample, "fired": [],
+            "active": list(active)}
+
+
+def policy_phase(torch, mv, cr, dev, seed: int) -> dict:
+    """[policy]: one process, ``-mv_engine_shards=2 -mv_policy=true
+    -mv_policy_sustain=1 -mv_policy_cooldown_s=0``, four add tables at the
+    PS shape (tests/test_policy.py:321-398): a synthetic
+    ``shard_imbalance`` alert through the real watchdog's stream stamp and
+    two tick records into the live plane; the route installs at the cut
+    (the routing report's override), table 0's verbs then ride stream 1,
+    the route event shares the alert's membership epoch at or after its
+    SEQ, ``/actions`` shows the install. Returns the install's seconds
+    (the tick that stages and installs it at the cross-stream cut)."""
+    from multiverso_tpu_torch import policy
+    from multiverso_tpu_torch.telemetry import flight, ops
+    from multiverso_tpu_torch.telemetry import watchdog as twd
+    from multiverso_tpu_torch.zoo import Zoo
+    flight._reset_for_tests()
+    mv.MV_Init(["-mv_engine_shards=2", "-mv_watchdog_s=30",
+                "-mv_ops_port=0", "-mv_policy=true", "-mv_policy_sustain=1",
+                "-mv_policy_cooldown_s=0"])
+    try:
+        tabs = po_tables(mv)
+        se = Zoo.Get().server_engine
+        if type(se).__name__ != "ShardedServer":
+            raise AssertionError(f"[policy] engine {type(se).__name__}")
+        batches = [ps2_batch(seed, 800 + t, 0) for t in range(4)]
+        for t, (ids, d) in zip(tabs, batches):
+            t.AddRows(ids, d)           # warm every shard stream
+        before = se.routing_report()
+        wd = twd.peek()
+        wd.evaluate({"t": 1.0})
+        mep, seq = twd.stream_pos()
+        flight.record("alert.shard_imbalance", seq=seq, mepoch=mep,
+                      detail="synthetic drill alert")
+        eng = policy.peek()
+        shards0 = [{"shard": 0, "apply_busy_s": 0.0,
+                    "table_verbs": {0: 0, 2: 0}},
+                   {"shard": 1, "apply_busy_s": 0.0,
+                    "table_verbs": {1: 0, 3: 0}}]
+        shards1 = [{"shard": 0, "apply_busy_s": 0.8,
+                    "table_verbs": {0: 120, 2: 20}},
+                   {"shard": 1, "apply_busy_s": 0.01,
+                    "table_verbs": {1: 2, 3: 2}}]
+        eng.step(po_rec(1, ["shard_imbalance"], shards0))
+        t0 = time.perf_counter()
+        staged = eng.step(po_rec(2, ["shard_imbalance"], shards1))
+        install_s = time.perf_counter() - t0
+        after = se.routing_report()
+        if [a["id"] for a in staged] != ["route:t0:s0>s1:g0"] or \
+                after["overrides"] != {0: 1} or after["installs"] != 1:
+            raise AssertionError(f"[policy] no route at the cut: {staged} "
+                                 f"{after}")
+        verbs0 = se._subs[1].table_verbs.get(0, 0)
+        ids, d = batches[0]
+        tabs[0].AddRows(ids, d)
+        got = tabs[0].GetRows(ids)
+        np.testing.assert_array_equal(got, 2 * d)
+        if se._subs[1].table_verbs.get(0, 0) <= verbs0:
+            raise AssertionError("[policy] table 0's verbs did not follow "
+                                 "the new map to stream 1")
+        evs = flight.events()
+        act = next(e for e in evs if e["kind"] == "policy.route")
+        alert = next(e for e in evs if e["kind"] == "alert.shard_imbalance")
+        if not (act["mepoch"] == alert["mepoch"] == 0
+                and alert["seq"] <= act["seq"]):
+            raise AssertionError(f"[policy] flight events misaligned: "
+                                 f"{alert} {act}")
+        code, body = http_get(ops.port(), "/actions")
+        doc = json.loads(body)
+        if code != 200 or doc["installed"] != 1 or not any(
+                a["status"] == "installed" for a in doc["actions"]):
+            raise AssertionError(f"[policy] /actions: {code} {doc}")
+        torch.cuda.synchronize()
+        if cr.read_error(dev) != 0:
+            raise AssertionError("error word set on the policy path")
+        return {"install_s": install_s, "before": before["routing"],
+                "after": after["routing"], "route_seq": act["seq"],
+                "alert_seq": alert["seq"], "actions_installed":
+                doc["installed"]}
+    finally:
+        mv.MV_ShutDown()
+
+
+def po_2proc_rank(rank: int, port: int, port2: int, seed: int,
+                  out: str) -> int:
+    """One rank of [policy_2proc] (``--rank-child R --child-phase po``):
+    the JAX skew drill (tests/test_policy.py:468-637) at the PS shape:
+    two engine shards on the shm wire, four add tables, tables 0 and 2
+    (both on shard 0) carrying PO_BURST fire-and-forget AddRows of PS_IDS
+    ids each an iteration, ``MV_PolicySync`` every fourth, the policy at a
+    policy-only authority (``-mv_policy_addr``, ``--port2``). The skew
+    world must install a route agreed on both ranks, a fixed hot burst
+    after it must land balanced (max/mean of the streams' apply seconds
+    under 1.5) and the alert clear; a ``-mv_policy=false`` world of the
+    same verbs must end with the same tables; a clean world (the traffic
+    over all four tables, every rule armed) must install nothing."""
+    import hashlib
+
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.parallel import multihost
+        from multiverso_tpu_torch.telemetry import flight
+        from multiverso_tpu_torch.telemetry import watchdog as twd
+        from multiverso_tpu_torch.zoo import Zoo
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    res = {"rank": rank}
+
+    def shard_s(eng) -> dict:
+        return {s["shard"]: s["apply_busy_s"] for s in eng.shard_states()}
+
+    def world(mode: str, policy_on: bool) -> dict:
+        args = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+                "-dist_size=2", "-mv_engine_shards=2", "-mv_deadline_s=120",
+                f"-mv_watchdog_s={PO_TICK_S}"]
+        if policy_on:
+            rules = "shard_imbalance" if mode == "skew" else "all"
+            args += ["-mv_policy=true",
+                     f"-mv_policy_addr=127.0.0.1:{port2}",
+                     f"-mv_policy_rules={rules}", "-mv_policy_sustain=2",
+                     "-mv_policy_cooldown_s=2.0", "-mv_policy_window_s=30",
+                     "-mv_policy_max_actions=2",
+                     f"-mv_policy_revert_after={PO_REVERT_AFTER}"]
+        flight._reset_for_tests()
+        cr.reset_launches()
+        mv.MV_Init(args)
+        w = {"mode": mode, "policy": policy_on}
+        try:
+            eng = Zoo.Get().server_engine
+            if type(eng).__name__ != "ShardedServer" or \
+                    multihost.wire_name() != "shm":
+                raise AssertionError(f"[policy_2proc] {type(eng).__name__}"
+                                     f" on {multihost.wire_name()}")
+            tabs = po_tables(mv)
+            hot = [tabs[0], tabs[2]] if mode == "skew" else tabs
+            burst = PO_BURST if mode == "skew" else PO_BURST // 2
+            s_start = shard_s(eng)
+            w["iter_ms"], w["installed_at"] = [], None
+            for i in range(PO_ITERS):
+                t0 = time.perf_counter()
+                ids, d = ps2_batch(seed, 900 + i, rank)
+                for _ in range(burst):
+                    for t in hot:
+                        t.AddFireForget(d, row_ids=ids)
+                if i % 7 == 3:
+                    tabs[1].AddFireForget(d[:4], row_ids=ids[:4])
+                    tabs[3].AddFireForget(d[:4], row_ids=ids[:4])
+                tabs[0].Wait(tabs[0].GetAsyncHandle(row_ids=ids[:8]))
+                if policy_on and i % 4 == 3:
+                    acts = mv.MV_PolicySync()
+                    if acts and w["installed_at"] is None:
+                        w["installed_at"] = i
+                        w["s_install"] = shard_s(eng)
+                w["iter_ms"].append((time.perf_counter() - t0) * 1e3)
+            mv.MV_Barrier()
+            w["s_end"] = shard_s(eng)
+            w["s_start"] = s_start
+            w["report"] = ({k: v for k, v in mv.MV_PolicyReport().items()
+                            if k in ("installed", "staged", "drains",
+                                     "reverted")} if policy_on else None)
+            rr = eng.routing_report()
+            w["overrides"] = {str(k): v for k, v in rr["overrides"].items()}
+            h = hashlib.sha256()
+            for t in tabs:
+                h.update(t.Get().tobytes())
+            w["digest"] = h.hexdigest()
+            if policy_on and mode == "skew":
+                ids, d = ps2_batch(seed, 999, rank)
+                s0 = shard_s(eng)
+                for _ in range(PO_PROBE):
+                    tabs[0].AddFireForget(d, row_ids=ids)
+                    tabs[2].AddFireForget(d, row_ids=ids)
+                tabs[0].GetRows(ids)
+                tabs[2].GetRows(ids)
+                s1 = shard_s(eng)
+                w["post"] = {str(k): s1[k] - s0.get(k, 0.0) for k in s1}
+                deadline = time.time() + 20
+                cleared = not any(a["rule"] == "shard_imbalance"
+                                  for a in twd.active_alerts())
+                while not cleared and time.time() < deadline:
+                    time.sleep(0.2)
+                    cleared = not any(a["rule"] == "shard_imbalance"
+                                      for a in twd.active_alerts())
+                w["cleared"] = cleared
+            w["ring"] = sorted({e["kind"] for e in flight.events()
+                                if e["kind"].startswith(("policy.",
+                                                         "alert."))})
+            torch.cuda.synchronize()
+            if cr.read_error(dev) != 0:
+                raise AssertionError("error word set on the policy path")
+            mv.MV_Barrier()
+        finally:
+            mv.MV_ShutDown(finalize_net=False)
+        w["launches"] = dict(cr.LAUNCHES)
+        return w
+
+    res["skew"] = world("skew", True)
+    res["oracle"] = world("skew", False)
+    res["clean"] = world("clean", True)
+    multihost.net_finalize()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def po_2proc_phase(seed: int, workdir: str) -> dict:
+    """[policy_2proc]: both ranks (``po_2proc_rank``); the checks of the
+    JAX skew and clean drills on each rank, the tables equal across the
+    ranks and to the policy-off world; each rank launching the gather and
+    the update in every world."""
+    ranks = rank_children("po", seed, workdir)
+    for r in ranks:
+        sk, orc, cl = r["skew"], r["oracle"], r["clean"]
+        tag = f"[policy_2proc] rank {r['rank']}"
+        if sk["report"]["installed"] < 1 or not sk["overrides"]:
+            raise AssertionError(f"{tag}: no route installed: {sk}")
+        moved = sorted(sk["overrides"])
+        if not set(moved) <= {"0", "2"} or sk["overrides"][moved[0]] != 1:
+            raise AssertionError(f"{tag}: a cold table moved: {sk}")
+        if "policy.route" not in sk["ring"]:
+            raise AssertionError(f"{tag}: no policy.route event")
+        d0, d1 = sk["post"].get("0", 0.0), sk["post"].get("1", 0.0)
+        if not (d0 > 0 and d1 > 0
+                and max(d0, d1) / (0.5 * (d0 + d1)) < 1.5):
+            raise AssertionError(f"{tag}: the hot burst is unbalanced "
+                                 f"after the install: {sk['post']}")
+        if not sk["cleared"]:
+            raise AssertionError(f"{tag}: shard_imbalance never cleared")
+        if sk["digest"] != orc["digest"] or orc["overrides"]:
+            raise AssertionError(f"{tag}: the tables differ from the "
+                                 f"-mv_policy=false world's")
+        if cl["report"]["installed"] or cl["report"]["drains"] or \
+                cl["overrides"] or any(
+                    k in cl["ring"] for k in ("policy.route", "policy.tune",
+                                              "policy.drain",
+                                              "policy.revert")):
+            raise AssertionError(f"{tag}: the clean world acted: {cl}")
+        for turn in ("skew", "oracle", "clean"):
+            for name in ("gather_rows", "update_rows"):
+                if r[turn]["launches"][name] == 0:
+                    raise AssertionError(f"{tag}: {turn} never launched "
+                                         f"{name}")
+    for turn in ("skew", "oracle", "clean"):
+        if ranks[0][turn]["digest"] != ranks[1][turn]["digest"]:
+            raise AssertionError(f"[policy_2proc] {turn}: the tables "
+                                 f"differ across the ranks")
+    launches = {name: sum(r[t]["launches"][name] for r in ranks
+                          for t in ("skew", "oracle", "clean"))
+                for name in ranks[0]["skew"]["launches"]}
+    return {"ranks": ranks, "launches": launches}
+
+
+def report_po_2proc(po: dict, card: str) -> None:
+    for r in po["ranks"]:
+        sk = r["skew"]
+        at = sk["installed_at"]
+        if at is not None:
+            pre = {k: sk["s_install"][k] - sk["s_start"].get(k, 0.0)
+                   for k in sk["s_install"]}
+            log(f"[policy_2proc] rank {r['rank']}: shard apply seconds "
+                f"before the install (iterations 0-{at}) {pre}, the hot "
+                f"probe after it {sk['post']} ({card})")
+            log(f"[policy_2proc] rank {r['rank']}: iteration ms before "
+                f"the install {np.median(sk['iter_ms'][:at + 1]):.4f}, "
+                f"after {np.median(sk['iter_ms'][at + 1:]):.4f} (median; "
+                f"the policy-off world "
+                f"{np.median(r['oracle']['iter_ms']):.4f}, the clean world "
+                f"{np.median(r['clean']['iter_ms']):.4f}; {card})")
+        log(f"[policy_2proc] rank {r['rank']}: overrides {sk['overrides']}"
+            f", report {sk['report']}, alert cleared {sk['cleared']}; "
+            f"clean world report {r['clean']['report']}")
+    log(f"[policy_2proc] launches (both ranks, three worlds): "
+        f"{po['launches']}; the skew world's tables bitwise the "
+        f"-mv_policy=false world's, equal across the ranks")
+
+
 def rank_children(phase: str, seed: int, workdir: str,
-                  rcs=(0, 0)) -> list:
+                  rcs=(0, 0), extra=()) -> list:
     """Both ranks of a two-process phase: two processes of this script
     (``--rank-child R --child-phase PHASE``) on the one card over gloo,
     started after the build so they load the built kernels; a rank that
     exits with another code than ``rcs`` gives it, or hangs past
     RANK_CHILD_S, fails the run (both are killed). ``--port2`` is a second
-    free port (the elastic coordinator's). Returns each rank's JSON
+    free port (the elastic coordinator's, or the policy authority's);
+    ``extra`` more arguments of both ranks. Returns each rank's JSON
     results."""
     port, port2 = free_port(), free_port()
     tag = f"{phase}_2proc"
@@ -2258,7 +2797,7 @@ def rank_children(phase: str, seed: int, workdir: str,
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-child", str(r),
          "--child-phase", phase, "--port", str(port), "--port2", str(port2),
-         "--seed", str(seed),
+         "--seed", str(seed), *extra,
          "--workdir", workdir, "--json-out", outs[r]],
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
     deadline = time.monotonic() + RANK_CHILD_S
@@ -5546,17 +6085,23 @@ def main() -> int:
                     help="run one rank of a two-process phase (the script "
                          "starts both itself)")
     ap.add_argument("--child-phase", default="ps",
-                    choices=("ps", "mh", "fs", "el", "lr", "we"),
+                    choices=("ps", "mh", "fs", "el", "sb", "po", "lr",
+                             "we"),
                     help="the two-process phase of --rank-child: "
                          "[ps_2proc]; [ps_2proc apply], [ps_2proc "
                          "compress] and [kv_2proc device]; [ps_2proc "
-                         "chaos]; [elastic_2proc]; [lr_2proc] or "
-                         "[we_2proc]")
+                         "chaos]; [elastic_2proc]; [standby_2proc]; "
+                         "[policy_2proc]; [lr_2proc] or [we_2proc]")
     ap.add_argument("--port", type=int, default=0,
                     help="a two-process phase's rank 0 rendezvous port")
     ap.add_argument("--port2", type=int, default=0,
                     help="a two-process phase's second port (the elastic "
                          "coordinator's)")
+    ap.add_argument("--port3", type=int, default=0,
+                    help="[standby_2proc]: the standby's successor "
+                         "endpoint port")
+    ap.add_argument("--port4", type=int, default=0,
+                    help="[standby_2proc]: the standby's op-log port")
     ap.add_argument("--workdir", default="",
                     help="a two-process phase's data directory")
     ap.add_argument("--record-of", nargs="+", default=[],
@@ -5575,6 +6120,13 @@ def main() -> int:
     if args.rank_child >= 0:
         if args.child_phase == "el":
             return el_2proc_rank(args.rank_child, args.port, args.port2,
+                                 args.seed, args.json_out)
+        if args.child_phase == "sb":
+            return sb_2proc_rank(args.rank_child, args.port, args.port2,
+                                 args.port3, args.port4, args.seed,
+                                 args.json_out)
+        if args.child_phase == "po":
+            return po_2proc_rank(args.rank_child, args.port, args.port2,
                                  args.seed, args.json_out)
         if args.child_phase in ("ps", "mh", "fs"):
             return {"ps": ps_2proc_rank, "mh": mh_2proc_rank,
@@ -5930,6 +6482,36 @@ def main() -> int:
             f"both turns; each rank must launch gather_rows, "
             f"scatter_set_rows, update_rows in each turn it trains)")
         report_el_2proc(el2, card)
+        # [standby_2proc]: a primary kill under the two-rank elastic world
+        # with a standby process beside the ranks (two more ranks, their
+        # launches counted from zero)
+        sb2 = sb_2proc_phase(args.seed, workdir)
+        results["sb_2proc"] = sb2
+        paths["sb_2proc"] = sb2["launches"]
+        log(f"[main path] sb_2proc: launches {sb2['launches']} (both ranks;"
+            f" each rank must launch gather_rows, scatter_set_rows, "
+            f"update_rows)")
+        report_sb_2proc(sb2, card)
+        # [policy]: a route installed at the cut in one process
+        pol = drive("policy", lambda: policy_phase(torch, mv, cr, dev,
+                                                   args.seed),
+                    rows_and_update)
+        results["policy"] = pol
+        log(f"[policy] 4 add tables {PS_ROWS} x {PS_COLS} on 2 engine "
+            f"shards: route {pol['before']} -> {pol['after']} installed at "
+            f"the cut in {pol['install_s']:.6f} s (the tick that staged "
+            f"and installed it), the route event at SEQ {pol['route_seq']} "
+            f"after the alert's {pol['alert_seq']}, table 0's verbs on "
+            f"stream 1, /actions installed {pol['actions_installed']} "
+            f"({card})")
+        # [policy_2proc]: the hot-table skew drill at the PS shape (two
+        # more ranks, each world's launches counted from zero)
+        po2 = po_2proc_phase(args.seed, workdir)
+        results["po_2proc"] = po2
+        paths["po_2proc"] = po2["launches"]
+        log(f"[main path] po_2proc: launches {po2['launches']} (both ranks,"
+            f" three worlds; each must launch gather_rows, update_rows)")
+        report_po_2proc(po2, card)
         ck = drive("ckpt", lambda: ckpt_phase(torch, mv, cr, dev, args.seed,
                                               workdir), every)
         results["ckpt"] = ck
@@ -6157,6 +6739,11 @@ def main() -> int:
                              "turns": {t: c[k] for t, c in
                                        el2["turn_launches"].items()},
                              "shapes_checked": ["ps", "ps_2proc"]}
+        # [standby_2proc], [policy] and [policy_2proc] run at the same
+        # shapes: [ps]'s 10,000 ids and [ps_2proc]'s merged union
+        for name in ("sb_2proc", "policy", "po_2proc"):
+            entry[name] = {"launches": paths[name][k],
+                           "shapes_checked": ["ps", "ps_2proc"]}
         for name, shapes in two_k.items():
             if k in shapes:
                 entry[name] = {key: shapes[k][key] for key in (

@@ -25,7 +25,10 @@ ops endpoint, the byte ledger, the watchdog, the offline critpath and
 forensics tools, the fleet rollup) with ``MV_StartProfiler`` over
 ``torch.profiler``, and the elastic membership plane (``elastic``: epochs,
 heartbeat leases, drain and re-admit, resume from the snapshot cut after a
-silent death, ``MV_Elastic*``), on one GPU,
+silent death, the coordinator's standby and failover, ``MV_Elastic*``) and
+the policy plane (``policy``: sustained watchdog alerts turned into guarded
+routing, tuning and drain actions at engine cuts, ``MV_Policy*``), on one
+GPU,
 and in worlds of several processes over ``torch.distributed`` (gloo), each
 process keeping a replica of every table on its own card. Its three row
 kernels (gather, scatter-set, fused update) are hand-written CUDA for
@@ -60,6 +63,9 @@ from multiverso_tpu_torch.api import (  # noqa: F401
     MV_NumServers,
     MV_NumWorkers,
     MV_PinVersion,
+    MV_PolicyKill,
+    MV_PolicyReport,
+    MV_PolicySync,
     MV_PublishSnapshot,
     MV_Rank,
     MV_SaveCheckpoint,

@@ -35,9 +35,8 @@ from multiverso_tpu_torch.analysis.core import (Checker, Finding,
                                                 PackageIndex, register)
 
 #: restricted roots: node id -> the convention it encodes. The JAX
-#: package's roots of the planes the port has not ported yet (the replica
-#: lookup and fan-out threads, the policy daemon, the standby takeover)
-#: come back with those planes.
+#: package's roots of the replica plane (its lookup and fan-out threads)
+#: come back with that plane.
 DEFAULT_ROOTS: Dict[str, str] = {
     "telemetry/ops.py:_OpsHandler.do_GET":
         "ops HTTP handler (serves on the HTTP thread, engine unquiesced)",
@@ -65,6 +64,21 @@ DEFAULT_ROOTS: Dict[str, str] = {
         "fleet rollup build (lease heartbeat daemon threads)",
     "telemetry/fleet.py:FleetAccumulator.ingest":
         "coordinator-side fleet rollup fold (RPC handler threads)",
+    # the policy plane's evaluation daemon: it STAGES actions (local
+    # queue / coordinator RPC) and, single-process, installs at an
+    # engine cut (a mailbox hand-off), never a collective; the
+    # collective drain leg lives in MV_PolicySync on app threads by
+    # construction, and this root keeps it there
+    "policy/engine.py:PolicyEngine._run":
+        "policy evaluation daemon (alert->action loop)",
+    "policy/engine.py:PolicyEngine.step":
+        "policy evaluation step (also driven directly by tests)",
+    # coordinator HA: the standby's takeover replays the op log and
+    # serves INSIDE a standby process that has no SPMD stream: a
+    # collective reachable from it would hang the successor forever
+    "elastic/standby.py:StandbyServer.force_takeover":
+        "standby lease takeover (log replay + successor bind, "
+        "standby process)",
 }
 
 #: collective primitives: node id -> what it is. The JAX package's

@@ -510,9 +510,9 @@ class DeviceWorkDomainChecker(Checker):
                    "calls, the row kernels) must be unreachable from "
                    "sampling/HTTP thread domains")
 
-    #: domains that must stay off the device (the JAX package's fanout,
-    #: replica-* and policy domains join with their planes)
-    RESTRICTED = frozenset({"watchdog", "reporter", "ops-http"})
+    #: domains that must stay off the device (the JAX package's fanout
+    #: and replica-* domains join with their plane)
+    RESTRICTED = frozenset({"watchdog", "reporter", "ops-http", "policy"})
     #: in-package defs that ARE device work even without a lexical touch:
     #: (module-rel regex, qualname regex, label)
     DEVICE_ZONES: List[Tuple[str, str, str]] = [
@@ -714,9 +714,9 @@ class BlockingDomainChecker(Checker):
     #: the threads the runtime cannot afford to park forever: engine
     #: verb/apply threads (a stuck engine wedges every rank), request
     #: handlers (a stuck handler leaks server threads), and the policy
-    #: daemon (round 20: a parked actuator is a silent dead-man switch)
+    #: daemon (a parked actuator is a silent dead-man switch)
     RESTRICTED = frozenset({"engine-shard", "apply-pool", "ops-http",
-                            "elastic"})
+                            "elastic", "policy"})
     #: no exempt file: the JAX package's one (its Pallas DMA semaphore
     #: waits) has no Python counterpart in the port
     ALLOW: Dict[str, str] = {}

@@ -78,8 +78,9 @@ class DomainRoot:
 #: domain; deliberately MANY threads, see the domain-granularity bound
 #: above), helper (bounded-call runner + chaos redelivery timers, whose
 #: payloads are caller-defined), elastic (coordinator RPC dispatch +
-#: member heartbeats). The JAX package's fanout, replica-*, standby and
-#: policy domains come back with their planes.
+#: member heartbeats), standby (the op-log shipper and the standby
+#: process's threads), policy (the alert->action daemon). The JAX
+#: package's fanout and replica-* domains come back with their plane.
 INVENTORY: List[DomainRoot] = [
     # -- engine side
     DomainRoot("engine-shard", "actor.py", r"^Actor\._main$",
@@ -153,6 +154,36 @@ INVENTORY: List[DomainRoot] = [
                "member heartbeat thread (the _beat closure)",
                spawn=("elastic/coordinator.py",
                       "MemberClient.start_heartbeats")),
+    # -- coordinator HA: the op-log replication threads. Their own
+    # "standby" domain, NOT "elastic": the shipper's ack wait and the
+    # standby's replay hold plain locks by design (control plane, never
+    # on a verb path), so they must not inherit the elastic domain's
+    # blocking restriction.
+    DomainRoot("standby", "elastic/standby.py",
+               r"^LogShipper\._ack_loop$",
+               "primary-side op-log ack reader (standby watermark)",
+               spawn=("elastic/standby.py", "LogShipper.__init__")),
+    DomainRoot("standby", "elastic/standby.py",
+               r"^LogShipper\._ping_loop$",
+               "primary-side takeover-lease keepalive",
+               spawn=("elastic/standby.py", "LogShipper.__init__")),
+    DomainRoot("standby", "elastic/standby.py",
+               r"^StandbyServer\._feed$",
+               "standby op-log intake (per-stream server threads)",
+               spawn=("elastic/standby.py", "StandbyServer.__init__")),
+    DomainRoot("standby", "elastic/standby.py",
+               r"^StandbyServer\._watch$",
+               "standby takeover-lease monitor",
+               spawn=("elastic/standby.py", "StandbyServer.__init__")),
+    # -- policy plane: the alert->action daemon. Its watchdog-listener
+    # intake (PolicyEngine.on_watchdog_tick) runs on the WATCHDOG thread
+    # and is enqueue-only by contract; the decision and staging work all
+    # hangs off _run. Actuation across processes happens at
+    # MV_PolicySync on app threads (deliberately NOT a root, like the
+    # other cut-riding API calls).
+    DomainRoot("policy", "policy/engine.py", r"^PolicyEngine\._run$",
+               "policy evaluation daemon (alert->action loop)",
+               spawn=("policy/engine.py", "PolicyEngine.start")),
     # -- tcp wire: the only thread the transport owns is the
     # install-time accept loop — it collects the mesh's inbound dials,
     # closes the listeners and EXITS; steady-state exchanges run

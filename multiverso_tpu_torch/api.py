@@ -11,8 +11,8 @@ profiler (``MV_StartProfiler``/``MV_StopProfiler`` over
 ``torch.profiler``) and the telemetry verbs (``MV_MetricsSnapshot``,
 ``MV_DumpTrace``, ``MV_DumpFlightRecorder``, ``MV_DumpDiagnostics``) and
 the elastic membership verbs (``MV_ElasticSync``, ``MV_ElasticLeave``,
-``MV_ElasticJoin``, ``MV_ElasticEpoch``, ``MV_ElasticMembers``). The
-policy verbs are later work (``ROADMAP.md``).
+``MV_ElasticJoin``, ``MV_ElasticEpoch``, ``MV_ElasticMembers``) and the
+policy verbs (``MV_PolicySync``, ``MV_PolicyReport``, ``MV_PolicyKill``).
 
 Device rule: ``MV_Init`` runs the world on ``cuda:0`` unless the caller
 asks for the CPU (``-mv_device=cpu`` or ``devices=[torch.device("cpu")]``);
@@ -393,3 +393,37 @@ def MV_ElasticMembers() -> tuple:
     elastic plane is off)."""
     from multiverso_tpu_torch import elastic
     return elastic.members()
+
+
+def MV_PolicySync(timeout: float = 60.0) -> list:
+    """Policy actuation point (requires ``-mv_policy``): a LOCKSTEP call
+    every active member makes at the same loop position (the
+    MV_SaveCheckpoint / MV_ElasticSync discipline). Pulls the ONE agreed
+    staged-action list from the policy control authority's rendezvous,
+    installs route/tune actions at this rank's fenced engine cut, and runs
+    at most one guarded elastic drain (the sick rank's MV_ElasticLeave
+    against the survivors' MV_ElasticSync). Returns the actions actuated
+    ([] while the plane is off; single-process worlds actuate from the
+    policy thread and rarely have anything left to flush here)."""
+    from multiverso_tpu_torch import policy
+    return policy.sync_point(timeout=timeout)
+
+
+def MV_PolicyReport() -> dict:
+    """The policy plane's local action report (the ``/actions`` body):
+    guard settings, install/revert/drain counts, tracked actions under
+    revert watch, and the bounded action history. Never collective."""
+    from multiverso_tpu_torch import policy
+    return policy.actions_report()
+
+
+def MV_PolicyKill() -> None:
+    """Runtime kill switch: flip ``-mv_policy`` off. The plane keeps
+    watching (sustain and burn state stay warm) but installs nothing from
+    the next evaluation on, actions ALREADY STAGED included: the pull
+    rendezvous agrees the kill verdict across ranks, so one disarmed rank
+    vetoes the whole batch world-wide. Re-arm with
+    ``MV_SetFlag('mv_policy', 'true')``."""
+    SetCMDFlag("mv_policy", "false")
+    Log.Info("policy: kill switch thrown — acting disabled "
+             "(MV_SetFlag('mv_policy','true') re-arms)")

@@ -10,6 +10,8 @@ is a LIVE operation, the OSDI'14 parameter-server way:
 * :mod:`rebalance` — the re-partition math and the sealed shard-move
   frames built on the checkpoint frame;
 * :mod:`dialer` — the ordered coordinator endpoint list with backoff;
+* :mod:`standby` — the coordinator's op-log replication and the standby
+  process that takes over on the primary's death (``-mv_standby``);
 * this module — the member-side state machine gluing them to the Zoo,
   the engine and the failsafe layer.
 
@@ -40,10 +42,11 @@ catch ``MembershipChanged`` and re-run from their last sync point. A
 collective failure with every lease fresh stays fatal, loudly.
 
 Scope: joiners are boot-world processes re-admitted after a drain; rank
-0 (the coordinator's host) cannot drain, and its death ends the world.
-The coordinator's standby (``-mv_standby``) is not ported: a non-empty
-value fails ``MV_Init``. One card per process: a rebuilt table lands on
-the live table's device (``rebalance._devices_for``).
+0 (the coordinator's host) cannot drain. With ``-mv_standby`` rank 0 ships
+the coordinator's op log to a standby process, and the death of the
+coordinator is a failover: the standby replays the log and serves at the
+next endpoint of ``-mv_coordinator``. One card per process: a rebuilt
+table lands on the live table's device (``rebalance._devices_for``).
 """
 
 from __future__ import annotations
@@ -87,8 +90,10 @@ MV_DEFINE_string("mv_coordinator", "",
                  "-mv_elastic_addr when set")
 MV_DEFINE_string("mv_standby", "",
                  "host:port of a standby coordinator's log-stream "
-                 "listener. The coordinator's standby is not ported: a "
-                 "non-empty value fails MV_Init")
+                 "listener (python -m multiverso_tpu_torch.elastic.standby "
+                 "--listen ...). Rank 0 ships every coordinator "
+                 "mutation there; on primary death the standby "
+                 "replays the log and serves as successor")
 
 #: rendezvous bound for control-plane waits (sync/cut/commit/joiner
 #: pickup) — generous: these block on PEERS reaching their lockstep
@@ -131,6 +136,31 @@ def members() -> Tuple[int, ...]:
     return _state.members
 
 
+def is_departed() -> bool:
+    return _state.departed
+
+
+def coordinator_endpoint():
+    """(host, port) of the live membership coordinator, or None when
+    the plane is down — other planes reuse this endpoint instead of
+    hosting a second authority."""
+    st = _state
+    if not st.enabled or st.client is None:
+        return None
+    return (st.client.host, st.client.port)
+
+
+def coordinator_endpoints():
+    """The ORDERED coordinator endpoint list (primary first, standby
+    successors after), or None when the plane is down. Other planes (the
+    policy daemon) build their own clients from this, so every client
+    fails over along the same list."""
+    st = _state
+    if not st.enabled or st.client is None:
+        return None
+    return list(st.client.endpoints)
+
+
 def transitions() -> List[dict]:
     """This world's transitions, oldest first, each ``{"cause", "epoch",
     "<step>_s": seconds, "bytes_shipped"}``. Steps: ``fence`` (the cut
@@ -148,10 +178,10 @@ def _stamp(rec: dict, step: str, t0: float) -> float:
 
 
 def ha_status() -> Optional[dict]:
-    """Coordinator-HA view for /healthz, /fleet and the dashboard: the
-    standby state (rank 0 only; always "solo", the standby is not
-    ported), this client's active endpoint and failover count. Never
-    collective, never blocks."""
+    """Coordinator-HA view for /healthz, /fleet and the dashboard:
+    standby replication state (rank 0 only — "solo" / "replicated" /
+    "degraded"), this client's active endpoint and failover count.
+    Never collective, never blocks."""
     st = _state
     if not st.enabled or st.client is None:
         return None
@@ -159,7 +189,7 @@ def ha_status() -> Optional[dict]:
            "active_endpoint": f"{st.client.host}:{st.client.port}",
            "failover_gen": st.client.failover_gen}
     if st.coordinator is not None:
-        out["standby"] = "solo"
+        out["standby"] = st.coordinator.standby_state
         out["op_dedup_hits"] = st.coordinator._dedup_hits
     return out
 
@@ -185,10 +215,6 @@ def start_plane(zoo) -> bool:
     CHECK(zoo.server_engine is not None,
           "-mv_elastic needs the server engine (not -ma mode): every "
           "membership transition is an engine-stream cut")
-    CHECK(not str(GetFlag("mv_standby")),
-          "-mv_standby: the coordinator's standby (the JAX package's "
-          "elastic/standby.py) is the next elastic slice and is not "
-          "ported yet; run without a standby")
     from multiverso_tpu_torch.elastic.coordinator import Coordinator, MemberClient
     from multiverso_tpu_torch.elastic import dialer as _dialer
     me = multihost.process_index()
@@ -211,8 +237,16 @@ def start_plane(zoo) -> bool:
         st.zoo = zoo
         st.me = me
         if me == 0:
+            # the standby attaches BEFORE the endpoint serves: a peer's
+            # register racing the attach would be applied unlogged, and
+            # the successor would not know that member (the JAX package
+            # serves first)
             st.coordinator = Coordinator(host if addr else "127.0.0.1",
-                                         port, lease)
+                                         port, lease, serve=False)
+            standby = str(GetFlag("mv_standby"))
+            if standby:
+                st.coordinator.attach_standby(standby)
+            st.coordinator.serve()
             port = st.coordinator.port
         endpoints = (_dialer.parse_endpoints(eps_spec) if eps_spec
                      else None)

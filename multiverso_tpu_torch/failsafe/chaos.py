@@ -48,9 +48,9 @@ Spec grammar (comma-separated)::
     coord.kill:P               the coordinator hard-stops mid-op
                                (one-shot latched; refused connects)
     coord.delay:P[@delay_s]    a coordinator op handler stalls
-    policy.flap:P[@period]     parsed and drawn as in the JAX package;
-                               the policy plane that consults it is not
-                               in the port
+    policy.flap:P[@period]     the policy engine's alert verdict for
+                               mailbox_backlog oscillates (period
+                               evaluations breaching, then healthy)
 
 Faults target table verbs (Get/Add), the serving read plane, the engine's
 window apply, the host wires and the elastic control plane; control

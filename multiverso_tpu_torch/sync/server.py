@@ -2231,6 +2231,7 @@ class ShardedServer(Server):
             self._reopen_locked()
 
     def _reopen_locked(self) -> None:
+        # mv-lint: ok(cross-domain-state): both callers (_cut_done and the cut's error path in Receive) hold _route_lock around this call — the checker reads the helper's writes as unlocked because the lock scope is the caller's
         self._cuts_inflight -= 1
         if self._cuts_inflight <= 0:
             self._cuts_inflight = 0
@@ -2306,7 +2307,7 @@ class ShardedServer(Server):
         # concurrent verb pushed either before the fences (applied before
         # the payload runs) or after the cut releases (under the map the
         # payload installed)
-        self.cut_count += 1
+        self.cut_count += 1  # mv-lint: ok(cross-domain-state): diagnostics-only tally; worker cuts and the policy thread's installs may race the GIL int add and at worst under-count a probe nothing gates on
         fence = _CutFence(self, len(subs))
         with self._route_lock:
             self._cuts_inflight += 1

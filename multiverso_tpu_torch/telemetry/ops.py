@@ -28,9 +28,11 @@ multi-world processes) starts one daemon thread at MV_Init running a
 * ``GET /fleet`` — the fleet view (``telemetry/fleet.py``): per-member
   rollup rows, the fleet-merged p50/p95/p99/QPS and the slowest member,
   with the coordinator client's endpoint posture; the empty fleet on a
-  process that hosts no coordinator. ``GET /actions`` — the policy
-  plane's document; that plane is not ported (``ROADMAP.md``), so it
-  answers a well-formed "not running" document.
+  process that hosts no coordinator.
+* ``GET /actions`` — the policy plane's action report (``policy/``):
+  guard settings, install/revert/drain counts, actions under revert
+  watch, and the bounded action history; says "off" while ``-mv_policy``
+  is unarmed.
 * ``GET /memory`` — the process byte ledger (round 13,
   telemetry/accounting.py): per-table device/mirror/host placement,
   per-version snapshot retention, flight/dedup/buffer estimates, shm
@@ -74,7 +76,7 @@ _NAME_SAN = re.compile(r"[^a-zA-Z0-9_:]")
 
 #: the JAX package's planes this port does not run yet (ROADMAP.md);
 #: /healthz names them instead of omitting them silently
-_NOT_RUNNING = ("replica", "policy")
+_NOT_RUNNING = ("replica",)
 
 
 def _fmt(v) -> str:
@@ -225,18 +227,34 @@ def health_report() -> dict:
             }
     except Exception:           # serving is optional
         pass
-    # the coordinator client's posture: endpoint list, active endpoint,
-    # failover count and the standby state (always "solo": the standby
-    # is not ported)
+    # the policy plane: one line naming whether the runtime is
+    # self-driving (armed kill switch), how often it acted, and the last
+    # action. Local engine state only.
+    try:
+        from multiverso_tpu_torch import policy as tpolicy
+        pline = tpolicy.status_line()
+        if pline is not None:
+            out["policy"] = pline
+    except Exception:           # policy plane torn down mid-scrape
+        pass
+    # coordinator HA: the standby replication state (rank 0: solo /
+    # replicated / degraded) and this process's client failover posture
+    # (endpoint list, active endpoint, failover count). A DEGRADED
+    # standby (the primary shed a dead standby and serves solo) stays
+    # healthy but is a NAMED warning: redundancy is gone.
     try:
         from multiverso_tpu_torch import elastic
         ha = elastic.ha_status()
         if ha is not None:
             out["coordinator_ha"] = ha
+            if ha.get("standby") == "degraded":
+                out.setdefault("warnings", []).append(
+                    "coordinator standby lost — primary serving solo "
+                    "(op log unreplicated)")
     except Exception:           # elastic plane torn down mid-scrape
         pass
-    # the replica and policy planes of the JAX package are not ported
-    # (ROADMAP.md): named, not hidden
+    # the replica plane of the JAX package is not ported (ROADMAP.md):
+    # named, not hidden
     out["not_running"] = list(_NOT_RUNNING)
     rec, drop = flight.stats()
     out["flight"] = {"recorded": rec, "dropped": drop,
@@ -376,11 +394,10 @@ class _OpsHandler(BaseHTTPRequestHandler):
                                            sort_keys=True),
                            "application/json")
             elif path == "/actions":
-                self._send(200, json.dumps(
-                    {"enabled": False,
-                     "note": "actions: plane not running (the policy "
-                             "plane is not ported: ROADMAP.md)"},
-                    indent=1, sort_keys=True), "application/json")
+                from multiverso_tpu_torch import policy as tpolicy
+                self._send(200, json.dumps(tpolicy.actions_report(),
+                                           indent=1, sort_keys=True),
+                           "application/json")
             elif path == "/memory":
                 from multiverso_tpu_torch.telemetry import accounting
                 self._send(200, json.dumps(accounting.memory_report(),
@@ -388,7 +405,8 @@ class _OpsHandler(BaseHTTPRequestHandler):
                            "application/json")
             else:
                 self._send(404, "unknown path (know /metrics /healthz "
-                                "/flight /perf /alerts /memory)\n",
+                                "/flight /perf /alerts /actions "
+                                "/fleet /memory)\n",
                            "text/plain")
         except Exception as exc:    # never kill the handler thread
             try:

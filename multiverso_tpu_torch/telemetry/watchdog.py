@@ -66,7 +66,10 @@ every other process; the fold is local, filled by the members' pushed
 heartbeats, so the tick stays collective-free.
 
 ``apply_pool_sat`` watches the JAX package's native host-store pool, which
-the port does not have: its evidence never arrives and it HOLDs. The JAX
+the port does not have: its evidence never arrives and it HOLDs, so the
+policy plane's ``-mv_apply_workers`` loop acts only on tick records that
+carry the alert (``ROADMAP.md`` §3). Every evaluation ends with the tick
+listeners (the policy plane's intake), called outside the lock. The JAX
 package's ``replica_lag`` reads the replica plane, which is not ported; it
 waits with it (``ROADMAP.md``).
 
@@ -629,6 +632,12 @@ class Watchdog:
                      "since": None, "detail": None}
             for r in self.rules}
         self.ticks = 0
+        #: the alert->action hand-off: tick listeners called AFTER every
+        #: evaluate (outside the lock) with one record ``{"ticks",
+        #: "sample", "fired", "active"}``. The policy plane registers
+        #: here; a listener enqueues for its own thread, must be cheap
+        #: and never raise.
+        self._tick_listeners: List = []
         self._t_ticks = tmetrics.counter("watchdog.ticks")
         # EAGER registration (the PR 6 rule): the whole alert family
         # scrapes at zero from the first /metrics read — the fleet
@@ -688,6 +697,16 @@ class Watchdog:
                     Log.Info("[watchdog] ALERT %s: %s", rule.name,
                              verdict)
                     fired.append(rule.name)
+            active = [name for name, st in self._state.items()
+                      if st["active"]]
+            ticks = self.ticks
+            listeners = list(self._tick_listeners)
+        for fn in listeners:        # outside the lock: a listener may
+            try:                    # itself read active_alerts()
+                fn({"ticks": ticks, "sample": sample, "fired": fired,
+                    "active": active})
+            except Exception as exc:    # a buggy listener must not
+                Log.Error("watchdog tick listener failed: %r", exc)
         return fired
 
     def tick(self) -> List[str]:
@@ -695,6 +714,13 @@ class Watchdog:
         evaluate the rules over a fresh sample."""
         refresh_saturation_gauges()
         return self.evaluate(collect_sample())
+
+    def add_tick_listener(self, fn) -> None:
+        """Register an alert->action hand-off listener (the policy
+        plane's intake). Called after every evaluate with ``{"ticks",
+        "sample", "fired", "active"}``; must be cheap and never raise."""
+        with self._lock:
+            self._tick_listeners.append(fn)
 
     # -- state surfaces -----------------------------------------------------
 

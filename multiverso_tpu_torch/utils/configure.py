@@ -72,6 +72,14 @@ def cached_float_flag(name: str, default: float):
     return cached_flag(name, default, float)
 
 
+def cached_str_flag(name: str, default: str):
+    """Lowercased-string variant: mode flags compare case-insensitively at
+    every call site, so the fallback default rides the same cast as
+    registry reads."""
+    return cached_flag(name, str(default).lower(),
+                       lambda v: str(v).lower())
+
+
 class _FlagRegister:
     """One typed registry (reference configure.h:40-57 FlagRegister<T>)."""
 

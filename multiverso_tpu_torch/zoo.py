@@ -35,8 +35,11 @@ after the engine (rank 0 hosts the coordinator, every rank registers and
 heartbeats) and stops after the engine drain in ``Stop``, which then
 clears the fleet fold. ``size`` and the id maps follow the CURRENT view
 (an id past it raises ``MembershipChanged``), and a departed member's
-verbs fail typed (``elastic.guard_verbs``). The replica and policy planes
-the JAX ``Start`` brings up last are later work (``ROADMAP.md``).
+verbs fail typed (``elastic.guard_verbs``). The policy plane
+(``policy/``, ``-mv_policy``) starts last, after the watchdog whose tick
+listener feeds it and the elastic coordinator it may ride, and stops
+before the watchdog. The replica plane the JAX ``Start`` brings up is
+later work (``ROADMAP.md``).
 
 Failsafe (``failsafe/``) as in the JAX Zoo: with ``-mv_deadline_s`` set
 the FinishTrain drain, ``DrainServer``'s ping, a cut's wait
@@ -60,6 +63,7 @@ from typing import Any, List, Optional
 import numpy as np
 
 from multiverso_tpu_torch import elastic
+from multiverso_tpu_torch import policy
 from multiverso_tpu_torch.failsafe.errors import MembershipChanged
 from multiverso_tpu_torch.message import Message, MsgType
 from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
@@ -174,6 +178,10 @@ class Zoo:
         self.started = True
         try:
             elastic.start_plane(self)
+            # the policy plane LAST: it needs the watchdog's tick listener
+            # and, across processes, the elastic coordinator endpoint (or
+            # its own -mv_policy_addr authority) already up
+            policy.start_plane(self)
         except BaseException:
             self.Stop()
             raise
@@ -190,6 +198,9 @@ class Zoo:
         # back-to-back worlds must not leak their threads or the ops port
         texport.stop_reporter()
         tops.stop_ops()
+        # the policy plane down BEFORE the watchdog that feeds it (no tick
+        # may land on a stopped engine) and before the engine it cuts
+        policy.shutdown_plane()
         twatchdog.stop_watchdog()
         taccounting.stop_ledger()
         # no chaos redelivery may land in a mailbox that is going down

@@ -10,8 +10,15 @@ layer, held against the JAX package where the JAX package answers.
     maps follow the view: in range the boot rank, past it the typed
     error under ``-mv_elastic`` and a CHECK without, as the JAX
     ``TestEpochIdMaps`` drill has it.
-(c) A non-empty ``-mv_standby`` fails ``MV_Init`` naming the standby, and
-    leaves nothing running: the next world comes up.
+(c) ``-mv_standby`` attaches rank 0's coordinator to a standby: with a
+    live ``StandbyServer`` the op log replicates (``ha_status()`` says
+    "replicated", the standby stores the world's records, ``/healthz``
+    carries no warning); with the standby down ``MV_Init`` still succeeds,
+    the authority serves solo (``ha_status()`` says "degraded", the
+    ``elastic.standby_degraded`` counter counts it, ``/healthz`` names the
+    lost standby in ``warnings``) and the world syncs; each world leaves
+    no thread running. (The JAX package's ``attach_standby`` raises on an
+    unreachable standby; the port degrades instead, ROADMAP.md §3.)
 """
 
 import threading
@@ -128,17 +135,54 @@ def test_departed_verbs_and_id_maps_are_typed():
 
 
 def test_standby_flag_fails_init_and_leaves_nothing_running():
+    """The standby attaches and replicates; a standby that is down
+    degrades the authority to solo without failing ``MV_Init`` (the
+    name predates the standby: a non-empty flag used to fail)."""
+    import json
+    import socket
+    import urllib.request
+
     import multiverso_tpu_torch as mv
-    from multiverso_tpu_torch.utils.log import FatalError
+    from multiverso_tpu_torch import elastic
+    from multiverso_tpu_torch.elastic.standby import StandbyServer
+    from multiverso_tpu_torch.telemetry import metrics, ops
+
+    def healthz():
+        return json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{ops.port()}/healthz", timeout=10).read())
+
+    def degraded():
+        return metrics.snapshot().get("elastic.standby_degraded",
+                                      {}).get("value", 0)
+
     before = {t.name for t in threading.enumerate()}
-    with pytest.raises(FatalError, match="standby"):
-        mv.MV_Init(["-mv_device=cpu", "-mv_elastic=true",
-                    "-mv_standby=127.0.0.1:9"])
-    mv.MV_ShutDown()
-    left = {t.name for t in threading.enumerate()} - before
-    assert not {n for n in left if n.startswith(("mv", "mvt"))}, left
-    mv.MV_Init(["-mv_device=cpu", "-mv_elastic=true"])
+    srv = StandbyServer(("127.0.0.1", 0), ("127.0.0.1", 0),
+                        lease_s=3600.0)
     try:
+        mv.MV_Init(["-mv_device=cpu", "-mv_elastic=true", "-mv_ops_port=0",
+                    f"-mv_standby=127.0.0.1:{srv.port}"])
+        try:
+            assert elastic.ha_status()["standby"] == "replicated"
+            assert mv.MV_ElasticSync() == 0
+            assert srv.record_count() >= 1          # register at least
+            assert "warnings" not in healthz()
+            d0 = degraded()
+        finally:
+            mv.MV_ShutDown()
+    finally:
+        srv.stop()
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_port = dead.getsockname()[1]
+    dead.close()                     # refused from here on
+    mv.MV_Init(["-mv_device=cpu", "-mv_elastic=true", "-mv_ops_port=0",
+                f"-mv_standby=127.0.0.1:{dead_port}"])
+    try:
+        assert elastic.ha_status()["standby"] == "degraded"
+        assert degraded() == d0 + 1
+        assert any("standby lost" in w for w in healthz()["warnings"])
         assert mv.MV_ElasticSync() == 0
     finally:
         mv.MV_ShutDown()
+    left = {t.name for t in threading.enumerate()} - before
+    assert not {n for n in left if n.startswith(("mv", "mvt"))}, left

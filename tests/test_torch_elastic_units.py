@@ -14,8 +14,9 @@
     ``coord``: register, hb, leave with a duplicate and from rank 0, sync,
     cut, deduped shard_put, manifest, commit, join staging with a
     duplicate, dead_check under an injected clock, the shrink's commit,
-    xchg/gbar, state) sent to each package's ``Coordinator``: the same
-    replies and the same ``state_digest()`` after every step.
+    xchg/gbar, the policy ops, the replica ops with a reap under an
+    injected clock, state) sent to each package's ``Coordinator``: the
+    same replies and the same ``state_digest()`` after every step.
 (c) The dialer: endpoint parsing and the failover order (a refused
     endpoint then a live one, ``mark_failed`` rotation, the typed
     ``CoordinatorUnreachable``), equal in both packages.
@@ -165,7 +166,7 @@ def test_coordinator_op_script_matches_jax(tmp_path):
     assert [s["step"] for s in got["steps"]] == [
         "register", "hb", "leave", "sync", "cut", "shard_put", "manifest",
         "commit", "join", "reap", "dead_check", "commit_death", "xchg",
-        "state"]
+        "policy", "replica", "replica_reap", "state"]
     for g, w in zip(got["steps"], want["steps"]):
         assert g == w, (g["step"], g, w)
     # the script reached what it stages: rank 0 refused a drain, the
@@ -177,6 +178,17 @@ def test_coordinator_op_script_matches_jax(tmp_path):
     assert steps["dead_check"][0]["transition"]["members"] == [0]
     assert steps["state"][0]["statuses"] == {"0": "active", "1": "reaped",
                                              "2": "left"}
+    # the policy and replica ops reached what they stage: the duplicate
+    # put answered from the seen-set, the pull drained the one action,
+    # the relay blob fetched, the evicted replica told so, the stale
+    # lease reaped
+    assert steps["policy"][1]["dup"] is True
+    assert [a["id"] for a in steps["policy"][2]["actions"]] == [
+        "tune:mv_apply_workers:4>6:g0"]
+    assert steps["replica"][5]["blob"] == {"bytes": b"delta-7".hex()}
+    assert steps["replica"][8] == {"evicted": True, "latest": 7}
+    assert steps["replica_reap"][0] == [1]
+    assert steps["state"][0]["replicas"] == {"1": "dead", "2": "evicted"}
 
 
 def test_dialer_parsing_and_failover_match_jax(tmp_path):
