@@ -4,12 +4,12 @@
     python3 chip_smoke.py [--seed N] [--json-out PATH] [--baseline DIR]
     python3 chip_smoke.py --record-of RUN.json [RUN.json ...]
 
-(``--rank-child R --child-phase ps|mh|fs|el|sb|po|lr|we --port P --port2
-Q [--port3 S --port4 L]`` runs one rank of ``[ps_2proc]``, of ``[ps_2proc
-apply]``, ``[ps_2proc compress]`` and ``[kv_2proc device]``, of
-``[ps_2proc chaos]``, of ``[elastic_2proc]``, of ``[standby_2proc]``, of
-``[policy_2proc]``, of ``[lr_2proc]`` or of ``[we_2proc]``; the script
-starts both ranks itself.)
+(``--rank-child R --child-phase ps|mh|fs|el|sb|po|rp|lr|we --port P
+--port2 Q [--port3 S --port4 L]`` runs one rank of ``[ps_2proc]``, of
+``[ps_2proc apply]``, ``[ps_2proc compress]`` and ``[kv_2proc device]``,
+of ``[ps_2proc chaos]``, of ``[elastic_2proc]``, of ``[standby_2proc]``,
+of ``[policy_2proc]``, of ``[replica_2proc]``, of ``[lr_2proc]`` or of
+``[we_2proc]``; the script starts both ranks itself.)
 
 Drives the port's main path through the entry points a user calls and
 holds every kernel of that path against its plain PyTorch version:
@@ -201,6 +201,39 @@ holds every kernel of that path against its plain PyTorch version:
               the gather at the serve union shape (unions of the
               measured mean batch of Zipf lookups) against its plain
               version, bitwise, timed as in phase 2;
+              the replica plane (``[replica]``, after ``[serve]``): one
+              trainer with ``-mv_replica_fanout -mv_replica_lease_s=2``,
+              [serve]'s sgd (device-resident) and AdaGrad (host-resident)
+              tables and a KV table of 100,000 int64 keys; four reader
+              processes (``python -m multiverso_tpu_torch.replica.
+              replica``: two shm, one tcp, one relay) reach v1 from a
+              base, then five publishes at 1% churn (10,000 rows a
+              matrix table, 1,000 keys) reach each as a delta of at most
+              10% of its base; each reader's lookups at both retained
+              versions bitwise the trainer's ``MV_ServingLookup`` (4,096
+              ids a matrix table, 512 keys, absent ones included), its
+              live versions the keep=2 pair, its status file without a
+              CUDA context; bench.py's lookup clients over one and two
+              shm readers (lookups/s, p99); the base and delta bytes,
+              the encodes (pickle + seal apart), the ships, the seconds
+              from a publish to each reader's latest, the fan-out
+              thread's row gathers; then one shm reader SIGKILLed:
+              ``replica.evictions`` moves within the lease and two
+              fan-out ticks, ``/healthz`` names it, and the next publish
+              reaches the other three bitwise; the gather at the
+              replica's delta (10,000 rows) and base (1,000,000 lanes)
+              shapes against its plain version, ``index_select`` and
+              ``data[:num_rows].clone()``; ``[replica_2proc]`` (two more
+              ranks, ``--child-phase rp``, beside [standby_2proc]'s
+              standby process): the PS shape's add table under
+              ``-mv_elastic -mv_standby -mv_replica_fanout`` on shm, one
+              shm reader on rank 0 whose ``--addr`` is the ordered
+              coordinator list; 3 rounds, publish and pin v1 (the reader
+              reaches it), ``coord.kill``, 3 rounds, publish and pin v2:
+              the reader holds through the outage and reaches v2, the
+              publisher saw the failover and re-shipped, the reader's
+              lookups at both versions bitwise each rank's pinned
+              lookups, no host collective round across them;
               telemetry (``[telemetry]``): the PS round (add and
               momentum) with the JAX package's default-on telemetry and
               with ``-telemetry=false -mv_flight_events=0``, a world a
@@ -521,6 +554,21 @@ EL_STEPS = ("fence", "capture", "ship", "download", "rebuild", "commit")
 # [standby_2proc]: [elastic_2proc]'s tables, lease and deadline; SB_A rounds
 # before the primary's kill and SB_B after it; the standby's takeover lease
 SB_A, SB_B, SB_LEASE_S = 3, 3, 1.0
+# [replica]: [serve]'s two tables and a KV table of REP_KV_KEYS keys in one
+# trainer with -mv_replica_fanout; readers of REP_MODES; after v1,
+# REP_PUBLISHES publishes at the JAX bench's 1% churn (bench.py:1499-1507:
+# REP_CHURN rows a matrix table, REP_KV_CHURN keys); bench.py's lookup
+# clients (:1513-1540: one process a reader, REP_CLIENT_THREADS threads x
+# REP_CLIENT_N lookups of REP_BATCH rows); the bitwise checks on
+# REP_CHECK_IDS ids a matrix table and REP_CHECK_KEYS keys; the readers'
+# and the publisher's lease
+REP_MODES = ("shm", "shm", "tcp", "relay")
+REP_KV_KEYS, REP_CHURN, REP_KV_CHURN, REP_PUBLISHES = 100_000, 10_000, 1_000, 5
+REP_CLIENT_THREADS, REP_CLIENT_N, REP_BATCH = 3, 400, 64
+REP_CHECK_IDS, REP_CHECK_KEYS, REP_LEASE_S = 4_096, 512, 2.0
+# [replica_2proc]: the PS rounds (AddRows + GetRows of 10,000 ids a rank)
+# before the coordinator kill (v1 published after them) and after it (v2)
+RP_A, RP_B = 3, 3
 # [policy_2proc]: the skew drill's iterations, the hot tables' AddRows an
 # iteration each (half of it on all four tables in the clean world), and
 # the post-install probe's AddRows to each hot table. A window's apply
@@ -5775,10 +5823,743 @@ def apps_2proc(torch, cr, dev, seed: int, workdir: str, lr_data: dict,
             max_abs_err=lr2_k["update_rows_sgd_max_abs_err"])
         log(f"[kernels] lr_2proc merged window update (sgd sign): per-pair "
             f"{lr2_k['update_rows']['ms']:.7f} ms, stream "
-            f"{lr2_k['update_rows']['stream_ms']:.7f} ms")
+            f"{lr2_k['update_rows']['stream_ms']:.7f} ms (plain "
+            f"{lr2_k['update_rows']['plain_ms']:.7f}, index_add_ alpha -1 "
+            f"{lr2_k['update_rows']['library_ms']:.7f}, both per-pair), "
+            f"max_abs_err {lr2_k['update_rows']['max_abs_err']}")
     results["kernels_lr_2proc_shape"] = lr2_k
     results["kernels_we_2proc_touched_rows"] = touched
     return {"lr_2proc": lr2_k, "we_2proc": touched}
+
+
+# -- [replica] and [replica_2proc]: the replica plane -----------------------
+
+
+def reader_spawn(addr: str, mode: str, workdir: str, name: str,
+                 lease: float, extra=()) -> tuple:
+    """One reader process (``python -m multiverso_tpu_torch.replica.
+    replica``) with a status file; (process, status path, log file)."""
+    sf = os.path.join(workdir, f"{name}.json")
+    logf = open(os.path.join(workdir, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multiverso_tpu_torch.replica.replica",
+         "--addr", addr, "--mode", mode, "--lease", str(lease),
+         "--status-file", sf, *extra],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=logf, stderr=subprocess.STDOUT)
+    return proc, sf, logf
+
+
+def reader_status(proc, sf: str, timeout: float = 120.0) -> dict:
+    """A reader's status file once written (it follows the join); fails
+    if the reader exits first."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(sf):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError(f"[replica] reader {sf} never came up "
+                                 f"(exit {proc.poll()})")
+        time.sleep(0.02)
+    with open(sf) as f:
+        return json.load(f)
+
+
+def readers_wait(clients: list, version: int, procs: list,
+                 timeout: float = 120.0) -> list:
+    """Poll every reader in turn until each holds ``version``; the wall
+    clock at which each was first seen holding it."""
+    deadline = time.monotonic() + timeout
+    seen = [None] * len(clients)
+    while None in seen:
+        for i, rc in enumerate(clients):
+            if seen[i] is not None:
+                continue
+            st = rc.status()
+            if (st["latest"] or -1) >= version:
+                seen[i] = time.time()
+            elif procs[i].poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"[replica] reader r{st['rid']} never "
+                                     f"reached v{version}: {st} (exit "
+                                     f"{procs[i].poll()})")
+        time.sleep(0.005)
+    return seen
+
+
+class FanoutProbe:
+    """While installed, records what the replica publisher does: every
+    encode (kind, seconds, bytes; the pickle + seal seconds of each bundle
+    apart), every ship (reader, mode, version, kind, bytes, seconds, the
+    wall clock at its end) and the row gathers the fan-out thread launches
+    (``cr.gather_rows`` called from ``mv-replica-fanout``)."""
+
+    def __init__(self, cr):
+        from multiverso_tpu_torch.replica import delta as rdelta
+        from multiverso_tpu_torch.replica import publisher as rpub
+        self.cr, self.rdelta, self.rpub = cr, rdelta, rpub
+        self.encodes, self.ships, self.bundles = [], [], []
+        self.fanout_gathers = 0
+        self._kind = {}
+
+    def __enter__(self):
+        cr, rdelta, rpub = self.cr, self.rdelta, self.rpub
+        self._orig = (cr.gather_rows, rdelta.encode_base,
+                      rdelta.encode_delta, rdelta._bundle,
+                      rpub.ReplicaPublisher._encode_for,
+                      rpub.ReplicaPublisher._ship)
+        gather, enc_base, enc_delta, bundle, encode_for, ship = self._orig
+        probe = self
+
+        def counted_gather(*a, **k):
+            if threading.current_thread().name == "mv-replica-fanout":
+                probe.fanout_gathers += 1
+            return gather(*a, **k)
+
+        def timed(kind, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                blob = fn(*a, **k)
+                probe.encodes.append({"kind": kind, "bytes": len(blob),
+                                      "s": time.perf_counter() - t0})
+                return blob
+            return run
+
+        def timed_bundle(*a, **k):
+            t0 = time.perf_counter()
+            blob = bundle(*a, **k)
+            probe.bundles.append(time.perf_counter() - t0)
+            return blob
+
+        def noted_encode_for(pub, rec, snap):
+            blob, kind = encode_for(pub, rec, snap)
+            probe._kind[rec["rid"]] = kind
+            return blob, kind
+
+        def timed_ship(pub, rec, st, blob, version):
+            t0 = time.perf_counter()
+            ok = ship(pub, rec, st, blob, version)
+            probe.ships.append({
+                "rid": rec["rid"], "mode": rec["mode"], "version": version,
+                "kind": probe._kind.get(rec["rid"]), "bytes": len(blob),
+                "s": time.perf_counter() - t0, "end": time.time(),
+                "sent": bool(ok)})
+            return ok
+
+        cr.gather_rows = counted_gather
+        rdelta.encode_base = timed("base", enc_base)
+        rdelta.encode_delta = timed("delta", enc_delta)
+        rdelta._bundle = timed_bundle
+        rpub.ReplicaPublisher._encode_for = noted_encode_for
+        rpub.ReplicaPublisher._ship = timed_ship
+        return self
+
+    def __exit__(self, *exc):
+        cr, rdelta, rpub = self.cr, self.rdelta, self.rpub
+        (cr.gather_rows, rdelta.encode_base, rdelta.encode_delta,
+         rdelta._bundle, rpub.ReplicaPublisher._encode_for,
+         rpub.ReplicaPublisher._ship) = self._orig
+        return False
+
+    def ship_of(self, rid: int, version: int) -> dict:
+        hits = [s for s in self.ships
+                if s["rid"] == rid and s["version"] == version and s["sent"]]
+        if not hits:
+            raise AssertionError(f"[replica] no ship of v{version} to "
+                                 f"reader r{rid}: {self.ships}")
+        return hits[-1]
+
+
+#: one lookup client process a reader (bench.py's replica sweep client:
+#: its own interpreter, so the client's interpreter lock does not cap the
+#: aggregate): THREADS threads, N lookups each of BATCH random rows
+REP_CLIENT_SRC = r'''
+import json, sys, threading, time
+import numpy as np
+from multiverso_tpu_torch.replica.replica import ReplicaClient
+port, tid, rows, batch, threads, n, seed = (int(a) for a in sys.argv[1:8])
+lat = [[] for _ in range(threads)]
+def worker(i):
+    rc = ReplicaClient("127.0.0.1", port)
+    r = np.random.default_rng(seed + i)
+    for _ in range(n):
+        sel = np.sort(r.integers(0, rows, batch))
+        t0 = time.perf_counter()
+        rc.lookup(tid, sel)
+        lat[i].append(time.perf_counter() - t0)
+    rc.close()
+ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+t0 = time.perf_counter()
+for t in ts: t.start()
+for t in ts: t.join()
+secs = time.perf_counter() - t0
+all_lat = np.concatenate([np.asarray(x) for x in lat])
+print("CLIENT_RESULT " + json.dumps({
+    "qps": threads * n / secs, "lookups": threads * n, "secs": secs,
+    "p99_ms": float(np.percentile(all_lat, 99) * 1e3)}), flush=True)
+'''
+
+
+def rep_clients(ports: list, tid: int, workdir: str, seed: int) -> dict:
+    """bench.py's aggregate lookups: one client process a reader, run at
+    once; lookups/s summed, the largest p99."""
+    src = os.path.join(workdir, "rep_client.py")
+    with open(src, "w") as f:
+        f.write(REP_CLIENT_SRC)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, src, str(p), str(tid), str(SERVE_ROWS),
+         str(REP_BATCH), str(REP_CLIENT_THREADS), str(REP_CLIENT_N),
+         str(seed + 1000 * i)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i, p in enumerate(ports)]
+    recs = []
+    for proc in procs:
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"[replica] lookup client failed:\n"
+                                 f"{out[-2000:]}")
+        recs.append(json.loads(
+            out.split("CLIENT_RESULT ", 1)[1].splitlines()[0]))
+    return {"qps": sum(r["qps"] for r in recs),
+            "p99_ms": max(r["p99_ms"] for r in recs), "clients": recs}
+
+
+def rep_memory_reckoning(base_bytes: int, matrix_bytes: int) -> dict:
+    """What four readers may hold on the host at the serving width: a base
+    arrives as the ring's bytearray and its bytes copy, unpickles into its
+    arrays and is copied into the mirror (4 x the base at the peak); a
+    delta copies each dirty table's mirror (copy-on-apply), so with
+    -mv_serving_keep 2 a reader holds up to keep + 1 versions of the
+    matrix tables."""
+    peak = 4 * base_bytes
+    steady = (2 + 1) * matrix_bytes
+    return {"base_bytes": base_bytes, "reader_peak_bytes": peak,
+            "reader_steady_bytes": steady,
+            "four_readers_bytes": len(REP_MODES) * max(peak, steady)}
+
+
+def rep_churn(tables, rng, kv_keys: np.ndarray) -> None:
+    """One publish interval's traffic: AddRows of REP_CHURN random rows to
+    each matrix table and an Add of REP_KV_CHURN keys (a tenth of them
+    new) to the KV table."""
+    sgd, ada, kv = tables
+    for t in (sgd, ada):
+        ids = np.sort(rng.choice(SERVE_ROWS, REP_CHURN,
+                                 replace=False)).astype(np.int32)
+        t.AddRows(ids, rng.standard_normal(
+            (REP_CHURN, SERVE_COLS)).astype(np.float32))
+    old = rng.choice(kv_keys, REP_KV_CHURN - REP_KV_CHURN // 10,
+                     replace=False)
+    new = rng.integers(1 << 41, 1 << 42, REP_KV_CHURN // 10)
+    kv.Add(np.concatenate((old, new)).astype(np.int64),
+           rng.standard_normal(REP_KV_CHURN).astype(np.float32))
+
+
+def rep_check(mv, tables, rc, version: int, rng, kv_keys) -> None:
+    """A reader's lookups at ``version`` bitwise the trainer's
+    MV_ServingLookup: REP_CHECK_IDS random ids of each matrix table,
+    REP_CHECK_KEYS keys of the KV table (a quarter absent)."""
+    sgd, ada, kv = tables
+    ids = np.sort(rng.choice(SERVE_ROWS, REP_CHECK_IDS, replace=False))
+    for t in (sgd, ada):
+        got = rc.lookup(t.table_id, ids, version=version)
+        want = mv.MV_ServingLookup(t, ids, version=version)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"[replica] reader table {t.table_id} "
+                                 f"v{version} differs from the trainer's")
+    keys = np.concatenate((
+        rng.choice(kv_keys, REP_CHECK_KEYS - REP_CHECK_KEYS // 4,
+                   replace=False),
+        rng.integers(1 << 43, 1 << 44, REP_CHECK_KEYS // 4))).astype(np.int64)
+    got = rc.lookup(kv.table_id, keys, version=version)
+    want = mv.MV_ServingLookup(kv, keys, version=version)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"[replica] reader KV v{version} differs "
+                             f"from the trainer's")
+
+
+def replica_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
+    """[replica]: one trainer on the card with [serve]'s sgd (device
+    residence) and AdaGrad (host residence) tables at SERVE_ROWS x
+    SERVE_COLS and a KV table of REP_KV_KEYS keys, ``-mv_replica_fanout``;
+    four readers (REP_MODES) join after v1 and reach it from their base;
+    REP_PUBLISHES publishes at 1% churn reach each of them as deltas of at
+    most 10% of the base; the lookup clients over one and two shm readers;
+    each reader's lookups at both retained versions bitwise the trainer's,
+    its live versions the keep=2 pair, no CUDA context in any reader; then
+    one shm reader killed: evicted within the lease and two fan-out ticks,
+    named by /healthz, and the next publish reaches the other three
+    bitwise."""
+    from multiverso_tpu_torch.replica import publisher as rpub
+    from multiverso_tpu_torch.replica.replica import ReplicaClient
+    from multiverso_tpu_torch.tables import KVTableOption, MatrixTableOption
+    from multiverso_tpu_torch.telemetry import ops as tops
+    rng = np.random.default_rng(seed + 19)
+    res = {}
+    readers = []
+    t_phase = time.perf_counter()
+    mv.MV_Init(["-mv_replica_fanout=true",
+                f"-mv_replica_lease_s={REP_LEASE_S}", "-mv_ops_port=0"])
+    try:
+        with FanoutProbe(cr) as probe:
+            sgd = mv.MV_CreateTable(MatrixTableOption(
+                num_rows=SERVE_ROWS, num_cols=SERVE_COLS,
+                updater_type="sgd"))
+            ada = mv.MV_CreateTable(MatrixTableOption(
+                num_rows=SERVE_ROWS, num_cols=SERVE_COLS,
+                updater_type="adagrad"))
+            kv = mv.MV_CreateTable(KVTableOption())
+            tables = (sgd, ada, kv)
+            all_ids = np.arange(SERVE_ROWS, dtype=np.int32)
+            for t in (sgd, ada):
+                t.AddRows(all_ids, rng.standard_normal(
+                    (SERVE_ROWS, SERVE_COLS)).astype(np.float32))
+            kv_keys = rng.permutation(np.unique(rng.integers(
+                0, 1 << 40, REP_KV_KEYS + REP_KV_KEYS // 10)))[:REP_KV_KEYS]
+            kv.Add(kv_keys.astype(np.int64),
+                   rng.standard_normal(REP_KV_KEYS).astype(np.float32))
+            v1 = mv.MV_PublishSnapshot()
+            from multiverso_tpu_torch.serving import get_plane
+            got = get_plane().store.get(v1)
+            if (got.tables[sgd.table_id].residence,
+                    got.tables[ada.table_id].residence) != ("device",
+                                                            "host"):
+                raise AssertionError("[replica] residences are not "
+                                     "(device, host)")
+            matrix_bytes = 2 * SERVE_ROWS * SERVE_COLS * 4
+            res["memory"] = rep_memory_reckoning(
+                matrix_bytes + REP_KV_KEYS * 12, matrix_bytes)
+            log(f"[replica] host memory reckoned before the readers: base "
+                f"{res['memory']['base_bytes']} B; a reader's peak "
+                f"{res['memory']['reader_peak_bytes']} B (blob, its copy, "
+                f"the unpickled arrays, the mirror), steady "
+                f"{res['memory']['reader_steady_bytes']} B (keep + 1 "
+                f"versions of the matrix tables); four readers at most "
+                f"{res['memory']['four_readers_bytes']} B of the host's "
+                f"{os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES')}"
+                f" B")
+            ep = rpub.publisher_endpoint()
+            for i, mode in enumerate(REP_MODES):
+                readers.append(reader_spawn(ep, mode, workdir,
+                                            f"reader{i}_{mode}",
+                                            REP_LEASE_S))
+            stats, clients, join_wall = [], [], []
+            procs = [p[0] for p in readers]
+            for proc, sf, _ in readers:
+                st = reader_status(proc, sf)
+                # the status file is written right after the join
+                join_wall.append(os.stat(sf).st_mtime)
+                stats.append(st)
+                clients.append(ReplicaClient("127.0.0.1", st["serve_port"]))
+            v1_wall = readers_wait(clients, v1, procs)
+            res["join_to_v1_s"] = [b - a for a, b in zip(join_wall, v1_wall)]
+            res["base_bytes"] = [probe.ship_of(st["rid"], v1)["bytes"]
+                                 for st in stats]
+            res["base_ship_s"] = [probe.ship_of(st["rid"], v1)["s"]
+                                  for st in stats]
+            res["base_ship_to_v1_s"] = [
+                w - probe.ship_of(st["rid"], v1)["end"]
+                for st, w in zip(stats, v1_wall)]
+            reuse0 = counter("replica.fanout_encode_reuse")
+            versions = [v1]
+            res["delta_bytes"], res["publish_to_latest_s"] = [], []
+            res["delta_ship_s"], res["delta_kinds"] = [], []
+            res["publish_s"], res["delta_ship_to_latest_s"] = [], []
+            for _ in range(REP_PUBLISHES):
+                rep_churn(tables, rng, kv_keys)
+                t_pub = time.time()
+                v = mv.MV_PublishSnapshot()
+                res["publish_s"].append(time.time() - t_pub)
+                versions.append(v)
+                walls = readers_wait(clients, v, procs)
+                res["publish_to_latest_s"].append([w - t_pub for w in walls])
+                sh = [probe.ship_of(st["rid"], v) for st in stats]
+                res["delta_bytes"].append([s["bytes"] for s in sh])
+                res["delta_ship_s"].append([s["s"] for s in sh])
+                res["delta_kinds"].append([s["kind"] for s in sh])
+                # a reader's decode, copy-on-apply and ack, and the poll
+                res["delta_ship_to_latest_s"].append(
+                    [w - s["end"] for w, s in zip(walls, sh)])
+            res["encode_reuse"] = counter(
+                "replica.fanout_encode_reuse") - reuse0
+            for per, kinds in zip(res["delta_bytes"], res["delta_kinds"]):
+                for i, (b, kind) in enumerate(zip(per, kinds)):
+                    if kind != "delta" or b > 0.10 * res["base_bytes"][i]:
+                        raise AssertionError(
+                            f"[replica] reader {i}: a {kind} of {b} bytes "
+                            f"against a base of {res['base_bytes'][i]}")
+            base_enc = [e for e in probe.encodes if e["kind"] == "base"]
+            delta_enc = [e for e in probe.encodes if e["kind"] == "delta"]
+            res["encode_base_s"] = [e["s"] for e in base_enc]
+            res["encode_delta_s"] = [e["s"] for e in delta_enc]
+            res["bundle_s"] = list(probe.bundles)
+            # the bitwise checks at both retained versions, every reader
+            keep = versions[-2:]
+            for i, (rc, (proc, sf, _)) in enumerate(zip(clients, readers)):
+                for v in keep:
+                    rep_check(mv, tables, rc, v, rng, kv_keys)
+                live = rc.status()["live_versions"]
+                if live != keep:
+                    raise AssertionError(f"[replica] reader {i} holds "
+                                         f"{live}, not {keep}")
+                with open(sf) as f:
+                    if json.load(f).get("cuda_initialized") is not False:
+                        raise AssertionError(f"[replica] reader {i} made "
+                                             f"a CUDA context")
+            # lookups/s over one and then two shm readers
+            shm_ports = [st["serve_port"] for st, m in zip(stats, REP_MODES)
+                         if m == "shm"]
+            res["lookups_one"] = rep_clients(shm_ports[:1], sgd.table_id,
+                                             workdir, seed)
+            res["lookups_two"] = rep_clients(shm_ports[:2], sgd.table_id,
+                                             workdir, seed)
+            # the kill: one shm reader, silently
+            victim = REP_MODES.index("shm")
+            ev0 = counter("replica.evictions")
+            t_kill = time.perf_counter()
+            readers[victim][0].kill()
+            readers[victim][0].wait()
+            bound = REP_LEASE_S + 2 * rpub._POLL_S
+            while counter("replica.evictions") < ev0 + 1:
+                if time.perf_counter() - t_kill > bound + 30.0:
+                    raise AssertionError("[replica] the killed reader was "
+                                         "never evicted")
+                time.sleep(0.01)
+            res["kill_to_evict_s"] = time.perf_counter() - t_kill
+            if res["kill_to_evict_s"] > bound:
+                raise AssertionError(
+                    f"[replica] evicted {res['kill_to_evict_s']:.3f} s "
+                    f"after the kill, past the lease and two ticks "
+                    f"({bound} s)")
+            code, body = http_get(tops.port(), "/healthz")
+            subs = {s["rid"]: s for s in
+                    json.loads(body)["replica"]["subscribers"]}
+            vic_rid = stats[victim]["rid"]
+            if code != 200 or subs[vic_rid]["state"] not in ("dead",
+                                                             "evicted"):
+                raise AssertionError(f"[replica] /healthz after the kill: "
+                                     f"{code} {subs}")
+            res["healthz_victim"] = subs[vic_rid]
+            rep_churn(tables, rng, kv_keys)
+            v = mv.MV_PublishSnapshot()
+            alive = [i for i in range(len(readers)) if i != victim]
+            readers_wait([clients[i] for i in alive], v,
+                         [procs[i] for i in alive])
+            for i in alive:
+                rep_check(mv, tables, clients[i], v, rng, kv_keys)
+            res["after_kill_version"] = v
+            res["versions"] = versions + [v]
+            res["fanout_gathers"] = probe.fanout_gathers
+            for rc in clients:
+                rc.close()
+        res["modes"] = list(REP_MODES)
+        res["rids"] = [st["rid"] for st in stats]
+        res["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        for proc, _, logf in readers:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            logf.close()
+        mv.MV_ShutDown()
+    return res
+
+
+def report_replica(rp: dict, k: dict, launches: dict, card: str) -> None:
+    modes = rp["modes"]
+    for i, m in enumerate(modes):
+        worst = max(per[i] for per in rp["delta_bytes"]) / rp["base_bytes"][i]
+        log(f"[replica] reader {i} ({m}, r{rp['rids'][i]}): base "
+            f"{rp['base_bytes'][i]} B, join to v1 {rp['join_to_v1_s'][i]:.4f}"
+            f" s (its ship {rp['base_ship_s'][i]:.4f} s, ship end to v1 "
+            f"{rp['base_ship_to_v1_s'][i]:.4f} s); delta bytes by publish "
+            f"{[per[i] for per in rp['delta_bytes']]} (max {worst:.5f} of "
+            f"the base), publish to latest "
+            f"{[round(per[i], 4) for per in rp['publish_to_latest_s']]} s, "
+            f"delta ships {[round(per[i], 4) for per in rp['delta_ship_s']]}"
+            f" s, ship end to latest "
+            f"{[round(per[i], 4) for per in rp['delta_ship_to_latest_s']]} s "
+            f"({card})")
+    log(f"[replica] MV_PublishSnapshot (the cut, the AdaGrad table's host "
+        f"export) {[round(x, 4) for x in rp['publish_s']]} s")
+    log(f"[replica] encode: base {[round(x, 4) for x in rp['encode_base_s']]}"
+        f" s, delta {[round(x, 4) for x in rp['encode_delta_s']]} s; "
+        f"pickle + seal of each bundle "
+        f"{[round(x, 4) for x in rp['bundle_s']]} s; replica.enc_reuse "
+        f"{rp['encode_reuse']:.0f} (same-lag readers sharing an encode); "
+        f"<kGather> launches on the fan-out thread {rp['fanout_gathers']}")
+    for key, what in (("lookups_one", "one shm reader"),
+                      ("lookups_two", "two shm readers")):
+        r = rp[key]
+        log(f"[replica] lookups over {what}: {r['qps']:.1f} lookups/s "
+            f"aggregate, p99 {r['p99_ms']:.4f} ms ({REP_CLIENT_THREADS} "
+            f"threads x {REP_CLIENT_N} lookups of {REP_BATCH} rows a "
+            f"client process; {card})")
+    log(f"[replica] every reader's lookups at v{rp['versions'][-3]} and "
+        f"v{rp['versions'][-2]} bitwise the trainer's MV_ServingLookup "
+        f"({REP_CHECK_IDS} ids a matrix table, {REP_CHECK_KEYS} keys), "
+        f"live_versions the keep=2 pair, no reader with a CUDA context; "
+        f"the killed shm reader evicted {rp['kill_to_evict_s']:.4f} s after "
+        f"the kill (lease {REP_LEASE_S} s), /healthz "
+        f"{rp['healthz_victim']}; v{rp['after_kill_version']} reached the "
+        f"other three bitwise; the phase {rp['phase_s']:.1f} s")
+    for name, r in k.items():
+        log(f"[kernels] <kGather> at the replica's {name} shape "
+            f"{r['shape']}: per-pair {r['ms']:.7f} ms, stream "
+            f"{r['stream_ms']:.7f} ms (bound {r['bound_ms']:.7f}, plain "
+            f"{r['plain_ms']:.7f}, index_select {r['library_ms']:.7f}"
+            + (f", data[:num_rows].clone() {r['clone_ms']:.7f}"
+               if "clone_ms" in r else "")
+            + f", all per-pair), max_abs_err {r['max_abs_err']}")
+    log(f"[main path] replica: launches {launches}")
+
+
+def time_replica_gather(torch, cr, dev, seed: int) -> dict:
+    """<kGather> at the replica's two shapes on [serve]'s storage
+    (SERVE_ROWS + 1 rows x SERVE_COLS): a delta's dirty rows (REP_CHURN
+    sorted unique ids, as the journal drains them) and a base's whole table
+    (SERVE_ROWS lanes, 0..SERVE_ROWS-1), each against its plain version
+    and ``index_select``, and for the base ``data[:num_rows].clone()``
+    (the dense read a base could be); per-pair and stream times."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    data = torch.randn(SERVE_ROWS + 1, SERVE_COLS, generator=g).to(dev)
+    out = {}
+    for name, n in (("delta", REP_CHURN), ("base", SERVE_ROWS)):
+        n_sets = ID_SETS if n < SERVE_ROWS else 1
+        if n < SERVE_ROWS:
+            ids = [torch.sort(torch.randperm(SERVE_ROWS, generator=g)[:n])[0]
+                   .to(torch.int32).to(dev) for _ in range(n_sets)]
+        else:
+            ids = [torch.arange(SERVE_ROWS, dtype=torch.int32, device=dev)]
+        ids64 = [i.long() for i in ids]
+        err = max(float((cr.gather_rows(data, i)
+                         - cr.gather_rows_plain(data, i)).abs().max())
+                  for i in ids)
+        r = {"ms": median_ms(torch, lambda i: cr.gather_rows(
+                 data, ids[i % n_sets]), ID_SETS),
+             "stream_ms": stream_ms(torch, lambda i: cr.gather_rows(
+                 data, ids[i % n_sets]), ID_SETS),
+             "plain_ms": median_ms(torch, lambda i: cr.gather_rows_plain(
+                 data, ids[i % n_sets]), ID_SETS),
+             "library_ms": median_ms(torch, lambda i: torch.index_select(
+                 data, 0, ids64[i % n_sets]), ID_SETS),
+             "bound_ms": (2 * n * SERVE_COLS * 4 + 4 * n)
+             / HBM_BYTES_PER_S * 1e3,
+             "max_abs_err": err, "shape": [SERVE_ROWS + 1, SERVE_COLS, n]}
+        if name == "base":
+            r["clone_ms"] = median_ms(
+                torch, lambda i: data[:SERVE_ROWS].clone(), ID_SETS)
+            r["clone_bound_ms"] = (2 * SERVE_ROWS * SERVE_COLS * 4
+                                   / HBM_BYTES_PER_S * 1e3)
+        if err != 0.0:
+            raise AssertionError(f"[replica] <kGather> at the {name} shape "
+                                 f"differs from its plain version: {err}")
+        out[name] = r
+    torch.cuda.synchronize()
+    if cr.read_error(dev) != 0:
+        raise AssertionError("error word set during the replica gathers")
+    return out
+
+
+def rp_2proc_rank(rank: int, port: int, port2: int, succ: int,
+                  log_port: int, seed: int, out: str) -> int:
+    """One rank of [replica_2proc] (``--rank-child R --child-phase rp``):
+    the PS shape's add table on ``cuda:0`` over the shm wire under
+    ``-mv_elastic`` with [standby_2proc]'s standby and lease, and
+    ``-mv_replica_fanout``; rank 0 starts one shm reader whose ``--addr``
+    is the ordered coordinator endpoint list. RP_A rounds, a barrier,
+    publish and pin v1 (the reader reaches it); ``coord.kill`` on rank
+    0's coordinator; RP_B rounds, publish and pin v2, served through the
+    successor's roster: the reader holds through the outage and reaches
+    v2, its lookups at both versions bitwise the rank's pinned
+    MV_ServingLookup, no host collective round across its lookups.
+    Writes ``out``."""
+    import hashlib
+
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch import elastic
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.parallel import multihost
+        from multiverso_tpu_torch.replica import publisher as rpub
+        from multiverso_tpu_torch.replica.replica import (
+            ReplicaClient, _HOLD_FLOOR_S, _HOLD_LEASES, unreachable_verdict)
+        from multiverso_tpu_torch.tables import MatrixTableOption
+        from multiverso_tpu_torch.zoo import Zoo
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    res = {"rank": rank}
+    reader = None
+    cr.reset_launches()
+    mv.MV_Init([f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+                "-dist_size=2", f"-mv_deadline_s={EL_DEADLINE_S}",
+                "-mv_elastic=true", f"-mv_elastic_lease_s={EL_LEASE_S}",
+                f"-mv_coordinator=127.0.0.1:{port2},127.0.0.1:{succ}",
+                f"-mv_standby=127.0.0.1:{log_port}",
+                "-mv_replica_fanout=true"])
+    try:
+        with FanoutProbe(cr) as probe:
+            if multihost.wire_name() != "shm":
+                raise AssertionError(f"[replica_2proc] rode "
+                                     f"{multihost.wire_name()}, not shm")
+            add = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                      num_cols=PS_COLS))
+            for r in range(RP_A):
+                ids, deltas = ps2_batch(seed, 900 + r, rank)
+                add.AddRows(ids, deltas)
+                add.GetRows(ids)
+            mv.MV_Barrier()
+            v1 = mv.MV_PublishSnapshot()
+            mv.MV_PinVersion(v1)
+            rc = None
+            if rank == 0:
+                addr = ",".join(f"{h}:{p}" for h, p in
+                                elastic.coordinator_endpoints())
+                reader = reader_spawn(addr, "shm", os.path.dirname(out),
+                                      "rp_reader", EL_LEASE_S)
+                st = reader_status(reader[0], reader[1])
+                res["reader_cuda_initialized"] = st["cuda_initialized"]
+                rc = ReplicaClient("127.0.0.1", st["serve_port"])
+                t0 = time.time()
+                res["v1_s"] = readers_wait([rc], v1, [reader[0]])[0] - t0
+                res["v1_kind"] = probe.ship_of(st["rid"], v1)["kind"]
+                res["v1_bytes"] = probe.ship_of(st["rid"], v1)["bytes"]
+            mv.MV_Barrier()
+            if rank == 0:
+                st0 = elastic._state
+                mv.MV_SetFlag("chaos_spec", "coord.kill:1.0")
+                t_kill = time.time()
+                st0.client.call("state", timeout=60.0)  # dies mid-op; the
+                mv.MV_SetFlag("chaos_spec", "")         # retry lands on
+                res["kill_to_first_op_s"] = time.time() - t_kill  # the succ
+            for r in range(RP_A, RP_A + RP_B):
+                ids, deltas = ps2_batch(seed, 900 + r, rank)
+                add.AddRows(ids, deltas)
+                add.GetRows(ids)
+            mv.MV_Barrier()
+            v2 = mv.MV_PublishSnapshot()
+            mv.MV_PinVersion(v2)
+            if rank == 0:
+                res["kill_to_v2_s"] = (readers_wait([rc], v2, [reader[0]])[0]
+                                       - t_kill)
+                ship = probe.ship_of(st["rid"], v2)
+                res["v2_kind"], res["v2_bytes"] = ship["kind"], ship["bytes"]
+                pub = rpub._publisher
+                res["failover_gen"] = pub._failover_gen
+                hold_s = max(_HOLD_FLOOR_S, _HOLD_LEASES * EL_LEASE_S)
+                res["verdict"] = unreachable_verdict(res["kill_to_v2_s"],
+                                                     hold_s)
+                res["reader_exit"] = reader[0].poll()
+                if (res["failover_gen"] < 1 or res["verdict"] != "hold"
+                        or res["reader_exit"] is not None):
+                    raise AssertionError(f"[replica_2proc] through the "
+                                         f"outage: {res}")
+            mv.MV_Barrier()
+            Zoo.Get().DrainServer()
+            mv.MV_Barrier()
+            g = np.random.default_rng(seed + 7)
+            sels = [np.sort(g.choice(PS_ROWS, 32, replace=False)).astype(
+                np.int32) for _ in range(25)]
+            oracle = {v: [mv.MV_ServingLookup(add, s, version=v)
+                          for s in sels] for v in (v1, v2)}
+            res["oracle_digest"] = hashlib.sha256(b"".join(
+                a.tobytes() for v in (v1, v2) for a in oracle[v])).hexdigest()
+            before = multihost.collective_rounds()
+            if rank == 0:
+                for i, s in enumerate(sels):
+                    for v in (v1, v2):
+                        if not np.array_equal(rc.lookup(0, s, version=v),
+                                              oracle[v][i]):
+                            raise AssertionError(f"[replica_2proc] reader "
+                                                 f"v{v} differs")
+                rc.close()
+            else:
+                time.sleep(2.0)
+            res["lookup_rounds"] = multihost.collective_rounds() - before
+            if res["lookup_rounds"] != 0:
+                raise AssertionError(f"[replica_2proc] the reader's lookups "
+                                     f"issued {res['lookup_rounds']} host "
+                                     f"collective rounds")
+            mv.MV_Barrier()
+            torch.cuda.synchronize()
+            if cr.read_error(dev) != 0:
+                raise AssertionError("error word set on the replica path")
+            res["launches"] = dict(cr.LAUNCHES)
+            res["fanout_gathers"] = probe.fanout_gathers
+            del add
+    finally:
+        if reader is not None:
+            if reader[0].poll() is None:
+                reader[0].kill()
+            reader[0].wait()
+            reader[2].close()
+        mv.MV_ShutDown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def rp_2proc_phase(seed: int, workdir: str) -> dict:
+    """[replica_2proc]: the standby process and both ranks
+    (``rp_2proc_rank``); the ranks' pinned lookups equal, each rank
+    launching gather_rows and update_rows."""
+    succ = free_port()
+    status = os.path.join(workdir, "rp_standby_status.json")
+    standby = subprocess.Popen(
+        [sys.executable, "-m", "multiverso_tpu_torch.elastic.standby",
+         "--listen", "127.0.0.1:0", "--serve", f"127.0.0.1:{succ}",
+         "--lease", str(SB_LEASE_S), "--coord-lease", str(EL_LEASE_S),
+         "--status-file", status],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=open(os.path.join(workdir, "rp_standby.log"), "w"),
+        stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    try:
+        log_port = wait_status(status, "standby")["log_port"]
+        ranks = rank_children("rp", seed, workdir,
+                              extra=("--port3", str(succ), "--port4",
+                                     str(log_port)))
+        sst = wait_status(status, "successor")
+    finally:
+        standby.kill()
+        standby.wait()
+    r0, r1 = ranks
+    if r0["oracle_digest"] != r1["oracle_digest"]:
+        raise AssertionError("[replica_2proc] the ranks' pinned lookups "
+                             "differ")
+    if r0["reader_cuda_initialized"] is not False:
+        raise AssertionError("[replica_2proc] the reader made a CUDA "
+                             "context")
+    for r in ranks:
+        for name in ("gather_rows", "update_rows"):
+            if r["launches"][name] == 0:
+                raise AssertionError(f"[replica_2proc] rank {r['rank']} "
+                                     f"never launched {name}")
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in r0["launches"]}
+    return {"ranks": ranks, "successor": sst, "launches": launches,
+            "phase_s": time.perf_counter() - t0}
+
+
+def report_rp_2proc(rp: dict, card: str) -> None:
+    r0 = rp["ranks"][0]
+    log(f"[replica_2proc] the reader reached v1 from a {r0['v1_kind']} of "
+        f"{r0['v1_bytes']} B in {r0['v1_s']:.4f} s; coord.kill: the "
+        f"successor served rank 0's op {r0['kill_to_first_op_s']:.4f} s "
+        f"after it ({rp['successor']['records']} records replayed), the "
+        f"publisher's failover_gen {r0['failover_gen']}, v2 reached the "
+        f"reader {r0['kill_to_v2_s']:.4f} s after the kill as a "
+        f"{r0['v2_kind']} of {r0['v2_bytes']} B; the reader held "
+        f"(verdict {r0['verdict']}, exit {r0['reader_exit']}); its lookups "
+        f"at v1 and v2 bitwise both ranks' pinned MV_ServingLookup; host "
+        f"collective rounds across them {r0['lookup_rounds']} / "
+        f"{rp['ranks'][1]['lookup_rounds']}; fan-out gathers "
+        f"{r0['fanout_gathers']} (host residence); the phase "
+        f"{rp['phase_s']:.1f} s ({card})")
+    log(f"[main path] rp_2proc: launches {rp['launches']} (both ranks)")
 
 
 def fs_counts() -> dict:
@@ -6085,23 +6866,25 @@ def main() -> int:
                     help="run one rank of a two-process phase (the script "
                          "starts both itself)")
     ap.add_argument("--child-phase", default="ps",
-                    choices=("ps", "mh", "fs", "el", "sb", "po", "lr",
-                             "we"),
+                    choices=("ps", "mh", "fs", "el", "sb", "po", "rp",
+                             "lr", "we"),
                     help="the two-process phase of --rank-child: "
                          "[ps_2proc]; [ps_2proc apply], [ps_2proc "
                          "compress] and [kv_2proc device]; [ps_2proc "
                          "chaos]; [elastic_2proc]; [standby_2proc]; "
-                         "[policy_2proc]; [lr_2proc] or [we_2proc]")
+                         "[policy_2proc]; [replica_2proc]; [lr_2proc] or "
+                         "[we_2proc]")
     ap.add_argument("--port", type=int, default=0,
                     help="a two-process phase's rank 0 rendezvous port")
     ap.add_argument("--port2", type=int, default=0,
                     help="a two-process phase's second port (the elastic "
                          "coordinator's)")
     ap.add_argument("--port3", type=int, default=0,
-                    help="[standby_2proc]: the standby's successor "
-                         "endpoint port")
+                    help="[standby_2proc], [replica_2proc]: the standby's "
+                         "successor endpoint port")
     ap.add_argument("--port4", type=int, default=0,
-                    help="[standby_2proc]: the standby's op-log port")
+                    help="[standby_2proc], [replica_2proc]: the standby's "
+                         "op-log port")
     ap.add_argument("--workdir", default="",
                     help="a two-process phase's data directory")
     ap.add_argument("--record-of", nargs="+", default=[],
@@ -6121,10 +6904,11 @@ def main() -> int:
         if args.child_phase == "el":
             return el_2proc_rank(args.rank_child, args.port, args.port2,
                                  args.seed, args.json_out)
-        if args.child_phase == "sb":
-            return sb_2proc_rank(args.rank_child, args.port, args.port2,
-                                 args.port3, args.port4, args.seed,
-                                 args.json_out)
+        if args.child_phase in ("sb", "rp"):
+            return {"sb": sb_2proc_rank, "rp": rp_2proc_rank}[
+                args.child_phase](args.rank_child, args.port, args.port2,
+                                  args.port3, args.port4, args.seed,
+                                  args.json_out)
         if args.child_phase == "po":
             return po_2proc_rank(args.rank_child, args.port, args.port2,
                                  args.seed, args.json_out)
@@ -6670,8 +7454,9 @@ def main() -> int:
     log(f"[binding] TorchParamManager, 2 worker threads on one table of "
         f"{bind['param_manager_floats']} floats, models on the card: the "
         f"server and both models == base + both deltas")
-    # [serve] runs last: no other phase follows its traffic (512 MB host
-    # snapshots, nine threads) in this process
+    # [serve] and the replica phases run last: no other phase follows
+    # their traffic (512 MB host snapshots, nine threads; the readers'
+    # gigabytes of mirrors) in this process
     sv = drive("serve", lambda: serve_phase(torch, mv, cr, dev, args.seed),
                every)
     results["serve"] = sv
@@ -6680,6 +7465,20 @@ def main() -> int:
                                 args.seed + 11)
     results["kernels_serve_shape"] = serve_k
     report_serve(sv, serve_k, paths["serve"], card)
+    with tempfile.TemporaryDirectory(prefix="mvt_replica_") as workdir:
+        # [replica]: the fan-out to four readers at the serving width
+        rep = drive("replica", lambda: replica_phase(
+            torch, mv, cr, dev, args.seed, workdir), every)
+        results["replica"] = rep
+        rep_k = time_replica_gather(torch, cr, dev, args.seed + 20)
+        results["kernels_replica_shapes"] = rep_k
+        report_replica(rep, rep_k, paths["replica"], card)
+        # [replica_2proc]: a reader through a coordinator kill (two more
+        # ranks, their launches counted from zero)
+        rp2 = rp_2proc_phase(args.seed, workdir)
+        results["rp_2proc"] = rp2
+        paths["rp_2proc"] = rp2["launches"]
+        report_rp_2proc(rp2, card)
     launches = {k: sum(p[k] for p in paths.values()) for k in cr.LAUNCHES}
     results["main_path_launches"] = {"paths": paths, "total": launches,
                                      "native_calls": native_uses}
@@ -6707,6 +7506,8 @@ def main() -> int:
                              if k == "update_rows" else 0.0)]
                 + ([touched[k]["max_abs_err"]] if k in touched else [])
                 + ([serve_k["max_abs_err"]] if k == "gather_rows" else [])
+                + ([r["max_abs_err"] for r in rep_k.values()]
+                   if k == "gather_rows" else [])
                 + ([combine_k["max_abs_err"]] if k == "update_rows" else [])
                 + [s[k]["max_abs_err"] for s in two_k.values() if k in s]),
             "ms": r["ms"], "stream_ms": r["stream_ms"],
@@ -6739,9 +7540,10 @@ def main() -> int:
                              "turns": {t: c[k] for t, c in
                                        el2["turn_launches"].items()},
                              "shapes_checked": ["ps", "ps_2proc"]}
-        # [standby_2proc], [policy] and [policy_2proc] run at the same
-        # shapes: [ps]'s 10,000 ids and [ps_2proc]'s merged union
-        for name in ("sb_2proc", "policy", "po_2proc"):
+        # [standby_2proc], [policy], [policy_2proc] and [replica_2proc] run
+        # at the same shapes: [ps]'s 10,000 ids and [ps_2proc]'s merged
+        # union
+        for name in ("sb_2proc", "policy", "po_2proc", "rp_2proc"):
             entry[name] = {"launches": paths[name][k],
                            "shapes_checked": ["ps", "ps_2proc"]}
         for name, shapes in two_k.items():
@@ -6755,6 +7557,16 @@ def main() -> int:
                 "ms", "stream_ms", "plain_ms", "library_ms", "max_abs_err",
                 "bound_ms", "shape")}, launches=paths["serve"][k],
                 device_resident_launches=results["serve"]["device_gathers"])
+            # the replica fan-out's reads of a device-resident snapshot: a
+            # delta's dirty rows and a base's whole table
+            entry["replica"] = dict(
+                {name: {key: r[key] for key in (
+                    "ms", "stream_ms", "plain_ms", "library_ms",
+                    "max_abs_err", "bound_ms", "shape")}
+                 for name, r in rep_k.items()},
+                launches=paths["replica"][k],
+                fanout_launches=results["replica"]["fanout_gathers"],
+                base_clone_ms=rep_k["base"]["clone_ms"])
         if k == "update_rows":
             # a combined Add ([ps_combine], [binding])
             entry["ps_combine"] = {key: combine_k[key] for key in (

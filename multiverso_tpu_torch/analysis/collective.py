@@ -34,9 +34,7 @@ from multiverso_tpu_torch.analysis import callgraph
 from multiverso_tpu_torch.analysis.core import (Checker, Finding,
                                                 PackageIndex, register)
 
-#: restricted roots: node id -> the convention it encodes. The JAX
-#: package's roots of the replica plane (its lookup and fan-out threads)
-#: come back with that plane.
+#: restricted roots: node id -> the convention it encodes
 DEFAULT_ROOTS: Dict[str, str] = {
     "telemetry/ops.py:_OpsHandler.do_GET":
         "ops HTTP handler (serves on the HTTP thread, engine unquiesced)",
@@ -56,6 +54,15 @@ DEFAULT_ROOTS: Dict[str, str] = {
         "local dashboard render (DisplayAll is the collective sibling)",
     "utils/dashboard.py:Dashboard._ops_lines":
         "dashboard [Ops] line (renders during teardown)",
+    # the replica plane: the reader process's serve loop (that process
+    # has no SPMD stream at all) and the trainer's fan-out thread (it runs
+    # beside the engine; its ring a reader is point to point to a process
+    # outside the world, with a reasoned marker at the def in
+    # replica/publisher.py)
+    "replica/replica.py:_LookupHandler.handle":
+        "replica lookup serve loop (reader process)",
+    "replica/publisher.py:ReplicaPublisher._run":
+        "replica fan-out thread (ships beside the engine stream)",
     # the fleet plane's two legs: rollup builds run on lease heartbeat
     # daemons (a collective there deadlocks the beat against the engine
     # stream), and the coordinator-side fold runs on RPC handler threads

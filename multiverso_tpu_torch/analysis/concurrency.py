@@ -510,9 +510,10 @@ class DeviceWorkDomainChecker(Checker):
                    "calls, the row kernels) must be unreachable from "
                    "sampling/HTTP thread domains")
 
-    #: domains that must stay off the device (the JAX package's fanout
-    #: and replica-* domains join with their plane)
-    RESTRICTED = frozenset({"watchdog", "reporter", "ops-http", "policy"})
+    #: domains that must stay off the device
+    RESTRICTED = frozenset({"watchdog", "reporter", "ops-http", "fanout",
+                            "replica-reader", "replica-serve",
+                            "replica-hb", "policy"})
     #: in-package defs that ARE device work even without a lexical touch:
     #: (module-rel regex, qualname regex, label)
     DEVICE_ZONES: List[Tuple[str, str, str]] = [
@@ -716,7 +717,8 @@ class BlockingDomainChecker(Checker):
     #: handlers (a stuck handler leaks server threads), and the policy
     #: daemon (a parked actuator is a silent dead-man switch)
     RESTRICTED = frozenset({"engine-shard", "apply-pool", "ops-http",
-                            "elastic", "policy"})
+                            "replica-serve", "replica-hb", "elastic",
+                            "policy"})
     #: no exempt file: the JAX package's one (its Pallas DMA semaphore
     #: waits) has no Python counterpart in the port
     ALLOW: Dict[str, str] = {}

@@ -79,8 +79,10 @@ class DomainRoot:
 #: above), helper (bounded-call runner + chaos redelivery timers, whose
 #: payloads are caller-defined), elastic (coordinator RPC dispatch +
 #: member heartbeats), standby (the op-log shipper and the standby
-#: process's threads), policy (the alert->action daemon). The JAX
-#: package's fanout and replica-* domains come back with their plane.
+#: process's threads), policy (the alert->action daemon), fanout (the
+#: replica publisher's thread), replica-reader / replica-serve /
+#: replica-hb (the reader process's apply loop, lookup handlers and lease
+#: heartbeat).
 INVENTORY: List[DomainRoot] = [
     # -- engine side
     DomainRoot("engine-shard", "actor.py", r"^Actor\._main$",
@@ -109,12 +111,26 @@ INVENTORY: List[DomainRoot] = [
     DomainRoot("ops-http", "telemetry/ops.py", r"^_OpsHandler\.do_GET$",
                "ops HTTP handler (per-connection server threads)",
                spawn=("telemetry/ops.py", "OpsServer.__init__")),
-    # -- serving plane
+    # -- serving / replica planes
     DomainRoot("serving-dispatch", "serving/frontend.py",
                r"^ServingFrontend\._loop$",
                "serving micro-batch dispatcher",
                spawn=("serving/frontend.py",
                       "ServingFrontend._ensure_thread")),
+    DomainRoot("fanout", "replica/publisher.py",
+               r"^ReplicaPublisher\._run$",
+               "replica fan-out thread",
+               spawn=("replica/publisher.py", "ReplicaPublisher.start")),
+    DomainRoot("replica-reader", "replica/replica.py",
+               r"^Replica\.recv_loop$",
+               "replica receive/apply loop (reader process main)"),
+    DomainRoot("replica-serve", "replica/replica.py",
+               r"^_LookupHandler\.handle$",
+               "replica lookup serve loop (per-connection threads)",
+               spawn=("replica/replica.py", "Replica._start_serve_server")),
+    DomainRoot("replica-hb", "replica/replica.py", r"^Replica\._hb_loop$",
+               "replica heartbeat lease thread",
+               spawn=("replica/replica.py", "Replica.start")),
     # -- worker/main: the STEADY-STATE concurrent surfaces only. The
     # cut-riding API calls (checkpoint save/load, snapshot publish) and
     # the setup/teardown calls (MV_Init, MV_CreateTable, MV_ShutDown)

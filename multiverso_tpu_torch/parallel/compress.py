@@ -134,6 +134,13 @@ def lossy_opted(table_id) -> bool:
     return spec == "all" or str(table_id) in spec
 
 
+def config_token() -> tuple:
+    """Hashable stamp of the live codec configuration: the key part of a
+    cache that must miss when a flag flips mid-run (the replica
+    publisher's content-addressed encode cache)."""
+    return (_enabled_flag(), _lossy_set_flag())
+
+
 # -- envelope array header (the flat codec's array header, without its tag) --
 
 
@@ -279,7 +286,9 @@ def encode_rle_ids(ids: np.ndarray) -> bytes:
         ends = np.concatenate((ids[brk],
                                [int(ids[-1])])).astype(np.int64)
         prev_end = -1
-        for s, e in zip(starts.tolist(), ends.tolist()):
+        # int() a run: these host arrays feed the fan-out thread, which
+        # mvlint keeps off the card (a ``.tolist()`` reads as a tensor's)
+        for s, e in zip(map(int, starts), map(int, ends)):
             _varint(out, s - prev_end - 1)
             _varint(out, e - s + 1)
             prev_end = e

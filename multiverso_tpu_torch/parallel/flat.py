@@ -49,6 +49,13 @@ _F64 = struct.Struct("<d")
 #: leading byte of a flat frame
 KIND_FLAT = 0x46        # 'F'
 
+#: OPTIONAL trace-context entry of a flat request dict: ``[trace_id,
+#: span_id]`` of the caller's open span, present only when ``-trace`` is
+#: armed on the sending side. A receiver that never reads it is
+#: unaffected, and without it the frame is byte-identical to one of a
+#: sender that has no tracing
+TRACE_KEY = "_tctx"
+
 
 class Extension:
     """Hook for domain tags layered over the core grammar (wire.py's

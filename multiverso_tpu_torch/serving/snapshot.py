@@ -37,9 +37,11 @@ always serves from host copies: a serving thread must issue nothing that
 could interleave with the engine's collectives. Each ``MatrixSnapshot``
 records the residence it took (``residence``).
 
-The JAX package's replica fan-out hook (``note_publish``) and its
-telemetry (publish histogram, snapshot gauges) wait with the replica plane
-and the telemetry plane (``ROADMAP.md``).
+The capture ends with the replica plane's hook (``replica.note_publish``):
+at this fenced stream position it drains the tables' publish journals and
+kicks the fan-out thread, which reads a device-resident snapshot through
+its stored gather, as a lookup does. A failure of the hook is logged and
+never fails the publish.
 """
 
 from __future__ import annotations
@@ -119,9 +121,12 @@ class MatrixSnapshot(TableSnapshot):
     @classmethod
     def device(cls, data, gather, num_rows: int, num_cols: int):
         """``data`` is the one-clone immutable storage; ``gather(data,
-        ids)`` reads logical rows ``ids`` (int numpy) of it as an
-        (n, num_cols) tensor on its device (the table's row gather on a
-        storage argument, ``<kGather>`` on the card)."""
+        ids)`` reads logical rows ``ids`` (int numpy) of it into host
+        memory as an (n, num_cols) numpy array (the table's row gather on
+        a storage argument, ``<kGather>`` on the card, then the copy to
+        the host). The read stays behind this stored callable, as in the
+        JAX package: the threads that serve a snapshot (the front-end's,
+        the replica fan-out's) reach the card only through it."""
         return cls(num_rows, num_cols, dev=(data, gather))
 
     def nbytes(self) -> int:
@@ -141,15 +146,15 @@ class MatrixSnapshot(TableSnapshot):
         if self._rows is not None:
             return self._rows[union_ids]
         data, gather = self._dev
-        # a synchronising fetch: the reply never carries unfinished rows
-        return gather(data, union_ids).cpu().numpy()
+        return gather(data, union_ids)
 
     def full(self) -> np.ndarray:
         if self._rows is not None:
             self._count_dispatch()
             return self._rows.copy()
-        # lookup_union counts the one gather it issues; np.array copies a
-        # CPU tensor's shared buffer, so the caller owns what it gets
+        # lookup_union counts the one gather it issues; np.array copies,
+        # so the caller owns what it gets (a CPU tensor's numpy view shares
+        # the tensor's buffer)
         return np.array(self.lookup_union(
             np.arange(self.num_rows, dtype=np.int32)))
 
@@ -207,9 +212,14 @@ class KVSnapshot(TableSnapshot):
         return out.astype(self._values.dtype, copy=False)
 
     def full(self) -> np.ndarray:
-        """The value vector in sorted-key order."""
+        """The value vector in sorted-key order (``items()`` pairs it with
+        the keys)."""
         self._count_dispatch()
         return self._values.copy()
+
+    def items(self):
+        """(sorted keys, aligned values): both immutable views."""
+        return self._keys, self._values
 
 
 @dataclass
@@ -248,6 +258,16 @@ def _capture_all(engine, store) -> Snapshot:
                     window_epoch=engine.cut_epoch(), tables=tables,
                     export_s=export_s)
     store.install(snap)
+    # the replica plane's fan-out hook: the tables' publish journals drain
+    # AT this fenced stream position (every Add admitted before the cut
+    # marked its journal before this drain, none after: the deltas'
+    # soundness) and the fan-out thread is kicked. Local numpy only; one
+    # attribute read when the plane is off
+    try:
+        from multiverso_tpu_torch import replica as _replica
+        _replica.note_publish(engine, snap)
+    except Exception as exc:    # the fan-out never fails a publish
+        Log.Error("replica fan-out publish hook failed: %r", exc)
     tmetrics.gauge("serving.snapshot_bytes").set(snap.nbytes())
     tmetrics.gauge("serving.snapshot_age_s").set(0.0)
     tmetrics.histogram("serving.publish_s").observe(

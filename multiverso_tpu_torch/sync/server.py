@@ -797,6 +797,12 @@ class Server(Actor):
         table_id = len(self.store_)
         self.store_.append(server_table)
         server_table.table_id = table_id
+        # the replica plane's publish journal, attached at registration so
+        # the first interval after a publish is covered from the table's
+        # birth (a late journal costs one whole-table fan-out); one cached
+        # flag read when the plane is off
+        from multiverso_tpu_torch import replica as _replica
+        _replica.maybe_attach_journal(server_table)
         return table_id
 
     def cut_epoch(self) -> int:

@@ -102,6 +102,12 @@ class ArrayServer(ServerTable):
         delta = self._padded_delta(values)
         self.state = self._updated(self.state, delta,
                                    (option or AddOption()).as_tensors())
+        # the replica plane's publish journal (tables/base.py contract):
+        # an array Add is whole-vector, so the journal is a flag; the
+        # parts verbs apply through here too
+        journal = self._pub_journal
+        if journal is not None:
+            journal.mark_all()
 
     def ProcessAddParts(self, parts, my_rank: int) -> None:
         """One collective Add: every rank's delta summed in rank order,

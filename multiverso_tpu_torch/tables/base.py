@@ -121,6 +121,17 @@ class TableOption:
 class ServerTable:
     """Server half: owns the device store (table_interface.h:61-79)."""
 
+    #: the replica plane's publish journal (``replica/delta.py``),
+    #: attached at RegisterTable when this rank fans out, None otherwise
+    #: (one attribute read an apply). CONTRACT: every APPLIED Add marks
+    #: it, after the data update (a rejected Add never dirties it): the
+    #: matrix families through the ``_note_add_parts`` hook, kv at its
+    #: applies, array at its apply. ``publish_journal_kind`` picks the
+    #: granularity: "rows" (a row bitmap), "keys" (the write-set of
+    #: touched keys), "all" (a whole-table flag)
+    _pub_journal = None
+    publish_journal_kind = "all"
+
     def ProcessAdd(self, **payload) -> None:
         raise NotImplementedError
 

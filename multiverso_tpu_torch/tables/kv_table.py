@@ -80,6 +80,9 @@ class KVTableOption(TableOption):
 
 
 class KVServerTable(ServerTable):
+    #: the replica plane journals a key-addressed table by keys
+    publish_journal_kind = "keys"
+
     def __init__(self, dtype, zoo, init_capacity: int = 1024):
         self.dtype = np.dtype(dtype)
         self._tdtype = torch.from_numpy(np.zeros(0, self.dtype)).dtype
@@ -212,6 +215,16 @@ class KVServerTable(ServerTable):
             np.int64))
         self._values.index_add_(0, slots.to(self._device),
                                 torch.from_numpy(deltas).to(self._device))
+        self._note_journal_keys(keys)
+
+    def _note_journal_keys(self, keys: np.ndarray) -> None:
+        """The replica plane's publish journal (tables/base.py contract):
+        every host Add applies through ``_apply`` or ``_apply_parts``, so
+        these two marks cover the blocking, merged-run and parts Adds.
+        Fires AFTER the data update: a rejected Add never dirties it."""
+        journal = self._pub_journal
+        if journal is not None:
+            journal.mark_keys(keys)
 
     def ProcessAdd(self, keys: np.ndarray, values: np.ndarray,
                    option: Optional[AddOption] = None) -> None:
@@ -245,13 +258,15 @@ class KVServerTable(ServerTable):
             CHECK(k.size == d.size, "kv add size mismatch")
             keys.append(k)
             deltas.append(d)
-        slots = self._slots_for(np.concatenate(keys), create=True)
+        all_keys = np.concatenate(keys)
+        slots = self._slots_for(all_keys, create=True)
         uniq, inv = np.unique(slots, return_inverse=True)
         combined = np.zeros(len(uniq), self.dtype)
         np.add.at(combined, inv, np.concatenate(deltas))
         self._values.index_add_(
             0, torch.from_numpy(uniq.astype(np.int64)).to(self._device),
             torch.from_numpy(combined).to(self._device))
+        self._note_journal_keys(all_keys)
 
     def ProcessAddParts(self, parts, my_rank: int) -> None:
         """One collective Add: every rank's (keys, values) in rank order."""

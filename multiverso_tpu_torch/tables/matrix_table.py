@@ -184,6 +184,9 @@ class MatrixTableOption(TableOption):
 
 
 class MatrixServerTable(ServerTable):
+    #: the replica plane journals a row-addressed table by rows
+    publish_journal_kind = "rows"
+
     def __init__(self, num_rows: int, num_cols: int, dtype, zoo,
                  updater_type: Optional[str] = None,
                  initializer: Optional[Callable] = None,
@@ -405,6 +408,10 @@ class MatrixServerTable(ServerTable):
             self.device), flat)
         _, ids_t = self._lanes_tensor(uniq.astype(np.int32))
         ops.update_rows(self.state["data"], ids_t, combined, self._sign)
+        # the per-payload bookkeeping in message order, as the per-message
+        # path fires it
+        for p, ids in zip(payloads, ids_list):
+            self._note_add_parts(p.get("option") or AddOption(), [ids])
         return True
 
     def _check_compressed_ids(self, comp: dict) -> np.ndarray:
@@ -479,12 +486,16 @@ class MatrixServerTable(ServerTable):
                    option: Optional[AddOption] = None,
                    row_ids: Optional[np.ndarray] = None,
                    compressed: Optional[dict] = None) -> None:
-        opt = (option or AddOption()).as_tensors()
+        option = option or AddOption()
+        opt = option.as_tensors()
         if compressed is not None:
             self._consume_compressed_on_device(compressed, opt)
+            self._note_add_parts(option, [np.asarray(
+                compressed["row_ids"], np.int32).ravel()])
             return
         if row_ids is None:
             self._update_full(values, opt)
+            self._note_add_parts(option, [None])
             return
         ids = np.asarray(row_ids, np.int32).ravel()
         deltas = np.asarray(values, self.dtype).reshape(len(ids),
@@ -493,6 +504,7 @@ class MatrixServerTable(ServerTable):
         ids, deltas = _combine_duplicate_rows(ids, deltas, self.num_cols,
                                               self.dtype)
         self._update_rows(ids, deltas, opt)
+        self._note_add_parts(option, [ids])
 
     def _update_full(self, values, opt) -> None:
         """A whole-table Add through the updater."""
@@ -505,9 +517,15 @@ class MatrixServerTable(ServerTable):
 
     def _note_add_parts(self, option: AddOption, parts) -> None:
         """Hook after an applied Add: every rank's id set (None = whole
-        table) in rank order. SparseMatrixServerTable keeps its freshness
-        bits here; it fires after the data update, so a rejected Add never
-        reaches it."""
+        table) in rank order, fired by every Add path (blocking, merged
+        run, compressed, the parts verbs) but the device plane's. It marks
+        the replica plane's publish journal; SparseMatrixServerTable keeps
+        its freshness bits here too (and calls up). It fires after the data
+        update, so a rejected Add never reaches it."""
+        journal = self._pub_journal
+        if journal is not None:
+            for part_ids in parts:
+                journal.mark_rows(part_ids)
 
     # -- multi-process parts verbs (tables/base.py contract) -------------------
 
@@ -765,15 +783,16 @@ class MatrixServerTable(ServerTable):
 
     # -- serving-plane export (tables/base.py contract) -----------------------
 
-    def _gather_from(self, data: torch.Tensor, ids) -> torch.Tensor:
+    def _gather_from(self, data: torch.Tensor, ids) -> np.ndarray:
         """Logical rows ``ids`` (validated, in range) of ``data``, a copy of
-        this table's storage, as an (n, num_cols) tensor on its device:
-        the lane mapping, ``<kGather>`` on the card, the column trim."""
+        this table's storage, in host memory as an (n, num_cols) array: the
+        lane mapping, ``<kGather>`` on the card, the column trim, then a
+        synchronising fetch (the reply never carries unfinished rows)."""
         _, ids_t = self._lanes_tensor(np.asarray(ids))
         rows = ops.gather_rows(data, ids_t)
         if self.store_cols != self.num_cols:
             rows = rows[:, : self.num_cols]
-        return rows
+        return rows.cpu().numpy()
 
     def _full_logical(self) -> np.ndarray:
         """The whole logical table in host memory, as a training Get of the

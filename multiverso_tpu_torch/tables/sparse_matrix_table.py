@@ -126,32 +126,20 @@ class SparseMatrixServerTable(MatrixServerTable):
     def _note_add_parts(self, option: AddOption, parts) -> None:
         """Every rank's id set of an applied Add, in rank order: each part
         keeps its own global keeper fresh (the options agree across ranks,
-        so one Add has one local worker id everywhere)."""
+        so one Add has one local worker id everywhere). The parent's hook
+        marks the replica plane's publish journal: the freshness bits are
+        the training-side delta machinery, the journal the publish-side
+        one."""
+        super()._note_add_parts(option, parts)
         for rank, part_ids in enumerate(parts):
             self._mark_stale(self._gwid(rank, option.worker_id),
                              None if part_ids is None
                              else np.asarray(part_ids, np.int32).ravel())
 
-    def _note_add(self, option: Optional[AddOption], row_ids) -> None:
-        self._note_add_parts(option or AddOption(), [row_ids])
-
-    def ProcessAdd(self, values: Optional[np.ndarray] = None,
-                   option: Optional[AddOption] = None,
-                   row_ids: Optional[np.ndarray] = None,
-                   compressed: Optional[dict] = None) -> None:
-        super().ProcessAdd(values, option, row_ids, compressed)
-        self._note_add(option, row_ids if compressed is None
-                       else compressed["row_ids"])
-
-    def ProcessAddRun(self, payloads) -> bool:
-        """The parent's merged window Add, then every payload's freshness
-        transition in message order (the engine serves no Get between a
-        run's Adds, so this equals applying them one by one)."""
-        if not super().ProcessAddRun(payloads):
-            return False
-        for p in payloads:
-            self._note_add(p.get("option"), p.get("row_ids"))
-        return True
+    # The parent's ProcessAdd and merged ProcessAddRun fire the hook above
+    # after their applies (a merged run once a payload, in message order:
+    # the engine serves no Get between a run's Adds, so that equals
+    # applying them one by one).
 
     def ProcessGetAsync(self, option: Optional[GetOption] = None,
                         row_ids=None):

@@ -208,9 +208,13 @@ def memory_report() -> dict:
         comps["shm"] = _shm_report()
     except Exception:
         comps["shm"] = None
-    # the replica fan-out plane is not ported (ROADMAP.md item 5): its
-    # journal family registers and stays at zero
-    comps["replica"] = None
+    # the replica fan-out's journals and retained dirty sets (None when
+    # the plane is off or this rank is not the fan-out owner)
+    try:
+        from multiverso_tpu_torch import replica as treplica
+        comps["replica"] = treplica.ledger_bytes()
+    except Exception:
+        comps["replica"] = None
     t = comps["tables"]["totals"]
     shm = comps["shm"] or {}
     rep = comps["replica"] or {}

@@ -74,10 +74,6 @@ MV_DEFINE_int("mv_ops_port", -1,
 
 _NAME_SAN = re.compile(r"[^a-zA-Z0-9_:]")
 
-#: the JAX package's planes this port does not run yet (ROADMAP.md);
-#: /healthz names them instead of omitting them silently
-_NOT_RUNNING = ("replica",)
-
 
 def _fmt(v) -> str:
     """Prometheus sample value: integers bare, floats via repr (both
@@ -227,6 +223,17 @@ def health_report() -> dict:
             }
     except Exception:           # serving is optional
         pass
+    # the replica plane: a line a known subscriber (rid, mode, live/dead/
+    # evicted, acked version, lag), from the fan-out thread's CACHED
+    # roster: no RPC, no collective; departed readers stay listed, so
+    # operators see who left
+    try:
+        from multiverso_tpu_torch import replica as treplica
+        rrep = treplica.status_report()
+        if rrep is not None:
+            out["replica"] = rrep
+    except Exception:           # the replica plane is optional
+        pass
     # the policy plane: one line naming whether the runtime is
     # self-driving (armed kill switch), how often it acted, and the last
     # action. Local engine state only.
@@ -253,9 +260,6 @@ def health_report() -> dict:
                     "(op log unreplicated)")
     except Exception:           # elastic plane torn down mid-scrape
         pass
-    # the replica plane of the JAX package is not ported (ROADMAP.md):
-    # named, not hidden
-    out["not_running"] = list(_NOT_RUNNING)
     rec, drop = flight.stats()
     out["flight"] = {"recorded": rec, "dropped": drop,
                      "enabled": flight.enabled()}

@@ -48,7 +48,12 @@ straggler           sustained local proxy: per-window apply seconds
                     collective — ITS apply gates the stream (the
                     critpath drill's culprit); a live stamped binding
                     phase other than ``apply`` vetoes
-
+replica_lag         a live replica subscriber sits >= N published
+                    versions behind the newest snapshot (the fan-out
+                    stalled, a ring backpressured, or the reader's apply
+                    cannot keep up), or its fleet rollup went stale, in
+                    which case the lag numbers are frozen and the rule
+                    warns instead of trusting them
 fleet_p99_breach    the coordinator-side fleet-merged request p99
                     (``telemetry/fleet.py`` rollups) exceeds
                     ``-mv_fleet_p99_s`` (0 disables)
@@ -69,9 +74,7 @@ heartbeats, so the tick stays collective-free.
 the port does not have: its evidence never arrives and it HOLDs, so the
 policy plane's ``-mv_apply_workers`` loop acts only on tick records that
 carry the alert (``ROADMAP.md`` §3). Every evaluation ends with the tick
-listeners (the policy plane's intake), called outside the lock. The JAX
-package's ``replica_lag`` reads the replica plane, which is not ported; it
-waits with it (``ROADMAP.md``).
+listeners (the policy plane's intake), called outside the lock.
 
 Every ``alert.*`` counter is registered EAGERLY at
 :func:`start_watchdog` (the PR 6 rule) so the whole rule family scrapes
@@ -387,6 +390,44 @@ class StragglerRule(Rule):
         return None
 
 
+class ReplicaLagRule(Rule):
+    """A LIVE replica subscriber sitting ``max_lag`` or more published
+    versions behind the newest snapshot: the fan-out is stalled (a slow
+    ring drain, relay mailbox churn) or the reader's apply cannot keep the
+    publish cadence; either way its reads serve stale versions and its
+    next resync will be a whole base. Reads the publisher's plain local
+    attributes (refreshed by the fan-out tick: local only, the
+    never-collective rule); a world with no subscriber, or with the plane
+    off, HOLDs."""
+
+    name = "replica_lag"
+
+    def __init__(self, max_lag: int = 3):
+        self.max_lag = max_lag
+
+    def check(self, history):
+        cur = history[-1]
+        subs = cur.get("replica_subscribers")
+        if not subs:
+            return HOLD      # the plane off, or nobody subscribed
+        # the rollup's staleness outranks the lag numbers: a subscriber
+        # whose lease heartbeats arrive but whose fleet rollup stopped
+        # refreshing reports FROZEN telemetry, so the rule warns naming
+        # that instead of trusting (or HOLDing on) numbers that cannot
+        # move
+        age = cur.get("replica_rollup_age_max_s")
+        if age is not None and age > tfleet.stale_s():
+            return (f"a replica's telemetry rollup is {age:.1f}s stale "
+                    f"(> {tfleet.stale_s():.1f}s) — its lag numbers "
+                    f"are frozen, not trustworthy")
+        lag = cur.get("replica_lag_versions", 0)
+        if lag >= self.max_lag:
+            return (f"a live replica is {int(lag)} published versions "
+                    f"behind (>= {self.max_lag}) across "
+                    f"{int(subs)} subscriber(s)")
+        return None
+
+
 class FleetP99BreachRule(Rule):
     """COORDINATOR-side: the fleet-merged request p99 (folded from the
     rollups members pushed on their lease heartbeats) exceeds the
@@ -511,8 +552,9 @@ def default_rules() -> List[Rule]:
     return [ShardImbalanceRule(), ShmBackpressureRule(),
             ApplyPoolSaturationRule(), MailboxBacklogRule(),
             SnapshotStaleRule(), MemoryGrowthRule(), StragglerRule(),
-            FleetP99BreachRule(), MemberQpsOutlierRule(),
-            RollupStaleRule(), CoordinatorFailoverRule()]
+            ReplicaLagRule(), FleetP99BreachRule(),
+            MemberQpsOutlierRule(), RollupStaleRule(),
+            CoordinatorFailoverRule()]
 
 
 def refresh_saturation_gauges() -> None:
@@ -591,6 +633,15 @@ def collect_sample() -> dict:
         plane = peek_plane()
         if plane is not None and plane.store.latest_version() is not None:
             sample["snapshot_age_s"] = plane.store.get(None).age_s()
+    except Exception:
+        pass
+    # the replica fan-out's subscribers, lag and oldest rollup age: plain
+    # attributes of the publisher (None when the plane is off)
+    try:
+        from multiverso_tpu_torch import replica as treplica
+        rsample = treplica.peek_sample()
+        if rsample is not None:
+            sample.update(rsample)
     except Exception:
         pass
     # the fleet accumulator's fold: non-empty only on the process that

@@ -176,7 +176,11 @@ class Dashboard:
             lines += serving.status_lines()
         except Exception:       # pragma: no cover - serving torn down
             pass
-        # the replica line waits with its plane (ROADMAP.md)
+        try:
+            from multiverso_tpu_torch import replica
+            lines += replica.status_lines()
+        except Exception:       # pragma: no cover - replica torn down
+            pass
         try:
             from multiverso_tpu_torch.telemetry import fleet
             lines += fleet.status_lines()

@@ -38,8 +38,11 @@ clears the fleet fold. ``size`` and the id maps follow the CURRENT view
 verbs fail typed (``elastic.guard_verbs``). The policy plane
 (``policy/``, ``-mv_policy``) starts last, after the watchdog whose tick
 listener feeds it and the elastic coordinator it may ride, and stops
-before the watchdog. The replica plane the JAX ``Start`` brings up is
-later work (``ROADMAP.md``).
+before the watchdog. The replica fan-out (``replica/``,
+``-mv_replica_fanout``) starts after the elastic plane, whose coordinator
+it rides when ``-mv_elastic`` is up, and stops after the engine (no
+publish cut can arrive) and before the elastic and serving planes it
+reads.
 
 Failsafe (``failsafe/``) as in the JAX Zoo: with ``-mv_deadline_s`` set
 the FinishTrain drain, ``DrainServer``'s ping, a cut's wait
@@ -64,6 +67,7 @@ import numpy as np
 
 from multiverso_tpu_torch import elastic
 from multiverso_tpu_torch import policy
+from multiverso_tpu_torch import replica
 from multiverso_tpu_torch.failsafe.errors import MembershipChanged
 from multiverso_tpu_torch.message import Message, MsgType
 from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
@@ -178,6 +182,10 @@ class Zoo:
         self.started = True
         try:
             elastic.start_plane(self)
+            # the replica fan-out after the elastic plane, so its
+            # subscriptions can ride the membership coordinator; rank 0
+            # owns the fan-out thread, every rank reads one cached flag
+            replica.start_plane(self)
             # the policy plane LAST: it needs the watchdog's tick listener
             # and, across processes, the elastic coordinator endpoint (or
             # its own -mv_policy_addr authority) already up
@@ -214,6 +222,12 @@ class Zoo:
                           "shutdown", exc)
             self.server_engine.Stop()
             self.server_engine = None
+        # the replica fan-out down after the engine (no publish cut can
+        # arrive) and BEFORE the elastic and serving planes it reads: the
+        # fan-out thread stops, the subscription wires close, and a hosted
+        # subscription coordinator dies with it (parked readers notice
+        # through their heartbeats)
+        replica.shutdown_plane()
         # the membership plane down AFTER the engine drain (the drain's
         # flushes route under the CURRENT view); heartbeats stop and the
         # boot-world group is restored for the next MV_Init

@@ -42,3 +42,25 @@ def jax_native_from_port(monkeypatch):
     monkeypatch.setattr(jnative, "_lib", _port_library())
     monkeypatch.setattr(jnative, "_tried", True)
     monkeypatch.setattr(jnative, "_build", no_make)
+
+
+#: ``python -c JAX_READER_SRC LIBPATH ARGS...`` runs the JAX package's
+#: replica reader (``multiverso_tpu.replica.replica.main(ARGS)``) with the
+#: port's build of the library handed to its loader (LIBPATH, "" = none),
+#: as the fixture above does in-process: no ``make``, and the same CRC
+#: engine as a port process on the other end of its ring
+JAX_READER_SRC = r'''
+import sys
+from multiverso_tpu import native as jnative
+
+
+def no_make():
+    raise AssertionError("the JAX loader ran make -C native")
+
+
+jnative._lib = jnative._try_load(sys.argv[1]) if sys.argv[1] else None
+jnative._tried = True
+jnative._build = no_make
+from multiverso_tpu.replica.replica import main
+sys.exit(main(sys.argv[2:]))
+'''

@@ -5,7 +5,8 @@ tests/test_torch_apply_pool.py (mode ``apply``),
 tests/test_torch_mh_kv_device.py (mode ``kv_device``) and
 tests/test_torch_telemetry_mh.py and tests/test_torch_telemetry_exchange.py
 (mode ``telemetry``) and tests/test_torch_failsafe_mh.py (mode
-``failsafe``).
+``failsafe``) and tests/test_torch_replica_mh.py (modes ``replica`` and
+``replica_outage``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -34,6 +35,7 @@ at ``-mv_write_combine=0`` except in the modes of ``DEFAULT_MODES``
 packages run at the JAX package's default.
 """
 
+import json
 import os
 import sys
 import threading
@@ -1260,6 +1262,194 @@ def run_we_ragged(mv):
     results["fail_s"] = np.array(time.perf_counter() - t0)
 
 
+def spawn_reader(addr, statfile, lease="5"):
+    """One replica reader of PKG on ``addr`` (shm mode): the port's
+    ``python -m multiverso_tpu_torch.replica.replica``, or the JAX
+    package's handed LIBPATH instead of a ``make``."""
+    import subprocess
+    args = ["--addr", addr, "--mode", "shm", "--lease", lease,
+            "--status-file", statfile]
+    if PKG == "jax":
+        from _jax_native_from_port import JAX_READER_SRC
+        cmd = [sys.executable, "-c", JAX_READER_SRC, LIBPATH, *args]
+    else:
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.replica.replica",
+               *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.STDOUT)
+    for _ in range(1200):
+        if os.path.exists(statfile) or proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    assert os.path.exists(statfile), f"the reader never came up " \
+        f"(exit {proc.poll()})"
+    with open(statfile) as f:
+        return proc, json.load(f)
+
+
+def reader_client(port):
+    if PKG == "jax":
+        from multiverso_tpu.replica.replica import ReplicaClient
+    else:
+        from multiverso_tpu_torch.replica.replica import ReplicaClient
+    return ReplicaClient("127.0.0.1", port)
+
+
+def wait_reader(rc, version, proc, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while (rc.status()["latest"] or -1) < version:
+        assert proc.poll() is None, f"the reader exited ({proc.poll()})"
+        assert time.monotonic() < deadline, rc.status()
+        time.sleep(0.02)
+
+
+def collective_rounds():
+    if PKG == "jax":
+        from multiverso_tpu.parallel import multihost as mh
+        return mh.STATS["host_collective_rounds"]
+    from multiverso_tpu_torch.parallel import multihost as mh
+    return mh.collective_rounds()
+
+
+def run_replica(mv):
+    """The JAX package's two-rank replica drill (tests/test_replica.py,
+    ``_TWO_PROC_CHILD``) on its seeds: lockstep training, publish and pin
+    v1; rank 0 (the fan-out owner) hosts a same-host shm reader of PKG,
+    which reaches v1 from a base; more training, publish and pin v2, which
+    it reaches as a delta; then, quiesced, rank 0 reads the reader at both
+    versions against its pinned lookups while rank 1 idles, and neither
+    rank issues a host collective round across that window. Saves the
+    reader's rows, the oracles and the rounds."""
+    tables, _, _, Zoo = tables_mod()
+    R, C = 256, 8
+    mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R,
+                                                     num_cols=C))
+    g = np.random.default_rng(40 + RANK)
+    for _ in range(4):
+        sel = np.sort(g.choice(R, 16, replace=False)).astype(np.int32)
+        mat.AddRows(sel, g.standard_normal((16, C)).astype(np.float32))
+    mv.MV_Barrier()
+    v1 = mv.MV_PublishSnapshot()
+    mv.MV_PinVersion(v1)
+    proc = rc = None
+    if RANK == 0:
+        if PKG == "jax":
+            from multiverso_tpu.replica import publisher
+        else:
+            from multiverso_tpu_torch.replica import publisher
+        proc, st = spawn_reader(publisher.publisher_endpoint(),
+                                os.path.join(OUTDIR, f"{PKG}_rep.json"))
+        rc = reader_client(st["serve_port"])
+        wait_reader(rc, v1, proc)
+    mv.MV_Barrier()
+    sel = np.sort(g.choice(R, 8, replace=False)).astype(np.int32)
+    mat.AddRows(sel, g.standard_normal((8, C)).astype(np.float32))
+    mv.MV_Barrier()
+    v2 = mv.MV_PublishSnapshot()
+    mv.MV_PinVersion(v2)
+    if RANK == 0:
+        wait_reader(rc, v2, proc)
+    mv.MV_Barrier()
+    Zoo.Get().DrainServer()
+    mv.MV_Barrier()
+    all_ids = np.arange(R, dtype=np.int32)
+    results["oracle1"] = mv.MV_ServingLookup(mat, all_ids, version=v1)
+    results["oracle2"] = mv.MV_ServingLookup(mat, all_ids, version=v2)
+    before = collective_rounds()
+    if RANK == 0:
+        r = np.random.default_rng(7)
+        got1, got2 = [], []
+        for _ in range(25):
+            sel = np.sort(r.choice(R, 32, replace=False)).astype(np.int32)
+            got1.append(rc.lookup(0, sel, version=v1))
+            got2.append(rc.lookup(0, sel, version=v2))
+        results["reader1"] = np.stack(got1)
+        results["reader2"] = np.stack(got2)
+        results["reader_all1"] = rc.lookup(0, all_ids, version=v1)
+        results["reader_all2"] = rc.lookup(0, all_ids, version=v2)
+        results["live"] = np.array(rc.status()["live_versions"])
+    else:
+        time.sleep(2.0)
+    results["rounds"] = np.array(collective_rounds() - before)
+    results["versions"] = np.array([v1, v2])
+    mv.MV_Barrier()
+    if proc is not None:
+        rc.close()
+        proc.kill()
+        proc.wait()
+
+
+def run_replica_outage(mv):
+    """The port under a coordinator death (EXTRA carries -mv_elastic, the
+    two-endpoint -mv_coordinator and -mv_standby): rank 0's shm reader,
+    whose --addr is the ordered endpoint list, reaches v1; rank 0's
+    coordinator dies (``coord.kill``); more training and v2, which the
+    publisher re-ships through the successor's roster. The reader held:
+    still running, ``unreachable_verdict`` "hold" over the outage. Saves
+    the reader's rows at both versions and the oracles."""
+    from multiverso_tpu_torch import elastic
+    from multiverso_tpu_torch.replica import publisher
+    from multiverso_tpu_torch.replica.replica import (_HOLD_FLOOR_S,
+                                                      _HOLD_LEASES,
+                                                      unreachable_verdict)
+    tables, _, _, Zoo = tables_mod()
+    mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=ROWS,
+                                                     num_cols=COLS))
+    all_ids = np.arange(ROWS, dtype=np.int32)
+
+    def train(r):
+        ids, deltas = row_batch(900 + r, RANK)
+        mat.AddRows(ids, deltas)
+        mat.GetRows(ids)
+
+    for r in range(3):
+        train(r)
+    mv.MV_Barrier()
+    v1 = mv.MV_PublishSnapshot()
+    mv.MV_PinVersion(v1)
+    proc = rc = None
+    if RANK == 0:
+        addr = ",".join(f"{h}:{p}" for h, p in
+                        elastic.coordinator_endpoints())
+        proc, st = spawn_reader(addr, os.path.join(OUTDIR, "out_rep.json"),
+                                lease="2")
+        results["cuda_initialized"] = np.array(st["cuda_initialized"])
+        rc = reader_client(st["serve_port"])
+        wait_reader(rc, v1, proc)
+    mv.MV_Barrier()
+    if RANK == 0:
+        mv.MV_SetFlag("chaos_spec", "coord.kill:1.0")
+        t_kill = time.perf_counter()
+        elastic._state.client.call("state", timeout=30.0)
+        mv.MV_SetFlag("chaos_spec", "")
+    for r in range(3, 6):
+        train(r)
+    mv.MV_Barrier()
+    v2 = mv.MV_PublishSnapshot()
+    mv.MV_PinVersion(v2)
+    if RANK == 0:
+        wait_reader(rc, v2, proc)
+        outage = time.perf_counter() - t_kill
+        hold = max(_HOLD_FLOOR_S, _HOLD_LEASES * 2.0)
+        results["verdict_hold"] = np.array(
+            unreachable_verdict(outage, hold) == "hold")
+        results["reader_running"] = np.array(proc.poll() is None)
+        results["failover_gen"] = np.array(
+            publisher._publisher._failover_gen)
+    mv.MV_Barrier()
+    Zoo.Get().DrainServer()
+    mv.MV_Barrier()
+    results["oracle1"] = mv.MV_ServingLookup(mat, all_ids, version=v1)
+    results["oracle2"] = mv.MV_ServingLookup(mat, all_ids, version=v2)
+    if RANK == 0:
+        results["reader1"] = rc.lookup(0, all_ids, version=v1)
+        results["reader2"] = rc.lookup(0, all_ids, version=v2)
+        rc.close()
+        proc.kill()
+        proc.wait()
+    mv.MV_Barrier()
+
+
 def main():
     extra = {"bsp": ["-sync=true"],
              "tables": ["-num_workers=2"],
@@ -1267,6 +1457,9 @@ def main():
              "serving": ["-mv_serving_residence=device"],
              "failsafe": [f"-chaos_spec={FAILSAFE_SPEC}", "-chaos_seed=1234",
                           "-mv_max_retries=12", "-mv_deadline_s=60"],
+             "replica": ["-mv_deadline_s=60", "-mv_replica_fanout=true"],
+             "replica_outage": ["-mv_deadline_s=30",
+                                "-mv_replica_fanout=true"],
              }.get(MODE, [])
     if MODE == "wiring":
         how = EXTRA[0]
@@ -1289,6 +1482,7 @@ def main():
      "apply": run_apply, "kv_device": run_kv_device,
      "telemetry": run_telemetry, "failsafe": run_failsafe,
      "lr_compress": run_lr_compress,
+     "replica": run_replica, "replica_outage": run_replica_outage,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)
     if MODE != "dead":

@@ -88,7 +88,8 @@ def test_port_is_clean_under_every_checker():
                 f"{rel}:{q}" for rel, q in _defs(pkg, f"^{re.escape(e.rel)}$",
                                                  e.qual)}, e
     spawned = {(s.rel, s.qual) for s in inv.spawns}
-    assert len(inv.spawns) == 20    # 15 + the standby and policy planes' 5
+    # 15 + the standby and policy planes' 5 + the replica plane's 3
+    assert len(inv.spawns) == 23
     assert spawned == {e.spawn for e in threads.INVENTORY if e.spawn}
     graph = inv.graph
     for node in list(collective.DEFAULT_ROOTS) + list(

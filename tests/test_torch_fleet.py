@@ -23,7 +23,11 @@
     member (the JAX report's keys plus the coordinator client's posture),
     ``/healthz`` carries the elastic view and the client posture, and the
     Dashboard prints the ``[Elastic]``, ``[CoordHA]`` and ``[Fleet]``
-    lines.
+    lines. As in the JAX document, ``/healthz`` has no ``not_running`` key
+    and no ``replica`` section while the replica plane is off; with
+    ``-mv_replica_fanout`` and a reader joined (a relay reader process
+    riding the elastic coordinator) its ``replica`` section lists the
+    reader and the Dashboard prints the ``[Replica]`` line.
 
 Tolerance: equal records (bitwise floats) in (a) and (b).
 """
@@ -156,10 +160,10 @@ def test_fleet_healthz_and_dashboard_empty_and_populated():
         assert "coordinator_ha" not in empty
         health = _get(ops.port(), "/healthz")
         assert "elastic" not in health and "coordinator_ha" not in health
-        # the JAX document names no plane that is off; the port names the
-        # one JAX plane it does not run (policy is ported, and off here:
-        # no "policy" line, as in the JAX document)
-        assert health["not_running"] == ["replica"]
+        # the JAX document names no plane that is off (policy and replica
+        # are ported, and off here: no "policy" line, no "replica"
+        # section, no not_running key)
+        assert "not_running" not in health and "replica" not in health
         assert "policy" not in health
         assert not any(ln.startswith(("[Elastic]", "[CoordHA]"))
                        for ln in Dashboard._ops_lines())
@@ -167,8 +171,16 @@ def test_fleet_healthz_and_dashboard_empty_and_populated():
     finally:
         mv.MV_ShutDown()
     mv.MV_Init(["-mv_device=cpu", "-mv_ops_port=0", "-mv_elastic=true",
-                "-mv_elastic_lease_s=0.3"])
+                "-mv_elastic_lease_s=0.3", "-mv_replica_fanout=true"])
+    reader = None
     try:
+        from multiverso_tpu_torch import replica
+        from multiverso_tpu_torch.replica import publisher
+        reader = subprocess.Popen(
+            [sys.executable, "-m", "multiverso_tpu_torch.replica.replica",
+             "--addr", publisher.publisher_endpoint(), "--mode", "relay",
+             "--lease", "5"], cwd=str(ROOT), stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT)
         deadline = time.monotonic() + 20.0
         while fleet.fleet_report()["n_members"] == 0:
             assert time.monotonic() < deadline, "no heartbeat rollup"
@@ -187,7 +199,25 @@ def test_fleet_healthz_and_dashboard_empty_and_populated():
         assert "[Elastic] epoch = 0, members = 1 [0]" in lines, lines
         assert any(ln.startswith("[CoordHA] endpoint = 127.0.0.1:")
                    for ln in lines), lines
-        assert fleet.status_lines()[0].startswith("[Fleet] members=1")
+        assert fleet.status_lines()[0].startswith("[Fleet] members=")
+        # the reader joins through the elastic coordinator: /healthz's
+        # replica section and the Dashboard's [Replica] line name it
+        deadline = time.monotonic() + 60.0
+        while not publisher.status_report()["subscribers"]:
+            assert reader.poll() is None, "the reader exited"
+            assert time.monotonic() < deadline, "the reader never joined"
+            time.sleep(0.05)
+        health = _get(ops.port(), "/healthz")
+        assert "not_running" not in health
+        subs = health["replica"]["subscribers"]
+        assert [(s["mode"], s["state"]) for s in subs] == [("relay", "live")]
+        assert health["replica"]["active"] is True
+        line = replica.status_lines()[0]
+        assert line.startswith("[Replica] subscribers = 1 live / 1 known")
+        assert line in Dashboard.DisplayAll()
     finally:
+        if reader is not None:
+            reader.kill()
+            reader.wait()
         mv.MV_ShutDown()
     assert fleet.fleet_report()["n_members"] == 0   # cleared at Stop

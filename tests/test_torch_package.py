@@ -51,7 +51,7 @@ assert len(names) >= 60, names
 # the slices of the Array, KV and SparseMatrix tables and the LR app, of
 # -device_pairs and the native library bridge, of the checkpoint and the
 # compressed row wire, of the serving plane, of the binding, of the
-# host wires, of the window codecs and of mvlint
+# host wires, of the window codecs, of mvlint and of the replica plane
 new = {"binding", "binding.param_manager", "binding.sharedvar",
        "binding.native_bridge", "utils.async_buffer",
        "tables.array_table", "tables.kv_table", "tables.sparse_matrix_table",
@@ -66,7 +66,8 @@ new = {"binding", "binding.param_manager", "binding.sharedvar",
        "parallel.tcp_wire", "parallel.compress", "analysis",
        "analysis.core", "analysis.callgraph", "analysis.rules",
        "analysis.collective", "analysis.threads", "analysis.concurrency",
-       "analysis.cli", "analysis.__main__"}
+       "analysis.cli", "analysis.__main__", "replica", "replica.delta",
+       "replica.publisher", "replica.replica"}
 missing = {m for m in new if pkg.__name__ + "." + m not in names}
 assert not missing, missing
 """

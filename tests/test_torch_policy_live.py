@@ -14,8 +14,8 @@ package's (``tests/test_policy.py`` ``TestLiveRouteInstall``).
     ``-mv_pipeline_depth`` by one in both packages, ``policy.tune`` is in
     the ring, ``/healthz`` carries the armed ``policy`` line and
     ``/actions`` the install; a world without ``-mv_policy`` answers
-    ``/actions`` with the same "off" document as the JAX package and names
-    only the replica plane as not running.
+    ``/actions`` with the same "off" document as the JAX package, and its
+    ``/healthz``, like the JAX one, has no ``not_running`` key.
 
 Tolerance: equal records.
 """
@@ -187,6 +187,7 @@ def test_tune_round_trip_healthz_and_actions_match_jax():
     assert got["off"]["enabled"] is False and "mv_policy" in \
         got["off"]["note"]
     assert not got["off_policy_line"]
-    # the JAX document has no not_running key; the port names only the
-    # replica plane, the one JAX plane it does not run
-    assert "not_running" not in jhz and hz["not_running"] == ["replica"]
+    # neither document has a not_running key: the port runs every plane
+    # of the JAX package, and a plane that is off has no section
+    assert "not_running" not in jhz and "not_running" not in hz
+    assert "replica" not in jhz and "replica" not in hz

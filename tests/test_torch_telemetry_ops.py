@@ -104,7 +104,9 @@ def test_ops_endpoint_health_and_teardown():
         code, body = _get(port, "/healthz")
         health = json.loads(body)
         assert code == 200 and health["status"] == "ok", health
-        assert "replica" in health["not_running"]
+        # the replica plane is off here: no section, as in the JAX
+        # document (and no not_running key)
+        assert "replica" not in health and "not_running" not in health
         code, body = _get(port, "/flight")
         assert code == 200 and json.loads(body)["recorded"] > 0
         code, body = _get(port, "/perf")
@@ -150,9 +152,10 @@ def test_ops_endpoint_health_and_teardown():
     assert set(talert) == {f"mv_alert_{r}" for r in (
         "shard_imbalance", "shm_backpressure", "apply_pool_sat",
         "mailbox_backlog", "snapshot_stale", "memory_growth", "straggler",
-        "fleet_p99_breach", "member_qps_outlier", "rollup_stale",
-        "coordinator_failover")}
-    assert set(talert) <= set(scr["jax"]["samples"])
+        "replica_lag", "fleet_p99_breach", "member_qps_outlier",
+        "rollup_stale", "coordinator_failover")}
+    assert set(talert) == {k for k in scr["jax"]["samples"]
+                           if k.startswith("mv_alert_")}
     assert not any(talert.values())
 
 
@@ -248,9 +251,9 @@ def test_watchdog_rules_and_hysteresis_match_jax():
     names = [r.name for r in twd.default_rules()]
     assert names == ["shard_imbalance", "shm_backpressure",
                      "apply_pool_sat", "mailbox_backlog", "snapshot_stale",
-                     "memory_growth", "straggler", "fleet_p99_breach",
-                     "member_qps_outlier", "rollup_stale",
-                     "coordinator_failover"]
+                     "memory_growth", "straggler", "replica_lag",
+                     "fleet_p99_breach", "member_qps_outlier",
+                     "rollup_stale", "coordinator_failover"]
     samples = _samples()
     for name in names:
         trule = next(r for r in twd.default_rules() if r.name == name)
