@@ -577,6 +577,26 @@ RP_A, RP_B = 3, 3
 # read as a 2x imbalance) and a revert watch of PO_REVERT_AFTER ticks
 PO_ITERS, PO_BURST, PO_PROBE = 48, 4, 12
 PO_TICK_S, PO_REVERT_AFTER = 1.0, 12
+# [ps_2proc device]: the device window transport, a world a turn on one
+# process group (host, device, auto at a 1,024-byte floor, host, then the
+# default auto at -window_device_min_bytes 6 MB), each turn [ps_2proc]'s
+# PS rounds on the add and momentum tables, [ps_2proc burst]'s
+# fire-and-forget AddRows and one whole-table Add of a DW_ARRAY-float
+# ArrayTable (8 MB: above the default floor); then the crossover sweep:
+# blocking AddRows of DW_SWEEP_IDS ids x 50 (0.5-32 MB a rank), host
+# against device in mirrored turns, the median of DW_SWEEP_REPS after one
+# untimed
+DW_TURNS = (("host", ("-window_transport=host",)),
+            ("device", ("-window_transport=device",)),
+            ("auto_1k", ("-window_transport=auto",
+                         "-window_device_min_bytes=1024")),
+            ("host", ("-window_transport=host",)),
+            ("auto", ()))
+DW_ARRAY = 2_000_000
+# the row ids a [ps_2proc device] turn's Adds carry on the host wire
+DW_ADD_ID_BYTES = 4 * (2 * PS_ROUNDS * PS_IDS + BURST_VERBS * BURST_IDS)
+DW_SWEEP_IDS, DW_SWEEP_REPS = (2_500, 10_000, 40_000, 160_000), 5
+DW_SWEEP_TURNS = ("host", "device", "device", "host")
 
 
 def log(msg: str) -> None:
@@ -2873,7 +2893,22 @@ def rank_children(phase: str, seed: int, workdir: str,
     for out in outs:
         with open(out) as f:
             ranks.append(json.load(f))
+    if phase != "dw":
+        # what of this phase rode the device wire (at the default auto
+        # unless the phase sets a transport): its checks are unchanged
+        staged = [(int(r.get("device_wire", {}).get("staged", 0)),
+                   int(r.get("device_wire", {}).get("staged_bytes", 0)))
+                  for r in ranks]
+        DW_OTHER_PHASES[tag] = staged
+        log(f"[device wire] {tag}: Add values staged for the device wire, "
+            f"rank 0 {staged[0][0]} ({staged[0][1]} B), rank 1 "
+            f"{staged[1][0]} ({staged[1][1]} B)")
     return ranks
+
+
+#: each two-rank phase's Add values that rode the device wire, per rank
+#: (values, bytes) (``rank_children``)
+DW_OTHER_PHASES: dict = {}
 
 
 def check_wire_turns(ranks: list) -> None:
@@ -2993,6 +3028,333 @@ def ps_2proc_phase(seed: int, workdir: str) -> dict:
     tele["on_over_off"] = tele["on"]["median_ms"] / tele["off"]["median_ms"]
     return {"ranks": ranks, "launches": launches, "tele": tele,
             "critpath": critpath_summary([r["flight_ps"] for r in ranks])}
+
+
+def dw_turn(torch, mv, cr, base: list, turn: str, flags: tuple, rank: int,
+            seed: int) -> dict:
+    """One [ps_2proc device] turn on ``rank``: a world of ``flags`` (its
+    ``-window_transport``) on the PS shape. [ps_2proc]'s PS_ROUNDS rounds of
+    AddRows + GetRows of the rank's 10,000 ids on the add and momentum
+    tables (every GetRows held to the oracle of both ranks' Adds), then
+    [ps_2proc burst]'s BURST_VERBS fire-and-forget AddRows of BURST_IDS ids
+    on the add table (BURST_WARM untimed, a barrier, the rest timed to a
+    blocking GetRows), then one whole-table Add of a DW_ARRAY-float
+    ArrayTable. The device wire must be ``ipc``; the deferrals and their
+    bytes must be exactly this turn's: every Add value in the device and
+    auto_1k turns (the burst counted by the Add messages the engine got),
+    the array's alone at the default auto, none on the host wire. Returns
+    the times, the counters' deltas, the peer copies and the tables'
+    digest."""
+    import hashlib
+
+    from multiverso_tpu_torch.parallel import device_wire
+    from multiverso_tpu_torch.tables import ArrayTableOption
+    from multiverso_tpu_torch.telemetry import metrics
+    from multiverso_tpu_torch.updaters.base import AddOption
+    from multiverso_tpu_torch.zoo import Zoo
+    batches = [[ps2_batch(seed, r, k) for r in range(PS_ROUNDS)]
+               for k in range(2)]
+    expect, oracle_add, oracle_mom = ps2_oracle(batches, 0.5)
+    burst = [[ps2_batch(seed, 1000 + v, k, BURST_IDS)
+              for v in range(BURST_VERBS)] for k in range(2)]
+    for k in range(2):
+        for ids, deltas in burst[k]:
+            oracle_add[ids] += deltas
+    arr_vals = [np.random.default_rng([seed, 690, k]).integers(
+        -3, 4, DW_ARRAY).astype(np.float32) for k in range(2)]
+    names = ("server.add.device_deferrals", "server.wire.device_bytes",
+             "server.wire.host_bytes", "engine.fence.device_wire")
+    c0 = {n: metrics.counter(n).value for n in names}
+    device_wire.reset_stats()
+    l0 = dict(cr.LAUNCHES)
+    mv.MV_Init(base + list(flags))
+    try:
+        if device_wire.name() != "ipc":
+            raise AssertionError(f"[ps_2proc device] {turn}: the device "
+                                 f"wire is {device_wire.name()!r} "
+                                 f"({device_wire.why_none()}), not ipc")
+        add, mom = ps_tables(mv)
+        mopt = AddOption(momentum=0.5)
+        eng = Zoo.Get().server_engine
+        x0 = eng.xw_busy_s
+        add_ms, mom_ms = [], []
+        for r, (ids, deltas) in enumerate(batches[rank]):
+            t0 = time.perf_counter()
+            add.AddRows(ids, deltas)
+            got_add = add.GetRows(ids)
+            add_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mom.AddRows(ids, deltas, mopt)
+            got_mom = mom.GetRows(ids)
+            mom_ms.append((time.perf_counter() - t0) * 1e3)
+            np.testing.assert_array_equal(got_add, expect[r][rank][0])
+            np.testing.assert_allclose(got_mom, expect[r][rank][1],
+                                       rtol=1e-6, atol=1e-6)
+        exchange_s = eng.xw_busy_s - x0
+        m0 = eng.add_messages
+        mine = burst[rank]
+        for ids, deltas in mine[:BURST_WARM]:
+            add.AddFireForget(deltas, row_ids=ids)
+        add.GetRows(mine[0][0][:1])
+        mv.MV_Barrier()
+        t0 = time.perf_counter()
+        for ids, deltas in mine[BURST_WARM:]:
+            add.AddFireForget(deltas, row_ids=ids)
+        add.GetRows(mine[-1][0][:1])
+        burst_s = time.perf_counter() - t0
+        burst_msgs = eng.add_messages - m0
+        arr = mv.MV_CreateTable(ArrayTableOption(size=DW_ARRAY))
+        t0 = time.perf_counter()
+        arr.Add(arr_vals[rank])
+        array_s = time.perf_counter() - t0
+        final_arr = arr.Get()
+        np.testing.assert_array_equal(final_arr, arr_vals[0] + arr_vals[1])
+        final_add, final_mom = add.Get(), mom.Get()
+        np.testing.assert_array_equal(final_add, oracle_add)
+        np.testing.assert_allclose(final_mom, oracle_mom, rtol=1e-6,
+                                   atol=1e-6)
+        torch.cuda.synchronize()
+        wire = device_wire.name()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    got = {n: metrics.counter(n).value - c0[n] for n in names}
+    row_bytes = PS_COLS * 4
+    if turn == "host":
+        want = (0, 0)
+    elif turn == "auto":
+        want = (1, DW_ARRAY * 4)
+    else:
+        want = (2 * PS_ROUNDS + burst_msgs + 1,
+                2 * PS_ROUNDS * PS_IDS * row_bytes
+                + BURST_VERBS * BURST_IDS * row_bytes + DW_ARRAY * 4)
+    have = (int(got["server.add.device_deferrals"]),
+            int(got["server.wire.device_bytes"]))
+    if have != want:
+        raise AssertionError(f"[ps_2proc device] {turn}: (deferrals, "
+                             f"bytes) {have}, expected {want}")
+    if turn in ("device", "auto_1k") and \
+            got["engine.fence.device_wire"] <= 0:
+        raise AssertionError(f"[ps_2proc device] {turn}: no "
+                             f"engine.fence.device_wire stall")
+    return {"turn": turn, "wire": wire, "add_round_ms": add_ms,
+            "momentum_round_ms": mom_ms,
+            "round_s": (sum(add_ms) + sum(mom_ms)) / 1e3,
+            "exchange_s": exchange_s, "burst_s": burst_s,
+            "burst_messages": burst_msgs, "array_add_s": array_s,
+            "deferrals": have[0], "device_bytes": have[1],
+            "host_bytes": got["server.wire.host_bytes"],
+            "fence_device_wire": got["engine.fence.device_wire"],
+            "copies": dict(device_wire.STATS),
+            "launches": {k: cr.LAUNCHES[k] - l0[k] for k in l0},
+            "digest": hashlib.sha256(final_add.tobytes()
+                                     + final_mom.tobytes()
+                                     + final_arr.tobytes()).hexdigest()}
+
+
+def dw_sweep_turn(torch, mv, base: list, turn: str, rank: int,
+                  seed: int) -> dict:
+    """One crossover-sweep turn: a world on ``turn``'s transport (host or
+    device), the PS add table, for each size of DW_SWEEP_IDS one untimed
+    and DW_SWEEP_REPS timed blocking AddRows of that many ids of this
+    rank's (each after a barrier, so the ranks start together). The table
+    must equal the oracle of both ranks' Adds. Returns the median ms of
+    each size, this rank's peer-copy time and the table's digest."""
+    import hashlib
+
+    from multiverso_tpu_torch.parallel import device_wire
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+    device_wire.reset_stats()
+    mv.MV_Init(base + [f"-window_transport={turn}"])
+    try:
+        table = mv.MV_CreateTable(MatrixTableOption(num_rows=PS_ROWS,
+                                                    num_cols=PS_COLS))
+        med, copy_ms = {}, {}
+        for n in DW_SWEEP_IDS:
+            ms = []
+            c0 = device_wire.STATS["copy_ms"]
+            for rep in range(1 + DW_SWEEP_REPS):
+                batches = [ps2_batch(seed, 2000 + 10 * rep + len(med), k, n)
+                           for k in range(2)]
+                mv.MV_Barrier()
+                t0 = time.perf_counter()
+                table.AddRows(*batches[rank])
+                if rep:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                for ids, deltas in batches:
+                    oracle[ids] += deltas
+            med[n] = float(np.median(ms))
+            copy_ms[n] = (device_wire.STATS["copy_ms"] - c0) / (
+                1 + DW_SWEEP_REPS)
+        final = table.Get()
+        torch.cuda.synchronize()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+    np.testing.assert_array_equal(final, oracle,
+                                  err_msg=f"[ps_2proc device] sweep {turn}")
+    return {"turn": turn, "median_ms": med, "copy_ms": copy_ms,
+            "digest": hashlib.sha256(final.tobytes()).hexdigest()}
+
+
+def dw_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
+    """One rank of [ps_2proc device] (``--rank-child R --child-phase dw``),
+    on ``cuda:0`` beside its peer over the shm host wire: the DW_TURNS
+    worlds (``dw_turn``), then the crossover sweep (``dw_sweep_turn``), on
+    one process group. Writes its measurements to ``out``."""
+    import torch
+    try:
+        import multiverso_tpu_torch as mv
+        from multiverso_tpu_torch.ops import cuda_rows as cr
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})",
+              file=sys.stderr)
+        return 2
+    base = [f"-dist_coordinator=127.0.0.1:{port}", f"-dist_rank={rank}",
+            "-dist_size=2"]
+    cr.reset_launches()
+    res = {"rank": rank,
+           "turns": [dw_turn(torch, mv, cr, base, turn, flags, rank, seed)
+                     for turn, flags in DW_TURNS],
+           "sweep": [dw_sweep_turn(torch, mv, base, turn, rank, seed)
+                     for turn in DW_SWEEP_TURNS]}
+    mv.MV_ShutDown()
+    if cr.read_error(torch.device("cuda", 0)) != 0:
+        raise AssertionError("error word set on the device-wire path")
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print(f"[ps_2proc device rank {rank}] ok", flush=True)
+    return 0
+
+
+def dw_2proc_phase(seed: int, workdir: str) -> dict:
+    """[ps_2proc device]: both ranks (``rank_children``), then the checks
+    across them: every turn's tables bitwise equal across the ranks and
+    to the first host turn's, every sweep turn's likewise; each device
+    and auto_1k turn's host-wire bytes below either host turn's by at
+    least its deferred bytes; every rank launched the three kernels in
+    every turn. Returns the ranks' results and the launches summed."""
+    t0 = time.perf_counter()
+    ranks = rank_children("dw", seed, workdir)
+    phase_s = time.perf_counter() - t0
+    want = ranks[0]["turns"][0]["digest"]
+    for r in ranks:
+        for t in r["turns"]:
+            if t["digest"] != want:
+                raise AssertionError(f"[ps_2proc device] rank {r['rank']} "
+                                     f"{t['turn']}: the tables differ from "
+                                     f"the host turn's")
+            for k in ("gather_rows", "scatter_set_rows", "update_rows"):
+                if t["launches"][k] == 0:
+                    raise AssertionError(f"[ps_2proc device] rank "
+                                         f"{r['rank']} {t['turn']} never "
+                                         f"launched {k}")
+        # a verb the peers' prefix cut re-sends its ids in the next
+        # window, and the fenced device-wire windows cut differently from
+        # the host turn's: so the fall may miss the deferred bytes by at
+        # most the ids of the turn's Adds (DW_ADD_ID_BYTES)
+        host = min(t["host_bytes"] for t in r["turns"]
+                   if t["turn"] == "host")
+        for t in r["turns"]:
+            t["host_fall"] = host - t["host_bytes"]
+            if t["turn"] in ("device", "auto_1k", "auto") and \
+                    t["host_fall"] < t["device_bytes"] - DW_ADD_ID_BYTES:
+                raise AssertionError(
+                    f"[ps_2proc device] rank {r['rank']} {t['turn']}: the "
+                    f"host wire carried {t['host_bytes']:.0f} B against "
+                    f"the host turn's {host:.0f} B, {t['device_bytes']} B "
+                    f"deferred")
+        if len({t["digest"] for t in r["sweep"]}) != 1:
+            raise AssertionError("[ps_2proc device] the sweep's tables "
+                                 "differ across the turns")
+    if ranks[0]["sweep"][0]["digest"] != ranks[1]["sweep"][0]["digest"]:
+        raise AssertionError("[ps_2proc device] the sweep's tables differ "
+                             "across the ranks")
+    launches = {k: sum(t["launches"][k] for r in ranks for t in r["turns"])
+                for k in ranks[0]["turns"][0]["launches"]}
+    return {"ranks": ranks, "launches": launches, "phase_s": phase_s}
+
+
+def dw_merge_check(torch, mv, seed: int) -> dict:
+    """The device wire's merge on the card, bitwise the host merge: a
+    1,000,000 x 50 table's ``_merge_device_rows`` (``dedup_rows(
+    deterministic=True)``, lone deltas kept) on two ranks' 10,000 ids each
+    (duplicates across the ranks) with float deltas, 5% of them -0.0,
+    against ``_combine_duplicate_rows`` on the host. Returns the batch's
+    size and its unique ids."""
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.tables.matrix_table import \
+        _combine_duplicate_rows
+    g = np.random.default_rng([seed, 695])
+    ids = np.concatenate([g.choice(PS_ROWS, PS_IDS, replace=False)
+                          for _ in range(2)]).astype(np.int32)
+    deltas = g.standard_normal((len(ids), PS_COLS)).astype(np.float32)
+    deltas[g.random(deltas.shape) < 0.05] = -0.0
+    mv.MV_Init([])
+    try:
+        srv = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS)).server()
+        got_ids, got = srv._merge_device_rows(ids, torch.from_numpy(
+            deltas.reshape(-1)).to(srv.device))
+        got = got[:, :PS_COLS].cpu().numpy()
+    finally:
+        mv.MV_ShutDown()
+    want_ids, want = _combine_duplicate_rows(ids, deltas, PS_COLS,
+                                             np.float32)
+    if not (np.array_equal(got_ids, want_ids)
+            and got.tobytes() == np.ascontiguousarray(want).tobytes()):
+        raise AssertionError("[ps_2proc device] the card's merge differs "
+                             "from the host merge")
+    return {"ids": len(ids), "unique": len(want_ids)}
+
+
+def report_dw_2proc(dw: dict, card: str) -> None:
+    """The [ps_2proc device] lines: per rank and turn the round medians,
+    the exchange share, the burst and the array Add seconds, the deferrals
+    and the bytes on each wire, the peer copies' device time; then the
+    crossover sweep's medians, host against device."""
+    for r in dw["ranks"]:
+        for t in r["turns"]:
+            c = t["copies"]
+            rate = (c["copy_bytes"] / (c["copy_ms"] * 1e6)
+                    if c["copy_ms"] else 0.0)
+            log(f"[ps_2proc device] rank {r['rank']} {t['turn']} "
+                f"(wire {t['wire']}): add round median "
+                f"{np.median(t['add_round_ms']):.3f} ms, momentum "
+                f"{np.median(t['momentum_round_ms']):.3f} ms, exchange "
+                f"share {t['exchange_s'] / t['round_s']:.3f}; burst "
+                f"{t['burst_s']:.4f} s ({t['burst_messages']} Add "
+                f"messages); array Add {t['array_add_s'] * 1e3:.3f} ms; "
+                f"deferred {t['deferrals']} values, {t['device_bytes']} B; "
+                f"host wire {t['host_bytes']:.0f} B (the host turn's "
+                f"less {t['host_fall']:.0f} B); fence.device_wire "
+                f"{t['fence_device_wire']:.0f}; peer copies "
+                f"{c['copies']:.0f}, {c['copy_bytes']:.0f} B in "
+                f"{c['copy_ms']:.3f} ms by CUDA events ({rate:.1f} GB/s); "
+                f"staged {c['staged_bytes']:.0f} B in {c['stage_s']:.4f} s "
+                f"host; handle swaps {c['swaps']:.0f} ({card})")
+    for r in dw["ranks"]:
+        for mode in ("host", "device"):
+            turns = [t for t in r["sweep"] if t["turn"] == mode]
+            # (the JSON round trip made the sizes strings)
+            meds = {n: float(np.mean([t["median_ms"][str(n)]
+                                      for t in turns]))
+                    for n in DW_SWEEP_IDS}
+            r.setdefault("sweep_ms", {})[mode] = meds
+        line = ", ".join(
+            f"{n} ids ({n * PS_COLS * 4 / 1e6:.1f} MB): host "
+            f"{r['sweep_ms']['host'][n]:.3f} / device "
+            f"{r['sweep_ms']['device'][n]:.3f} ms"
+            for n in DW_SWEEP_IDS)
+        log(f"[ps_2proc device] rank {r['rank']} crossover (blocking "
+            f"AddRows, the mean of the mirrored turns' medians of "
+            f"{DW_SWEEP_REPS}): {line} ({card})")
+    log(f"[ps_2proc device] the phase {dw['phase_s']:.1f} s (both ranks' "
+        f"processes, start to exit)")
+    log("[ps_2proc device] every GetRows == the oracle (add exact, momentum "
+        "rtol 1e-6); every turn's tables bitwise the host turn's on both "
+        "ranks; wire ipc; deferrals and bytes exact; the host wire lighter "
+        "by at least the deferred bytes less the Adds' row ids; the "
+        "sweep's tables == the oracle")
 
 
 def apply_batches(seed: int, rank: int) -> list:
@@ -5884,6 +6246,30 @@ def readers_wait(clients: list, version: int, procs: list,
     return seen
 
 
+def readers_acked(stats: list, version: int, timeout: float = 60.0) -> None:
+    """Poll the trainer's subscription coordinator until every reader's
+    ack of ``version`` has reached it. A reader shows ``version`` as its
+    latest before its ack lands (``replica.py`` ``_apply``, as the JAX
+    reader does), and a publish that overtakes the ack finds the reader
+    unacked and ships it a base; ``[replica]``'s delta check holds each
+    publish after a reader's ack."""
+    from multiverso_tpu_torch import elastic
+    from multiverso_tpu_torch.replica import publisher as rpub
+    coord = elastic._state.coordinator or rpub._publisher._own_coordinator
+    deadline = time.monotonic() + timeout
+    for st in stats:
+        while True:
+            with coord._lock:
+                acked = coord._replicas[int(st["rid"])].acked_version
+            if acked >= version:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[replica] reader r{st['rid']}'s ack "
+                                     f"of v{version} never reached the "
+                                     f"coordinator (acked v{acked})")
+            time.sleep(0.005)
+
+
 class FanoutProbe:
     """While installed, records what the replica publisher does: every
     encode (kind, seconds, bytes; the pickle + seal seconds of each bundle
@@ -6151,6 +6537,7 @@ def replica_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
                 stats.append(st)
                 clients.append(ReplicaClient("127.0.0.1", st["serve_port"]))
             v1_wall = readers_wait(clients, v1, procs)
+            readers_acked(stats, v1)
             res["join_to_v1_s"] = [b - a for a, b in zip(join_wall, v1_wall)]
             res["base_bytes"] = [probe.ship_of(st["rid"], v1)["bytes"]
                                  for st in stats]
@@ -6171,6 +6558,7 @@ def replica_phase(torch, mv, cr, dev, seed: int, workdir: str) -> dict:
                 res["publish_s"].append(time.time() - t_pub)
                 versions.append(v)
                 walls = readers_wait(clients, v, procs)
+                readers_acked(stats, v)
                 res["publish_to_latest_s"].append([w - t_pub for w in walls])
                 sh = [probe.ship_of(st["rid"], v) for st in stats]
                 res["delta_bytes"].append([s["bytes"] for s in sh])
@@ -6853,6 +7241,43 @@ def report_fs_2proc(fs2: dict, card: str) -> None:
         "every flipped frame caught by the CRC and re-exchanged")
 
 
+def rank_child(args) -> int:
+    """Run this process's rank of a two-process phase
+    (``--rank-child R --child-phase PHASE``); returns its exit code."""
+    if args.child_phase == "el":
+        return el_2proc_rank(args.rank_child, args.port, args.port2,
+                             args.seed, args.json_out)
+    if args.child_phase in ("sb", "rp"):
+        return {"sb": sb_2proc_rank, "rp": rp_2proc_rank}[
+            args.child_phase](args.rank_child, args.port, args.port2,
+                              args.port3, args.port4, args.seed,
+                              args.json_out)
+    if args.child_phase == "po":
+        return po_2proc_rank(args.rank_child, args.port, args.port2,
+                             args.seed, args.json_out)
+    if args.child_phase in ("ps", "mh", "fs", "dw"):
+        return {"ps": ps_2proc_rank, "mh": mh_2proc_rank,
+                "fs": fs_2proc_rank, "dw": dw_2proc_rank}[
+            args.child_phase](args.rank_child, args.port, args.seed,
+                              args.json_out)
+    return {"lr": lr_2proc_rank, "we": we_2proc_rank}[args.child_phase](
+        args.rank_child, args.port, args.seed, args.json_out,
+        args.workdir)
+
+
+def note_device_wire(path: str) -> None:
+    """Add this process's device-wire counts (``device_wire.STATS``: the
+    Add values it staged for the device wire and the values it copied out
+    of its peer's slot, over every world it ran) to a rank child's JSON
+    results, so each two-rank phase reports what rode the device wire."""
+    from multiverso_tpu_torch.parallel import device_wire
+    with open(path) as f:
+        res = json.load(f)
+    res["device_wire"] = dict(device_wire.STATS)
+    with open(path, "w") as f:
+        json.dump(res, f)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6866,10 +7291,11 @@ def main() -> int:
                     help="run one rank of a two-process phase (the script "
                          "starts both itself)")
     ap.add_argument("--child-phase", default="ps",
-                    choices=("ps", "mh", "fs", "el", "sb", "po", "rp",
-                             "lr", "we"),
+                    choices=("ps", "dw", "mh", "fs", "el", "sb", "po",
+                             "rp", "lr", "we"),
                     help="the two-process phase of --rank-child: "
-                         "[ps_2proc]; [ps_2proc apply], [ps_2proc "
+                         "[ps_2proc]; [ps_2proc device]; [ps_2proc "
+                         "apply], [ps_2proc "
                          "compress] and [kv_2proc device]; [ps_2proc "
                          "chaos]; [elastic_2proc]; [standby_2proc]; "
                          "[policy_2proc]; [replica_2proc]; [lr_2proc] or "
@@ -6901,31 +7327,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args.rank_child >= 0:
-        if args.child_phase == "el":
-            return el_2proc_rank(args.rank_child, args.port, args.port2,
-                                 args.seed, args.json_out)
-        if args.child_phase in ("sb", "rp"):
-            return {"sb": sb_2proc_rank, "rp": rp_2proc_rank}[
-                args.child_phase](args.rank_child, args.port, args.port2,
-                                  args.port3, args.port4, args.seed,
-                                  args.json_out)
-        if args.child_phase == "po":
-            return po_2proc_rank(args.rank_child, args.port, args.port2,
-                                 args.seed, args.json_out)
-        if args.child_phase in ("ps", "mh", "fs"):
-            return {"ps": ps_2proc_rank, "mh": mh_2proc_rank,
-                    "fs": fs_2proc_rank}[
-                args.child_phase](args.rank_child, args.port, args.seed,
-                                  args.json_out)
-        return {"lr": lr_2proc_rank, "we": we_2proc_rank}[args.child_phase](
-            args.rank_child, args.port, args.seed, args.json_out,
-            args.workdir)
+        rc = rank_child(args)
+        if rc == 0 and args.json_out and os.path.exists(args.json_out):
+            note_device_wire(args.json_out)
+        return rc
     try:
         import multiverso_tpu_torch as mv
         from multiverso_tpu_torch import native
         from multiverso_tpu_torch.models.wordembedding import \
             device_pairs as dp
         from multiverso_tpu_torch.ops import cuda_rows as cr
+        from multiverso_tpu_torch.parallel import device_wire
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})",
               file=sys.stderr)
@@ -6941,17 +7353,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     results = {"card": card, "seed": args.seed}
 
-    # phase 1: build the row kernels (nvcc) and, meanwhile, the native
-    # library (g++, one process per source); the run needs both
+    # phase 1: build the row kernels (nvcc) and, meanwhile, the device
+    # wire's IPC binding (nvcc, its own source) and the native library
+    # (g++, one process per source); the run needs all three
     t0 = time.perf_counter()
-    native_built = {}
+    native_built, ipc_built = {}, {}
     native_thread = threading.Thread(target=lambda: native_built.update(
         path=native.build(), s=time.perf_counter() - t0))
     native_thread.start()
+    ipc_thread = threading.Thread(target=lambda: ipc_built.update(
+        path=cr.build(device_wire.IPC_SOURCE, "libmvt_ipc.so"),
+        s=time.perf_counter() - t0))
+    ipc_thread.start()
     lib = cr.build()
     results["build_s"] = time.perf_counter() - t0
     native_thread.join()
-    log(f"[build] {lib} in {results['build_s']:.2f} s")
+    ipc_thread.join()
+    if "path" not in ipc_built:
+        raise AssertionError("the device wire's IPC binding did not build")
+    log(f"[build] {lib} in {results['build_s']:.2f} s; "
+        f"{ipc_built['path']} in {ipc_built['s']:.2f} s")
     if cr.last_build_log:
         log(cr.last_build_log.strip())
     if native_built["path"] is None or native.lib() is None:
@@ -7236,6 +7657,20 @@ def main() -> int:
             "across the ranks; BSP i-th GetRows == the oracle after both "
             "ranks' i-th Adds; MV_Aggregate (2 ranks x 2 threads) == the "
             "exact sum")
+        # [ps_2proc device]: the device window transport in turns with
+        # the host wire, and the crossover sweep
+        dw = dw_2proc_phase(args.seed, workdir)
+        results["dw_2proc"] = dw
+        paths["dw_2proc"] = dw["launches"]
+        log(f"[main path] dw_2proc: launches {dw['launches']} (both ranks, "
+            f"every turn; each rank must launch gather_rows, "
+            f"scatter_set_rows, update_rows in every turn)")
+        report_dw_2proc(dw, card)
+        mc = dw_merge_check(torch, mv, args.seed)
+        results["dw_2proc"]["merge_check"] = mc
+        log(f"[ps_2proc device] the merge on the card: {mc['ids']} ids "
+            f"({mc['unique']} unique) of float deltas, 5% -0.0, bitwise "
+            f"_combine_duplicate_rows ({card})")
         # the rest of the multi-process table surface: the parallel window
         # apply, the window codecs, the KV device verbs (each path's
         # launches zeroed before it in each rank)
@@ -7580,6 +8015,11 @@ def main() -> int:
                     "max_abs_err", "bound_ms", "shape", "distinct_rows")}
         kernels.append(entry)
     results["kernels"] = kernels
+    results["device_wire_other_phases"] = DW_OTHER_PHASES
+    rode = sorted(t for t, v in DW_OTHER_PHASES.items()
+                  if any(n for n, _ in v))
+    log(f"[device wire] two-rank phases whose Adds rode the device wire at "
+        f"their transports: {rode or 'none'}")
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)),
                     exist_ok=True)

@@ -68,10 +68,12 @@ _lib_lock = threading.Lock()
 _state_lock = threading.Lock()
 _err_words: Dict[torch.device, torch.Tensor] = {}
 #: compiler output of the last build (register and spill report); None
-#: when the library came from an earlier build. Written only under
-#: ``_build_lock``
+#: when the library came from an earlier build. Written only under a
+#: source's build lock
 last_build_log: Optional[str] = None
 _build_lock = threading.Lock()
+#: one build lock per source (``build``), created under ``_build_lock``
+_source_locks: Dict[str, threading.Lock] = {}
 
 
 def reset_launches() -> None:
@@ -189,29 +191,34 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile ``csrc/rows.cu`` unless this source's library exists;
-    returns the library path. One build at a time in a process
-    (``_build_lock``: two threads never both run nvcc, and
-    ``last_build_log`` is the log of the build that made the library);
-    builders in other processes race safely (each writes a private temp
-    file, the first rename wins)."""
+def build(source: Path = SOURCE, lib_name: str = "libmvt_rows.so") -> Path:
+    """Compile ``source`` (default ``csrc/rows.cu``) unless this source's
+    library exists; returns the library path. Each source has a cache key
+    of its own (its bytes and the flags), so ``csrc/ipc.cu`` (the device
+    window transport's binding) builds beside the row kernels. One build
+    of a source at a time in a process (a lock per source: two threads
+    never both run nvcc on one source, two sources build at once, and
+    ``last_build_log`` is the log of the build that made the last
+    library); other processes building it at once race safely (each
+    writes a private temp file, the first rename wins)."""
     global last_build_log
     with _build_lock:
-        src = SOURCE.read_bytes()
+        lock = _source_locks.setdefault(str(source), threading.Lock())
+    with lock:
+        src = source.read_bytes()
         key = hashlib.sha256(
             src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_ROOT / key / "libmvt_rows.so"
+        out = BUILD_ROOT / key / lib_name
         if out.exists():
             return out
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}")
         res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed building {SOURCE}:\n{res.stderr}")
+                f"nvcc failed building {source}:\n{res.stderr}")
         os.replace(tmp, out)
         last_build_log = res.stderr + res.stdout
         return out

@@ -11,6 +11,9 @@ Value tags (the JAX package's bytes for the tags the port sends)::
 
     n  None
     a  ndarray   u8 dtype-str len, dtype str, u8 ndim, i64 dims, raw
+    v  DEFERRED ndarray: the header of 'a' and NO raw bytes (a value that
+       rides the device wire, ``parallel/device_wire.py``); decodes to a
+       ``DeferredArray`` carrying the dtype and shape
     d  nested dict: u8 count + entries
     l  list: u32 count + values
     t  bool (u8)    i  int (i64)    f  float (f64)
@@ -24,10 +27,6 @@ Value tags (the JAX package's bytes for the tags the port sends)::
 A whole FRAME (``encode_frame``/``decode_frame``: the fleet rollup that
 rides a heartbeat) is a kind byte, one value and the seal trailer
 (``parallel/seal.py``), byte for byte the JAX package's.
-
-The JAX package's ``v`` (a value deferred to the device wire) is not
-ported: the port's windows ride the host wire, and a blob carrying it fails
-to decode with an error that says so.
 """
 
 from __future__ import annotations
@@ -70,6 +69,45 @@ class Extension:
         return False, None
 
 
+class DeferredArray:
+    """An ndarray whose BYTES do not ride the host wire (the JAX package's
+    ``flat.DeferredArray``): the encoder writes only its dtype and shape
+    (the ``v`` tag), and the owning rank keeps the real array in ``local``
+    (None on every other rank after decode). The windowed engine puts these
+    in place of large Add values when the device transport is selected;
+    the values move through ``parallel/device_wire.py``. ``where`` is the
+    port's own: the value's ``(channel, slot, rank, offset)`` in the
+    device wire's staging slots once the window has been exchanged."""
+
+    __slots__ = ("dtype", "shape", "local", "where")
+
+    def __init__(self, dtype, shape, local=None):
+        self.dtype = np.dtype(dtype)
+        self.shape = tuple(int(s) for s in shape)
+        self.local = local
+        self.where = None
+
+    @classmethod
+    def of(cls, arr: np.ndarray) -> "DeferredArray":
+        arr = np.asarray(arr)
+        return cls(arr.dtype, arr.shape, local=arr)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        tag = "local" if self.local is not None else "remote"
+        return f"DeferredArray({self.dtype.str}, {self.shape}, {tag})"
+
+
 def dtype_wire_safe(dt) -> bool:
     """True when ``dt``'s ``.str`` tag decodes back to the same dtype
     (extension dtypes stringify as opaque void tags and take the pickle
@@ -89,10 +127,10 @@ def _norm_array(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def _encode_array_header(parts: list, dtype: np.dtype,
+def _encode_array_header(parts: list, tag: bytes, dtype: np.dtype,
                          shape: Tuple[int, ...]) -> None:
     ds = dtype.str.encode("ascii")
-    parts.append(b"a")
+    parts.append(tag)
     parts.append(_U8.pack(len(ds)))
     parts.append(ds)
     parts.append(_U8.pack(len(shape)))
@@ -105,13 +143,15 @@ def encode_value(parts: list, v, ext: Optional[Extension] = None) -> None:
         parts.append(b"n")
     elif isinstance(v, np.ndarray) and dtype_wire_safe(v.dtype):
         v = _norm_array(v)
-        _encode_array_header(parts, v.dtype, v.shape)
+        _encode_array_header(parts, b"a", v.dtype, v.shape)
         if v.size == 0:
             pass
         elif v.ndim == 0:
             parts.append(v.tobytes())  # memoryview can't cast 0-d
         else:
             parts.append(memoryview(v).cast("B"))
+    elif isinstance(v, DeferredArray):
+        _encode_array_header(parts, b"v", v.dtype, v.shape)
     elif isinstance(v, CompressedArray):
         parts.append(b"q")
         parts.append(_I64.pack(len(v.blob)))
@@ -184,11 +224,13 @@ def decode_value(cur: _Cursor, ext: Optional[Extension] = None):
     tag = cur.take(1)
     if tag == b"n":
         return None
-    if tag == b"a":
+    if tag in (b"a", b"v"):
         (dlen,) = cur.unpack(_U8)
         dtype = np.dtype(bytes(cur.take(dlen)).decode("ascii"))
         (ndim,) = cur.unpack(_U8)
         shape = tuple(cur.unpack(_I64)[0] for _ in range(ndim))
+        if tag == b"v":
+            return DeferredArray(dtype, shape)
         count = 1
         for dim in shape:
             count *= dim
@@ -224,9 +266,6 @@ def decode_value(cur: _Cursor, ext: Optional[Extension] = None):
     if tag == b"q":
         (n,) = cur.unpack(_I64)
         return decode_array(cur.take(n))
-    if tag == b"v":
-        raise ValueError("wire tag b'v' (a device-wire value) is not ported "
-                         "yet: the port's windows ride the host wire")
     if ext is not None:
         ok, val = ext.decode(tag, cur)
         if ok:

@@ -34,8 +34,9 @@ from typing import List, Tuple
 import numpy as np
 
 from multiverso_tpu_torch.parallel.compress import CompressedArray
-from multiverso_tpu_torch.parallel.flat import (Extension, _Cursor,
-                                                decode_value, encode_value)
+from multiverso_tpu_torch.parallel.flat import (DeferredArray, Extension,
+                                                _Cursor, decode_value,
+                                                encode_value)
 from multiverso_tpu_torch.parallel.seal import check_crc, seal_frame
 from multiverso_tpu_torch.updaters.base import AddOption, GetOption
 
@@ -79,8 +80,10 @@ _EXT = _OptionExt()
 
 
 def payload_nbytes(payload: dict) -> int:
-    """Array bytes a verb payload carries: the engine's window byte
-    budget counts these, and a compressed value at its envelope's size."""
+    """Array bytes a verb payload carries on the HOST wire: the engine's
+    window byte budget counts these, a compressed value at its envelope's
+    size, and a ``DeferredArray`` at zero (its bytes ride the device
+    wire)."""
     total = 0
     for v in payload.values():
         if isinstance(v, (np.ndarray, CompressedArray)):
@@ -89,6 +92,18 @@ def payload_nbytes(payload: dict) -> int:
             total += sum(a.nbytes for a in v.values()
                          if isinstance(a, np.ndarray))
     return total
+
+
+def payload_has_deferred(payload: dict) -> bool:
+    """True when any value of a decoded verb payload is a ``DeferredArray``:
+    its bytes ride the device wire, so the pipelined engine fences the
+    window (``_mh_fence_cause``: the peers copy out of this rank's staging
+    slot during the apply). Deferral only replaces a payload's ``values``,
+    but checking every value is as cheap."""
+    for v in payload.values():
+        if isinstance(v, DeferredArray):
+            return True
+    return False
 
 
 def encode_window(verbs: List[Tuple[str, int, dict]],

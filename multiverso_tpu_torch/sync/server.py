@@ -141,10 +141,32 @@ counters ``failsafe.dedup_hits``, ``failsafe.retries``,
 ``failsafe.deadline_exceeded`` and the ``dedup.hit`` flight events count
 it.
 
-Not ported (ROADMAP.md): the device window transport
-(``-window_transport`` resolves to ``host``; ``device`` fails a CHECK) and
-the elastic membership events, with the lease consult of a bounded
-collective.
+The device window transport (the JAX package's, sync/server.py:58-90):
+in a multi-process world the engine picks a wire per Add at pack time
+(``_mh_maybe_defer``). Under ``-window_transport=device`` an eligible Add's
+values defer; under ``auto`` (the default) they defer when they are at
+least ``-window_device_min_bytes`` (6 MB, the JAX package's floor) and the
+engine runs one collective stream (several shard streams across processes
+would fail ``device``'s CHECK); under ``host`` nothing does. A table says which payloads it can apply that way
+(``device_wire_add_ok``: a matrix's row-set Adds of an uncompressed table,
+an array's whole-table Add), and bf16 values, a value deferred already (a
+re-led verb) and a bad table id never defer. A deferred value crosses the
+host exchange as its dtype and shape only (``flat.DeferredArray``, the
+``v`` tag: the window blob stays the JAX package's bytes) and costs
+nothing against the window's byte budget; its bytes are staged into this
+rank's slot of the device wire before the exchange and copied out by
+every rank during the apply (``parallel/device_wire.py``: CUDA IPC between
+the ranks of one host, its shared-memory plain version on the CPU). A
+window holding one is fenced under cause ``device_wire``; a table's
+deferred positions of a window apply as one merged device round
+(``ProcessAddRunPartsDevice``) or one position at a time
+(``ProcessAddPartsDevice``), beside the merged run of its host-wire
+positions. The counters ``server.add.device_deferrals``,
+``server.wire.device_bytes`` and the engine's ``mh_device_wire_adds``
+count them. Without a device wire (ranks span hosts, no IPC between the
+cards) ``device`` fails a CHECK at ``MV_Init`` and ``auto`` defers
+nothing; after an elastic transition the windows ride the group
+transport, Add values included (``device_wire.active``).
 """
 
 from __future__ import annotations
@@ -165,7 +187,10 @@ from multiverso_tpu_torch.failsafe.dedup import DedupWindow
 from multiverso_tpu_torch.failsafe.errors import (MembershipChanged,
                                                   TransientError)
 from multiverso_tpu_torch.message import Message, MsgType, copy_result
-from multiverso_tpu_torch.parallel import compress, multihost, wire
+from multiverso_tpu_torch.parallel import (compress, device_wire,
+                                           multihost, wire)
+from multiverso_tpu_torch.parallel.flat import (DeferredArray,
+                                                dtype_wire_safe)
 from multiverso_tpu_torch.parallel.seal import WireCorruption
 from multiverso_tpu_torch.telemetry import flight as tflight
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
@@ -175,7 +200,8 @@ from multiverso_tpu_torch.utils.configure import (GetFlag, MV_DEFINE_bool,
                                                   MV_DEFINE_int,
                                                   MV_DEFINE_string,
                                                   cached_bool_flag,
-                                                  cached_int_flag)
+                                                  cached_int_flag,
+                                                  cached_str_flag)
 from multiverso_tpu_torch.utils.dashboard import monitor_region
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
@@ -202,9 +228,20 @@ MV_DEFINE_int("mv_apply_workers", 4,
 _pipeline_flag = cached_bool_flag("mv_pipeline", True)
 _pipeline_depth_flag = cached_int_flag("mv_pipeline_depth", 2)
 _apply_workers_flag = cached_int_flag("mv_apply_workers", 4)
-MV_DEFINE_string("window_transport", "auto",
-                 "windowed-engine Add-value transport: auto / host resolve "
-                 "to the host exchange; device is not ported yet")
+# the windowed engine's transport selection (module docstring): each
+# default feeds both the flag and its cached accessor's fallback, and both
+# are read per window on the pack path through listener caches
+_WINDOW_TRANSPORT_DEFAULT = "auto"
+_WINDOW_DEVICE_MIN_BYTES_DEFAULT = 6 << 20
+MV_DEFINE_string("window_transport", _WINDOW_TRANSPORT_DEFAULT,
+                 "windowed-engine Add-value transport: auto / host / device")
+MV_DEFINE_int("window_device_min_bytes", _WINDOW_DEVICE_MIN_BYTES_DEFAULT,
+              "auto transport: defer Add values >= this many bytes to "
+              "the device wire")
+_window_transport_flag = cached_str_flag("window_transport",
+                                         _WINDOW_TRANSPORT_DEFAULT)
+_window_device_min_bytes_flag = cached_int_flag(
+    "window_device_min_bytes", _WINDOW_DEVICE_MIN_BYTES_DEFAULT)
 MV_DEFINE_int("mv_engine_shards", 0,
               "engine shards: per-table-group engine actors, each "
               "owning its own window stream, exchange stage and SEQ "
@@ -258,8 +295,11 @@ ENGINE_PHASES = ("form", "pack", "encode", "exchange", "exchange_wait",
 _TABLE_FAMILIES = ("matrix", "sparse", "array", "kv")
 
 #: the fence-cause taxonomy: every stall of the pipelined exchange stage
-#: counts in exactly one ``engine.fence.<cause>``. ``device_wire`` stays at
-#: zero in the port (no device window transport).
+#: counts in exactly one ``engine.fence.<cause>``: ``barrier`` (a non-verb
+#: head), ``nonlocal_table`` (a table whose apply is not local),
+#: ``device_wire`` (a window position's values rode the device wire: the
+#: peers copy out of the writer's staging slot during the apply) and
+#: ``depth`` (the depth bound alone).
 FENCE_CAUSES = ("barrier", "nonlocal_table", "device_wire", "depth")
 
 
@@ -581,10 +621,11 @@ class _ExchangeStage:
         # the next window's form clock starts at this cut
         self._pending_since = (time.perf_counter() if self._pending
                                else 0.0)
-        is_local = srv._mh_window_is_local(descs0)
+        cause = srv._mh_fence_cause(descs0, windows, prefix)
+        is_local = cause is None
         if not is_local:
             self._fence_at = self._emitted
-            self._fence_cause = "nonlocal_table"
+            self._fence_cause = cause
         if ph is not None:
             ph["seq"] = srv._mh_seq - 1
             ph["mepoch"] = multihost.membership_epoch()
@@ -637,11 +678,18 @@ class Server(Actor):
         #: exchange in lockstep on every rank
         self._mh_seq = 0
         self._ex_stage: Optional[_ExchangeStage] = None
-        #: verbs applied through windows, window exchanges, and Add runs
-        #: merged across positions and ranks
+        #: verbs applied through windows, window exchanges, Add runs
+        #: merged across positions and ranks, Add dispatches (a merged run
+        #: is one) and Add positions that rode the device wire
         self.mh_window_verbs = 0
         self.mh_window_exchanges = 0
         self.mh_add_run_merged = 0
+        self.mh_add_dispatches = 0
+        self.mh_device_wire_adds = 0
+        #: False once this engine runs several shard streams in a
+        #: multi-process world: a collective apply (a device-wire window)
+        #: then fails a CHECK (``_mh_fence_cause``)
+        self.mh_single_collective_stream = True
         #: seconds inside the window exchanges' collectives and inside
         #: window applies
         self.xw_busy_s = 0.0
@@ -685,9 +733,9 @@ class Server(Actor):
         self._t_splits = tmetrics.counter("server.window.barrier_splits")
         self._t_dispatch = tmetrics.counter("server.add.dispatches")
         self._t_merged = tmetrics.counter("server.add.run_merged")
-        # the device window transport's: zero in the port (not ported)
-        tmetrics.counter("server.add.device_deferrals")
-        tmetrics.counter("server.wire.device_bytes")
+        # the device window transport's deferrals and their bytes
+        self._t_defer = tmetrics.counter("server.add.device_deferrals")
+        self._t_dev_bytes = tmetrics.counter("server.wire.device_bytes")
         self._t_host_bytes = tmetrics.counter("server.wire.host_bytes")
         self._t_budget = tmetrics.gauge("server.window.host_budget_bytes")
         #: the (src, msg_id) at-most-once window for tracked Adds and its
@@ -1412,20 +1460,71 @@ class Server(Actor):
               f"process must reach the same barrier/verb at the same "
               f"stream position (the SPMD collective contract)")
 
+    def _mh_transport(self) -> str:
+        mode = _window_transport_flag()
+        CHECK(mode in ("auto", "host", "device"),
+              f"-window_transport must be auto/host/device, got {mode!r}")
+        return mode
+
+    def _mh_maybe_defer(self, tid: int, payload: dict, mode: str,
+                        min_bytes: int, dw) -> dict:
+        """The transport of one Add at pack time (JAX sync/server.py
+        ``_mh_maybe_defer``): when the device wire is selected and the
+        table can apply this payload through its device parts verbs, the
+        ``values`` array becomes a ``DeferredArray`` (the exchange ships
+        its dtype and shape; the bytes ride the device wire, ``dw``). The
+        decision is this rank's (peers may differ); the APPLY decision is
+        taken from the exchanged metadata (any rank deferred -> the device
+        path), so every rank runs the same program. With no active wire a
+        value deferred earlier (a re-led verb across an elastic
+        transition) goes back to its array."""
+        v = payload.get("values")
+        if dw is None:
+            if isinstance(v, DeferredArray) and v.local is not None:
+                return dict(payload, values=v.local)
+            return payload
+        if mode == "host" or isinstance(v, DeferredArray):
+            return payload              # a re-led verb stays deferred
+        if not isinstance(v, np.ndarray) or not dtype_wire_safe(v.dtype):
+            # extension dtypes (bfloat16 and the like) have no flat header
+            return payload
+        if mode == "auto" and (v.nbytes < min_bytes
+                               or not self.mh_single_collective_stream):
+            # auto never picks a wire whose window would fail the
+            # several-streams CHECK of _mh_fence_cause (the JAX auto
+            # defers and fails it: a departure, ROADMAP.md §3)
+            return payload
+        try:
+            table = self.store_[tid]
+        except (IndexError, TypeError):
+            return payload      # a bad table id: the apply reports it
+        if not table.device_wire_add_ok(payload):
+            return payload
+        self._t_defer.inc()
+        self._t_dev_bytes.inc(v.nbytes)
+        return dict(payload, values=DeferredArray.of(v))
+
     def _mh_pack_window(self, verbs):
         """``(local, used)``: the packed ``(kind, table, payload)`` records
         under the byte budget and the messages they came from (>= 1). An
-        Add of a lossy-opted table carries its values as an int8 envelope
-        under ``-mv_compress`` (``compress.pack_window_values``), counted
-        at the envelope's size; the packed payload stays on the message, so
-        a verb cut by the budget or the peers' prefix is not packed or
-        counted again."""
+        Add's values may defer to the device wire (``_mh_maybe_defer``,
+        then counted at zero: the budget counts what rides the HOST wire,
+        so a device-transport burst of large Adds still coalesces into one
+        exchange); an Add of a lossy-opted table carries its values as an
+        int8 envelope under ``-mv_compress`` (``compress.pack_window_values``),
+        counted at the envelope's size. The packed payload stays on the
+        message, so a verb cut by the budget or the peers' prefix is not
+        deferred, packed or counted again."""
+        mode = self._mh_transport()
+        min_bytes = _window_device_min_bytes_flag()
+        dw = device_wire.active()
         local, used, packed = [], [], 0
         for i, m in enumerate(verbs):
             kind = "A" if m.msg_type is MsgType.Request_Add else "G"
             if kind == "A":
-                m.payload = compress.pack_window_values(m.table_id,
-                                                        m.payload)
+                m.payload = compress.pack_window_values(
+                    m.table_id, self._mh_maybe_defer(
+                        m.table_id, m.payload, mode, min_bytes, dw))
             nbytes = wire.payload_nbytes(m.payload)
             if packed + nbytes > self.MH_WINDOW_BYTES and i > 0:
                 break
@@ -1451,6 +1550,11 @@ class Server(Actor):
         seconds and keeps the successful exchange's done stamps, the
         cross-rank clock anchor."""
         my_rank = multihost.world_rank()
+        # this rank's deferred values into its device-wire slot, complete
+        # before the exchange publishes the window
+        dw = device_wire.active()
+        if dw is not None:
+            dw.stage(self.mh_channel, self._mh_seq, local)
         last_exc = None
         for attempt in range(1 + self.MH_WIRE_RETRIES):
             t0 = time.perf_counter()
@@ -1514,6 +1618,11 @@ class Server(Actor):
                           "%r — re-exchanging", attempt + 1,
                           1 + self.MH_WIRE_RETRIES, exc)
                 continue
+            if dw is not None:
+                # every rank's deferred values located, and the handle
+                # swap on this channel when a slot grew, before any copy
+                dw.settle(self.mh_channel, self._mh_seq, windows,
+                          self._mh_dw_swap)
             dec_s = time.perf_counter() - t0
             self._t_decode_s.observe(dec_s)
             if ph is not None:
@@ -1538,17 +1647,54 @@ class Server(Actor):
               f"sequence (the SPMD collective contract)")
         return prefix, descs[0]
 
-    def _mh_window_is_local(self, descs0) -> bool:
-        """Whether the window's apply runs on this process alone on every
-        rank (the tables' rank-agreed ``mh_apply_is_local``): the pipelined
-        engine overlaps only such windows with the next exchange."""
+    def _mh_dw_swap(self, blob: bytes) -> list:
+        """One device-wire handle-swap round on this stream's channel
+        (``device_wire.DeviceWire.settle``): every rank's blob in rank
+        order, bounded like a window exchange."""
+        return self._bounded_collective(
+            lambda: multihost.capped_exchange(
+                blob, self._mh_caps, "DWIRE", channel=self.mh_channel),
+            "device wire handle swap")
+
+    def _mh_fence_cause(self, descs0, windows, prefix) -> Optional[str]:
+        """None when the window's apply runs on this process alone on every
+        rank (the pipelined engine overlaps only such windows with the next
+        exchange), else the ``FENCE_CAUSES`` entry naming why it fences: a
+        table whose rank-agreed ``mh_apply_is_local`` is False, or a
+        position whose values rode the device wire (the peers copy out of
+        the writer's slot during the apply). Decided from exchanged data,
+        so every rank fences identically. A collective apply under several
+        shard streams fails the JAX package's CHECK (sync/server.py:
+        2083-2091): its order against another stream's would differ across
+        ranks. A bad table id fences too, but applies nothing: its verb
+        fails alone."""
+        cause, bad_id = None, False
         for tid in {t for _, t in descs0}:
             try:
-                if not self.store_[tid].mh_apply_is_local():
-                    return False
+                local = self.store_[tid].mh_apply_is_local()
             except IndexError:
-                return False       # a bad table id: its verb fails alone
-        return True
+                bad_id = True
+                continue
+            if not local:
+                cause = "nonlocal_table"
+                break
+        if cause is None:
+            for w in windows:
+                if any(wire.payload_has_deferred(p) for _, _, p in
+                       w[:prefix]):
+                    cause = "device_wire"
+                    break
+        if cause is None:
+            return "nonlocal_table" if bad_id else None
+        CHECK(self.mh_single_collective_stream,
+              f"window requires a collective apply ({cause}) but "
+              f"the engine runs {getattr(self, '_shard_cap', '>1')}"
+              f" shard streams in a multi-process world — "
+              f"collective applies need ONE ordered stream: run "
+              f"-mv_engine_shards=1, or keep every table's apply "
+              f"host-local (-window_transport=host + host-backed "
+              f"tables)")
+        return cause
 
     def _mh_apply_window(self, verbs, windows, prefix, descs0,
                          seq: int = -1, parallel_ok: bool = False) -> None:
@@ -1574,11 +1720,13 @@ class Server(Actor):
         n_tables = len({tid for _, tid, _ in ops})
         if (parallel_ok and n_tables > 1
                 and _apply_workers_flag() > 1):
-            merged = self._mh_apply_parallel(ops, parts_at, verbs, my_rank,
+            counts = self._mh_apply_parallel(ops, parts_at, verbs, my_rank,
                                              tbl)
         else:
-            merged = self._mh_run_ops(ops, parts_at, verbs, my_rank, tbl)
-        self.mh_add_run_merged += merged
+            counts = self._mh_run_ops(ops, parts_at, verbs, my_rank, tbl)
+        self.mh_add_run_merged += counts[0]
+        self.mh_add_dispatches += counts[1]
+        self.mh_device_wire_adds += counts[2]
         for (tid, _), secs in tbl.items():
             self.table_apply_s[tid] = self.table_apply_s.get(tid, 0.0) + secs
         if tbl and self._phases_on():
@@ -1613,21 +1761,22 @@ class Server(Actor):
         return ops
 
     def _mh_run_ops(self, ops, parts_at, verbs, my_rank: int,
-                    tbl: dict) -> int:
+                    tbl: dict) -> list:
         """Run window ops in the given order: the serial apply's body and
-        each parallel job's. Returns the Add runs applied merged and adds
-        each op's seconds to ``tbl[(table, "A"|"G")]`` (a pool job gets a
-        private dict: pool jobs write no engine state, the caller sums
-        after the join)."""
-        merged = 0
+        each parallel job's. Returns ``[merged runs, Add dispatches,
+        device-wire Add positions]`` and adds each op's seconds to
+        ``tbl[(table, "A"|"G")]`` (a pool job gets a private dict: pool
+        jobs write no engine state, the caller sums after the join)."""
+        counts = [0, 0, 0]
         for kind, tid, positions in ops:
             tt = time.perf_counter()
             if kind == "A":
                 with ttrace.span("server.window.add_run", cat="server",
                                  args={"table_id": tid,
                                        "positions": len(positions)}):
-                    merged += self._mh_add_run(tid, positions, parts_at,
-                                               verbs, my_rank)
+                    for i, n in enumerate(self._mh_add_run(
+                            tid, positions, parts_at, verbs, my_rank)):
+                        counts[i] += n
             else:
                 with ttrace.span("server.window.get_group", cat="server",
                                  args={"table_id": tid}):
@@ -1635,12 +1784,12 @@ class Server(Actor):
                                        my_rank)
             k = (tid, kind)
             tbl[k] = tbl.get(k, 0.0) + time.perf_counter() - tt
-        return merged
+        return counts
 
     def _mh_job(self, ops, parts_at, verbs, my_rank: int) -> tuple:
         """One table's ops as a parallel job, issuing on the table's
         device (a pool thread's current CUDA device is otherwise the
-        process default); returns ``(merged runs, its tbl)``."""
+        process default); returns ``(its counts, its tbl)``."""
         tbl: dict = {}
         try:
             dev = getattr(self.store_[ops[0][1]], "device", None)
@@ -1672,7 +1821,8 @@ class Server(Actor):
         is local on every rank, where different tables share no state and
         issue no collective, so the cross-table order was never
         observable. A job's escape is raised again here; the wait is
-        bounded by ``-mv_deadline_s``. Returns the merged Add runs."""
+        bounded by ``-mv_deadline_s``. Returns the jobs' counts summed
+        (``_mh_run_ops``)."""
         jobs: Dict[int, list] = {}
         for op in ops:
             jobs.setdefault(op[1], []).append(op)
@@ -1683,7 +1833,7 @@ class Server(Actor):
                  for j in job_lists[:-1]]
         self._t_pool_jobs.inc(len(boxes))
         self._t_pool_inline.inc()
-        merged, own = self._mh_job(job_lists[-1], parts_at, verbs, my_rank)
+        counts, own = self._mh_job(job_lists[-1], parts_at, verbs, my_rank)
         results = [own]
         limit = fdeadline.timeout_or_none()
         t0 = time.perf_counter()
@@ -1695,50 +1845,92 @@ class Server(Actor):
                                          "table's apply job never finished)")
             if "error" in box:
                 raise box["error"]
-            merged += box["result"][0]
+            counts = [a + b for a, b in zip(counts, box["result"][0])]
             results.append(box["result"][1])
         for local in results:
             for k, v in local.items():
                 tbl[k] = tbl.get(k, 0.0) + v
-        return merged
+        return counts
 
     def _mh_add_run(self, tid: int, positions, parts_at, verbs,
-                    my_rank: int) -> int:
-        """A table's window-worth of collective Adds: merged across
-        positions and ranks when the table accepts, per position
-        otherwise. Returns 1 when the run applied merged, else 0."""
+                    my_rank: int) -> tuple:
+        """A table's window-worth of collective Adds (JAX sync/server.py
+        ``_mh_add_run``): merged across positions and ranks when the table
+        accepts, per position otherwise. Positions whose values rode the
+        device wire (any rank's part holds a ``DeferredArray``: visible
+        identically on every rank from the exchanged metadata) apply
+        through the table's device parts verbs and never join a host
+        merge: as ONE merged device round when the table offers
+        ``ProcessAddRunPartsDevice``, per position otherwise. The host-wire
+        subset still merges beside them, so one large deferred Add does not
+        demote its run-mates to per-position applies. Failures reply to
+        this rank's own messages only: every rank reaches identical
+        decisions from identical parts. Returns ``(merged runs, Add
+        dispatches, device-wire positions)``."""
+        merged = dispatches = device_adds = 0
         try:
             table = self.store_[tid]
         except IndexError as exc:
             for p in positions:
                 verbs[p].reply(exc)
-            return 0
-        if len(positions) > 1:
+            return merged, dispatches, device_adds
+        deferred = {p for p in positions
+                    if any(isinstance(q.get("values"), DeferredArray)
+                           for q in parts_at[p])}
+        host_pos = [p for p in positions if p not in deferred]
+        pending = list(positions)
+        if len(host_pos) > 1:
             try:
-                merged = table.ProcessAddRunParts(
-                    [parts_at[p] for p in positions], my_rank)
+                ok = table.ProcessAddRunParts(
+                    [parts_at[p] for p in host_pos], my_rank)
             except Exception as exc:
                 Log.Error("table %d merged parts Add failed: %r", tid, exc)
-                for p in positions:
+                for p in pending:
                     verbs[p].reply(exc)
-                return 0
-            if merged:
+                return merged, dispatches, device_adds
+            if ok:
+                merged += 1
+                dispatches += 1
                 self._t_dispatch.inc()
                 self._t_merged.inc()
-                for p in positions:
+                for p in host_pos:
                     verbs[p].reply(None)
-                return 1
-        for p in positions:
+                pending = [p for p in pending if p in deferred]
+        dev_pos = [p for p in pending if p in deferred]
+        if len(dev_pos) > 1:
+            try:
+                ok = table.ProcessAddRunPartsDevice(
+                    [parts_at[p] for p in dev_pos], my_rank)
+            except Exception as exc:
+                Log.Error("table %d merged device Add failed: %r", tid, exc)
+                for p in pending:
+                    verbs[p].reply(exc)
+                return merged, dispatches, device_adds
+            if ok:
+                merged += 1
+                dispatches += 1
+                device_adds += len(dev_pos)
+                self._t_dispatch.inc()
+                self._t_merged.inc()
+                for p in dev_pos:
+                    verbs[p].reply(None)
+                pending = [p for p in pending if p not in deferred]
+        for p in pending:
             with monitor_region("SERVER_PROCESS_ADD"):
                 try:
-                    table.ProcessAddParts(parts_at[p], my_rank)
+                    if p in deferred:
+                        table.ProcessAddPartsDevice(parts_at[p], my_rank)
+                        device_adds += 1
+                    else:
+                        table.ProcessAddParts(parts_at[p], my_rank)
+                    dispatches += 1
                     self._t_dispatch.inc()
                 except Exception as exc:
                     Log.Error("table %d parts Add failed: %r", tid, exc)
                     verbs[p].reply(exc)
                     continue
             verbs[p].reply(None)
-        return 0
+        return merged, dispatches, device_adds
 
     def _mh_get_group(self, tid: int, positions, parts_at, verbs,
                       my_rank: int) -> None:
@@ -1956,14 +2148,7 @@ class Server(Actor):
         sharded engine): ``-sync`` builds the BSP SyncServer; otherwise a
         resolved shard cap (``engine_shard_cap``) above 1 builds the
         ShardedServer, and 1 the plain Server."""
-        transport = str(GetFlag("window_transport")).lower()
-        CHECK(transport in ("auto", "host", "device"),
-              f"-window_transport must be auto/host/device, got "
-              f"{transport!r}")
-        CHECK(transport != "device",
-              "-window_transport=device is not ported yet: gloo moves no "
-              "CUDA tensor, and the port's windows ride the host exchange "
-              "(-window_transport=auto or host)")
+        window_transport_mode()
         if GetFlag("sync"):
             Log.Debug("Create a sync server")
             return SyncServer(num_workers)
@@ -1973,6 +2158,15 @@ class Server(Actor):
             return ShardedServer(cap)
         Log.Debug("Create an async server")
         return Server()
+
+
+def window_transport_mode() -> str:
+    """``-window_transport``, CHECKed to be auto, host or device (read when
+    a world starts: ``Zoo.Start`` hands it to ``device_wire.install``)."""
+    mode = str(GetFlag("window_transport"))
+    CHECK(mode in ("auto", "host", "device"),
+          f"-window_transport must be auto/host/device, got {mode!r}")
+    return mode
 
 
 def requested_engine_channels() -> int:
@@ -2267,6 +2461,12 @@ class ShardedServer(Server):
         if slot and slot not in self._subs:
             sub = _EngineShard(self, slot)
             self._subs[slot] = sub
+            if multihost.world_size() > 1:
+                # several live streams across processes: no shard may
+                # apply collectively any more (the CHECK in
+                # _mh_fence_cause)
+                for eng in [self, *self._subs.values()]:
+                    eng.mh_single_collective_stream = False
             sub.Start()
             Log.Debug("engine: shard %d spawned (table %d; %d/%d slots "
                       "live)", slot, table_id, 1 + len(self._subs),

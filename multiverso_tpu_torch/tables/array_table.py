@@ -16,7 +16,10 @@ padded)``.
 Multi-process worlds: every process keeps a replica; a collective Add sums
 every rank's whole-vector delta in rank order and applies the sum once
 (``ProcessAddParts``; a window's Adds of a linear aux-free updater sum into
-one apply, ``ProcessAddRunParts``), and a Get reads the local replica.
+one apply, ``ProcessAddRunParts``), and a Get reads the local replica. A
+whole-table Add whose values rode the device window transport
+(``parallel/device_wire.py``) sums on the device in the same order
+(``ProcessAddPartsDevice``, ``ProcessAddRunPartsDevice``).
 
 Device plane (``device_*``): a caller that keeps its work on the device
 takes the ``{"data", "aux"}`` state, applies ``device_update`` and writes
@@ -38,7 +41,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch.parallel import multihost
+from multiverso_tpu_torch.parallel import device_wire, multihost
+from multiverso_tpu_torch.parallel.flat import DeferredArray
 from multiverso_tpu_torch.parallel.mesh import (pad_to_multiple,
                                                  partition_offsets)
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
@@ -99,12 +103,17 @@ class ArrayServer(ServerTable):
 
     def ProcessAdd(self, values: np.ndarray,
                    option: Optional[AddOption] = None) -> None:
-        delta = self._padded_delta(values)
+        self._apply_delta(self._padded_delta(values), option)
+
+    def _apply_delta(self, delta: torch.Tensor,
+                     option: Optional[AddOption]) -> None:
+        """One whole-vector Add of ``delta`` (on the device, padded)
+        through the updater, then the journal."""
         self.state = self._updated(self.state, delta,
                                    (option or AddOption()).as_tensors())
         # the replica plane's publish journal (tables/base.py contract):
         # an array Add is whole-vector, so the journal is a flag; the
-        # parts verbs apply through here too
+        # parts verbs, the device-wire ones too, apply through here
         journal = self._pub_journal
         if journal is not None:
             journal.mark_all()
@@ -137,6 +146,57 @@ class ArrayServer(ServerTable):
                     return False
                 vals.append(np.asarray(v, self.dtype).ravel())
         self.ProcessAdd(np.sum(vals, axis=0).astype(self.dtype), AddOption())
+        return True
+
+    # -- the device window transport (tables/base.py contract; the JAX
+    # package's array_table.py:169-215) ---------------------------------------
+
+    def device_wire_add_ok(self, payload) -> bool:
+        """A whole-table dense delta can ride the device wire."""
+        v = payload.get("values")
+        return isinstance(v, np.ndarray) and v.size == self.size
+
+    def _apply_device_sum(self, values, option) -> None:
+        """Sum ``values`` (whole-table deltas, deferred or host arrays) in
+        their order on the device, as the host path sums in rank order,
+        and apply the sum once."""
+        parts = device_wire.current().gather(values, self.device).view(
+            len(values), self.size)
+        summed = parts[0].clone()
+        for part in parts[1:]:
+            summed += part
+        if self.padded != self.size:
+            summed = torch.nn.functional.pad(summed,
+                                             (0, self.padded - self.size))
+        self._apply_delta(summed, option)
+
+    def ProcessAddPartsDevice(self, parts, my_rank: int) -> None:
+        """One collective whole-table Add whose values ride the device
+        wire: every rank's delta summed in rank order on the device,
+        applied once."""
+        opts = self._check_parts_options(parts)
+        for p in parts:
+            CHECK(np.size(p["values"]) == self.size, "Add size mismatch")
+        self._apply_device_sum([p["values"] for p in parts], opts[my_rank])
+
+    def ProcessAddRunPartsDevice(self, positions, my_rank: int) -> bool:
+        """A window's deferred whole-table Adds (all positions, all ranks)
+        summed in the host-wire run's order into ONE apply: linear aux-free
+        updaters only; declines on any doubt."""
+        if not self._merge_adds:
+            return False
+        values = []
+        for parts in positions:
+            opts = self._norm_parts_options(parts)
+            if not all(o == opts[0] for o in opts):
+                return False
+            for p in parts:
+                v = p.get("values")
+                if (not isinstance(v, (DeferredArray, np.ndarray))
+                        or v.size != self.size):
+                    return False
+                values.append(v)
+        self._apply_device_sum(values, AddOption())
         return True
 
     def ProcessGet(self, option: Optional[GetOption] = None) -> np.ndarray:

@@ -223,6 +223,42 @@ class ServerTable:
                 out.append(exc)
         return out
 
+    # -- the device window transport (sync/server.py, parallel/
+    # device_wire.py; the JAX package's tables/base.py:236-275). When the
+    # engine defers an Add's values to the device wire, the window carries
+    # only their dtype and shape (``flat.DeferredArray``) and every rank
+    # routes that position through ``ProcessAddPartsDevice`` (the deferral
+    # is visible in the exchanged metadata, so the decision is lockstep).
+    # A table opts in per payload with ``device_wire_add_ok``.
+
+    def device_wire_add_ok(self, payload) -> bool:
+        """True when this table can apply ``payload`` as an Add whose
+        ``values`` bytes never cross the host wire. Default False: the
+        engine never defers for a table that does not opt in, so
+        ``ProcessAddPartsDevice`` stays unreachable for it."""
+        return False
+
+    def ProcessAddPartsDevice(self, parts, my_rank: int) -> None:
+        """Apply ONE collective Add whose values ride the device wire:
+        ``parts`` is every rank's payload in rank order, a deferred value a
+        ``DeferredArray`` located in its writer's staging slot (this rank's
+        own also keeps its array in ``.local``); the values come through
+        ``device_wire.current().gather``. Only reachable after
+        ``device_wire_add_ok`` accepted the payload at pack time."""
+        raise NotImplementedError(
+            "device-wire Add routed to a table without "
+            "ProcessAddPartsDevice (device_wire_add_ok must stay False "
+            "for such tables)")
+
+    def ProcessAddRunPartsDevice(self, positions, my_rank: int) -> bool:
+        """Merged device-wire run: a window's deferred collective Adds
+        (``positions``: per window position, every rank's payload) in ONE
+        apply, returning True, or False to decline (per-position
+        ``ProcessAddPartsDevice`` then runs). The ``ProcessAddRunParts``
+        contract: linear updaters, validate before mutating, and every rank
+        reaches the same decision from the exchanged metadata."""
+        return False
+
     def mh_apply_is_local(self) -> bool:
         """True when every parts apply and serve of this table runs on
         this process alone, with no collective: the pipelined engine may

@@ -52,7 +52,12 @@ plane's writes follow the same rule as collectives of the application
 thread (``device_apply_rows_many``); its reads stay local. A compressed
 row push crosses the processes compressed, inside the window, and every
 rank rebuilds it (``_mh_add_compressed_parts``); a device write to a
-compressed table is dense, as in the JAX package.
+compressed table is dense, as in the JAX package. A row Add whose values
+rode the device window transport (``parallel/device_wire.py``) applies
+through ``ProcessAddPartsDevice`` / ``ProcessAddRunPartsDevice``: the
+ranks' values come card to card, merge on the device
+(``_merge_device_rows``: ``ops.dedup_rows(deterministic=True)``, bitwise
+the host merge) and apply through the same row path.
 
 The store is updated IN PLACE (the JAX package donates its buffers
 instead). So every Get returns a fresh buffer — a gather output or, for
@@ -72,7 +77,8 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import ops
-from multiverso_tpu_torch.parallel import multihost
+from multiverso_tpu_torch.parallel import device_wire, multihost
+from multiverso_tpu_torch.parallel.flat import DeferredArray
 from multiverso_tpu_torch.parallel.mesh import ceil_block_rows, next_bucket
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.telemetry import sketch as tsketch
@@ -324,8 +330,14 @@ class MatrixServerTable(ServerTable):
     def _update_rows(self, ids: np.ndarray, deltas, opt) -> None:
         """Apply ``deltas`` to rows ``ids`` (pad lanes -1 allowed; live
         ids unique) through the updater, in place."""
+        self._update_rows_padded(ids, self._device_deltas(deltas, len(ids)),
+                                 opt)
+
+    def _update_rows_padded(self, ids: np.ndarray, d: torch.Tensor,
+                            opt) -> None:
+        """``_update_rows`` of deltas already on the device at the storage
+        width (``_device_deltas``)."""
         _, ids_t = self._lanes_tensor(ids)
-        d = self._device_deltas(deltas, len(ids))
         data = self.state["data"]
         if self._fuse:
             ops.update_rows(data, ids_t, d, self._sign)
@@ -685,6 +697,115 @@ class MatrixServerTable(ServerTable):
         self._update_rows(ids, deltas, AddOption().as_tensors())
         # bookkeeping per position in window order, as per-position
         # applies would fire it (the engine serves no Get inside a run)
+        for option, rank_ids in noted:
+            self._note_add_parts(option, rank_ids)
+        return True
+
+    # -- the device window transport (tables/base.py contract; the JAX
+    # package's matrix_table.py:1117-1230) -----------------------------------
+
+    def device_wire_add_ok(self, payload) -> bool:
+        """Row-set Adds of a plain dense delta can ride the device wire: the
+        ids (small) cross the host exchange, the delta block moves card to
+        card. Whole-table payloads decline, and a COMPRESSED table declines
+        entirely: compression already shrank the host bytes, and its dense
+        fallback is decided per rank."""
+        return (self.compress is None
+                and payload.get("row_ids") is not None
+                and payload.get("compressed") is None
+                and isinstance(payload.get("values"), np.ndarray))
+
+    def _merge_device_rows(self, ids: np.ndarray, values: torch.Tensor):
+        """The device merge of one collective batch: ``ids`` every part's
+        row ids concatenated (host), ``values`` their deltas as one flat
+        tensor on the table's device, in the same order. Returns (row ids,
+        deltas at the storage width on the device), bitwise what
+        ``_combine_duplicate_rows`` gives: duplicates summed on the device
+        in submission order (``ops.dedup_rows(deterministic=True)``: a
+        stable sort and a segment sum over the lanes, with the pad columns
+        the sum runs over more than one column), and a lone id keeps its
+        own delta bits (the host merge assigns it, so a -0.0 stays
+        -0.0)."""
+        d = self._device_deltas(values, len(ids))
+        uniq, first, counts = np.unique(ids, return_index=True,
+                                        return_counts=True)
+        if len(uniq) == len(ids):
+            return ids, d
+        _, out = ops.dedup_rows(torch.from_numpy(ids).to(self.device), d,
+                                deterministic=True)
+        out = out[: len(uniq)]
+        lone = np.flatnonzero(counts == 1)
+        if lone.size:
+            out.index_copy_(0, torch.from_numpy(lone).to(self.device),
+                            d.index_select(0, torch.from_numpy(
+                                first[lone]).to(self.device)))
+        return uniq.astype(np.int32), out
+
+    def _device_part(self, p) -> Optional[np.ndarray]:
+        """A deferred run's part -> its validated row ids, or None to
+        decline (the per-position path then reports precise errors)."""
+        row_ids = p.get("row_ids")
+        if row_ids is None or p.get("compressed") is not None:
+            return None
+        ids = np.asarray(row_ids, np.int32).ravel()
+        if (ids.size == 0 or int(ids.min()) < 0
+                or int(ids.max()) >= self.num_rows):
+            return None
+        v = p.get("values")
+        if (not isinstance(v, (DeferredArray, np.ndarray))
+                or v.size != ids.size * self.num_cols):
+            return None
+        return ids
+
+    def ProcessAddPartsDevice(self, parts, my_rank: int) -> None:
+        """One collective row Add whose values ride the device wire. Every
+        rank validates every rank's metadata (ids and the declared value
+        shapes), so a failure raises identically everywhere; the batch is
+        every rank's values in rank order (this rank's from its own slot,
+        the peers' copied out of theirs), merged on the device and applied
+        through the row path: ``<kAdd>``/``<kSub>`` for the add and sgd
+        updaters, ``<kGather>``, the updater and ``<kSet>`` for the
+        others."""
+        opts = self._check_parts_options(parts)
+        rank_ids = []
+        for p in parts:
+            ids = np.asarray(p["row_ids"], np.int32).ravel()
+            self._check_ids(ids)
+            CHECK(np.size(p["values"]) == ids.size * self.num_cols,
+                  "device-wire Add size mismatch")
+            rank_ids.append(ids)
+        values = device_wire.current().gather([p["values"] for p in parts],
+                                              self.device)
+        ids, deltas = self._merge_device_rows(np.concatenate(rank_ids),
+                                              values)
+        self._update_rows_padded(ids, deltas, opts[0].as_tensors())
+        self._note_add_parts(opts[0], rank_ids)
+
+    def ProcessAddRunPartsDevice(self, positions, my_rank: int) -> bool:
+        """A window's deferred row Adds (all positions, all ranks) as ONE
+        device merge and row update, concatenated position by position and
+        rank by rank as the host-wire run concatenates them: linear
+        aux-free updaters only; declines on any doubt. The bookkeeping
+        fires per position in window order after the apply."""
+        if not self._merge_adds:
+            return False
+        all_ids, values, noted = [], [], []
+        for parts in positions:
+            opts = self._norm_parts_options(parts)
+            if not all(o == opts[0] for o in opts):
+                return False
+            rank_ids = []
+            for p in parts:
+                ids = self._device_part(p)
+                if ids is None:
+                    return False
+                all_ids.append(ids)
+                values.append(p["values"])
+                rank_ids.append(ids)
+            noted.append((opts[0], rank_ids))
+        flat = device_wire.current().gather(values, self.device)
+        ids, deltas = self._merge_device_rows(np.concatenate(all_ids), flat)
+        self._update_rows_padded(ids, deltas, AddOption().as_tensors())
         for option, rank_ids in noted:
             self._note_add_parts(option, rank_ids)
         return True

@@ -12,8 +12,9 @@ Multi-process worlds: ``Start`` brings up ``torch.distributed``
 (``parallel/multihost.py``) before it resolves the device, so rank r takes
 its own card (``cuda:(r % device_count)``); rank and size come from the
 world. The host wire (shm same-host, tcp cross-host) is installed next,
-before the engine, with the channels the engine asks for, and ``Stop``
-closes it after the engine. ``Barrier`` adds the cross-process barrier and ``Aggregate`` the
+before the engine, with the channels the engine asks for, then the device
+wire (``parallel/device_wire.py``: the deferred Add values' transport,
+decided rank-agreed), and ``Stop`` closes both after the engine. ``Barrier`` adds the cross-process barrier and ``Aggregate`` the
 cross-process sum. Each process keeps a full replica of every table, and
 the engine applies every rank's verbs of each exchanged window to it
 (``sync/server.py``).
@@ -71,7 +72,7 @@ from multiverso_tpu_torch import replica
 from multiverso_tpu_torch.failsafe.errors import MembershipChanged
 from multiverso_tpu_torch.message import Message, MsgType
 from multiverso_tpu_torch.node import ROLE_NAMES, Node, Role
-from multiverso_tpu_torch.parallel import multihost
+from multiverso_tpu_torch.parallel import device_wire, multihost
 # imported for their flag registrations, which must precede Start()'s
 # ParseCMDFlags
 import multiverso_tpu_torch.failsafe  # noqa: F401
@@ -84,7 +85,8 @@ from multiverso_tpu_torch import serving
 from multiverso_tpu_torch.parallel.allreduce import RendezvousAllreduce
 from multiverso_tpu_torch.parallel.mesh import DeviceContext
 from multiverso_tpu_torch.sync.server import (Server,
-                                              requested_engine_channels)
+                                              requested_engine_channels,
+                                              window_transport_mode)
 from multiverso_tpu_torch.telemetry import accounting as taccounting
 from multiverso_tpu_torch.telemetry import export as texport
 from multiverso_tpu_torch.telemetry import fleet as tfleet
@@ -152,6 +154,10 @@ class Zoo:
             # the host wire before the engine exists: its channels are
             # what let a sharded engine exchange across processes
             multihost.maybe_install_wire(requested_engine_channels())
+            # the device wire next, rank-agreed: the deferred Add values'
+            # card-to-card transport (ipc, or its plain version on the CPU)
+            device_wire.install(self.device_ctx.device,
+                                window_transport_mode())
         self._ma_mode = bool(GetFlag("ma"))
         role = ROLE_NAMES.get(str(GetFlag("ps_role")).lower(), Role.ALL)
         self.num_workers = max(1, int(GetFlag("num_workers")))
@@ -235,6 +241,7 @@ class Zoo:
         # the wire outlives the engine (its drain above exchanged on it)
         # and dies with the world: the next world selects its own
         multihost.close_wire()
+        device_wire.close()
         # the serving plane after the engine (no more publish can arrive):
         # it drops every snapshot and stops its dispatcher, so a later
         # MV_Init world starts from a fresh plane

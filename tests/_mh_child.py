@@ -6,7 +6,8 @@ tests/test_torch_mh_kv_device.py (mode ``kv_device``) and
 tests/test_torch_telemetry_mh.py and tests/test_torch_telemetry_exchange.py
 (mode ``telemetry``) and tests/test_torch_failsafe_mh.py (mode
 ``failsafe``) and tests/test_torch_replica_mh.py (modes ``replica`` and
-``replica_outage``).
+``replica_outage``) and tests/test_torch_device_wire_mh.py (modes
+``transport``, ``dw_burst`` and ``dw_checks``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -1450,6 +1451,249 @@ def run_replica_outage(mv):
     mv.MV_Barrier()
 
 
+# -- the device window transport (tests/test_torch_device_wire_mh.py) --------
+
+def counter_value(name):
+    """A telemetry counter of PKG's registry."""
+    if PKG == "jax":
+        from multiverso_tpu.telemetry import metrics
+    else:
+        from multiverso_tpu_torch.telemetry import metrics
+    return float(metrics.counter(name).value)
+
+
+def dw_wire_name():
+    """The port's device wire ("shm-plain" on the CPU, "none"); the JAX
+    package's device wire is XLA's and has no name here."""
+    if PKG == "jax":
+        return "xla"
+    from multiverso_tpu_torch.parallel import device_wire
+    return device_wire.name()
+
+
+def run_transport(mv):
+    """The JAX package's transport world (test_windowed_multihost.py
+    ``_TRANSPORT_CHILD``: a 256 x 16 matrix, a 2048-float array and a KV
+    table, one Add each, the matrix's deltas integer-valued), then three
+    rounds of AddRows of overlapping ids with float deltas on an sgd and an
+    AdaGrad matrix. Saves the final tables, the engine's device-wire Add
+    positions after the first three Adds and at the end, and the
+    deferral counters."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    R, C, K = 256, 16, 32
+    mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R, num_cols=C))
+    arr = mv.MV_CreateTable(tables.ArrayTableOption(size=2048))
+    kv = mv.MV_CreateTable(tables.KVTableOption())
+    sgd = mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=R, num_cols=C, updater_type="sgd"))
+    ada = mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=R, num_cols=C, updater_type="adagrad"))
+    srv = Zoo.Get().server_engine
+    d0 = counter_value("server.add.device_deferrals")
+    b0 = counter_value("server.wire.device_bytes")
+    g = rng(800, RANK)
+    ids = np.sort(g.choice(R, K, replace=False)).astype(np.int32)
+    mat.AddRows(ids, g.integers(-3, 4, (K, C)).astype(np.float32))
+    arr.Add(np.full(2048, float(RANK + 1), np.float32))
+    kv.Add(np.array([3, 4], np.int64), np.ones(2, np.float32))
+    results["dev_adds_first"] = np.array(srv.mh_device_wire_adds)
+    opt = AddOption(learning_rate=0.25)
+    for r in range(3):
+        g = rng(801, r, RANK)
+        ids = np.sort(g.choice(R, K, replace=False)).astype(np.int32)
+        d = g.standard_normal((K, C)).astype(np.float32)
+        d[0, :3] = -0.0             # signed zeros ride the merge unchanged
+        sgd.AddRows(ids, d, opt)
+        ada.AddRows(ids, d, opt)
+    results["dev_adds"] = np.array(srv.mh_device_wire_adds)
+    results["deferrals"] = np.array(
+        counter_value("server.add.device_deferrals") - d0)
+    results["device_bytes"] = np.array(
+        counter_value("server.wire.device_bytes") - b0)
+    results["wire"] = np.array(dw_wire_name())
+    results["final_mat"] = mat.GetRows(np.arange(R, dtype=np.int32))
+    results["final_arr"] = arr.Get()
+    results["final_kv"] = kv.Get(np.array([3, 4], np.int64))
+    results["final_sgd"] = sgd.GetRows(np.arange(R, dtype=np.int32))
+    results["final_ada"] = ada.GetRows(np.arange(R, dtype=np.int32))
+    assert np.allclose(results["final_arr"], 3.0)
+    assert np.allclose(results["final_kv"], 2.0)
+    mv.MV_Barrier()
+
+
+def run_dw_burst(mv):
+    """The JAX package's mixed-run and device-burst children
+    (test_windowed_multihost.py ``_MIXED_RUN_CHILD``,
+    ``_DEVICE_BURST_CHILD``) in one world at ``auto`` with a 512-byte floor
+    and write combining off, then a tracked deferred Add whose ids hold a
+    bad id on rank 0, inside a fire-and-forget burst: its Wait raises on
+    both ranks and every other Add applies. The engine's counters are
+    checked as the JAX children check them."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    R, C, ROUNDS, SMALL, N = 256, 16, 6, 6, 8
+    mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R, num_cols=C))
+    arr = mv.MV_CreateTable(tables.ArrayTableOption(size=512))
+    mat.AddRows(np.array([0], np.int32), np.zeros((1, C), np.float32))
+    arr.Add(np.zeros(512, np.float32))
+    srv = Zoo.Get().server_engine
+    oracle = np.zeros((R, C), np.float32)
+
+    def big(seed, r, k):
+        g = rng(seed, r, k)
+        return (np.sort(g.choice(R, 32, replace=False)).astype(np.int32),
+                g.integers(-3, 4, (32, C)).astype(np.float32))
+
+    # the mixed run: one deferred Add, then SMALL host-wire Adds a round
+    d0, m0, v0 = (srv.mh_add_dispatches, srv.mh_add_run_merged,
+                  srv.mh_device_wire_adds)
+    positions = 0
+    for i in range(ROUNDS):
+        mat.AddFireForget(big(810, i, RANK)[1], row_ids=big(810, i, RANK)[0])
+        positions += 1
+        for k in range(2):
+            np.add.at(oracle, *big(810, i, k))
+        for j in range(SMALL):
+            mat.AddFireForget(np.ones((1, C), np.float32),
+                              row_ids=np.array([j], np.int32))
+            positions += 1
+    oracle[:SMALL] += ROUNDS * 2.0
+    got = mat.GetRows(np.arange(R, dtype=np.int32))
+    used = srv.mh_add_dispatches - d0
+    merged = srv.mh_add_run_merged - m0
+    dev = srv.mh_device_wire_adds - v0
+    assert dev >= 1 and merged >= 1, (used, merged, dev)
+    assert used <= positions // 2, (used, positions)
+    np.testing.assert_array_equal(got, oracle)
+    results["mixed"] = np.array([used, merged, dev])
+
+    # the device burst: every Add defers, runs merge on the device
+    d0, m0, v0 = (srv.mh_add_dispatches, srv.mh_add_run_merged,
+                  srv.mh_device_wire_adds)
+    o_arr = np.zeros(512, np.float32)
+    for i in range(N):
+        ids, d = big(820, i, RANK)
+        mat.AddFireForget(d, row_ids=ids)
+        arr.AddFireForget(np.full(512, 0.5 * (i + 1), np.float32))
+        for k in range(2):
+            np.add.at(oracle, *big(820, i, k))
+        o_arr += 2 * 0.5 * (i + 1)
+    got = mat.GetRows(np.arange(R, dtype=np.int32))
+    got_arr = arr.Get()
+    used = srv.mh_add_dispatches - d0
+    merged = srv.mh_add_run_merged - m0
+    dev = srv.mh_device_wire_adds - v0
+    assert dev == 2 * N, (used, merged, dev)
+    assert merged >= 1 and used <= N, (used, merged, dev)
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got_arr, o_arr)
+    results["burst"] = np.array([used, merged, dev])
+
+    # a bad id inside a deferred Add: that position fails on both ranks
+    for i in range(3):
+        ids, d = big(830, i, RANK)
+        if i == 1:
+            bad = ids.copy()
+            if RANK == 0:
+                bad[5] = R + 7
+            h = mat.AddAsyncHandle(d, row_ids=bad)
+        else:
+            mat.AddFireForget(d, row_ids=ids)
+            for k in range(2):
+                np.add.at(oracle, *big(830, i, k))
+    try:
+        mat.Wait(h)
+        raise AssertionError("a deferred Add with a bad id applied")
+    except AssertionError:
+        raise
+    except Exception as exc:
+        results["bad_error"] = np.array(f"{type(exc).__name__}: {exc}")
+    np.testing.assert_array_equal(
+        mat.GetRows(np.arange(R, dtype=np.int32)), oracle)
+    results["final_mat"] = mat.GetRows(np.arange(R, dtype=np.int32))
+    results["final_arr"] = arr.Get()
+    results["wire"] = np.array(dw_wire_name())
+    mv.MV_Barrier()
+
+
+def run_dw_checks(mv):
+    """The device transport's CHECKs, each in a world of its own on one
+    process group (the worlds start from ``EXTRA``'s flags, so ``boot``
+    starts none): ``-window_transport=device`` with two engine shards fails
+    the JAX package's collective-apply CHECK at the Add's Wait, and ``auto``
+    there (a 1024-byte floor) defers nothing and applies; faked onto
+    two hosts, ``device`` fails ``MV_Init``'s CHECK and ``auto`` at a
+    1024-byte floor defers nothing and applies every Add."""
+    from multiverso_tpu_torch.utils.log import FatalError
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    base = [f"-dist_coordinator=127.0.0.1:{PORT}", f"-dist_rank={RANK}",
+            "-dist_size=2", "-mv_device=cpu", "-mv_dist_timeout_s=60"]
+    R, C = 64, 16
+    ids = np.arange(32, dtype=np.int32)
+    d = np.ones((32, C), np.float32)
+
+    mv.MV_Init(base + ["-window_transport=device", "-mv_engine_shards=2"])
+    try:
+        a = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R,
+                                                       num_cols=C))
+        mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R, num_cols=C))
+        try:
+            a.AddRows(ids, d)
+            raise AssertionError("a collective apply ran on two streams")
+        except FatalError as exc:
+            results["shards_error"] = np.array(str(exc))
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+
+    # auto under two shards: the same Add rides the host wire
+    mv.MV_Init(base + ["-window_transport=auto",
+                       "-window_device_min_bytes=1024",
+                       "-mv_engine_shards=2"])
+    try:
+        a = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R,
+                                                       num_cols=C))
+        mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R, num_cols=C))
+        d0 = counter_value("server.add.device_deferrals")
+        a.AddRows(ids, d)
+        results["shards_auto_deferrals"] = np.array(
+            counter_value("server.add.device_deferrals") - d0)
+        np.testing.assert_array_equal(a.GetRows(ids), np.full((32, C), 2.0))
+        mv.MV_Barrier()
+    finally:
+        mv.MV_ShutDown(finalize_net=False)
+
+    split = [f"-mv_wire_hostname=node{'AB'[RANK]}"]
+    try:
+        mv.MV_Init(base + split + ["-window_transport=device"])
+        raise AssertionError("device transport across hosts started")
+    except FatalError as exc:
+        results["hosts_error"] = np.array(str(exc))
+    mv.MV_ShutDown(finalize_net=False)
+
+    mv.MV_Init(base + split + ["-window_transport=auto",
+                               "-window_device_min_bytes=1024"])
+    try:
+        from multiverso_tpu_torch.parallel import device_wire
+        results["auto_wire"] = np.array(device_wire.name())
+        results["auto_why"] = np.array(device_wire.why_none())
+        mat = mv.MV_CreateTable(tables.MatrixTableOption(num_rows=R,
+                                                         num_cols=C))
+        arr = mv.MV_CreateTable(tables.ArrayTableOption(size=2048))
+        d0 = counter_value("server.add.device_deferrals")
+        mat.AddRows(ids, d * (RANK + 1))
+        arr.Add(np.full(2048, float(RANK + 1), np.float32))
+        results["auto_deferrals"] = np.array(
+            counter_value("server.add.device_deferrals") - d0)
+        results["auto_dev_adds"] = np.array(
+            Zoo.Get().server_engine.mh_device_wire_adds)
+        got = mat.GetRows(ids)
+        np.testing.assert_array_equal(got, np.full((32, C), 3.0))
+        np.testing.assert_array_equal(arr.Get(), np.full(2048, 3.0))
+        mv.MV_Barrier()
+    finally:
+        mv.MV_ShutDown()
+
+
+
 def main():
     extra = {"bsp": ["-sync=true"],
              "tables": ["-num_workers=2"],
@@ -1460,8 +1704,13 @@ def main():
              "replica": ["-mv_deadline_s=60", "-mv_replica_fanout=true"],
              "replica_outage": ["-mv_deadline_s=30",
                                 "-mv_replica_fanout=true"],
+             "dw_burst": ["-window_transport=auto",
+                          "-window_device_min_bytes=512",
+                          "-mv_write_combine=0"],
              }.get(MODE, [])
-    if MODE == "wiring":
+    if MODE == "dw_checks":
+        import multiverso_tpu_torch as mv       # its worlds start there
+    elif MODE == "wiring":
         how = EXTRA[0]
         import multiverso_tpu_torch as mv
         if how == "netbind":
@@ -1484,8 +1733,10 @@ def main():
      "lr_compress": run_lr_compress,
      "replica": run_replica, "replica_outage": run_replica_outage,
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
-     "we_pairs": run_we_pairs, "we_ragged": run_we_ragged}[MODE](mv)
-    if MODE != "dead":
+     "we_pairs": run_we_pairs, "we_ragged": run_we_ragged,
+     "transport": run_transport, "dw_burst": run_dw_burst,
+     "dw_checks": run_dw_checks}[MODE](mv)
+    if MODE not in ("dead", "dw_checks"):
         mv.MV_ShutDown()
     np.savez(os.path.join(OUTDIR, f"{PKG}_{MODE}_{RANK}.npz"), **results)
     print(f"child {RANK} {MODE} OK", flush=True)

@@ -7,8 +7,9 @@ a numpy oracle of both ranks' Adds inside the children. Here:
 
 (a) the single-process identities in this process: ``-multihost=off``, auto
     without a launcher's environment, ``MV_Size() == 1``, the collectives'
-    identities (no host wire: ``wire_name()`` is ``local``), the CHECKs on
-    an unknown ``-mv_wire`` and on the unported device transport, the net
+    identities (no host wire: ``wire_name()`` is ``local``), the CHECK on
+    an unknown ``-mv_wire`` (the device transport's CHECKs are in
+    ``tests/test_torch_device_wire_mh.py``), the net
     declarations, the machine file, and ``RendezvousAllreduce``'s
     cross-process leg (applied once a round by the last thread; a failure
     releases every waiter);
@@ -85,13 +86,12 @@ def test_single_process_identities(tmp_path, monkeypatch):
     finally:
         mv.MV_ShutDown()
 
-    # an unknown wire (checked before any rendezvous) and the unported
-    # transport fail a CHECK that says so
+    # an unknown wire (checked before any rendezvous) fails a CHECK that
+    # says so
     for argv, words in (
             (["-multihost=on", "-mv_wire=ib", "-dist_coordinator=127.0.0.1:1",
               "-dist_rank=0", "-dist_size=2"],
-             "-mv_wire must be auto/shm/tcp/gloo"),
-            (["-window_transport=device"], "is not ported yet")):
+             "-mv_wire must be auto/shm/tcp/gloo"),):
         with pytest.raises(FatalError, match=words):
             mv.MV_Init(["-mv_device=cpu"] + argv)
         mv.MV_ShutDown()

@@ -3,9 +3,9 @@
 (a) the window codec in this process: the port encodes a window to the
     JAX package's bytes and each decodes the other's; a flipped bit or a
     truncation raises ``WireCorruption`` before parsing; a head-marker
-    blob decodes to its message type; a device-wire value (not ported)
-    fails to decode with an error that says so, and a compressed value
-    (``-mv_compress``) decodes to the JAX package's bits;
+    blob decodes to its message type; a device-wire value (the ``v`` tag)
+    decodes to a ``DeferredArray`` of its dtype and shape, and a compressed
+    value (``-mv_compress``) decodes to the JAX package's bits;
 (b) fire-and-forget bursts on four tables (add, sgd, Array, KV) with
     tracked Gets between them, two processes, on the default pipelined
     engine and on ``-mv_pipeline=0``: the ranks' Gets bitwise equal, the
@@ -77,15 +77,19 @@ def test_window_codec_matches_jax():
     marker = wire.encode_head_barrier(33)
     assert wire.decode_head_kind(marker) == ("barrier", 33)
     assert jwire.decode_head_kind(marker) == ("barrier", 33)
-    # a JAX device-wire value: not ported; a JAX compressed value (the q
-    # tag, -mv_compress): decoded by the port as by the JAX package
+    # a JAX device-wire value (the v tag): its dtype and shape, no bytes;
+    # a JAX compressed value (the q tag, -mv_compress): decoded by the port
+    # as by the JAX package
     from multiverso_tpu.parallel.compress import (CompressedArray,
                                                   encode_int8_rows)
     from multiverso_tpu.parallel.flat import DeferredArray
+    from multiverso_tpu_torch.parallel.flat import \
+        DeferredArray as PortDeferred
     deferred = jwire.encode_window([("A", 0, {"values": DeferredArray.of(
         vals)})])
-    with pytest.raises(ValueError, match="device-wire value.*not ported"):
-        wire.decode_window_seq(deferred)
+    got = wire.decode_window_seq(deferred)[1][0][2]["values"]
+    assert isinstance(got, PortDeferred) and got.local is None
+    assert (got.dtype, got.shape) == (vals.dtype, vals.shape)
     comp = jwire.encode_window([("A", 0, {"values": CompressedArray(
         encode_int8_rows(vals))})])
     got = wire.decode_window_seq(comp)[1][0][2]["values"]
