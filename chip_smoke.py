@@ -180,7 +180,9 @@ holds every kernel of that path against its plain PyTorch version:
               ``device_place_slots``, the scatter-add and the gather on the
               card, the values bitwise equal across the ranks and to a twin
               KV table that took the same deltas through the host Add, and
-              each rank's lanes of the gather its keys' values;
+              each rank's lanes of the gather its keys' values; a device
+              route turn (the deltas card to card through the device
+              wire) then a host route turn, bitwise each other;
               serving (``[serve]``, run after every other phase):
               the WordEmbedding flagship's width, an sgd and an AdaGrad MatrixTable of 1,000,000 x
               128 in one process on the card: the sgd table's snapshots
@@ -321,7 +323,9 @@ holds every kernel of that path against its plain PyTorch version:
               add tables at the PS shape, tables 0 and 2 hot,
               ``MV_PolicySync`` every 4th iteration): a route installs on
               both ranks, a hot probe after it lands balanced (max/mean
-              under 1.5), the alert clears, the tables bitwise a
+              under 1.5), the alert clears while the probe keeps
+              running (up to 20 s, the ranks stopping on an agreed
+              round), the tables bitwise a
               ``-mv_policy=false`` world's; a clean world installs
               nothing; each shard's apply seconds and the iterations
               before and after the install;
@@ -385,8 +389,14 @@ holds every kernel of that path against its plain PyTorch version:
               -use_adagrad 1`` on the topic corpus (touched-rows step
               forced) and at 1,000,000 x 128 on the big Zipf corpus, both
               cut 2/3 : 1/3 (filler blocks), every rank running the
-              global blocks, and ``-device_plane 1`` at 100,000 x 128 on
-              halves: every table bitwise equal across the ranks, every
+              global blocks, and ``-device_plane 1 -use_adagrad 1`` at
+              100,000 x 128 on halves; the device planes' collective
+              writes in route turns (LR dense and sparse, and WE with the
+              step's deterministic scatter-adds: device, host, device):
+              each device turn on ``ipc``, bitwise its host
+              turn, its peer copies exactly the peer's staged deltas and
+              only the rides device->host; every table bitwise equal
+              across the ranks, every
               block under its untrained loss, the topic run's first
               global block within rtol 1e-3, atol 1e-4 of the same block
               on the CPU (same draws); the 1,000,000 x 128 run's first
@@ -414,6 +424,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -423,6 +434,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -476,7 +488,14 @@ LR_EPOCHS = {"lr_dense": 9, "lr_dense_host": 3, "lr_sparse": 6,
 LR2_SHARE = 0.7
 LR2_EPOCHS = {"lr2_dense": 3, "lr2_sparse": 3, "lr2_ftrl": 6}
 WE2_BLOCK_BYTES, WE2_SHARE = 500_000, 2 / 3
-WE2_RUNS = ("we2_topics", "we2_pairs", "we2_device")
+# [we_2proc]'s worlds (run, result key, route turn): each run once, the
+# device plane's in route turns (device, host, device: its collective
+# writes card to card, then through the host)
+WE2_TURNS = (("we2_topics", "we2_topics", None),
+             ("we2_pairs", "we2_pairs", None),
+             ("we2_device", "we2_device", "device"),
+             ("we2_device", "we2_device_host", "host"),
+             ("we2_device", "we2_device_2", "device"))
 # [ckpt]: rounds run after the save, and again after the load; the LR
 # table's keys a round (about a window's distinct keys at the RCV1 width)
 CKPT_ROUNDS, CKPT_LR_KEYS = 3, 20_000
@@ -2747,14 +2766,7 @@ def po_2proc_rank(rank: int, port: int, port2: int, seed: int,
                 tabs[2].GetRows(ids)
                 s1 = shard_s(eng)
                 w["post"] = {str(k): s1[k] - s0.get(k, 0.0) for k in s1}
-                deadline = time.time() + 20
-                cleared = not any(a["rule"] == "shard_imbalance"
-                                  for a in twd.active_alerts())
-                while not cleared and time.time() < deadline:
-                    time.sleep(0.2)
-                    cleared = not any(a["rule"] == "shard_imbalance"
-                                      for a in twd.active_alerts())
-                w["cleared"] = cleared
+                w.update(po_wait_clear(multihost, twd, tabs, ids, d))
             w["ring"] = sorted({e["kind"] for e in flight.events()
                                 if e["kind"].startswith(("policy.",
                                                          "alert."))})
@@ -2774,6 +2786,39 @@ def po_2proc_rank(rank: int, port: int, port2: int, seed: int,
     with open(out, "w") as f:
         json.dump(res, f)
     return 0
+
+
+def po_wait_clear(multihost, twd, tabs: list, ids, d) -> dict:
+    """[policy_2proc]'s wait for the alert clear, up to 20 s: the balanced
+    hot probe keeps running, so every watchdog tick has evidence (an idle
+    tick holds: ``ShardImbalanceRule`` needs ``clear_after`` busy,
+    balanced ticks). Both ranks push the same bursts (PO_BURST
+    fire-and-forget AddRows to tables 0 and 2, then a GetRows of each)
+    and stop together on a round they agree on: once both have cleared,
+    or once either has reached the deadline. Returns whether the alert
+    cleared, the rounds, and the watchdog's last samples (each tick's
+    shard apply seconds and active alerts)."""
+    samples = []
+    twd.peek().add_tick_listener(lambda rec: samples.append({
+        "tick": rec["ticks"], "active": rec["active"],
+        "shards": {str(s["shard"]): round(s.get("apply_busy_s", 0.0), 4)
+                   for s in rec["sample"].get("shards", [])}}))
+    deadline, rounds = time.time() + 20, 0
+    while True:
+        cleared = not any(a["rule"] == "shard_imbalance"
+                          for a in twd.active_alerts())
+        votes = multihost.host_allgather_objects(
+            (cleared, time.time() >= deadline))
+        if all(c for c, _ in votes) or any(late for _, late in votes):
+            break
+        for _ in range(PO_BURST):
+            tabs[0].AddFireForget(d, row_ids=ids)
+            tabs[2].AddFireForget(d, row_ids=ids)
+        tabs[0].GetRows(ids[:8])
+        tabs[2].GetRows(ids[:8])
+        rounds += 1
+    return {"cleared": cleared, "clear_rounds": rounds,
+            "samples": samples[-6:]}
 
 
 def po_2proc_phase(seed: int, workdir: str) -> dict:
@@ -2798,7 +2843,12 @@ def po_2proc_phase(seed: int, workdir: str) -> dict:
             raise AssertionError(f"{tag}: the hot burst is unbalanced "
                                  f"after the install: {sk['post']}")
         if not sk["cleared"]:
-            raise AssertionError(f"{tag}: shard_imbalance never cleared")
+            raise AssertionError(f"{tag}: shard_imbalance never cleared "
+                                 f"(the route installed at iteration "
+                                 f"{sk['installed_at']}, "
+                                 f"{sk['clear_rounds']} probe rounds in the "
+                                 f"wait; the watchdog's last samples "
+                                 f"{sk['samples']})")
         if sk["digest"] != orc["digest"] or orc["overrides"]:
             raise AssertionError(f"{tag}: the tables differ from the "
                                  f"-mv_policy=false world's")
@@ -2840,8 +2890,10 @@ def report_po_2proc(po: dict, card: str) -> None:
                 f"{np.median(r['oracle']['iter_ms']):.4f}, the clean world "
                 f"{np.median(r['clean']['iter_ms']):.4f}; {card})")
         log(f"[policy_2proc] rank {r['rank']}: overrides {sk['overrides']}"
-            f", report {sk['report']}, alert cleared {sk['cleared']}; "
-            f"clean world report {r['clean']['report']}")
+            f", report {sk['report']}, alert cleared {sk['cleared']} after "
+            f"{sk['clear_rounds']} probe rounds (the watchdog's last "
+            f"samples {sk['samples']}); clean world report "
+            f"{r['clean']['report']}")
     log(f"[policy_2proc] launches (both ranks, three worlds): "
         f"{po['launches']}; the skew world's tables bitwise the "
         f"-mv_policy=false world's, equal across the ranks")
@@ -3534,16 +3586,19 @@ def kv_keys(seed: int, rank: int) -> tuple:
     return keys, deltas
 
 
-def kv2_device(torch, mv, base: list, rank: int, seed: int) -> dict:
+def kv2_device(torch, mv, base: list, rank: int, seed: int,
+               route: str = "device") -> dict:
     """[kv_2proc device]: a KV table on the card; this rank resolves its
     KV_DEVICE_KEYS keys with ``device_slots(create=True)`` (collective:
     the union in rank order, one shared bucket), places the global batch
-    with device deltas, scatter-adds it (the deterministic segment sums)
-    and gathers it; a twin KV table takes the same deltas through the
-    host Add. Both tables' values at both ranks' keys must be bitwise
-    equal, and this rank's lanes of the gather its keys' values."""
+    with device deltas (``route``: card to card, or through the host),
+    scatter-adds it (the deterministic segment sums) and gathers it; a
+    twin KV table takes the same deltas through the host Add. Both
+    tables' values at both ranks' keys must be bitwise equal, and this
+    rank's lanes of the gather its keys' values."""
     import hashlib
 
+    from multiverso_tpu_torch.parallel import multihost as mh
     from multiverso_tpu_torch.tables import KVTableOption
     dev = torch.device("cuda", 0)
     keys, deltas = kv_keys(seed, rank)
@@ -3557,17 +3612,21 @@ def kv2_device(torch, mv, base: list, rank: int, seed: int) -> dict:
             raise AssertionError("[kv_2proc device] the KV table is not on "
                                  "cuda:0")
         mv.MV_Barrier()
-        res = {}
+        res = {"route": route}
         t0 = time.perf_counter()
         slots = srv.device_slots(keys, create=True)
         res["slots_s"] = time.perf_counter() - t0
         b = len(slots)
         pad = torch.zeros(b, dtype=torch.float32, device=dev)
         pad[:n] = torch.from_numpy(deltas).to(dev)
+        torch.cuda.synchronize()
+        mh.reset_stats()
         t0 = time.perf_counter()
-        gslots, gdeltas = srv.device_place_slots(slots, pad)
+        with route_turn(mh, route):
+            gslots, gdeltas = srv.device_place_slots(slots, pad)
         torch.cuda.synchronize()
         res["place_s"] = time.perf_counter() - t0
+        res["collective"] = dict(mh.STATS)
         t0 = time.perf_counter()
         srv.device_set_values(srv.device_scatter_add_slots(
             srv.device_values(), gslots, gdeltas))
@@ -3627,6 +3686,7 @@ def mh_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
     res["compress_launches"] = dict(cr.LAUNCHES)
     cr.reset_launches()
     res["kv"] = kv2_device(torch, mv, base, rank, seed)
+    res["kv_host"] = kv2_device(torch, mv, base, rank, seed, route="host")
     res["kv_launches"] = dict(cr.LAUNCHES)
     torch.cuda.synchronize()
     if cr.read_error(dev) != 0:
@@ -3680,8 +3740,13 @@ def mh_2proc_phase(seed: int, workdir: str) -> dict:
         if len({r["compress"][turn]["digest"] for r in ranks}) != 1:
             raise AssertionError(f"[ps_2proc compress] the ranks differ on "
                                  f"the {CODEC_TURNS[turn]} turn")
-    if ranks[0]["kv"]["digest"] != ranks[1]["kv"]["digest"]:
-        raise AssertionError("[kv_2proc device] the ranks' values differ")
+    if len({r[k]["digest"] for r in ranks for k in ("kv", "kv_host")}) != 1:
+        raise AssertionError("[kv_2proc device] the values differ across "
+                             "the ranks or the routes")
+    check_route_turns("[kv_2proc device]",
+                      [{"collective": r["kv"]["collective"]} for r in ranks],
+                      [{"collective": r["kv_host"]["collective"]}
+                       for r in ranks], 1, rides=False)
     launches = {path: {k: sum(r[f"{key}_launches"][k] for r in ranks)
                        for k in ranks[0][f"{key}_launches"]}
                 for path, key in (("ps_2proc_apply", "apply"),
@@ -3728,14 +3793,21 @@ def report_mh_2proc(mh: dict, card: str) -> None:
                 f"median {np.median(t['round_ms']):.3f} ms "
                 f"{[round(x, 3) for x in t['round_ms']]}, exchange "
                 f"{t['exchange_s']:.4f} s{ratio}{err} ({card})")
-        kv = r["kv"]
-        log(f"[kv_2proc device] rank {r['rank']}: {kv['keys']} keys a rank "
-            f"(half shared), {kv['table_keys']} in the table (capacity "
-            f"{kv['capacity']}), bucket {kv['bucket']}: device_slots "
-            f"{kv['slots_s']:.4f} s, device_place_slots "
-            f"{kv['place_s']:.4f} s, scatter-add {kv['scatter_add_s']:.4f} "
-            f"s, gather {kv['gather_s']:.4f} s; the twin's host Add "
-            f"{kv['twin_add_s']:.4f} s ({card})")
+        for kv in (r["kv"], r["kv_host"]):
+            st = kv["collective"]
+            log(f"[kv_2proc device] rank {r['rank']} {kv['route']} route: "
+                f"{kv['keys']} keys a rank (half shared), {kv['table_keys']}"
+                f" in the table (capacity {kv['capacity']}), bucket "
+                f"{kv['bucket']}: device_slots {kv['slots_s']:.4f} s, "
+                f"device_place_slots {kv['place_s']:.4f} s (its round "
+                f"{st['agree_s']:.4f} s, device->host {st['d2h_s']:.4f} s "
+                f"({st['d2h_bytes']} B), staging {st['stage_s']:.4f} s "
+                f"({st['stage_bytes']} B), peer copies "
+                f"{st['copy_peer_n']} ({st['copy_peer_bytes']} B) in "
+                f"{st['copy_s']:.4f} s ({st['copy_ms']:.3f} ms by CUDA "
+                f"events)), scatter-add {kv['scatter_add_s']:.4f} s, gather "
+                f"{kv['gather_s']:.4f} s; the twin's host Add "
+                f"{kv['twin_add_s']:.4f} s ({card})")
     for i, c in enumerate(mh["apply_critpath"]):
         log(critpath_line(f"[ps_2proc apply] turn {i} -mv_apply_workers="
                           f"{c['workers']}", c, card))
@@ -3743,9 +3815,10 @@ def report_mh_2proc(mh: dict, card: str) -> None:
         "the turns; add and sgd == the oracle; pool jobs only at 4 workers")
     log("[ps_2proc compress] -mv_compress alone bitwise the plain turn; the "
         "lossy turn bitwise equal across the ranks, inside the int8 bound")
-    log("[kv_2proc device] values bitwise equal across the ranks and to the "
-        "twin's host Adds; each rank's lanes of the global gather == its "
-        "keys' values")
+    log("[kv_2proc device] values bitwise equal across the ranks, the "
+        "routes and to the twin's host Adds; each rank's lanes of the "
+        "global gather == its keys' values; the device route's peer copies "
+        "exactly the peer's deltas, none of them device->host")
 
 
 def ckpt_tables(mv):
@@ -5523,16 +5596,62 @@ def lr2_configs(workdir: str, rank: int, platform: str) -> dict:
 def collective_line(run: dict) -> str:
     """A run's lockstep rounds: the application thread's
     (multihost.STATS) and the engine's window exchanges, and their share
-    of the run's seconds."""
+    of the run's seconds; the collective writes' route and, on the device
+    route, their staging, peer copies and device merge."""
     st, secs = run["collective"], run["train_s"]
     coll = st["agree_s"] + st["write_s"]
-    return (f"the engine's window exchanges {run['engine_xw_s']:.4f} s; "
+    return (f"{run.get('route', 'host')} route; the engine's window "
+            f"exchanges {run['engine_xw_s']:.4f} s; "
             f"agreements {st['agree_n']} in {st['agree_s']:.4f} s, "
-            f"collective writes {st['write_n']}: device->host "
-            f"{st['d2h_s']:.4f} s, all-gathers {st['write_s']:.4f} s, host "
-            f"merge {st['merge_s']:.4f} s, apply {st['apply_s']:.4f} s; "
+            f"collective writes {st['write_n']} rounds: device->host "
+            f"{st['d2h_s']:.4f} s ({st['d2h_bytes']} B), all-gathers "
+            f"{st['write_s']:.4f} s, host merge {st['merge_s']:.4f} s, "
+            f"staging {st['stage_s']:.4f} s ({st['stage_n']} writes, "
+            f"{st['stage_bytes']} B), peer copies {st['copy_peer_n']} "
+            f"({st['copy_peer_bytes']} B) in {st['copy_s']:.4f} s "
+            f"({st['copy_ms']:.3f} ms by CUDA events), device merge "
+            f"{st['dmerge_s']:.4f} s, apply {st['apply_s']:.4f} s; "
             f"agreements + all-gathers {coll:.4f} s = {coll / secs:.3f} of "
             f"{secs:.4f} s")
+
+
+def route_turn(mh, route: str):
+    """The context of one route turn in a rank process: ``device`` checks
+    that the world's collective writes take the device route over
+    ``ipc``; ``host`` makes them take the host route (the route function
+    patched, no flag)."""
+    from multiverso_tpu_torch.parallel import device_wire
+    if route == "host":
+        return mock.patch.object(mh, "_write_wire", return_value=None)
+    if not mh.device_writes() or device_wire.name() != "ipc":
+        raise AssertionError(f"the collective writes do not ride the "
+                             f"device wire (wire {device_wire.name()})")
+    return contextlib.nullcontext()
+
+
+def check_route_turns(tag: str, dev: list, host: list, deltas: int,
+                      rides: bool) -> None:
+    """The device turn of a two-rank run (``dev``, both ranks' results)
+    against its host turn (``host``): every peer copy exact (each rank
+    copied its peer's staged bytes, ``deltas`` copies a write), no delta
+    device to host (the rides' 4 B a write at most), and the host turn
+    moving those deltas and rides to the host and staging nothing."""
+    for r in range(2):
+        d, h = dev[r]["collective"], host[r]["collective"]
+        peer = dev[1 - r]["collective"]
+        if not (d["stage_n"] > 0
+                and d["copy_peer_bytes"] == peer["stage_bytes"] > 0
+                and d["copy_peer_n"] == deltas * peer["stage_n"]):
+            raise AssertionError(f"{tag} rank {r}: the device turn's peer "
+                                 f"copies are not its peer's deltas: {d}, "
+                                 f"peer {peer}")
+        if d["d2h_bytes"] > (4 * d["stage_n"] if rides else 0):
+            raise AssertionError(f"{tag} rank {r}: a delta crossed to the "
+                                 f"host on the device route: {d}")
+        if h["stage_n"] or h["copy_peer_n"] or \
+                h["d2h_bytes"] != d["stage_bytes"] + d["d2h_bytes"]:
+            raise AssertionError(f"{tag} rank {r}: the host turn did not "
+                                 f"move the device turn's deltas: {h}")
 
 
 def lr_2proc_rank(rank: int, port: int, seed: int, out: str,
@@ -5558,15 +5677,24 @@ def lr_2proc_rank(rank: int, port: int, seed: int, out: str,
     mv.MV_Init(base)
     eng = Zoo.Get().server_engine
     for name, cfg in lr2_configs(workdir, rank, "cuda").items():
-        cr.reset_launches()
-        mh.reset_stats()
-        x0 = eng.xw_busy_s
-        r, weights[name] = lr_run(torch, cfg, dev)
-        torch.cuda.synchronize()
-        r.update(launches=dict(cr.LAUNCHES), collective=dict(mh.STATS),
-                 engine_xw_s=eng.xw_busy_s - x0,
-                 digest=hashlib.sha256(weights[name].tobytes()).hexdigest())
-        res["runs"][name] = r
+        # the device planes' writes: route turns on the same shards, device,
+        # host, device (the first device turn also pays the run's first
+        # calls)
+        turns = ((name, "device"),) if name == "lr2_ftrl" else (
+            (name, "device"), (f"{name}_host", "host"),
+            (f"{name}_2", "device"))
+        for key, route in turns:
+            cr.reset_launches()
+            mh.reset_stats()
+            x0 = eng.xw_busy_s
+            with route_turn(mh, route):
+                r, W = lr_run(torch, cfg, dev)
+            torch.cuda.synchronize()
+            weights.setdefault(name, W)
+            r.update(launches=dict(cr.LAUNCHES), collective=dict(mh.STATS),
+                     engine_xw_s=eng.xw_busy_s - x0, route=route, run=name,
+                     digest=hashlib.sha256(W.tobytes()).hexdigest())
+            res["runs"][key] = r
     if cr.read_error(dev) != 0:
         raise AssertionError("error word set on the 2-process LR path")
     mv.MV_ShutDown(finalize_net=False)      # the process group stays up
@@ -5597,12 +5725,21 @@ def lr_2proc_phase(seed: int, workdir: str) -> dict:
             raise AssertionError(f"[lr_2proc] {name}: the ranks' final "
                                  f"weights differ")
         for r in runs:
-            check_lr(name.replace("lr2_", "lr_"), r)
+            check_lr(r["run"].replace("lr2_", "lr_"), r)
+    for name in ("lr2_dense", "lr2_sparse"):
+        host = [r["runs"][f"{name}_host"] for r in ranks]
+        for key in (name, f"{name}_2"):
+            dev = [r["runs"][key] for r in ranks]
+            if any(d["digest"] != h["digest"] for d, h in zip(dev, host)):
+                raise AssertionError(f"[lr_2proc] {key}: the device route's "
+                                     f"weights differ from the host route's")
+            check_route_turns(f"[lr_2proc] {key}", dev, host, 1, rides=True)
     for r in ranks:
-        for k in ("gather_rows", "update_rows"):
-            if r["runs"]["lr2_sparse"]["launches"][k] == 0:
-                raise AssertionError(f"[lr_2proc] rank {r['rank']} never "
-                                     f"launched {k}")
+        for run in ("lr2_sparse", "lr2_sparse_host", "lr2_sparse_2"):
+            for k in ("gather_rows", "update_rows"):
+                if r["runs"][run]["launches"][k] == 0:
+                    raise AssertionError(f"[lr_2proc] rank {r['rank']} "
+                                         f"{run} never launched {k}")
     launches = {k: sum(run["launches"][k] for r in ranks
                        for run in r["runs"].values())
                 for k in ("gather_rows", "scatter_set_rows", "update_rows")}
@@ -5659,7 +5796,8 @@ def we2_options(workdir: str, seed: int, rank: int, run: str,
     words a rank, the touched-rows step forced by the caller),
     ``we2_pairs`` (-device_pairs 1 -use_adagrad 1 at 1,000,000 x 128, the
     touched-rows step, blocks of WE2_BLOCK_BYTES a rank) and
-    ``we2_device`` (-device_plane 1 at 100,000 x 128)."""
+    ``we2_device`` (-device_plane 1 -use_adagrad 1 at 100,000 x 128: four
+    tables a collective write)."""
     vocab, corpora = we2_data_paths(workdir)[run]
     extra = {"we2_topics": (
                  "-device_pairs", "1", "-use_adagrad", "1", "-lr", "0.1",
@@ -5669,7 +5807,8 @@ def we2_options(workdir: str, seed: int, rank: int, run: str,
                  "-device_pairs", "1", "-use_adagrad", "1", "-lr",
                  str(WE_ADAGRAD_LR), "-data_block_size",
                  str(WE2_BLOCK_BYTES)),
-             "we2_device": ()}[run]
+             "we2_device": ("-use_adagrad", "1", "-lr",
+                            str(WE_ADAGRAD_LR))}[run]
     return we_options(workdir, seed, vocab, corpora[rank],
                       extra=extra + ("-platform", platform))
 
@@ -5951,6 +6090,8 @@ def we_2proc_rank(rank: int, port: int, seed: int, out: str,
 
     import multiverso_tpu_torch as mv
     from multiverso_tpu_torch.models.wordembedding import device_pairs as dp
+    from multiverso_tpu_torch.models.wordembedding import distributed as wed
+    from multiverso_tpu_torch.models.wordembedding import model as wem
     from multiverso_tpu_torch.ops import cuda_rows as cr
     from multiverso_tpu_torch.parallel import multihost as mh
     from multiverso_tpu_torch.zoo import Zoo
@@ -5960,7 +6101,7 @@ def we_2proc_rank(rank: int, port: int, seed: int, out: str,
     res = {"rank": rank, "runs": {}}
     recs = {}
     sparse_bytes = dp._SPARSE_BYTES
-    for run in WE2_RUNS:
+    for run, key, route in WE2_TURNS:
         mv.MV_Init(base)
         eng = Zoo.Get().server_engine
         cr.reset_launches()
@@ -5970,14 +6111,24 @@ def we_2proc_rank(rank: int, port: int, seed: int, out: str,
             rank == 0 and run == "we2_pairs") else contextlib.nullcontext()
         block = (FirstGlobalBlock(dp, seed, rank == 0)
                  if run != "we2_device" else contextlib.nullcontext())
-        with batches as first, block as rec:
+        turn = contextlib.ExitStack()
+        if route:
+            turn.enter_context(route_turn(mh, route))
+            # index_add_ on the card sums a batch's duplicate rows in
+            # atomic order, so two runs of the step end some last bits
+            # apart: the route turns take the step's deterministic
+            # scatter-adds (ops.rows.scatter_add_rows) to be held bitwise
+            turn.enter_context(mock.patch.object(
+                wed, "make_train_step", functools.partial(
+                    wem.make_train_step, deterministic=True)))
+        with batches as first, block as rec, turn:
             r, we = we2_train(torch, we2_options(workdir, seed, rank, run))
         dp._SPARSE_BYTES = sparse_bytes
         torch.cuda.synchronize()
         if cr.read_error(dev) != 0:
             raise AssertionError(f"error word set on {run}")
         r.update(launches=dict(cr.LAUNCHES), collective=dict(mh.STATS),
-                 engine_xw_s=eng.xw_busy_s,
+                 engine_xw_s=eng.xw_busy_s, route=route or "host",
                  digests=[hashlib.sha256(t.server().raw().tobytes())
                           .hexdigest() for t in we_tables(we)])
         if we.dp_trainer is not None:
@@ -5988,9 +6139,9 @@ def we_2proc_rank(rank: int, port: int, seed: int, out: str,
                      *[o.cpu().numpy() for o in first.outputs])
         if rec is not None and rank == 0:
             recs[run] = rec.rec
-        res["runs"][run] = r
+        res["runs"][key] = r
         del we
-        mv.MV_ShutDown(finalize_net=run == WE2_RUNS[-1])
+        mv.MV_ShutDown(finalize_net=key == WE2_TURNS[-1][1])
     for run, rec in recs.items():
         dp._SPARSE_BYTES = 0 if run == "we2_topics" else sparse_bytes
         cpu = we2_block_on_cpu(torch, workdir, seed, run, rec,
@@ -6019,16 +6170,28 @@ def we_2proc_phase(seed: int, workdir: str) -> dict:
     needs = {"we2_topics": ("gather_rows", "scatter_set_rows"),
              "we2_pairs": ("gather_rows", "scatter_set_rows"),
              "we2_device": ("gather_rows", "update_rows")}
-    for name, ks in needs.items():
+    for run, name, _ in WE2_TURNS:
         if ranks[0]["runs"][name]["digests"] != \
                 ranks[1]["runs"][name]["digests"]:
             raise AssertionError(f"[we_2proc] {name}: the ranks' tables "
                                  f"differ")
         for r in ranks:
-            for k in ks:
+            for k in needs[run]:
                 if r["runs"][name]["launches"][k] == 0:
                     raise AssertionError(f"[we_2proc] {name}: rank "
                                          f"{r['rank']} never launched {k}")
+    for name in ("we2_device", "we2_device_2"):
+        if ranks[0]["runs"][name]["digests"] != \
+                ranks[0]["runs"]["we2_device_host"]["digests"]:
+            raise AssertionError(
+                f"[we_2proc] {name}: the device route's tables differ from "
+                f"the host route's: {ranks[0]['runs'][name]['digests']} "
+                f"against {ranks[0]['runs']['we2_device_host']['digests']}")
+        # four tables (the embeddings and their AdaGrad sums) a write
+        check_route_turns(f"[we_2proc] {name}",
+                          [r["runs"][name] for r in ranks],
+                          [r["runs"]["we2_device_host"] for r in ranks], 4,
+                          rides=False)
     launches = {k: sum(run["launches"][k] for r in ranks
                        for run in r["runs"].values())
                 for k in ("gather_rows", "scatter_set_rows", "update_rows")}
@@ -6088,8 +6251,11 @@ def apps_2proc(torch, cr, dev, seed: int, workdir: str, lr_data: dict,
                 f"samples/s; loss per epoch "
                 f"{[round(x, 5) for x in run['epoch_loss']]}; "
                 f"{collective_line(run)}; "
-                f"launches {run['launches']}; card vs CPU world weights max "
-                f"abs diff {run['cpu_max_abs_diff']:.3g}")
+                f"launches {run['launches']}"
+                + (f"; card vs CPU world weights max abs diff "
+                   f"{run['cpu_max_abs_diff']:.3g}"
+                   if "cpu_max_abs_diff" in run else
+                   "; weights bitwise the device route's"))
     log("[lr_2proc] final weights bitwise equal across the ranks in every "
         "run; within rtol 1e-4, atol 1e-5 of the two-rank CPU world's")
     we2 = we_2proc_phase(seed, workdir)
@@ -6099,7 +6265,7 @@ def apps_2proc(torch, cr, dev, seed: int, workdir: str, lr_data: dict,
     log(f"[main path] we_2proc: launches {we2['launches']} (both ranks; "
         f"the pairs run must launch gather_rows, scatter_set_rows, the "
         f"device plane gather_rows, update_rows, on each rank)")
-    for name in WE2_RUNS:
+    for _, name, _ in WE2_TURNS:
         runs = [r["runs"][name] for r in we2["ranks"]]
         all_words = sum(run["words"] for run in runs)
         for r, run in zip(we2["ranks"], runs):

@@ -102,6 +102,8 @@ DEFAULT_SINKS: Dict[str, str] = {
     "parallel/multihost.py:host_allgather_objects_capped":
         "capped object allgather",
     "parallel/multihost.py:merge_collective_add": "collective row merge",
+    "parallel/multihost.py:collective_write":
+        "collective device write (the device wire's application channel)",
     "parallel/multihost.py:sum_collective_add": "collective value sum",
     "parallel/multihost.py:Group.exchange": "membership-group exchange",
     "parallel/multihost.py:Group.barrier": "membership-group barrier",

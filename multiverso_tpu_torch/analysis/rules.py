@@ -179,8 +179,14 @@ class HotPathFlagCacheChecker(Checker):
          "flight record rides every verb"),
         (r"^parallel/multihost\.py$",
          r"^(?:capped_exchange|_all_gather|host_allgather_objects_capped|"
-         r"merge_collective_add|sum_collective_add|host_payloads)$",
+         r"merge_collective_add|sum_collective_add|host_payloads|"
+         r"collective_write|device_writes|_write_wire)$",
          "the host collectives every window and collective write rides"),
+        (r"^parallel/device_wire\.py$",
+         r"^(?:active|DeviceWire\.(?:next_write|stage_writes|settle_writes|"
+         r"gather_writes|_own_slot|_agree_sizes|_source))$",
+         "the device wire's application channel rides every collective "
+         "write"),
         (r"^serving/frontend\.py$",
          r"^(?:ServingFrontend\.(?:lookup_async|lookup|_loop|_drain|"
          r"_serve_guarded|_serve_batch)|LookupTicket\.(?:_fill|Wait))$",

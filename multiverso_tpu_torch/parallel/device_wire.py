@@ -78,6 +78,38 @@ defers nothing (logged once).
 After an elastic transition (``multihost.install_group``) the windows ride
 the group transport, as the host wire does: ``active()`` is None while a
 group is installed, and the engine defers nothing.
+
+The application channel (``APP``). The application threads' collective
+writes (``multihost.collective_write``: the device plane's row batches,
+whole-array deltas and KV slot batches, the JAX package's ``place_parts``
+sites) ride the same wire on a channel of their own, beside the engine's
+integer channels; its sequence number (``next_write``) counts the writes,
+which every rank issues in lockstep, so it agrees on every rank. A write
+stages this rank's deltas, device tensors, into slot ``seq % 2`` of the
+channel (``stage_writes``: on the card a device-to-device
+``cudaMemcpyAsync`` on the caller's current stream, the stream that made
+the deltas, waited for before the agreement round; on ``shm-plain`` a
+memcpy), then one tagged agreement round on the control group carries
+every rank's host metadata and delta shapes; every rank locates every
+rank's deltas from those shapes by the same ``offsets`` rule, runs the
+handle swap when a slot grew (``settle_writes``: the swap rounds are
+tagged rounds of ``multihost.host_allgather_objects_capped`` on the
+control group, where the application threads' rounds are ordered; never
+the engine channel), and copies every rank's deltas out in rank order
+(``gather_writes``, in the deltas' own dtype).
+
+Why two slots are enough on the application channel. A rank stages write
+``seq + 2`` (slot ``seq % 2`` again) only after write ``seq + 1``'s
+agreement round has completed on it. That round completes only after
+every peer entered it, and a peer enters it only after its
+``gather_writes`` of write ``seq`` has synchronised its copies out of
+that slot (the writes are collectives, issued one after another by every
+rank). So no rank overwrites a slot a peer may still read.
+
+The two channels share one backend and this rank's tables of slots: the
+engine thread and an application thread may use one ``DeviceWire`` at
+once, so every write of those tables is under the wire's lock (never held
+across a round).
 """
 
 from __future__ import annotations
@@ -100,6 +132,8 @@ from multiverso_tpu_torch.utils.log import CHECK, Log
 ALIGN = 256
 #: the smallest slot a rank allocates
 MIN_SLOT = 1 << 20
+#: the application channel's key, beside the engine's integer channels
+APP = "app"
 #: the IPC binding's source
 IPC_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ipc.cu"
 
@@ -107,7 +141,9 @@ IPC_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "ipc.cu"
 #: rank's slots (``staged``, ``staged_bytes``, ``stage_s`` host seconds
 #: with the synchronise), values read out of a peer's slot (``copies``,
 #: ``copy_bytes``; ``copy_ms``: their device time by CUDA events on the
-#: card, 0.0 on the CPU), handle-swap rounds and slots grown
+#: card, 0.0 on the CPU), handle-swap rounds and slots grown; the engine's
+#: channels only (the application channel's writes count in
+#: ``multihost.STATS``)
 STATS: Dict[str, float] = {}
 _stats_lock = threading.Lock()
 
@@ -138,18 +174,25 @@ def _align(n: int) -> int:
     return -(-n // ALIGN) * ALIGN
 
 
+def offsets(nbytes) -> Tuple[List[int], int]:
+    """The slot offsets of values of ``nbytes`` bytes each, laid out in
+    order at ``ALIGN``-byte boundaries, and the bytes they need."""
+    out, off = [], 0
+    for n in nbytes:
+        out.append(off)
+        off += _align(n)
+    return out, off
+
+
 def layout(records) -> Tuple[List[Tuple[DeferredArray, int]], int]:
     """A window's deferred values in window order with their slot offsets,
     and the bytes the window needs: every ``(kind, table, payload)``
     record whose ``values`` is a ``DeferredArray``. The writer lays its
     slot out by this rule and every reader finds the values by it."""
-    out, off = [], 0
-    for _, _, payload in records:
-        v = payload.get("values")
-        if isinstance(v, DeferredArray):
-            out.append((v, off))
-            off += _align(v.nbytes)
-    return out, off
+    values = [p.get("values") for _, _, p in records]
+    values = [v for v in values if isinstance(v, DeferredArray)]
+    offs, need = offsets(v.nbytes for v in values)
+    return list(zip(values, offs)), need
 
 
 # -- the card: CUDA IPC through csrc/ipc.cu -----------------------------------
@@ -244,6 +287,21 @@ class _Card:
                      "the staging copy")
         self.stream.synchronize()
 
+    def stage_tensors(self, slot, items) -> None:
+        """Copy ``(contiguous card tensor, offset)`` items into ``slot`` on
+        the caller's current stream (the one that made them) and wait for
+        the copies (the agreement round that follows publishes them)."""
+        import torch
+        stream = torch.cuda.current_stream(self.device)
+        for t, off in items:
+            CHECK(t.is_cuda, "device wire (ipc): a collective write's "
+                             "delta is not on the card")
+            self._ok(self.lib.mvt_ipc_copy(
+                self.index, slot + off, t.data_ptr(),
+                t.numel() * t.element_size(), stream.cuda_stream),
+                "the staging copy")
+        stream.synchronize()
+
     def gather(self, dst, pieces) -> float:
         """``pieces``: ``(dst byte offset, source pointer, nbytes)``, copied
         into the tensor ``dst`` on the current stream; returns the copies'
@@ -278,12 +336,15 @@ class _Shm:
     def __init__(self, token: str, rank: int):
         self.prefix = f"mvtdw_{token}_{rank}"
         self.gen = 0
+        # the engine thread and an application thread both allocate
+        self._gen_lock = threading.Lock()
 
     def alloc(self, nbytes: int):
         from multiprocessing import shared_memory
-        self.gen += 1
-        seg = shared_memory.SharedMemory(
-            name=f"{self.prefix}_{self.gen}", create=True, size=nbytes)
+        with self._gen_lock:
+            self.gen += 1
+            name = f"{self.prefix}_{self.gen}"
+        seg = shared_memory.SharedMemory(name=name, create=True, size=nbytes)
         return seg, seg.name.encode()
 
     @staticmethod
@@ -307,6 +368,13 @@ class _Shm:
                 arr.reshape(-1).view(np.uint8)
 
     @staticmethod
+    def stage_tensors(seg, items) -> None:
+        import torch
+        for t, off in items:
+            raw = t.reshape(-1).view(torch.uint8).numpy()
+            np.frombuffer(seg.buf, np.uint8, raw.size, off)[:] = raw
+
+    @staticmethod
     def gather(dst, pieces) -> float:
         out = dst.numpy().view(np.uint8)
         for doff, (seg, off), n in pieces:
@@ -322,13 +390,18 @@ class _Shm:
 
 class DeviceWire:
     """One world's device wire: this rank's slots, its mappings of its
-    peers' slots and every rank's slot sizes, per engine channel."""
+    peers' slots and every rank's slot sizes, per channel (the engine's
+    and the application channel ``APP``)."""
 
     def __init__(self, backend, rank: int, size: int):
         self.backend = backend
         self.name = backend.name
         self.rank = rank
         self.size = size
+        #: guards every write of the tables below: the engine thread and
+        #: an application thread use them at once (never held across a
+        #: round or a copy)
+        self._lock = threading.Lock()
         #: (channel, k) -> this rank's slot, its size
         self._mine: Dict[tuple, tuple] = {}
         #: (channel, k) -> the slot a grow replaced, freed after the swap
@@ -339,6 +412,24 @@ class DeviceWire:
         self._sizes: Dict[tuple, List[int]] = {}
         #: (channel, k) -> the handle of this rank's slot, for the swap
         self._handles: Dict[tuple, bytes] = {}
+        #: the application channel's next write (only application threads
+        #: issue writes, one after another)
+        self._app_seq = 0
+
+    def _own_slot(self, key: tuple, need: int):
+        """This rank's slot ``key``, grown first when ``need`` bytes do
+        not fit (the slot it replaces is retired until the swap)."""
+        slot, cap = self._mine.get(key, (None, 0))
+        if need > cap:
+            cap = slot_bytes(need)
+            new, handle = self.backend.alloc(cap)
+            with self._lock:
+                if slot is not None:
+                    self._retired[key] = slot
+                self._handles[key] = handle
+                self._mine[key] = (new, cap)
+            slot = new
+        return slot
 
     def stage(self, channel: int, seq: int, local) -> None:
         """Before window ``seq``'s exchange: this rank's deferred values
@@ -348,14 +439,7 @@ class DeviceWire:
         if not placed:
             return
         t0 = time.perf_counter()
-        key = (channel, seq % 2)
-        slot, cap = self._mine.get(key, (None, 0))
-        if need > cap:
-            if slot is not None:
-                self._retired[key] = slot
-            cap = slot_bytes(need)
-            slot, self._handles[key] = self.backend.alloc(cap)
-            self._mine[key] = (slot, cap)
+        slot = self._own_slot((channel, seq % 2), need)
         items = []
         for v, off in placed:
             CHECK(v.local is not None,
@@ -372,28 +456,44 @@ class DeviceWire:
         the handle swap when any rank's slot grew. ``swap(blob)`` is one
         round of the engine channel's exchange (every rank's blob, in rank
         order)."""
-        key = (channel, seq % 2)
-        sizes = self._sizes.setdefault(key, [0] * self.size)
-        grew, replaced = [], False
+        needs = []
         for r, window in enumerate(windows):
             placed, need = layout(window)
             for v, off in placed:
                 v.where = (channel, seq % 2, r, off)
+            needs.append(need)
+        rounds, grows = self._agree_sizes((channel, seq % 2), needs, swap)
+        if grows:
+            _note(swaps=rounds, grows=grows)
+
+    def _agree_sizes(self, key: tuple, needs, swap) -> Tuple[int, int]:
+        """Every rank's size of slot ``key`` after a use that needs
+        ``needs`` bytes of each rank (the same decision on every rank),
+        and the handle swap when any rank's slot grew: each grower sends
+        its new slot's handle, every peer closes its mapping of the old
+        slot and opens the new one; when a replaced slot existed, one more
+        round after which every peer has closed the old mapping, and the
+        owner frees the old slot. Returns (swap rounds, slots grown)."""
+        sizes = self._sizes.setdefault(key, [0] * self.size)
+        grew, replaced = [], False
+        for r, need in enumerate(needs):
             if need > sizes[r]:
                 replaced = replaced or sizes[r] > 0
                 sizes[r] = slot_bytes(need)
                 grew.append(r)
         if not grew:
-            return
+            return 0, 0
         mine = self._handles[key] if self.rank in grew else None
         handles = [pickle.loads(b) for b in swap(pickle.dumps(mine))]
         for r in grew:
             if r == self.rank:
                 continue
-            old = self._peer.pop((channel, seq % 2, r), None)
+            old = self._peer.pop(key + (r,), None)
             if old is not None:
                 self.backend.close(old)
-            self._peer[(channel, seq % 2, r)] = self.backend.open(handles[r])
+            mapped = self.backend.open(handles[r])
+            with self._lock:
+                self._peer[key + (r,)] = mapped
         rounds = 1
         if replaced:
             # every peer has closed its mapping of a replaced slot once
@@ -403,7 +503,7 @@ class DeviceWire:
             old = self._retired.pop(key, None)
             if old is not None:
                 self.backend.free(old)
-        _note(swaps=rounds, grows=len(grew))
+        return rounds, len(grew)
 
     def gather(self, values, device):
         """One flat float32 tensor on ``device``: ``values`` (deferred
@@ -423,8 +523,13 @@ class DeviceWire:
                 CHECK(v.dtype == np.float32,
                       f"device wire: a deferred {v.dtype} value (the "
                       f"tables hold float32)")
-                pieces.append((off * 4, self._source(v), v.nbytes))
-                if v.where[2] != self.rank:
+                CHECK(getattr(v, "where", None) is not None,
+                      "device wire: a deferred value was never located "
+                      "(engine bug)")
+                channel, k, r, at = v.where
+                pieces.append((off * 4, self._source((channel, k), r, at),
+                               v.nbytes))
+                if r != self.rank:
                     peer_bytes += v.nbytes
                     peer_n += 1
             off += n
@@ -432,16 +537,64 @@ class DeviceWire:
         _note(copies=peer_n, copy_bytes=peer_bytes, copy_ms=ms)
         return dst
 
-    def _source(self, v: DeferredArray):
-        CHECK(getattr(v, "where", None) is not None,
-              "device wire: a deferred value was never located (engine "
-              "bug)")
-        channel, k, r, off = v.where
+    def _source(self, key: tuple, r: int, off: int):
+        """The address of ``off`` in rank ``r``'s slot ``key``."""
         if r == self.rank:
-            slot = self._mine[(channel, k)][0]
+            slot = self._mine[key][0]
         else:
-            slot = self._peer[(channel, k, r)]
+            slot = self._peer[key + (r,)]
         return self.backend.address(slot, off)
+
+    # -- the application channel (multihost.collective_write) --------------
+
+    def next_write(self) -> int:
+        """The sequence number of the next collective write."""
+        seq = self._app_seq
+        self._app_seq += 1
+        return seq
+
+    def stage_writes(self, seq: int, tensors) -> int:
+        """Before write ``seq``'s agreement round: this rank's deltas
+        (contiguous tensors on the wire's device) into slot ``seq % 2`` of
+        the application channel at ``offsets``, grown first when they do
+        not fit, and the copies complete. Returns the bytes staged."""
+        nbytes = [t.numel() * t.element_size() for t in tensors]
+        offs, need = offsets(nbytes)
+        if need:
+            slot = self._own_slot((APP, seq % 2), need)
+            self.backend.stage_tensors(slot, list(zip(tensors, offs)))
+        return sum(nbytes)
+
+    def settle_writes(self, seq: int, nbytes, swap) -> Tuple[int, int]:
+        """After write ``seq``'s agreement round: every rank's slot size
+        from ``nbytes`` (each rank's deltas' bytes, in rank order) and the
+        handle swap when a slot grew; ``swap(blob)`` is one tagged round
+        on the control group. Returns (swap rounds, slots grown)."""
+        return self._agree_sizes((APP, seq % 2),
+                                 [offsets(n)[1] for n in nbytes], swap)
+
+    def gather_writes(self, seq: int, nbytes, dtype, device):
+        """Every rank's deltas of write ``seq`` (``nbytes``: each rank's
+        deltas' bytes, in rank order) copied out of the slots into one
+        flat tensor of ``dtype`` on ``device``, rank by rank in order.
+        Returns (the tensor, peer copies, their bytes, their device ms);
+        the copies have completed."""
+        import torch
+        item = torch.empty((), dtype=dtype).element_size()
+        total = sum(sum(n) for n in nbytes)
+        dst = torch.empty(total // item, dtype=dtype, device=device)
+        pieces, peer_n, peer_bytes, at = [], 0, 0, 0
+        for r, sizes in enumerate(nbytes):
+            for n, off in zip(sizes, offsets(sizes)[0]):
+                if n:
+                    pieces.append((at, self._source((APP, seq % 2), r, off),
+                                   n))
+                    if r != self.rank:
+                        peer_n += 1
+                        peer_bytes += n
+                at += n
+        ms = self.backend.gather(dst, pieces) if pieces else 0.0
+        return dst, peer_n, peer_bytes, ms
 
     def close(self) -> None:
         """Close every mapping of a peer's slot, then free this rank's
@@ -470,6 +623,7 @@ _wire: Optional[DeviceWire] = None
 _name = "none"
 _why = ""
 _group_logged = False
+_group_lock = threading.Lock()
 
 
 def name() -> str:
@@ -483,14 +637,16 @@ def why_none() -> str:
 
 
 def active() -> Optional[DeviceWire]:
-    """The wire the engine stages through now, or None: no wire, or an
-    elastic group installed (the windows ride the group transport)."""
+    """The wire the engine and the collective writes stage through now, or
+    None: no wire, or an elastic group installed (the windows and the
+    writes ride the group transport)."""
     global _group_logged
     if _wire is None:
         return None
     if multihost.current_group() is not None:
-        if not _group_logged:
-            _group_logged = True
+        with _group_lock:   # the engine and the application threads ask
+            first, _group_logged = not _group_logged, True
+        if first:
             Log.Info("device wire: an elastic group is installed — the "
                      "windows ride the group transport, Add values "
                      "included")

@@ -138,18 +138,31 @@ _engine_pg = None
 _ctrl_pg = None
 
 #: the application threads' lockstep rounds, host clock: tagged agreements
-#: (``agree``), the all-gathers of collective device writes (``write``),
-#: the device->host copies of their payloads (``d2h``), the host merge in
-#: rank order (``merge``) and the apply on the replica (``apply``; the
-#: tables add it). ``*_s`` are seconds, ``*_n`` counts; ``reset_stats``
-#: zeroes them.
+#: (``agree``), the all-gathers of collective device writes (``write``; on
+#: the device route the metadata rounds and the handle swaps), the
+#: device->host copies of their payloads (``d2h``), the host merge in rank
+#: order (``merge``) and the apply on the replica (``apply``; the tables
+#: add it). The device route's own (``collective_write``): the staging of
+#: this rank's deltas into its slot with the wait for it (``stage``), the
+#: copies of every rank's deltas out of the slots (``copy``, a call a
+#: write), the merge on the device (``dmerge``; the tables add it).
+#: ``*_s`` are seconds, ``*_n`` counts; beside them ``stage_bytes`` (this
+#: rank's staged deltas), ``copy_peer_n`` / ``copy_peer_bytes`` (the copies
+#: out of a peer's slot and their bytes), ``copy_ms`` (the copies' device
+#: time by CUDA events on the card, 0.0 on the CPU), ``swap_n`` (handle-swap
+#: rounds) and ``d2h_bytes`` (what crossed device to host: every device
+#: delta and ride on the host route, the rides alone on the device route).
+#: ``reset_stats`` zeroes them.
 STATS: dict = {}
 
 
 def reset_stats() -> None:
-    for k in ("agree", "write", "d2h", "merge", "apply"):
+    for k in ("agree", "write", "d2h", "merge", "apply", "stage", "copy",
+              "dmerge"):
         STATS[f"{k}_s"] = 0.0
         STATS[f"{k}_n"] = 0
+    STATS.update(stage_bytes=0, copy_peer_n=0, copy_peer_bytes=0,
+                 copy_ms=0.0, swap_n=0, d2h_bytes=0)
 
 
 reset_stats()
@@ -1031,6 +1044,7 @@ def host_payloads(deltas: list, ride=None):
         flat = torch.cat([d.detach().reshape(-1).to(torch.float32)
                           for d in dev]).cpu().numpy()
         note("d2h", time.perf_counter() - t0)
+        STATS["d2h_bytes"] += flat.nbytes
         off = 0
         for d in dev:
             host[id(d)] = flat[off: off + d.numel()].reshape(tuple(d.shape))
@@ -1076,3 +1090,89 @@ def sum_collective_add(option, values: np.ndarray, key: str) -> np.ndarray:
         out += p[0]
     note("merge", time.perf_counter() - t0)
     return out.astype(values.dtype, copy=False)
+
+
+# -- the device route of the collective writes -------------------------------
+
+def _write_wire():
+    """The route of the application threads' collective writes, decided
+    identically on every rank: the world's device wire while it has one
+    and no elastic group is installed (``device_wire.active()``), else
+    None, the host route (``host_payloads`` and the tagged all-gathers of
+    ``merge_collective_add`` / ``sum_collective_add``)."""
+    if world_size() <= 1:
+        return None
+    from multiverso_tpu_torch.parallel import device_wire
+    return device_wire.active()
+
+
+def device_writes() -> bool:
+    """Whether this world's collective writes take the device route."""
+    return _write_wire() is not None
+
+
+def collective_write(key: str, meta, option, deltas: list, device,
+                     ride=None, stat: str = "write"):
+    """One collective write on the device route (``device_writes()``):
+    this rank's ``deltas`` (tensors of one dtype) stay on the card. They
+    are staged into this rank's slot of the device wire's application
+    channel; one round tagged ``key`` (``host_allgather_objects_capped``,
+    its seconds to ``STATS`` stem ``stat``) carries ``meta`` (small host
+    data: row ids, KV slots), the deltas' shapes, ``ride`` (a float or a
+    device scalar, as a float32-rounded float) and ``option``, which must
+    agree on every rank; then every rank copies every rank's deltas card
+    to card. Returns (every rank's ``meta`` in rank order, every rank's
+    deltas in rank order as views of one tensor of their dtype on
+    ``device``, every rank's ride)."""
+    import torch
+    wire = _write_wire()
+    CHECK(wire is not None, f"collective write {key!r}: this world's "
+          f"writes take the host route (no device wire)")
+    ride_v = None
+    if isinstance(ride, torch.Tensor):
+        t0 = time.perf_counter()
+        host = ride.detach().reshape(-1).to(torch.float32).cpu()
+        note("d2h", time.perf_counter() - t0)
+        STATS["d2h_bytes"] += host.numel() * host.element_size()
+        ride_v = float(host[0])
+    elif ride is not None:
+        ride_v = float(ride)
+    deltas = [d.detach().contiguous() for d in deltas]
+    seq = wire.next_write()
+    t0 = time.perf_counter()
+    STATS["stage_bytes"] += wire.stage_writes(seq, deltas)
+    note("stage", time.perf_counter() - t0)
+    specs = [(str(d.dtype), tuple(d.shape)) for d in deltas]
+    parts = host_allgather_objects_capped((meta, specs, ride_v, option),
+                                          key, stat=stat)
+    _agree_options(option, parts)
+    dtypes = {dt for p in parts for dt, _ in p[1]}
+    CHECK(len(dtypes) <= 1, f"collective write {key!r}: the ranks' deltas "
+          f"have different dtypes {sorted(dtypes)}")
+    metas = [p[0] for p in parts]
+    rides = [p[2] for p in parts]
+    if not dtypes:
+        return metas, [[] for _ in parts], rides
+    dtype = getattr(torch, dtypes.pop().split(".")[-1])
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = [[int(np.prod(shape, dtype=np.int64)) * item
+               for _, shape in p[1]] for p in parts]
+    rounds, _ = wire.settle_writes(seq, nbytes, lambda blob: (
+        host_allgather_objects_capped(blob, f"{key}/swap", stat=stat)))
+    STATS["swap_n"] += rounds
+    t0 = time.perf_counter()
+    flat, peer_n, peer_bytes, ms = wire.gather_writes(seq, nbytes, dtype,
+                                                      device)
+    note("copy", time.perf_counter() - t0)
+    STATS["copy_peer_n"] += peer_n
+    STATS["copy_peer_bytes"] += peer_bytes
+    STATS["copy_ms"] += ms
+    views, at = [], 0
+    for p in parts:
+        mine = []
+        for _, shape in p[1]:
+            n = int(np.prod(shape, dtype=np.int64))
+            mine.append(flat[at: at + n].view(shape))
+            at += n
+        views.append(mine)
+    return metas, views, rides

@@ -25,11 +25,13 @@ Device plane (``device_*``): a caller that keeps its work on the device
 takes the ``{"data", "aux"}`` state, applies ``device_update`` and writes
 the result back with ``device_set_state``. The verbs bypass the engine:
 the caller owns the table while using them. In a multi-process world
-``device_update`` is COLLECTIVE: every rank's padded delta comes to the
-host, the ranks' deltas are summed in rank order after one all-gather
-(their options must agree), and the updater's rule applies the sum on
-every replica; ``device_set_state`` then takes only the state that
-collective update returned, so no rank writes a state of its own.
+``device_update`` is COLLECTIVE: the ranks' padded deltas are summed in
+rank order (their options must agree) and the updater's rule applies the
+sum on every replica. With a device wire (``multihost.device_writes``)
+the deltas move card to card and sum on the device; without one each
+comes to the host and the sum follows one all-gather.
+``device_set_state`` then takes only the state that collective update
+returned, so no rank writes a state of its own.
 """
 
 from __future__ import annotations
@@ -50,6 +52,16 @@ from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
 from multiverso_tpu_torch.updaters.base import (AddOption, CreateUpdater,
                                                 GetOption, Updater)
 from multiverso_tpu_torch.utils.log import CHECK
+
+
+def _sum_in_order(parts) -> torch.Tensor:
+    """``parts`` (whole-table deltas on one device) summed in their order:
+    the first cloned, then each added in turn, bitwise the host path's
+    float32 numpy sum in rank order."""
+    summed = parts[0].clone()
+    for part in parts[1:]:
+        summed += part
+    return summed
 
 
 @dataclass
@@ -160,11 +172,8 @@ class ArrayServer(ServerTable):
         """Sum ``values`` (whole-table deltas, deferred or host arrays) in
         their order on the device, as the host path sums in rank order,
         and apply the sum once."""
-        parts = device_wire.current().gather(values, self.device).view(
-            len(values), self.size)
-        summed = parts[0].clone()
-        for part in parts[1:]:
-            summed += part
+        summed = _sum_in_order(device_wire.current().gather(
+            values, self.device).view(len(values), self.size))
         if self.padded != self.size:
             summed = torch.nn.functional.pad(summed,
                                              (0, self.padded - self.size))
@@ -260,10 +269,13 @@ class ArrayServer(ServerTable):
             return new if ride is None else (new, ride)
         CHECK(tuple(padded_delta.shape) == (self.padded,),
               "device_update: the delta must be padded to the table")
+        key = tuple((k, float(v)) for k, v in sorted(opt.items()))
+        if multihost.device_writes():
+            return self._update_on_device(state, padded_delta, opt, key,
+                                          ride)
         (host,), ride = multihost.host_payloads([padded_delta], ride)
         # the ride rides as one more float of the summed vector
         vals = np.append(host, np.float32(0.0 if ride is None else ride))
-        key = tuple((k, float(v)) for k, v in sorted(opt.items()))
         summed = multihost.sum_collective_add(key, vals,
                                               key="array_update")
         t0 = time.perf_counter()
@@ -272,6 +284,30 @@ class ArrayServer(ServerTable):
         multihost.note("apply", time.perf_counter() - t0)
         self._collective_state = new
         return new if ride is None else (new, float(summed[-1]))
+
+    def _update_on_device(self, state: Dict, padded_delta: torch.Tensor,
+                          opt, key, ride):
+        """``device_update``'s device route: the deltas move card to card
+        (``multihost.collective_write``) and sum in rank order on the
+        device (bitwise the host route's float32 numpy sum); the rides sum
+        in float32 in rank order, as the host route's ride lane."""
+        _, parts, rides = multihost.collective_write(
+            "array_update", None, key,
+            [padded_delta.to(device=self.device, dtype=torch.float32)],
+            self.device, ride)
+        t0 = time.perf_counter()
+        summed = _sum_in_order([p[0] for p in parts])
+        t1 = time.perf_counter()
+        multihost.note("dmerge", t1 - t0)
+        new = self._updated(state, summed, opt)
+        multihost.note("apply", time.perf_counter() - t1)
+        self._collective_state = new
+        if ride is None:
+            return new
+        total = np.float32(0.0 if rides[0] is None else rides[0])
+        for r in rides[1:]:
+            total = total + np.float32(0.0 if r is None else r)
+        return new, float(total)
 
     def _updated(self, state: Dict, padded_delta: torch.Tensor,
                  opt) -> Dict:

@@ -48,6 +48,7 @@ the same values on its replica.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -368,7 +369,10 @@ class KVServerTable(ServerTable):
         the table's device; device deltas stay where they are. Collective
         across processes: the GLOBAL batch, every rank's slots (and
         deltas) concatenated in rank order, every rank passing the shared
-        bucket of ``device_slots``."""
+        bucket of ``device_slots``. With a device wire
+        (``multihost.device_writes``) only the slots cross the host round
+        and the deltas move card to card; without one they cross with the
+        slots."""
         self._check_device_plane()
         slots = np.asarray(padded_slots, np.int32).ravel()
         if deltas is not None:
@@ -388,24 +392,47 @@ class KVServerTable(ServerTable):
             return gslots, deltas.to(self._device)
         return gslots, torch.from_numpy(deltas).to(self._device)
 
-    @staticmethod
-    def _global_batch(slots: np.ndarray, deltas):
-        """Every rank's (slots, deltas) in rank order: one tagged
-        all-gather of host copies (device deltas cross in one D2H)."""
+    def _global_batch(self, slots: np.ndarray, deltas):
+        """Every rank's (slots, deltas) in rank order. The device route:
+        the slots cross one tagged round, the deltas (on the table's
+        device) move card to card. The host route: one tagged all-gather
+        of host copies (device deltas cross in one D2H)."""
+        if multihost.device_writes():
+            if deltas is not None:
+                deltas = torch.as_tensor(deltas).to(self._device)
+            metas, parts, _ = multihost.collective_write(
+                "kv_place", (slots, deltas is not None), None,
+                [] if deltas is None else [deltas], self._device,
+                stat="agree")
+            self._check_global_batch(slots, deltas, metas)
+            slots = np.concatenate([m[0] for m in metas])
+            if deltas is not None:
+                deltas = torch.cat([p[0] for p in parts])
+            return slots, deltas
         if isinstance(deltas, torch.Tensor):
+            t0 = time.perf_counter()
             deltas = deltas.detach().cpu().numpy()
+            multihost.note("d2h", time.perf_counter() - t0)
+            multihost.STATS["d2h_bytes"] += deltas.nbytes
         parts = multihost.host_allgather_objects_capped((slots, deltas),
                                                         "kv_place")
-        CHECK(all(len(p[0]) == len(slots) for p in parts),
-              f"device_place_slots: the ranks' buckets differ "
-              f"{[len(p[0]) for p in parts]}; pass device_slots' shared "
-              f"bucket on every rank")
-        CHECK(all((p[1] is None) == (deltas is None) for p in parts),
-              "device_place_slots: some ranks passed deltas, some did not")
+        self._check_global_batch(slots, deltas, [(p[0], p[1] is not None)
+                                                 for p in parts])
         slots = np.concatenate([p[0] for p in parts])
         if deltas is not None:
             deltas = np.concatenate([p[1] for p in parts])
         return slots, deltas
+
+    @staticmethod
+    def _check_global_batch(slots, deltas, metas) -> None:
+        """The global batch's CHECKs, identical on every rank: ``metas``
+        is every rank's (slots, whether it passed deltas)."""
+        CHECK(all(len(m[0]) == len(slots) for m in metas),
+              f"device_place_slots: the ranks' buckets differ "
+              f"{[len(m[0]) for m in metas]}; pass device_slots' shared "
+              f"bucket on every rank")
+        CHECK(all(m[1] == (deltas is not None) for m in metas),
+              "device_place_slots: some ranks passed deltas, some did not")
 
     def device_values(self) -> torch.Tensor:
         """The live values tensor (take it fresh after any host-plane

@@ -49,7 +49,8 @@ never ``index_add_``, whose CUDA atomics sum in an undefined order) and
 applies them through the same row path, so the replicas stay bitwise
 equal; a Get reads this rank's rows from its own replica. The device
 plane's writes follow the same rule as collectives of the application
-thread (``device_apply_rows_many``); its reads stay local. A compressed
+thread (``device_apply_rows_many``: with a device wire the deltas move
+card to card and merge on the device); its reads stay local. A compressed
 row push crosses the processes compressed, inside the window, and every
 rank rebuilds it (``_mh_add_compressed_parts``); a device write to a
 compressed table is dense, as in the JAX package. A row Add whose values
@@ -125,16 +126,21 @@ def device_apply_rows_many(items, option: Optional[AddOption] = None,
 
     One process: each item applies on its own (the fused update kernel
     for the add and sgd updaters); ``ride`` is returned as it was given.
-    Several processes: COLLECTIVE. The deltas come to the host in one
-    copy, every rank's (ids, deltas) of every item and its ``ride`` (a
-    float or device scalar the caller wants summed over the ranks, such
-    as a window's loss) travel in one tagged all-gather with the option,
+    Several processes: COLLECTIVE. Every rank's (ids, deltas) of every
+    item and its ``ride`` (a float or device scalar the caller wants
+    summed over the ranks, such as a window's loss) meet with the option,
     which must agree on every rank; each table concatenates the ranks'
-    batches in rank order, pre-combines duplicate ids on the host in that
-    order (never ``index_add_``, whose CUDA atomics sum in an undefined
-    order) and applies the merge through the row path, so the replicas
-    stay bitwise equal. Returns the ranks' rides summed in rank order
-    (None without a ride)."""
+    batches in rank order, pre-combines duplicate ids in that order (never
+    ``index_add_``, whose CUDA atomics sum in an undefined order) and
+    applies the merge through the row path, so the replicas stay bitwise
+    equal. With a device wire (``multihost.device_writes``) the deltas
+    stay on the card: the ids, the option and the ride cross one tagged
+    round, the deltas move card to card (``multihost.collective_write``)
+    and merge on the device (``_merge_device_rows``, bitwise the host
+    merge). Without one they come to the host in one copy, travel in one
+    tagged all-gather and merge on the host (``_combine_duplicate_rows``).
+    Returns the ranks' rides (float32-rounded when a device scalar)
+    summed in float64 in rank order (None without a ride)."""
     option = option or AddOption()
     opt = option.as_tensors()
     prepped = []
@@ -146,6 +152,8 @@ def device_apply_rows_many(items, option: Optional[AddOption] = None,
         for srv, ids, deltas in prepped:
             srv._apply_rows_local(ids, deltas, opt)
         return ride
+    if multihost.device_writes():
+        return _apply_rows_on_device(prepped, option, opt, ride)
     host, ride = multihost.host_payloads([d for _, _, d in prepped], ride)
     arrays = []
     for (srv, ids, _), d in zip(prepped, host):
@@ -168,6 +176,39 @@ def device_apply_rows_many(items, option: Optional[AddOption] = None,
     total = 0.0
     for r in merged[-1]:
         total += float(r)
+    return total
+
+
+def _apply_rows_on_device(prepped, option, opt, ride):
+    """``device_apply_rows_many``'s device route: every rank's deltas of
+    each item, in rank order, merge on the device and apply through the
+    row path (``<kAdd>``/``<kSub>`` for the add and sgd updaters)."""
+    deltas = []
+    for srv, ids, d in prepped:
+        d = torch.as_tensor(d, dtype=torch.float32).to(srv.device)
+        CHECK(d.numel() == ids.size * srv.num_cols,
+              "device_apply_rows: delta size mismatch")
+        deltas.append(d.reshape(-1))
+    metas, parts, rides = multihost.collective_write(
+        "matrix_apply", [ids for _, ids, _ in prepped], option, deltas,
+        prepped[0][0].device, ride)
+    t0 = time.perf_counter()
+    merged = []
+    for i, (srv, _, _) in enumerate(prepped):
+        values = [p[i] for p in parts]
+        merged.append(srv._merge_device_rows(
+            np.concatenate([m[i] for m in metas]),
+            torch.cat(values) if len(values) > 1 else values[0]))
+    t1 = time.perf_counter()
+    multihost.note("dmerge", t1 - t0)
+    for (srv, _, _), (ids, d) in zip(prepped, merged):
+        srv._update_rows_padded(ids, d, opt)
+    multihost.note("apply", time.perf_counter() - t1)
+    if ride is None:
+        return None
+    total = 0.0
+    for r in rides:
+        total += r
     return total
 
 

@@ -7,7 +7,9 @@ tests/test_torch_telemetry_mh.py and tests/test_torch_telemetry_exchange.py
 (mode ``telemetry``) and tests/test_torch_failsafe_mh.py (mode
 ``failsafe``) and tests/test_torch_replica_mh.py (modes ``replica`` and
 ``replica_outage``) and tests/test_torch_device_wire_mh.py (modes
-``transport``, ``dw_burst`` and ``dw_checks``).
+``transport``, ``dw_burst`` and ``dw_checks``) and
+tests/test_torch_device_writes_mh.py (modes ``dw_apps``, ``dw_routes`` and
+``kv_device``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -27,7 +29,10 @@ package's sharded multi-process engine keeps on the host (an add Matrix
 and a KV table; it refuses a momentum or Array table there);
 ``hosts=split`` gives each rank a host label of its own
 (``-mv_wire_hostname``: a loopback cross-host world); ``break=shm`` or
-``break=tcp`` makes rank 0's setup of that wire fail.
+``break=tcp`` makes rank 0's setup of that wire fail; ``route=host`` makes
+the port's collective device writes take the host route on a world that
+has a device wire (the route function, ``multihost._write_wire``,
+patched).
 The app modes (``lr``, ``lr_dev``, ``lr_compress``, ``we``, ``we_pairs``,
 ``we_ragged``) read the data files their test wrote into OUTDIR; each rank
 trains on its own shard through the apps' entry points. The JAX worlds run
@@ -45,7 +50,7 @@ import time
 import numpy as np
 
 PKG, MODE, RANK, PORT, OUTDIR, LIBPATH = sys.argv[1:7]
-_OPTS = ("want=", "tables=", "hosts=", "break=")
+_OPTS = ("want=", "tables=", "hosts=", "break=", "route=")
 OPTS = dict(a.split("=", 1) for a in sys.argv[7:] if a.startswith(_OPTS))
 EXTRA = [a for a in sys.argv[7:] if not a.startswith(_OPTS)]
 WANT = [OPTS["want"]] if "want" in OPTS else []
@@ -89,6 +94,11 @@ def boot(extra=()):
         flags += ["-mv_device=cpu", "-mv_dist_timeout_s=60"]
     if "break" in OPTS and RANK == 0:
         break_wire(OPTS["break"])
+    if OPTS.get("route") == "host":
+        from unittest import mock
+        from multiverso_tpu_torch.parallel import multihost
+        mock.patch.object(multihost, "_write_wire",
+                          return_value=None).start()
     mv.MV_Init(flags)
     assert mv.MV_Size() == 2 and mv.MV_Rank() == RANK
     return mv
@@ -1043,6 +1053,7 @@ def run_kv_device(mv):
     kv = mv.MV_CreateTable(tables.KVTableOption())
     twin = mv.MV_CreateTable(tables.KVTableOption())
     ksrv = kv.server()
+    reset_write_stats()
     n = 600
     for step in range(3):
         keys = [np.concatenate([rng(1900, step).integers(0, 10 ** 6, n // 2),
@@ -1091,9 +1102,33 @@ def run_kv_device(mv):
     results["values"] = kv.Get(all_keys)
     np.testing.assert_array_equal(results["values"], twin.Get(all_keys))
     results["size"] = np.array(ksrv.size)
+    write_stats("kv")
     # an explicit bucket without create issues no collective
     fast = ksrv.device_slots(all_keys[:5], bucket=8)
     assert len(fast) == 8 and (fast[:5] < ksrv.capacity - 1).all()
+
+
+#: the port's collective-write counts a run saves (``write_stats``)
+WRITE_STATS = ("stage_n", "stage_bytes", "copy_peer_n", "copy_peer_bytes",
+               "d2h_bytes", "swap_n", "write_n")
+
+
+def reset_write_stats():
+    if PKG == "torch":
+        from multiverso_tpu_torch.parallel import multihost
+        multihost.reset_stats()
+
+
+def write_stats(name):
+    """The port's collective-write counts since ``reset_write_stats``, the
+    route and the device wire, under ``name``."""
+    if PKG == "torch":
+        from multiverso_tpu_torch.parallel import device_wire, multihost
+        results[f"{name}_stats"] = np.array(
+            [multihost.STATS[k] for k in WRITE_STATS], np.float64)
+        results[f"{name}_route"] = np.array(
+            "device" if multihost.device_writes() else "host")
+        results["wire"] = np.array(device_wire.name())
 
 
 def run_lr_compress(mv):
@@ -1174,6 +1209,114 @@ def run_lr_dev(mv):
         lr_run(kind, Configure, LogReg, sparse=sparse, device_plane=True,
                train_file=f"{OUTDIR}/{kind}_ragged_{RANK}.data",
                test_file=f"{OUTDIR}/{kind}_test.data")
+
+
+def run_dw_apps(mv):
+    """The device planes whose writes the port moves card to card on a
+    device wire: LR dense and sparse on ragged shards (as ``lr_dev``) and
+    WE ``-device_plane 1 -use_adagrad 1`` (four tables a write) on equal
+    shards; each run's write counts."""
+    Configure, LogReg = lr_classes()
+    for kind in ("dense", "sparse"):
+        reset_write_stats()
+        lr_run(kind, Configure, LogReg, sparse=kind == "sparse",
+               device_plane=True,
+               train_file=f"{OUTDIR}/{kind}_ragged_{RANK}.data",
+               test_file=f"{OUTDIR}/{kind}_test.data")
+        write_stats(kind)
+    reset_write_stats()
+    we = we_run("we_ada", "corpus", ["-device_plane", "1", "-use_adagrad",
+                                     "1"])
+    write_stats("we_ada")
+    if PKG == "torch":
+        c = we.comm
+        for name in ("input_table", "output_table", "ie_g2_table",
+                     "eo_g2_table"):
+            results[f"we_ada_{name}"] = getattr(c, name).server().raw()
+
+
+def run_dw_routes(mv):
+    """The port's collective device writes driven directly: three
+    ``device_apply_rows`` of an sgd matrix with duplicates within and
+    across the ranks and -0.0 deltas, the third outgrowing ``MIN_SLOT``
+    (the handle swap that frees a replaced slot), its rides a float and a
+    device scalar; one ``device_apply_rows_many`` of the sgd and an
+    AdaGrad matrix; ``device_update_gather_rows``; an array
+    ``device_update`` with a ride; the KV verbs; and an int32 KV table's
+    global batch. Saves the tables, the rides' sums and the write
+    counts."""
+    import torch
+    from multiverso_tpu_torch.tables.matrix_table import \
+        device_apply_rows_many
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    R, C = 3000, 64
+    mat = mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=R, num_cols=C, updater_type="sgd"))
+    ada = mv.MV_CreateTable(tables.MatrixTableOption(
+        num_rows=R, num_cols=C, updater_type="adagrad"))
+    arr = mv.MV_CreateTable(tables.ArrayTableOption(size=1000))
+    kv = mv.MV_CreateTable(tables.KVTableOption())
+    kv32 = mv.MV_CreateTable(tables.KVTableOption(dtype=np.int32))
+    msrv, asrv = mat.server(), ada.server()
+    opt = AddOption(learning_rate=0.5)
+    reset_write_stats()
+
+    def batch(step, n):
+        g = rng(2100, step, RANK)
+        ids = g.integers(0, R, n).astype(np.int32)
+        d = g.standard_normal((n, C)).astype(np.float32)
+        d[g.random(d.shape) < 0.1] = -0.0
+        return ids, d, g
+
+    for step, n in enumerate((40, 60, 5000)):
+        ids, d, g = batch(step, n)
+        ride = float(g.standard_normal()) if step != 1 else \
+            torch.tensor(g.standard_normal(), dtype=torch.float32)
+        results[f"ride{step}"] = np.float64(msrv.device_apply_rows(
+            ids, torch.from_numpy(d), opt, ride=ride))
+    ids, d, g = batch(3, 50)
+    ids2, d2, _ = batch(4, 30)
+    results["ride_many"] = np.float64(device_apply_rows_many(
+        [(msrv, ids, torch.from_numpy(d)), (asrv, ids2, d2)], opt,
+        ride=torch.tensor(1.0 / 3.0 + RANK, dtype=torch.float64)))
+    uids = np.unique(batch(5, 80)[0])
+    results["gathered"] = msrv.device_update_gather_rows(
+        uids, np.ones((len(uids), C), np.float32) * (RANK + 1)).numpy()
+    srv = arr.server()
+    g = rng(2101, RANK)
+    padded = torch.zeros_like(srv.device_state()["data"])
+    padded[:1000] = torch.from_numpy(g.standard_normal(1000).astype(
+        np.float32))
+    new, ride = srv.device_update(srv.device_state(), padded,
+                                  AddOption().as_tensors(),
+                                  ride=torch.tensor(0.1 * (RANK + 1)))
+    srv.device_set_state(new)
+    results["arr_ride"] = np.float64(ride)
+    ksrv = kv.server()
+    keys = np.concatenate([rng(2102).integers(0, 500, 50),
+                           rng(2103, RANK).integers(500, 1000, 50)])
+    slots = ksrv.device_slots(keys, create=True)
+    pad = np.zeros(len(slots), np.float32)
+    pad[:len(keys)] = g.standard_normal(len(keys)).astype(np.float32)
+    gslots, gdeltas = ksrv.device_place_slots(
+        slots, torch.from_numpy(pad) if RANK == 0 else pad)
+    ksrv.device_set_values(ksrv.device_scatter_add_slots(
+        ksrv.device_values(), gslots, gdeltas))
+    # a 32-bit integer KV table: its global batch moves in int32
+    isrv = kv32.server()
+    slots = isrv.device_slots(keys, create=True)
+    ipad = np.zeros(len(slots), np.int32)
+    ipad[:len(keys)] = g.integers(-50, 50, len(keys)).astype(np.int32)
+    gslots, gdeltas = isrv.device_place_slots(slots, torch.from_numpy(ipad))
+    assert gdeltas.dtype == torch.int32, gdeltas.dtype
+    write_stats("routes")
+    results["kv32"] = np.concatenate([gslots.numpy().astype(np.int64),
+                                      gdeltas.numpy().astype(np.int64)])
+    results["mat"] = msrv.raw()
+    results["ada"] = asrv.raw()
+    results["arr"] = arr.Get()
+    results["kv"] = kv.Get(np.arange(1000, dtype=np.int64))
+    mv.MV_Barrier()
 
 
 def we_classes():
@@ -1735,7 +1878,8 @@ def main():
      "lr": run_lr, "lr_dev": run_lr_dev, "we": run_we,
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged,
      "transport": run_transport, "dw_burst": run_dw_burst,
-     "dw_checks": run_dw_checks}[MODE](mv)
+     "dw_checks": run_dw_checks, "dw_apps": run_dw_apps,
+     "dw_routes": run_dw_routes}[MODE](mv)
     if MODE not in ("dead", "dw_checks"):
         mv.MV_ShutDown()
     np.savez(os.path.join(OUTDIR, f"{PKG}_{MODE}_{RANK}.npz"), **results)
