@@ -54,7 +54,15 @@ holds every kernel of that path against its plain PyTorch version:
               more cores) and again on ``-mv_engine_shards=1``: the final
               tables bitwise equal; then 4 worker threads on an add and an
               sgd table, each worker on rows of its own, every GetRows and
-              both final tables equal to the oracle; BSP (``-sync=true``,
+              both final tables equal to the oracle; the CPU host plane
+              (``[host_plane]``): a world on the CPU, the PS shape with
+              the add and the sgd updater, the row Add, the Add+Get and
+              the whole-table Get through the native host store, then
+              the same verbs with the mirror off, bitwise equal and equal
+              to the oracle, with each turn's ms, the pool tallies and
+              ``host_mirror_bytes``; a device-plane write drops the
+              mirror and the rebuild is equal (no kernel: a CPU table);
+              BSP (``-sync=true``,
               4 workers): every worker's i-th GetRows equal to the oracle
               after all workers' i-th Adds, and a bounded shutdown;
               model-average (``-ma=true``, 4 workers): no engine,
@@ -1572,6 +1580,154 @@ def ps_threads_phase(torch, mv, cr, dev, seed: int) -> dict:
                 round_median_ms=float(np.median(flat)))
 
 
+def host_cpu_model() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it (its model name, its
+    vendor, family, model and stepping numbers) and the core count, for
+    the host-plane lines."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    ids = ", ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family",
+                                                "model", "stepping")
+                    if info.get(k))
+    return (f"model name '{info.get('model name', '')}' ({ids}), "
+            f"{os.cpu_count()} cores")
+
+
+def host_plane_turn(mv, updater: str, store: bool, seed: int) -> dict:
+    """One [host_plane] turn: a world on the CPU (``-mv_device=cpu``), a
+    PS-shape table with ``updater``, riding the native host store or not
+    (``store``: the table's eligibility switched off before its first
+    verb), PS_ROUNDS rounds of a row Add and an Add+Get of PS_IDS unique
+    rows (float deltas), then a whole-table Get; every Get against a
+    numpy oracle, bitwise. The store turn also drops the mirror with a
+    device-plane write and checks the rebuild."""
+    import hashlib
+
+    from multiverso_tpu_torch import native
+    from multiverso_tpu_torch.tables import MatrixTableOption
+    from multiverso_tpu_torch.telemetry import accounting
+    g = np.random.default_rng([seed, 2200])
+    sign = np.float32(-1.0 if updater == "sgd" else 1.0)
+    mv.MV_Init(["-mv_device=cpu"])
+    try:
+        t = mv.MV_CreateTable(MatrixTableOption(
+            num_rows=PS_ROWS, num_cols=PS_COLS, updater_type=updater))
+        srv = t.server()
+        if srv.device.type != "cpu" or not srv._native_host_ok:
+            raise AssertionError("[host_plane] the table cannot ride the "
+                                 "native store")
+        if not store:
+            srv._native_host_ok = False
+        oracle = np.zeros((PS_ROWS, PS_COLS), np.float32)
+        digest = hashlib.sha256()
+        add_ms, round_ms = [], []
+        pool0 = native.pool_stats()
+        for _ in range(PS_ROUNDS):
+            for timed in (add_ms, round_ms):
+                ids = g.choice(PS_ROWS, PS_IDS, replace=False).astype(
+                    np.int32)
+                d = g.standard_normal((PS_IDS, PS_COLS)).astype(np.float32)
+                t0 = time.perf_counter()
+                t.AddRows(ids, d)
+                if timed is round_ms:
+                    got = t.GetRows(ids)
+                timed.append((time.perf_counter() - t0) * 1e3)
+                oracle[ids] += sign * d
+                if timed is round_ms:
+                    np.testing.assert_array_equal(
+                        got, oracle[ids], err_msg="[host_plane] Add+Get")
+                    digest.update(got.tobytes())
+        t0 = time.perf_counter()
+        whole = t.Get()
+        get_ms = (time.perf_counter() - t0) * 1e3
+        np.testing.assert_array_equal(whole, oracle,
+                                      err_msg="[host_plane] whole Get")
+        digest.update(whole.tobytes())
+        pool1 = native.pool_stats()
+        res = {"updater": updater, "store": store,
+               "live": srv._nat_store is not None, "add_ms": add_ms,
+               "round_ms": round_ms, "get_ms": get_ms,
+               "digest": digest.hexdigest(), "pool_before": pool0,
+               "pool_after": pool1}
+        if store != res["live"]:
+            raise AssertionError(f"[host_plane] store turn {store}, the "
+                                 f"mirror live {res['live']}")
+        if store:
+            rep = accounting.memory_report()
+            per = {r["table_id"]: r for r in
+                   rep["components"]["tables"]["per_table"]}
+            res["host_mirror_bytes"] = per[srv.table_id]["host_mirror_bytes"]
+            if res["host_mirror_bytes"] != PS_ROWS * PS_COLS * 4:
+                raise AssertionError(f"[host_plane] host_mirror_bytes "
+                                     f"{res['host_mirror_bytes']}")
+            ids = g.choice(PS_ROWS, PS_IDS, replace=False).astype(np.int32)
+            d = g.standard_normal((PS_IDS, PS_COLS)).astype(np.float32)
+            srv.device_apply_rows(ids, d)
+            oracle[ids] += sign * d
+            if srv._nat_store is not None:
+                raise AssertionError("[host_plane] a device-plane write "
+                                     "left the mirror live")
+            t0 = time.perf_counter()
+            np.testing.assert_array_equal(t.GetRows(ids), oracle[ids],
+                                          err_msg="[host_plane] rebuild")
+            res["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+            if srv._nat_store is None:
+                raise AssertionError("[host_plane] the mirror was not "
+                                     "rebuilt")
+            np.testing.assert_array_equal(t.Get(), oracle,
+                                          err_msg="[host_plane] rebuilt")
+    finally:
+        mv.MV_ShutDown()
+    return res
+
+
+def host_plane_phase(mv, seed: int) -> dict:
+    """[host_plane]: for the add and sgd updaters, the store turn, then
+    the turn with the mirror off, one after the other in this process;
+    both bitwise equal (and equal to the oracle)."""
+    out = {}
+    for updater in ("default", "sgd"):
+        turns = [host_plane_turn(mv, updater, store, seed)
+                 for store in (True, False)]
+        if turns[0]["digest"] != turns[1]["digest"]:
+            raise AssertionError(f"[host_plane] {updater}: the store turn "
+                                 f"and the plain turn differ")
+        out[updater] = turns
+    return out
+
+
+def report_host_plane(hp: dict, card: str, launches: dict) -> None:
+    cpu = host_cpu_model()
+    for updater, turns in hp.items():
+        for t in turns:
+            ps = t["pool_after"]
+            tallies = {k: ps[k] - t["pool_before"][k] for k in
+                       ("parallel_runs", "inline_busy", "inline_small")}
+            extra = (f"; host_mirror_bytes {t['host_mirror_bytes']:,}, "
+                     f"the mirror dropped by a device-plane write and "
+                     f"rebuilt in {t['rebuild_ms']:.3f} ms (equal)"
+                     if t["store"] else "")
+            log(f"[host_plane] {updater} {'store' if t['store'] else 'plain'}"
+                f" turn, {PS_ROWS:,} x {PS_COLS} on the CPU "
+                f"(-mv_device=cpu), {PS_ROUNDS} rounds of {PS_IDS} ids: row "
+                f"Add median {np.median(t['add_ms']):.3f} ms "
+                f"{[round(x, 3) for x in t['add_ms']]}, Add+Get median "
+                f"{np.median(t['round_ms']):.3f} ms "
+                f"{[round(x, 3) for x in t['round_ms']]}, whole Get "
+                f"{t['get_ms']:.3f} ms; pool tallies {tallies} of "
+                f"{ps['pool_threads']} threads (totals "
+                f"{t['pool_before']} -> {ps}){extra} (host {cpu}; {card})")
+    log(f"[host_plane] store and plain turns bitwise equal and == the "
+        f"numpy oracle for add and sgd; this phase launches no kernel by "
+        f"design (a CPU table): launches {launches}")
+
+
 def bsp_phase(torch, mv, cr, dev, seed: int) -> dict:
     """-sync=true: PS_WORKERS threads, PS_ROUNDS rounds of AddRows then
     GetRows of PS_IDS random ids each; every worker's i-th GetRows must
@@ -2911,6 +3067,7 @@ def rank_children(phase: str, seed: int, workdir: str,
     results."""
     port, port2 = free_port(), free_port()
     tag = f"{phase}_2proc"
+    t_start = time.perf_counter()
     outs = [os.path.join(workdir, f"{tag}_rank{r}.json") for r in range(2)]
     logs = [open(os.path.join(workdir, f"{tag}_rank{r}.log"), "w+")
             for r in range(2)]
@@ -2945,6 +3102,9 @@ def rank_children(phase: str, seed: int, workdir: str,
     for out in outs:
         with open(out) as f:
             ranks.append(json.load(f))
+    PHASE_S[tag] = PHASE_S.get(tag, 0.0) + time.perf_counter() - t_start
+    log(f"[phase seconds] {tag}: both ranks in {PHASE_S[tag]:.1f} s (host "
+        f"clock, from their start to their exit)")
     if phase != "dw":
         # what of this phase rode the device wire (at the default auto
         # unless the phase sets a transport): its checks are unchanged
@@ -2961,6 +3121,11 @@ def rank_children(phase: str, seed: int, workdir: str,
 #: each two-rank phase's Add values that rode the device wire, per rank
 #: (values, bytes) (``rank_children``)
 DW_OTHER_PHASES: dict = {}
+#: each phase's host-clock seconds (``drive`` and ``rank_children``), for
+#: the run's time budget
+PHASE_S: dict = {}
+#: the main run's start (host clock), set after the card check
+T_RUN = 0.0
 
 
 def check_wire_turns(ranks: list) -> None:
@@ -3649,10 +3814,59 @@ def kv2_device(torch, mv, base: list, rank: int, seed: int,
         res.update(bucket=b, keys=n, table_keys=srv.size,
                    capacity=srv.capacity,
                    digest=hashlib.sha256(values.tobytes()).hexdigest())
+        res["int32"] = kv2_int32(torch, mv, mh, rank, seed, route, keys,
+                                 every)
         torch.cuda.synchronize()
     finally:
         mv.MV_ShutDown(finalize_net=False)
     return res
+
+
+def kv2_int32(torch, mv, mh, rank: int, seed: int, route: str, keys,
+              every) -> dict:
+    """[kv_2proc device]'s int32 batch: an int32 KV table on the card
+    takes int32 deltas of both ranks at the same keys through the
+    cross-process ``device_scatter_add_slots`` (the integer route of the
+    deterministic sums: ``index_add_``, exact in any order). Its values at
+    both ranks' keys must equal the numpy oracle of both ranks' deltas."""
+    import hashlib
+
+    from multiverso_tpu_torch.tables import KVTableOption
+    dev = torch.device("cuda", 0)
+    n = len(keys)
+
+    def deltas32(k):
+        return np.random.default_rng([seed, 803, k]).integers(
+            -(1 << 20), 1 << 20, n).astype(np.int32)
+
+    kv = mv.MV_CreateTable(KVTableOption(dtype=np.int32))
+    srv = kv.server()
+    slots = srv.device_slots(keys, create=True)
+    b = len(slots)
+    pad = torch.zeros(b, dtype=torch.int32, device=dev)
+    pad[:n] = torch.from_numpy(deltas32(rank)).to(dev)
+    with route_turn(mh, route):
+        gslots, gdeltas = srv.device_place_slots(slots, pad)
+    if gdeltas.dtype != torch.int32 or gdeltas.device != dev:
+        raise AssertionError(f"[kv_2proc device] int32 batch moved as "
+                             f"{gdeltas.dtype} on {gdeltas.device}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.device_set_values(srv.device_scatter_add_slots(
+        srv.device_values(), gslots, gdeltas))
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    values = kv.Get(every)
+    uniq, inv = np.unique(every, return_inverse=True)
+    oracle = np.zeros(len(uniq), np.int64)
+    np.add.at(oracle, inv, np.concatenate([deltas32(k) for k in range(2)]))
+    if values.dtype != np.int32:
+        raise AssertionError(f"[kv_2proc device] int32 Get as "
+                             f"{values.dtype}")
+    np.testing.assert_array_equal(values, oracle[inv].astype(np.int32),
+                                  err_msg="[kv_2proc device] int32 oracle")
+    return {"scatter_add_s": add_s, "bucket": b,
+            "digest": hashlib.sha256(values.tobytes()).hexdigest()}
 
 
 def mh_2proc_rank(rank: int, port: int, seed: int, out: str) -> int:
@@ -3743,6 +3957,10 @@ def mh_2proc_phase(seed: int, workdir: str) -> dict:
     if len({r[k]["digest"] for r in ranks for k in ("kv", "kv_host")}) != 1:
         raise AssertionError("[kv_2proc device] the values differ across "
                              "the ranks or the routes")
+    if len({r[k]["int32"]["digest"] for r in ranks
+            for k in ("kv", "kv_host")}) != 1:
+        raise AssertionError("[kv_2proc device] the int32 values differ "
+                             "across the ranks or the routes")
     check_route_turns("[kv_2proc device]",
                       [{"collective": r["kv"]["collective"]} for r in ranks],
                       [{"collective": r["kv_host"]["collective"]}
@@ -3808,6 +4026,12 @@ def report_mh_2proc(mh: dict, card: str) -> None:
                 f"events)), scatter-add {kv['scatter_add_s']:.4f} s, gather "
                 f"{kv['gather_s']:.4f} s; the twin's host Add "
                 f"{kv['twin_add_s']:.4f} s ({card})")
+            i32 = kv["int32"]
+            log(f"[kv_2proc device] rank {r['rank']} {kv['route']} route, "
+                f"int32 table: {kv['keys']} int32 deltas a rank at the same "
+                f"keys (bucket {i32['bucket']}), the cross-process "
+                f"scatter-add {i32['scatter_add_s']:.4f} s; values == the "
+                f"numpy oracle ({card})")
     for i, c in enumerate(mh["apply_critpath"]):
         log(critpath_line(f"[ps_2proc apply] turn {i} -mv_apply_workers="
                           f"{c['workers']}", c, card))
@@ -3818,7 +4042,9 @@ def report_mh_2proc(mh: dict, card: str) -> None:
     log("[kv_2proc device] values bitwise equal across the ranks, the "
         "routes and to the twin's host Adds; each rank's lanes of the "
         "global gather == its keys' values; the device route's peer copies "
-        "exactly the peer's deltas, none of them device->host")
+        "exactly the peer's deltas, none of them device->host; the int32 "
+        "table bitwise equal across the ranks and the routes and == the "
+        "numpy oracle")
 
 
 def ckpt_tables(mv):
@@ -4678,6 +4904,7 @@ def serve_phase(torch, mv, cr, dev, seed: int) -> dict:
                                  f"pinned, {live_after} after the unpin")
         res.update(memory_bytes=mem, copy_bytes=copy_bytes,
                    live_pinned=live_pinned, live_after=live_after)
+        res["ledger"] = check_snapshot_ledger(store)
 
         # publish times: each table's export on the engine thread (host
         # clock; the device export only enqueues its clone), the clone on
@@ -4776,6 +5003,29 @@ def serve_phase(torch, mv, cr, dev, seed: int) -> dict:
     return res
 
 
+def check_snapshot_ledger(store) -> dict:
+    """The byte ledger after a publish: ``mem.snapshots.bytes`` and the
+    ``/memory`` body's per-version bytes equal every live snapshot's
+    ``nbytes()``, and ``mem.total_bytes`` includes them."""
+    from multiverso_tpu_torch.telemetry import accounting
+    from multiverso_tpu_torch.telemetry import metrics as tmetrics
+    rep = accounting.memory_report()
+    live = store.live_versions()
+    want = {str(v): store.get(v).nbytes() for v in live}
+    got = rep["components"]["snapshots"]
+    gauges = tmetrics.snapshot()
+    total = sum(want.values())
+    if (got["per_version"] != want or got["bytes"] != total
+            or gauges["mem.snapshots.bytes"]["value"] != total
+            or rep["total_bytes"] < total
+            or gauges["mem.total_bytes"]["value"] != rep["total_bytes"]):
+        raise AssertionError(f"[serve] the ledger's snapshots {got} (gauge "
+                             f"{gauges['mem.snapshots.bytes']['value']}), "
+                             f"not the live versions' nbytes {want}")
+    return {"live": live, "snapshots_bytes": total,
+            "total_bytes": rep["total_bytes"]}
+
+
 def time_serve_gather(torch, cr, dev, mean_batch: float, seed: int) -> dict:
     """``<kGather>`` at the serve path's union shape: a SERVE_ROWS + 1 x
     SERVE_COLS storage copy, each id set the sorted union of
@@ -4830,6 +5080,10 @@ def report_serve(sv: dict, k: dict, launches: dict, card: str) -> None:
         f"pinned (live {sv['live_pinned']}: 3 copies of "
         f"{sv['copy_bytes']:,} bytes), {mb[2]:.1f} MiB after the unpin "
         f"(live {sv['live_after']})")
+    lg = sv["ledger"]
+    log(f"[serve] byte ledger after the unpin: mem.snapshots.bytes "
+        f"{lg['snapshots_bytes']:,} == the nbytes() of live versions "
+        f"{lg['live']}, inside mem.total_bytes {lg['total_bytes']:,}")
     log(f"[serve] publish: device export {sv['export_device_ms']:.4f} ms "
         f"(host clock, enqueues the clone; the clone on the card "
         f"{sv['clone_ms']:.4f} ms by CUDA events), host export "
@@ -7519,6 +7773,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     results = {"card": card, "seed": args.seed}
 
+    global T_RUN
+    T_RUN = time.perf_counter()
     # phase 1: build the row kernels (nvcc) and, meanwhile, the device
     # wire's IPC binding (nvcc, its own source) and the native library
     # (g++, one process per source); the run needs all three
@@ -7639,7 +7895,9 @@ def main() -> int:
         ``native_needs`` must have been called."""
         cr.reset_launches()
         native.reset_uses()
+        t_start = time.perf_counter()
         out = fn()
+        PHASE_S[name] = time.perf_counter() - t_start
         paths[name] = dict(cr.LAUNCHES)
         native_uses[name] = dict(native.USES)
         for k in needs:
@@ -7650,7 +7908,7 @@ def main() -> int:
                 raise AssertionError(f"{name} never called the native {k}")
         log(f"[main path] {name}: launches {paths[name]} (kernels this path "
             f"must launch: {', '.join(needs) or 'none'}), native calls "
-            f"{native_uses[name]}")
+            f"{native_uses[name]}; {PHASE_S[name]:.1f} s")
         return out
 
     every = tuple(cr.LAUNCHES)
@@ -7686,6 +7944,13 @@ def main() -> int:
         f"{thr['engine']} live slots {thr['live_slots']}: round (AddRows + "
         f"GetRows on both) median {thr['round_median_ms']:.3f} ms; every "
         f"GetRows == the worker's oracle, both tables == oracle after join")
+    hp = drive("host_plane", lambda: host_plane_phase(mv, args.seed), (),
+               ("host_store",))
+    if any(paths["host_plane"].values()):
+        raise AssertionError(f"[host_plane] a CPU table launched kernels: "
+                             f"{paths['host_plane']}")
+    results["host_plane"] = hp
+    report_host_plane(hp, card, paths["host_plane"])
     bsp = drive("bsp", lambda: bsp_phase(torch, mv, cr, dev, args.seed),
                 rows_and_update)
     results["bsp"] = bsp
@@ -8084,6 +8349,12 @@ def main() -> int:
     results["main_path_launches"] = {"paths": paths, "total": launches,
                                      "native_calls": native_uses}
     log(f"[main path] launches, all paths {launches}")
+    results["phase_s"] = dict(PHASE_S)
+    log(f"[phase seconds] the heaviest phases: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(PHASE_S.items(),
+                                          key=lambda kv: -kv[1])[:12])
+        + f"; all {sum(PHASE_S.values()):.1f} s of "
+        f"{time.perf_counter() - T_RUN:.1f} s since the start")
 
     # phase 5: summary
     sources = {"gather_rows": "_make_gather_kernel / pallas_gather_rows",

@@ -42,7 +42,8 @@ def load_matrix_state(table, data: np.ndarray,
           f"matrix state shape {data.shape} != table "
           f"{(table.num_rows, table.num_cols)}")
     ctx = table._ctx
-    table.state["data"] = ctx.place(table._to_storage(data))
+    # through the setter: a CPU table's native store is stale after it
+    table.state = dict(table.state, data=ctx.place(table._to_storage(data)))
     for name, leaf in (aux or {}).items():
         CHECK(name in table.state["aux"],
               f"aux leaf {name!r} not held by updater "

@@ -40,6 +40,21 @@ class MsgType(enum.IntEnum):
     Default = 0
 
 
+def to_server(t: MsgType) -> bool:
+    """A request bound for a server (reference message.h:20-31 ranges)."""
+    return 0 < int(t) < 32
+
+
+def to_worker(t: MsgType) -> bool:
+    """A reply bound for a worker."""
+    return -32 < int(t) < 0
+
+
+def to_controller(t: MsgType) -> bool:
+    """A control message bound for the controller."""
+    return int(t) > 32
+
+
 def copy_result(result):
     """Fresh buffers for a result served to more than one owner (a deduped
     Get's extra repliers): callers own and may mutate their arrays."""

@@ -301,6 +301,12 @@ class WindowReader:
         self._space.release()
         return window
 
+    def join(self) -> None:
+        """Wait for the producer thread."""
+        # unbounded-ok: the producer loop is bounded by the dataset (it
+        # ends after the last window or a recorded error)
+        self._thread.join()
+
 
 class WindowCache:
     """Parse-once epoch cache (``config.cache_data``): the first epoch

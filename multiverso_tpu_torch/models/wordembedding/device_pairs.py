@@ -419,7 +419,8 @@ class DevicePairsTrainer:
         new = ((state.ie, state.eo, state.ie_g2, state.eo_g2)
                if opt.use_adagrad else (state.ie, state.eo))
         for srv, t in zip(servers, new):
-            srv.state["data"] = t
+            # through the setter: a CPU table's native store is stale
+            srv.state = dict(srv.state, data=t)
         stats = _BlockStats(torch.stack([
             torch.stack(losses).sum().to(torch.float64),
             lanes["pmask"].sum().to(torch.float64)]))

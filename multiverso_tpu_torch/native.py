@@ -1,7 +1,7 @@
 """The port's loader for the repo's C++ runtime library (ctypes).
 
-Counterpart of ``multiverso_tpu/native/__init__.py``, trimmed to the four
-pieces the port's hot host paths call:
+Counterpart of ``multiverso_tpu/native/__init__.py``: the pieces the
+port's hot host paths call:
 
 * ``parse_libsvm`` — the libsvm text parser of LogisticRegression's sparse
   reader (``models/logreg/data.py`` ``_iter_samples_native``);
@@ -10,7 +10,11 @@ pieces the port's hot host paths call:
 * ``KvIndex`` — the KV table's int64 key -> int32 slot index
   (``tables/kv_table.py``);
 * ``crc32c`` — the hardware CRC32C that seals every frame the
-  multi-process window exchange moves (``parallel/seal.py``).
+  multi-process window exchange moves (``parallel/seal.py``);
+* ``NativeHostStore`` — the threaded float32 row store of a matrix table
+  that lives on the CPU (``tables/matrix_table.py``'s host plane), with
+  ``pool_stats``, the tallies of its worker pool that the watchdog's
+  ``apply_pool_sat`` rule reads.
 
 Build: the library is compiled from the repo's own sources, with the
 recipe read from ``native/Makefile`` (its ``SRCS``, ``CXXFLAGS`` and the
@@ -54,7 +58,7 @@ LIB_NAME = "libmultiverso_tpu.so"
 
 #: calls into the library per piece (chip_smoke.py reads them per path)
 USES: Dict[str, int] = {"parse_libsvm": 0, "tokenize": 0, "kv_index": 0,
-                        "crc32c": 0}
+                        "crc32c": 0, "host_store": 0}
 
 _lock = threading.Lock()
 _uses_lock = threading.Lock()
@@ -191,6 +195,11 @@ def lib() -> Optional[ctypes.CDLL]:
         return _lib
 
 
+def loaded() -> bool:
+    """Whether the library is loaded in this process (no build starts)."""
+    return _lib is not None
+
+
 def _configure_signatures(h: ctypes.CDLL) -> None:
     i64 = ctypes.c_int64
     h.MV_CountLibsvm.restype = i64
@@ -211,6 +220,8 @@ def _configure_signatures(h: ctypes.CDLL) -> None:
         ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_char_p),
         ctypes.c_int32, np.ctypeslib.ndpointer(np.int64), i64,
         np.ctypeslib.ndpointer(np.int32), i64]
+    h.MV_TokenizeToIds.restype = i64
+    h.MV_TokenizeToIds.argtypes = h.MV_TokenizeLinesToIds.argtypes
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     h.MV_KvIndexNew.restype = ctypes.c_void_p
@@ -226,6 +237,41 @@ def _configure_signatures(h: ctypes.CDLL) -> None:
     h.MV_KvIndexSetItems.argtypes = [ctypes.c_void_p, i64p, i32p, i64]
     h.MV_Crc32c.restype = ctypes.c_uint32
     h.MV_Crc32c.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint32]
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    h.MV_HostStoreNew.restype = ctypes.c_void_p
+    h.MV_HostStoreNew.argtypes = [i64, i64, ctypes.c_float]
+    h.MV_HostStoreFree.argtypes = [ctypes.c_void_p]
+    h.MV_HostStoreLoad.argtypes = [ctypes.c_void_p, f32p]
+    h.MV_HostStoreGetAll.argtypes = [ctypes.c_void_p, f32p]
+    h.MV_HostStoreAddAll.argtypes = [ctypes.c_void_p, f32p]
+    h.MV_HostStoreAddRows.argtypes = [ctypes.c_void_p, i32p, i64, f32p]
+    h.MV_HostStoreGetRows.argtypes = [ctypes.c_void_p, i32p, i64, f32p]
+    h.MV_HostStorePoolStats.argtypes = [i64p]
+
+
+def crc32c_fn():
+    """The raw ``MV_Crc32c(data, n, seed)`` entry point (a u32, chained
+    as ``zlib.crc32`` chains), or None without the library: a caller on a
+    hot loop pays the lookup once."""
+    h = lib()
+    return None if h is None else h.MV_Crc32c
+
+
+_charp_fn = None
+
+
+def crc32c_charp_fn():
+    """``MV_Crc32c`` bound with a ``c_char_p`` first argument, the cheaper
+    binding for ``bytes`` inputs, on a second handle of the same library
+    (the ``c_void_p`` binding keeps taking any buffer); None without the
+    library."""
+    global _charp_fn
+    if _charp_fn is None and lib() is not None:
+        fn = ctypes.CDLL(str(lib_path())).MV_Crc32c
+        fn.restype = ctypes.c_uint32
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
+        _charp_fn = fn
+    return _charp_fn
 
 
 def crc32c(data, value: int = 0) -> int:
@@ -292,6 +338,15 @@ class VocabTokenizer:
         if handle is None or not len(words):
             return None
         return cls(handle, list(words))
+
+    def tokenize(self, text: bytes, max_ids: int) -> np.ndarray:
+        """Word ids of ``text`` in order (at most ``max_ids``), -1 for
+        words outside the vocabulary."""
+        _use("tokenize")
+        out = np.empty(max(max_ids, 1), np.int32)
+        n = self._h.MV_TokenizeToIds(text, len(text), self._words, self._n,
+                                     self._table, self._cap, out, len(out))
+        return out[:n]
 
     def tokenize_lines(self, text: bytes) -> np.ndarray:
         """Word ids of a multi-line chunk with -2 at each newline, in one
@@ -372,3 +427,96 @@ class KvIndex:
             raise ValueError("set_items slots must be a permutation of "
                              "0..n-1")
         self._h.MV_KvIndexSetItems(self._ptr, keys, slots, len(keys))
+
+
+class NativeHostStore:
+    """Threaded float32 LOGICAL row store in C++ (native/src/host_store.cc):
+    the apply and gather substrate of a matrix table on the CPU for the
+    linear aux-free updaters (``data += sign * delta``). One writer (the
+    engine thread that owns the table); the parallelism is inside one
+    call, on the library's persistent worker pool (the reference's
+    OpenMP-parallel server loop), and ctypes drops the interpreter lock
+    for the call."""
+
+    def __init__(self, handle: ctypes.CDLL, rows: int, cols: int,
+                 sign: float):
+        self._h = handle
+        self.rows, self.cols = rows, cols
+        self._ptr = handle.MV_HostStoreNew(rows, cols, ctypes.c_float(sign))
+        if not self._ptr:
+            raise MemoryError("MV_HostStoreNew failed")
+
+    @classmethod
+    def create(cls, rows: int, cols: int,
+               sign: float) -> Optional["NativeHostStore"]:
+        handle = lib()
+        if handle is None:
+            return None
+        return cls(handle, rows, cols, sign)
+
+    def __del__(self):
+        ptr, self._ptr = getattr(self, "_ptr", None), None
+        if ptr:
+            self._h.MV_HostStoreFree(ptr)
+
+    def _check_full(self, arr: np.ndarray) -> np.ndarray:
+        # the library copies or applies rows * cols floats unchecked
+        arr = np.ascontiguousarray(arr, np.float32)
+        if arr.size != self.rows * self.cols:
+            raise ValueError(f"expected {self.rows}x{self.cols} floats, "
+                             f"got shape {arr.shape}")
+        return arr
+
+    def load(self, full: np.ndarray) -> None:
+        self._h.MV_HostStoreLoad(self._ptr, self._check_full(full))
+
+    def get_all(self) -> np.ndarray:
+        """The whole table as a fresh (rows, cols) array."""
+        _use("host_store")
+        out = np.empty((self.rows, self.cols), np.float32)
+        self._h.MV_HostStoreGetAll(self._ptr, out)
+        return out
+
+    def add_all(self, delta: np.ndarray) -> None:
+        _use("host_store")
+        self._h.MV_HostStoreAddAll(self._ptr, self._check_full(delta))
+
+    def _check_ids(self, ids: np.ndarray) -> np.ndarray:
+        # the library indexes data + id * cols unchecked
+        ids = np.ascontiguousarray(ids, np.int32)
+        if len(ids) and (int(ids.min()) < 0 or int(ids.max()) >= self.rows):
+            raise ValueError(f"row id out of range [0, {self.rows})")
+        return ids
+
+    def add_rows(self, ids: np.ndarray, deltas: np.ndarray) -> None:
+        """``ids`` UNIQUE and in range (the caller pre-combines)."""
+        ids = self._check_ids(ids)
+        deltas = np.ascontiguousarray(deltas, np.float32)
+        if deltas.size != len(ids) * self.cols:
+            raise ValueError(f"expected {len(ids)}x{self.cols} delta "
+                             f"floats, got shape {deltas.shape}")
+        _use("host_store")
+        self._h.MV_HostStoreAddRows(self._ptr, ids, len(ids), deltas)
+
+    def get_rows(self, ids: np.ndarray) -> np.ndarray:
+        ids = self._check_ids(ids)
+        _use("host_store")
+        out = np.empty((len(ids), self.cols), np.float32)
+        self._h.MV_HostStoreGetRows(self._ptr, ids, len(ids), out)
+        return out
+
+
+def pool_stats() -> Optional[dict]:
+    """The host store pool's dispatch tallies since the process started:
+    ``parallel_runs`` (applies split over the pool), ``inline_busy``
+    (applies that found the pool owned by another engine shard, or a
+    one-thread pool, and ran inline: the saturation signal of the
+    watchdog's ``apply_pool_sat``), ``inline_small`` (under the pool's
+    byte floor) and ``pool_threads``. None without the library."""
+    handle = lib()
+    if handle is None:
+        return None
+    out = np.zeros(4, np.int64)
+    handle.MV_HostStorePoolStats(out)
+    return {"parallel_runs": int(out[0]), "inline_busy": int(out[1]),
+            "inline_small": int(out[2]), "pool_threads": int(out[3])}

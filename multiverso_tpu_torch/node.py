@@ -32,5 +32,8 @@ class Node:
     worker_id: int = -1
     server_id: int = -1
 
+    def is_worker(self) -> bool:
+        return bool(self.role & Role.WORKER)
+
     def is_server(self) -> bool:
         return bool(self.role & Role.SERVER)

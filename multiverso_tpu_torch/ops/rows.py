@@ -85,12 +85,14 @@ def dedup_rows(ids: torch.Tensor, deltas: torch.Tensor,
     the sorted lanes (each segment summed in sorted order, the same
     rounding on every run and every rank), so two ranks running the same
     program on their replicas get the same bits. The segment lengths are
-    integer counts (exact in any order), and no host sync is needed."""
+    integer counts (exact in any order), and no host sync is needed.
+    Integer deltas take ``index_add_`` either way: integer adds are exact
+    in any order (``segment_reduce`` has no integer kernel)."""
     if ids.shape[0] == 0:
         return ids.clone(), deltas.clone()
     order, sids, head, seg = _segments(ids)
     sdeltas = deltas[order]
-    if deterministic:
+    if deterministic and deltas.is_floating_point():
         out_deltas = torch.segment_reduce(sdeltas, "sum",
                                           lengths=_lengths(seg), axis=0,
                                           unsafe=True)
@@ -118,8 +120,10 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     shows against the JAX program after a few blocks); the new rows are
     written back with unique ids. The table's LAST row must be a trash row (the
     storage layout of the tables' device state): the unused segments
-    write zeros there."""
-    if not deterministic:
+    write zeros there. Integer rows take ``index_add_`` either way: integer
+    adds are exact in any order, so its atomics give the same bits on
+    every run (and ``segment_reduce`` has no integer kernel)."""
+    if not deterministic or not rows.is_floating_point():
         return table.index_add_(0, ids, rows)
     n = ids.shape[0]
     if n == 0:

@@ -44,6 +44,18 @@ def partition_offsets(size: int, num_servers: int) -> List[Tuple[int, int]]:
     return out
 
 
+def row_partition_server(row: int, num_rows: int, num_servers: int) -> int:
+    """The reference's row -> server math, ``row / (num_row / num_server)``
+    with the tail clamped to the last server (reference
+    matrix_table.cpp:24-46). The storage's ownership is
+    ``storage_partition_server`` (ceil blocks); the two agree whenever
+    ``num_servers`` divides ``num_rows``."""
+    base = num_rows // num_servers
+    if base == 0:
+        return 0
+    return min(row // base, num_servers - 1)
+
+
 def ceil_block_rows(num_rows: int, num_servers: int) -> int:
     """Rows per server shard in the interleaved storage layout."""
     return -(-num_rows // num_servers)

@@ -185,6 +185,13 @@ def _note_round() -> None:
         _rounds += 1
 
 
+def note_collective(n: int = 1) -> None:
+    """Count ``n`` host collective rounds issued outside this module."""
+    global _rounds
+    with _rounds_lock:
+        _rounds += n
+
+
 #: timing of the calling thread's latest engine ``capped_exchange``: the
 #: engine's phase stamps read it right after their window exchange, on the
 #: same thread, to split the seconds BLOCKED IN THE COLLECTIVE (``coll_s``)
@@ -989,6 +996,24 @@ def host_allgather_objects(obj) -> list:
     if world_size() <= 1:
         return [obj]
     return [pickle.loads(b) for b in host_allgather_bytes(pickle.dumps(obj))]
+
+
+def union_collective_ids(ids: np.ndarray) -> Optional[np.ndarray]:
+    """The sorted union of every member's id set of one collective call
+    (None in a one-member world, where the caller keeps its local path).
+    Collective."""
+    if world_size() <= 1:
+        return None
+    return np.unique(np.concatenate(host_allgather_objects(ids)))
+
+
+def broadcast_from_master(data: np.ndarray) -> np.ndarray:
+    """The value of the CURRENT world's lowest-rank member, on every
+    member (identity in a one-member world). Collective on the control
+    group, or the elastic group."""
+    if _isolated or world_size() <= 1:
+        return data
+    return np.asarray(host_allgather_objects(np.asarray(data))[0])
 
 
 # -- the application threads' lockstep rounds (control group) ----------------

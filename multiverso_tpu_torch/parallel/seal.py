@@ -132,6 +132,13 @@ def seal_trailer(parts) -> bytes:
     return _U32.pack(crc & 0xFFFFFFFF)
 
 
+def seal_frame_legacy(body: bytes) -> bytes:
+    """The untagged zlib CRC32 seal that writers without the library
+    produce, for the round-trip drills (a reader must open such blobs);
+    runtime sealing goes through :func:`seal_frame`."""
+    return body + _U32.pack(_zlib_crc_chunked(body))
+
+
 def _legacy_ok(blob: bytes) -> bool:
     n = len(blob)
     return (n > CRC_TRAILER_BYTES and _zlib_crc_chunked(

@@ -495,6 +495,15 @@ class TcpWire:
         return [blob if r == self.rank else bytes(st[r]["asm"])
                 for r in range(self.nprocs)]
 
+    def mem_bytes(self) -> dict:
+        """Ledger probe (``telemetry/accounting.py``): the inbound stream
+        buffers held now (bytes of a peer's next round read with this
+        one's tail), the stream count and the largest blob exchanged."""
+        return {"inbuf_bytes": sum(len(b)
+                                   for b in list(self._inbuf.values())),
+                "stream_count": len(self._conn),
+                "frame_hw_bytes": self.frame_hw_bytes}
+
     def _partition(self, channel: int) -> None:
         """Chaos ``tcp.partition``: sever every stream of this channel.
         The peers see EOF (``ActorDied``); this rank's next socket

@@ -155,6 +155,11 @@ def decode_window_seq(blob: bytes):
     return seq, out
 
 
+def decode_window(blob: bytes):
+    """``decode_window_seq`` without the sequence number."""
+    return decode_window_seq(blob)[1]
+
+
 def encode_head_barrier(msg_type: int) -> bytes:
     """Marker blob of a rank whose window head is a non-verb message."""
     return seal_frame(_U8.pack(KIND_HEAD_BARRIER) + _I64.pack(int(msg_type)))

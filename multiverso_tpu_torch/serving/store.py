@@ -115,6 +115,16 @@ class SnapshotStore:
         with self._lock:
             return list(self._versions)
 
+    def retained_bytes(self) -> Dict[int, int]:
+        """{version: snapshot bytes} for every LIVE version: the byte
+        ledger's retention probe (``telemetry/accounting.py``). The live
+        set is taken under the lock; a snapshot is immutable once
+        installed, so ``nbytes()`` is size arithmetic after it (host
+        copies report their buffers, a device residence its storage)."""
+        with self._lock:
+            snaps = list(self._versions.items())
+        return {v: int(s.nbytes()) for v, s in snaps}
+
     def pin(self, version: int) -> int:
         """Hold ``version`` live past retention (pins nest); returns it.
         KeyError when it is not live any more."""

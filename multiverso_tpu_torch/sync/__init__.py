@@ -1,3 +1,4 @@
 """Consistency modes: the server engines (reference L4)."""
 
-from multiverso_tpu_torch.sync.server import Server  # noqa: F401
+from multiverso_tpu_torch.sync.server import (  # noqa: F401
+    Server, SyncServer, VectorClock)

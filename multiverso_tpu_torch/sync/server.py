@@ -2457,6 +2457,17 @@ class ShardedServer(Server):
 
     def RegisterTable(self, server_table) -> int:
         table_id = super().RegisterTable(server_table)
+        if multihost.world_size() > 1:
+            # build the table's host mirror at THIS lockstep position, as
+            # the JAX package does (tables/base.py
+            # mh_prepare_local_apply); a failure only delays it to the
+            # table's first host verb
+            try:
+                server_table.mh_prepare_local_apply()
+            except Exception as exc:
+                Log.Error("engine: table %d host mirror pre-warm failed "
+                          "(%r); its first host verb builds it", table_id,
+                          exc)
         slot = table_id % self._shard_cap
         if slot and slot not in self._subs:
             sub = _EngineShard(self, slot)

@@ -228,6 +228,10 @@ class ArrayServer(ServerTable):
 
     # -- device plane ----------------------------------------------------------
 
+    def raw(self) -> torch.Tensor:
+        """The live padded data tensor on the table's device."""
+        return self.state["data"]
+
     def device_state(self) -> Dict:
         """The live {'data', 'aux'} state (write back with
         device_set_state); re-take it after any host-plane Add."""

@@ -268,6 +268,12 @@ class ServerTable:
         fences its windows."""
         return True
 
+    def mh_prepare_local_apply(self) -> None:
+        """Called at table registration by a sharded multi-process engine,
+        a lockstep position before any verb reaches the table: build any
+        host mirror the table's applies use (a CPU matrix table's native
+        store), so the first window finds it. Default: nothing to build."""
+
     # -- the serving plane (serving/snapshot.py): called ON the engine thread
     # inside the publish cut, so every Add admitted before the cut is in
     # and none after. CONTRACT: the returned TableSnapshot is IMMUTABLE and
@@ -287,8 +293,9 @@ class ServerTable:
     # storage sizes the tensors already know. Keys: ``device_bytes`` (the
     # table's tensors on its device: the STORAGE bytes, padded rows and
     # columns included), ``host_mirror_bytes`` (host copies of device
-    # state: none in the port) and ``host_bytes`` (host-authoritative
-    # state: numpy arrays, tensors of a table on the CPU are its device).
+    # state: a CPU matrix table's native store) and ``host_bytes``
+    # (host-authoritative state: numpy arrays; tensors of a table on the
+    # CPU are its device).
 
     def ledger_bytes(self) -> Dict[str, int]:
         """Byte placement of this table's live state: every tensor reached

@@ -60,6 +60,19 @@ ranks' values come card to card, merge on the device
 (``_merge_device_rows``: ``ops.dedup_rows(deterministic=True)``, bitwise
 the host merge) and apply through the same row path.
 
+A table on the CPU (``-mv_device=cpu``) with the add or sgd updater, no
+compression and float32 data rides the repo's native host store
+(``native.NativeHostStore``, ``native/src/host_store.cc``) for its host
+verbs, as a JAX table on the CPU backend does: a threaded C++ row store
+of the LOGICAL rows (no pad columns, no trash row) that applies Adds
+and serves Gets off the interpreter lock, on the library's worker pool.
+Exactly one side holds the truth at a time. The mirror is built lazily
+from ``raw()`` at the first host verb; reading ``state`` copies a dirty
+mirror back into the storage tensor; any write to the storage outside
+the host verbs (the device plane, the device wire's applies, a load)
+drops the mirror, which the next host verb rebuilds. A table on the card
+never rides it.
+
 The store is updated IN PLACE (the JAX package donates its buffers
 instead). So every Get returns a fresh buffer — a gather output or, for
 the whole table, a copy — and never a view of live storage, and the device
@@ -84,7 +97,7 @@ from multiverso_tpu_torch.parallel.mesh import ceil_block_rows, next_bucket
 from multiverso_tpu_torch.telemetry import metrics as tmetrics
 from multiverso_tpu_torch.telemetry import sketch as tsketch
 from multiverso_tpu_torch.tables.base import (ServerTable, TableOption,
-                                              WorkerTable)
+                                              WorkerTable, ledger_walk)
 from multiverso_tpu_torch.updaters.base import (AddOption, CreateUpdater,
                                                 GetOption, Updater)
 from multiverso_tpu_torch.utils.log import CHECK
@@ -271,6 +284,13 @@ class MatrixServerTable(ServerTable):
             data = torch.zeros(shape, dtype=torch.float32, device=self.device)
         aux = self.updater.init_aux(shape, torch.float32, zoo.num_workers,
                                     device=self.device)
+        # the native host store (module docstring): eligibility is fixed
+        # at creation, the store itself built at the first host verb
+        self._nat_store = None
+        self._nat_dirty = False
+        self._native_host_ok = (
+            self.updater.fusable and self.updater.combine_scale is not None
+            and not aux and compress is None and self.device.type == "cpu")
         self.state = {"data": data, "aux": aux}
         # fused path: the aux-free elementwise updaters (add, sgd) run the
         # server-side Add as ONE read-modify-write kernel with their sign
@@ -284,6 +304,95 @@ class MatrixServerTable(ServerTable):
         self._merge_adds = (self._fuse
                             and self.updater.combine_scale is not None)
         self._has_access = type(self.updater).access is not Updater.access
+
+    # -- the native host store (CPU tables) ---------------------------------
+
+    @property
+    def state(self):
+        """The {'data', 'aux'} tensors. Reading it first copies any Adds
+        the native store holds back into the storage tensor (in place),
+        so every consumer outside the host verbs sees the current data."""
+        if self._nat_dirty:
+            full = self._nat_store.get_all()
+            self._state["data"].copy_(torch.from_numpy(
+                self._to_storage(full)))
+            # cleared only after the copy landed
+            # mv-lint: ok(cross-domain-state): one plane per table: the device plane's writer is the application thread while the engine takes no verb of this table (the caller owns the table), as the JAX package's state property
+            self._nat_dirty = False
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        # mv-lint: ok(cross-domain-state): one plane per table: a device-plane write runs on the application thread while the engine takes no verb of this table (the caller owns the table), as the JAX package's state setter
+        self._state = value
+        self._drop_mirror()
+
+    def _drop_mirror(self) -> None:
+        """A write outside the host verbs made the storage tensor the
+        truth: the mirror is stale (the next host verb rebuilds it)."""
+        if self._nat_store is not None:
+            # mv-lint: ok(cross-domain-state): same one-plane-per-table argument as the state getter
+            self._nat_store = None
+            self._nat_dirty = False
+
+    def _host_store(self):
+        """The live native store, or None when this table cannot ride it
+        (not on the CPU, an aux or non-linear updater, compression, or no
+        C++ toolchain)."""
+        if not self._native_host_ok:
+            return None
+        if self._nat_store is None:
+            from multiverso_tpu_torch import native
+            store = native.NativeHostStore.create(
+                self.num_rows, self.num_cols,
+                float(self.updater.combine_scale))
+            if store is None:
+                self._native_host_ok = False    # no toolchain: stay torch
+                return None
+            store.load(self.raw())
+            self._nat_store = store
+        return self._nat_store
+
+    def mh_prepare_local_apply(self) -> None:
+        """Registration hook of a multi-process engine (tables/base.py):
+        build the store at this lockstep position, as the JAX package
+        does, so the first window already applies through it."""
+        if self._native_host_ok:
+            self._host_store()
+
+    def ledger_bytes(self):
+        """Byte ledger probe (tables/base.py contract): the storage
+        tensors read through ``_state`` (the ``state`` property would
+        copy a dirty mirror back, which a sampling thread must never
+        do), and the native store's logical rows x cols floats as host
+        mirror bytes."""
+        out = {"device_bytes": 0, "host_mirror_bytes": 0, "host_bytes": 0}
+        ledger_walk(self._state, out, set())
+        nat = self._nat_store
+        if nat is not None:
+            out["host_mirror_bytes"] = int(nat.rows) * int(nat.cols) * 4
+        return out
+
+    def _apply_rows_host(self, ids: np.ndarray, deltas, opt) -> None:
+        """A host verb's row Add (unique validated ids): the native store
+        when live, else the row path."""
+        nat = self._host_store()
+        if nat is not None:
+            nat.add_rows(ids, deltas)
+            self._nat_dirty = True
+            return
+        self._update_rows(ids, deltas, opt)
+
+    def _apply_full_host(self, values, opt) -> None:
+        """A host verb's whole-table Add: the native store when live,
+        else through the updater on the storage tensor."""
+        nat = self._host_store()
+        if nat is not None:
+            nat.add_all(np.asarray(values, self.dtype).reshape(
+                self.num_rows, self.num_cols))
+            self._nat_dirty = True
+            return
+        self._update_full(values, opt)
 
     # -- storage layout (shard blocks + trash rows, padded cols) -------------
 
@@ -380,6 +489,7 @@ class MatrixServerTable(ServerTable):
         width (``_device_deltas``)."""
         _, ids_t = self._lanes_tensor(ids)
         data = self.state["data"]
+        self._drop_mirror()
         if self._fuse:
             ops.update_rows(data, ids_t, d, self._sign)
             return
@@ -398,6 +508,7 @@ class MatrixServerTable(ServerTable):
         mine, ids_t = self._lanes_tensor(ids)
         d = self._device_deltas(deltas, len(ids))
         data = self.state["data"]
+        self._drop_mirror()
         if self._fuse:
             _, rows = ops.update_gather_rows(data, ids_t, d, self._sign)
         else:
@@ -453,6 +564,41 @@ class MatrixServerTable(ServerTable):
                 return False
             ids_list.append(ids)
             deltas_list.append(values.reshape(len(ids), self.num_cols))
+        if self._host_store() is not None:
+            self._add_run_native(ids_list, deltas_list)
+        else:
+            self._add_run_device(ids_list, deltas_list)
+        # the per-payload bookkeeping in message order, as the per-message
+        # path fires it
+        for p, ids in zip(payloads, ids_list):
+            self._note_add_parts(p.get("option") or AddOption(), [ids])
+        return True
+
+    def _add_run_native(self, ids_list, deltas_list) -> None:
+        """A merged run on the native store, as the JAX package applies
+        it: payloads of one id set (one worker hammering, replicated
+        pushes) sum their deltas in message order and apply once;
+        otherwise each payload pre-combines its duplicates and applies
+        on its own (a linear updater sums across applies)."""
+        nat = self._nat_store
+        first = ids_list[0]
+        if len(ids_list) > 1 and all(
+                a.shape == first.shape and np.array_equal(a, first)
+                for a in ids_list[1:]):
+            total = deltas_list[0].astype(self.dtype, copy=True)
+            for d in deltas_list[1:]:
+                total += d
+            nat.add_rows(*_combine_duplicate_rows(first, total,
+                                                  self.num_cols, self.dtype))
+        else:
+            for a, d in zip(ids_list, deltas_list):
+                nat.add_rows(*_combine_duplicate_rows(a, d, self.num_cols,
+                                                      self.dtype))
+        self._nat_dirty = True
+
+    def _add_run_device(self, ids_list, deltas_list) -> None:
+        """A merged run on the storage tensor: the unique ids, each id's
+        deltas summed with ``index_add_``, one fused update."""
         uniq, inv = np.unique(np.concatenate(ids_list), return_inverse=True)
         flat = self._device_deltas(np.concatenate(deltas_list), len(inv))
         combined = torch.zeros((len(uniq), self.store_cols),
@@ -461,11 +607,6 @@ class MatrixServerTable(ServerTable):
             self.device), flat)
         _, ids_t = self._lanes_tensor(uniq.astype(np.int32))
         ops.update_rows(self.state["data"], ids_t, combined, self._sign)
-        # the per-payload bookkeeping in message order, as the per-message
-        # path fires it
-        for p, ids in zip(payloads, ids_list):
-            self._note_add_parts(p.get("option") or AddOption(), [ids])
-        return True
 
     def _check_compressed_ids(self, comp: dict) -> np.ndarray:
         """A compressed payload's row ids, validated: in range and unique
@@ -547,7 +688,7 @@ class MatrixServerTable(ServerTable):
                 compressed["row_ids"], np.int32).ravel()])
             return
         if row_ids is None:
-            self._update_full(values, opt)
+            self._apply_full_host(values, opt)
             self._note_add_parts(option, [None])
             return
         ids = np.asarray(row_ids, np.int32).ravel()
@@ -556,7 +697,7 @@ class MatrixServerTable(ServerTable):
         self._check_ids(ids)
         ids, deltas = _combine_duplicate_rows(ids, deltas, self.num_cols,
                                               self.dtype)
-        self._update_rows(ids, deltas, opt)
+        self._apply_rows_host(ids, deltas, opt)
         self._note_add_parts(option, [ids])
 
     def _update_full(self, values, opt) -> None:
@@ -616,14 +757,14 @@ class MatrixServerTable(ServerTable):
             summed = prepped[0].copy()
             for v in prepped[1:]:
                 summed += v
-            self._update_full(summed, opt)
+            self._apply_full_host(summed, opt)
             self._note_add_parts(option, [None] * len(parts))
             return
         ids, deltas = _combine_duplicate_rows(
             np.concatenate([i for i, _ in prepped]),
             np.concatenate([d for _, d in prepped]), self.num_cols,
             self.dtype)
-        self._update_rows(ids, deltas, opt)
+        self._apply_rows_host(ids, deltas, opt)
         self._note_add_parts(option, [i for i, _ in prepped])
 
     def _mh_add_compressed_parts(self, parts) -> None:
@@ -735,7 +876,7 @@ class MatrixServerTable(ServerTable):
         ids, deltas = _combine_duplicate_rows(
             np.concatenate(all_ids), np.concatenate(all_deltas),
             self.num_cols, self.dtype)
-        self._update_rows(ids, deltas, AddOption().as_tensors())
+        self._apply_rows_host(ids, deltas, AddOption().as_tensors())
         # bookkeeping per position in window order, as per-position
         # applies would fire it (the engine serves no Get inside a run)
         for option, rank_ids in noted:
@@ -861,7 +1002,18 @@ class MatrixServerTable(ServerTable):
         queue their device work back to back and the engine pays the
         device->host waits after. The whole-table read snapshots the
         storage first, because a later Add of the same window updates
-        it in place."""
+        it in place. The native store serves at once (its read is a
+        synchronous copy with nothing to overlap)."""
+        nat = self._host_store()
+        if nat is not None:
+            if row_ids is None:
+                out = nat.get_all()
+            else:
+                ids = np.asarray(row_ids, np.int32).ravel()
+                self._check_ids(ids)
+                self._note_row_access(ids)
+                out = nat.get_rows(ids)
+            return lambda: out
         if row_ids is None:
             data = self.updater.access(self.state["data"], self.state["aux"],
                                        None).clone()
@@ -967,6 +1119,10 @@ class MatrixServerTable(ServerTable):
         """Immutable row snapshot for the serving plane, by
         ``-mv_serving_residence`` (serving/snapshot.py):
 
+        * the native store live (a CPU table; not under ``device``):
+          copy-on-publish of the store, one copy of the logical rows (the
+          store's updaters have an identity ``access()``, so the copy is
+          the training view);
         * device (one process, no updater aux state; under ``auto`` only
           for a table on a CUDA device): ONE ``clone()`` of the padded
           storage on the table's device, which later in-place updates
@@ -976,6 +1132,9 @@ class MatrixServerTable(ServerTable):
           (the access() view); always so in a multi-process world."""
         from multiverso_tpu_torch.serving import snapshot as ssnap
         mode = ssnap.residence_mode()
+        nat = self._host_store()
+        if nat is not None and mode != "device":
+            return ssnap.MatrixSnapshot.host(nat.get_all())
         device_legal = (multihost.world_size() <= 1
                         and not self.state["aux"])
         want_device = mode == "device" or (mode == "auto"
@@ -999,7 +1158,8 @@ class MatrixServerTable(ServerTable):
               "checkpoint shape mismatch")
         raw = stream.Read(rows * cols * self.dtype.itemsize)
         values = np.frombuffer(raw, self.dtype).reshape(rows, cols)
-        self.state["data"] = self._ctx.place(self._to_storage(values))
+        self.state = dict(self.state,
+                          data=self._ctx.place(self._to_storage(values)))
 
 
 class MatrixWorkerTable(WorkerTable):

@@ -34,8 +34,9 @@ tables.device_bytes       per-table tensors' STORAGE bytes
                           and the updater's aux state: padded rows and
                           columns included, so more than the JAX
                           package's logical leaf bytes)
-tables.host_mirror_bytes  host mirrors of device state (none in the
-                          port: its tables keep no mirror)
+tables.host_mirror_bytes  host mirrors of device state (a CPU matrix
+                          table's native store, ``NativeHostStore``:
+                          its logical rows x cols floats)
 tables.host_bytes         host-authoritative values, freshness bitmaps,
                           key indexes at ALLOCATED capacity — probing-
                           table load-factor headroom included (exact)
@@ -118,7 +119,8 @@ def _tables_report() -> dict:
     for wt in list(getattr(zoo, "worker_tables", [])):
         try:
             w = wt.worker_ledger_bytes()
-        except Exception:
+        except Exception as exc:
+            Log.Debug("ledger: worker table probe failed: %r", exc)
             continue
         wc_bytes += w.get("write_combine_bytes", 0)
         gc_bytes += w.get("get_cache_bytes", 0)
@@ -194,26 +196,31 @@ def memory_report() -> dict:
             "write_combine_bytes": 0, "get_cache_bytes": 0}
     try:
         comps["snapshots"] = _snapshots_report()
-    except Exception:
+    except Exception as exc:
+        Log.Debug("ledger: snapshots probe failed: %r", exc)
         comps["snapshots"] = {"per_version": {}, "bytes": 0}
     try:
         comps["flight"] = _flight_report()
-    except Exception:
+    except Exception as exc:
+        Log.Debug("ledger: flight probe failed: %r", exc)
         comps["flight"] = {"events": 0, "bytes_estimate": 0}
     try:
         comps["dedup"] = _dedup_report()
-    except Exception:
+    except Exception as exc:
+        Log.Debug("ledger: dedup probe failed: %r", exc)
         comps["dedup"] = {"entries": 0, "bytes_estimate": 0}
     try:
         comps["shm"] = _shm_report()
-    except Exception:
+    except Exception as exc:
+        Log.Debug("ledger: wire probe failed: %r", exc)
         comps["shm"] = None
     # the replica fan-out's journals and retained dirty sets (None when
     # the plane is off or this rank is not the fan-out owner)
     try:
         from multiverso_tpu_torch import replica as treplica
         comps["replica"] = treplica.ledger_bytes()
-    except Exception:
+    except Exception as exc:
+        Log.Debug("ledger: replica probe failed: %r", exc)
         comps["replica"] = None
     t = comps["tables"]["totals"]
     shm = comps["shm"] or {}

@@ -120,6 +120,15 @@ class FlightRecorder:
         return (len(raw),
                 sum(per_event_overhead + len(ev[5]) for ev in raw))
 
+    def last_detail(self, kind: str) -> Optional[str]:
+        """The detail of the newest event of ``kind``, or None."""
+        with self._lock:
+            events = list(self._ring)
+        for ev in reversed(events):
+            if ev[2] == kind:
+                return ev[5]
+        return None
+
     def events(self, n: Optional[int] = None) -> List[dict]:
         """The newest ``n`` events (all when None) as dicts, oldest
         first — the /flight endpoint + bundle tail shape. ``t`` is the
@@ -181,6 +190,10 @@ def enabled() -> bool:
 
 def stats() -> Tuple[int, int]:
     return RECORDER.stats()
+
+
+def last_detail(kind: str) -> Optional[str]:
+    return RECORDER.last_detail(kind)
 
 
 def events(n: Optional[int] = None) -> List[dict]:

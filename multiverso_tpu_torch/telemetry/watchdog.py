@@ -70,11 +70,11 @@ The three fleet rules read the coordinator-side accumulator's fold
 every other process; the fold is local, filled by the members' pushed
 heartbeats, so the tick stays collective-free.
 
-``apply_pool_sat`` watches the JAX package's native host-store pool, which
-the port does not have: its evidence never arrives and it HOLDs, so the
-policy plane's ``-mv_apply_workers`` loop acts only on tick records that
-carry the alert (``ROADMAP.md`` §3). Every evaluation ends with the tick
-listeners (the policy plane's intake), called outside the lock.
+``apply_pool_sat`` watches the native host store's worker pool
+(``native.pool_stats``), which the matrix tables on the CPU apply
+through; its alert feeds the policy plane's ``-mv_apply_workers`` loop.
+Every evaluation ends with the tick listeners (the policy plane's
+intake), called outside the lock.
 
 Every ``alert.*`` counter is registered EAGERLY at
 :func:`start_watchdog` (the PR 6 rule) so the whole rule family scrapes
@@ -559,9 +559,9 @@ def default_rules() -> List[Rule]:
 
 def refresh_saturation_gauges() -> None:
     """Mirror the hot paths' plain-attribute tallies into typed gauges:
-    per-shard stream load (``engine.shard<k>.*``). (The JAX package's
-    ``native.pool.*`` gauges mirror its native host store's pool, which
-    the port does not have.) Called by the watchdog tick and by
+    per-shard stream load (``engine.shard<k>.*``) and the native host
+    store pool's dispatch split (``native.pool.*``, once the library is
+    loaded: a tick never builds it). Called by the watchdog tick and by
     the ops handler ahead of a /metrics render — NEVER from a verb
     path (the gauges' locks must not bill the blocking round)."""
     try:
@@ -578,7 +578,26 @@ def refresh_saturation_gauges() -> None:
                     float(s.get("mailbox_depth", 0)))
     except Exception:           # engine torn down mid-refresh
         pass
+    try:
+        ps = _pool_stats()
+        if ps is not None:
+            tmetrics.gauge("native.pool.parallel_runs").set(
+                float(ps["parallel_runs"]))
+            tmetrics.gauge("native.pool.inline_busy").set(
+                float(ps["inline_busy"]))
+            tmetrics.gauge("native.pool.inline_small").set(
+                float(ps["inline_small"]))
+            tmetrics.gauge("native.pool.threads").set(
+                float(ps["pool_threads"]))
+    except Exception:
+        pass
 
+
+def _pool_stats():
+    """The native pool's tallies, or None while the library is not
+    loaded (a sampling thread never starts its build)."""
+    from multiverso_tpu_torch import native
+    return native.pool_stats() if native.loaded() else None
 
 
 def collect_sample() -> dict:
@@ -624,10 +643,14 @@ def collect_sample() -> dict:
                 getattr(eng, "last_binding_phase", "") or None)
     except Exception:
         pass
-    # apply_pool_sat reads the JAX package's native host-store pool
-    # (pool_inline_busy / pool_parallel); the port has no such pool, so
-    # those keys stay absent and the rule HOLDs (its window apply pool's
-    # one inline job a window is by design, not saturation)
+    # apply_pool_sat's evidence: the native host store pool's tallies
+    try:
+        ps = _pool_stats()
+        if ps is not None:
+            sample["pool_inline_busy"] = ps["inline_busy"]
+            sample["pool_parallel"] = ps["parallel_runs"]
+    except Exception:
+        pass
     try:
         from multiverso_tpu_torch.serving import peek_plane
         plane = peek_plane()

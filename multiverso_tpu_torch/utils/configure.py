@@ -3,6 +3,7 @@
 Counterpart of ``multiverso_tpu/utils/configure.py``, trimmed to what the
 port calls: typed static registries keyed by string (string, int, double
 and bool flags), ``MV_DEFINE_<type>(name, default, help)`` registration,
+``HasFlag``,
 ``ParseCMDFlags`` stripping ``-key=value`` entries from argv (trying the
 string, the int, the double, then the bool registry, reference
 configure.cpp:24-41) and programmatic ``SetCMDFlag``. ``cached_flag`` and
@@ -179,6 +180,11 @@ def SetCMDFlag(name: str, value) -> None:
             reg.try_set(name, value)
             return
     raise KeyError(f"flag {name!r} was never defined")
+
+
+def HasFlag(name: str) -> bool:
+    """Whether any registry defines ``name``."""
+    return any(reg.has(name) for reg in _REGISTRIES)
 
 
 def ParseCMDFlags(argv: List[str] | None) -> List[str]:

@@ -1,10 +1,10 @@
 """Stream IO with URI scheme dispatch (reference io/io.h:24-76,
 src/io/io.cpp).
 
-The port's own copy of ``multiverso_tpu/utils/io.py``'s byte layer: a
-``URI`` (scheme://host/path), a binary ``Stream`` with the integer,
-double and string helpers, and a ``StreamFactory`` that opens a stream by
-scheme. Byte-compatible with the JAX package: integers are little-endian
+The port's own copy of ``multiverso_tpu/utils/io.py``: a ``URI``
+(scheme://host/path), a binary ``Stream`` with the integer, double and
+string helpers, a ``StreamFactory`` that opens a stream by scheme, and
+the buffered line reader ``TextReader``. Byte-compatible with the JAX package: integers are little-endian
 int64, doubles little-endian float64, strings an int64 byte length then
 UTF-8, so a table or a checkpoint written by one package loads in the
 other.
@@ -26,7 +26,7 @@ from __future__ import annotations
 import io
 import os
 import struct
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from multiverso_tpu_torch.utils.configure import (MV_DEFINE_bool,
                                                   cached_bool_flag)
@@ -167,3 +167,33 @@ class StreamFactory:
     def RegisterSchemeBackend(scheme: str,
                               factory: Callable[[URI, str], Stream]) -> None:
         _scheme_backends[scheme] = factory
+
+
+class TextReader:
+    """Buffered line reader over any scheme's stream (reference
+    io.h:103-130)."""
+
+    def __init__(self, uri, buf_size: int = 1 << 20):
+        if isinstance(uri, str):
+            uri = URI(uri)
+        stream = StreamFactory.GetStream(uri, "r")
+        self._stream = stream
+        self._reader = io.TextIOWrapper(
+            io.BufferedReader(stream._f, buf_size), encoding="utf-8",
+            errors="replace")
+
+    def GetLine(self) -> Optional[str]:
+        """The next line without its newline; None at the end."""
+        line = self._reader.readline()
+        if line == "":
+            return None
+        return line.rstrip("\n")
+
+    def close(self) -> None:
+        self._reader.close()
+
+    def __enter__(self) -> "TextReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

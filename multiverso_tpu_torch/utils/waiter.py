@@ -1,6 +1,7 @@
 """Counting-semaphore Waiter (the port's own copy of
 ``multiverso_tpu/utils/waiter.py``, reference util/waiter.h:10-34):
-``Wait()`` blocks until the counter reaches zero, ``Notify()`` decrements.
+``Wait()`` blocks until the counter reaches zero, ``Notify()`` decrements,
+``Reset(n)`` re-arms it for n notifications.
 """
 
 from __future__ import annotations
@@ -22,3 +23,7 @@ class Waiter:
             self._num -= 1
             if self._num <= 0:
                 self._cv.notify_all()
+
+    def Reset(self, num_wait: int) -> None:
+        with self._cv:
+            self._num = num_wait

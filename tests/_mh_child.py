@@ -9,7 +9,7 @@ tests/test_torch_telemetry_mh.py and tests/test_torch_telemetry_exchange.py
 ``replica_outage``) and tests/test_torch_device_wire_mh.py (modes
 ``transport``, ``dw_burst`` and ``dw_checks``) and
 tests/test_torch_device_writes_mh.py (modes ``dw_apps``, ``dw_routes`` and
-``kv_device``).
+``kv_device``) and tests/test_torch_kv_int32_mh.py (mode ``kv_int32``).
 
     python tests/_mh_child.py PKG MODE RANK PORT OUTDIR LIBPATH [EXTRA...]
 
@@ -1235,6 +1235,77 @@ def run_dw_apps(mv):
             results[f"we_ada_{name}"] = getattr(c, name).server().raw()
 
 
+def run_kv_int32(mv):
+    """An int32 KV table's device verbs across the ranks: each rank
+    resolves its keys with ``create=True`` (half shared with its peer,
+    duplicates within a batch), places its int32 deltas, scatter-adds the
+    global batch and gathers it. The values must equal a twin table that
+    took the same deltas through the host Add (integer sums are exact),
+    and each rank's own gathered lanes its keys' values. Then
+    ``broadcast_from_master`` of a per-rank array."""
+    tables, AddOption, GetOption, Zoo = tables_mod()
+    kv = mv.MV_CreateTable(tables.KVTableOption(dtype=np.int32))
+    twin = mv.MV_CreateTable(tables.KVTableOption(dtype=np.int32))
+    ksrv = kv.server()
+    reset_write_stats()
+    n = 400
+
+    def step_keys(step, k):
+        return np.concatenate([
+            rng(2200, step).integers(0, 300, n // 2),
+            rng(2201, step, k).integers(0, 300, n // 2)
+            + (k + 1) * 10 ** 6]).astype(np.int64)
+
+    for step in range(3):
+        keys = [step_keys(step, k) for k in range(2)]
+        deltas = [rng(2202, step, k).integers(-2 ** 20, 2 ** 20, n).astype(
+            np.int32) for k in range(2)]
+        slots = ksrv.device_slots(keys[RANK], create=True)
+        b = len(slots)
+        pad = np.zeros(b, np.int32)
+        pad[:n] = deltas[RANK]
+        if PKG == "jax":
+            import jax
+            from jax.sharding import NamedSharding
+            from jax.sharding import PartitionSpec as P
+            gslots, gdeltas = ksrv.device_place_slots(slots, pad)
+            vals = jax.jit(ksrv.device_scatter_add_slots,
+                           donate_argnums=(0,))(ksrv.device_values(),
+                                                gslots, gdeltas)
+            ksrv.device_set_values(vals)
+            rep = jax.jit(ksrv.device_gather_slots,
+                          out_shardings=NamedSharding(
+                              ksrv._zoo.mesh_ctx.mesh, P()))(
+                ksrv.device_values(), gslots)
+            gathered = np.asarray(rep.addressable_data(0))
+        else:
+            import torch
+            gslots, gdeltas = ksrv.device_place_slots(
+                slots, torch.from_numpy(pad) if RANK == 0 else pad)
+            assert gdeltas.dtype == torch.int32, gdeltas.dtype
+            ksrv.device_set_values(ksrv.device_scatter_add_slots(
+                ksrv.device_values(), gslots, gdeltas))
+            gathered = ksrv.device_gather_slots(ksrv.device_values(),
+                                                gslots).numpy()
+        twin.Add(keys[RANK], deltas[RANK])
+        mine = gathered[RANK * b: RANK * b + n]
+        np.testing.assert_array_equal(mine, kv.Get(keys[RANK]))
+        results[f"mine{step}"] = mine
+    all_keys = np.unique(np.concatenate(
+        [step_keys(s, k) for s in range(3) for k in range(2)]))
+    results["values"] = kv.Get(all_keys)
+    assert results["values"].dtype == np.int32
+    np.testing.assert_array_equal(results["values"], twin.Get(all_keys))
+    results["size"] = np.array(ksrv.size)
+    write_stats("kv32")
+    if PKG == "jax":
+        from multiverso_tpu.parallel import multihost
+    else:
+        from multiverso_tpu_torch.parallel import multihost
+    results["bcast"] = multihost.broadcast_from_master(
+        np.array([RANK + 5.0, -RANK], np.float32))
+
+
 def run_dw_routes(mv):
     """The port's collective device writes driven directly: three
     ``device_apply_rows`` of an sgd matrix with duplicates within and
@@ -1879,7 +1950,7 @@ def main():
      "we_pairs": run_we_pairs, "we_ragged": run_we_ragged,
      "transport": run_transport, "dw_burst": run_dw_burst,
      "dw_checks": run_dw_checks, "dw_apps": run_dw_apps,
-     "dw_routes": run_dw_routes}[MODE](mv)
+     "dw_routes": run_dw_routes, "kv_int32": run_kv_int32}[MODE](mv)
     if MODE not in ("dead", "dw_checks"):
         mv.MV_ShutDown()
     np.savez(os.path.join(OUTDIR, f"{PKG}_{MODE}_{RANK}.npz"), **results)
