@@ -32,6 +32,7 @@ from multiverso_tpu_torch.models.wordembedding.dictionary import Dictionary
 from multiverso_tpu_torch.models.wordembedding.huffman import HuffmanEncoder
 from multiverso_tpu_torch.models.wordembedding.sampler import Sampler
 from multiverso_tpu_torch.parallel.mesh import next_bucket
+from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.utils.mt_queue import MtQueue
 
 MAX_SENTENCE_LENGTH = 1000  # reference constant.h kMaxSentenceLength
@@ -347,7 +348,11 @@ class BlockQueue:
         self._space = threading.Semaphore(capacity)
 
     def push(self, block: DataBlock) -> None:
-        self._space.acquire()
+        """Blocks while the queue is full (a ``we.loader.push_wait``
+        span)."""
+        if not self._space.acquire(blocking=False):
+            with ttrace.span("we.loader.push_wait", cat="we"):
+                self._space.acquire()
         self._q.Push(block)
 
     def pop(self) -> Optional[DataBlock]:
@@ -376,35 +381,45 @@ def start_loader(option, dictionary: Dictionary, generator: PairGenerator,
 
     workers = max(1, int(getattr(option, "thread_cnt", 1)))
 
+    def next_chunk(stream) -> Optional[Tuple[List[np.ndarray], int]]:
+        """The next block's sentences and their words, or None at the
+        end of the pass."""
+        sentences: List[np.ndarray] = []
+        n_words = 0
+        for ids, raw_count in stream:
+            sentences.append(ids)
+            n_words += raw_count
+            if n_words * 8 >= option.data_block_size:
+                break
+        return (sentences, n_words) if sentences else None
+
     def chunks():
         for _ in range(epochs):
-            sentences: List[np.ndarray] = []
-            n_words = 0
-            n_bytes = 0
-            for ids, raw_count in sentences_from_file(
-                    option.train_file, dictionary, tokenizer):
-                sentences.append(ids)
-                n_words += raw_count
-                n_bytes += raw_count * 8
-                if n_bytes >= option.data_block_size:
-                    yield sentences, n_words, generator.sampler.spawn_stream()
-                    sentences, n_words, n_bytes = [], 0, 0
-            if sentences:
-                yield sentences, n_words, generator.sampler.spawn_stream()
+            stream = sentences_from_file(option.train_file, dictionary,
+                                         tokenizer)
+            while True:
+                with ttrace.span("we.loader.tokenize", cat="we"):
+                    chunk = next_chunk(stream)
+                if chunk is None:
+                    break
+                yield chunk + (generator.sampler.spawn_stream(),)
+
+    def make_block(sentences, n_words, stream) -> DataBlock:
+        with ttrace.span("we.loader.make_block", cat="we"):
+            return generator.make_block(sentences, n_words,
+                                        rng_stream=stream)
 
     def run_sequential():
-        for sentences, n_words, stream in chunks():
-            queue.push(generator.make_block(sentences, n_words,
-                                            rng_stream=stream))
+        for chunk in chunks():
+            queue.push(make_block(*chunk))
 
     def run_pooled():
         import collections
         from concurrent.futures import ThreadPoolExecutor
         pending = collections.deque()
         with ThreadPoolExecutor(max_workers=workers) as pool:
-            for sentences, n_words, stream in chunks():
-                pending.append(pool.submit(generator.make_block,
-                                           sentences, n_words, stream))
+            for chunk in chunks():
+                pending.append(pool.submit(make_block, *chunk))
                 # emit in order; bound in-flight work (queue.push also
                 # backpressures via the BlockQueue capacity)
                 while pending and (pending[0].done()

@@ -65,6 +65,7 @@ from multiverso_tpu_torch.models.wordembedding.model import (TrainState,
                                                              make_train_step)
 from multiverso_tpu_torch.parallel import multihost
 from multiverso_tpu_torch.parallel.mesh import next_bucket
+from multiverso_tpu_torch.telemetry import trace as ttrace
 
 #: above this many bytes of input-table storage, ``-use_adagrad`` trains
 #: with the touched-rows step: the dense step pays O(V * D) a batch, which
@@ -372,8 +373,10 @@ class DevicePairsTrainer:
         batch count up to a bucket; batches of pad lanes change nothing).
         ``deterministic``: the steps' scatter-adds in sorted order."""
         opt = self.opt
-        lanes = make_lanes(ids, sent, b, draws, self._aux,
-                           window=opt.window_size, cbow=opt.cbow, hs=opt.hs)
+        with ttrace.span("we.lanes", cat="we"):
+            lanes = make_lanes(ids, sent, b, draws, self._aux,
+                               window=opt.window_size, cbow=opt.cbow,
+                               hs=opt.hs)
         block_rows = self.comm.input_table.server().block_rows
         sparse = self.sparse()
         B = opt.pair_batch_size
@@ -408,9 +411,10 @@ class DevicePairsTrainer:
         losses = []
         for i in range(nb):
             sl = slice(i * B, (i + 1) * B)
-            state, loss = step(state, inputs[sl], imask[sl], outputs[sl],
-                               labels if labels.shape[0] == 1 else labels[sl],
-                               omask[sl], lr_t)
+            with ttrace.span("we.batch", cat="we"):
+                state, loss = step(state, inputs[sl], imask[sl], outputs[sl],
+                                   labels if labels.shape[0] == 1
+                                   else labels[sl], omask[sl], lr_t)
             losses.append(loss)
         self.batches += nb
         self.sparse_batches += nb if sparse else 0

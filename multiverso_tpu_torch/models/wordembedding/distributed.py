@@ -53,6 +53,7 @@ from multiverso_tpu_torch.models.wordembedding.model import (decayed_lr,
 from multiverso_tpu_torch.models.wordembedding.option import Option
 from multiverso_tpu_torch.models.wordembedding.sampler import Sampler
 from multiverso_tpu_torch.parallel import multihost
+from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.utils.log import CHECK, Log
 from multiverso_tpu_torch.utils.timer import Timer
 from multiverso_tpu_torch.utils.world import WorldOwner
@@ -120,7 +121,15 @@ class DistributedWordEmbedding:
     def train(self) -> float:
         """Returns the average pair loss of the run. Block losses stay on
         the device until a later block has been dispatched, so reading a
-        loss never stalls the next block's launches."""
+        loss never stalls the next block's launches. Under ``-trace`` the
+        call is a ``we.train`` span over ``we.loader_wait`` (each pop of
+        the block queue), ``we.block`` (a block's steps and the harvest
+        after it) and ``we.harvest`` (the loss reads); the loader's spans
+        are ``data.py``'s, the step's ``device_pairs.py``'s."""
+        with ttrace.span("we.train", cat="we"):
+            return self._train()
+
+    def _train(self) -> float:
         opt = self.opt
         generator = PairGenerator(opt, self.dictionary, self.sampler,
                                   self.huffman)
@@ -138,9 +147,10 @@ class DistributedWordEmbedding:
         multiproc = multihost.process_count() > 1
 
         def pop_block() -> Optional[DataBlock]:
-            t0 = time.perf_counter()
-            block = queue.pop()
-            self.loader_wait_s += time.perf_counter() - t0
+            with ttrace.span("we.loader_wait", cat="we"):
+                t0 = time.perf_counter()
+                block = queue.pop()
+                self.loader_wait_s += time.perf_counter() - t0
             if not multiproc:
                 return block
             pairs = (block is not None and opt.device_pairs
@@ -170,13 +180,14 @@ class DistributedWordEmbedding:
             return block
 
         def harvest(force: bool = False) -> None:
-            while pending and (force or len(pending) >= 2):
-                loss, pairs, words = pending.popleft()
-                # -device_pairs blocks report both as device scalars
-                loss, pairs = float(loss), int(pairs)
-                self.total_loss += loss
-                self.total_pairs += pairs
-                self.block_log.append((words, pairs, loss))
+            with ttrace.span("we.harvest", cat="we"):
+                while pending and (force or len(pending) >= 2):
+                    loss, pairs, words = pending.popleft()
+                    # -device_pairs blocks report both as device scalars
+                    loss, pairs = float(loss), int(pairs)
+                    self.total_loss += loss
+                    self.total_pairs += pairs
+                    self.block_log.append((words, pairs, loss))
 
         current = pop_block()
         prefetch = None
@@ -190,9 +201,10 @@ class DistributedWordEmbedding:
                         and not opt.device_plane):
                     prefetch = self.comm.request_parameter_async(
                         next_block.input_rows, next_block.output_rows)
-            loss, pairs = self._train_block(current, step)
-            pending.append((loss, pairs, current.word_count))
-            harvest()
+            with ttrace.span("we.block", cat="we"):
+                loss, pairs = self._train_block(current, step)
+                pending.append((loss, pairs, current.word_count))
+                harvest()
             words_done += current.word_count
             self.comm.add_word_count(current.word_count)
             rate = words_done / max(timer.elapse(), 1e-9)

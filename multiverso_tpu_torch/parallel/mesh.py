@@ -23,6 +23,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.telemetry import metrics as tmetrics
+from multiverso_tpu_torch.telemetry import trace as ttrace
 from multiverso_tpu_torch.utils.configure import GetFlag, MV_DEFINE_string
 from multiverso_tpu_torch.utils.log import CHECK
 
@@ -123,6 +125,10 @@ class DeviceContext:
 
     device: torch.device
 
+    def __post_init__(self):
+        # registered with the world, so it scrapes at zero before a read
+        self._t_d2h = tmetrics.counter("cuda.d2h_bytes")
+
     @classmethod
     def create(cls, devices: Optional[Sequence] = None) -> "DeviceContext":
         return cls(device=resolve_device(devices))
@@ -138,10 +144,17 @@ class DeviceContext:
     def fetch(self, t) -> np.ndarray:
         """Device -> host numpy. ``.cpu()`` waits for the device, so the
         result is complete when this returns; a CPU tensor is copied so
-        the caller never aliases live storage."""
+        the caller never aliases live storage. A tensor's copy is the
+        ``cuda.fetch`` span (with its bytes); a CUDA tensor's bytes count
+        in ``cuda.d2h_bytes``. The server tables' replies all come here."""
         if isinstance(t, torch.Tensor):
-            host = t.detach().cpu()
-            if host.data_ptr() == t.data_ptr():
-                host = host.clone()
+            nbytes = t.numel() * t.element_size()
+            with ttrace.span("cuda.fetch", cat="device",
+                             args={"bytes": nbytes}):
+                host = t.detach().cpu()
+                if host.data_ptr() == t.data_ptr():
+                    host = host.clone()
+            if t.is_cuda:
+                self._t_d2h.inc(nbytes)
             return host.numpy()
         return np.array(t)

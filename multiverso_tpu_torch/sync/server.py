@@ -614,6 +614,7 @@ class _ExchangeStage:
                 # this exchange ended while an apply ran: the overlapped
                 # stretch is recorded here
                 srv._note_overlap(max(0.0, now - max(a0, t0)))
+            srv._note_cpu()
         prefix, descs0 = srv._mh_agree(windows)
         for _ in range(prefix):
             self._pending.popleft()
@@ -772,6 +773,11 @@ class Server(Actor):
             "engine.apply_pool.inline_jobs")
         self._t_multi = tmetrics.counter("engine.multi_verb_batches")
         self._t_multi_size = tmetrics.histogram("engine.multi_verb_size")
+        #: the engine threads' CPU seconds, and each thread's
+        #: ``time.thread_time()`` at its last window (``_note_cpu``)
+        self._t_cpu = tmetrics.counter("engine.cpu_s")
+        self._cpu_on = self._t_cpu is not tmetrics.NULL
+        self._cpu_seen = threading.local()
         #: the single-process 1-in-N full-stamp sampling
         self._ph_tick = 0
         self._ph_stamp_this = False
@@ -1120,6 +1126,17 @@ class Server(Actor):
             if delay > 0.0:
                 time.sleep(delay)
 
+    def _note_cpu(self) -> None:
+        """Add the calling engine thread's CPU seconds since its last
+        window (``time.thread_time()``, which starts at 0 on a new
+        thread) to ``engine.cpu_s``; once a window, on each thread that
+        runs window work. Under ``-telemetry=false`` it reads no clock."""
+        if not self._cpu_on:
+            return
+        now = time.thread_time()
+        self._t_cpu.inc(now - getattr(self._cpu_seen, "s", 0.0))
+        self._cpu_seen.s = now
+
     def _get_entry(self, msg: Message) -> None:
         """Window handler for Request_Get, Request_Add and envelopes."""
         batch = [msg]
@@ -1169,6 +1186,7 @@ class Server(Actor):
                 self._t_phase["apply"].observe(win_s)
         self._t_verbs.inc(sum(1 for m in batch if m.msg_type in
                               (MsgType.Request_Add, MsgType.Request_Get)))
+        self._note_cpu()
 
     def _add_entry(self, msg: Message) -> None:
         """Request_Add enters the same window as Gets; SyncServer re-binds
@@ -1408,6 +1426,7 @@ class Server(Actor):
                            epoch=self.window_epoch,
                            mepoch=multihost.membership_epoch(),
                            stream=self.mh_stream, detail=f"{prefix}v")
+            self._note_cpu()
 
     def _mh_collective_window(self, msg: Message) -> None:
         """A one-verb window on the actor thread (the BSP engine): pack,
@@ -1437,6 +1456,7 @@ class Server(Actor):
                            mepoch=multihost.membership_epoch(),
                            stream=self.mh_stream, detail=f"{prefix}v")
         self._t_window_s.observe(time.perf_counter() - t_start)
+        self._note_cpu()
 
     def _mh_check_barrier_head(self, head: Message) -> None:
         """Exchange a head-kind marker for a non-verb window head: a rank at

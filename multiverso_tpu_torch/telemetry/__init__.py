@@ -43,7 +43,15 @@ Importing this package registers every telemetry flag (``-telemetry``,
 ``MV_Init``'s argv parsing claims them.
 """
 
-from multiverso_tpu_torch.telemetry import (export, flight,  # noqa: F401
+#: instrument and span names the port has, the JAX package lacks, and
+#: the parity tests' engine-and-tables child reaches: the device-to-host
+#: funnel's span and bytes (``parallel/mesh.py`` ``DeviceContext.fetch``)
+#: and the engine thread's CPU seconds (``sync/server.py``). The parity
+#: tests set them aside. The WordEmbedding app's ``we.*`` spans are the
+#: port's own too; the child runs no WordEmbedding, so none is listed.
+PORT_ONLY = ("cuda.fetch", "cuda.d2h_bytes", "engine.cpu_s")
+
+from multiverso_tpu_torch.telemetry import (export, flight,  # noqa: F401,E402
                                             metrics, ops, sketch, trace)
 from multiverso_tpu_torch.telemetry import (  # noqa: F401,E402
     accounting, fleet, watchdog)

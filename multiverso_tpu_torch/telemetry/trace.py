@@ -24,7 +24,13 @@ next to the CUDA kernels they launched.
 
 Gated by ``-trace`` (default off). The ring buffer is bounded
 (:data:`MAX_EVENTS`): a forgotten long-running trace degrades to
-keeping the most recent events instead of eating the heap.
+keeping the most recent events instead of eating the heap; a dump's
+``dropped`` counts what it let go.
+
+A span's ``ts`` is ``perf_counter`` microseconds and its ``tid`` the
+Python thread ident. A ``torch.profiler`` trace has its own clock and
+thread keys:
+:func:`profiler_ns` and :func:`profiler_thread` map a span onto them.
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ MAX_EVENTS = 200_000
 
 _events = collections.deque(maxlen=MAX_EVENTS)
 _events_lock = threading.Lock()
+#: events the full ring let go since the last clear()
+_dropped = 0
 _tls = threading.local()
 _id_counter = itertools.count(1)
 _id_lock = threading.Lock()
@@ -89,7 +97,10 @@ def current_ctx() -> Optional[SpanContext]:
 
 
 def _record(event: dict) -> None:
+    global _dropped
     with _events_lock:
+        if len(_events) == MAX_EVENTS:
+            _dropped += 1
         _events.append(event)
 
 
@@ -216,7 +227,31 @@ def to_chrome_trace() -> dict:
     # residual offset from matched client/server span pairs.
     out["clock"] = {"wall_s": time.time(), "mono_us": _now_us(),
                     "pid": os.getpid()}
+    out["dropped"] = _dropped
     return out
+
+
+def profiler_ns(ts_us: float, clock: dict) -> int:
+    """A span timestamp (``ts``, perf_counter microseconds) on the clock
+    of ``torch.profiler``'s records: Unix-epoch nanoseconds. On the
+    card's torch (2.11, CUDA 12.8, CUPTI) a CUDA runtime record's
+    ``start_ns()`` lies between two ``time.time_ns()`` stamps taken
+    around its call, and outside every ``perf_counter`` and monotonic
+    pair; the CPU build's ``record_function`` ranges read the same way.
+    ``clock`` is a dump's ``{"wall_s", "mono_us"}`` anchor pair
+    (:func:`to_chrome_trace`), sampled back to back: the map is exact to
+    their sampling gap and to the drift of the two clocks since."""
+    return int(round((ts_us - clock["mono_us"]) * 1e3
+                     + clock["wall_s"] * 1e9))
+
+
+def profiler_thread(tid: int) -> int:
+    """A span's ``tid`` (the Python thread ident, ``pthread_self``) as
+    ``torch.profiler`` keys a CUDA runtime record's thread: its
+    ``device_resource_id()`` is the ident cut to a signed 32-bit int
+    (its ``start_thread_id()`` reads 1 on every thread)."""
+    low = tid & 0xFFFFFFFF
+    return low - (1 << 32) if low >= 1 << 31 else low
 
 
 #: process label for dumps/merges — stamped by set_process_label()
@@ -249,8 +284,10 @@ def dump(path: str) -> str:
 
 
 def clear() -> None:
+    global _dropped
     with _events_lock:
         _events.clear()
+        _dropped = 0
 
 
 def _reset_for_tests() -> None:
