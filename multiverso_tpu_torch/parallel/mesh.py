@@ -32,6 +32,13 @@ MV_DEFINE_string("mv_device", "cuda",
                  "torch device the world's tables live on: cuda, cuda:N or "
                  "cpu (cpu must be asked for; cuda without a card raises)")
 
+#: a card tensor of at least this many bytes is fetched into a pinned
+#: reply: 3.8x a pageable copy's speed at 8 MB, 28x at 200 MB (PERF.md §6).
+#: Smaller replies, the many that callers may keep (rows, LR windows, KV
+#: reads), stay pageable: torch's caching host allocator never hands its
+#: pinned blocks back to the system.
+PINNED_MIN_BYTES = 8 << 20
+
 
 def partition_offsets(size: int, num_servers: int) -> List[Tuple[int, int]]:
     """[(offset, count)] per server; the last server takes the remainder
@@ -126,8 +133,9 @@ class DeviceContext:
     device: torch.device
 
     def __post_init__(self):
-        # registered with the world, so it scrapes at zero before a read
+        # registered with the world, so they scrape at zero before a read
         self._t_d2h = tmetrics.counter("cuda.d2h_bytes")
+        self._t_d2h_staged = tmetrics.counter("cuda.d2h_staged_bytes")
 
     @classmethod
     def create(cls, devices: Optional[Sequence] = None) -> "DeviceContext":
@@ -142,19 +150,33 @@ class DeviceContext:
         return torch.as_tensor(array).to(self.device)
 
     def fetch(self, t) -> np.ndarray:
-        """Device -> host numpy. ``.cpu()`` waits for the device, so the
-        result is complete when this returns; a CPU tensor is copied so
-        the caller never aliases live storage. A tensor's copy is the
-        ``cuda.fetch`` span (with its bytes); a CUDA tensor's bytes count
-        in ``cuda.d2h_bytes``. The server tables' replies all come here."""
+        """Device -> host numpy: always a fresh array the caller owns,
+        complete when this returns (a CPU tensor is copied too, so the
+        caller never aliases live storage). A card tensor of
+        ``PINNED_MIN_BYTES`` or more is copied by one DMA into a pinned
+        reply from torch's caching host allocator, whose blocks are reused
+        once their replies are dropped, so a large reply faults in no
+        fresh pages; a smaller one, or a CPU tensor, goes through
+        ``.cpu()``. A tensor's copy is the ``cuda.fetch`` span (with its
+        bytes); a CUDA tensor's bytes count in ``cuda.d2h_bytes``, the
+        pinned replies' in ``cuda.d2h_staged_bytes`` too. The server
+        tables' replies all come here."""
         if isinstance(t, torch.Tensor):
             nbytes = t.numel() * t.element_size()
+            pinned = t.is_cuda and nbytes >= PINNED_MIN_BYTES
             with ttrace.span("cuda.fetch", cat="device",
                              args={"bytes": nbytes}):
-                host = t.detach().cpu()
-                if host.data_ptr() == t.data_ptr():
-                    host = host.clone()
+                if pinned:
+                    host = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                    host.copy_(t.detach())
+                else:
+                    host = t.detach().cpu()
+                    if host.data_ptr() == t.data_ptr():
+                        host = host.clone()
             if t.is_cuda:
                 self._t_d2h.inc(nbytes)
+            if pinned:
+                self._t_d2h_staged.inc(nbytes)
             return host.numpy()
         return np.array(t)

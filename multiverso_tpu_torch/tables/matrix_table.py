@@ -407,20 +407,21 @@ class MatrixServerTable(ServerTable):
             self.num_servers, self.block_rows, self.num_cols)
         return out.reshape(self.padded_rows, self.store_cols)
 
-    def _from_storage(self, storage: np.ndarray) -> np.ndarray:
-        """(padded_rows, store_cols) storage -> (num_rows, num_cols)."""
-        blocks = storage.reshape(self.num_servers, self.shard_rows,
-                                 self.store_cols)[:, : self.block_rows,
-                                                  : self.num_cols]
-        return blocks.reshape(-1, self.num_cols)[: self.num_rows]
+    def _logical(self, storage: torch.Tensor) -> torch.Tensor:
+        """(..., padded_rows, store_cols) storage -> (..., num_rows,
+        num_cols), on the storage's device: a view where the strides
+        allow one (always, with one server shard), else a copy."""
+        lead = tuple(storage.shape[:-2])
+        blocks = storage.reshape(lead + (self.num_servers, self.shard_rows,
+                                         self.store_cols))[
+            ..., : self.block_rows, : self.num_cols]
+        return blocks.reshape(lead + (-1, self.num_cols))[
+            ..., : self.num_rows, :]
 
     def aux_to_logical(self, leaf: torch.Tensor) -> np.ndarray:
         """(padded_rows, cols) or (workers, padded_rows, cols) storage ->
         logical row layout."""
-        host = self._ctx.fetch(leaf)
-        if host.ndim == 2:
-            return self._from_storage(host)
-        return np.stack([self._from_storage(h) for h in host])
+        return self._ctx.fetch(self._logical(leaf))
 
     def aux_from_logical(self, arr: np.ndarray) -> np.ndarray:
         if arr.ndim == 2:
@@ -1002,8 +1003,9 @@ class MatrixServerTable(ServerTable):
         queue their device work back to back and the engine pays the
         device->host waits after. The whole-table read snapshots the
         storage first, because a later Add of the same window updates
-        it in place. The native store serves at once (its read is a
-        synchronous copy with nothing to overlap)."""
+        it in place; the snapshot is made in the logical layout, so the
+        fetch writes the reply once. The native store serves at once (its
+        read is a synchronous copy with nothing to overlap)."""
         nat = self._host_store()
         if nat is not None:
             if row_ids is None:
@@ -1015,9 +1017,12 @@ class MatrixServerTable(ServerTable):
                 out = nat.get_rows(ids)
             return lambda: out
         if row_ids is None:
-            data = self.updater.access(self.state["data"], self.state["aux"],
-                                       None).clone()
-            return lambda: self._from_storage(self._ctx.fetch(data))
+            # a clone, never .contiguous(): with one shard and no pad
+            # columns the logical view is the live storage itself
+            data = self._logical(self.updater.access(
+                self.state["data"], self.state["aux"], None)).clone(
+                    memory_format=torch.contiguous_format)
+            return lambda: self._ctx.fetch(data)
         ids = np.asarray(row_ids, np.int32).ravel()
         self._check_ids(ids)
         # the -mv_row_sketch hook: every engine row Get (one process or
@@ -1093,7 +1098,7 @@ class MatrixServerTable(ServerTable):
 
     def raw(self) -> np.ndarray:
         """Logical-view snapshot (host numpy)."""
-        return self._from_storage(self._ctx.fetch(self.state["data"]))
+        return self._ctx.fetch(self._logical(self.state["data"]))
 
     # -- serving-plane export (tables/base.py contract) -----------------------
 
@@ -1111,9 +1116,8 @@ class MatrixServerTable(ServerTable):
     def _full_logical(self) -> np.ndarray:
         """The whole logical table in host memory, as a training Get of the
         whole table reads it (the updater's ``access()`` applied)."""
-        data = self.updater.access(self.state["data"], self.state["aux"],
-                                   None)
-        return self._from_storage(self._ctx.fetch(data))
+        return self._ctx.fetch(self._logical(self.updater.access(
+            self.state["data"], self.state["aux"], None)))
 
     def serving_export(self):
         """Immutable row snapshot for the serving plane, by

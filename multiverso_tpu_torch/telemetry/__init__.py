@@ -45,11 +45,13 @@ Importing this package registers every telemetry flag (``-telemetry``,
 
 #: instrument and span names the port has, the JAX package lacks, and
 #: the parity tests' engine-and-tables child reaches: the device-to-host
-#: funnel's span and bytes (``parallel/mesh.py`` ``DeviceContext.fetch``)
-#: and the engine thread's CPU seconds (``sync/server.py``). The parity
-#: tests set them aside. The WordEmbedding app's ``we.*`` spans are the
-#: port's own too; the child runs no WordEmbedding, so none is listed.
-PORT_ONLY = ("cuda.fetch", "cuda.d2h_bytes", "engine.cpu_s")
+#: funnel's span, bytes and staged bytes (``parallel/mesh.py``
+#: ``DeviceContext.fetch``) and the engine thread's CPU seconds
+#: (``sync/server.py``). The parity tests set them aside. The
+#: WordEmbedding app's ``we.*`` spans are the port's own too; the child
+#: runs no WordEmbedding, so none is listed.
+PORT_ONLY = ("cuda.fetch", "cuda.d2h_bytes", "cuda.d2h_staged_bytes",
+             "engine.cpu_s")
 
 from multiverso_tpu_torch.telemetry import (export, flight,  # noqa: F401,E402
                                             metrics, ops, sketch, trace)
