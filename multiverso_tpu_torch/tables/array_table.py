@@ -121,6 +121,7 @@ class ArrayServer(ServerTable):
                      option: Optional[AddOption]) -> None:
         """One whole-vector Add of ``delta`` (on the device, padded)
         through the updater, then the journal."""
+        # mv-lint: ok(cross-domain-state): one plane per table: a device-plane write runs on the application thread while the engine takes no verb of this table (the caller owns the table), as the matrix table's state setter; device_set_state is the application thread's write
         self.state = self._updated(self.state, delta,
                                    (option or AddOption()).as_tensors())
         # the replica plane's publish journal (tables/base.py contract):

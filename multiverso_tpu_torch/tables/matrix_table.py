@@ -1050,6 +1050,19 @@ class MatrixServerTable(ServerTable):
     # batch, the batches meet in one all-gather and every rank applies the
     # rank-order merge (``device_apply_rows_many``).
 
+    def device_rows(self) -> torch.Tensor:
+        """The live logical rows, (num_rows, num_cols) on the table's
+        device, as a VIEW of the storage: a caller that computes on the
+        table's state in place (``binding/param_manager.py``
+        ``DeviceTableParams``) reads the row path's writes through it.
+        Re-take it after a host-plane Add or a Load."""
+        rows = self._logical(self.state["data"])
+        CHECK(rows.untyped_storage().data_ptr()
+              == self.state["data"].untyped_storage().data_ptr(),
+              "device_rows: the logical rows are not a view of the storage")
+        self._drop_mirror()
+        return rows
+
     def device_fetch_rows(self, row_ids) -> torch.Tensor:
         """Rows for ``row_ids`` as a fresh device tensor (n, num_cols),
         read from this rank's replica (no collective)."""
